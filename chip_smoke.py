@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (the reference CLI's headline run: row 1 of
-seed_linpadding_expts.sh) on the card, through the fused CUDA kernel K1
-(vae_training_tpu_torch/csrc/linear_vae.cu), in seven phases:
+Drives the port's three main paths on the card, the first rows of the
+reference's three sweeps, each through its fused CUDA kernel: the linear
+sweep (seed_linpadding_expts.sh) through K1 and the sigmoid sweep
+(sigmoid_vae_padding_expts.sh) through K2, both in
+vae_training_tpu_torch/csrc/linear_vae.cu, and the sphere sweep
+(sphere_vae_padding_expts.sh, 200|200|200 ReLU stacks) through K5
+(csrc/mlp_vae.cu). Thirteen phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
-  2. build: nvcc builds the kernel library from the checkout's sources;
+  2. build: nvcc builds both kernel libraries from the checkout's sources,
+     the two builds started together;
   3. sampler: the kernel's Philox words equal ops/rng.py's bitwise, its
      normals agree to 1e-5, and 4M kernel normals have the right moments;
   4. parity: the kernel against its plain PyTorch version on the card,
@@ -18,7 +23,19 @@ seed_linpadding_expts.sh) on the card, through the fused CUDA kernel K1
      must launch and the plain path must not run; the artifacts must exist
      and the eval loss and padding norm must fall;
   6. resume: 7000 steps, then --resume to 12000, equal to phase 5 bitwise;
-  7. times: kernel and torch-path steps/s at the slice's shapes.
+  7. times: kernel and torch-path steps/s at the slice's shapes;
+  8. the MLP library's registers and spills, and K5's cooperative grid;
+  9. K2 against its plain version at sigmoid row 1 (64 steps, external
+     noise and in-kernel sampling, -tdv on and off; K1's tolerances) and a
+     40 = 15 + 25 chunk split bitwise;
+ 10. K5 against its plain version at sphere row 1, full width (the same
+     cases, and one linear_gaussian MLP case) and the chunk split bitwise;
+ 11. the CLI's sigmoid row 1 (K2) and sphere row 1 (K5), 12000 steps each
+     with --kernels cuda; each kernel must launch and the plain path must
+     not run; artifacts; the eval loss must fall;
+ 12. sphere resume: 7000 steps, then --resume to 12000, equal to phase 11
+     bitwise;
+ 13. times: K2 and K5 against the torch path, steps/s.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -37,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROW1 = ["--dataset", "linear_gaussian", "--encoder_layer_sizes", "",
         "--layer_sizes", "", "-ow", "--latent_dim", "20", "--padding_dim", "9",
@@ -45,6 +63,24 @@ B, D, L, ID = 100, 12, 20, 3  # the slice's shapes: batch, ambient, latent, intr
 # tests/test_pallas_kernel.py's tolerances (fp32 on both sides)
 TOL = {"losses": (2e-4, 2e-4), "params": (5e-4, 5e-5), "m": (5e-4, 1e-6),
        "v": (5e-4, 1e-7)}
+# bench.py CONFIGS["sigmoid"] / ["sphere"], default dataset seed 69
+SIGMOID_ROW1 = ["--dataset", "sigmoid", "--encoder_layer_sizes", "", "--layer_sizes", "",
+                "-ow", "--latent_dim", "6", "--padding_dim", "3", "-dd", "3",
+                "--epsilon", "-3", "-tdv", "-lr", "1e-4"]
+SPHERE_ROW1 = ["--dataset", "sphere", "--encoder_layer_sizes", "200|200|200",
+               "--layer_sizes", "200|200|200", "-ow", "--latent_dim", "6",
+               "--padding_dim", "3", "-dd", "3", "--epsilon", "-3", "-tdv", "-lr", "1e-4"]
+SIG_D, SIG_L, SIG_DD = 7, 6, 3  # sigmoid row 1: ambient 3 + 1 + 3, latent 6
+SPH_D, SPH_L, SPH_DD = 6, 6, 3  # sphere row 1: ambient 3 + 3, latent 6
+SPH_ENC, SPH_DEC = (6, 200, 200, 200, 6), (6, 200, 200, 200, 6)
+# tests/test_mlp_kernel.py's tolerances: fp32 on both sides, but the
+# 200-wide stacks sum 200 terms per output in another order than cuBLAS,
+# and four layers each way compound the rounding, so the MLP kernel's
+# tolerances are twice the linear kernel's
+MLP_TOL = {"losses": (3e-4, 3e-4), "params": (1e-3, 1e-5), "m": (1e-3, 1e-6),
+           "v": (1e-3, 1e-9)}
+FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet, 700 W)
+HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
 
 def require(ok: bool, what: str) -> None:
@@ -95,12 +131,13 @@ def main() -> int:
     # --- 2 ---------------------------------------------------------------
     phase(2, "build")
     t0 = time.perf_counter()
-    _, record = load_library("linear_vae")
-    print(f"built={record['built']} in {record['seconds']:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s): {record['path']}")
-    for line in record["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = dict(zip(("linear_vae", "mlp_vae"),
+                          pool.map(load_library, ("linear_vae", "mlp_vae"))))
+    for name, (_, record) in builds.items():
+        print(f"{name}: built={record['built']} in {record['seconds']:.2f} s: {record['path']}")
+    print(f"both libraries loaded after {time.perf_counter() - t0:.2f} s")
+    _print_ptxas(builds["linear_vae"][1])
     need = k1.smem_bytes(B, D, L, ID, ID)
     require(k1.kernel_smem_bytes(B, D, L, ID, ID) == need,
             "shared-memory layout of the library equals kernels/linear_vae.py's")
@@ -265,18 +302,338 @@ def main() -> int:
     print(f"torch path: {rates['plain']:.1f} / {rates['plain2']:.1f} steps/s "
           f"({1e3 / p_rate:.5f} ms/step)")
 
-    record = {"kernels": [{
+    k1_record = {
         "name": "linear_vae_chunk (K1)", "route": "cuda",
         "source": "vae_training_tpu_torch/csrc/linear_vae.cu",
         "replaces": "vae_training_tpu/kernels/linear_vae.py:678",
         "launches": launches, "max_abs_err": max_err,
-        "ms": 1e3 / k_rate, "plain_ms": 1e3 / p_rate}]}
+        "ms": 1e3 / k_rate, "plain_ms": 1e3 / p_rate,
+        **_bound(linear_flops(B, D, L, ID, ID, False), 6 * 4 * k1.n_params(D, L), chunk_steps),
+        "library_ms": None}
+
+    records = [k1_record] + _sweeps(torch, np, smi, builds["mlp_vae"][1])
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
-    print(json.dumps(record))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _sweeps(torch, np, smi, mlp_build):
+    """Phases 8–13: K2 on the sigmoid sweep's row 1 and K5 on the sphere
+    sweep's row 1. Returns their records for the kernels' JSON line."""
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments
+    from vae_training_tpu_torch.data import (
+        LinearGaussianDataset,
+        SigmoidDataset,
+        SphereDataset,
+    )
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState, step as torch_step
+
+    dev = torch.device("cuda")
+    data_seed, model_seed = rng.derive_seed(69, rng.SEED_TRAIN_DATA), rng.derive_seed(0, rng.SEED_TRAIN_Z)
+
+    # --- 8 ---------------------------------------------------------------
+    phase(8, "the MLP library (K5)")
+    _print_ptxas(mlp_build)
+    blocks, per_sm = k5.grid()
+    print(f"K5 cooperative grid: {blocks} blocks of {k5.THREADS} threads, one per SM "
+          f"(up to {per_sm} per SM would fit)")
+
+    # --- 9 ---------------------------------------------------------------
+    phase(9, "K2 vs its plain PyTorch version at sigmoid row 1 (64 steps)")
+    sig = SigmoidDataset.create(69, SIG_DD, 3, device=dev)
+    require(k1.kernel_smem_bytes(B, SIG_D, SIG_L, SIG_DD, SIG_DD, True)
+            == k1.smem_bytes(B, SIG_D, SIG_L, SIG_DD, SIG_DD, True),
+            "K2's shared-memory layout of the library equals kernels/linear_vae.py's")
+
+    def k2_state(tdv):
+        model = build_vae(data_dim=SIG_D, latent_dim=SIG_L, epsilon=-3.0,
+                          tunable_decoder_var=tdv, dataset_name="sigmoid")
+        model.init_parameters(0)
+        return k1.pack_state(TrainState.create(dict(model.named_parameters()), 0, 0).to(dev),
+                             SIG_D, SIG_L, dual=True)
+
+    def k2_chunk(fn, bufs, n, step0, tdv, noise=None):
+        return fn(*bufs, sig.A, n_steps=n, batch=B, data_dim=SIG_D, latent_dim=SIG_L,
+                  intrinsic_dim=SIG_DD, manifold_dim=SIG_DD, step0=step0, t0=step0,
+                  data_seed=data_seed, model_seed=model_seed, var_added=0.0, eps_const=-3.0,
+                  tdv=tdv, lr=1e-4, external_noise=noise, dual=True)
+
+    n = 64
+    rs = np.random.RandomState(1)
+    z = rs.randn(n, B, SIG_DD).astype(np.float32)
+    xs = np.concatenate([z, 1 / (1 + np.exp(-(z @ sig.A.cpu().numpy()))),
+                         np.zeros((n, B, SIG_D - SIG_DD - 1), np.float32)], axis=-1)
+    ext = tuple(torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        xs, rs.randn(n, B, SIG_L), rs.randn(n, B, SIG_D)))
+    k2_err = _parity(torch, np, "K2", TOL, k2_state, k1.run_fused_chunk, k1.plain_fused_chunk,
+                     k2_chunk, n, ext)
+    _split(torch, "K2", k2_state, k1.run_fused_chunk, k2_chunk)
+
+    # --- 10 --------------------------------------------------------------
+    phase(10, "K5 vs its plain PyTorch version at sphere row 1, full width (64 steps)")
+    print(f"tolerances {MLP_TOL} (rtol, atol): tests/test_mlp_kernel.py's; 200-term "
+          "sums in another order than cuBLAS's, compounded through 4 + 4 layers")
+
+    def k5_state(tdv, enc=SPH_ENC, dec=SPH_DEC):
+        model = build_vae(data_dim=enc[0], latent_dim=enc[-1],
+                          encoder_layer_sizes="|".join(map(str, enc[1:-1])),
+                          decoder_layer_sizes="|".join(map(str, dec[1:-1])),
+                          epsilon=-3.0, tunable_decoder_var=tdv)
+        model.init_parameters(0)
+        return k5.pack_state(TrainState.create(dict(model.named_parameters()), 0, 0).to(dev),
+                             enc, dec)
+
+    def k5_chunk(fn, bufs, n, step0, tdv, noise=None):
+        return fn(*bufs, None, n_steps=n, batch=B, enc_widths=SPH_ENC, dec_widths=SPH_DEC,
+                  kind="sphere", intrinsic_dim=SPH_DD, manifold_dim=SPH_DD, step0=step0,
+                  t0=step0, data_seed=data_seed, model_seed=model_seed, var_added=0.0,
+                  eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise)
+
+    g = rs.randn(n, B, SPH_DD).astype(np.float32)
+    xs = np.concatenate([g / np.linalg.norm(g, axis=-1, keepdims=True),
+                         np.zeros((n, B, SPH_D - SPH_DD), np.float32)], axis=-1)
+    ext = tuple(torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        xs, rs.randn(n, B, SPH_L), rs.randn(n, B, SPH_D)))
+    k5_err = _parity(torch, np, "K5", MLP_TOL, k5_state, k5.run_mlp_fused_chunk,
+                     k5.plain_mlp_fused_chunk, k5_chunk, n, ext)
+    lin = LinearGaussianDataset.create(2, 3, 3, 9, device=dev)
+    lin_enc, lin_dec = (12, 64, 64, 20), (20, 64, 64, 12)
+
+    def k5_linear(fn, bufs, n, step0, tdv, noise=None):
+        return fn(*bufs, lin.A, n_steps=n, batch=B, enc_widths=lin_enc, dec_widths=lin_dec,
+                  kind="linear", intrinsic_dim=3, manifold_dim=3, step0=step0, t0=step0,
+                  data_seed=data_seed, model_seed=model_seed, var_added=0.25, eps_const=-1.0,
+                  tdv=tdv, lr=1e-3, external_noise=noise)
+
+    k5_err = max(k5_err, _parity(
+        torch, np, "K5 linear_gaussian 64|64 +obs", MLP_TOL,
+        lambda tdv: k5_state(tdv, lin_enc, lin_dec), k5.run_mlp_fused_chunk,
+        k5.plain_mlp_fused_chunk, k5_linear, n, None, tdvs=(True,)))
+    _split(torch, "K5", k5_state, k5.run_mlp_fused_chunk, k5_chunk)
+
+    # --- 11 --------------------------------------------------------------
+    phase(11, "main paths: the CLI's sigmoid row 1 (K2) and sphere row 1 (K5), 12000 steps")
+    tmp = tempfile.TemporaryDirectory()
+    data_dir = tmp.name
+
+    def cli(row, name, num_batches, *extra):
+        cfg = parse_arguments([name, *row, "--num_batches", str(num_batches),
+                               "--kernels", "cuda", "--device", "cuda",
+                               "--data_dir", data_dir, *extra])
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t
+
+    launches = {}
+    for label, row, counter, keys in (
+            ("K2", SIGMOID_ROW1, k1.run_fused_chunk,
+             ("Squared Norm of Padding Dimensions", "Squared Norm of Manifold Dimension")),
+            ("K5", SPHERE_ROW1, k5.run_mlp_fused_chunk, ("Sphere Error", "Padding Error"))):
+        name = f"main_{label}"
+        counter.launches = 0
+        torch_step.train_chunk.calls = 0
+        rc, out, secs = cli(row, name, 12000)
+        launches[label], plain_calls = counter.launches, torch_step.train_chunk.calls
+        print("\n".join(ln for ln in out.splitlines()
+                        if ln.startswith(("Batch |", "[kernels]", "Score"))))
+        print(f"{label} main path: rc {rc}, {secs:.2f} s, {label} launches {launches[label]}, "
+              f"plain-path chunks {plain_calls}")
+        require(rc == 0, f"{label}: main() returned 0")
+        require(f"kernel {label} (" in out, f"the [kernels] line names {label}")
+        require(launches[label] > 0, f"{label} launched on its main path")
+        require(plain_calls == 0, f"the plain path did not run on {label}'s main path")
+        run_dir = os.path.join(data_dir, name)
+        for f in ("args.json", "losses.npz", "model.pkl", "ckpt.pt", "ckpt_meta.json"):
+            require(os.path.exists(os.path.join(run_dir, f)), f"{label}: artifact {f}")
+        evals = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+            r"^Batch \| (\d+) \| VAE Loss \| (-?[\d.]+)", out, re.M)}
+        require(sorted(evals) == [0, 5000, 10000], f"{label}: eval lines at 0/5000/10000")
+        require(evals[10000] < evals[0], f"{label}: eval VAE Loss lower at 10000 than at 0")
+        z = np.load(os.path.join(run_dir, "losses.npz"))
+        require(bool(np.all(np.isfinite(z["VAE Loss"]))) and z["VAE Loss"].shape == (12003,),
+                f"{label}: finite per-step loss trace of 12000 steps + 3 evals")
+        print(f"{label}: eval VAE Loss {evals[0]:.3f} -> {evals[10000]:.3f}; " + "; ".join(
+            f"{k} {z[k][0]:.4f} -> {z[k][2]:.4f}" for k in keys))
+
+    # --- 12 --------------------------------------------------------------
+    phase(12, "sphere resume: 7000 steps, then --resume to 12000")
+    rc1, _, _ = cli(SPHERE_ROW1, "part", 7000)
+    rc2, _, _ = cli(SPHERE_ROW1, "resumed", 12000, "--resume", os.path.join(data_dir, "part"))
+    require(rc1 == 0 and rc2 == 0, "both runs returned 0")
+    _require_same_run(np, os.path.join(data_dir, "main_K5"), os.path.join(data_dir, "resumed"))
+    print("losses.npz and model.pkl params equal the uninterrupted run bitwise")
+    tmp.cleanup()
+
+    # --- 13 --------------------------------------------------------------
+    phase(13, "times: K2 at sigmoid row 1, K5 at sphere row 1, against the torch path")
+    sig_model = build_vae(data_dim=SIG_D, latent_dim=SIG_L, epsilon=-3.0,
+                          tunable_decoder_var=True, dataset_name="sigmoid")
+    sph_model = build_vae(data_dim=SPH_D, latent_dim=SPH_L, encoder_layer_sizes="200|200|200",
+                          decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                          tunable_decoder_var=True)
+    sph = SphereDataset(SPH_DD, SPH_D - SPH_DD, device=dev)
+    records = []
+    for label, state_fn, chunk_fn, run_fn, model, ds, k_steps, p_steps, flops, n_p in (
+            ("K2", k2_state, k2_chunk, k1.run_fused_chunk, sig_model, sig, 5000, 100,
+             linear_flops(B, SIG_D, SIG_L, SIG_DD, SIG_DD, True),
+             k1.n_params(SIG_D, SIG_L, True)),
+            ("K5", k5_state, k5_chunk, k5.run_mlp_fused_chunk, sph_model, sph, 1000, 50,
+             mlp_flops(B, SPH_ENC, SPH_DEC), k5.n_params(SPH_ENC, SPH_DEC))):
+        kb = state_fn(True)
+        model.init_parameters(0)
+        state = TrainState.create(dict(model.named_parameters()), data_seed, model_seed).to(dev)
+
+        def kernel_call():
+            chunk_fn(run_fn, kb, k_steps, 0, True)
+
+        def torch_call():
+            torch_step.train_chunk(model, ds, state, p_steps, batch_size=B, lr=1e-4)
+
+        rates = {}
+        for name, fn, steps in (("plain", torch_call, p_steps), ("kernel", kernel_call, k_steps),
+                                ("kernel2", kernel_call, k_steps), ("plain2", torch_call, p_steps)):
+            rates[name] = _steps_per_second(torch, fn, steps)
+        k_rate = max(rates["kernel"], rates["kernel2"])
+        p_rate = max(rates["plain"], rates["plain2"])
+        print(f"card: {smi}")
+        print(f"{label} kernel: {rates['kernel']:.1f} / {rates['kernel2']:.1f} steps/s "
+              f"({1e3 / k_rate:.5f} ms/step, {k_steps}-step launches)")
+        print(f"torch path: {rates['plain']:.1f} / {rates['plain2']:.1f} steps/s "
+              f"({1e3 / p_rate:.5f} ms/step)")
+        bound = _bound(flops, 6 * 4 * n_p, k_steps)
+        print(f"{label} bound {bound['bound_ms'] * 1e3:.4f} us/step ({bound['bound_by']}; "
+              f"{flops / 1e6:.3f} MFLOP/step), kernel at {bound['bound_ms'] * k_rate / 10:.3f}% of it")
+        if label == "K2":
+            records.append({
+                "name": "linear_vae_chunk dual (K2)", "route": "cuda",
+                "source": "vae_training_tpu_torch/csrc/linear_vae.cu",
+                "replaces": "vae_training_tpu/kernels/linear_vae.py:678",
+                "launches": launches["K2"], "max_abs_err": k2_err})
+        else:
+            records.append({
+                "name": "mlp_vae_chunk (K5)", "route": "cuda",
+                "source": "vae_training_tpu_torch/csrc/mlp_vae.cu",
+                "replaces": "vae_training_tpu/kernels/mlp_vae.py:644",
+                "launches": launches["K5"], "max_abs_err": k5_err})
+        records[-1].update({"ms": 1e3 / k_rate, "plain_ms": 1e3 / p_rate, **bound,
+                            "library_ms": None})
+
+    # K5's floor: the same 17 phases and grid barriers a step at 8|8|8
+    # widths, where the layers' work is ~1% of the sphere row's
+    tiny = (6, 8, 8, 8, 6)
+    kb = k5_state(True, tiny, tiny)
+    rate = _steps_per_second(torch, lambda: k5.run_mlp_fused_chunk(
+        *kb, None, n_steps=1000, batch=B, enc_widths=tiny, dec_widths=tiny, kind="sphere",
+        intrinsic_dim=SPH_DD, manifold_dim=SPH_DD, step0=0, t0=0, data_seed=data_seed,
+        model_seed=model_seed, var_added=0.0, eps_const=-3.0, tdv=True, lr=1e-4), 1000)
+    print(f"K5 at 8|8|8 widths (the same 17 barriers a step): {rate:.1f} steps/s "
+          f"({1e3 / rate:.5f} ms/step)")
+    return records
+
+
+def linear_flops(batch, data_dim, latent_dim, intrinsic_dim, manifold_dim, dual):
+    """Operations of one K1/K2 step at these shapes: 2 per multiply-add of
+    each product (the manifold draw; x·We, s·Wd, g_Wd, g_s, g_We; with the
+    dual decoder also s·Ws, g_Ws and g_u·Wsᵀ) and 12 per parameter for the
+    Adam update."""
+    bdl = 2 * batch * data_dim * latent_dim
+    draw = 2 * batch * manifold_dim * (1 if dual else intrinsic_dim)
+    n_p = 2 * data_dim * latent_dim + 2 * latent_dim + data_dim + 1
+    n_p += latent_dim * data_dim + data_dim if dual else 0
+    return draw + (8 if dual else 5) * bdl + 12 * n_p
+
+
+def mlp_flops(batch, enc, dec):
+    """Operations of one K5 step: 2 per multiply-add of each product (every
+    layer's forward and g_W, every layer's g_in but the encoder's first) and
+    12 per parameter for the Adam update."""
+    layers = [(a, b) for w in (enc, dec) for a, b in zip(w[:-1], w[1:])]
+    macs = sum(a * b for a, b in layers)
+    n_p = macs + sum(b for _, b in layers) + enc[-1] + 1
+    return 2 * batch * (3 * macs - enc[0] * enc[1]) + 12 * n_p
+
+
+def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk):
+    """The least time one step could take on the card: the larger of the
+    operations over the fp32 peak and the bytes over the memory rate: the
+    state read and written once per chunk of ``steps_per_chunk`` steps, and
+    each step's loss written."""
+    t_ops = flops_per_step / FP32_PEAK
+    t_bytes = (state_bytes_per_chunk / steps_per_chunk + 4) / HBM_RATE
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _print_ptxas(record):
+    for line in record["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+
+def _parity(torch, np, label, tol, make_state, kernel_fn, plain_fn, chunk, n, ext,
+            tdvs=(True, False)):
+    """The kernel against its plain version from the same state, with
+    external noise (when given) and the in-kernel sampler; returns the
+    largest |Δ| seen."""
+    max_err = 0.0
+    for tdv in tdvs:
+        for mode, noise in (("external", ext), ("sampler", None)):
+            if mode == "external" and ext is None:
+                continue
+            kb = make_state(tdv)
+            pb = tuple(t.clone() for t in kb)
+            kl = chunk(kernel_fn, kb, n, 0, tdv, noise)
+            pl = chunk(plain_fn, pb, n, 0, tdv, noise)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, b in (("losses", kl, pl), ("params", kb[0], pb[0]),
+                               ("m", kb[1], pb[1]), ("v", kb[2], pb[2])):
+                a, b = a.cpu().numpy(), b.cpu().numpy()
+                require(bool(np.all(np.isfinite(a))), f"{label} {name} finite")
+                np.testing.assert_allclose(a, b, *tol[name],
+                                           err_msg=f"{label} {name} tdv={tdv} {mode}")
+                errs.append(float(np.abs(a - b).max()))
+            max_err = max(max_err, *errs)
+            print(f"{label} tdv={tdv!s:5} {mode:8}: max |Δ| losses {errs[0]:.2e} params "
+                  f"{errs[1]:.2e} m {errs[2]:.2e} v {errs[3]:.2e}")
+    return max_err
+
+
+def _split(torch, label, make_state, kernel_fn, chunk):
+    a = make_state(True)
+    b = tuple(t.clone() for t in a)
+    la = chunk(kernel_fn, a, 40, 0, True)
+    lb = torch.cat([chunk(kernel_fn, b, 15, 0, True), chunk(kernel_fn, b, 25, 15, True)])
+    torch.cuda.synchronize()
+    require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"{label}: a 40-step launch equals a 15 + 25 split bitwise")
+    print(f"{label} chunk split 40 = 15 + 25: bitwise equal")
+
+
+def _require_same_run(np, dir_a, dir_b):
+    za = np.load(os.path.join(dir_a, "losses.npz"))
+    zb = np.load(os.path.join(dir_b, "losses.npz"))
+    require(set(za.files) == set(zb.files), "same npz channels")
+    for k in za.files:
+        require(np.array_equal(za[k], zb[k]), f"losses.npz {k!r} bitwise equal")
+    with open(os.path.join(dir_a, "model.pkl"), "rb") as f:
+        pa = pickle.load(f)
+    with open(os.path.join(dir_b, "model.pkl"), "rb") as f:
+        pb = pickle.load(f)
+    for name in pa["target"]:
+        for x, y in zip(_leaves(pa["target"][name]), _leaves(pb["target"][name])):
+            require(np.array_equal(x, y), f"model.pkl {name} bitwise equal")
 
 
 def _leaves(tree):

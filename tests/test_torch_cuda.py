@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""K1, K2 and K5 on the card: the CUDA kernels against their plain PyTorch
+versions.
 
 These tests need a CUDA device of compute capability 9.0 and nvcc; they
 carry the ``cuda`` marker and skip elsewhere. The file imports no JAX, so on
@@ -6,8 +7,10 @@ a machine without it run them with the repository's conftest left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_pallas_kernel.py: both sides are fp32,
-and only summation order and libm ulps differ.
+Tolerances are those of tests/test_pallas_kernel.py for K1 and K2 and of
+tests/test_mlp_kernel.py for K5: both sides are fp32, and only summation
+order and libm ulps differ (K5's 200-term sums through four layers each way
+compound more of them).
 """
 
 import numpy as np
@@ -15,8 +18,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from vae_training_tpu_torch.data import LinearGaussianDataset  # noqa: E402
+from vae_training_tpu_torch.data import LinearGaussianDataset, SigmoidDataset  # noqa: E402
 from vae_training_tpu_torch.kernels import linear_vae as k1  # noqa: E402
+from vae_training_tpu_torch.kernels import mlp_vae as k5  # noqa: E402
 from vae_training_tpu_torch.models import build_vae  # noqa: E402
 from vae_training_tpu_torch.ops import rng  # noqa: E402
 from vae_training_tpu_torch.train import TrainState  # noqa: E402
@@ -95,3 +99,141 @@ def test_sampler_words_are_bitwise(cuda_device):
         assert torch.equal(words.cpu(), ref)
         np.testing.assert_allclose(normals.cpu(), rng.box_muller(ref), rtol=0, atol=1e-5)
     assert k1.kernel_smem_bytes(B, D, L, ID, ID) == k1.smem_bytes(B, D, L, ID, ID)
+
+
+# --- K2: sigmoid row 1 (D 7 = 3 + 1 + 3, L 6) --------------------------------
+SD, SL, SDD = 7, 6, 3
+
+
+def _k2_state(device, tdv):
+    model = build_vae(data_dim=SD, latent_dim=SL, epsilon=-3.0, tunable_decoder_var=tdv,
+                      dataset_name="sigmoid")
+    model.init_parameters(0)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    return k1.pack_state(state, SD, SL, dual=True)
+
+
+def _k2_chunk(bufs, a, n, step0, tdv, noise=None, plain=False):
+    fn = k1.plain_fused_chunk if plain else k1.run_fused_chunk
+    return fn(*bufs, a, n_steps=n, batch=B, data_dim=SD, latent_dim=SL, intrinsic_dim=SDD,
+              manifold_dim=SDD, step0=step0, t0=step0, data_seed=rng.derive_seed(69, 1),
+              model_seed=rng.derive_seed(0, 3), var_added=0.0, eps_const=-3.0, tdv=tdv,
+              lr=1e-4, external_noise=noise, dual=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("tdv", [True, False])
+def test_k2_matches_plain(cuda_device, tdv, external):
+    ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
+    n = 32
+    noise = None
+    if external:
+        rs = np.random.RandomState(0)
+        z = rs.randn(n, B, SDD).astype(np.float32)
+        xs = np.concatenate([z, 1 / (1 + np.exp(-(z @ ds.A.cpu().numpy()))),
+                             np.zeros((n, B, 3), np.float32)], axis=-1)
+        noise = tuple(torch.as_tensor(a.astype(np.float32), device=cuda_device) for a in (
+            xs, rs.randn(n, B, SL), rs.randn(n, B, SD)))
+    kb = _k2_state(cuda_device, tdv)
+    pb = tuple(t.clone() for t in kb)
+    kl = _k2_chunk(kb, ds.A, n, 0, tdv, noise)
+    pl = _k2_chunk(pb, ds.A, n, 0, tdv, noise, plain=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=5e-4, atol=1e-6)
+    np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=5e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_k2_is_chunk_independent(cuda_device):
+    ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
+    a = _k2_state(cuda_device, True)
+    b = tuple(t.clone() for t in a)
+    la = _k2_chunk(a, ds.A, 40, 0, True)
+    lb = torch.cat([_k2_chunk(b, ds.A, 15, 0, True), _k2_chunk(b, ds.A, 25, 15, True)])
+    torch.cuda.synchronize()
+    assert torch.equal(la, lb)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert (k1.kernel_smem_bytes(B, SD, SL, SDD, SDD, True)
+            == k1.smem_bytes(B, SD, SL, SDD, SDD, True))
+
+
+# --- K5: sphere row 1 (200|200|200, D = L = 6) --------------------------------
+ENC, DEC = (6, 200, 200, 200, 6), (6, 200, 200, 200, 6)
+
+
+def _k5_state(device, tdv, enc=ENC, dec=DEC):
+    model = build_vae(data_dim=enc[0], latent_dim=enc[-1],
+                      encoder_layer_sizes="|".join(map(str, enc[1:-1])),
+                      decoder_layer_sizes="|".join(map(str, dec[1:-1])),
+                      epsilon=-3.0, tunable_decoder_var=tdv)
+    model.init_parameters(0)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    return k5.pack_state(state, enc, dec)
+
+
+def _k5_chunk(bufs, n, step0, tdv, noise=None, plain=False):
+    fn = k5.plain_mlp_fused_chunk if plain else k5.run_mlp_fused_chunk
+    return fn(*bufs, None, n_steps=n, batch=B, enc_widths=ENC, dec_widths=DEC, kind="sphere",
+              intrinsic_dim=3, manifold_dim=3, step0=step0, t0=step0,
+              data_seed=rng.derive_seed(69, 1), model_seed=rng.derive_seed(0, 3),
+              var_added=0.0, eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise)
+
+
+def _assert_k5_close(kl, pl, kb, pb):
+    np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=1e-3, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("tdv", [True, False])
+def test_k5_matches_plain(cuda_device, tdv, external):
+    n = 16
+    noise = None
+    if external:
+        rs = np.random.RandomState(0)
+        g = rs.randn(n, B, 3).astype(np.float32)
+        xs = np.concatenate([g / np.linalg.norm(g, axis=-1, keepdims=True),
+                             np.zeros((n, B, 3), np.float32)], axis=-1)
+        noise = tuple(torch.as_tensor(a.astype(np.float32), device=cuda_device) for a in (
+            xs, rs.randn(n, B, 6), rs.randn(n, B, 6)))
+    kb = _k5_state(cuda_device, tdv)
+    pb = tuple(t.clone() for t in kb)
+    kl = _k5_chunk(kb, n, 0, tdv, noise)
+    pl = _k5_chunk(pb, n, 0, tdv, noise, plain=True)
+    torch.cuda.synchronize()
+    _assert_k5_close(kl, pl, kb, pb)
+
+
+@pytest.mark.cuda
+def test_k5_linear_gaussian_matches_plain(cuda_device):
+    ds = LinearGaussianDataset.create(2, 3, 3, 9, device=cuda_device)
+    enc, dec = (12, 32, 20), (20, 32, 32, 12)
+    kb = _k5_state(cuda_device, True, enc, dec)
+    pb = tuple(t.clone() for t in kb)
+    kw = dict(n_steps=16, batch=B, enc_widths=enc, dec_widths=dec, kind="linear",
+              intrinsic_dim=3, manifold_dim=3, step0=5, t0=5, data_seed=7, model_seed=8,
+              var_added=0.25, eps_const=-1.0, tdv=True, lr=1e-3)
+    kl = k5.run_mlp_fused_chunk(*kb, ds.A, **kw)
+    pl = k5.plain_mlp_fused_chunk(*pb, ds.A, **kw)
+    torch.cuda.synchronize()
+    _assert_k5_close(kl, pl, kb, pb)
+
+
+@pytest.mark.cuda
+def test_k5_is_chunk_independent(cuda_device):
+    a = _k5_state(cuda_device, True)
+    b = tuple(t.clone() for t in a)
+    la = _k5_chunk(a, 40, 0, True)
+    lb = torch.cat([_k5_chunk(b, 15, 0, True), _k5_chunk(b, 25, 15, True)])
+    torch.cuda.synchronize()
+    assert torch.equal(la, lb)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+

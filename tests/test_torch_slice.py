@@ -216,7 +216,7 @@ def test_cpu_kernel_wrapper_runs_the_plain_chunk():
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
     (["--adam_dtype", "bf16"], NotImplementedError, "K4"),
     (["--seed_grid", "2,3"], NotImplementedError, "item 8"),
-    (["--dataset", "sphere"], NotImplementedError, "not yet ported"),
+    (["--dataset", "gaussian"], NotImplementedError, "not yet ported"),
 ])
 def test_no_silent_fallback_and_unported_flags(tmp_path, extra, exc, match):
     if torch.cuda.is_available() and "cuda" in extra:
@@ -229,7 +229,9 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import vae_training_tpu_torch._scripts.run\n"
             "import vae_training_tpu_torch.kernels.linear_vae\n"
+            "import vae_training_tpu_torch.kernels.mlp_vae\n"
             "import vae_training_tpu_torch.kernels.dispatch\n"
+            "from vae_training_tpu_torch.data import SigmoidDataset, SphereDataset\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'vae_training_tpu'))\n"
             "assert not bad, bad\n")

@@ -1,14 +1,22 @@
 // Fused multi-step linear-VAE training kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel vae_training_tpu/kernels/linear_vae.py:_make_kernel
-// (launched by run_fused_chunk, linear_vae.py:678) in solo mode on the
-// linear_gaussian dataset (dataset_kind="linear", dual=False). One launch
+// (launched by run_fused_chunk, linear_vae.py:678) in solo mode, in its two
+// branches: K1, the linear_gaussian dataset (dataset_kind="linear",
+// dual=False), and K2, the sigmoid dataset with the dual decoder
+// (dataset_kind="sigmoid", dual=True; the kDual instantiation). One launch
 // runs K training steps; per step:
 //
 //   Philox4x32-10 -> Box-Muller normals -> x = pad(n·Aᵀ) (+ obs noise)
+//                                          [K2: x = [n, σ(n·a), 0]]
 //   -> mu = x·We + be -> s = mu + e^{ep/2}·z1 -> y = s·Wd + bd + z2·e^{ε/2}
+//                                          [K2: y += σ(s·Ws + bs)]
 //   -> closed-form ELBO into losses[step] -> analytic gradients
 //   -> bias-corrected Adam (optax.adam's formula)
+//
+// K2's σ applies to every one of the D output columns, padding columns
+// included, as the flax model applies it (networks.py:78-79); the TPU
+// kernel's mask removes only its lanes beyond D.
 //
 // What bounds it on this card: latency, not FLOPs or bytes. The slice's
 // step (batch 100, D=12, L=20) is ~30 kFLOP spread over eight dependent
@@ -26,10 +34,10 @@
 // packed lane-window noise are layout devices of the TPU and are not carried
 // over: everything here works in true dimensions.
 //
-// The random numbers are the counters of vae_training_tpu_torch/ops/rng.py:
-// key = the 64-bit run seed, counter = (absolute step, row, draw, stream).
-// This kernel reproduces that module's words bitwise (precise logf/sincosf;
-// build without --use_fast_math).
+// The random numbers are the counters of vae_training_tpu_torch/ops/rng.py
+// (philox.cuh): key = the 64-bit run seed, counter = (absolute step, row,
+// draw, stream). This kernel reproduces that module's words bitwise
+// (precise logf/sincosf; build without --use_fast_math).
 //
 // Plain C interface for ctypes: every entry returns a cudaError_t as int.
 
@@ -37,7 +45,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
+
+using namespace philox;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -47,59 +59,28 @@ constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
 constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
 constexpr float kAdamEps = 1e-8f;
 constexpr float kLog2Pi = 1.8378770664093453f;
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kInv2p24 = 5.9604644775390625e-08f;
-
-// ops/rng.py stream ids
-constexpr uint32_t kStreamManifold = 0;
-constexpr uint32_t kStreamZ1 = 1;
-constexpr uint32_t kStreamZ2 = 2;
-constexpr uint32_t kStreamObs = 3;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float uniform24(uint32_t w) {
-  return (static_cast<float>(w >> 8) + 0.5f) * kInv2p24;
-}
-
-// Four normals from one word quadruple: Box-Muller on words (0,1) and (2,3).
-__device__ __forceinline__ void box_muller4(uint4 w, float out[4]) {
-  float sn, cs;
-  float r = sqrtf(-2.0f * logf(uniform24(w.x)));
-  sincosf(kTwoPi * uniform24(w.y), &sn, &cs);
-  out[0] = r * cs;
-  out[1] = r * sn;
-  r = sqrtf(-2.0f * logf(uniform24(w.z)));
-  sincosf(kTwoPi * uniform24(w.w), &sn, &cs);
-  out[2] = r * cs;
-  out[3] = r * sn;
-}
 
 // Flat parameter layout (shared with kernels/linear_vae.py:param_layout):
 // [We (D×L) | be (L) | Wd (L×D) | bd (D) | epsilon_p (L) | epsilon (1)]
-__host__ __device__ inline int n_params(int D, int L) { return 2 * D * L + 2 * L + D + 1; }
-
-__host__ __device__ inline size_t smem_floats(int B, int D, int L, int id, int dd) {
-  return 4 * static_cast<size_t>(n_params(D, L))      // params, m, v, grads
-         + static_cast<size_t>(dd) * id + L            // A, e^{ep/2}
-         + static_cast<size_t>(B) * (id + 4 * L + 3 * D)  // n, z1, z2, x, mu, s, g_y, g_s
-         + 3 * kWarps;                                 // reduction scratch
+// and, with the dual decoder only, after them [Ws (L×D) | bs (D)].
+__host__ __device__ inline int n_params(int D, int L, bool dual) {
+  return 2 * D * L + 2 * L + D + 1 + (dual ? L * D + D : 0);
 }
 
+// The manifold matrix: A (dd × id) for linear_gaussian; the column a (dd)
+// for the sigmoid dataset, whose intrinsic draw is id = dd wide.
+__host__ __device__ inline size_t smem_floats(int B, int D, int L, int id, int dd,
+                                              bool dual) {
+  return 4 * static_cast<size_t>(n_params(D, L, dual))  // params, m, v, grads
+         + static_cast<size_t>(dual ? dd : dd * id) + L  // A, e^{ep/2}
+         + static_cast<size_t>(B) * (id + 4 * L + 3 * D)  // n, z1, z2, x, mu, s, g_y, g_s
+         + (dual ? static_cast<size_t>(B) * D : 0)        // σ(u), then g_u
+         + 3 * kWarps;                                   // reduction scratch
+}
+
+__device__ __forceinline__ float sigmoidf(float u) { return 1.0f / (1.0f + expf(-u)); }
+
+template <bool kDual>
 __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
     float* __restrict__ g_p, float* __restrict__ g_m, float* __restrict__ g_v,
     float* __restrict__ losses, const float* __restrict__ g_a,
@@ -112,19 +93,22 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  const int P = n_params(D, L);
+  const int P = n_params(D, L, kDual);
   const int o_be = D * L;
   const int o_wd = o_be + L;
   const int o_bd = o_wd + L * D;
   const int o_ep = o_bd + D;
   const int o_eps = o_ep + L;
+  const int o_ws = o_eps + 1;   // dual only
+  const int o_bs = o_ws + L * D;  // dual only
+  const int n_a = kDual ? dd : dd * id;
 
   float* sp = smem;           // params
   float* sm = sp + P;         // Adam m
   float* sv = sm + P;         // Adam v
   float* sg = sv + P;         // gradients
-  float* sA = sg + P;         // A (dd × id)
-  float* sd = sA + dd * id;   // e^{ep/2} (L)
+  float* sA = sg + P;         // A (dd × id), or the column a (dd)
+  float* sd = sA + n_a;       // e^{ep/2} (L)
   float* nz = sd + L;         // intrinsic normals (B × id)
   float* z1 = nz + B * id;    // (B × L)
   float* z2 = z1 + B * L;     // (B × D)
@@ -133,19 +117,20 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
   float* s = mu + B * L;      // (B × L)
   float* gy = s + B * L;      // (B × D): r = y − x, then g_y
   float* gs = gy + B * D;     // (B × L)
-  float* red = gs + B * L;    // 3 × kWarps partial sums
+  float* su = gs + B * L;     // dual: (B × D) σ(u), then g_u
+  float* red = su + (kDual ? B * D : 0);  // 3 × kWarps partial sums
 
   for (int i = tid; i < P; i += kThreads) {
     sp[i] = g_p[i];
     sm[i] = g_m[i];
     sv[i] = g_v[i];
   }
-  for (int i = tid; i < dd * id; i += kThreads) sA[i] = g_a[i];
+  for (int i = tid; i < n_a; i += kThreads) sA[i] = g_a[i];
   __syncthreads();
 
   const float inv_b = 1.0f / static_cast<float>(B);
   const bool external = ext_x != nullptr;
-  const bool obs = obs_scale > 0.0f;
+  const bool obs = !kDual && obs_scale > 0.0f;
   const int nw_int = (id + 3) / 4;
   const int nw_l = (L + 3) / 4;
   const int nw_d = (D + 3) / 4;
@@ -198,13 +183,21 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
     if (tid < L) sd[tid] = expf(sp[o_ep + tid] * 0.5f);
     __syncthreads();
 
-    // --- 2. manifold sample: x = pad(n·Aᵀ) (+ the noise already in x) -------
+    // --- 2. manifold sample: x = pad(n·Aᵀ) (+ the noise already in x); ---
+    //        dual: x = [n, σ(n·a), 0]
     if (!external) {
       for (int i = tid; i < B * D; i += kThreads) {
         const int b = i / D;
         const int j = i - b * D;
         float acc = 0.0f;
-        if (j < dd) {
+        if (kDual) {
+          if (j < dd) {
+            acc = nz[b * id + j];
+          } else if (j == dd) {
+            for (int k = 0; k < dd; ++k) acc = fmaf(nz[b * id + k], sA[k], acc);
+            acc = sigmoidf(acc);
+          }
+        } else if (j < dd) {
           for (int k = 0; k < id; ++k) acc = fmaf(nz[b * id + k], sA[j * id + k], acc);
         }
         x[i] = obs ? acc + x[i] : acc;
@@ -224,21 +217,30 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
     }
     __syncthreads();
 
-    // --- 4. decoder + output noise; residual r = y − x ---------------------
+    // --- 4. decoder (+ σ(s·Ws + bs)) + output noise; residual r = y − x -----
     const float eps = tdv ? sp[o_eps] * eps_const : eps_const;
     const float noise_sd = expf(eps * 0.5f);
     const float inv_var = expf(-eps);
     for (int i = tid; i < B * D; i += kThreads) {
       const int b = i / D;
       const int j = i - b * D;
-      float acc = 0.0f;
-      for (int l = 0; l < L; ++l) acc = fmaf(s[b * L + l], sp[o_wd + l * D + j], acc);
-      const float y = (acc + sp[o_bd + j]) + z2[i] * noise_sd;
-      gy[i] = y - x[i];
+      float acc = 0.0f, acc_s = 0.0f;
+      for (int l = 0; l < L; ++l) {
+        acc = fmaf(s[b * L + l], sp[o_wd + l * D + j], acc);
+        if (kDual) acc_s = fmaf(s[b * L + l], sp[o_ws + l * D + j], acc_s);
+      }
+      float x_hat = acc + sp[o_bd + j];
+      if (kDual) {
+        const float sig = sigmoidf(acc_s + sp[o_bs + j]);
+        su[i] = sig;
+        x_hat = sig + x_hat;
+      }
+      gy[i] = (x_hat + z2[i] * noise_sd) - x[i];
     }
     __syncthreads();
 
-    // --- 5. Σmu², Σr², Σr·z2 (fixed order); g_y = r·inv_var/B in place -----
+    // --- 5. Σmu², Σr², Σr·z2 (fixed order); g_y = r·inv_var/B in place; ---
+    //        dual: g_u = g_y·σ(u)(1 − σ(u)) in place of σ(u)
     const float c_gy = inv_var * inv_b;
     float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
     for (int i = tid; i < B * L; i += kThreads) a0 = fmaf(mu[i], mu[i], a0);
@@ -246,7 +248,9 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
       const float r = gy[i];
       a1 = fmaf(r, r, a1);
       a2 = fmaf(r, z2[i], a2);
-      gy[i] = r * c_gy;
+      const float g = r * c_gy;
+      gy[i] = g;
+      if (kDual) su[i] = g * su[i] * (1.0f - su[i]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -281,8 +285,9 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
       sg[o_eps] = tdv ? g_eps * eps_const : 0.0f;
     }
 
-    // --- 6. g_Wd = sᵀ·g_y, g_bd = Σ_b g_y, g_s = g_y·Wdᵀ, g_mu = g_s + mu/B -
-    const int n6 = L * D + D + B * L;
+    // --- 6. g_Wd = sᵀ·g_y, g_bd = Σ_b g_y, g_s = g_y·Wdᵀ (+ g_u·Wsᵀ), ----
+    //        g_mu = g_s + mu/B; dual: g_Ws = sᵀ·g_u, g_bs = Σ_b g_u
+    const int n6 = L * D + D + B * L + (kDual ? L * D + D : 0);
     for (int i = tid; i < n6; i += kThreads) {
       if (i < L * D) {
         const int l = i / D;
@@ -295,14 +300,31 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
         float acc = 0.0f;
         for (int b = 0; b < B; ++b) acc += gy[b * D + j];
         sg[o_bd + j] = acc;
-      } else {
+      } else if (i < L * D + D + B * L) {
         const int k = i - L * D - D;
         const int b = k / L;
         const int l = k - b * L;
         float acc = 0.0f;
         for (int j = 0; j < D; ++j) acc = fmaf(gy[b * D + j], sp[o_wd + l * D + j], acc);
+        if (kDual) {
+          float acc_s = 0.0f;
+          for (int j = 0; j < D; ++j) acc_s = fmaf(su[b * D + j], sp[o_ws + l * D + j], acc_s);
+          acc = acc + acc_s;
+        }
         gs[k] = acc;
         mu[k] = acc + mu[k] * inv_b;
+      } else if (i < 2 * L * D + D + B * L) {
+        const int k = i - L * D - D - B * L;
+        const int l = k / D;
+        const int j = k - l * D;
+        float acc = 0.0f;
+        for (int b = 0; b < B; ++b) acc = fmaf(s[b * L + l], su[b * D + j], acc);
+        sg[o_ws + k] = acc;
+      } else {
+        const int j = i - 2 * L * D - D - B * L;
+        float acc = 0.0f;
+        for (int b = 0; b < B; ++b) acc += su[b * D + j];
+        sg[o_bs + j] = acc;
       }
     }
     __syncthreads();
@@ -378,12 +400,29 @@ __global__ void philox_normals_kernel(uint32_t* __restrict__ words,
   for (int q = 0; q < 4; ++q) normals[4 * i + q] = n[q];
 }
 
+template <bool kDual>
+int launch(float* p, float* m, float* v, float* losses, const float* a, const float* ext_x,
+           const float* ext_z1, const float* ext_z2, int n_steps, int B, int D, int L, int id,
+           int dd, unsigned int step0, int t0, unsigned int dk0, unsigned int dk1,
+           unsigned int mk0, unsigned int mk1, float obs_scale, float eps_const, int tdv,
+           float lr, void* stream) {
+  const size_t bytes = smem_floats(B, D, L, id, dd, kDual) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(linear_vae_chunk_kernel<kDual>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  linear_vae_chunk_kernel<kDual><<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L, id, dd, step0, t0, dk0,
+      dk1, mk0, mk1, obs_scale, eps_const, tdv, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-size_t linear_vae_smem_bytes(int B, int D, int L, int id, int dd) {
-  return smem_floats(B, D, L, id, dd) * sizeof(float);
+size_t linear_vae_smem_bytes(int B, int D, int L, int id, int dd, int dual) {
+  return smem_floats(B, D, L, id, dd, dual != 0) * sizeof(float);
 }
 
 const char* linear_vae_error_string(int err) {
@@ -392,19 +431,16 @@ const char* linear_vae_error_string(int err) {
 
 int linear_vae_chunk(float* p, float* m, float* v, float* losses, const float* a,
                      const float* ext_x, const float* ext_z1, const float* ext_z2,
-                     int n_steps, int B, int D, int L, int id, int dd,
+                     int n_steps, int B, int D, int L, int id, int dd, int dual,
                      unsigned int step0, int t0, unsigned int dk0, unsigned int dk1,
                      unsigned int mk0, unsigned int mk1, float obs_scale,
                      float eps_const, int tdv, float lr, void* stream) {
-  const size_t bytes = linear_vae_smem_bytes(B, D, L, id, dd);
-  cudaError_t err = cudaFuncSetAttribute(
-      linear_vae_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  linear_vae_chunk_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L, id, dd, step0,
-      t0, dk0, dk1, mk0, mk1, obs_scale, eps_const, tdv, lr);
-  return static_cast<int>(cudaGetLastError());
+  return dual ? launch<true>(p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L,
+                             id, dd, step0, t0, dk0, dk1, mk0, mk1, obs_scale,
+                             eps_const, tdv, lr, stream)
+              : launch<false>(p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L,
+                              id, dd, step0, t0, dk0, dk1, mk0, mk1, obs_scale,
+                              eps_const, tdv, lr, stream);
 }
 
 int philox_normals(unsigned int* words, float* normals, int rows, int n_draws,

@@ -10,14 +10,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from .base import DistributionDataset
-from .synthetic import LinearGaussianDataset
+from .synthetic import LinearGaussianDataset, SigmoidDataset, SphereDataset
 
 _REGISTRY: Dict[str, Callable[..., DistributionDataset]] = {}
 
 # reference datasets still to port → the ROADMAP item that ports them
 NOT_YET_PORTED = {
-    "sigmoid": "ROADMAP Queue 1 item 4 (with kernel K2)",
-    "sphere": "ROADMAP Queue 1 item 4",
     "gaussian": "ROADMAP Queue 1 item 4",
     "image": "ROADMAP Queue 1 item 9 (epoch mode and the conv VAE)",
 }
@@ -45,6 +43,22 @@ def _make_linear_gaussian(seed, args, device="cpu") -> LinearGaussianDataset:
         var_added=args.dataset_noise,
         device=device,
     )
+
+
+@register_dataset("sigmoid")
+def _make_sigmoid(seed, args, device="cpu") -> SigmoidDataset:
+    return SigmoidDataset.create(
+        seed,
+        dimension=args.dataset_dimension,
+        padding_dimension=args.padding_dim,
+        device=device,
+    )
+
+
+@register_dataset("sphere")
+def _make_sphere(seed, args, device="cpu") -> SphereDataset:
+    return SphereDataset(dim=args.dataset_dimension,
+                         padding_dim=args.padding_dim, device=device)
 
 
 def check_dataset_name(name: str) -> None:

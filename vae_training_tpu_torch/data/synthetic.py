@@ -1,12 +1,22 @@
-"""Synthetic manifold datasets. This slice ports ``linear_gaussian``.
+"""Synthetic manifold datasets: ``linear_gaussian``, ``sigmoid`` and ``sphere``.
 
-Port of ``vae_training_tpu/data/synthetic.py:157-229``. Y = A·X with
-X ~ N(0, I_k) and A full-rank (dim × k), zero-padded to the ambient
-dimension, plus optional isotropic observation noise of variance
-``var_added``.
+Port of ``vae_training_tpu/data/synthetic.py:65-290``. Each dataset samples
+with the counter-keyed Philox streams of ``ops/rng.py``: the manifold
+normals come from ``STREAM_MANIFOLD`` (``intrinsic_dim`` per row), the
+observation noise of ``linear_gaussian`` from ``STREAM_OBS``. The fused
+kernels draw the same words, so ``intrinsic_dim`` is also the width of the
+kernels' manifold draw.
 
-``A`` is drawn with numpy from the dataset seed, resampled until it has
-full rank (the reference's construction loop). The JAX package draws it
+  - ``linear_gaussian``: Y = A·X with X ~ N(0, I_k) and A full-rank
+    (dim × k), zero-padded to the ambient dimension, plus optional
+    isotropic observation noise of variance ``var_added``.
+  - ``sigmoid``: Y = [z, σ(z·A), 0-padding] with z ~ N(0, I_dim) and A a
+    (dim × 1) column; ambient dimension dim + 1 + padding.
+  - ``sphere``: x = n·rsqrt(max(Σn², 1e-20)) on the first ``dim`` columns
+    (the formula the TPU MLP kernel uses, ``mlp_vae.py:239-242``), zero
+    padding after.
+
+``A`` is drawn with numpy from the dataset seed. The JAX package draws it
 with threefry, which this port does not reproduce, so ``create`` also
 accepts an injected ``A``: the parity tests pass in the JAX dataset's.
 """
@@ -92,6 +102,136 @@ class LinearGaussianDataset(DistributionDataset):
             plt.plot(np.sort(np.linalg.norm(b, axis=1)))
             plt.ylabel("Norm of points")
         plt.title(f"Gaussian with dimension {self.dim} and padding {self.padding_dim}")
+        if fn is not None:
+            plt.savefig(fn)
+        plt.close()
+        return True
+
+
+class SigmoidDataset(DistributionDataset):
+    """Y = [z, σ(z·A), 0-padding] with z ~ N(0, I_dim), A a (dim × 1) column."""
+
+    var_added = 0.0  # no observation noise on this manifold
+
+    def __init__(self, A: torch.Tensor, dim: int, padding_dim: int = 0):
+        if tuple(A.shape) != (dim, 1):
+            raise ValueError(f"A must be ({dim}, 1), got {tuple(A.shape)}")
+        self.A = A.to(torch.float32)
+        self.dim = dim
+        self.padding_dim = padding_dim
+
+    @classmethod
+    def create(cls, seed: int, dimension: int = 3, padding_dimension: int = 0,
+               A: Optional[np.ndarray] = None, device="cpu") -> "SigmoidDataset":
+        if A is None:
+            A = np.random.default_rng(seed).standard_normal((dimension, 1))
+        A = torch.tensor(np.asarray(A, np.float32), device=device)
+        return cls(A, dimension, padding_dimension)
+
+    @property
+    def device(self) -> torch.device:
+        return self.A.device
+
+    @property
+    def intrinsic_dim(self) -> int:
+        return self.dim
+
+    @property
+    def ndim(self) -> int:
+        return self.dim + self.padding_dim + 1
+
+    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+        z = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
+                        device=self.device)
+        out = torch.cat([z, torch.sigmoid(z @ self.A)], dim=1)
+        return pad_with_zeros(out, self.padding_dim)
+
+    def score(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        # The published metric's two quirks, kept as the JAX package keeps
+        # them (vae_training_tpu/data/synthetic.py:267-290): the σ-coordinate
+        # is compared with the pre-sigmoid logit z·A, and the reference's
+        # (n,) − (n,1) broadcast makes the mean run over all n² cross pairs,
+        # computed here in the same closed form:
+        # mean(ĉ²) − 2·mean(ĉ)·mean(c) + mean(c²).
+        codomain_hat = batch[:, self.dim]
+        codomain = (batch[:, :self.dim] @ self.A)[:, 0]
+        manifold_error = (torch.mean(torch.square(codomain_hat))
+                          - 2.0 * torch.mean(codomain_hat) * torch.mean(codomain)
+                          + torch.mean(torch.square(codomain)))
+        return {
+            "Squared Norm of Padding Dimensions": padding_energy(batch[:, self.dim + 1:]),
+            "Squared Norm of Manifold Dimension": manifold_error,
+        }
+
+    def plot_batch(self, batch, fn=None) -> bool:
+        """The σ-coordinate against the logit, for the batch and a true
+        sample of the same size; False where matplotlib is not installed."""
+        try:
+            import matplotlib
+        except ImportError:
+            return False
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        true_batch = self.sample(0, 0, batch.shape[0])
+        for b in (batch, true_batch):
+            b = b.detach()
+            plt.scatter(np.asarray((b[:, :self.dim] @ self.A).cpu()),
+                        np.asarray(b[:, self.dim].cpu()))
+        if fn is not None:
+            plt.savefig(fn)
+        plt.close()
+        return True
+
+
+class SphereDataset(DistributionDataset):
+    """Uniform samples on S^{dim-1}, zero-padded to the ambient dimension."""
+
+    var_added = 0.0  # no observation noise on this manifold
+
+    def __init__(self, dim: int = 3, padding_dim: int = 0, device="cpu"):
+        self.dim = dim
+        self.padding_dim = padding_dim
+        self._device = torch.device(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def intrinsic_dim(self) -> int:
+        return self.dim
+
+    @property
+    def ndim(self) -> int:
+        return self.dim + self.padding_dim
+
+    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+        g = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
+                        device=self.device)
+        norm2 = torch.sum(g * g, dim=1, keepdim=True)
+        return pad_with_zeros(g * torch.rsqrt(torch.clamp(norm2, min=1e-20)),
+                              self.padding_dim)
+
+    def score(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        # (‖x‖ − 1)² on the sphere's coordinates; squared norm of the padding
+        sphere_err = torch.mean(torch.square(
+            torch.linalg.vector_norm(batch[:, :self.dim], dim=1) - 1.0))
+        pad_err = torch.mean(torch.square(
+            torch.linalg.vector_norm(batch[:, self.dim:], dim=1)))
+        return {"Sphere Error": sphere_err, "Padding Error": pad_err}
+
+    def plot_batch(self, batch, fn=None) -> bool:
+        """Histogram of the norms; False where matplotlib is not installed."""
+        try:
+            import matplotlib
+        except ImportError:
+            return False
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        norms = np.linalg.norm(np.asarray(batch.detach().cpu()), axis=1)
+        plt.hist(norms, bins=[0.1 * i for i in range(13)])
         if fn is not None:
             plt.savefig(fn)
         plt.close()

@@ -6,10 +6,13 @@ interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. ``--use_fast_math`` is
-deliberately absent: it would swap ``expf``/``logf``/``sincosf`` for
-approximations and break the agreement with the plain PyTorch versions.
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused. The MLP kernel's cooperative launch needs no flag
+of its own: ``grid.sync()`` builds without ``-rdc=true`` on CUDA 12.8.
+``--use_fast_math`` is deliberately absent: it would swap
+``expf``/``logf``/``sincosf`` for approximations and break the agreement
+with the plain PyTorch versions.
 The output goes to ``build/kernels/`` at the repository root (listed in
 ``.gitignore``); a build writes a temporary file and renames it into place,
 so concurrent processes never load a half-written library.
@@ -52,6 +55,8 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     lib_path = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     record = {"path": str(lib_path), "seconds": 0.0, "built": False, "log": ""}
     if not lib_path.exists():

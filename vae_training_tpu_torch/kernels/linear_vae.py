@@ -1,16 +1,19 @@
-"""K1: the fused linear-VAE training chunk — CUDA wrapper and plain version.
+"""K1 and K2: the fused linear-VAE training chunk — CUDA wrapper and plain
+version.
 
-Port of ``vae_training_tpu/kernels/linear_vae.py`` in solo mode on the
-linear_gaussian dataset (``run_fused_chunk`` → ``_make_kernel``, the
-``pl.pallas_call`` at ``:678``). The kernel itself is
-``csrc/linear_vae.cu``: one launch runs a whole K-step chunk (sampling,
-forward, closed-form ELBO, analytic backward, Adam) with the state resident
-in one CTA's shared memory.
+Port of ``vae_training_tpu/kernels/linear_vae.py`` in solo mode
+(``run_fused_chunk`` → ``_make_kernel``, the ``pl.pallas_call`` at
+``:678``), in its two branches: K1 on the linear_gaussian dataset, and K2 on
+the sigmoid dataset with the dual decoder ``σ(s·Ws + bs) + s·Wd + bd``
+(``dual=True``). The kernel itself is ``csrc/linear_vae.cu``: one launch
+runs a whole K-step chunk (sampling, forward, closed-form ELBO, analytic
+backward, Adam) with the state resident in one CTA's shared memory.
 
 The state crosses the launch as three flat float32 buffers (params, Adam
 m, Adam v) in the layout of ``param_layout``: flax names, true dimensions,
-no TPU lane padding. ``run_fused_chunk`` updates them in place and returns
-the per-step losses.
+no TPU lane padding. The dual layout is K1's followed by the SigDecoder's
+two tensors, so K1's buffers are unchanged. ``run_fused_chunk`` updates
+them in place and returns the per-step losses.
 
 ``run_fused_chunk`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors (and only for them) it runs ``plain_fused_chunk``,
@@ -38,86 +41,104 @@ SMEM_LIMIT = 232448
 CAPABILITY = (9, 0)
 
 
-def param_layout(data_dim: int, latent_dim: int) -> List[Tuple[str, tuple]]:
+Layout = List[Tuple[str, tuple]]
+
+
+def param_layout(data_dim: int, latent_dim: int, dual: bool = False) -> Layout:
     """Flat order of the state buffers (csrc/linear_vae.cu agrees). The
     ``epsilon`` slot is always present; without -tdv its gradient is zero,
-    so Adam leaves it unchanged and unpacking ignores it."""
+    so Adam leaves it unchanged and unpacking ignores it. The dual decoder's
+    ``SigDecoder`` tensors follow K1's layout."""
     D, L = data_dim, latent_dim
-    return [("Encoder.FC0.kernel", (D, L)), ("Encoder.FC0.bias", (L,)),
-            ("Decoder.FC0.kernel", (L, D)), ("Decoder.FC0.bias", (D,)),
-            ("epsilon_p", (L,)), ("epsilon", (1,))]
+    layout = [("Encoder.FC0.kernel", (D, L)), ("Encoder.FC0.bias", (L,)),
+              ("Decoder.FC0.kernel", (L, D)), ("Decoder.FC0.bias", (D,)),
+              ("epsilon_p", (L,)), ("epsilon", (1,))]
+    if dual:
+        layout += [("SigDecoder.FC0.kernel", (L, D)), ("SigDecoder.FC0.bias", (D,))]
+    return layout
 
 
-def n_params(data_dim: int, latent_dim: int) -> int:
-    return 2 * data_dim * latent_dim + 2 * latent_dim + data_dim + 1
+def n_params(data_dim: int, latent_dim: int, dual: bool = False) -> int:
+    D, L = data_dim, latent_dim
+    return 2 * D * L + 2 * L + D + 1 + (L * D + D if dual else 0)
 
 
 def smem_bytes(batch: int, data_dim: int, latent_dim: int, intrinsic_dim: int,
-               manifold_dim: int) -> int:
+               manifold_dim: int, dual: bool = False) -> int:
     """Shared memory of one launch (mirrors smem_floats in the .cu file):
-    params, m, v and grads; A and e^{ep/2}; eight per-step activation
-    buffers; the reduction scratch."""
+    params, m, v and grads; the manifold matrix (A, or the sigmoid's column
+    a) and e^{ep/2}; eight per-step activation buffers, and σ(u) with the
+    dual decoder; the reduction scratch."""
     D, L, B = data_dim, latent_dim, batch
-    floats = (4 * n_params(D, L) + manifold_dim * intrinsic_dim + L
-              + B * (intrinsic_dim + 4 * L + 3 * D) + 3 * (THREADS // 32))
+    floats = (4 * n_params(D, L, dual)
+              + (manifold_dim if dual else manifold_dim * intrinsic_dim) + L
+              + B * (intrinsic_dim + 4 * L + 3 * D) + (B * D if dual else 0)
+              + 3 * (THREADS // 32))
     return 4 * floats
 
 
-def pack(tensors, data_dim: int, latent_dim: int) -> torch.Tensor:
-    """Dict of named tensors → one flat (P,) float32 buffer."""
+def pack_layout(tensors, layout: Layout) -> torch.Tensor:
+    """Dict of named tensors → one flat float32 buffer in ``layout``'s
+    order; a slot missing from the dict (epsilon without -tdv) is zero."""
     parts = []
-    for name, shape in param_layout(data_dim, latent_dim):
+    for name, shape in layout:
         t = tensors.get(name)
-        if t is None:  # epsilon without -tdv
+        if t is None:
             ref = next(iter(tensors.values()))
             t = torch.zeros(shape, dtype=torch.float32, device=ref.device)
         parts.append(t.reshape(-1).to(torch.float32))
     return torch.cat(parts).contiguous()
 
 
-def unpack_(flat: torch.Tensor, tensors, data_dim: int, latent_dim: int) -> None:
-    """Copy a flat buffer back into the named tensors, in place."""
+def unpack_layout_(flat: torch.Tensor, tensors, layout: Layout) -> None:
+    """Copy a flat buffer into the named tensors present, in place."""
     off = 0
-    for name, shape in param_layout(data_dim, latent_dim):
+    for name, shape in layout:
         n = int(np.prod(shape))
         if name in tensors:
             tensors[name].copy_(flat[off:off + n].view(shape))
         off += n
 
 
-def pack_state(state: TrainState, data_dim: int, latent_dim: int):
-    return tuple(pack(d, data_dim, latent_dim)
+def repack_layout_(flat: torch.Tensor, tensors, layout: Layout) -> None:
+    """Copy the named tensors present into a flat buffer, in place; the
+    slots of absent names keep their values."""
+    off = 0
+    for name, shape in layout:
+        n = int(np.prod(shape))
+        if name in tensors:
+            flat[off:off + n].copy_(tensors[name].reshape(-1))
+        off += n
+
+
+def pack(tensors, data_dim: int, latent_dim: int, dual: bool = False) -> torch.Tensor:
+    """Dict of named tensors → one flat (P,) float32 buffer."""
+    return pack_layout(tensors, param_layout(data_dim, latent_dim, dual))
+
+
+def unpack_(flat: torch.Tensor, tensors, data_dim: int, latent_dim: int,
+            dual: bool = False) -> None:
+    """Copy a flat buffer back into the named tensors, in place."""
+    unpack_layout_(flat, tensors, param_layout(data_dim, latent_dim, dual))
+
+
+def pack_state(state: TrainState, data_dim: int, latent_dim: int, dual: bool = False):
+    return tuple(pack(d, data_dim, latent_dim, dual)
                  for d in (state.params, state.m, state.v))
 
 
 def unpack_state(state: TrainState, p, m, v, n_steps: int, data_dim: int,
-                 latent_dim: int) -> TrainState:
+                 latent_dim: int, dual: bool = False) -> TrainState:
     for flat, d in ((p, state.params), (m, state.m), (v, state.v)):
-        unpack_(flat, d, data_dim, latent_dim)
+        unpack_(flat, d, data_dim, latent_dim, dual)
     state.step += n_steps
     state.count += n_steps
     return state
 
 
-def supported(model, dataset, cfg) -> Tuple[bool, str]:
-    """Whether K1 can run this configuration (the counterpart of
-    ``pallas_supported``, ``linear_vae.py:823-858``, re-derived for the
-    card): a pure-linear encoder and decoder, the linear_gaussian dataset,
-    a CUDA device of compute capability 9.0, and a state plus per-step
-    activations that fit one block's shared memory. The TPU kernel's
-    batch ≤ 128 and dims ≤ 128 were lane limits and do not apply."""
-    from ..data.synthetic import LinearGaussianDataset
-
-    if not isinstance(dataset, LinearGaussianDataset):
-        return False, "the fused kernel supports the linear_gaussian dataset"
-    if (model.encoder_features != (model.latent_dim,)
-            or model.decoder_features != (dataset.dimension,)):
-        return False, "the fused kernel supports 0-hidden-layer (pure linear) nets"
-    need = smem_bytes(cfg.batch_size, dataset.dimension, model.latent_dim,
-                      dataset.intrinsic_dim, dataset.dim)
-    if need > SMEM_LIMIT:
-        return False, (f"state and activations need {need} B of shared memory, "
-                       f"above the {SMEM_LIMIT} B a block may use")
+def cuda_device_ok(cfg) -> Tuple[bool, str]:
+    """Whether ``cfg.device`` is a CUDA device of compute capability 9.0,
+    the one the kernels are built for (sm_90a)."""
     device = torch.device(cfg.device)
     if device.type != "cuda":
         return False, f"device {cfg.device!r} is not a CUDA device"
@@ -125,7 +146,42 @@ def supported(model, dataset, cfg) -> Tuple[bool, str]:
         return False, "no CUDA device is available"
     cap = torch.cuda.get_device_capability(device)
     if tuple(cap) != CAPABILITY:
-        return False, f"the kernel is built for sm_90a; this device is sm_{cap[0]}{cap[1]}"
+        return False, f"the kernels are built for sm_90a; this device is sm_{cap[0]}{cap[1]}"
+    return True, ""
+
+
+def supported(model, dataset, cfg) -> Tuple[bool, str]:
+    """Whether K1 or K2 can run this configuration (the counterpart of
+    ``pallas_supported``, ``linear_vae.py:823-858``, re-derived for the
+    card): a pure-linear encoder and decoder; the linear_gaussian dataset
+    without the dual decoder (K1) or the sigmoid dataset with it (K2); a
+    CUDA device of compute capability 9.0; and a state plus per-step
+    activations that fit one block's shared memory. The TPU kernel's
+    batch ≤ 128 and dims ≤ 128 were lane limits and do not apply."""
+    from ..data.synthetic import LinearGaussianDataset, SigmoidDataset
+
+    dual = model.dual_sigmoid_decoder
+    if isinstance(dataset, LinearGaussianDataset):
+        if dual:
+            return False, "the dual decoder needs the sigmoid dataset"
+    elif isinstance(dataset, SigmoidDataset):
+        if not dual:
+            return False, "the sigmoid dataset expects the dual decoder"
+    else:
+        return False, "the fused kernel supports the linear_gaussian and sigmoid datasets"
+    if (model.encoder_features != (model.latent_dim,)
+            or model.decoder_features != (dataset.dimension,)):
+        return False, "the fused kernel supports 0-hidden-layer (pure linear) nets"
+    need = smem_bytes(cfg.batch_size, dataset.dimension, model.latent_dim,
+                      dataset.intrinsic_dim, dataset.dim, dual)
+    if need > SMEM_LIMIT:
+        return False, (f"state and activations need {need} B of shared memory, "
+                       f"above the {SMEM_LIMIT} B a block may use")
+    ok, why = cuda_device_ok(cfg)
+    if not ok:
+        return False, why
+    if dual:
+        return True, f"pure-linear dual-decoder VAE on sigmoid, {need} B of shared memory"
     return True, f"pure-linear VAE on linear_gaussian, {need} B of shared memory"
 
 
@@ -140,11 +196,11 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("linear_vae")[0]
         vp, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.linear_vae_chunk.argtypes = (
-            [vp] * 8 + [i32] * 6 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, vp])
+            [vp] * 8 + [i32] * 7 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, vp])
         lib.linear_vae_chunk.restype = i32
         lib.philox_normals.argtypes = [vp, vp, i32, i32, u32, u32, u32, u32, vp]
         lib.philox_normals.restype = i32
-        lib.linear_vae_smem_bytes.argtypes = [i32] * 5
+        lib.linear_vae_smem_bytes.argtypes = [i32] * 6
         lib.linear_vae_smem_bytes.restype = ctypes.c_size_t
         lib.linear_vae_error_string.argtypes = [i32]
         lib.linear_vae_error_string.restype = ctypes.c_char_p
@@ -171,29 +227,39 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     latent_dim: int, intrinsic_dim: int, manifold_dim: int,
                     step0: int, t0: int, data_seed: int, model_seed: int,
                     var_added: float, eps_const: float, tdv: bool, lr: float,
-                    external_noise: Optional[Noise] = None) -> torch.Tensor:
+                    external_noise: Optional[Noise] = None,
+                    dual: bool = False) -> torch.Tensor:
     """Train ``n_steps`` steps from the flat state (p, m, v), in place.
-    Returns the (n_steps,) losses. ``a`` is the manifold matrix A
-    (manifold_dim × intrinsic_dim); ``step0`` is the absolute step of the
-    first step (the Philox counter) and ``t0`` the Adam count before it.
-    ``external_noise`` = (x, z1, z2), each (n_steps, batch, dim), replaces
-    the in-kernel sampler (the test hook of the TPU kernel)."""
+    Returns the (n_steps,) losses. ``a`` is the manifold matrix: A
+    (manifold_dim × intrinsic_dim) for linear_gaussian (K1), the sigmoid's
+    column a (manifold_dim × 1, with intrinsic_dim = manifold_dim) with
+    ``dual`` (K2, no observation noise). ``step0`` is the absolute step of
+    the first step (the Philox counter) and ``t0`` the Adam count before
+    it. ``external_noise`` = (x, z1, z2), each (n_steps, batch, dim),
+    replaces the in-kernel sampler (the test hook of the TPU kernel)."""
     kw = dict(n_steps=n_steps, batch=batch, data_dim=data_dim,
               latent_dim=latent_dim, intrinsic_dim=intrinsic_dim,
               manifold_dim=manifold_dim, step0=step0, t0=t0,
               data_seed=data_seed, model_seed=model_seed, var_added=var_added,
-              eps_const=eps_const, tdv=tdv, lr=lr, external_noise=external_noise)
+              eps_const=eps_const, tdv=tdv, lr=lr, external_noise=external_noise,
+              dual=dual)
     if p.device.type == "cpu":
         return plain_fused_chunk(p, m, v, a, **kw)
     if p.device.type != "cuda":
         raise ValueError(f"run_fused_chunk takes CPU or CUDA tensors, got {p.device}")
     D, L, B = data_dim, latent_dim, batch
     device = p.device
-    P = n_params(D, L)
+    P = n_params(D, L, dual)
     for t, name in ((p, "p"), (m, "m"), (v, "v")):
         _require(t, name, device, (P,))
-    _require(a, "a", device, (manifold_dim, intrinsic_dim))
-    need = smem_bytes(B, D, L, intrinsic_dim, manifold_dim)
+    if dual:
+        if intrinsic_dim != manifold_dim or var_added > 0:
+            raise ValueError("the sigmoid dataset draws intrinsic_dim = manifold_dim "
+                             "normals and has no observation noise")
+        _require(a, "a", device, (manifold_dim, 1))
+    else:
+        _require(a, "a", device, (manifold_dim, intrinsic_dim))
+    need = smem_bytes(B, D, L, intrinsic_dim, manifold_dim, dual)
     if need > SMEM_LIMIT:
         raise ValueError(f"shapes need {need} B of shared memory (limit {SMEM_LIMIT})")
     ext = [None, None, None]
@@ -211,7 +277,7 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.linear_vae_chunk(
         p.data_ptr(), m.data_ptr(), v.data_ptr(), losses.data_ptr(), a.data_ptr(),
-        *ext, n_steps, B, D, L, intrinsic_dim, manifold_dim,
+        *ext, n_steps, B, D, L, intrinsic_dim, manifold_dim, int(dual),
         step0 & rng.MASK32, t0, dk[0], dk[1], mk[0], mk[1], obs_scale,
         float(eps_const), int(bool(tdv)), float(lr), stream)
     _check(lib, err, "linear_vae_chunk launch")
@@ -222,28 +288,18 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 run_fused_chunk.launches = 0
 
 
-def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                      a: torch.Tensor, *, n_steps: int, batch: int, data_dim: int,
-                      latent_dim: int, intrinsic_dim: int, manifold_dim: int,
-                      step0: int, t0: int, data_seed: int, model_seed: int,
-                      var_added: float, eps_const: float, tdv: bool, lr: float,
-                      external_noise: Optional[Noise] = None) -> torch.Tensor:
-    """The plain PyTorch version of ``run_fused_chunk``: the same chunk on
-    the torch path (autograd + the explicit Adam update), same signature,
-    same in-place contract."""
-    from ..data.synthetic import LinearGaussianDataset
-    from ..models.networks import build_vae
-
-    D, L = data_dim, latent_dim
-    model = build_vae(data_dim=D, latent_dim=L, epsilon=eps_const,
-                      tunable_decoder_var=tdv)
-    dataset = LinearGaussianDataset(a, manifold_dim, intrinsic_dim,
-                                    D - manifold_dim, var_added)
+def run_plain_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, layout: Layout,
+                    model, dataset, *, n_steps: int, batch: int, step0: int, t0: int,
+                    data_seed: int, model_seed: int, tdv: bool, lr: float,
+                    external_noise: Optional[Noise]) -> torch.Tensor:
+    """The torch path over flat state buffers, in place: what every plain
+    kernel version runs. Without -tdv the epsilon slot is not a parameter
+    of ``model`` and keeps its value."""
 
     def unflat(flat):
         d = {name: torch.empty(shape, device=flat.device)
-             for name, shape in param_layout(D, L) if tdv or name != "epsilon"}
-        unpack_(flat, d, D, L)
+             for name, shape in layout if tdv or name != "epsilon"}
+        unpack_layout_(flat, d, layout)
         return d
 
     state = TrainState(params=unflat(p), m=unflat(m), v=unflat(v), count=t0,
@@ -252,28 +308,56 @@ def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                                       batch_size=batch, lr=lr,
                                       noise=external_noise)
     for flat, d in ((p, state.params), (m, state.m), (v, state.v)):
-        # without -tdv the epsilon slot is not in d and stays as it was
-        n = flat.numel() - (0 if tdv else 1)
-        flat[:n].copy_(pack(d, D, L)[:n])
+        repack_layout_(flat, d, layout)
     return losses
 
 
+def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                      a: torch.Tensor, *, n_steps: int, batch: int, data_dim: int,
+                      latent_dim: int, intrinsic_dim: int, manifold_dim: int,
+                      step0: int, t0: int, data_seed: int, model_seed: int,
+                      var_added: float, eps_const: float, tdv: bool, lr: float,
+                      external_noise: Optional[Noise] = None,
+                      dual: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of ``run_fused_chunk``: the same chunk on
+    the torch path (autograd + the explicit Adam update), same signature,
+    same in-place contract."""
+    from ..data.synthetic import LinearGaussianDataset, SigmoidDataset
+    from ..models.networks import build_vae
+
+    D, L = data_dim, latent_dim
+    model = build_vae(data_dim=D, latent_dim=L, epsilon=eps_const,
+                      tunable_decoder_var=tdv,
+                      dataset_name="sigmoid" if dual else None)
+    if dual:
+        dataset = SigmoidDataset(a, manifold_dim, D - manifold_dim - 1)
+    else:
+        dataset = LinearGaussianDataset(a, manifold_dim, intrinsic_dim,
+                                        D - manifold_dim, var_added)
+    return run_plain_chunk(p, m, v, param_layout(D, L, dual), model, dataset,
+                           n_steps=n_steps, batch=batch, step0=step0, t0=t0,
+                           data_seed=data_seed, model_seed=model_seed, tdv=tdv,
+                           lr=lr, external_noise=external_noise)
+
+
 def make_train_chunk(model, dataset, cfg):
-    """The Trainer's ``train_chunk(state, n_steps)`` on K1."""
+    """The Trainer's ``train_chunk(state, n_steps)`` on K1 (K2 with the dual
+    decoder)."""
     D, L = dataset.dimension, model.latent_dim
+    dual = model.dual_sigmoid_decoder
     a = dataset.A.contiguous()
     lr = float(cfg.learning_rate)
 
     def train_chunk(state: TrainState, n_steps: int, noise: Optional[Noise] = None):
-        p, m, v = pack_state(state, D, L)
+        p, m, v = pack_state(state, D, L, dual)
         losses = run_fused_chunk(
             p, m, v, a, n_steps=n_steps, batch=cfg.batch_size, data_dim=D,
             latent_dim=L, intrinsic_dim=dataset.intrinsic_dim,
             manifold_dim=dataset.dim, step0=state.step, t0=state.count,
             data_seed=state.data_seed, model_seed=state.model_seed,
             var_added=dataset.var_added, eps_const=model.epsilon_const,
-            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise)
-        return unpack_state(state, p, m, v, n_steps, D, L), losses
+            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual)
+        return unpack_state(state, p, m, v, n_steps, D, L, dual), losses
 
     return train_chunk
 
@@ -295,7 +379,7 @@ def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
 
 
 def kernel_smem_bytes(batch: int, data_dim: int, latent_dim: int,
-                      intrinsic_dim: int, manifold_dim: int) -> int:
+                      intrinsic_dim: int, manifold_dim: int, dual: bool = False) -> int:
     """The library's own shared-memory figure (to hold ``smem_bytes`` to it)."""
     return int(_lib().linear_vae_smem_bytes(batch, data_dim, latent_dim,
-                                            intrinsic_dim, manifold_dim))
+                                            intrinsic_dim, manifold_dim, int(dual)))

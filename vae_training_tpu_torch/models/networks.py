@@ -10,14 +10,16 @@ Port of ``vae_training_tpu/models/networks.py:45-188``. Semantics kept
     (ones init);
   - decoder output noise ``z2 * exp(ε/2)`` is added in both training and
     sampling mode;
-  - sampling mode sets mu = logvar_e = 0, so the latent is exactly z1.
+  - sampling mode sets mu = logvar_e = 0, so the latent is exactly z1;
+  - for the sigmoid dataset the decoder is a sum of a sigmoid-headed stack
+    and a plain one: ``decode(s) = SigDecoder(s) + Decoder(s)``, the
+    ``SigDecoder`` with the decoder's features.
 
 Parameter names and layouts are flax's: ``Encoder.FC0.kernel`` is (in, out)
 and the forward computes ``x @ kernel + bias``, so no transpose stands
 between the two packages. Dense kernels are initialised like flax's
 ``lecun_normal`` (a normal truncated at ±2σ of the underlying normal, scaled
 to std sqrt(1/fan_in)), biases to zero — not torch's ``nn.Linear`` default.
-The dual sigmoid decoder (sigmoid dataset) is not ported yet.
 """
 
 from __future__ import annotations
@@ -53,33 +55,38 @@ class Dense(nn.Module):
 
 
 class FullyConnectedNetwork(nn.Module):
-    """Dense stack with ReLU between layers and none after the last.
-    ``features`` includes the output dimension, so an empty hidden-layer
-    string yields one Dense layer: a pure linear map."""
+    """Dense stack with ReLU between layers and none after the last (a
+    sigmoid after it with ``sigmoid_head``). ``features`` includes the
+    output dimension, so an empty hidden-layer string yields one Dense
+    layer: a pure linear map."""
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int],
+                 sigmoid_head: bool = False):
         super().__init__()
         widths = (in_features,) + tuple(features)
         for i in range(len(features)):
             self.add_module(f"FC{i}", Dense(widths[i], widths[i + 1]))
         self.n_layers = len(features)
+        self.sigmoid_head = sigmoid_head
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
             x = getattr(self, f"FC{i}")(x)
             if i + 1 < self.n_layers:
                 x = torch.relu(x)
-        return x
+        return torch.sigmoid(x) if self.sigmoid_head else x
 
 
 class VAE(nn.Module):
-    """VAE with a global posterior log-variance; module names mirror the
-    reference tree (``Encoder``/``Decoder`` with ``FC{i}``, ``epsilon_p``,
+    """VAE with a global posterior log-variance and, for the sigmoid
+    dataset, the dual decoder; module names mirror the reference tree
+    (``Encoder``/``Decoder``/``SigDecoder`` with ``FC{i}``, ``epsilon_p``,
     ``epsilon``)."""
 
     def __init__(self, *, data_dim: int, encoder_features: Tuple[int, ...],
                  decoder_features: Tuple[int, ...], latent_dim: int,
-                 epsilon: float = 0.0, tunable_decoder_var: bool = False):
+                 epsilon: float = 0.0, tunable_decoder_var: bool = False,
+                 dual_sigmoid_decoder: bool = False):
         super().__init__()
         self.data_dim = data_dim
         self.encoder_features = tuple(encoder_features)
@@ -87,8 +94,12 @@ class VAE(nn.Module):
         self.latent_dim = latent_dim
         self.epsilon_const = float(epsilon)  # the CLI ε
         self.tunable_decoder_var = tunable_decoder_var
+        self.dual_sigmoid_decoder = dual_sigmoid_decoder
         self.Encoder = FullyConnectedNetwork(data_dim, self.encoder_features)
         self.Decoder = FullyConnectedNetwork(latent_dim, self.decoder_features)
+        if dual_sigmoid_decoder:
+            self.SigDecoder = FullyConnectedNetwork(
+                latent_dim, self.decoder_features, sigmoid_head=True)
         self.epsilon_p = nn.Parameter(torch.ones(latent_dim))
         if tunable_decoder_var:
             self.epsilon = nn.Parameter(torch.ones(1))  # learned scale of ε
@@ -106,7 +117,10 @@ class VAE(nn.Module):
                 self.epsilon.fill_(1.0)
 
     def decode(self, samples: torch.Tensor) -> torch.Tensor:
-        return self.Decoder(samples)
+        x_hat = self.Decoder(samples)
+        if self.dual_sigmoid_decoder:
+            x_hat = self.SigDecoder(samples) + x_hat
+        return x_hat
 
     def effective_epsilon(self) -> torch.Tensor:
         """Decoder log-variance: learned scalar × constant, or the constant."""
@@ -145,13 +159,11 @@ def build_vae(*, data_dim: int, latent_dim: int, encoder_layer_sizes: str = "",
               decoder_layer_sizes: str = "", epsilon: float = 0.0,
               tunable_decoder_var: bool = False,
               dataset_name: Optional[str] = None) -> VAE:
-    """Construct a VAE from the reference's CLI-level hyperparameters."""
-    if dataset_name == "sigmoid":
-        raise NotImplementedError(
-            "the dual sigmoid decoder is not yet ported "
-            "(ROADMAP Queue 1 item 3, with kernel K2)")
+    """Construct a VAE from the reference's CLI-level hyperparameters; the
+    sigmoid dataset gets the dual decoder."""
     enc = parse_layer_sizes(encoder_layer_sizes) + (latent_dim,)
     dec = parse_layer_sizes(decoder_layer_sizes) + (data_dim,)
     return VAE(data_dim=data_dim, encoder_features=enc, decoder_features=dec,
                latent_dim=latent_dim, epsilon=epsilon,
-               tunable_decoder_var=tunable_decoder_var)
+               tunable_decoder_var=tunable_decoder_var,
+               dual_sigmoid_decoder=dataset_name == "sigmoid")

@@ -7,9 +7,9 @@ counter-keyed Philox streams (``ops/rng.py``), computes the ELBO with the
 model bound to the state's parameters (``torch.func.functional_call``),
 takes the gradients with autograd, and applies the explicit Adam update.
 
-This path is the plain twin of the fused kernel
-(``kernels/linear_vae.py``): the kernel's hand-derived backward is held
-against autograd here. ``--kernels torch`` runs it on any device.
+This path is the plain twin of the fused kernels (``kernels/linear_vae.py``,
+``kernels/mlp_vae.py``): their hand-derived backwards are held against
+autograd here. ``--kernels torch`` runs it on any device.
 """
 
 from __future__ import annotations
