@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on the card, the first rows of the
-reference's three sweeps, each through its fused CUDA kernel: the linear
-sweep (seed_linpadding_expts.sh) through K1 and the sigmoid sweep
+Drives the port's main paths on the card, each through its fused CUDA
+kernel: the first rows of the reference's three sweeps, the linear sweep
+(seed_linpadding_expts.sh) through K1 and the sigmoid sweep
 (sigmoid_vae_padding_expts.sh) through K2, both in
 vae_training_tpu_torch/csrc/linear_vae.cu, and the sphere sweep
 (sphere_vae_padding_expts.sh, 200|200|200 ReLU stacks) through K5
-(csrc/mlp_vae.cu). Thirteen phases:
+(csrc/mlp_vae.cu); then a seed grid and the whole linear and sigmoid
+sweeps through K6a, the grid mode of the linear kernel (one launch a chunk
+over every row). Seventeen phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds both kernel libraries from the checkout's sources,
@@ -35,7 +37,21 @@ vae_training_tpu_torch/csrc/linear_vae.cu, and the sphere sweep
      not run; artifacts; the eval loss must fall;
  12. sphere resume: 7000 steps, then --resume to 12000, equal to phase 11
      bitwise;
- 13. times: K2 and K5 against the torch path, steps/s.
+ 13. times: K2 and K5 against the torch path, steps/s;
+ 14. K6a on the linear sweep's 21 rows and the sigmoid sweep's 18: every
+     row equal to its solo K1/K2 launch bitwise (64 steps, in-kernel
+     sampler), K6a against its plain version with external noise (K1's
+     tolerances), a 40 = 15 + 25 chunk split bitwise;
+ 15. the CLI's --seed_grid 2,3,4 at linear row 1, 12000 steps, --kernels
+     cuda: one K6a launch a chunk, no solo launch, and row seed2 equal to
+     phase 5's solo run bitwise;
+ 16. the sweep runner, --grouped, linear (21 runs) and sigmoid (18 runs),
+     12000 steps: one K6a launch a chunk, the wall-accounting line, every
+     run's loss falling, and the linear sweep's --resume from 7000 equal to
+     the uninterrupted sweep bitwise;
+ 17. times: K6a against the same rows as sequential solo launches and its
+     plain version, with each launch's bound; the launch-step time against
+     the number of rows (1, 21, 132, 264).
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -45,6 +61,7 @@ nonzero. The last two stdout lines are JSON: the kernels' record, then
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -272,7 +289,6 @@ def main() -> int:
         for x, y in zip(_leaves(pa["target"][name]), _leaves(pb["target"][name])):
             require(np.array_equal(x, y), f"model.pkl {name} bitwise equal")
     print("losses.npz and model.pkl params equal the uninterrupted run bitwise")
-    tmp.cleanup()
 
     # --- 7 ---------------------------------------------------------------
     phase(7, "times at the slice's shapes (batch 100, D 12, L 20)")
@@ -312,6 +328,8 @@ def main() -> int:
         "library_ms": None}
 
     records = [k1_record] + _sweeps(torch, np, smi, builds["mlp_vae"][1])
+    records += _grids(torch, np, smi, run_dir, data_dir)
+    tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -542,6 +560,268 @@ def _sweeps(torch, np, smi, mlp_build):
     return records
 
 
+def _grids(torch, np, smi, solo_dir, data_dir):
+    """Phases 14–17: K6a, the grid mode of the linear kernel, on the linear
+    sweep's 21 rows (K1 rows) and the sigmoid sweep's 18 rows (K2 rows).
+    ``solo_dir`` is phase 5's solo CLI run. Returns K6a's records."""
+    from vae_training_tpu_torch._scripts import sweep
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.train import step as torch_step
+    from vae_training_tpu_torch.train.grid import GridTrainer
+
+    dev = torch.device("cuda")
+    families = {}
+    for which in ("linear", "sigmoid"):
+        cfgs = list(sweep.sweep_configs(which, data_dir, 64, "cuda"))
+        seeds = sweep.SWEEP_SEEDS[which]
+        groups = {}
+        for cfg in cfgs:
+            groups.setdefault((cfg.dataset_dimension, cfg.padding_dim,
+                               cfg.latent_dimension), cfg)
+        grids = [GridTrainer(cfg, seeds, build_chunk=False) for cfg in groups.values()]
+        rows = [(g.model, ds, st) for g in grids for ds, st in zip(g.datasets, g.states)]
+        c0 = cfgs[0]
+        families[which] = dict(
+            rows=rows, dual=which == "sigmoid",
+            kw=dict(batch=c0.batch_size, eps_const=c0.epsilon, tdv=True,
+                    lr=c0.learning_rate))
+
+    def grid_rows(rows):
+        return [k1.GridRow(ds.dimension, model.latent_dim, ds.intrinsic_dim, ds.dim, ds.A,
+                           st.step, st.count, st.data_seed, st.model_seed, ds.var_added)
+                for model, ds, st in rows]
+
+    # --- 14 --------------------------------------------------------------
+    phase(14, "K6a vs solo K1/K2 launches on the card: the linear sweep's 21 rows and "
+              "the sigmoid sweep's 18, 64 steps")
+    errs = {}
+    for which, fam in families.items():
+        dual, kw, grows = fam["dual"], fam["kw"], grid_rows(fam["rows"])
+        states = [st for _, _, st in fam["rows"]]
+        need = max(k1.smem_bytes(B, r.data_dim, r.latent_dim, r.intrinsic_dim,
+                                 r.manifold_dim, dual) for r in grows)
+        require(need == max(k1.kernel_smem_bytes(B, r.data_dim, r.latent_dim, r.intrinsic_dim,
+                                                 r.manifold_dim, dual) for r in grows),
+                f"{which}: the library's shared-memory layout equals kernels/linear_vae.py's")
+        print(f"{which}: {len(grows)} rows, up to {need} B of shared memory a block, "
+              f"{k1.blocks_per_sm(need, dual)} block(s) of the kernel fit an SM")
+        p, m, v = k1.pack_rows(states, grows, dual)
+        losses = k1.run_grid_chunk(p, m, v, grows, n_steps=64, dual=dual, **kw)
+        for i, (st, r) in enumerate(zip(states, grows)):
+            sp, sm, sv = k1.pack_state(st, r.data_dim, r.latent_dim, dual)
+            solo = k1.run_fused_chunk(
+                sp, sm, sv, r.a, n_steps=64, data_dim=r.data_dim, latent_dim=r.latent_dim,
+                intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+                t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
+                var_added=r.var_added, dual=dual, **kw)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(losses[i]).all()), f"{which} row {i}: finite losses")
+            require(torch.equal(losses[i], solo), f"{which} row {i}: losses equal the solo "
+                                                  f"launch's bitwise")
+            for name, got, want in zip("pmv", k1.row_views(p, m, v, grows, dual)[i],
+                                       (sp, sm, sv)):
+                require(torch.equal(got, want), f"{which} row {i}: {name} equals the solo "
+                                                f"launch's bitwise")
+        print(f"{which}: every row's losses, p, m and v equal its solo "
+              f"{'K2' if dual else 'K1'} launch bitwise")
+
+        # external noise: K6a against its plain version, K1's tolerances
+        n = 32
+        rs = np.random.RandomState(14)
+        noise = []
+        for r in grows:
+            z = rs.randn(n, B, r.intrinsic_dim).astype(np.float32)
+            a = r.a.cpu().numpy()
+            if dual:
+                x = np.concatenate([z, 1 / (1 + np.exp(-(z @ a))), np.zeros(
+                    (n, B, r.data_dim - r.manifold_dim - 1), np.float32)], axis=-1)
+            else:
+                x = np.zeros((n, B, r.data_dim), np.float32)
+                x[:, :, :r.manifold_dim] = z @ a.T
+            noise.append(tuple(torch.as_tensor(t.astype(np.float32), device=dev) for t in (
+                x, rs.randn(n, B, r.latent_dim), rs.randn(n, B, r.data_dim))))
+        kb = k1.pack_rows(states, grows, dual)
+        pb = tuple(t.clone() for t in kb)
+        kl = k1.run_grid_chunk(*kb, grows, n_steps=n, dual=dual, external_noise=noise, **kw)
+        pl = k1.plain_grid_chunk(*pb, grows, n_steps=n, dual=dual, external_noise=noise, **kw)
+        torch.cuda.synchronize()
+        worst = []
+        for name, a, b in (("losses", kl, pl), ("params", kb[0], pb[0]), ("m", kb[1], pb[1]),
+                           ("v", kb[2], pb[2])):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            require(bool(np.all(np.isfinite(a))), f"{which} {name} finite")
+            np.testing.assert_allclose(a, b, *TOL[name], err_msg=f"K6a {which} {name}")
+            worst.append(float(np.abs(a - b).max()))
+        errs[which] = max(worst)
+        print(f"{which} external noise, K6a vs plain_grid_chunk ({n} steps): max |Δ| losses "
+              f"{worst[0]:.2e} params {worst[1]:.2e} m {worst[2]:.2e} v {worst[3]:.2e}")
+
+        a = k1.pack_rows(states, grows, dual)
+        b = tuple(t.clone() for t in a)
+        la = k1.run_grid_chunk(*a, grows, n_steps=40, dual=dual, **kw)
+        later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in grows]
+        lb = torch.cat([k1.run_grid_chunk(*b, grows, n_steps=15, dual=dual, **kw),
+                        k1.run_grid_chunk(*b, later, n_steps=25, dual=dual, **kw)], dim=1)
+        torch.cuda.synchronize()
+        require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"K6a {which}: a 40-step launch equals a 15 + 25 split bitwise")
+        print(f"{which}: K6a chunk split 40 = 15 + 25 bitwise equal")
+
+    # --- 15 --------------------------------------------------------------
+    phase(15, "--seed_grid 2,3,4 through the CLI at linear row 1, 12000 steps, "
+              "--kernels cuda")
+    counters = (k1.run_grid_chunk, k1.run_fused_chunk)
+    for c in counters:
+        c.launches = 0
+    torch_step.train_chunk.calls = 0
+    k1.plain_grid_chunk.calls = 0
+    cfg = parse_arguments(["grid", *ROW1, "--num_batches", "12000", "--kernels", "cuda",
+                           "--device", "cuda", "--data_dir", data_dir, "--seed_grid", "2,3,4"])
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run_main(cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    out = buf.getvalue()
+    grid_launches, solo_launches = (c.launches for c in counters)
+    plain = torch_step.train_chunk.calls + k1.plain_grid_chunk.calls
+    print("\n".join(ln for ln in out.splitlines()
+                    if ln.startswith(("[kernels]", "[seed 2]"))))
+    print(f"seed grid: rc {rc}, {secs:.2f} s for 3 rows, K6a launches {grid_launches}, "
+          f"solo K1 launches {solo_launches}, plain chunks {plain}")
+    require(rc == 0, "the seed grid's main() returned 0")
+    require("[kernels] cuda: K6a" in out, "the [kernels] line names K6a")
+    # chunks 0-5000, 5000-10000, 10000-11999, 11999-12000: one launch each
+    require(grid_launches == 4, f"one K6a launch a chunk (4 chunks, got {grid_launches})")
+    require(solo_launches == 0 and plain == 0, "no solo K1 launch and no plain chunk")
+    _require_same_run(np, solo_dir, os.path.join(data_dir, "grid_seed2"))
+    print("row seed2's losses.npz and model.pkl equal phase 5's solo run bitwise")
+
+    # --- 16 --------------------------------------------------------------
+    phase(16, "the sweep runner, --grouped, on the card: linear (21 runs) and sigmoid "
+              "(18 runs), 12000 steps")
+
+    def run_sweep(which, sub, num_batches, *extra):
+        for c in counters:
+            c.launches = 0
+        torch_step.train_chunk.calls = 0
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep.main([which, "--grouped", "--kernels", "cuda", "--num_batches",
+                             str(num_batches), "--data_dir", os.path.join(data_dir, sub),
+                             *extra])
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t, [c.launches for c in counters]
+
+    sweep_launches = {}
+    for which, rows in (("linear", 21), ("sigmoid", 18)):
+        rc, out, secs, (grid_n, solo_n) = run_sweep(which, which, 12000)
+        sweep_launches[which] = grid_n
+        acct = [ln for ln in out.splitlines() if ln.startswith("[sweep]")]
+        print("\n".join(ln for ln in out.splitlines() if ln.startswith("[kernels]")))
+        print("\n".join(acct))
+        print(f"{which} sweep: rc {rc}, {secs:.2f} s, K6a launches {grid_n}, solo launches "
+              f"{solo_n}, plain chunks {torch_step.train_chunk.calls}")
+        require(rc == 0, f"{which} sweep returned 0")
+        require(f"[kernels] cuda: K6a, the grid mode of the fused linear-VAE kernel, {rows} "
+                f"rows in one launch a chunk" in out, f"{which}: one launch over {rows} rows")
+        require(grid_n == 4 and solo_n == 0 and torch_step.train_chunk.calls == 0,
+                f"{which}: one K6a launch a chunk and nothing else")
+        require(any("wall accounting: banners" in ln for ln in acct),
+                f"{which}: the wall-accounting line")
+        falling = 0
+        for c in sweep.sweep_configs(which, data_dir, 12000, "cuda"):
+            trace = np.load(os.path.join(data_dir, which, c.name, "losses.npz"))["VAE Loss"]
+            require(bool(np.all(np.isfinite(trace))) and trace.shape == (12003,),
+                    f"{c.name}: finite loss trace of 12000 steps + 3 evals")
+            falling += bool(trace[-100:].mean() < trace[0])
+        print(f"{which}: the last 100 steps' mean loss is below the step-0 eval's in "
+              f"{falling} of {rows} runs")
+        require(falling == rows, f"{which}: every run's loss falls")
+    rc1, _, _, _ = run_sweep("linear", "linear_resumed", 7000)
+    rc2, _, _, (grid_n, _) = run_sweep("linear", "linear_resumed", 12000, "--resume")
+    require(rc1 == 0 and rc2 == 0 and grid_n > 0, "the stopped and resumed sweeps ran on K6a")
+    for c in sweep.sweep_configs("linear", data_dir, 12000, "cuda"):
+        _require_same_run(np, os.path.join(data_dir, "linear", c.name),
+                          os.path.join(data_dir, "linear_resumed", c.name))
+    print("linear sweep --resume from 7000 to 12000: all 21 runs equal the uninterrupted "
+          "sweep bitwise")
+
+    # --- 17 --------------------------------------------------------------
+    phase(17, "times: K6a against sequential solo launches and its plain version")
+    records = []
+    for which, fam in families.items():
+        dual, kw, grows = fam["dual"], fam["kw"], grid_rows(fam["rows"])
+        states = [st for _, _, st in fam["rows"]]
+        n_rows, steps = len(grows), 5000
+        kb = k1.pack_rows(states, grows, dual)
+        pb = tuple(t.clone() for t in kb)
+        solo_bufs = [k1.pack_state(st, r.data_dim, r.latent_dim, dual)
+                     for st, r in zip(states, grows)]
+
+        def grid_call():
+            k1.run_grid_chunk(*kb, grows, n_steps=steps, dual=dual, **kw)
+
+        def solo_call():
+            for bufs, r in zip(solo_bufs, grows):
+                k1.run_fused_chunk(
+                    *bufs, r.a, n_steps=steps, data_dim=r.data_dim, latent_dim=r.latent_dim,
+                    intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim,
+                    step0=r.step0, t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
+                    var_added=r.var_added, dual=dual, **kw)
+
+        def plain_call():
+            k1.plain_grid_chunk(*pb, grows, n_steps=2, dual=dual, **kw)
+
+        rates = {}
+        for name, fn, n in (("plain", plain_call, 2), ("grid", grid_call, steps),
+                            ("solo", solo_call, steps), ("solo2", solo_call, steps),
+                            ("grid2", grid_call, steps), ("plain2", plain_call, 2)):
+            rates[name] = _steps_per_second(torch, fn, n)  # launch-steps a second
+        g_rate = max(rates["grid"], rates["grid2"])
+        s_rate = max(rates["solo"], rates["solo2"])
+        p_rate = max(rates["plain"], rates["plain2"])
+        flops = sum(linear_flops(B, r.data_dim, r.latent_dim, r.intrinsic_dim, r.manifold_dim,
+                                 dual) for r in grows)
+        state_bytes = sum(6 * 4 * k1.n_params(r.data_dim, r.latent_dim, dual) for r in grows)
+        bound = _bound(flops, state_bytes, steps, losses_per_step=n_rows)
+        print(f"card: {smi}")
+        print(f"K6a {which}, {n_rows} rows, {steps}-step launches: {rates['grid']:.1f} / "
+              f"{rates['grid2']:.1f} launch-steps/s ({1e3 / g_rate:.5f} ms a launch-step, "
+              f"{g_rate * n_rows:.1f} row-steps/s)")
+        print(f"sequential solo {'K2' if dual else 'K1'} launches of the same rows: "
+              f"{rates['solo'] * n_rows:.1f} / {rates['solo2'] * n_rows:.1f} row-steps/s "
+              f"(K6a {g_rate / s_rate:.2f}x)")
+        print(f"plain_grid_chunk: {rates['plain']:.3f} / {rates['plain2']:.3f} launch-steps/s "
+              f"({1e3 / p_rate:.3f} ms a launch-step)")
+        print(f"K6a {which} bound {bound['bound_ms'] * 1e3:.4f} us a launch-step "
+              f"({bound['bound_by']}; {flops / 1e6:.3f} MFLOP), kernel at "
+              f"{bound['bound_ms'] * g_rate / 10:.4f}% of it")
+        records.append({
+            "name": f"linear_vae_grid_chunk (K6a), {which} sweep, {n_rows} rows",
+            "route": "cuda", "source": "vae_training_tpu_torch/csrc/linear_vae.cu",
+            "replaces": "vae_training_tpu/kernels/linear_vae.py:678",
+            "launches": sweep_launches[which], "max_abs_err": errs[which],
+            "ms": 1e3 / g_rate, "plain_ms": 1e3 / p_rate, **bound, "library_ms": None})
+
+    # rows against the launch-step time: do rows share SMs past one per SM?
+    fam = families["linear"]
+    base = grid_rows(fam["rows"])[0]
+    state0 = fam["rows"][0][2]
+    for n_rows in (1, 21, 132, 264):
+        grows = [base] * n_rows
+        bufs = k1.pack_rows([state0] * n_rows, grows)
+        rate = _steps_per_second(torch, lambda: k1.run_grid_chunk(
+            *bufs, grows, n_steps=1000, **fam["kw"]), 1000)
+        print(f"K6a with {n_rows:3d} copies of linear row 1: {1e3 / rate:.5f} ms a "
+              f"launch-step ({rate * n_rows:.1f} row-steps/s)")
+    return records
+
+
 def linear_flops(batch, data_dim, latent_dim, intrinsic_dim, manifold_dim, dual):
     """Operations of one K1/K2 step at these shapes: 2 per multiply-add of
     each product (the manifold draw; x·We, s·Wd, g_Wd, g_s, g_We; with the
@@ -564,13 +844,13 @@ def mlp_flops(batch, enc, dec):
     return 2 * batch * (3 * macs - enc[0] * enc[1]) + 12 * n_p
 
 
-def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk):
+def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_step=1):
     """The least time one step could take on the card: the larger of the
     operations over the fp32 peak and the bytes over the memory rate: the
     state read and written once per chunk of ``steps_per_chunk`` steps, and
-    each step's loss written."""
+    each step's losses (one a row) written."""
     t_ops = flops_per_step / FP32_PEAK
-    t_bytes = (state_bytes_per_chunk / steps_per_chunk + 4) / HBM_RATE
+    t_bytes = (state_bytes_per_chunk / steps_per_chunk + 4 * losses_per_step) / HBM_RATE
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 

@@ -1,5 +1,5 @@
-"""K1, K2 and K5 on the card: the CUDA kernels against their plain PyTorch
-versions.
+"""K1, K2, K5 and K6a on the card: the CUDA kernels against their plain
+PyTorch versions, and K6a's rows against the solo kernel.
 
 These tests need a CUDA device of compute capability 9.0 and nvcc; they
 carry the ``cuda`` marker and skip elsewhere. The file imports no JAX, so on
@@ -12,6 +12,8 @@ tests/test_mlp_kernel.py for K5: both sides are fp32, and only summation
 order and libm ulps differ (K5's 200-term sums through four layers each way
 compound more of them).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -237,3 +239,91 @@ def test_k5_is_chunk_independent(cuda_device):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
+
+
+# --- K6a: the grid mode of the linear kernel, mixed-dims rows ------------------
+LIN_ROWS = [(3, 9, 20), (6, 14, 20), (9, 11, 10), (12, 8, 10)]  # (dd, pd, ld)
+SIG_ROWS = [(3, 3, 6), (5, 16, 16), (7, 20, 24)]
+
+
+def _grid(device, dual, tdv=True):
+    """Rows of the linear (K1) or sigmoid (K2) sweep, each with its own
+    dataset seed, init and counters: (states, GridRows)."""
+    states, rows = [], []
+    for i, (dd, pd, ld) in enumerate(SIG_ROWS if dual else LIN_ROWS):
+        if dual:
+            ds = SigmoidDataset.create(69 + i, dd, pd, device=device)
+        else:
+            ds = LinearGaussianDataset.create(2 + i, dd, dd, pd, device=device)
+        model = build_vae(data_dim=ds.dimension, latent_dim=ld, epsilon=-3.0 if dual else -1.0,
+                          tunable_decoder_var=tdv, dataset_name="sigmoid" if dual else None)
+        model.init_parameters(i)
+        state = TrainState.create(dict(model.named_parameters()),
+                                  rng.derive_seed(2 + i, 1), rng.derive_seed(0, 3)).to(device)
+        state.step, state.count = 11 * i, 11 * i
+        states.append(state)
+        rows.append(k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim, ds.A, state.step,
+                               state.count, state.data_seed, state.model_seed,
+                               0.25 if (not dual and i == 1) else 0.0))
+    return states, rows
+
+
+def _grid_kw(dual, tdv=True):
+    return dict(batch=B, eps_const=-3.0 if dual else -1.0, tdv=tdv,
+                lr=1e-4 if dual else 1e-3, dual=dual)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True], ids=["K1-rows", "K2-rows"])
+def test_k6a_rows_equal_solo_launches_bitwise(cuda_device, dual):
+    states, rows = _grid(cuda_device, dual)
+    p, m, v = k1.pack_rows(states, rows, dual)
+    losses = k1.run_grid_chunk(p, m, v, rows, n_steps=48, **_grid_kw(dual))
+    kw = _grid_kw(dual)
+    for i, (state, r) in enumerate(zip(states, rows)):
+        sp, sm, sv = k1.pack_state(state, r.data_dim, r.latent_dim, dual)
+        solo = k1.run_fused_chunk(
+            sp, sm, sv, r.a, n_steps=48, batch=B, data_dim=r.data_dim, latent_dim=r.latent_dim,
+            intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+            t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=r.var_added,
+            eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual)
+        torch.cuda.synchronize()
+        assert torch.equal(losses[i], solo), f"row {i} losses"
+        for got, want in zip(k1.row_views(p, m, v, rows, dual)[i], (sp, sm, sv)):
+            assert torch.equal(got, want), f"row {i} state"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True], ids=["K1-rows", "K2-rows"])
+def test_k6a_matches_plain(cuda_device, dual):
+    n = 16
+    states, rows = _grid(cuda_device, dual)
+    rs = np.random.RandomState(3)
+    noise = [tuple(torch.as_tensor(rs.randn(n, B, d).astype(np.float32), device=cuda_device)
+                   for d in (r.data_dim, r.latent_dim, r.data_dim)) for r in rows]
+    kb = k1.pack_rows(states, rows, dual)
+    pb = tuple(t.clone() for t in kb)
+    for ext in (noise, None):
+        kl = k1.run_grid_chunk(*kb, rows, n_steps=n, external_noise=ext, **_grid_kw(dual))
+        pl = k1.plain_grid_chunk(*pb, rows, n_steps=n, external_noise=ext, **_grid_kw(dual))
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=5e-4, atol=5e-5)
+        np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=5e-4, atol=1e-6)
+        np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=5e-4, atol=1e-7)
+        rows = [dataclasses.replace(r, step0=r.step0 + n, t0=r.t0 + n) for r in rows]
+
+
+@pytest.mark.cuda
+def test_k6a_is_chunk_independent(cuda_device):
+    states, rows = _grid(cuda_device, False)
+    a = k1.pack_rows(states, rows)
+    b = tuple(t.clone() for t in a)
+    la = k1.run_grid_chunk(*a, rows, n_steps=40, **_grid_kw(False))
+    lb1 = k1.run_grid_chunk(*b, rows, n_steps=15, **_grid_kw(False))
+    later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in rows]
+    lb2 = k1.run_grid_chunk(*b, later, n_steps=25, **_grid_kw(False))
+    torch.cuda.synchronize()
+    assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

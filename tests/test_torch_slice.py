@@ -215,7 +215,7 @@ def test_cpu_kernel_wrapper_runs_the_plain_chunk():
     (["--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
     (["--adam_dtype", "bf16"], NotImplementedError, "K4"),
-    (["--seed_grid", "2,3"], NotImplementedError, "item 8"),
+    (["--seed_grid", "2,3", "--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
     (["--dataset", "gaussian"], NotImplementedError, "not yet ported"),
 ])
 def test_no_silent_fallback_and_unported_flags(tmp_path, extra, exc, match):

@@ -6,7 +6,8 @@
 (console script ``vae-train-torch``). Port of
 ``vae_training_tpu/_scripts/run.py:32-103``: validate the config, make the
 output dir and args.json, build the dataset and the trainer, train, final
-save. ``--device`` names the device; ``--kernels`` the backend.
+save; ``--seed_grid`` routes to ``train/grid.py:run_seed_grid``.
+``--device`` names the device; ``--kernels`` the backend.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ def main(cfg: RunConfig) -> int:
     else:
         name = "cpu"
     print(f"device: {cfg.device} ({name})", file=sys.stderr, flush=True)
+    if cfg.seed_grid:
+        from vae_training_tpu_torch.train.grid import run_seed_grid
+
+        return run_seed_grid(cfg, cfg.grid_seeds())
     # Resuming in place reuses the run's own directory; resuming from
     # another run into a fresh name keeps the refuse-to-clobber guarantee.
     own_dir = os.path.join(cfg.data_dir or "data", cfg.name)

@@ -90,6 +90,14 @@ class RunConfig:
     def latent_dim(self) -> int:
         return self.latent_dimension
 
+    def grid_seeds(self) -> list:
+        """``--seed_grid 2,3,4`` → [2, 3, 4] (empty without the flag)."""
+        try:
+            return [int(s) for s in self.seed_grid.split(",") if s.strip()]
+        except ValueError:
+            raise ValueError(f"--seed_grid expects comma-separated integers, "
+                             f"got {self.seed_grid!r}") from None
+
     def validate(self) -> "RunConfig":
         from .data.registry import check_dataset_name
 
@@ -111,8 +119,6 @@ class RunConfig:
             "--adam_dtype bf16": (self.adam_dtype == "bf16",
                                   "ROADMAP Queue 2 K4 (bf16 Adam moments)"),
             "--mesh": (bool(self.mesh), "ROADMAP Queue 1 item 11 (parallel)"),
-            "--seed_grid": (bool(self.seed_grid),
-                            "ROADMAP Queue 1 item 8 (seed grids, with K6)"),
             "--multihost": (self.multihost, "ROADMAP Queue 1 item 11 (parallel)"),
             "--ckpt_backend orbax": (self.ckpt_backend == "orbax",
                                      "ROADMAP Queue 1 item 12 (orbax is left out)"),
@@ -126,6 +132,8 @@ class RunConfig:
             "--profile": (self.profile, "ROADMAP Queue 1 item 6 (torch.profiler)"),
             "--debug_nans": (self.debug_nans, "ROADMAP Queue 1 item 1"),
         }
+        if self.seed_grid and not self.grid_seeds():
+            raise ValueError(f"--seed_grid names no seed: {self.seed_grid!r}")
         for flag, (used, item) in not_ported.items():
             if used:
                 raise NotImplementedError(
@@ -199,14 +207,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "cuda = the kernel or an error; torch = plain PyTorch.")
     p.add_argument("--model_seed", dest="model_seed", type=int, default=0)
     p.add_argument("--resume", dest="resume", default=None,
-                   help="Checkpoint directory to resume training from.")
+                   help="Checkpoint directory to resume training from. With "
+                        "--seed_grid, any non-empty value resumes every row "
+                        "from its own <name>_seed<N>/ checkpoint.")
     p.add_argument("--profile", dest="profile", action="store_true",
                    help="Profile one training chunk (not yet ported).")
     p.add_argument("--debug_nans", dest="debug_nans", action="store_true")
     p.add_argument("--data_dir", dest="data_dir", default="data")
     p.add_argument("--checkpoint_every", dest="checkpoint_every", type=int, default=0)
     p.add_argument("--seed_grid", dest="seed_grid", default="",
-                   help="Comma-separated dataset seeds (not yet ported).")
+                   help="Comma-separated dataset seeds, e.g. '2,3,4': trains "
+                        "every seed together, one kernel launch a chunk; "
+                        "outputs land in <name>_seed<N>/.")
     p.add_argument("--arch", dest="arch", default="auto",
                    choices=["auto", "mlp", "conv"])
     p.add_argument("--conv_channels", dest="conv_channels", default="32|64")

@@ -1,11 +1,12 @@
 // Fused multi-step linear-VAE training kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel vae_training_tpu/kernels/linear_vae.py:_make_kernel
-// (launched by run_fused_chunk, linear_vae.py:678) in solo mode, in its two
-// branches: K1, the linear_gaussian dataset (dataset_kind="linear",
-// dual=False), and K2, the sigmoid dataset with the dual decoder
-// (dataset_kind="sigmoid", dual=True; the kDual instantiation). One launch
-// runs K training steps; per step:
+// (launched by run_fused_chunk, linear_vae.py:678) in its two branches: K1,
+// the linear_gaussian dataset (dataset_kind="linear", dual=False), and K2,
+// the sigmoid dataset with the dual decoder (dataset_kind="sigmoid",
+// dual=True; the kDual instantiation), each in solo mode and in grid mode
+// (K6a, grid_n > 0: many sweep rows in one launch). One launch runs K
+// training steps; per step:
 //
 //   Philox4x32-10 -> Box-Muller normals -> x = pad(n·Aᵀ) (+ obs noise)
 //                                          [K2: x = [n, σ(n·a), 0]]
@@ -18,17 +19,29 @@
 // included, as the flax model applies it (networks.py:78-79); the TPU
 // kernel's mask removes only its lanes beyond D.
 //
-// What bounds it on this card: latency, not FLOPs or bytes. The slice's
-// step (batch 100, D=12, L=20) is ~30 kFLOP spread over eight dependent
-// phases, and step i+1 needs step i's parameters, so the chunk is serial.
-// The design keeps the whole state (params, Adam m and v, ~6.4 KB at the
-// slice's shapes) and every per-step activation in one CTA's shared memory
-// for the whole chunk: device memory is touched once per chunk, and a step
-// costs eight __syncthreads-separated phases on one SM. The products are
-// FMA loops in which each thread owns output elements (no tensor cores),
-// and every reduction has a fixed order (no atomics), so runs repeat
-// bitwise and a resumed run equals an uninterrupted one. One CTA per sweep
-// row (the grid mode, K6) is what will fill the other SMs.
+// What bounds it on this card: latency, not FLOPs or bytes. The linear
+// sweep's row 1 (batch 100, D=12, L=20) is 248 kFLOP a step (five
+// 48-kFLOP products, the manifold draw, 12 FLOP a parameter for Adam)
+// spread over eight dependent phases, and step i+1 needs step i's
+// parameters, so the chunk is serial. The design keeps a row's whole state
+// (params, Adam m and v, ~6.4 KB at row 1) and every per-step activation in
+// one CTA's shared memory for the whole chunk: device memory is touched
+// once per chunk, and a step costs eight __syncthreads-separated phases on
+// one SM. The products are FMA loops in which each thread owns output
+// elements (no tensor cores), and every reduction has a fixed order (no
+// atomics), so runs repeat bitwise and a resumed run equals an
+// uninterrupted one.
+//
+// Grid mode (K6a; the TPU kernel's grid_n > 0, linear_vae.py:537-696): one
+// CTA per sweep row, gridDim.x = rows. Each row's pointers, dims (D, L,
+// intrinsic, manifold), counters and Philox keys come from a device table
+// of Row records (the TPU kernel's scalar-prefetch rows [seed, t0, dd, ld,
+// id]), so rows of different dims share a launch (the mixed sweep); batch,
+// step count, ε, -tdv, lr and the decoder head are uniform. Each block
+// carves its shared memory from its own row's dims, and the launch asks for
+// the largest row's. A solo launch is the same kernel with one row passed
+// by value: solo and grid run one compiled body, so a grid row equals the
+// solo launch from the same state and seeds bitwise.
 //
 // The TPU kernel's 128-lane padding, row/column masks, live-row slicing and
 // packed lane-window noise are layout devices of the TPU and are not carried
@@ -47,6 +60,25 @@
 
 #include "philox.cuh"
 
+// One sweep row of a launch. Plain data in natural alignment:
+// kernels/linear_vae.py's ctypes Row mirrors it field by field, and
+// linear_vae_row_bytes lets the wrapper hold the two to one size.
+struct Row {
+  float* p;             // params (P), updated in place
+  float* m;             // Adam m (P)
+  float* v;             // Adam v (P)
+  float* losses;        // (n_steps) per-step losses
+  const float* a;       // A (dd × id), or the sigmoid's column a (dd)
+  const float* ext_x;   // external noise (n_steps × B × D), or null
+  const float* ext_z1;  // (n_steps × B × L)
+  const float* ext_z2;  // (n_steps × B × D)
+  int D, L, id, dd;     // ambient, latent, intrinsic and manifold dims
+  unsigned int step0;   // absolute step of the first step (Philox counter)
+  int t0;               // Adam count before it
+  unsigned int dk0, dk1, mk0, mk1;  // data and model key words
+  float obs_scale;      // observation-noise sd (0: none)
+};
+
 namespace {
 
 using namespace philox;
@@ -59,6 +91,7 @@ constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
 constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
 constexpr float kAdamEps = 1e-8f;
 constexpr float kLog2Pi = 1.8378770664093453f;
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may use (227 KB)
 
 // Flat parameter layout (shared with kernels/linear_vae.py:param_layout):
 // [We (D×L) | be (L) | Wd (L×D) | bd (D) | epsilon_p (L) | epsilon (1)]
@@ -80,8 +113,10 @@ __host__ __device__ inline size_t smem_floats(int B, int D, int L, int id, int d
 
 __device__ __forceinline__ float sigmoidf(float u) { return 1.0f / (1.0f + expf(-u)); }
 
+// One row's K-step chunk, run by one CTA. The only body of the kernel: solo
+// and grid launches differ in where the block reads its Row, nothing else.
 template <bool kDual>
-__global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
+__device__ __forceinline__ void train_row(
     float* __restrict__ g_p, float* __restrict__ g_m, float* __restrict__ g_v,
     float* __restrict__ losses, const float* __restrict__ g_a,
     const float* __restrict__ ext_x, const float* __restrict__ ext_z1,
@@ -379,6 +414,18 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
   }
 }
 
+// Solo launches pass their one row by value (rows == nullptr); grid
+// launches (K6a) pass the device table, one row per block.
+template <bool kDual>
+__global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
+    Row solo, const Row* __restrict__ rows, int n_steps, int B, float eps_const, int tdv,
+    float lr) {
+  const Row r = rows != nullptr ? rows[blockIdx.x] : solo;
+  train_row<kDual>(r.p, r.m, r.v, r.losses, r.a, r.ext_x, r.ext_z1, r.ext_z2, n_steps, B,
+                   r.D, r.L, r.id, r.dd, r.step0, r.t0, r.dk0, r.dk1, r.mk0, r.mk1,
+                   r.obs_scale, eps_const, tdv, lr);
+}
+
 // Raw sampler output for the bitwise check against ops/rng.py: words and
 // normals at counters (step, row, draw, stream), laid out (rows, n_draws, 4).
 __global__ void philox_normals_kernel(uint32_t* __restrict__ words,
@@ -400,21 +447,28 @@ __global__ void philox_normals_kernel(uint32_t* __restrict__ words,
   for (int q = 0; q < 4; ++q) normals[4 * i + q] = n[q];
 }
 
+size_t row_smem_bytes(int B, const Row& r, bool dual) {
+  return smem_floats(B, r.D, r.L, r.id, r.dd, dual) * sizeof(float);
+}
+
 template <bool kDual>
-int launch(float* p, float* m, float* v, float* losses, const float* a, const float* ext_x,
-           const float* ext_z1, const float* ext_z2, int n_steps, int B, int D, int L, int id,
-           int dd, unsigned int step0, int t0, unsigned int dk0, unsigned int dk1,
-           unsigned int mk0, unsigned int mk1, float obs_scale, float eps_const, int tdv,
-           float lr, void* stream) {
-  const size_t bytes = smem_floats(B, D, L, id, dd, kDual) * sizeof(float);
+int launch(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_steps, int B,
+           float eps_const, int tdv, float lr, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(linear_vae_chunk_kernel<kDual>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  linear_vae_chunk_kernel<kDual><<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L, id, dd, step0, t0, dk0,
-      dk1, mk0, mk1, obs_scale, eps_const, tdv, lr);
+  linear_vae_chunk_kernel<kDual>
+      <<<n_rows, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          solo, rows, n_steps, B, eps_const, tdv, lr);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_rows(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_steps,
+                int B, int dual, float eps_const, int tdv, float lr, void* stream) {
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  return dual ? launch<true>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr, stream)
+              : launch<false>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr, stream);
 }
 
 }  // namespace
@@ -429,18 +483,45 @@ const char* linear_vae_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+size_t linear_vae_row_bytes() { return sizeof(Row); }
+
 int linear_vae_chunk(float* p, float* m, float* v, float* losses, const float* a,
                      const float* ext_x, const float* ext_z1, const float* ext_z2,
                      int n_steps, int B, int D, int L, int id, int dd, int dual,
                      unsigned int step0, int t0, unsigned int dk0, unsigned int dk1,
                      unsigned int mk0, unsigned int mk1, float obs_scale,
                      float eps_const, int tdv, float lr, void* stream) {
-  return dual ? launch<true>(p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L,
-                             id, dd, step0, t0, dk0, dk1, mk0, mk1, obs_scale,
-                             eps_const, tdv, lr, stream)
-              : launch<false>(p, m, v, losses, a, ext_x, ext_z1, ext_z2, n_steps, B, D, L,
-                              id, dd, step0, t0, dk0, dk1, mk0, mk1, obs_scale,
-                              eps_const, tdv, lr, stream);
+  const Row row{p, m, v, losses, a, ext_x, ext_z1, ext_z2, D, L, id, dd,
+                step0, t0, dk0, dk1, mk0, mk1, obs_scale};
+  return launch_rows(row, nullptr, 1, row_smem_bytes(B, row, dual != 0), n_steps, B, dual,
+                     eps_const, tdv, lr, stream);
+}
+
+// K6a: ``n_rows`` rows in one launch, one block each. ``rows_host`` and
+// ``rows_dev`` hold the same table; the host copy sizes the launch's
+// shared memory to its largest row.
+int linear_vae_grid_chunk(const Row* rows_host, const Row* rows_dev, int n_rows, int n_steps,
+                          int B, int dual, float eps_const, int tdv, float lr,
+                          void* stream) {
+  if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  size_t bytes = 0;
+  for (int i = 0; i < n_rows; ++i) {
+    const size_t b = row_smem_bytes(B, rows_host[i], dual != 0);
+    if (b > bytes) bytes = b;
+  }
+  return launch_rows(Row{}, rows_dev, n_rows, bytes, n_steps, B, dual, eps_const, tdv, lr,
+                     stream);
+}
+
+// How many blocks of the kernel one SM can hold at ``bytes`` of dynamic
+// shared memory (the grid mode asks whether rows share SMs).
+int linear_vae_blocks_per_sm(int dual, size_t bytes, int* blocks) {
+  const auto kernel = dual ? linear_vae_chunk_kernel<true> : linear_vae_chunk_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, bytes));
 }
 
 int philox_normals(unsigned int* words, float* normals, int rows, int n_draws,

@@ -13,11 +13,20 @@ Port of ``vae_training_tpu/kernels/dispatch.py:19-40``. ``--kernels``:
 
 Either way one line names the path taken and why. There is no fallback
 after the choice: a kernel that fails to build or launch raises.
+
+``make_grid_chunk`` makes the same choice for the rows of a seed grid or a
+one-launch sweep (``train/grid.py``, ``train/mixed_grid.py``): K6a, the
+grid mode of the linear kernel, over every row in one launch per chunk
+(on the CPU its plain version, one plain chunk per row); else K5 in one
+solo launch per row, until its grid mode K6b is ported (ROADMAP Queue 2
+item 1); else the torch path row by row.
 """
 
 from __future__ import annotations
 
 from functools import partial
+
+import torch
 
 from ..train import step as torch_step
 
@@ -51,3 +60,61 @@ def make_train_chunk(model, dataset, cfg):
     print(f"[kernels] torch: plain PyTorch path ({why})", flush=True)
     return partial(torch_step.train_chunk, model, dataset,
                    batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
+
+
+def make_grid_chunk(models, datasets, cfg):
+    """→ ``chunk(states, n_steps, noises=None)`` over grid rows (one model,
+    dataset and config each; ``cfg`` may be one config for all), returning
+    (states, (rows, n_steps) losses), for the configured backend."""
+    from . import linear_vae, mlp_vae
+
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
+    cfg0, n = cfgs[0], len(models)
+    if cfg0.kernels == "torch":
+        why = "--kernels torch"
+    elif cfg0.nojit:
+        if cfg0.kernels == "cuda":
+            raise ValueError("-nojit selects the plain torch path; drop --kernels cuda")
+        why = "-nojit: step-through debugging on the torch path"
+    else:
+        ok, why_grid = linear_vae.grid_supported(models, datasets, cfgs)
+        on_card, why_dev = linear_vae.cuda_device_ok(cfg0)
+        if ok and on_card:
+            print(f"[kernels] cuda: K6a, the grid mode of the fused linear-VAE kernel, "
+                  f"{n} rows in one launch a chunk ({why_grid})", flush=True)
+            return linear_vae.make_grid_chunk(models, datasets, cfg0)
+        if ok and cfg0.kernels != "cuda":
+            print(f"[kernels] plain: K6a's plain version on the CPU, {n} rows a chunk, "
+                  f"one plain chunk a row ({why_dev}; {why_grid})", flush=True)
+            return linear_vae.make_grid_chunk(models, datasets, cfg0)
+        reasons = [mlp_vae.supported(m, d, c) for m, d, c in zip(models, datasets, cfgs)]
+        why_mlp = next((why for ok_mlp, why in reasons if not ok_mlp), None)
+        if why_mlp is None:
+            print(f"[kernels] cuda: fused MLP-VAE kernel K5, one solo launch a row for "
+                  f"{n} rows (its grid mode is K6b, ROADMAP Queue 2 item 1)", flush=True)
+            return _row_by_row([mlp_vae.make_train_chunk(m, d, c)
+                                for m, d, c in zip(models, datasets, cfgs)])
+        why_linear = why_dev if ok else why_grid
+        if cfg0.kernels == "cuda":
+            raise RuntimeError(f"--kernels cuda requested but no fused kernel can run: "
+                               f"linear kernel: {why_linear}; MLP kernel: {why_mlp}")
+        hidden = any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1
+                     for m in models)
+        why = why_mlp if hidden else why_linear
+    print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})",
+          flush=True)
+    return _row_by_row([partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
+                                lr=float(c.learning_rate))
+                        for m, d, c in zip(models, datasets, cfgs)])
+
+
+def _row_by_row(chunks):
+    """One solo ``train_chunk(state, n_steps, noise=)`` a row, behind the
+    grid chunk's signature."""
+
+    def chunk(states, n_steps, noises=None):
+        out = [c(s, n_steps, noise=None if noises is None else noises[i])
+               for i, (c, s) in enumerate(zip(chunks, states))]
+        return [s for s, _ in out], torch.stack([losses for _, losses in out])
+
+    return chunk

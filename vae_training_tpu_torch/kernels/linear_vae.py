@@ -1,13 +1,14 @@
-"""K1 and K2: the fused linear-VAE training chunk — CUDA wrapper and plain
-version.
+"""K1, K2 and K6a: the fused linear-VAE training chunk — CUDA wrappers and
+plain versions.
 
-Port of ``vae_training_tpu/kernels/linear_vae.py`` in solo mode
-(``run_fused_chunk`` → ``_make_kernel``, the ``pl.pallas_call`` at
-``:678``), in its two branches: K1 on the linear_gaussian dataset, and K2 on
-the sigmoid dataset with the dual decoder ``σ(s·Ws + bs) + s·Wd + bd``
-(``dual=True``). The kernel itself is ``csrc/linear_vae.cu``: one launch
-runs a whole K-step chunk (sampling, forward, closed-form ELBO, analytic
-backward, Adam) with the state resident in one CTA's shared memory.
+Port of ``vae_training_tpu/kernels/linear_vae.py`` (``run_fused_chunk`` →
+``_make_kernel``, the ``pl.pallas_call`` at ``:678``), in its two branches:
+K1 on the linear_gaussian dataset, and K2 on the sigmoid dataset with the
+dual decoder ``σ(s·Ws + bs) + s·Wd + bd`` (``dual=True``); in solo mode and
+in grid mode (K6a, ``grid_n > 0``: many sweep rows, of mixed dims, in one
+launch). The kernel itself is ``csrc/linear_vae.cu``: one launch runs a
+whole K-step chunk (sampling, forward, closed-form ELBO, analytic backward,
+Adam) with each row's state resident in one CTA's shared memory.
 
 The state crosses the launch as three flat float32 buffers (params, Adam
 m, Adam v) in the layout of ``param_layout``: flax names, true dimensions,
@@ -20,12 +21,19 @@ cannot; for CPU tensors (and only for them) it runs ``plain_fused_chunk``,
 the same chunk on the torch path (``train/step.py``) behind the same
 signature, whose autograd backward checks the kernel's hand-derived one.
 ``run_fused_chunk.launches`` counts kernel launches.
+
+``run_grid_chunk`` is K6a's wrapper: the rows' states concatenated in three
+flat buffers (``pack_rows``; row i at ``row_offsets(...)[i]``), one
+``GridRow`` of dims, manifold and seeds per row, one launch of one CTA per
+row. For CPU tensors it runs ``plain_grid_chunk``, one ``plain_fused_chunk``
+per row; ``run_grid_chunk.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,14 +158,9 @@ def cuda_device_ok(cfg) -> Tuple[bool, str]:
     return True, ""
 
 
-def supported(model, dataset, cfg) -> Tuple[bool, str]:
-    """Whether K1 or K2 can run this configuration (the counterpart of
-    ``pallas_supported``, ``linear_vae.py:823-858``, re-derived for the
-    card): a pure-linear encoder and decoder; the linear_gaussian dataset
-    without the dual decoder (K1) or the sigmoid dataset with it (K2); a
-    CUDA device of compute capability 9.0; and a state plus per-step
-    activations that fit one block's shared memory. The TPU kernel's
-    batch ≤ 128 and dims ≤ 128 were lane limits and do not apply."""
+def _structure(model, dataset, batch: int) -> Tuple[bool, str]:
+    """The model and dataset part of ``supported``: which branch, and
+    whether one row fits a block's shared memory. Returns (ok, reason)."""
     from ..data.synthetic import LinearGaussianDataset, SigmoidDataset
 
     dual = model.dual_sigmoid_decoder
@@ -172,17 +175,81 @@ def supported(model, dataset, cfg) -> Tuple[bool, str]:
     if (model.encoder_features != (model.latent_dim,)
             or model.decoder_features != (dataset.dimension,)):
         return False, "the fused kernel supports 0-hidden-layer (pure linear) nets"
-    need = smem_bytes(cfg.batch_size, dataset.dimension, model.latent_dim,
+    need = smem_bytes(batch, dataset.dimension, model.latent_dim,
                       dataset.intrinsic_dim, dataset.dim, dual)
     if need > SMEM_LIMIT:
         return False, (f"state and activations need {need} B of shared memory, "
                        f"above the {SMEM_LIMIT} B a block may use")
-    ok, why = cuda_device_ok(cfg)
+    return True, f"{need} B of shared memory"
+
+
+def supported(model, dataset, cfg) -> Tuple[bool, str]:
+    """Whether K1 or K2 can run this configuration (the counterpart of
+    ``pallas_supported``, ``linear_vae.py:823-858``, re-derived for the
+    card): a pure-linear encoder and decoder; the linear_gaussian dataset
+    without the dual decoder (K1) or the sigmoid dataset with it (K2); a
+    CUDA device of compute capability 9.0; and a state plus per-step
+    activations that fit one block's shared memory. The TPU kernel's
+    batch ≤ 128 and dims ≤ 128 were lane limits and do not apply."""
+    ok, why = _structure(model, dataset, cfg.batch_size)
     if not ok:
         return False, why
-    if dual:
-        return True, f"pure-linear dual-decoder VAE on sigmoid, {need} B of shared memory"
-    return True, f"pure-linear VAE on linear_gaussian, {need} B of shared memory"
+    ok, why_dev = cuda_device_ok(cfg)
+    if not ok:
+        return False, why_dev
+    if model.dual_sigmoid_decoder:
+        return True, f"pure-linear dual-decoder VAE on sigmoid, {why}"
+    return True, f"pure-linear VAE on linear_gaussian, {why}"
+
+
+def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str]:
+    """Whether K6a can run these rows in one launch (the grid counterpart
+    of ``supported``; the uniformity rules of the JAX package's
+    ``_rows_uniform`` / ``mixed_launch_eligible``, ``mixed_grid.py:42-113``).
+    ``models``, ``datasets`` and ``cfg`` give one row each (``cfg`` may be
+    one config for all rows). Every row must pass ``supported``'s model and
+    shared-memory checks; the rows may differ only in their dims and seeds:
+    batch, learning rate, ε, -tdv, the decoder head, the dataset kind and
+    its observation noise, and the step count and the print and plot
+    cadences (so every row shares every chunk boundary) are uniform. The
+    device is a CUDA device of compute capability 9.0, or the CPU, where
+    ``run_grid_chunk`` runs the plain version. A refusal names the first
+    row that fails."""
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
+    if not models or not len(models) == len(datasets) == len(cfgs):
+        return False, (f"need one model, dataset and config a row, got {len(models)}, "
+                       f"{len(datasets)} and {len(cfgs)}")
+
+    def uniform(model, dataset, c):
+        return {"batch size": c.batch_size, "learning rate": float(c.learning_rate),
+                "epsilon": model.epsilon_const, "-tdv": model.tunable_decoder_var,
+                "decoder head": model.dual_sigmoid_decoder,
+                "dataset": type(dataset).__name__,
+                "observation noise": float(dataset.var_added),
+                "num_batches": c.num_batches, "n_print": c.n_print, "n_plot": c.n_plot,
+                "device": str(c.device)}
+
+    ref = uniform(models[0], datasets[0], cfgs[0])
+    need = []
+    for i, (model, dataset, c) in enumerate(zip(models, datasets, cfgs)):
+        for key, val in uniform(model, dataset, c).items():
+            if val != ref[key]:
+                return False, (f"row {i} differs from row 0 in {key} ({val!r} vs "
+                               f"{ref[key]!r}); one launch takes rows that differ "
+                               f"only in dims and seeds")
+        ok, why = _structure(model, dataset, c.batch_size)
+        if not ok:
+            return False, f"row {i}: {why}"
+        need.append(smem_bytes(c.batch_size, dataset.dimension, model.latent_dim,
+                               dataset.intrinsic_dim, dataset.dim, model.dual_sigmoid_decoder))
+    if torch.device(cfgs[0].device).type != "cpu":
+        ok, why = cuda_device_ok(cfgs[0])
+        if not ok:
+            return False, why
+    head = "dual-decoder VAE on sigmoid" if models[0].dual_sigmoid_decoder else \
+        "VAE on linear_gaussian"
+    return True, (f"{len(models)} pure-linear {head} rows, up to {max(need)} B of "
+                  f"shared memory a block")
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -204,6 +271,15 @@ def _lib() -> ctypes.CDLL:
         lib.linear_vae_smem_bytes.restype = ctypes.c_size_t
         lib.linear_vae_error_string.argtypes = [i32]
         lib.linear_vae_error_string.restype = ctypes.c_char_p
+        lib.linear_vae_row_bytes.argtypes = []
+        lib.linear_vae_row_bytes.restype = ctypes.c_size_t
+        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, vp]
+        lib.linear_vae_grid_chunk.restype = i32
+        lib.linear_vae_blocks_per_sm.argtypes = [i32, ctypes.c_size_t, ctypes.POINTER(i32)]
+        lib.linear_vae_blocks_per_sm.restype = i32
+        if lib.linear_vae_row_bytes() != ctypes.sizeof(Row):
+            raise RuntimeError(f"csrc/linear_vae.cu's Row is {lib.linear_vae_row_bytes()} B, "
+                               f"kernels/linear_vae.py's {ctypes.sizeof(Row)} B")
         _LIB = lib
     return _LIB
 
@@ -362,6 +438,178 @@ def make_train_chunk(model, dataset, cfg):
     return train_chunk
 
 
+class Row(ctypes.Structure):
+    """One row of K6a's device table: ``struct Row`` in csrc/linear_vae.cu,
+    field by field (``_lib`` holds the two to one size)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("p", "m", "v", "losses", "a", "ext_x", "ext_z1", "ext_z2")] + [
+        (name, ctypes.c_int) for name in ("D", "L", "id", "dd")] + [
+        ("step0", ctypes.c_uint), ("t0", ctypes.c_int), ("dk0", ctypes.c_uint),
+        ("dk1", ctypes.c_uint), ("mk0", ctypes.c_uint), ("mk1", ctypes.c_uint),
+        ("obs_scale", ctypes.c_float)]
+
+
+@dataclass(frozen=True)
+class GridRow:
+    """One sweep row of a K6a launch: its dims, its manifold matrix ``a``
+    (as ``run_fused_chunk`` takes it), its counters and its run seeds."""
+    data_dim: int
+    latent_dim: int
+    intrinsic_dim: int
+    manifold_dim: int
+    a: torch.Tensor
+    step0: int
+    t0: int
+    data_seed: int
+    model_seed: int
+    var_added: float = 0.0
+
+
+def row_offsets(rows: Sequence[GridRow], dual: bool = False) -> List[int]:
+    """Start of each row's slice in the packed buffers, and their total
+    length last: rows lie back to back in the order given."""
+    offs = [0]
+    for r in rows:
+        offs.append(offs[-1] + n_params(r.data_dim, r.latent_dim, dual))
+    return offs
+
+
+def pack_rows(states: Sequence[TrainState], rows: Sequence[GridRow], dual: bool = False):
+    """The rows' states → three flat buffers (params, m, v), row i's flat
+    ``pack_state`` at ``row_offsets(rows, dual)[i]``."""
+    packed = [pack_state(s, r.data_dim, r.latent_dim, dual) for s, r in zip(states, rows)]
+    return tuple(torch.cat([bufs[j] for bufs in packed]) for j in range(3))
+
+
+def row_views(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, rows: Sequence[GridRow],
+              dual: bool = False):
+    """Row i's (p, m, v) slices of the packed buffers, as views."""
+    offs = row_offsets(rows, dual)
+    return [tuple(t[offs[i]:offs[i + 1]] for t in (p, m, v)) for i in range(len(rows))]
+
+
+def unpack_rows(states: Sequence[TrainState], p: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, rows: Sequence[GridRow], n_steps: int,
+                dual: bool = False) -> List[TrainState]:
+    """Copy the packed buffers back into each row's state by name and
+    advance its counters by ``n_steps``."""
+    return [unpack_state(s, *bufs, n_steps, r.data_dim, r.latent_dim, dual)
+            for s, bufs, r in zip(states, row_views(p, m, v, rows, dual), rows)]
+
+
+def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                   rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
+                   tdv: bool, lr: float, dual: bool = False,
+                   external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+    """K6a: train every row ``n_steps`` steps from the packed state
+    (``pack_rows``), in place, in one launch of one CTA per row. Returns
+    the (rows, n_steps) losses. Row i runs what ``run_fused_chunk`` runs on
+    its slice with its ``GridRow``; batch, ε, -tdv, lr and the decoder head
+    are the launch's. ``external_noise``, one (x, z1, z2) a row, replaces
+    the in-kernel sampler (the test hook)."""
+    kw = dict(n_steps=n_steps, batch=batch, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
+              external_noise=external_noise)
+    if p.device.type == "cpu":
+        return plain_grid_chunk(p, m, v, rows, **kw)
+    if p.device.type != "cuda":
+        raise ValueError(f"run_grid_chunk takes CPU or CUDA tensors, got {p.device}")
+    device, B, n = p.device, batch, len(rows)
+    if n == 0:
+        raise ValueError("run_grid_chunk needs at least one row")
+    if external_noise is not None and len(external_noise) != n:
+        raise ValueError(f"external_noise has {len(external_noise)} rows, the launch {n}")
+    total = row_offsets(rows, dual)[-1]
+    for t, name in ((p, "p"), (m, "m"), (v, "v")):
+        _require(t, name, device, (total,))
+    losses = torch.empty(n, n_steps, dtype=torch.float32, device=device)
+    if n_steps == 0:
+        return losses
+    table = (Row * n)()
+    for i, (r, (rp, rm, rv)) in enumerate(zip(rows, row_views(p, m, v, rows, dual))):
+        D, L = r.data_dim, r.latent_dim
+        if dual:
+            if r.intrinsic_dim != r.manifold_dim or r.var_added > 0:
+                raise ValueError(f"row {i}: the sigmoid dataset draws intrinsic_dim = "
+                                 f"manifold_dim normals and has no observation noise")
+            _require(r.a, f"row {i} a", device, (r.manifold_dim, 1))
+        else:
+            _require(r.a, f"row {i} a", device, (r.manifold_dim, r.intrinsic_dim))
+        need = smem_bytes(B, D, L, r.intrinsic_dim, r.manifold_dim, dual)
+        if need > SMEM_LIMIT:
+            raise ValueError(f"row {i} (D {D}, L {L}) needs {need} B of shared memory "
+                             f"(limit {SMEM_LIMIT})")
+        ext = [None, None, None]
+        if external_noise is not None:
+            for j, (t, name, dim) in enumerate(zip(external_noise[i], ("x", "z1", "z2"),
+                                                   (D, L, D))):
+                _require(t, f"row {i} external_noise {name}", device, (n_steps, B, dim))
+                ext[j] = t.data_ptr()
+        dk, mk = rng.key_words(r.data_seed), rng.key_words(r.model_seed)
+        obs = float(np.sqrt(np.float32(r.var_added))) if r.var_added > 0 else 0.0
+        table[i] = Row(rp.data_ptr(), rm.data_ptr(), rv.data_ptr(), losses[i].data_ptr(),
+                       r.a.data_ptr(), *ext, D, L, r.intrinsic_dim, r.manifold_dim,
+                       r.step0 & rng.MASK32, r.t0, dk[0], dk[1], mk[0], mk[1], obs)
+    lib = _lib()
+    # the same bytes on the card, copied in stream order before the launch
+    table_dev = torch.frombuffer(bytearray(table), dtype=torch.uint8).to(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.linear_vae_grid_chunk(ctypes.addressof(table), table_dev.data_ptr(), n,
+                                    n_steps, B, int(dual), float(eps_const),
+                                    int(bool(tdv)), float(lr), stream)
+    _check(lib, err, "linear_vae_grid_chunk launch")
+    run_grid_chunk.launches += 1
+    return losses
+
+
+run_grid_chunk.launches = 0
+
+
+def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                     rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
+                     tdv: bool, lr: float, dual: bool = False,
+                     external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``run_grid_chunk``: one
+    ``plain_fused_chunk`` per row on its slice of the packed buffers, same
+    signature, same in-place contract."""
+    plain_grid_chunk.calls += 1
+    losses = torch.empty(len(rows), n_steps, dtype=torch.float32, device=p.device)
+    for i, (r, (rp, rm, rv)) in enumerate(zip(rows, row_views(p, m, v, rows, dual))):
+        losses[i] = plain_fused_chunk(
+            rp, rm, rv, r.a, n_steps=n_steps, batch=batch, data_dim=r.data_dim,
+            latent_dim=r.latent_dim, intrinsic_dim=r.intrinsic_dim,
+            manifold_dim=r.manifold_dim, step0=r.step0, t0=r.t0, data_seed=r.data_seed,
+            model_seed=r.model_seed, var_added=r.var_added, eps_const=eps_const, tdv=tdv,
+            lr=lr, external_noise=None if external_noise is None else external_noise[i],
+            dual=dual)
+    return losses
+
+
+plain_grid_chunk.calls = 0  # chunks run by the plain version (the CPU tests read it)
+
+
+def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
+    """The grid trainers' ``chunk(states, n_steps, noises=None)`` on K6a:
+    one launch per chunk over every row (``grid_supported`` said yes).
+    Returns (states, (rows, n_steps) losses)."""
+    dual = models[0].dual_sigmoid_decoder
+    model = models[0]
+    arrays = [d.A.contiguous() for d in datasets]
+    lr = float(cfg.learning_rate)
+
+    def chunk(states: Sequence[TrainState], n_steps: int,
+              noises: Optional[Sequence[Noise]] = None):
+        rows = [GridRow(d.dimension, mdl.latent_dim, d.intrinsic_dim, d.dim, a, s.step,
+                        s.count, s.data_seed, s.model_seed, d.var_added)
+                for mdl, d, a, s in zip(models, datasets, arrays, states)]
+        p, m, v = pack_rows(states, rows, dual)
+        losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
+                                eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
+                                lr=lr, dual=dual, external_noise=noises)
+        return unpack_rows(states, p, m, v, rows, n_steps, dual), losses
+
+    return chunk
+
+
 def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
                   device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's raw sampler on the card: (rows, n_draws, 4) words (as
@@ -376,6 +624,16 @@ def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
                              torch.cuda.current_stream(device).cuda_stream)
     _check(lib, err, "philox_normals launch")
     return words.to(torch.int64) & rng.MASK32, normals
+
+
+def blocks_per_sm(smem: int, dual: bool = False) -> int:
+    """How many blocks of the kernel one SM of the current device holds at
+    ``smem`` bytes of shared memory: whether K6a's rows share SMs."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    _check(lib, lib.linear_vae_blocks_per_sm(int(dual), smem, ctypes.byref(blocks)),
+           "linear_vae_blocks_per_sm")
+    return blocks.value
 
 
 def kernel_smem_bytes(batch: int, data_dim: int, latent_dim: int,

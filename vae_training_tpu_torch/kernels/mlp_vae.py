@@ -110,7 +110,7 @@ def supported(model, dataset, cfg) -> Tuple[bool, str]:
     kind = dataset_kind(dataset)
     if isinstance(dataset, SigmoidDataset):
         return False, ("the MLP kernel's sigmoid dual-decoder branch is not "
-                       "ported yet (ROADMAP Queue 2 item 1)")
+                       "ported yet (ROADMAP Queue 2 item 2)")
     if kind is None:
         return False, "the MLP kernel supports the sphere and linear_gaussian datasets"
     if model.dual_sigmoid_decoder:

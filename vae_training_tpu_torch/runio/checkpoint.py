@@ -13,7 +13,10 @@ Kept from the reference implementation:
   - the meta step-ordering guard: a save never replaces a newer checkpoint;
   - one level of retention: a save that advances the step first sets the
     current trio aside under ``.prev``; restore falls back to it when a
-    kill landed between the set-aside and the install.
+    kill landed between the set-aside and the install;
+  - the grid's roll-back (``train/grid.py``): ``prev=`` reads the retained
+    trio, ``restore_checkpoint_prev`` restores it and
+    ``promote_prev_checkpoint`` installs it as current.
 """
 
 from __future__ import annotations
@@ -35,17 +38,21 @@ PREV_SUFFIX = ".prev"
 BACKEND = "torch"
 
 
-def read_checkpoint_meta(dirname: str) -> Optional[dict]:
+def read_checkpoint_meta(dirname: str, prev: bool = False) -> Optional[dict]:
+    """The checkpoint's metadata (step, backend, extras), or None;
+    ``prev=True`` reads the retained previous save's."""
     try:
-        with open(os.path.join(dirname, META_NAME)) as f:
+        with open(os.path.join(dirname, META_NAME + (PREV_SUFFIX if prev else ""))) as f:
             return json.load(f)
     except (OSError, ValueError):
         return None
 
 
-def restore_checkpoint_aux(dirname: str) -> Optional[dict]:
+def restore_checkpoint_aux(dirname: str, prev: bool = False) -> Optional[dict]:
+    """The host-side run state saved beside the checkpoint, or None;
+    ``prev=True`` reads the retained previous save's."""
     try:
-        with open(os.path.join(dirname, AUX_NAME), "rb") as f:
+        with open(os.path.join(dirname, AUX_NAME + (PREV_SUFFIX if prev else "")), "rb") as f:
             return pickle.load(f)
     except OSError:
         return None
@@ -106,5 +113,28 @@ def restore_checkpoint(dirname: str, device="cpu") -> TrainState:
     if not os.path.exists(path) and os.path.exists(path + PREV_SUFFIX):
         # killed between the retention set-aside and the install
         path += PREV_SUFFIX
+    return _load(path, device)
+
+
+def restore_checkpoint_prev(dirname: str, device="cpu") -> TrainState:
+    """The retained previous checkpoint (the save before the newest) as a
+    TrainState on ``device``; OSError if there is none. The grid's roll-back
+    of a row that saved one event ahead of the others."""
+    return _load(os.path.join(dirname, CKPT_NAME + PREV_SUFFIX), device)
+
+
+def promote_prev_checkpoint(dirname: str) -> None:
+    """Install the retained ``.prev`` trio as the current checkpoint and
+    drop the newer save (the grid's roll-back: left in place, the newer
+    meta step would make the step guard refuse every later save). Meta
+    first, as it is the ordering authority: a kill mid-promotion leaves
+    what the next restore rolls back again."""
+    for name in (META_NAME, AUX_NAME, CKPT_NAME):
+        path = os.path.join(dirname, name)
+        if os.path.exists(path + PREV_SUFFIX):
+            os.replace(path + PREV_SUFFIX, path)
+
+
+def _load(path: str, device) -> TrainState:
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return TrainState(**payload).to(device)

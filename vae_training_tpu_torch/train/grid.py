@@ -1,0 +1,280 @@
+"""Seed grids: one configuration trained across many dataset seeds, every
+row's chunk in one kernel launch.
+
+Port of ``vae_training_tpu/train/grid.py:164-1109``. The reference's sweep
+scripts run each (seed, row) as its own process; ``--seed_grid 2,3,4``
+trains the seeds together: one dataset and one ``TrainState`` a row, one
+model for the group, and between host events one chunk over every row
+(``kernels/dispatch.py:make_grid_chunk``: K6a, the grid mode of the linear
+kernel, one CTA per row in one launch).
+
+Seeds follow the solo Trainer exactly (``train/loop.py``): a row's data
+seed is ``derive_seed(dataset_seed, SEED_TRAIN_DATA)`` and its eval-data
+seed ``derive_seed(dataset_seed, SEED_EVAL_DATA)``; the model seeds (init,
+z, eval z, plot z) are shared, as every solo run of a sweep uses the same
+``--model_seed``. Row i of a grid is therefore the solo run with
+``-ds seed_i``: the same losses.npz and model.pkl, bitwise, because a K6a
+row runs the solo kernel's body and the plain path is per row.
+
+Each row writes ``<name>_seed<N>/`` (losses.npz, model.pkl, checkpoint with
+the host-side aux), synchronously; ``--resume`` resumes every row from its
+own directory and rolls a row that saved one event ahead back to the
+grid's common step through its ``.prev`` checkpoint. The JAX package's
+mesh, multihost and warm-start branches are not ported: ``RunConfig.validate``
+raises for them, naming their ROADMAP items (Queue 1 items 10 and 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..config import RunConfig
+from ..data.registry import get_dataset
+from ..evals.stats import StatsRecorder
+from ..kernels.dispatch import make_grid_chunk
+from ..models.networks import build_vae
+from ..ops import rng
+from ..runio.checkpoint import (
+    checkpoint_exists,
+    promote_prev_checkpoint,
+    read_checkpoint_meta,
+    restore_checkpoint,
+    restore_checkpoint_aux,
+    restore_checkpoint_prev,
+    save_checkpoint,
+)
+from ..runio.export import save_model_pkl
+from ..runio.outdir import make_output_dir
+from .loop import EVAL_BATCH_SIZE, N_PLOT, N_PRINT, check_params, next_event
+from .state import TrainState
+from .step import eval_step, generate, sample_z
+
+
+class GridTrainer:
+    """Train one configuration across many dataset seeds, one chunk over
+    every row between host events. ``build_chunk=False`` leaves the chunk
+    to a caller that launches many grids together (``MixedGridSweep``)."""
+
+    def __init__(self, cfg: RunConfig, seeds: Sequence[int], build_chunk: bool = True):
+        cfg.validate()
+        self.cfg = cfg
+        self.seeds = list(seeds)
+        if not self.seeds:
+            raise ValueError("--seed_grid needs at least one dataset seed")
+        if len(set(self.seeds)) != len(self.seeds):
+            raise ValueError(f"--seed_grid repeats a seed: {self.seeds}")
+        if cfg.state_dict:
+            raise NotImplementedError(
+                "--seed_grid starts fresh or resumes from its own row checkpoints "
+                "(--resume); --state_dict applies to solo runs")
+        self.device = torch.device(cfg.device)
+        self.n_print = cfg.n_print or N_PRINT
+        self.n_plot = cfg.n_plot or N_PLOT
+        self.eval_batch_size = EVAL_BATCH_SIZE
+        self.datasets = [get_dataset(cfg.dataset, s, cfg, device=self.device)
+                         for s in self.seeds]
+        self.data_dim = self.datasets[0].dimension
+        self.latent_dim = cfg.latent_dimension
+        self.model = build_vae(
+            data_dim=self.data_dim, latent_dim=cfg.latent_dimension,
+            encoder_layer_sizes=cfg.encoder_layer_sizes,
+            decoder_layer_sizes=cfg.layer_sizes, epsilon=cfg.epsilon,
+            tunable_decoder_var=cfg.tunable_decoder_var, dataset_name=cfg.dataset)
+        self.model.init_parameters(cfg.model_seed)
+        self.model.to(self.device)
+        params = dict(self.model.named_parameters())
+        model_seed = rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z)
+        self.states: List[TrainState] = [
+            TrainState.create(params, data_seed=rng.derive_seed(s, rng.SEED_TRAIN_DATA),
+                              model_seed=model_seed) for s in self.seeds]
+        self.eval_data_seeds = [rng.derive_seed(s, rng.SEED_EVAL_DATA) for s in self.seeds]
+        self.eval_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_EVAL_Z)
+        self.plot_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_PLOT_Z)
+        self.recorders = [StatsRecorder() for _ in self.seeds]
+        self.current_epsilon = [cfg.epsilon] * len(self.seeds)
+        self.batchnum = 0
+        self._eval_counter = 0
+        self._skip_events_at = -1  # set by restore() when the events already ran
+        self._plot_skip_noted = False
+        self.train_chunk = (make_grid_chunk([self.model] * len(self.seeds),
+                                            self.datasets, cfg)
+                            if build_chunk else None)
+
+    # ------------------------------------------------------------------
+    def _epsilon_tensor(self, i: int) -> torch.Tensor:
+        eps = np.asarray(self.current_epsilon[i], np.float32).reshape(-1)[0]
+        return torch.tensor(eps, dtype=torch.float32, device=self.device)
+
+    def maybe_print_banner(self) -> None:
+        """The per-row "Score for real data" line at a fresh start: the
+        solo engine's first eval-counter tick."""
+        if self._eval_counter != 0:
+            return  # resumed with host state: the banner's counter is spent
+        self._eval_counter += 1
+        for seed, dataset, data_seed in zip(self.seeds, self.datasets, self.eval_data_seeds):
+            batch = dataset.sample(data_seed, self._eval_counter, self.eval_batch_size)
+            score = {k: float(v) for k, v in dataset.score(batch).items()}
+            print(f"[seed {seed}] Score for real data: {score}", flush=True)
+
+    def compute_and_write_stats(self) -> None:
+        """One eval per row at the shared counter: the solo Trainer's
+        ``compute_stats`` and stat line, with a ``[seed N]`` tag."""
+        self._eval_counter += 1
+        for i, (seed, dataset, state) in enumerate(zip(self.seeds, self.datasets,
+                                                       self.states)):
+            out = eval_step(self.model, dataset, state.params, self.eval_data_seeds[i],
+                            self.eval_z_seed, self._eval_counter, self._epsilon_tensor(i),
+                            n=self.eval_batch_size)
+            # copies: logvar_e is the live epsilon_p, which later steps update
+            out = {k: v.detach().cpu().numpy().copy() for k, v in out.items()}
+            logvar_e = out.pop("_logvar_e")
+            epsilon = out.pop("_epsilon")
+            rec = self.recorders[i]
+            rec.append_eval(out["VAE Loss"], logvar_e, epsilon)
+            self.current_epsilon[i] = epsilon
+            print(f"[seed {seed}] {rec.write_stats(self.batchnum, out)}", flush=True)
+
+    def plot_all(self, outdirs: Sequence[str]) -> None:
+        """Each row's generated batch at this step (the shared plot draw)."""
+        z1, z2 = sample_z(self.plot_z_seed, self.batchnum, self.eval_batch_size,
+                          self.latent_dim, self.data_dim, self.device)
+        for i, (dataset, state, out) in enumerate(zip(self.datasets, self.states, outdirs)):
+            batch = generate(self.model, state.params, z1, z2, self._epsilon_tensor(i))
+            fn = os.path.join(out, f"output_{self.batchnum}.png")
+            if not dataset.plot_batch(batch, fn=fn) and not self._plot_skip_noted:
+                print("[plot] matplotlib is not installed; figures are skipped", flush=True)
+                self._plot_skip_noted = True
+
+    def save_all(self, outdirs: Sequence[str], final: bool = False) -> None:
+        """Every row's losses.npz, model.pkl and checkpoint. In-loop saves
+        run after this step's events (batchnum == step); the final save
+        after the loop, where no events at the state's step have fired."""
+        events_fired = self.batchnum == int(self.states[0].step)
+        for i, (state, out) in enumerate(zip(self.states, outdirs)):
+            self.recorders[i].save_npz(out, final=final)
+            save_model_pkl(os.path.join(out, "model.pkl"), state)
+            eps = float(np.asarray(self.current_epsilon[i]).reshape(-1)[0])
+            save_checkpoint(out, state, extra_meta={"current_epsilon": eps},
+                            aux={"recorder": self.recorders[i].to_state(),
+                                 "eval_counter": self._eval_counter, "epoch_num": 0,
+                                 "params_and_gradients": [],
+                                 "events_fired_at_step": events_fired})
+
+    def run_chunk(self, n_steps: int) -> None:
+        self.states, losses = self.train_chunk(self.states, n_steps)
+        self.record_losses(losses.cpu().numpy())
+
+    def record_losses(self, losses: np.ndarray) -> None:
+        for rec, row in zip(self.recorders, losses):
+            rec.append_train_losses(row)
+
+    # ------------------------------------------------------------------
+    def restore(self, outdirs: Sequence[str]) -> None:
+        """Resume every row from its own checkpoint. All rows save at the
+        same events, so their steps agree, unless a kill landed between two
+        rows' saves: then the rows that got one save ahead roll back to
+        their retained ``.prev`` checkpoint at the grid's common step, and
+        that trio is promoted to current (else the newer meta step would
+        make the step guard refuse every later save)."""
+        for out in outdirs:
+            if not checkpoint_exists(out):
+                raise FileNotFoundError(f"--resume: no checkpoint in {out}")
+        # pass 1: every row's newest checkpoint
+        restored = [restore_checkpoint(out, self.device) for out in outdirs]
+        steps = [int(s.step) for s in restored]
+        # pass 2: roll back to the newest common step
+        target = min(steps)
+        rolled = [i for i, s in enumerate(steps) if s != target]
+        for i in rolled:
+            try:
+                prev = restore_checkpoint_prev(outdirs[i], self.device)
+            except OSError:
+                prev = None
+            prev_step = None if prev is None else int(prev.step)
+            if prev_step != target:
+                raise ValueError(
+                    f"grid rows checkpointed at different steps {sorted(set(steps))}, and "
+                    f"{outdirs[i]} (step {steps[i]}) has no retained previous checkpoint "
+                    f"at the common step {target} (found: {prev_step}). A kill between "
+                    f"row saves skews rows by at most one save event; resume rows solo "
+                    f"with --resume <name>_seed<N>")
+            print(f"[resume] {outdirs[i]}: rolling back from step {steps[i]} to the "
+                  f"grid's common step {target} (retained .prev checkpoint)", flush=True)
+            restored[i], steps[i] = prev, target
+        for out, state in zip(outdirs, restored):
+            check_params(self.model, state, f"--resume {out}")
+        # pass 3: meta (current_epsilon) and aux (stat history, eval counter),
+        # the .prev versions for rolled-back rows, either version where the
+        # other does not carry the row's step
+        for i, out in enumerate(outdirs):
+            use_prev = i in rolled
+            meta = read_checkpoint_meta(out, prev=use_prev)
+            if meta is None or meta.get("step") != steps[i]:
+                meta = read_checkpoint_meta(out, prev=not use_prev)
+            if meta is not None and meta.get("step") == steps[i] \
+                    and "current_epsilon" in meta:
+                self.current_epsilon[i] = meta["current_epsilon"]
+            aux = restore_checkpoint_aux(out, prev=use_prev)
+            if aux is None or aux.get("step") != steps[i]:
+                aux = restore_checkpoint_aux(out, prev=not use_prev)
+            if aux is not None and aux.get("step", steps[i]) != steps[i]:
+                print(f"[resume] {out}: aux is from step {aux['step']}, state is at "
+                      f"{steps[i]}; resuming this row without host-side history", flush=True)
+                aux = None
+            if aux is not None:
+                self.recorders[i] = StatsRecorder.from_state(aux["recorder"])
+                if i == 0:
+                    self._eval_counter = int(aux["eval_counter"])
+                    if aux.get("events_fired_at_step", False):
+                        self._skip_events_at = steps[0]
+        for i in rolled:
+            promote_prev_checkpoint(outdirs[i])
+        self.batchnum = steps[0]
+        self.states = restored
+
+    def train(self, outdirs: Sequence[str]) -> None:
+        self.maybe_print_banner()
+        total = self.cfg.num_batches
+        b = self.batchnum  # 0 fresh; the checkpoint's step after restore()
+        while b < total:
+            self.batchnum = b
+            if b % self.n_print == 0 and b != self._skip_events_at:
+                self.compute_and_write_stats()
+            if (b % self.n_plot == 0 or b == total - 1) and b != self._skip_events_at:
+                self.plot_all(outdirs)
+                self.save_all(outdirs)
+            n = next_event(b, total, self.n_print, self.n_plot) - b
+            self.run_chunk(n)
+            b += n
+        self.batchnum = max(total - 1, 0)
+
+
+def row_dirs(cfg: RunConfig, seeds: Sequence[int], names: Sequence[str],
+             resume: bool) -> List[str]:
+    """Each row's output directory and args.json (its own dataset seed);
+    a resume keeps what the rows hold."""
+    return [make_output_dir(name, cfg.overwrite, dataclasses.replace(cfg, dataset_seed=seed),
+                            data_dir=cfg.data_dir, reuse_existing=resume)
+            for seed, name in zip(seeds, names)]
+
+
+def run_seed_grid(cfg: RunConfig, seeds: Sequence[int], name_fn=None) -> int:
+    """CLI entry (``--seed_grid``): one chunk over every seed between
+    events, ``<name>_seed<N>/`` output dirs (``name_fn(seed)`` overrides
+    the name: the sweep runner keeps the reference's run names). With
+    ``--resume`` (any value) every row resumes from its own directory."""
+    if name_fn is None:
+        name_fn = lambda seed: f"{cfg.name}_seed{seed}"  # noqa: E731
+    trainer = GridTrainer(cfg, seeds)
+    outdirs = row_dirs(cfg, seeds, [name_fn(s) for s in seeds], bool(cfg.resume))
+    if cfg.resume:
+        trainer.restore(outdirs)
+    trainer.train(outdirs)
+    trainer.save_all(outdirs, final=True)
+    return 0
+

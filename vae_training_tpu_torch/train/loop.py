@@ -61,6 +61,18 @@ def next_event(b: int, total: int, n_print: int, n_plot: int) -> int:
     return min(nxt, total)
 
 
+def check_params(model, state: TrainState, source: str) -> None:
+    """A restored state must carry exactly the model's parameters: the
+    functional forward would otherwise fall back to the module's own
+    initial values for a missing one."""
+    want = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    for tree in (state.params, state.m, state.v):
+        got = {k: tuple(t.shape) for k, t in tree.items()}
+        if got != want:
+            raise ValueError(f"{source}: parameters {got} do not match the "
+                             f"model's {want}")
+
+
 class Trainer:
     """Owns model, state and device, and drives the chunked training loop."""
 
@@ -109,7 +121,7 @@ class Trainer:
             if not checkpoint_exists(cfg.resume):
                 raise FileNotFoundError(f"--resume {cfg.resume}: no checkpoint there")
             self.state = restore_checkpoint(cfg.resume, self.device)
-            self._check_params(self.state, f"--resume {cfg.resume}")
+            check_params(self.model, self.state, f"--resume {cfg.resume}")
             self.batchnum = int(self.state.step)
             aux = restore_checkpoint_aux(cfg.resume)
             if aux is not None and aux.get("step", self.batchnum) != self.batchnum:
@@ -130,23 +142,12 @@ class Trainer:
             if not os.path.exists(cfg.state_dict):
                 raise FileNotFoundError(f"--state_dict {cfg.state_dict} does not exist")
             loaded = load_model_pkl(cfg.state_dict)
-            self._check_params(loaded, f"--state_dict {cfg.state_dict}")
+            check_params(self.model, loaded, f"--state_dict {cfg.state_dict}")
             for dst, src in ((self.state.params, loaded.params),
                              (self.state.m, loaded.m), (self.state.v, loaded.v)):
                 for k in dst:
                     dst[k].copy_(src[k])
             self.state.count = loaded.count
-
-    def _check_params(self, state: TrainState, source: str) -> None:
-        """A restored state must carry exactly the model's parameters: the
-        functional forward would otherwise fall back to the module's own
-        initial values for a missing one."""
-        want = {k: tuple(p.shape) for k, p in self.model.named_parameters()}
-        for tree in (state.params, state.m, state.v):
-            got = {k: tuple(t.shape) for k, t in tree.items()}
-            if got != want:
-                raise ValueError(f"{source}: parameters {got} do not match the "
-                                 f"model's {want}")
 
     # ------------------------------------------------------------------
     def _next_eval_counter(self) -> int:

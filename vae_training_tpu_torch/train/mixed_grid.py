@@ -1,0 +1,150 @@
+"""A whole mixed-dimension sweep in one kernel launch per chunk.
+
+Port of the linear family of ``vae_training_tpu/train/mixed_grid.py``
+(``:42-113``, ``:225-318``, ``:425-543``). One ``GridTrainer`` per
+(data_dim, padding_dim, latent_dim) row of the sweep owns its seeds'
+datasets, evals and artifacts; training concatenates every group's rows
+into one K6a launch (each row carries its own dims in the kernel's row
+table) and splits them back: the linear sweep's 21 runs and the sigmoid
+sweep's 18 each train as one launch per chunk.
+
+The MLP family (the sphere sweep) waits for K6b, the MLP kernel's grid mode
+(ROADMAP Queue 2 item 1): ``MixedGridSweep`` refuses it with
+``MixedSweepUnavailable`` before any IO, and the sweep runner trains its
+rows as per-row grids. There is no fallback after the choice: a launch
+that fails raises, and the JAX package's per-group insurance is not
+ported. ``--mesh`` is not ported either (ROADMAP Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Sequence, Tuple
+
+from ..config import RunConfig
+from ..kernels.dispatch import make_grid_chunk
+from ..kernels.linear_vae import grid_supported
+from .grid import GridTrainer, row_dirs
+from .loop import next_event
+
+
+class MixedSweepUnavailable(ValueError):
+    """The row set is outside the one-launch kernel's envelope (raised by
+    ``MixedGridSweep.__init__`` before any IO). Callers catch this, not a
+    bare ValueError, so an error during training is never read as
+    ineligibility."""
+
+
+def _rows(groups: Sequence[GridTrainer]):
+    """Every row's (model, dataset, config), group by group."""
+    return ([g.model for g in groups for _ in g.seeds],
+            [d for g in groups for d in g.datasets],
+            [g.cfg for g in groups for _ in g.seeds])
+
+
+def mixed_launch_eligible(groups: Sequence[GridTrainer]) -> Tuple[str, str]:
+    """(family, reason): "linear" when every row of every group can share
+    one K6a launch (``grid_supported``: the rows differ only in dims and
+    seeds); "mlp" for hidden-layer rows, whose one-launch grid is K6b, not
+    ported yet; "" otherwise."""
+    if not groups:
+        return "", "no rows"
+    cfg = groups[0].cfg
+    if cfg.kernels == "torch" or cfg.nojit:
+        return "", "the torch path trains rows one by one (--kernels torch or -nojit)"
+    models, datasets, cfgs = _rows(groups)
+    if any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1 for m in models):
+        return "mlp", ("MLP rows: the MLP kernel's grid mode K6b is not ported yet "
+                       "(ROADMAP Queue 2 item 1)")
+    ok, why = grid_supported(models, datasets, cfgs)
+    return ("linear" if ok else ""), why
+
+
+class MixedGridSweep:
+    """Train many grid groups of different dims in one launch per chunk."""
+
+    def __init__(self, groups: List[GridTrainer]):
+        family, why = mixed_launch_eligible(groups)
+        if family != "linear":
+            raise MixedSweepUnavailable(f"mixed one-launch sweep unavailable: {why}")
+        self.groups = groups
+        self.cfg: RunConfig = groups[0].cfg
+        self.n_rows = sum(len(g.seeds) for g in groups)
+        self._chunk = make_grid_chunk(*_rows(groups))
+
+    def run_chunk(self, n_steps: int) -> None:
+        states, losses = self._chunk([s for g in self.groups for s in g.states], n_steps)
+        losses = losses.cpu().numpy()
+        off = 0
+        for g in self.groups:
+            k = len(g.seeds)
+            g.states = states[off:off + k]
+            g.record_losses(losses[off:off + k])
+            off += k
+
+    def restore(self, outdirs_per_group: Sequence[Sequence[str]]) -> None:
+        """Resume the whole sweep from every row's own checkpoint."""
+        for g, outs in zip(self.groups, outdirs_per_group):
+            g.restore(outs)
+        steps = {g.batchnum for g in self.groups}
+        if len(steps) != 1:
+            raise ValueError(f"sweep groups checkpointed at different steps {sorted(steps)}")
+
+    def train(self, outdirs_per_group: Sequence[Sequence[str]]) -> None:
+        groups, g0 = self.groups, self.groups[0]
+        t0 = time.perf_counter()
+        for g in groups:
+            g.maybe_print_banner()
+        t_banner = time.perf_counter() - t0
+        total = self.cfg.num_batches
+        b, skip_at = g0.batchnum, g0._skip_events_at
+        # where a one-launch sweep spends its wall time, printed at the end
+        acct = {"chunk": 0.0, "stats": 0.0, "plot_save": 0.0}
+        while b < total:
+            for g in groups:
+                g.batchnum = b
+            if b % g0.n_print == 0 and b != skip_at:
+                t0 = time.perf_counter()
+                for g in groups:
+                    g.compute_and_write_stats()
+                acct["stats"] += time.perf_counter() - t0
+            if (b % g0.n_plot == 0 or b == total - 1) and b != skip_at:
+                t0 = time.perf_counter()
+                for g, outs in zip(groups, outdirs_per_group):
+                    g.plot_all(outs)
+                    g.save_all(outs)
+                acct["plot_save"] += time.perf_counter() - t0
+            n = next_event(b, total, g0.n_print, g0.n_plot) - b
+            t0 = time.perf_counter()
+            self.run_chunk(n)  # ends in the losses' copy to the host
+            acct["chunk"] += time.perf_counter() - t0
+            b += n
+        for g in groups:
+            g.batchnum = max(total - 1, 0)
+        print(f"[sweep] wall accounting: banners {t_banner:.3f}s, train chunks "
+              f"{acct['chunk']:.3f}s, stat evals {acct['stats']:.3f}s, plot+save "
+              f"{acct['plot_save']:.3f}s over {self.n_rows} rows (synchronous IO)",
+              flush=True)
+
+
+def run_mixed_sweep(rows: Sequence[Tuple[RunConfig, Sequence[int], Dict[int, str]]],
+                    resume: bool = False) -> int:
+    """One-launch sweep entry. ``rows`` = [(cfg, seeds, {seed: run name})].
+    ``resume`` continues every row from its own checkpoint. Raises
+    ``MixedSweepUnavailable`` before any IO when the rows cannot share a
+    launch; any other error propagates."""
+    t0 = time.perf_counter()
+    groups = [GridTrainer(cfg, seeds, build_chunk=False) for cfg, seeds, _ in rows]
+    sweep = MixedGridSweep(groups)  # raises if ineligible, before any IO
+    t_build = time.perf_counter() - t0
+    outdirs_per_group = [row_dirs(cfg, seeds, [names[s] for s in seeds], resume)
+                         for cfg, seeds, names in rows]
+    if resume:
+        sweep.restore(outdirs_per_group)
+    sweep.train(outdirs_per_group)
+    t0 = time.perf_counter()
+    for g, outs in zip(groups, outdirs_per_group):
+        g.save_all(outs, final=True)
+    print(f"[sweep] wall accounting: setup {t_build:.3f}s, final saves "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    return 0
