@@ -11,7 +11,9 @@ vae_training_tpu_torch/csrc/linear_vae.cu, and the sphere sweep
 (sphere_vae_padding_expts.sh, 200|200|200 ReLU stacks) through K5
 (csrc/mlp_vae.cu); then a seed grid and the whole linear and sigmoid
 sweeps through K6a, the grid mode of the linear kernel (one launch a chunk
-over every row). Seventeen phases:
+over every row); then the sphere sweep and a sphere seed grid through K6b,
+the grid mode of the MLP kernel, and sigmoid MLPs with the dual decoder
+through K5-dual, the MLP kernel's dual branch. Twenty-one phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds both kernel libraries from the checkout's sources,
@@ -51,7 +53,23 @@ over every row). Seventeen phases:
      the uninterrupted sweep bitwise;
  17. times: K6a against the same rows as sequential solo launches and its
      plain version, with each launch's bound; the launch-step time against
-     the number of rows (1, 21, 132, 264).
+     the number of rows (1, 21, 132, 264);
+ 18. K6b on the sphere sweep's 15 rows and on 3 sigmoid-MLP dual rows
+     (200|200|200): every row equal to its solo K5 launch bitwise (64
+     steps, in-kernel sampler), K6b against its plain version with external
+     noise (32 steps one at a time: losses at MLP_TOL, each row's state by
+     relative 2-norm at MLP_TOL's rtol), a 40 = 15 + 25 split;
+ 19. K5-dual against its plain version at sigmoid row 1 with 200|200|200
+     (64 steps one at a time, as in phase 18; external noise and in-kernel
+     sampling, -tdv on and off), a chunk split bitwise, and the CLI for
+     12000 steps on it;
+ 20. the CLI's --seed_grid 69,24,48 at sphere row 1 (one K6b launch a
+     chunk, row seed69 equal to phase 11's solo run bitwise) and the sphere
+     sweep through the sweep runner, --grouped (15 runs, one K6b launch a
+     chunk, every run's loss falling, --resume from 7000 bitwise);
+ 21. times: K6b against the same rows as sequential solo K5 launches and
+     its plain version, with its bound; the launch-step against copies of
+     sphere row 1 (1, 15, 45); K5-dual against the torch path.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -90,6 +108,9 @@ SPHERE_ROW1 = ["--dataset", "sphere", "--encoder_layer_sizes", "200|200|200",
 SIG_D, SIG_L, SIG_DD = 7, 6, 3  # sigmoid row 1: ambient 3 + 1 + 3, latent 6
 SPH_D, SPH_L, SPH_DD = 6, 6, 3  # sphere row 1: ambient 3 + 3, latent 6
 SPH_ENC, SPH_DEC = (6, 200, 200, 200, 6), (6, 200, 200, 200, 6)
+# sigmoid row 1 with the sphere sweep's 200|200|200 stacks: the MLP kernel's
+# dual-decoder branch (K5-dual); no reference script runs it
+SIGMOID_MLP_ROW1 = [a if a != "" else "200|200|200" for a in SIGMOID_ROW1]
 # tests/test_mlp_kernel.py's tolerances: fp32 on both sides, but the
 # 200-wide stacks sum 200 terms per output in another order than cuBLAS,
 # and four layers each way compound the rounding, so the MLP kernel's
@@ -327,8 +348,10 @@ def main() -> int:
         **_bound(linear_flops(B, D, L, ID, ID, False), 6 * 4 * k1.n_params(D, L), chunk_steps),
         "library_ms": None}
 
-    records = [k1_record] + _sweeps(torch, np, smi, builds["mlp_vae"][1])
+    sweeps_dir = os.path.join(data_dir, "sweeps")
+    records = [k1_record] + _sweeps(torch, np, smi, builds["mlp_vae"][1], sweeps_dir)
     records += _grids(torch, np, smi, run_dir, data_dir)
+    records += _mlp_grids(torch, np, smi, os.path.join(sweeps_dir, "main_K5"), data_dir)
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -338,9 +361,10 @@ def main() -> int:
     return 0
 
 
-def _sweeps(torch, np, smi, mlp_build):
+def _sweeps(torch, np, smi, mlp_build, data_dir):
     """Phases 8–13: K2 on the sigmoid sweep's row 1 and K5 on the sphere
-    sweep's row 1. Returns their records for the kernels' JSON line."""
+    sweep's row 1, the CLI runs writing under ``data_dir``. Returns their
+    records for the kernels' JSON line."""
     from vae_training_tpu_torch._scripts.run import main as run_main
     from vae_training_tpu_torch.config import parse_arguments
     from vae_training_tpu_torch.data import (
@@ -360,9 +384,10 @@ def _sweeps(torch, np, smi, mlp_build):
     # --- 8 ---------------------------------------------------------------
     phase(8, "the MLP library (K5)")
     _print_ptxas(mlp_build)
-    blocks, per_sm = k5.grid()
-    print(f"K5 cooperative grid: {blocks} blocks of {k5.THREADS} threads, one per SM "
-          f"(up to {per_sm} per SM would fit)")
+    for n_rows in (1, 15):
+        blocks, per_sm = k5.grid(n_rows)
+        print(f"MLP kernel's cooperative grid at {n_rows} row(s): {blocks} blocks of "
+              f"{k5.THREADS} threads, one per SM (up to {per_sm} per SM would fit)")
 
     # --- 9 ---------------------------------------------------------------
     phase(9, "K2 vs its plain PyTorch version at sigmoid row 1 (64 steps)")
@@ -439,8 +464,6 @@ def _sweeps(torch, np, smi, mlp_build):
 
     # --- 11 --------------------------------------------------------------
     phase(11, "main paths: the CLI's sigmoid row 1 (K2) and sphere row 1 (K5), 12000 steps")
-    tmp = tempfile.TemporaryDirectory()
-    data_dir = tmp.name
 
     def cli(row, name, num_batches, *extra):
         cfg = parse_arguments([name, *row, "--num_batches", str(num_batches),
@@ -491,7 +514,6 @@ def _sweeps(torch, np, smi, mlp_build):
     require(rc1 == 0 and rc2 == 0, "both runs returned 0")
     _require_same_run(np, os.path.join(data_dir, "main_K5"), os.path.join(data_dir, "resumed"))
     print("losses.npz and model.pkl params equal the uninterrupted run bitwise")
-    tmp.cleanup()
 
     # --- 13 --------------------------------------------------------------
     phase(13, "times: K2 at sigmoid row 1, K5 at sphere row 1, against the torch path")
@@ -822,6 +844,404 @@ def _grids(torch, np, smi, solo_dir, data_dir):
     return records
 
 
+def _mlp_grids(torch, np, smi, solo_sphere_dir, data_dir):
+    """Phases 18–21: K6b, the grid mode of the MLP kernel, on the sphere
+    sweep's 15 rows (and on sigmoid-MLP rows with the dual decoder), and
+    K5-dual at sigmoid row 1 with 200|200|200 stacks. ``solo_sphere_dir``
+    is phase 11's solo CLI run of sphere row 1. Returns their records."""
+    from vae_training_tpu_torch._scripts import sweep
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments
+    from vae_training_tpu_torch.data import SigmoidDataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState, step as torch_step
+    from vae_training_tpu_torch.train.grid import GridTrainer
+
+    dev = torch.device("cuda")
+    hidden = (200, 200, 200)
+    counters = (k5.run_grid_chunk, k5.run_mlp_fused_chunk, k1.run_grid_chunk,
+                k1.run_fused_chunk, torch_step.train_chunk, k5.plain_grid_chunk,
+                k1.plain_grid_chunk)
+
+    def reset_counts():
+        for c in counters:
+            if hasattr(c, "launches"):
+                c.launches = 0
+            else:
+                c.calls = 0
+
+    def plain_chunks():
+        return (torch_step.train_chunk.calls + k5.plain_grid_chunk.calls
+                + k1.plain_grid_chunk.calls)
+
+    def family(cfgs, seeds):
+        groups = {}
+        for cfg in cfgs:
+            groups.setdefault((cfg.dataset_dimension, cfg.padding_dim, cfg.latent_dimension), cfg)
+        grids = [GridTrainer(cfg, seeds, build_chunk=False) for cfg in groups.values()]
+        trip = [(g.model, ds, st) for g in grids for ds, st in zip(g.datasets, g.states)]
+        kind = k5.dataset_kind(trip[0][1])
+        rows = [k1.GridRow(ds.dimension, m.latent_dim, ds.intrinsic_dim, ds.dim,
+                           None if kind == "sphere" else ds.A, st.step, st.count,
+                           st.data_seed, st.model_seed, ds.var_added) for m, ds, st in trip]
+        c0 = cfgs[0]
+        return dict(states=[st for _, _, st in trip], rows=rows, dual=kind == "sigmoid",
+                    kw=dict(batch=c0.batch_size, enc_hidden=hidden, dec_hidden=hidden,
+                            kind=kind, eps_const=c0.epsilon, tdv=True,
+                            lr=c0.learning_rate, dual=kind == "sigmoid"))
+
+    sig_cfg = parse_arguments(["dual", *SIGMOID_MLP_ROW1, "--num_batches", "64",
+                               "--kernels", "cuda", "--device", "cuda", "--data_dir", data_dir])
+    families = {"sphere": family(list(sweep.sweep_configs("sphere", data_dir, 64, "cuda")),
+                                 sweep.SWEEP_SEEDS["sphere"]),
+                "sigmoid-MLP": family([sig_cfg], [69, 24, 48])}
+
+    def solo(fam, i, bufs, n):
+        r, kw = fam["rows"][i], fam["kw"]
+        enc, dec = k5.row_widths(r, hidden, hidden)
+        return k5.run_mlp_fused_chunk(
+            *bufs, r.a, n_steps=n, batch=kw["batch"], enc_widths=enc, dec_widths=dec,
+            kind=kw["kind"], intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim,
+            step0=r.step0, t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
+            var_added=r.var_added, eps_const=kw["eps_const"], tdv=True, lr=kw["lr"],
+            dual=fam["dual"])
+
+    # --- 18 --------------------------------------------------------------
+    phase(18, "K6b vs solo K5 launches on the card: the sphere sweep's 15 rows and 3 "
+              "sigmoid-MLP dual rows, full width")
+    errs = {}
+    for which, fam in families.items():
+        rows, dual, kw, states = fam["rows"], fam["dual"], fam["kw"], fam["states"]
+        print(f"{which}: {len(rows)} rows, (D, L) {sorted({(r.data_dim, r.latent_dim) for r in rows})}, "
+              f"up to {max(k5.row_offsets([r], hidden, hidden, dual)[-1] for r in rows)} "
+              f"parameters a row")
+        p, m, v = k5.pack_rows(states, rows, hidden, hidden, dual)
+        losses = k5.run_grid_chunk(p, m, v, rows, n_steps=64, **kw)
+        views = k5.row_views(p, m, v, rows, hidden, hidden, dual)
+        for i, st in enumerate(states):
+            bufs = k5.pack_state(st, *k5.row_widths(rows[i], hidden, hidden), dual)
+            want = solo(fam, i, bufs, 64)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(losses[i]).all()), f"{which} row {i}: finite losses")
+            require(torch.equal(losses[i], want), f"{which} row {i}: losses equal the solo "
+                                                  f"launch's bitwise")
+            for name, got, ref in zip("pmv", views[i], bufs):
+                require(torch.equal(got, ref), f"{which} row {i}: {name} equals the solo "
+                                               f"launch's bitwise")
+        print(f"{which}: every row's losses, p, m and v equal its solo "
+              f"K5{'-dual' if dual else ''} launch bitwise (64 steps, in-kernel sampler)")
+
+        # external noise, K6b against its plain version along 32 steps of
+        # the kernel's trajectory, one step at a time (see _hold_mlp)
+        n = 32
+        rs = np.random.RandomState(18)
+        noise = [_manifold_noise(torch, np, rs, r, n, kw["batch"], dev) for r in rows]
+        kb = k5.pack_rows(states, rows, hidden, hidden, dual)
+        worst = 0.0
+        for step in range(n):
+            srows = [dataclasses.replace(r, step0=r.step0 + step, t0=r.t0 + step) for r in rows]
+            ext = [tuple(t[step:step + 1].contiguous() for t in nz) for nz in noise]
+            pb = tuple(t.clone() for t in kb)
+            kl = k5.run_grid_chunk(*kb, srows, n_steps=1, external_noise=ext, **kw)
+            pl = k5.plain_grid_chunk(*pb, srows, n_steps=1, external_noise=ext, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, _hold_mlp(
+                torch, np, f"K6b {which} step {step}", kl, pl,
+                k5.row_views(*kb, rows, hidden, hidden, dual),
+                k5.row_views(*pb, rows, hidden, hidden, dual)))
+        errs[which] = worst
+        print(f"{which} external noise, K6b vs plain_grid_chunk ({n} steps, one at a time): "
+              f"losses at MLP_TOL, every row's p, m, v within MLP_TOL's rtol in 2-norm; "
+              f"max |Δ| {worst:.2e}")
+
+        a = k5.pack_rows(states, rows, hidden, hidden, dual)
+        b = tuple(t.clone() for t in a)
+        la = k5.run_grid_chunk(*a, rows, n_steps=40, **kw)
+        later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in rows]
+        lb = torch.cat([k5.run_grid_chunk(*b, rows, n_steps=15, **kw),
+                        k5.run_grid_chunk(*b, later, n_steps=25, **kw)], dim=1)
+        torch.cuda.synchronize()
+        require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"K6b {which}: a 40-step launch equals a 15 + 25 split bitwise")
+        print(f"{which}: K6b chunk split 40 = 15 + 25 bitwise equal")
+
+    # --- 19 --------------------------------------------------------------
+    phase(19, "K5-dual vs its plain PyTorch version at sigmoid row 1, 200|200|200 (64 steps)")
+    sig = SigmoidDataset.create(69, SIG_DD, 3, device=dev)
+    data_seed = rng.derive_seed(69, rng.SEED_TRAIN_DATA)
+    model_seed = rng.derive_seed(0, rng.SEED_TRAIN_Z)
+    enc, dec = (SIG_D, *hidden, SIG_L), (SIG_L, *hidden, SIG_D)
+
+    def dual_state(tdv):
+        model = build_vae(data_dim=SIG_D, latent_dim=SIG_L, encoder_layer_sizes="200|200|200",
+                          decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                          tunable_decoder_var=tdv, dataset_name="sigmoid")
+        model.init_parameters(0)
+        state = TrainState.create(dict(model.named_parameters()), 0, 0).to(dev)
+        return k5.pack_state(state, enc, dec, dual=True)
+
+    def dual_chunk(fn, bufs, n, step0, tdv, noise=None):
+        return fn(*bufs, sig.A, n_steps=n, batch=B, enc_widths=enc, dec_widths=dec,
+                  kind="sigmoid", intrinsic_dim=SIG_DD, manifold_dim=SIG_DD, step0=step0,
+                  t0=step0, data_seed=data_seed, model_seed=model_seed, var_added=0.0,
+                  eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise, dual=True)
+
+    row1 = k1.GridRow(SIG_D, SIG_L, SIG_DD, SIG_DD, sig.A, 0, 0, data_seed, model_seed)
+    ext = _manifold_noise(torch, np, np.random.RandomState(19), row1, 64, B, dev)
+    dual_err = 0.0
+    for tdv in (True, False):
+        for mode, noise in (("external", ext), ("sampler", None)):
+            kb = dual_state(tdv)
+            err = 0.0
+            for step in range(64):  # one step at a time (see _hold_mlp)
+                pb = tuple(t.clone() for t in kb)
+                one = None if noise is None else tuple(t[step:step + 1].contiguous()
+                                                       for t in noise)
+                kl = dual_chunk(k5.run_mlp_fused_chunk, kb, 1, step, tdv, one)
+                pl = dual_chunk(k5.plain_mlp_fused_chunk, pb, 1, step, tdv, one)
+                torch.cuda.synchronize()
+                err = max(err, _hold_mlp(torch, np, f"K5-dual tdv={tdv} {mode} step {step}",
+                                         kl, pl, [kb], [pb]))
+            dual_err = max(dual_err, err)
+            print(f"K5-dual tdv={tdv!s:5} {mode:8}: 64 steps one at a time within tolerance, "
+                  f"max |Δ| {err:.2e}")
+    _split(torch, "K5-dual", dual_state, k5.run_mlp_fused_chunk, dual_chunk)
+
+    def cli(name, row, num_batches, *extra):
+        cfg = parse_arguments([name, *row, "--num_batches", str(num_batches), "--kernels",
+                               "cuda", "--device", "cuda", "--data_dir", data_dir, *extra])
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t
+
+    reset_counts()
+    rc, out, secs = cli("main_dual", SIGMOID_MLP_ROW1, 12000)
+    dual_launches, plain = k5.run_mlp_fused_chunk.launches, plain_chunks()
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith(("Batch |", "[kernels]"))))
+    print(f"K5-dual main path: rc {rc}, {secs:.2f} s, K5-dual launches {dual_launches}, "
+          f"plain chunks {plain}")
+    require(rc == 0, "K5-dual: main() returned 0")
+    require("[kernels] cuda: fused MLP-VAE kernel K5 (dual decoder) (" in out,
+            "the [kernels] line names K5 (dual decoder)")
+    require(dual_launches > 0 and plain == 0, "K5-dual launched and no plain chunk ran")
+    evals = {int(mt.group(1)): float(mt.group(2)) for mt in re.finditer(
+        r"^Batch \| (\d+) \| VAE Loss \| (-?[\d.]+)", out, re.M)}
+    require(sorted(evals) == [0, 5000, 10000] and evals[10000] < evals[0],
+            "K5-dual: eval VAE Loss lower at 10000 than at 0")
+    z = np.load(os.path.join(data_dir, "main_dual", "losses.npz"))
+    require(bool(np.all(np.isfinite(z["VAE Loss"]))) and z["VAE Loss"].shape == (12003,),
+            "K5-dual: finite per-step loss trace of 12000 steps + 3 evals")
+    print(f"K5-dual: eval VAE Loss {evals[0]:.3f} -> {evals[10000]:.3f}")
+
+    # --- 20 --------------------------------------------------------------
+    phase(20, "the CLI's --seed_grid 69,24,48 at sphere row 1 and the sphere sweep through "
+              "the sweep runner, 12000 steps, on K6b")
+    reset_counts()
+    rc, out, secs = cli("grid", SPHERE_ROW1, 12000, "--seed_grid", "69,24,48")
+    grid_n, solo_n, plain = (k5.run_grid_chunk.launches, k5.run_mlp_fused_chunk.launches,
+                             plain_chunks())
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith(("[kernels]", "[seed 69]"))))
+    print(f"seed grid: rc {rc}, {secs:.2f} s for 3 rows, K6b launches {grid_n}, solo K5 "
+          f"launches {solo_n}, plain chunks {plain}")
+    require(rc == 0 and "[kernels] cuda: K6b" in out, "the seed grid ran, its [kernels] "
+                                                      "line naming K6b")
+    require(grid_n == 4 and solo_n == 0 and plain == 0,
+            f"one K6b launch a chunk (4 chunks, got {grid_n}), no solo launch, no plain chunk")
+    _require_same_run(np, solo_sphere_dir, os.path.join(data_dir, "grid_seed69"))
+    print("row seed69's losses.npz and model.pkl equal phase 11's solo run bitwise")
+
+    def run_sweep(sub, num_batches, *extra):
+        reset_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep.main(["sphere", "--grouped", "--kernels", "cuda", "--num_batches",
+                             str(num_batches), "--data_dir", os.path.join(data_dir, sub),
+                             *extra])
+        torch.cuda.synchronize()
+        counts = (k5.run_grid_chunk.launches, k5.run_mlp_fused_chunk.launches
+                  + k1.run_grid_chunk.launches + k1.run_fused_chunk.launches, plain_chunks())
+        return rc, buf.getvalue(), time.perf_counter() - t, counts
+
+    rc, out, secs, (grid_n, other_n, plain) = run_sweep("sphere", 12000)
+    sweep_launches = grid_n
+    acct = [ln for ln in out.splitlines() if ln.startswith("[sweep]")]
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith("[kernels]")))
+    print("\n".join(acct))
+    print(f"sphere sweep: rc {rc}, {secs:.2f} s, K6b launches {grid_n}, other launches "
+          f"{other_n}, plain chunks {plain}")
+    require(rc == 0, "the sphere sweep returned 0")
+    require("[kernels] cuda: K6b, the grid mode of the fused MLP-VAE kernel, 15 rows in one "
+            "launch a chunk" in out, "one K6b launch over the sweep's 15 rows")
+    require(grid_n == 4 and other_n == 0 and plain == 0,
+            "sphere sweep: one K6b launch a chunk and nothing else")
+    require(any("wall accounting: banners" in ln for ln in acct), "the wall-accounting line")
+    falling = 0
+    for c in sweep.sweep_configs("sphere", data_dir, 12000, "cuda"):
+        trace = np.load(os.path.join(data_dir, "sphere", c.name, "losses.npz"))["VAE Loss"]
+        require(bool(np.all(np.isfinite(trace))) and trace.shape == (12003,),
+                f"{c.name}: finite loss trace of 12000 steps + 3 evals")
+        falling += bool(trace[-100:].mean() < trace[0])
+    print(f"sphere: the last 100 steps' mean loss is below the step-0 eval's in {falling} "
+          f"of 15 runs")
+    require(falling == 15, "sphere: every run's loss falls")
+    rc1, _, _, _ = run_sweep("sphere_resumed", 7000)
+    rc2, _, _, (grid_n, _, _) = run_sweep("sphere_resumed", 12000, "--resume")
+    require(rc1 == 0 and rc2 == 0 and grid_n > 0, "the stopped and resumed sweeps ran on K6b")
+    for c in sweep.sweep_configs("sphere", data_dir, 12000, "cuda"):
+        _require_same_run(np, os.path.join(data_dir, "sphere", c.name),
+                          os.path.join(data_dir, "sphere_resumed", c.name))
+    print("sphere sweep --resume from 7000 to 12000: all 15 runs equal the uninterrupted "
+          "sweep bitwise")
+
+    # --- 21 --------------------------------------------------------------
+    phase(21, "times: K6b against sequential solo K5 launches and its plain version; "
+              "K5-dual against the torch path")
+    records = []
+    fam = families["sphere"]
+    rows, kw, states = fam["rows"], fam["kw"], fam["states"]
+    n_rows, steps = len(rows), 200
+    kb = k5.pack_rows(states, rows, hidden, hidden)
+    pb = tuple(t.clone() for t in kb)
+    solo_bufs = [k5.pack_state(st, *k5.row_widths(r, hidden, hidden))
+                 for st, r in zip(states, rows)]
+
+    def grid_call():
+        k5.run_grid_chunk(*kb, rows, n_steps=steps, **kw)
+
+    def solo_call():
+        for i, bufs in enumerate(solo_bufs):
+            solo(fam, i, bufs, steps)
+
+    def plain_call():
+        k5.plain_grid_chunk(*pb, rows, n_steps=2, **kw)
+
+    rates = {}
+    for name, fn, n in (("plain", plain_call, 2), ("grid", grid_call, steps),
+                        ("solo", solo_call, steps), ("solo2", solo_call, steps),
+                        ("grid2", grid_call, steps), ("plain2", plain_call, 2)):
+        rates[name] = _steps_per_second(torch, fn, n)  # launch-steps a second
+    g_rate = max(rates["grid"], rates["grid2"])
+    s_rate = max(rates["solo"], rates["solo2"])
+    p_rate = max(rates["plain"], rates["plain2"])
+    widths = [k5.row_widths(r, hidden, hidden) for r in rows]
+    flops = sum(mlp_flops(B, e, d) for e, d in widths)
+    state_bytes = sum(6 * 4 * k5.n_params(e, d) for e, d in widths)
+    bound = _bound(flops, state_bytes, steps, losses_per_step=n_rows)
+    print(f"card: {smi}")
+    print(f"K6b sphere sweep, {n_rows} rows, {steps}-step launches: {rates['grid']:.1f} / "
+          f"{rates['grid2']:.1f} launch-steps/s ({1e3 / g_rate:.5f} ms a launch-step, "
+          f"{g_rate * n_rows:.1f} row-steps/s)")
+    print(f"sequential solo K5 launches of the same rows: {rates['solo'] * n_rows:.1f} / "
+          f"{rates['solo2'] * n_rows:.1f} row-steps/s (K6b {g_rate / s_rate:.2f}x)")
+    print(f"plain_grid_chunk: {rates['plain']:.3f} / {rates['plain2']:.3f} launch-steps/s "
+          f"({1e3 / p_rate:.3f} ms a launch-step)")
+    print(f"K6b bound {bound['bound_ms'] * 1e3:.4f} us a launch-step ({bound['bound_by']}; "
+          f"{flops / 1e6:.3f} MFLOP), kernel at {bound['bound_ms'] * g_rate / 10:.4f}% of it")
+    records.append({
+        "name": f"mlp_vae_chunk grid (K6b), sphere sweep, {n_rows} rows", "route": "cuda",
+        "source": "vae_training_tpu_torch/csrc/mlp_vae.cu",
+        "replaces": "vae_training_tpu/kernels/mlp_vae.py:644",
+        "launches": sweep_launches, "max_abs_err": max(errs.values()),
+        "ms": 1e3 / g_rate, "plain_ms": 1e3 / p_rate, **bound, "library_ms": None})
+
+    # the launch-step against the number of copies of sphere row 1
+    for copies in (1, 15, 45):
+        crows = [rows[0]] * copies
+        bufs = k5.pack_rows([states[0]] * copies, crows, hidden, hidden)
+        rate = _steps_per_second(torch, lambda: k5.run_grid_chunk(
+            *bufs, crows, n_steps=steps, **kw), steps)
+        print(f"K6b with {copies:2d} copies of sphere row 1: {1e3 / rate:.5f} ms a launch-step "
+              f"({rate * copies:.1f} row-steps/s)")
+
+    # K5-dual at sigmoid row 1 against the torch path
+    model = build_vae(data_dim=SIG_D, latent_dim=SIG_L, encoder_layer_sizes="200|200|200",
+                      decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                      tunable_decoder_var=True, dataset_name="sigmoid")
+    model.init_parameters(0)
+    state = TrainState.create(dict(model.named_parameters()), data_seed, model_seed).to(dev)
+    kb = dual_state(True)
+    k_steps, p_steps = 1000, 50
+
+    def kernel_call():
+        dual_chunk(k5.run_mlp_fused_chunk, kb, k_steps, 0, True)
+
+    def torch_call():
+        torch_step.train_chunk(model, sig, state, p_steps, batch_size=B, lr=1e-4)
+
+    rates = {}
+    for name, fn, n in (("plain", torch_call, p_steps), ("kernel", kernel_call, k_steps),
+                        ("kernel2", kernel_call, k_steps), ("plain2", torch_call, p_steps)):
+        rates[name] = _steps_per_second(torch, fn, n)
+    k_rate = max(rates["kernel"], rates["kernel2"])
+    p_rate = max(rates["plain"], rates["plain2"])
+    flops = mlp_flops(B, enc, dec, dual=True)
+    bound = _bound(flops, 6 * 4 * k5.n_params(enc, dec, True), k_steps)
+    print(f"K5-dual kernel: {rates['kernel']:.1f} / {rates['kernel2']:.1f} steps/s "
+          f"({1e3 / k_rate:.5f} ms/step, {k_steps}-step launches)")
+    print(f"torch path: {rates['plain']:.1f} / {rates['plain2']:.1f} steps/s "
+          f"({1e3 / p_rate:.5f} ms/step)")
+    print(f"K5-dual bound {bound['bound_ms'] * 1e3:.4f} us/step ({bound['bound_by']}; "
+          f"{flops / 1e6:.3f} MFLOP/step), kernel at {bound['bound_ms'] * k_rate / 10:.3f}% of it")
+    records.append({
+        "name": "mlp_vae_chunk dual (K5-dual)", "route": "cuda",
+        "source": "vae_training_tpu_torch/csrc/mlp_vae.cu",
+        "replaces": "vae_training_tpu/kernels/mlp_vae.py:644",
+        "launches": dual_launches, "max_abs_err": dual_err,
+        "ms": 1e3 / k_rate, "plain_ms": 1e3 / p_rate, **bound, "library_ms": None})
+    return records
+
+
+def _manifold_noise(torch, np, rs, row, n, batch, device):
+    """External (x, z1, z2) for ``n`` steps of one row: x on the row's
+    manifold (the sphere's, or [z, σ(z·a), 0] with ``row.a``), the rest
+    standard normals."""
+    z = rs.randn(n, batch, row.manifold_dim).astype(np.float32)
+    x = np.zeros((n, batch, row.data_dim), np.float32)
+    if row.a is None:
+        x[:, :, :row.manifold_dim] = z / np.linalg.norm(z, axis=-1, keepdims=True)
+    else:
+        x[:, :, :row.manifold_dim] = z
+        x[:, :, row.manifold_dim] = 1 / (1 + np.exp(-(z @ row.a.cpu().numpy()[:, 0])))
+    return tuple(torch.as_tensor(t.astype(np.float32), device=device) for t in (
+        x, rs.randn(n, batch, row.latent_dim), rs.randn(n, batch, row.data_dim)))
+
+
+def _hold_mlp(torch, np, label, losses, plain_losses, rows, plain_rows):
+    """Hold one step of the MLP kernel to its plain version: the losses
+    elementwise at MLP_TOL, and each row's p, m and v by the 2-norm of
+    their difference relative to the plain version's, at MLP_TOL's rtol.
+    Returns the largest |Δ|.
+
+    Why norms: at 200|200|200 a row has ~10⁵ ReLU pre-activations a step,
+    and some lie within float32 rounding of zero; two correct float32 sums
+    then mask one sample's gradient differently, which moves ~0.5% of a
+    row's m by ~1e-3 relative: past MLP_TOL elementwise at about one step
+    in twenty over the sphere sweep's 15 rows. Adam also turns gradients at
+    the rounding floor (|g| ~ 1e-8) into steps of up to lr either way. A
+    relative 2-norm of 1e-3 absorbs both and still fails on a wrong layer,
+    bias or stack. Why one step at a time: those partings compound."""
+    a, b = losses.cpu().numpy(), plain_losses.cpu().numpy()
+    require(bool(np.all(np.isfinite(a))), f"{label}: finite losses")
+    np.testing.assert_allclose(a, b, *MLP_TOL["losses"], err_msg=f"{label} losses")
+    worst = float(np.abs(a - b).max())
+    for i, (got, want) in enumerate(zip(rows, plain_rows)):
+        for name, x, y in zip(("params", "m", "v"), got, want):
+            x, y = x.double(), y.double()
+            require(bool(torch.isfinite(x).all()), f"{label} row {i} {name} finite")
+            rel = float((x - y).norm() / y.norm().clamp_min(1e-300))
+            require(rel <= MLP_TOL[name][0], f"{label} row {i} {name}: relative 2-norm of "
+                                             f"the difference {rel:.2e} > {MLP_TOL[name][0]}")
+            worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
 def linear_flops(batch, data_dim, latent_dim, intrinsic_dim, manifold_dim, dual):
     """Operations of one K1/K2 step at these shapes: 2 per multiply-add of
     each product (the manifold draw; x·We, s·Wd, g_Wd, g_s, g_We; with the
@@ -834,11 +1254,13 @@ def linear_flops(batch, data_dim, latent_dim, intrinsic_dim, manifold_dim, dual)
     return draw + (8 if dual else 5) * bdl + 12 * n_p
 
 
-def mlp_flops(batch, enc, dec):
+def mlp_flops(batch, enc, dec, dual=False):
     """Operations of one K5 step: 2 per multiply-add of each product (every
-    layer's forward and g_W, every layer's g_in but the encoder's first) and
-    12 per parameter for the Adam update."""
-    layers = [(a, b) for w in (enc, dec) for a, b in zip(w[:-1], w[1:])]
+    layer's forward and g_W, every layer's g_in but the encoder's first; the
+    SigDecoder's layers too with the dual decoder) and 12 per parameter for
+    the Adam update."""
+    stacks = (enc, dec, dec) if dual else (enc, dec)
+    layers = [(a, b) for w in stacks for a, b in zip(w[:-1], w[1:])]
     macs = sum(a * b for a, b in layers)
     n_p = macs + sum(b for _, b in layers) + enc[-1] + 1
     return 2 * batch * (3 * macs - enc[0] * enc[1]) + 12 * n_p

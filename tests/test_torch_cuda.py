@@ -1,5 +1,6 @@
-"""K1, K2, K5 and K6a on the card: the CUDA kernels against their plain
-PyTorch versions, and K6a's rows against the solo kernel.
+"""K1, K2, K5, K5-dual, K6a and K6b on the card: the CUDA kernels against
+their plain PyTorch versions, and the grid modes' rows against the solo
+kernels.
 
 These tests need a CUDA device of compute capability 9.0 and nvcc; they
 carry the ``cuda`` marker and skip elsewhere. The file imports no JAX, so on
@@ -7,10 +8,10 @@ a machine without it run them with the repository's conftest left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_pallas_kernel.py for K1 and K2 and of
-tests/test_mlp_kernel.py for K5: both sides are fp32, and only summation
-order and libm ulps differ (K5's 200-term sums through four layers each way
-compound more of them).
+Tolerances are those of tests/test_pallas_kernel.py for K1, K2 and K6a and
+of tests/test_mlp_kernel.py for K5, K5-dual and K6b: both sides are fp32,
+and only summation order and libm ulps differ (the MLP kernel's 200-term
+sums through four layers each way compound more of them).
 """
 
 import dataclasses
@@ -20,7 +21,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from vae_training_tpu_torch.data import LinearGaussianDataset, SigmoidDataset  # noqa: E402
+from vae_training_tpu_torch.data import (  # noqa: E402
+    LinearGaussianDataset,
+    SigmoidDataset,
+    SphereDataset,
+)
 from vae_training_tpu_torch.kernels import linear_vae as k1  # noqa: E402
 from vae_training_tpu_torch.kernels import mlp_vae as k5  # noqa: E402
 from vae_training_tpu_torch.models import build_vae  # noqa: E402
@@ -323,6 +328,190 @@ def test_k6a_is_chunk_independent(cuda_device):
     lb1 = k1.run_grid_chunk(*b, rows, n_steps=15, **_grid_kw(False))
     later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in rows]
     lb2 = k1.run_grid_chunk(*b, later, n_steps=25, **_grid_kw(False))
+    torch.cuda.synchronize()
+    assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# --- K5-dual: sigmoid row 1 with 200|200|200 stacks (D 7, L 6) ----------------
+DUAL_ENC, DUAL_DEC = (SD, 200, 200, 200, SL), (SL, 200, 200, 200, SD)
+
+
+def _dual_state(device, tdv):
+    model = build_vae(data_dim=SD, latent_dim=SL, encoder_layer_sizes="200|200|200",
+                      decoder_layer_sizes="200|200|200", epsilon=-3.0, tunable_decoder_var=tdv,
+                      dataset_name="sigmoid")
+    model.init_parameters(0)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    return k5.pack_state(state, DUAL_ENC, DUAL_DEC, dual=True)
+
+
+def _dual_chunk(bufs, a, n, step0, tdv, noise=None, plain=False):
+    fn = k5.plain_mlp_fused_chunk if plain else k5.run_mlp_fused_chunk
+    return fn(*bufs, a, n_steps=n, batch=B, enc_widths=DUAL_ENC, dec_widths=DUAL_DEC,
+              kind="sigmoid", intrinsic_dim=SDD, manifold_dim=SDD, step0=step0, t0=step0,
+              data_seed=rng.derive_seed(69, 1), model_seed=rng.derive_seed(0, 3),
+              var_added=0.0, eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise,
+              dual=True)
+
+
+def _manifold_noise(device, n, rows, seed=0):
+    """External (x, z1, z2) per row, x on the row's manifold (the sphere's,
+    or [z, σ(z·a), 0] when the row has a column a)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for D_, L_, dd, a in rows:
+        z = rs.randn(n, B, dd).astype(np.float32)
+        x = np.zeros((n, B, D_), np.float32)
+        if a is None:
+            x[:, :, :dd] = z / np.linalg.norm(z, axis=-1, keepdims=True)
+        else:
+            x[:, :, :dd] = z
+            x[:, :, dd] = 1 / (1 + np.exp(-(z @ a.cpu().numpy()[:, 0])))
+        out.append(tuple(torch.as_tensor(t.astype(np.float32), device=device) for t in (
+            x, rs.randn(n, B, L_), rs.randn(n, B, D_))))
+    return out
+
+
+def _assert_mlp_step_close(kl, pl, rows, plain_rows):
+    """One step of the MLP kernel against its plain version from the same
+    state: losses at tests/test_mlp_kernel.py's tolerance, each row's p, m
+    and v by the 2-norm of the difference relative to the plain version's,
+    within that tolerance's rtol (1e-3). At 200|200|200, ReLU
+    pre-activations within float32 rounding of zero mask a sample's
+    gradient differently in two correct sums, and Adam turns gradients at
+    the rounding floor into steps of up to lr: elementwise, two float32
+    versions part at some steps, and the partings compound (chip_smoke.py's
+    _hold_mlp)."""
+    np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=3e-4, atol=3e-4)
+    for got, want in zip(rows, plain_rows):
+        for x, y in zip(got, want):
+            x, y = x.double(), y.double()
+            assert float((x - y).norm() / y.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("tdv", [True, False])
+def test_k5_dual_matches_plain(cuda_device, tdv, external):
+    ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
+    n = 16
+    noise = _manifold_noise(cuda_device, n, [(SD, SL, SDD, ds.A)])[0] if external else None
+    kb = _dual_state(cuda_device, tdv)
+    for step in range(n):  # one step at a time from the kernel's state
+        pb = tuple(t.clone() for t in kb)
+        one = None if noise is None else tuple(t[step:step + 1].contiguous() for t in noise)
+        kl = _dual_chunk(kb, ds.A, 1, step, tdv, one)
+        pl = _dual_chunk(pb, ds.A, 1, step, tdv, one, plain=True)
+        torch.cuda.synchronize()
+        _assert_mlp_step_close(kl, pl, [kb], [pb])
+
+
+@pytest.mark.cuda
+def test_k5_dual_is_chunk_independent(cuda_device):
+    ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
+    a = _dual_state(cuda_device, True)
+    b = tuple(t.clone() for t in a)
+    la = _dual_chunk(a, ds.A, 40, 0, True)
+    lb = torch.cat([_dual_chunk(b, ds.A, 15, 0, True), _dual_chunk(b, ds.A, 25, 15, True)])
+    torch.cuda.synchronize()
+    assert torch.equal(la, lb)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# --- K6b: the grid mode of the MLP kernel, mixed-dims rows ---------------------
+SPH_ROWS = [(3, 3, 6), (5, 16, 16), (7, 7, 13)]  # (dd, pd, ld): the sphere sweep's
+
+
+def _mlp_grid(device, kind, hidden):
+    """Rows of the sphere sweep, or sigmoid rows with the dual decoder, each
+    with its own dataset seed, init and counters: (states, GridRows)."""
+    states, rows = [], []
+    spec = "|".join(map(str, hidden))
+    for i, (dd, pd, ld) in enumerate(SPH_ROWS if kind == "sphere" else SIG_ROWS):
+        if kind == "sphere":
+            ds = SphereDataset(dd, pd, device=device)
+        else:
+            ds = SigmoidDataset.create(69 + i, dd, pd, device=device)
+        model = build_vae(data_dim=ds.dimension, latent_dim=ld, encoder_layer_sizes=spec,
+                          decoder_layer_sizes=spec, epsilon=-3.0, tunable_decoder_var=True,
+                          dataset_name="sigmoid" if kind == "sigmoid" else None)
+        model.init_parameters(i)
+        state = TrainState.create(dict(model.named_parameters()),
+                                  rng.derive_seed(69 + i, 1), rng.derive_seed(0, 3)).to(device)
+        state.step, state.count = 11 * i, 11 * i
+        states.append(state)
+        rows.append(k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim,
+                               ds.A if kind == "sigmoid" else None, state.step, state.count,
+                               state.data_seed, state.model_seed))
+    return states, rows
+
+
+def _mlp_grid_kw(kind, hidden):
+    return dict(batch=B, enc_hidden=hidden, dec_hidden=hidden, kind=kind, eps_const=-3.0,
+                tdv=True, lr=1e-4, dual=kind == "sigmoid")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sphere", "sigmoid"])
+def test_k6b_rows_equal_solo_launches_bitwise(cuda_device, kind):
+    hidden = (200, 200, 200)
+    states, rows = _mlp_grid(cuda_device, kind, hidden)
+    kw = _mlp_grid_kw(kind, hidden)
+    dual = kw["dual"]
+    p, m, v = k5.pack_rows(states, rows, hidden, hidden, dual)
+    losses = k5.run_grid_chunk(p, m, v, rows, n_steps=24, **kw)
+    views = k5.row_views(p, m, v, rows, hidden, hidden, dual)
+    for i, (state, r) in enumerate(zip(states, rows)):
+        enc, dec = k5.row_widths(r, hidden, hidden)
+        sp, sm, sv = k5.pack_state(state, enc, dec, dual)
+        solo = k5.run_mlp_fused_chunk(
+            sp, sm, sv, r.a, n_steps=24, batch=B, enc_widths=enc, dec_widths=dec, kind=kind,
+            intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+            t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=0.0,
+            eps_const=-3.0, tdv=True, lr=1e-4, dual=dual)
+        torch.cuda.synchronize()
+        assert torch.equal(losses[i], solo), f"row {i} losses"
+        for got, want in zip(views[i], (sp, sm, sv)):
+            assert torch.equal(got, want), f"row {i} state"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("kind", ["sphere", "sigmoid"])
+def test_k6b_matches_plain(cuda_device, kind, external):
+    hidden, n = (200, 200, 200), 8
+    states, rows = _mlp_grid(cuda_device, kind, hidden)
+    kw = _mlp_grid_kw(kind, hidden)
+    dual = kw["dual"]
+    noise = _manifold_noise(cuda_device, n, [(r.data_dim, r.latent_dim, r.manifold_dim, r.a)
+                                             for r in rows], seed=3)
+    kb = k5.pack_rows(states, rows, hidden, hidden, dual)
+    for step in range(n):  # one step at a time from the kernel's state
+        srows = [dataclasses.replace(r, step0=r.step0 + step, t0=r.t0 + step) for r in rows]
+        ext = [tuple(t[step:step + 1].contiguous() for t in nz) for nz in noise] \
+            if external else None
+        pb = tuple(t.clone() for t in kb)
+        kl = k5.run_grid_chunk(*kb, srows, n_steps=1, external_noise=ext, **kw)
+        pl = k5.plain_grid_chunk(*pb, srows, n_steps=1, external_noise=ext, **kw)
+        torch.cuda.synchronize()
+        _assert_mlp_step_close(kl, pl, k5.row_views(*kb, rows, hidden, hidden, dual),
+                               k5.row_views(*pb, rows, hidden, hidden, dual))
+
+
+@pytest.mark.cuda
+def test_k6b_is_chunk_independent(cuda_device):
+    hidden = (200, 200, 200)
+    states, rows = _mlp_grid(cuda_device, "sphere", hidden)
+    kw = _mlp_grid_kw("sphere", hidden)
+    a = k5.pack_rows(states, rows, hidden, hidden)
+    b = tuple(t.clone() for t in a)
+    la = k5.run_grid_chunk(*a, rows, n_steps=40, **kw)
+    lb1 = k5.run_grid_chunk(*b, rows, n_steps=15, **kw)
+    later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in rows]
+    lb2 = k5.run_grid_chunk(*b, later, n_steps=25, **kw)
     torch.cuda.synchronize()
     assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
     for x, y in zip(a, b):

@@ -8,8 +8,8 @@
     uninterrupted grid bitwise (tests/test_grid.py:96);
   - a row that saved one event ahead rolls back through ``.prev`` and its
     trio is promoted (tests/test_grid.py:351);
-  - the dispatcher's printed choice for MLP rows, and ``--kernels cuda``
-    without a card raises;
+  - the dispatcher's printed choice for MLP rows (K6b's plain version on
+    the CPU), and ``--kernels cuda`` without a card raises;
   - the checkpoint helpers the roll-back uses.
 """
 
@@ -151,16 +151,19 @@ def test_grid_restore_refuses_a_skew_without_prev(tmp_path):
 
 
 def test_mlp_seed_grid_prints_its_per_row_choice(tmp_path, capsys):
-    calls = torch_step.train_chunk.calls
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+
+    calls, grid_calls = torch_step.train_chunk.calls, k5.plain_grid_chunk.calls
     assert cli(["s", "--dataset", "sphere", "--encoder_layer_sizes", "16|16",
                 "--layer_sizes", "16", "-ow", "--latent_dim", "4", "--padding_dim", "2",
                 "-dd", "3", "--epsilon", "-3", "-tdv", "--device", "cpu", "--n_print", "5",
                 "--n_plot", "5", "--num_batches", "6", "--data_dir", str(tmp_path),
                 "--seed_grid", "69,24"]) == 0
     out = capsys.readouterr().out
-    assert ("[kernels] torch: plain PyTorch path, row by row for 2 rows "
-            "(device 'cpu' is not a CUDA device)") in out
-    assert torch_step.train_chunk.calls == calls + 2 * 2  # chunks 0-5 and 5-6, per row
+    assert ("[kernels] plain: K6b's plain version on the CPU, 2 rows a chunk, one plain "
+            "chunk a row (device 'cpu' is not a CUDA device; 2 ReLU MLP VAE rows on sphere") in out
+    assert k5.plain_grid_chunk.calls == grid_calls + 2  # chunks 0-5 and 5-6, both rows
+    assert torch_step.train_chunk.calls == calls + 2 * 2  # one torch-path chunk a row each
     assert (tmp_path / "s_seed69" / "model.pkl").exists()
     assert (tmp_path / "s_seed24" / "losses.npz").exists()
 

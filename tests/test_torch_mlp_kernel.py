@@ -226,8 +226,9 @@ def test_k5_gating(monkeypatch):
     assert not ok and "linear kernel" in why
     sig_mlp = build_vae(data_dim=7, latent_dim=6, encoder_layer_sizes="16",
                         decoder_layer_sizes="16", dataset_name="sigmoid")
+    # the sigmoid dataset's dual-decoder MLPs: K5's dual branch
     ok, why = k5.supported(sig_mlp, SigmoidDataset.create(69, 3, 3), _cfg())
-    assert not ok and "ROADMAP Queue 2 item 2" in why
+    assert ok and "sigmoid with the dual decoder" in why
     deep = build_vae(data_dim=6, latent_dim=6, encoder_layer_sizes="|".join(["8"] * 8))
     ok, why = k5.supported(deep, sphere, _cfg())
     assert not ok and "at most 8 layers" in why
@@ -258,6 +259,6 @@ def test_dispatch_lines_name_the_kernel(monkeypatch, capsys):
     dispatch.make_train_chunk(lin, LinearGaussianDataset.create(2, 3, 3, 3), _cfg())
     assert "[kernels] cuda: fused linear-VAE kernel K1 (" in capsys.readouterr().out
     dispatch.make_train_chunk(sig_mlp, sig, _cfg())
-    assert "torch: plain PyTorch path (the MLP kernel's sigmoid" in capsys.readouterr().out
-    with pytest.raises(RuntimeError, match="ROADMAP Queue 2 item 2"):
-        dispatch.make_train_chunk(sig_mlp, sig, _cfg(kernels="cuda"))
+    assert "[kernels] cuda: fused MLP-VAE kernel K5 (dual decoder) (" in capsys.readouterr().out
+    dispatch.make_train_chunk(sig_mlp, sig, _cfg(kernels="cuda"))
+    assert "K5 (dual decoder)" in capsys.readouterr().out

@@ -5,8 +5,8 @@ independence from JAX.
     sweeps (21, 18 and 15 runs), and ``cfg_to_argv`` round-trips through
     the port's parser (tests/test_sweep_runner.py:13-36);
   - ``--grouped`` trains the linear and sigmoid sweeps as one plain K6a
-    chunk per chunk on the CPU (the one-launch path; counted), and the
-    sphere sweep, whose one-launch grid waits for K6b, as per-row grids;
+    chunk per chunk on the CPU, and the sphere sweep as one plain K6b chunk
+    per chunk (the one-launch path; counted);
   - ``--shard K/N`` partitions the row groups disjointly; ``--report``
     summarises; the unported flags raise naming their ROADMAP items;
   - no module of the port and nothing in chip_smoke.py imports ``jax``,
@@ -85,12 +85,18 @@ def test_grouped_sweep_is_one_plain_grid_chunk_per_chunk(tmp_path, capsys, which
 
 
 def test_grouped_sphere_sweep_trains_per_row_grids(tmp_path, capsys):
+    """The sphere sweep's rows (here one shard: one row group, 3 seeds) train
+    as one launch a chunk, K6b's plain version on the CPU."""
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+
+    calls = k5.plain_grid_chunk.calls
     assert sweep.main(["sphere", "--grouped", "--num_batches", "2", "--device", "cpu",
                        "--shard", "1/5", "--data_dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
-    assert "one-launch unavailable (mixed one-launch sweep unavailable: MLP rows" in out
-    assert "K6b is not ported yet (ROADMAP Queue 2 item 1)); per-row grid launches" in out
-    assert "[kernels] torch: plain PyTorch path, row by row for 3 rows" in out
+    assert k5.plain_grid_chunk.calls == calls + 2  # chunks 0-1 and 1-2
+    assert "one-launch unavailable" not in out
+    assert "[kernels] plain: K6b's plain version on the CPU, 3 rows a chunk" in out
+    assert "[sweep] ONE-LAUNCH sphere: 1 rows × 3 seeds" in out
     assert _dirs(tmp_path) == ["sphere_dd3_pd13_ld_8_eps-3", "sphere_dd3_pd13_ld_8_eps-3_seed24",
                                "sphere_dd3_pd13_ld_8_eps-3_seed48"]
 

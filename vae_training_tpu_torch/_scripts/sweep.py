@@ -8,9 +8,10 @@
 (console script ``vae-sweep-torch``). Port of
 ``vae_training_tpu/_scripts/sweep.py``: the same grids as the reference's
 ``*_expts.sh`` scripts and the same run names. ``--grouped`` trains the
-whole sweep as one launch per chunk where K6a, the linear kernel's grid
-mode, takes every row (the linear and sigmoid sweeps), and as one seed grid
-per row otherwise (the sphere sweep, until the MLP kernel's grid mode K6b).
+whole sweep as one launch per chunk: K6a, the linear kernel's grid mode,
+takes the linear and sigmoid sweeps, K6b, the MLP kernel's grid mode, the
+sphere sweep; a row set neither takes (``--kernels torch``, or rows that
+differ in more than dims and seeds) trains as one seed grid per row.
 Without ``--grouped`` the runs go one after another in this process.
 ``--shard K/N`` trains a disjoint round-robin share; ``--report``
 summarises a finished sweep from its artifacts.
@@ -223,7 +224,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device to train on; cuda without a CUDA device is an error.")
     p.add_argument("--grouped", action="store_true",
                    help="Train each row's seeds as one grid, and the whole sweep as "
-                        "one launch a chunk where K6a takes every row.")
+                        "one launch a chunk where K6a or K6b takes every row.")
     p.add_argument("--resume", action="store_true",
                    help="With --grouped: continue a stopped sweep from every row's "
                         "own checkpoint.")

@@ -5,8 +5,9 @@ Port of ``vae_training_tpu/kernels/dispatch.py:19-40``. ``--kernels``:
 
   - ``auto``: the linear kernel (``kernels/linear_vae.py``: K1 on
     linear_gaussian, K2 on sigmoid with the dual decoder) where its
-    ``supported()`` says yes, else the MLP kernel (``kernels/mlp_vae.py``,
-    K5), else the torch path;
+    ``supported()`` says yes, else the MLP kernel (``kernels/mlp_vae.py``:
+    K5 on sphere and linear_gaussian, its dual branch on sigmoid), else the
+    torch path;
   - ``cuda``: one of the kernels, raising with both reasons when neither
     can run;
   - ``torch``: the plain torch path (``train/step.py``).
@@ -16,10 +17,9 @@ after the choice: a kernel that fails to build or launch raises.
 
 ``make_grid_chunk`` makes the same choice for the rows of a seed grid or a
 one-launch sweep (``train/grid.py``, ``train/mixed_grid.py``): K6a, the
-grid mode of the linear kernel, over every row in one launch per chunk
-(on the CPU its plain version, one plain chunk per row); else K5 in one
-solo launch per row, until its grid mode K6b is ported (ROADMAP Queue 2
-item 1); else the torch path row by row.
+grid mode of the linear kernel, else K6b, the grid mode of the MLP kernel,
+each over every row in one launch per chunk (on the CPU its plain version,
+one plain chunk per row); else the torch path row by row.
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ def make_train_chunk(model, dataset, cfg):
             return linear_vae.make_train_chunk(model, dataset, cfg)
         ok, why_mlp = mlp_vae.supported(model, dataset, cfg)
         if ok:
-            print(f"[kernels] cuda: fused MLP-VAE kernel K5 ({why_mlp})", flush=True)
+            name = "K5 (dual decoder)" if model.dual_sigmoid_decoder else "K5"
+            print(f"[kernels] cuda: fused MLP-VAE kernel {name} ({why_mlp})", flush=True)
             return mlp_vae.make_train_chunk(model, dataset, cfg)
         if cfg.kernels == "cuda":
             raise RuntimeError(f"--kernels cuda requested but no fused kernel can run: "
@@ -77,40 +78,30 @@ def make_grid_chunk(models, datasets, cfg):
             raise ValueError("-nojit selects the plain torch path; drop --kernels cuda")
         why = "-nojit: step-through debugging on the torch path"
     else:
-        ok, why_grid = linear_vae.grid_supported(models, datasets, cfgs)
         on_card, why_dev = linear_vae.cuda_device_ok(cfg0)
-        if ok and on_card:
-            print(f"[kernels] cuda: K6a, the grid mode of the fused linear-VAE kernel, "
-                  f"{n} rows in one launch a chunk ({why_grid})", flush=True)
-            return linear_vae.make_grid_chunk(models, datasets, cfg0)
-        if ok and cfg0.kernels != "cuda":
-            print(f"[kernels] plain: K6a's plain version on the CPU, {n} rows a chunk, "
-                  f"one plain chunk a row ({why_dev}; {why_grid})", flush=True)
-            return linear_vae.make_grid_chunk(models, datasets, cfg0)
-        reasons = [mlp_vae.supported(m, d, c) for m, d, c in zip(models, datasets, cfgs)]
-        why_mlp = next((why for ok_mlp, why in reasons if not ok_mlp), None)
-        if why_mlp is None:
-            print(f"[kernels] cuda: fused MLP-VAE kernel K5, one solo launch a row for "
-                  f"{n} rows (its grid mode is K6b, ROADMAP Queue 2 item 1)", flush=True)
-            return _row_by_row([mlp_vae.make_train_chunk(m, d, c)
-                                for m, d, c in zip(models, datasets, cfgs)])
-        why_linear = why_dev if ok else why_grid
+        reasons = {}
+        for name, module, kernel in (("K6a", linear_vae, "linear-VAE"),
+                                     ("K6b", mlp_vae, "MLP-VAE")):
+            ok, why_grid = module.grid_supported(models, datasets, cfgs)
+            if ok and on_card:
+                print(f"[kernels] cuda: {name}, the grid mode of the fused {kernel} kernel, "
+                      f"{n} rows in one launch a chunk ({why_grid})", flush=True)
+                return module.make_grid_chunk(models, datasets, cfg0)
+            if ok and cfg0.kernels != "cuda":
+                print(f"[kernels] plain: {name}'s plain version on the CPU, {n} rows a chunk, "
+                      f"one plain chunk a row ({why_dev}; {why_grid})", flush=True)
+                return module.make_grid_chunk(models, datasets, cfg0)
+            reasons[name] = why_dev if ok else why_grid
         if cfg0.kernels == "cuda":
             raise RuntimeError(f"--kernels cuda requested but no fused kernel can run: "
-                               f"linear kernel: {why_linear}; MLP kernel: {why_mlp}")
+                               f"linear kernel: {reasons['K6a']}; MLP kernel: {reasons['K6b']}")
         hidden = any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1
                      for m in models)
-        why = why_mlp if hidden else why_linear
+        why = reasons["K6b"] if hidden else reasons["K6a"]
     print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})",
           flush=True)
-    return _row_by_row([partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
-                                lr=float(c.learning_rate))
-                        for m, d, c in zip(models, datasets, cfgs)])
-
-
-def _row_by_row(chunks):
-    """One solo ``train_chunk(state, n_steps, noise=)`` a row, behind the
-    grid chunk's signature."""
+    chunks = [partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
+                      lr=float(c.learning_rate)) for m, d, c in zip(models, datasets, cfgs)]
 
     def chunk(states, n_steps, noises=None):
         out = [c(s, n_steps, noise=None if noises is None else noises[i])

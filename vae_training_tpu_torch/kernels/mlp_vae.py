@@ -1,34 +1,38 @@
-"""K5: the fused MLP-VAE training chunk — CUDA wrapper and plain version.
+"""K5, K5-dual and K6b: the fused MLP-VAE training chunk — CUDA wrappers and
+plain versions.
 
-Port of ``vae_training_tpu/kernels/mlp_vae.py`` in solo mode
-(``run_mlp_fused_chunk`` → ``_make_kernel``, the ``pl.pallas_call`` at
-``:644``) for the sphere and linear_gaussian manifolds with one decoder: the
-sphere sweep's 200|200|200 ReLU stacks, and MLPs on linear_gaussian. The
-kernel itself is ``csrc/mlp_vae.cu``: one persistent cooperative launch runs
-a whole K-step chunk (sampling, forward through both stacks, closed-form
-ELBO, backward through every layer, Adam), its phases separated by grid-wide
-barriers, the state in the caller's buffers and the activations in one
-scratch buffer the wrapper allocates.
+Port of ``vae_training_tpu/kernels/mlp_vae.py`` (``run_mlp_fused_chunk`` →
+``_make_kernel``, the ``pl.pallas_call`` at ``:644``) in all its branches:
+the sphere sweep's 200|200|200 ReLU stacks and MLPs on linear_gaussian (K5);
+MLPs on the sigmoid dataset with the dual decoder x̂ = σ(SigDecoder(s)) +
+Decoder(s) (K5-dual, ``mlp_vae.py:308-311, 324-329, 349-352``); and grid
+mode (K6b, ``grid_n > 0``: many sweep rows, of mixed dims, in one launch).
+The kernel itself is ``csrc/mlp_vae.cu``: one persistent cooperative launch
+runs a whole K-step chunk of every row of a device table (sampling, forward
+through the stacks, closed-form ELBO, backward through every layer, Adam),
+its phases separated by grid-wide barriers, each row's state in the
+caller's buffers and its activations in a scratch buffer the wrapper
+allocates. A solo launch is the same kernel with a one-row table.
 
-The state crosses the launch as three flat float32 buffers (params, Adam
-m, Adam v) in the layout of ``param_layout``: every Dense layer of the
+A row's state crosses the launch as three flat float32 buffers (params,
+Adam m, Adam v) in the layout of ``param_layout``: every Dense layer of the
 encoder, then of the decoder (flax names, ``kernel`` (in, out) then
-``bias``), then ``epsilon_p`` and ``epsilon``. With one layer per stack
-this is K1's layout. ``run_mlp_fused_chunk`` updates the buffers in place
-and returns the per-step losses.
+``bias``), then ``epsilon_p`` and ``epsilon``, and with the dual decoder the
+``SigDecoder``'s layers after them. With one layer per stack this is K1's
+layout (K2's with the dual decoder).
 
-``run_mlp_fused_chunk`` launches the kernel for CUDA tensors and raises if
-it cannot; for CPU tensors (and only for them) it runs
-``plain_mlp_fused_chunk``, the same chunk on the torch path behind the same
-signature. ``run_mlp_fused_chunk.launches`` counts kernel launches. The
-sigmoid dataset's dual-decoder MLPs (``mlp_vae.py:308-311, 324-329,
-349-352``) are not ported yet: ``supported`` refuses them.
+``run_mlp_fused_chunk`` (one row) and ``run_grid_chunk`` (the rows' states
+concatenated by ``pack_rows``, one ``GridRow`` each) launch the kernel for
+CUDA tensors and raise if they cannot; for CPU tensors (and only for them)
+they run ``plain_mlp_fused_chunk`` / ``plain_grid_chunk``, the same chunk on
+the torch path behind the same signature. ``.launches`` on each counts its
+kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +41,7 @@ from ..ops import rng
 from ..train.state import TrainState
 from ..train.step import Noise
 from .linear_vae import (
+    GridRow,
     Layout,
     _require,
     cuda_device_ok,
@@ -47,38 +52,43 @@ from .linear_vae import (
 
 THREADS = 512  # the kernel's block size (kThreads in csrc/mlp_vae.cu)
 MAX_LAYERS = 8  # Dense layers per stack (kMaxLayers)
-KINDS = {"sphere": 0, "linear": 1}  # the manifolds K5 samples in-kernel
+MAX_ROWS = 256  # rows a launch (kMaxRows): the row table lives in shared memory
+KINDS = {"sphere": 0, "linear": 1, "sigmoid": 2}  # the manifolds sampled in-kernel
 
 
 def stack_widths(model) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """(encoder widths, decoder widths) of a model, inputs included:
-    (D, h₁, …, L) and (L, h₁, …, D)."""
+    (D, h₁, …, L) and (L, h₁, …, D). The SigDecoder mirrors the decoder."""
     return ((model.data_dim,) + model.encoder_features,
             (model.latent_dim,) + model.decoder_features)
 
 
-def param_layout(enc_widths: Sequence[int], dec_widths: Sequence[int]) -> Layout:
-    """Flat order of the state buffers (csrc/mlp_vae.cu agrees)."""
-    layout = []
-    for group, w in (("Encoder", enc_widths), ("Decoder", dec_widths)):
-        for i in range(len(w) - 1):
-            layout += [(f"{group}.FC{i}.kernel", (w[i], w[i + 1])),
-                       (f"{group}.FC{i}.bias", (w[i + 1],))]
-    return layout + [("epsilon_p", (enc_widths[-1],)), ("epsilon", (1,))]
+def param_layout(enc_widths: Sequence[int], dec_widths: Sequence[int],
+                 dual: bool = False) -> Layout:
+    """Flat order of the state buffers (csrc/mlp_vae.cu agrees): K5's
+    layout, then with the dual decoder the SigDecoder's layers."""
+
+    def dense(group, w):
+        return [entry for i in range(len(w) - 1) for entry in (
+            (f"{group}.FC{i}.kernel", (w[i], w[i + 1])), (f"{group}.FC{i}.bias", (w[i + 1],)))]
+
+    layout = (dense("Encoder", enc_widths) + dense("Decoder", dec_widths)
+              + [("epsilon_p", (enc_widths[-1],)), ("epsilon", (1,))])
+    return layout + dense("SigDecoder", dec_widths) if dual else layout
 
 
-def n_params(enc_widths: Sequence[int], dec_widths: Sequence[int]) -> int:
-    return sum(int(np.prod(s)) for _, s in param_layout(enc_widths, dec_widths))
+def n_params(enc_widths: Sequence[int], dec_widths: Sequence[int], dual: bool = False) -> int:
+    return sum(int(np.prod(s)) for _, s in param_layout(enc_widths, dec_widths, dual))
 
 
-def pack_state(state: TrainState, enc_widths, dec_widths):
-    layout = param_layout(enc_widths, dec_widths)
+def pack_state(state: TrainState, enc_widths, dec_widths, dual: bool = False):
+    layout = param_layout(enc_widths, dec_widths, dual)
     return tuple(pack_layout(d, layout) for d in (state.params, state.m, state.v))
 
 
 def unpack_state(state: TrainState, p, m, v, n_steps: int, enc_widths,
-                 dec_widths) -> TrainState:
-    layout = param_layout(enc_widths, dec_widths)
+                 dec_widths, dual: bool = False) -> TrainState:
+    layout = param_layout(enc_widths, dec_widths, dual)
     for flat, d in ((p, state.params), (m, state.m), (v, state.v)):
         unpack_layout_(flat, d, layout)
     state.step += n_steps
@@ -87,44 +97,132 @@ def unpack_state(state: TrainState, p, m, v, n_steps: int, enc_widths,
 
 
 def dataset_kind(dataset) -> Optional[str]:
-    from ..data.synthetic import LinearGaussianDataset, SphereDataset
+    from ..data.synthetic import LinearGaussianDataset, SigmoidDataset, SphereDataset
 
     if isinstance(dataset, SphereDataset):
         return "sphere"
     if isinstance(dataset, LinearGaussianDataset):
         return "linear"
+    if isinstance(dataset, SigmoidDataset):
+        return "sigmoid"
     return None
 
 
-def supported(model, dataset, cfg) -> Tuple[bool, str]:
-    """Whether K5 can run this configuration (the counterpart of
-    ``mlp_pallas_supported``, ``mlp_vae.py:682-724``, re-derived for the
-    card): ReLU stacks with a hidden layer in at least one of them (pure
-    linear nets take the linear kernel), the sphere or linear_gaussian
-    dataset without the dual decoder, at most ``MAX_LAYERS`` layers a stack,
-    and a CUDA device of compute capability 9.0. The TPU kernel's
-    batch ≤ 128 and widths ≤ 512 were VMEM and lane limits and do not apply:
-    the state lives in device memory."""
-    from ..data.synthetic import SigmoidDataset
-
+def _structure(model, dataset) -> Tuple[bool, str]:
+    """The model and dataset part of ``supported``. Returns (ok, reason)."""
     kind = dataset_kind(dataset)
-    if isinstance(dataset, SigmoidDataset):
-        return False, ("the MLP kernel's sigmoid dual-decoder branch is not "
-                       "ported yet (ROADMAP Queue 2 item 2)")
     if kind is None:
-        return False, "the MLP kernel supports the sphere and linear_gaussian datasets"
-    if model.dual_sigmoid_decoder:
+        return False, "the MLP kernel supports the sphere, linear_gaussian and sigmoid datasets"
+    if kind == "sigmoid" and not model.dual_sigmoid_decoder:
+        return False, "the sigmoid dataset expects the dual decoder"
+    if kind != "sigmoid" and model.dual_sigmoid_decoder:
         return False, "the dual decoder expects the sigmoid dataset"
     enc, dec = stack_widths(model)
     if len(enc) < 3 and len(dec) < 3:
         return False, "pure-linear configs use the linear kernel"
     if max(len(enc), len(dec)) - 1 > MAX_LAYERS:
         return False, f"the MLP kernel takes at most {MAX_LAYERS} layers a stack"
-    ok, why = cuda_device_ok(cfg)
+    name = {"sphere": "sphere", "linear": "linear_gaussian",
+            "sigmoid": "sigmoid with the dual decoder"}[kind]
+    return True, (f"ReLU MLP VAE on {name}, "
+                  f"{n_params(enc, dec, model.dual_sigmoid_decoder)} parameters")
+
+
+def supported(model, dataset, cfg) -> Tuple[bool, str]:
+    """Whether K5 can run this configuration (the counterpart of
+    ``mlp_pallas_supported``, ``mlp_vae.py:682-724``, re-derived for the
+    card): ReLU stacks with a hidden layer in at least one of them (pure
+    linear nets take the linear kernel); the sphere or linear_gaussian
+    dataset without the dual decoder, or the sigmoid dataset with it (K5's
+    dual branch); at most ``MAX_LAYERS`` layers a stack; and a CUDA device
+    of compute capability 9.0. The TPU kernel's batch ≤ 128 and widths ≤ 512
+    were VMEM and lane limits and do not apply: the state lives in device
+    memory."""
+    ok, why = _structure(model, dataset)
     if not ok:
         return False, why
-    return True, (f"ReLU MLP VAE on {'sphere' if kind == 'sphere' else 'linear_gaussian'}, "
-                  f"{n_params(enc, dec)} parameters")
+    ok, why_dev = cuda_device_ok(cfg)
+    if not ok:
+        return False, why_dev
+    return True, why
+
+
+def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str]:
+    """Whether K6b can run these rows in one launch (the MLP branch of the
+    JAX package's ``mixed_launch_eligible``, ``mixed_grid.py:42-113``).
+    ``models``, ``datasets`` and ``cfg`` give one row each (``cfg`` may be
+    one config for all rows). Every row must pass ``supported``'s model
+    checks; the rows may differ only in their dims and seeds: the layer
+    counts and hidden widths, batch, learning rate, ε, -tdv, the decoder
+    head, the dataset kind and its observation noise, and the step count
+    and the print and plot cadences (so every row shares every chunk
+    boundary) are uniform. The device is a CUDA device of compute
+    capability 9.0, or the CPU, where ``run_grid_chunk`` runs the plain
+    version. A refusal names the first row that fails."""
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
+    if not models or not len(models) == len(datasets) == len(cfgs):
+        return False, (f"need one model, dataset and config a row, got {len(models)}, "
+                       f"{len(datasets)} and {len(cfgs)}")
+    if len(models) > MAX_ROWS:
+        return False, f"{len(models)} rows; one launch takes at most {MAX_ROWS}"
+
+    def uniform(model, dataset, c):
+        return {"layer counts": (len(model.encoder_features), len(model.decoder_features)),
+                "hidden widths": (model.encoder_features[:-1], model.decoder_features[:-1]),
+                "batch size": c.batch_size, "learning rate": float(c.learning_rate),
+                "epsilon": model.epsilon_const, "-tdv": model.tunable_decoder_var,
+                "decoder head": model.dual_sigmoid_decoder,
+                "dataset": type(dataset).__name__,
+                "observation noise": float(dataset.var_added),
+                "num_batches": c.num_batches, "n_print": c.n_print, "n_plot": c.n_plot,
+                "device": str(c.device)}
+
+    ref = uniform(models[0], datasets[0], cfgs[0])
+    sizes = []
+    for i, (model, dataset, c) in enumerate(zip(models, datasets, cfgs)):
+        for key, val in uniform(model, dataset, c).items():
+            if val != ref[key]:
+                return False, (f"row {i} differs from row 0 in {key} ({val!r} vs "
+                               f"{ref[key]!r}); one launch takes rows that differ "
+                               f"only in dims and seeds")
+        ok, why = _structure(model, dataset)
+        if not ok:
+            return False, f"row {i}: {why}"
+        sizes.append(n_params(*stack_widths(model), model.dual_sigmoid_decoder))
+    if torch.device(cfgs[0].device).type != "cpu":
+        ok, why = cuda_device_ok(cfgs[0])
+        if not ok:
+            return False, why
+    enc_h, dec_h = ref["hidden widths"]
+    head = " with the dual decoder" if models[0].dual_sigmoid_decoder else ""
+    return True, (f"{len(models)} ReLU MLP VAE rows on {dataset_kind(datasets[0])}{head}, "
+                  f"hidden widths {'|'.join(map(str, enc_h))} / {'|'.join(map(str, dec_h))}, "
+                  f"up to {max(sizes)} parameters a row")
+
+
+class Stack(ctypes.Structure):
+    """``struct Stack`` in csrc/mlp_vae.cu."""
+    _fields_ = [("n", ctypes.c_int), ("widths", ctypes.c_int * (MAX_LAYERS + 1))] + [
+        (name, ctypes.c_int * MAX_LAYERS) for name in ("w_off", "b_off", "act")]
+
+
+class Row(ctypes.Structure):
+    """One row of the kernel's device table: ``struct Row`` in
+    csrc/mlp_vae.cu, field by field (``_lib`` holds the two to one size).
+    The wrapper fills the fields up to ``obs_scale``; the library plans the
+    rest."""
+    _fields_ = [(name, ctypes.c_void_p) for name in ("p", "m", "v", "losses", "scratch")] + [
+        ("scratch_floats", ctypes.c_longlong)] + [
+        (name, ctypes.c_void_p) for name in ("a", "ext_x", "ext_z1", "ext_z2")] + [
+        (name, ctypes.c_int) for name in ("D", "L", "id", "dd")] + [
+        ("step0", ctypes.c_uint), ("t0", ctypes.c_int), ("dk0", ctypes.c_uint),
+        ("dk1", ctypes.c_uint), ("mk0", ctypes.c_uint), ("mk1", ctypes.c_uint),
+        ("obs_scale", ctypes.c_float)] + [
+        (name, ctypes.c_int) for name in ("P", "o_ep", "o_eps")] + [
+        (name, Stack) for name in ("enc", "dec", "sig")] + [
+        (name, ctypes.c_int) for name in ("s_g", "s_nz", "s_x", "s_z1", "s_z2", "s_mu", "s_s",
+                                          "s_r", "s_su", "s_gs", "s_gmu")] + [
+        ("s_buf", ctypes.c_int * 2), ("s_sbuf", ctypes.c_int * 2)]
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -136,18 +234,21 @@ def _lib() -> ctypes.CDLL:
         from ._build import load_library
 
         lib = load_library("mlp_vae")[0]
-        vp, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-        i64, ip = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
-        lib.mlp_vae_chunk.argtypes = (
-            [vp] * 5 + [i64] + [vp] * 4 + [i32] * 7 + [i32, ip, i32, ip]
-            + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, vp])
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ip, rp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(Row)
+        lib.mlp_vae_chunk.argtypes = [rp, vp] + [i32] * 6 + [ip, i32, ip, f32, i32, f32, vp]
         lib.mlp_vae_chunk.restype = i32
-        lib.mlp_vae_scratch_floats.argtypes = [i32] * 7 + [ip, i32, ip]
-        lib.mlp_vae_scratch_floats.restype = i64
-        lib.mlp_vae_grid.argtypes = [ip, ip]
+        lib.mlp_vae_plan_row.argtypes = [rp] + [i32] * 4 + [ip, i32, ip]
+        lib.mlp_vae_plan_row.restype = ctypes.c_longlong
+        lib.mlp_vae_row_bytes.argtypes = []
+        lib.mlp_vae_row_bytes.restype = ctypes.c_size_t
+        lib.mlp_vae_grid.argtypes = [i32, ip, ip]
         lib.mlp_vae_grid.restype = i32
         lib.mlp_vae_error_string.argtypes = [i32]
         lib.mlp_vae_error_string.restype = ctypes.c_char_p
+        if lib.mlp_vae_row_bytes() != ctypes.sizeof(Row):
+            raise RuntimeError(f"csrc/mlp_vae.cu's Row is {lib.mlp_vae_row_bytes()} B, "
+                               f"kernels/mlp_vae.py's {ctypes.sizeof(Row)} B")
         _LIB = lib
     return _LIB
 
@@ -159,16 +260,92 @@ def _check(lib, err: int, what: str) -> None:
 
 
 def _int_array(values: Sequence[int]):
-    return (ctypes.c_int * len(values))(*values)
+    return (ctypes.c_int * max(len(values), 1))(*values)
 
 
-def grid() -> Tuple[int, int]:
-    """(blocks of a launch, the most blocks an SM could hold) on the
-    current device: the kernel launches one block per SM."""
+def grid(n_rows: int = 1) -> Tuple[int, int]:
+    """(blocks of a launch of ``n_rows`` rows, the most blocks an SM could
+    hold) on the current device: the kernel launches one block per SM."""
     lib = _lib()
     blocks, occ = ctypes.c_int(0), ctypes.c_int(0)
-    _check(lib, lib.mlp_vae_grid(ctypes.byref(blocks), ctypes.byref(occ)), "mlp_vae_grid")
+    _check(lib, lib.mlp_vae_grid(n_rows, ctypes.byref(blocks), ctypes.byref(occ)),
+           "mlp_vae_grid")
     return blocks.value, occ.value
+
+
+def row_widths(row: GridRow, enc_hidden: Sequence[int], dec_hidden: Sequence[int]):
+    """A row's (encoder widths, decoder widths) from its dims and the
+    launch's hidden widths."""
+    D, L = row.data_dim, row.latent_dim
+    return (D, *enc_hidden, L), (L, *dec_hidden, D)
+
+
+def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int, batch: int,
+            enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str, eps_const: float,
+            tdv: bool, lr: float, dual: bool, external_noise) -> None:
+    """One launch over ``rows``, row i training ``bufs[i]`` = its (p, m, v)
+    in place and writing ``losses[i]``: what K5 (one row) and K6b share."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
+    n_enc, n_dec = len(enc_hidden) + 1, len(dec_hidden) + 1
+    if max(n_enc, n_dec) > MAX_LAYERS or min(list(enc_hidden) + list(dec_hidden) + [1]) < 1:
+        raise ValueError(f"each stack takes 1..{MAX_LAYERS} layers of positive width: "
+                         f"{tuple(enc_hidden)}, {tuple(dec_hidden)}")
+    if external_noise is not None and len(external_noise) != len(rows):
+        raise ValueError(f"external_noise has {len(external_noise)} rows, the launch {len(rows)}")
+    if len(rows) > MAX_ROWS:
+        raise ValueError(f"{len(rows)} rows; one launch takes at most {MAX_ROWS}")
+    device, B = losses.device, batch
+    lib = _lib()
+    enc_arr, dec_arr = _int_array(enc_hidden), _int_array(dec_hidden)
+    shape = (B, KINDS[kind], int(dual), n_enc, enc_arr, n_dec, dec_arr)
+    table = (Row * len(rows))()
+    needs = []
+    for i, (r, (p, m, v)) in enumerate(zip(rows, bufs)):
+        D, L = r.data_dim, r.latent_dim
+        P = n_params(*row_widths(r, enc_hidden, dec_hidden), dual)
+        for t, name in ((p, "p"), (m, "m"), (v, "v")):
+            _require(t, f"row {i} {name}", device, (P,))
+        a_ptr = None
+        if kind == "linear":
+            _require(r.a, f"row {i} a", device, (r.manifold_dim, r.intrinsic_dim))
+            a_ptr = r.a.data_ptr()
+        elif r.intrinsic_dim != r.manifold_dim or r.var_added > 0:
+            raise ValueError(f"row {i}: the {kind} dataset draws intrinsic_dim = manifold_dim "
+                             f"normals and has no observation noise")
+        elif kind == "sigmoid":
+            _require(r.a, f"row {i} a", device, (r.manifold_dim, 1))
+            a_ptr = r.a.data_ptr()
+        ext = [None, None, None]
+        if external_noise is not None:
+            for j, (t, name, dim) in enumerate(zip(external_noise[i], ("x", "z1", "z2"),
+                                                   (D, L, D))):
+                _require(t, f"row {i} external_noise {name}", device, (n_steps, B, dim))
+                ext[j] = t.data_ptr()
+        dk, mk = rng.key_words(r.data_seed), rng.key_words(r.model_seed)
+        obs = float(np.sqrt(np.float32(r.var_added))) if r.var_added > 0 else 0.0
+        table[i] = Row(p=p.data_ptr(), m=m.data_ptr(), v=v.data_ptr(),
+                       losses=losses[i].data_ptr(), a=a_ptr, ext_x=ext[0], ext_z1=ext[1],
+                       ext_z2=ext[2], D=D, L=L, id=r.intrinsic_dim, dd=r.manifold_dim,
+                       step0=r.step0 & rng.MASK32, t0=r.t0, dk0=dk[0], dk1=dk[1], mk0=mk[0],
+                       mk1=mk[1], obs_scale=obs)
+        need = lib.mlp_vae_plan_row(ctypes.byref(table[i]), *shape)
+        if need < 0 or table[i].P != P:
+            raise ValueError(f"row {i}: the kernel refuses these shapes: batch {B}, D {D}, "
+                             f"L {L}, intrinsic {r.intrinsic_dim}, manifold {r.manifold_dim}, "
+                             f"{kind}, hidden {tuple(enc_hidden)} / {tuple(dec_hidden)}")
+        needs.append(need)
+    # one scratch buffer, each row's slice its own
+    scratch = torch.empty(sum(needs), dtype=torch.float32, device=device)
+    off = 0
+    for row, need in zip(table, needs):
+        row.scratch, row.scratch_floats = scratch.data_ptr() + 4 * off, need
+        off += need
+    rows_dev = torch.empty(len(rows) * ctypes.sizeof(Row), dtype=torch.uint8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.mlp_vae_chunk(table, rows_dev.data_ptr(), len(rows), n_steps, *shape,
+                            float(eps_const), int(bool(tdv)), float(lr), stream)
+    _check(lib, err, "mlp_vae_chunk launch")
 
 
 def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
@@ -177,72 +354,40 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                         kind: str, intrinsic_dim: int, manifold_dim: int,
                         step0: int, t0: int, data_seed: int, model_seed: int,
                         var_added: float, eps_const: float, tdv: bool, lr: float,
-                        external_noise: Optional[Noise] = None) -> torch.Tensor:
+                        external_noise: Optional[Noise] = None,
+                        dual: bool = False) -> torch.Tensor:
     """Train ``n_steps`` steps from the flat state (p, m, v), in place.
     Returns the (n_steps,) losses. ``kind`` is "sphere" (``a`` unused,
-    intrinsic_dim = manifold_dim) or "linear" (``a`` is A, manifold_dim ×
-    intrinsic_dim). ``enc_widths`` = (D, h₁, …, L) and ``dec_widths`` =
-    (L, h₁, …, D). ``step0`` is the absolute step of the first step (the
-    Philox counter) and ``t0`` the Adam count before it. ``external_noise``
-    = (x, z1, z2), each (n_steps, batch, dim), replaces the in-kernel
-    sampler (the test hook of the TPU kernel)."""
+    intrinsic_dim = manifold_dim), "linear" (``a`` is A, manifold_dim ×
+    intrinsic_dim) or "sigmoid" (``a`` is the column a, manifold_dim × 1,
+    intrinsic_dim = manifold_dim; with ``dual``, the dual decoder).
+    ``enc_widths`` = (D, h₁, …, L) and ``dec_widths`` = (L, h₁, …, D).
+    ``step0`` is the absolute step of the first step (the Philox counter)
+    and ``t0`` the Adam count before it. ``external_noise`` = (x, z1, z2),
+    each (n_steps, batch, dim), replaces the in-kernel sampler (the test
+    hook of the TPU kernel)."""
     kw = dict(n_steps=n_steps, batch=batch, enc_widths=enc_widths,
               dec_widths=dec_widths, kind=kind, intrinsic_dim=intrinsic_dim,
               manifold_dim=manifold_dim, step0=step0, t0=t0, data_seed=data_seed,
               model_seed=model_seed, var_added=var_added, eps_const=eps_const,
-              tdv=tdv, lr=lr, external_noise=external_noise)
+              tdv=tdv, lr=lr, external_noise=external_noise, dual=dual)
     if p.device.type == "cpu":
         return plain_mlp_fused_chunk(p, m, v, a, **kw)
     if p.device.type != "cuda":
         raise ValueError(f"run_mlp_fused_chunk takes CPU or CUDA tensors, got {p.device}")
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     enc, dec = tuple(enc_widths), tuple(dec_widths)
-    D, L, B = enc[0], enc[-1], batch
-    if dec[0] != L or dec[-1] != D:
+    if len(enc) < 2 or len(dec) < 2 or dec[0] != enc[-1] or dec[-1] != enc[0]:
         raise ValueError(f"stacks do not chain: encoder {enc}, decoder {dec}")
-    if not 1 <= max(len(enc), len(dec)) - 1 <= MAX_LAYERS or min(len(enc), len(dec)) < 2:
-        raise ValueError(f"each stack takes 1..{MAX_LAYERS} layers: {enc}, {dec}")
-    device = p.device
-    P = n_params(enc, dec)
-    for t, name in ((p, "p"), (m, "m"), (v, "v")):
-        _require(t, name, device, (P,))
-    a_ptr = None
-    if kind == "linear":
-        _require(a, "a", device, (manifold_dim, intrinsic_dim))
-        a_ptr = a.data_ptr()
-    elif intrinsic_dim != manifold_dim or var_added > 0:
-        raise ValueError("the sphere draws intrinsic_dim = manifold_dim normals and "
-                         "has no observation noise")
-    ext = [None, None, None]
-    if external_noise is not None:
-        for i, (t, name, dim) in enumerate(zip(external_noise, ("x", "z1", "z2"), (D, L, D))):
-            _require(t, f"external_noise {name}", device, (n_steps, B, dim))
-            ext[i] = t.data_ptr()
-    losses = torch.empty(n_steps, dtype=torch.float32, device=device)
+    losses = torch.empty(1, n_steps, dtype=torch.float32, device=p.device)
     if n_steps == 0:
-        return losses
-    lib = _lib()
-    enc_arr, dec_arr = _int_array(enc), _int_array(dec)
-    shape = (B, D, L, intrinsic_dim, manifold_dim, KINDS[kind])
-    n_scratch = lib.mlp_vae_scratch_floats(*shape, len(enc) - 1, enc_arr,
-                                           len(dec) - 1, dec_arr)
-    if n_scratch < 0:
-        raise ValueError(f"the kernel refuses these shapes: batch {B}, encoder {enc}, "
-                         f"decoder {dec}, intrinsic {intrinsic_dim}, manifold {manifold_dim}")
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=device)
-    dk = rng.key_words(data_seed)
-    mk = rng.key_words(model_seed)
-    obs_scale = float(np.sqrt(np.float32(var_added))) if var_added > 0 else 0.0
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.mlp_vae_chunk(
-        p.data_ptr(), m.data_ptr(), v.data_ptr(), losses.data_ptr(), scratch.data_ptr(),
-        n_scratch, a_ptr, *ext, n_steps, *shape, len(enc) - 1, enc_arr,
-        len(dec) - 1, dec_arr, step0 & rng.MASK32, t0, dk[0], dk[1], mk[0], mk[1],
-        obs_scale, float(eps_const), int(bool(tdv)), float(lr), stream)
-    _check(lib, err, "mlp_vae_chunk launch")
+        return losses[0]
+    row = GridRow(enc[0], enc[-1], intrinsic_dim, manifold_dim, a, step0, t0, data_seed,
+                  model_seed, var_added)
+    _launch([(p, m, v)], losses, [row], n_steps=n_steps, batch=batch, enc_hidden=enc[1:-1],
+            dec_hidden=dec[1:-1], kind=kind, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
+            external_noise=None if external_noise is None else [external_noise])
     run_mlp_fused_chunk.launches += 1
-    return losses
+    return losses[0]
 
 
 run_mlp_fused_chunk.launches = 0
@@ -254,11 +399,12 @@ def plain_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                           kind: str, intrinsic_dim: int, manifold_dim: int,
                           step0: int, t0: int, data_seed: int, model_seed: int,
                           var_added: float, eps_const: float, tdv: bool, lr: float,
-                          external_noise: Optional[Noise] = None) -> torch.Tensor:
+                          external_noise: Optional[Noise] = None,
+                          dual: bool = False) -> torch.Tensor:
     """The plain PyTorch version of ``run_mlp_fused_chunk``: the same chunk
     on the torch path (autograd + the explicit Adam update), same signature,
     same in-place contract."""
-    from ..data.synthetic import LinearGaussianDataset, SphereDataset
+    from ..data.synthetic import LinearGaussianDataset, SigmoidDataset, SphereDataset
     from ..models.networks import build_vae
 
     enc, dec = tuple(enc_widths), tuple(dec_widths)
@@ -266,34 +412,165 @@ def plain_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     model = build_vae(data_dim=D, latent_dim=L,
                       encoder_layer_sizes="|".join(map(str, enc[1:-1])),
                       decoder_layer_sizes="|".join(map(str, dec[1:-1])),
-                      epsilon=eps_const, tunable_decoder_var=tdv)
+                      epsilon=eps_const, tunable_decoder_var=tdv,
+                      dataset_name="sigmoid" if dual else None)
     if kind == "sphere":
         dataset = SphereDataset(manifold_dim, D - manifold_dim, device=p.device)
+    elif kind == "sigmoid":
+        dataset = SigmoidDataset(a, manifold_dim, D - manifold_dim - 1)
     else:
         dataset = LinearGaussianDataset(a, manifold_dim, intrinsic_dim,
                                         D - manifold_dim, var_added)
-    return run_plain_chunk(p, m, v, param_layout(enc, dec), model, dataset,
+    return run_plain_chunk(p, m, v, param_layout(enc, dec, dual), model, dataset,
                            n_steps=n_steps, batch=batch, step0=step0, t0=t0,
                            data_seed=data_seed, model_seed=model_seed, tdv=tdv,
                            lr=lr, external_noise=external_noise)
 
 
 def make_train_chunk(model, dataset, cfg):
-    """The Trainer's ``train_chunk(state, n_steps)`` on K5."""
+    """The Trainer's ``train_chunk(state, n_steps)`` on K5 (its dual branch
+    on the sigmoid dataset)."""
     enc, dec = stack_widths(model)
     kind = dataset_kind(dataset)
-    a = dataset.A.contiguous() if kind == "linear" else None
+    dual = model.dual_sigmoid_decoder
+    a = dataset.A.contiguous() if kind != "sphere" else None
     lr = float(cfg.learning_rate)
 
     def train_chunk(state: TrainState, n_steps: int, noise: Optional[Noise] = None):
-        p, m, v = pack_state(state, enc, dec)
+        p, m, v = pack_state(state, enc, dec, dual)
         losses = run_mlp_fused_chunk(
             p, m, v, a, n_steps=n_steps, batch=cfg.batch_size, enc_widths=enc,
             dec_widths=dec, kind=kind, intrinsic_dim=dataset.intrinsic_dim,
             manifold_dim=dataset.dim, step0=state.step, t0=state.count,
             data_seed=state.data_seed, model_seed=state.model_seed,
             var_added=dataset.var_added, eps_const=model.epsilon_const,
-            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise)
-        return unpack_state(state, p, m, v, n_steps, enc, dec), losses
+            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual)
+        return unpack_state(state, p, m, v, n_steps, enc, dec, dual), losses
 
     return train_chunk
+
+
+# --- K6b: many rows in one launch ----------------------------------------------
+
+
+def row_offsets(rows: Sequence[GridRow], enc_hidden: Sequence[int], dec_hidden: Sequence[int],
+                dual: bool = False) -> List[int]:
+    """Start of each row's slice in the packed buffers, and their total
+    length last: rows lie back to back in the order given."""
+    offs = [0]
+    for r in rows:
+        offs.append(offs[-1] + n_params(*row_widths(r, enc_hidden, dec_hidden), dual))
+    return offs
+
+
+def pack_rows(states: Sequence[TrainState], rows: Sequence[GridRow], enc_hidden: Sequence[int],
+              dec_hidden: Sequence[int], dual: bool = False):
+    """The rows' states → three flat buffers (params, m, v), row i's flat
+    ``pack_state`` at ``row_offsets(...)[i]``."""
+    packed = [pack_state(s, *row_widths(r, enc_hidden, dec_hidden), dual)
+              for s, r in zip(states, rows)]
+    return tuple(torch.cat([bufs[j] for bufs in packed]) for j in range(3))
+
+
+def row_views(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, rows: Sequence[GridRow],
+              enc_hidden: Sequence[int], dec_hidden: Sequence[int], dual: bool = False):
+    """Row i's (p, m, v) slices of the packed buffers, as views."""
+    offs = row_offsets(rows, enc_hidden, dec_hidden, dual)
+    return [tuple(t[offs[i]:offs[i + 1]] for t in (p, m, v)) for i in range(len(rows))]
+
+
+def unpack_rows(states: Sequence[TrainState], p: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, rows: Sequence[GridRow], n_steps: int,
+                enc_hidden: Sequence[int], dec_hidden: Sequence[int],
+                dual: bool = False) -> List[TrainState]:
+    """Copy the packed buffers back into each row's state by name and
+    advance its counters by ``n_steps``."""
+    views = row_views(p, m, v, rows, enc_hidden, dec_hidden, dual)
+    return [unpack_state(s, *bufs, n_steps, *row_widths(r, enc_hidden, dec_hidden), dual)
+            for s, bufs, r in zip(states, views, rows)]
+
+
+def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                   rows: Sequence[GridRow], *, n_steps: int, batch: int,
+                   enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str,
+                   eps_const: float, tdv: bool, lr: float, dual: bool = False,
+                   external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+    """K6b: train every row ``n_steps`` steps from the packed state
+    (``pack_rows``), in place, in one launch. Returns the (rows, n_steps)
+    losses. Row i runs what ``run_mlp_fused_chunk`` runs on its slice with
+    its ``GridRow`` and the widths (D, *enc_hidden, L) and
+    (L, *dec_hidden, D); batch, the hidden widths, the manifold kind, ε,
+    -tdv, lr and the decoder head are the launch's. ``external_noise``, one
+    (x, z1, z2) a row, replaces the in-kernel sampler (the test hook)."""
+    kw = dict(n_steps=n_steps, batch=batch, enc_hidden=enc_hidden, dec_hidden=dec_hidden,
+              kind=kind, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
+              external_noise=external_noise)
+    if p.device.type == "cpu":
+        return plain_grid_chunk(p, m, v, rows, **kw)
+    if p.device.type != "cuda":
+        raise ValueError(f"run_grid_chunk takes CPU or CUDA tensors, got {p.device}")
+    if not rows:
+        raise ValueError("run_grid_chunk needs at least one row")
+    total = row_offsets(rows, enc_hidden, dec_hidden, dual)[-1]
+    for t, name in ((p, "p"), (m, "m"), (v, "v")):
+        _require(t, name, p.device, (total,))
+    losses = torch.empty(len(rows), n_steps, dtype=torch.float32, device=p.device)
+    if n_steps == 0:
+        return losses
+    _launch(row_views(p, m, v, rows, enc_hidden, dec_hidden, dual), losses, rows, **kw)
+    run_grid_chunk.launches += 1
+    return losses
+
+
+run_grid_chunk.launches = 0
+
+
+def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                     rows: Sequence[GridRow], *, n_steps: int, batch: int,
+                     enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str,
+                     eps_const: float, tdv: bool, lr: float, dual: bool = False,
+                     external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``run_grid_chunk``: one
+    ``plain_mlp_fused_chunk`` per row on its slice of the packed buffers,
+    same signature, same in-place contract."""
+    plain_grid_chunk.calls += 1
+    losses = torch.empty(len(rows), n_steps, dtype=torch.float32, device=p.device)
+    views = row_views(p, m, v, rows, enc_hidden, dec_hidden, dual)
+    for i, (r, (rp, rm, rv)) in enumerate(zip(rows, views)):
+        enc, dec = row_widths(r, enc_hidden, dec_hidden)
+        losses[i] = plain_mlp_fused_chunk(
+            rp, rm, rv, r.a, n_steps=n_steps, batch=batch, enc_widths=enc, dec_widths=dec,
+            kind=kind, intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim,
+            step0=r.step0, t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
+            var_added=r.var_added, eps_const=eps_const, tdv=tdv, lr=lr,
+            external_noise=None if external_noise is None else external_noise[i], dual=dual)
+    return losses
+
+
+plain_grid_chunk.calls = 0  # chunks run by the plain version (the CPU tests read it)
+
+
+def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
+    """The grid trainers' ``chunk(states, n_steps, noises=None)`` on K6b:
+    one launch per chunk over every row (``grid_supported`` said yes).
+    Returns (states, (rows, n_steps) losses)."""
+    model = models[0]
+    dual = model.dual_sigmoid_decoder
+    kind = dataset_kind(datasets[0])
+    enc_hidden, dec_hidden = model.encoder_features[:-1], model.decoder_features[:-1]
+    arrays = [d.A.contiguous() if kind != "sphere" else None for d in datasets]
+    lr = float(cfg.learning_rate)
+
+    def chunk(states: Sequence[TrainState], n_steps: int,
+              noises: Optional[Sequence[Noise]] = None):
+        rows = [GridRow(d.dimension, mdl.latent_dim, d.intrinsic_dim, d.dim, a, s.step,
+                        s.count, s.data_seed, s.model_seed, d.var_added)
+                for mdl, d, a, s in zip(models, datasets, arrays, states)]
+        p, m, v = pack_rows(states, rows, enc_hidden, dec_hidden, dual)
+        losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
+                                enc_hidden=enc_hidden, dec_hidden=dec_hidden, kind=kind,
+                                eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
+                                lr=lr, dual=dual, external_noise=noises)
+        return unpack_rows(states, p, m, v, rows, n_steps, enc_hidden, dec_hidden, dual), losses
+
+    return chunk

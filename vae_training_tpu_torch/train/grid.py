@@ -6,15 +6,16 @@ scripts run each (seed, row) as its own process; ``--seed_grid 2,3,4``
 trains the seeds together: one dataset and one ``TrainState`` a row, one
 model for the group, and between host events one chunk over every row
 (``kernels/dispatch.py:make_grid_chunk``: K6a, the grid mode of the linear
-kernel, one CTA per row in one launch).
+kernel, one CTA per row; or K6b, the grid mode of the MLP kernel, every
+row's phases in one cooperative launch).
 
 Seeds follow the solo Trainer exactly (``train/loop.py``): a row's data
 seed is ``derive_seed(dataset_seed, SEED_TRAIN_DATA)`` and its eval-data
 seed ``derive_seed(dataset_seed, SEED_EVAL_DATA)``; the model seeds (init,
 z, eval z, plot z) are shared, as every solo run of a sweep uses the same
 ``--model_seed``. Row i of a grid is therefore the solo run with
-``-ds seed_i``: the same losses.npz and model.pkl, bitwise, because a K6a
-row runs the solo kernel's body and the plain path is per row.
+``-ds seed_i``: the same losses.npz and model.pkl, bitwise, because a K6a or
+K6b row runs the solo kernel's body and the plain path is per row.
 
 Each row writes ``<name>_seed<N>/`` (losses.npz, model.pkl, checkpoint with
 the host-side aux), synchronously; ``--resume`` resumes every row from its

@@ -1,19 +1,19 @@
 """A whole mixed-dimension sweep in one kernel launch per chunk.
 
-Port of the linear family of ``vae_training_tpu/train/mixed_grid.py``
-(``:42-113``, ``:225-318``, ``:425-543``). One ``GridTrainer`` per
-(data_dim, padding_dim, latent_dim) row of the sweep owns its seeds'
-datasets, evals and artifacts; training concatenates every group's rows
-into one K6a launch (each row carries its own dims in the kernel's row
-table) and splits them back: the linear sweep's 21 runs and the sigmoid
-sweep's 18 each train as one launch per chunk.
+Port of ``vae_training_tpu/train/mixed_grid.py`` (``:42-113``, ``:225-318``,
+``:320-423``, ``:425-543``). One ``GridTrainer`` per (data_dim,
+padding_dim, latent_dim) row of the sweep owns its seeds' datasets, evals
+and artifacts; training concatenates every group's rows into one launch
+(each row carries its own dims in the kernel's row table) and splits them
+back: K6a, the linear kernel's grid mode, for the linear sweep's 21 runs
+and the sigmoid sweep's 18; K6b, the MLP kernel's grid mode, for the sphere
+sweep's 15 (uniform 200|200|200 hidden widths, mixed D and L). Each trains
+as one launch per chunk.
 
-The MLP family (the sphere sweep) waits for K6b, the MLP kernel's grid mode
-(ROADMAP Queue 2 item 1): ``MixedGridSweep`` refuses it with
-``MixedSweepUnavailable`` before any IO, and the sweep runner trains its
-rows as per-row grids. There is no fallback after the choice: a launch
-that fails raises, and the JAX package's per-group insurance is not
-ported. ``--mesh`` is not ported either (ROADMAP Queue 1 item 11).
+There is no fallback after the choice: a row set outside both kernels'
+envelopes raises ``MixedSweepUnavailable`` before any IO, a launch that
+fails raises, and the JAX package's per-group insurance is not ported.
+``--mesh`` is not ported either (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ import time
 from typing import Dict, List, Sequence, Tuple
 
 from ..config import RunConfig
+from ..kernels import linear_vae, mlp_vae
 from ..kernels.dispatch import make_grid_chunk
-from ..kernels.linear_vae import grid_supported
 from .grid import GridTrainer, row_dirs
 from .loop import next_event
 
@@ -44,20 +44,23 @@ def _rows(groups: Sequence[GridTrainer]):
 
 def mixed_launch_eligible(groups: Sequence[GridTrainer]) -> Tuple[str, str]:
     """(family, reason): "linear" when every row of every group can share
-    one K6a launch (``grid_supported``: the rows differ only in dims and
-    seeds); "mlp" for hidden-layer rows, whose one-launch grid is K6b, not
-    ported yet; "" otherwise."""
+    one K6a launch, "mlp" when they can share one K6b launch (each
+    ``grid_supported``: the rows differ only in dims and seeds), ""
+    otherwise, with the reason of the kernel the rows' shape belongs to."""
     if not groups:
         return "", "no rows"
     cfg = groups[0].cfg
     if cfg.kernels == "torch" or cfg.nojit:
         return "", "the torch path trains rows one by one (--kernels torch or -nojit)"
     models, datasets, cfgs = _rows(groups)
-    if any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1 for m in models):
-        return "mlp", ("MLP rows: the MLP kernel's grid mode K6b is not ported yet "
-                       "(ROADMAP Queue 2 item 1)")
-    ok, why = grid_supported(models, datasets, cfgs)
-    return ("linear" if ok else ""), why
+    ok, why_linear = linear_vae.grid_supported(models, datasets, cfgs)
+    if ok:
+        return "linear", why_linear
+    ok, why_mlp = mlp_vae.grid_supported(models, datasets, cfgs)
+    if ok:
+        return "mlp", why_mlp
+    hidden = any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1 for m in models)
+    return "", why_mlp if hidden else why_linear
 
 
 class MixedGridSweep:
@@ -65,7 +68,7 @@ class MixedGridSweep:
 
     def __init__(self, groups: List[GridTrainer]):
         family, why = mixed_launch_eligible(groups)
-        if family != "linear":
+        if not family:
             raise MixedSweepUnavailable(f"mixed one-launch sweep unavailable: {why}")
         self.groups = groups
         self.cfg: RunConfig = groups[0].cfg
