@@ -13,7 +13,8 @@ vae_training_tpu_torch/csrc/linear_vae.cu, and the sphere sweep
 sweeps through K6a, the grid mode of the linear kernel (one launch a chunk
 over every row); then the sphere sweep and a sphere seed grid through K6b,
 the grid mode of the MLP kernel, and sigmoid MLPs with the dual decoder
-through K5-dual, the MLP kernel's dual branch. Twenty-one phases:
+through K5-dual, the MLP kernel's dual branch; then all of them again with
+bf16 Adam moments (K4, --adam_dtype bf16). Twenty-five phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds both kernel libraries from the checkout's sources,
@@ -69,7 +70,28 @@ through K5-dual, the MLP kernel's dual branch. Twenty-one phases:
      chunk, every run's loss falling, --resume from 7000 bitwise);
  21. times: K6b against the same rows as sequential solo K5 launches and
      its plain version, with its bound; the launch-step against copies of
-     sphere row 1 (1, 15, 45); K5-dual against the torch path.
+     sphere row 1 (1, 15, 45); K5-dual against the torch path;
+ 22. K4 against its plain version: K1 and K2 at row 1 (64 steps, external
+     noise and the in-kernel sampler, -tdv on and off), K5 and K5-dual at
+     row 1, K6a on the linear (21) and sigmoid (18) sweeps, K6b on the
+     sphere sweep (15) and 3 sigmoid-MLP rows, one step at a time from the
+     kernel's state (32 steps on the MLP kernel, 16 on K6a). Every step is
+     also launched with f32 moments from the same state, and the bf16
+     launch's matrix moments must be the f32 launch's rounded to nearest
+     even, bitwise. Against the plain version the matrix moments keep
+     tests/kernel_test_helpers.py's ulp contract (strict on the linear
+     kernel, drift on the MLP kernel; >= 95% bitwise); K1 and K2 also as
+     one 64-step launch (drift);
+ 23. in bf16, every row of those four grids equal to its solo launch
+     bitwise (64 steps), and 40 = 15 + 25 bitwise on every kernel;
+ 24. the CLI with --adam_dtype bf16 --kernels cuda, 12000 steps, on linear,
+     sigmoid, sphere and sigmoid-MLP row 1 (the [kernels] line names the
+     kernel and bf16 moments, only that kernel launches, losses fall, the
+     checkpoint's moments are bf16); sphere --resume from 7000 bitwise; the
+     sphere (K6b) and linear (K6a) sweeps through `sweep --grouped
+     --adam_dtype bf16`, 4 launches and nothing else;
+ 25. times: every kernel with f32 and bf16 moments in turn (f32, bf16,
+     bf16, f32) and its bf16 plain version, with K4's bound.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -352,6 +374,7 @@ def main() -> int:
     records = [k1_record] + _sweeps(torch, np, smi, builds["mlp_vae"][1], sweeps_dir)
     records += _grids(torch, np, smi, run_dir, data_dir)
     records += _mlp_grids(torch, np, smi, os.path.join(sweeps_dir, "main_K5"), data_dir)
+    records += _bf16_moments(torch, np, smi, os.path.join(data_dir, "bf16"))
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -1196,6 +1219,595 @@ def _mlp_grids(torch, np, smi, solo_sphere_dir, data_dir):
         "launches": dual_launches, "max_abs_err": dual_err,
         "ms": 1e3 / k_rate, "plain_ms": 1e3 / p_rate, **bound, "library_ms": None})
     return records
+
+
+def _bf16_moments(torch, np, smi, data_dir):
+    """Phases 22–25: K4, the bf16 Adam moments (``--adam_dtype bf16``), in
+    every kernel: K1, K2 and K6a (csrc/linear_vae.cu), K5, K5-dual and K6b
+    (csrc/mlp_vae.cu). Returns the K4 records for the kernels' JSON line."""
+    from vae_training_tpu_torch._scripts import sweep
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments
+    from vae_training_tpu_torch.data import (
+        LinearGaussianDataset,
+        SigmoidDataset,
+        SphereDataset,
+    )
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.runio.checkpoint import read_checkpoint_meta, restore_checkpoint
+    from vae_training_tpu_torch.train import TrainState, moment_dtype, step as torch_step
+    from vae_training_tpu_torch.train.grid import GridTrainer
+
+    dev = torch.device("cuda")
+    hidden = (200, 200, 200)
+    counters = (k1.run_fused_chunk, k1.run_grid_chunk, k5.run_mlp_fused_chunk,
+                k5.run_grid_chunk)
+    plain_counters = (torch_step.train_chunk, k1.plain_grid_chunk, k5.plain_grid_chunk)
+
+    def reset_counts():
+        for c in counters:
+            c.launches = 0
+        for c in plain_counters:
+            c.calls = 0
+
+    # --- the solo configurations: row 1 of each sweep ------------------------
+    lin = LinearGaussianDataset.create(2, 3, 3, 9, device=dev)
+    sig = SigmoidDataset.create(69, SIG_DD, 3, device=dev)
+    sph = SphereDataset(SPH_DD, SPH_D - SPH_DD, device=dev)
+    seeds = {s: (rng.derive_seed(s, rng.SEED_TRAIN_DATA), rng.derive_seed(0, rng.SEED_TRAIN_Z))
+             for s in (2, 69)}
+    dual_enc, dual_dec = (SIG_D, *hidden, SIG_L), (SIG_L, *hidden, SIG_D)
+
+    def solo(label):
+        """(model, dataset, layout, chunk(fn, bufs, n, step0, tdv, noise, adam), lr, the
+        kernel, its plain version) of one solo configuration."""
+        if label in ("K1", "K2"):
+            dual = label == "K2"
+            D_, L_, ds = (SIG_D, SIG_L, sig) if dual else (D, L, lin)
+            ds_seed, md_seed = seeds[69 if dual else 2]
+            lr, eps = (1e-4, -3.0) if dual else (1e-3, -1.0)
+
+            def make_model(tdv):
+                return build_vae(data_dim=D_, latent_dim=L_, epsilon=eps, tunable_decoder_var=tdv,
+                                 dataset_name="sigmoid" if dual else None)
+
+            def chunk(fn, bufs, n, step0, tdv, noise=None, adam="bf16"):
+                return fn(*bufs, ds.A, n_steps=n, batch=B, data_dim=D_, latent_dim=L_,
+                          intrinsic_dim=ds.intrinsic_dim, manifold_dim=ds.dim, step0=step0,
+                          t0=step0, data_seed=ds_seed, model_seed=md_seed, var_added=0.0,
+                          eps_const=eps, tdv=tdv, lr=lr, external_noise=noise, dual=dual,
+                          adam_dtype=adam)
+
+            return dict(make_model=make_model, ds=ds, layout=k1.param_layout(D_, L_, dual),
+                        chunk=chunk, lr=lr, kernel=k1.run_fused_chunk,
+                        plain=k1.plain_fused_chunk,
+                        pack=lambda st: k1.pack_state(st, D_, L_, dual),
+                        row=k1.GridRow(D_, L_, ds.intrinsic_dim, ds.dim, ds.A, 0, 0,
+                                       ds_seed, md_seed),
+                        flops=linear_flops(B, D_, L_, ds.intrinsic_dim, ds.dim, dual))
+        dual = label == "K5-dual"
+        enc, dec = (dual_enc, dual_dec) if dual else (SPH_ENC, SPH_DEC)
+        ds = sig if dual else sph
+        ds_seed, md_seed = seeds[69]
+
+        def make_model(tdv):
+            return build_vae(data_dim=enc[0], latent_dim=enc[-1], encoder_layer_sizes="200|200|200",
+                             decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                             tunable_decoder_var=tdv, dataset_name="sigmoid" if dual else None)
+
+        def chunk(fn, bufs, n, step0, tdv, noise=None, adam="bf16"):
+            return fn(*bufs, sig.A if dual else None, n_steps=n, batch=B, enc_widths=enc,
+                      dec_widths=dec, kind="sigmoid" if dual else "sphere",
+                      intrinsic_dim=ds.dim, manifold_dim=ds.dim, step0=step0, t0=step0,
+                      data_seed=ds_seed, model_seed=md_seed, var_added=0.0, eps_const=-3.0,
+                      tdv=tdv, lr=1e-4, external_noise=noise, dual=dual, adam_dtype=adam)
+
+        return dict(make_model=make_model, ds=ds, layout=k5.param_layout(enc, dec, dual),
+                    chunk=chunk, lr=1e-4, kernel=k5.run_mlp_fused_chunk,
+                    plain=k5.plain_mlp_fused_chunk,
+                    pack=lambda st: k5.pack_state(st, enc, dec, dual),
+                    row=k1.GridRow(enc[0], enc[-1], ds.dim, ds.dim, sig.A if dual else None, 0,
+                                   0, ds_seed, md_seed),
+                    flops=mlp_flops(B, enc, dec, dual))
+
+    configs = {label: solo(label) for label in ("K1", "K2", "K5", "K5-dual")}
+
+    def state_of(cfg, tdv, adam="bf16", seeded=False):
+        model = cfg["make_model"](tdv)
+        model.init_parameters(0)
+        ds_seed, md_seed = (cfg["row"].data_seed, cfg["row"].model_seed) if seeded else (0, 0)
+        return model, TrainState.create(dict(model.named_parameters()), ds_seed, md_seed,
+                                        adam).to(dev)
+
+    # --- the grid families: the sweeps' rows, bf16 moments ---------------------
+    def family(which, cfgs, seeds_):
+        groups = {}
+        for cfg in cfgs:
+            groups.setdefault((cfg.dataset_dimension, cfg.padding_dim, cfg.latent_dimension), cfg)
+        grids = [GridTrainer(cfg, seeds_, build_chunk=False) for cfg in groups.values()]
+        trip = [(g.model, ds, st) for g in grids for ds, st in zip(g.datasets, g.states)]
+        kind = k5.dataset_kind(trip[0][1])
+        rows = [k1.GridRow(ds.dimension, m.latent_dim, ds.intrinsic_dim, ds.dim,
+                           None if kind == "sphere" else ds.A, st.step, st.count, st.data_seed,
+                           st.model_seed, ds.var_added) for m, ds, st in trip]
+        mlp = bool(trip[0][0].encoder_features[:-1])
+        dual, c0 = trip[0][0].dual_sigmoid_decoder, cfgs[0]
+        kw = dict(batch=c0.batch_size, eps_const=c0.epsilon, tdv=True, lr=c0.learning_rate,
+                  dual=dual)
+        if mlp:
+            kw.update(enc_hidden=hidden, dec_hidden=hidden, kind=kind)
+            widths = [k5.row_widths(r, hidden, hidden) for r in rows]
+            layouts = [k5.param_layout(e, d, dual) for e, d in widths]
+            flops = sum(mlp_flops(B, e, d, dual) for e, d in widths)
+        else:
+            layouts = [k1.param_layout(r.data_dim, r.latent_dim, dual) for r in rows]
+            flops = sum(linear_flops(B, r.data_dim, r.latent_dim, r.intrinsic_dim,
+                                     r.manifold_dim, dual) for r in rows)
+        module = k5 if mlp else k1
+        extra = (hidden, hidden) if mlp else ()
+        states = [st for _, _, st in trip]
+
+        def solo_launch(i, bufs, n, adam="bf16"):
+            r = rows[i]
+            if mlp:
+                e, d = k5.row_widths(r, hidden, hidden)
+                return k5.run_mlp_fused_chunk(
+                    *bufs, r.a, n_steps=n, batch=B, enc_widths=e, dec_widths=d, kind=kind,
+                    intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+                    t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
+                    var_added=r.var_added, eps_const=kw["eps_const"], tdv=True, lr=kw["lr"],
+                    dual=dual, adam_dtype=adam)
+            return k1.run_fused_chunk(
+                *bufs, r.a, n_steps=n, batch=B, data_dim=r.data_dim, latent_dim=r.latent_dim,
+                intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+                t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=r.var_added,
+                eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual, adam_dtype=adam)
+
+        return dict(
+            label=f"K6{'b' if mlp else 'a'} {which}", rows=rows, states=states, kw=kw,
+            layouts=layouts, mlp=mlp, module=module, flops=flops, solo=solo_launch,
+            pack=lambda sts: module.pack_rows(sts, rows, *extra, dual),
+            views=lambda p, m, v: module.row_views(p, m, v, rows, *extra, dual),
+            pack_solo=lambda i: (k5.pack_state(states[i], *k5.row_widths(rows[i], *extra), dual)
+                                 if mlp else k1.pack_state(states[i], rows[i].data_dim,
+                                                           rows[i].latent_dim, dual)),
+            state_bytes=sum(6 * 4 * sum(int(np.prod(s)) for _, s in lay) for lay in layouts))
+
+    def sweep_family(which):
+        cfgs = list(sweep.sweep_configs(which, data_dir, 64, "cuda", adam_dtype="bf16"))
+        return family(which, cfgs, sweep.SWEEP_SEEDS[which])
+
+    sig_mlp_cfg = parse_arguments(["dual", *SIGMOID_MLP_ROW1, "--num_batches", "64", "--kernels",
+                                   "cuda", "--device", "cuda", "--data_dir", data_dir,
+                                   "--adam_dtype", "bf16"])
+    families = {"linear": sweep_family("linear"), "sigmoid": sweep_family("sigmoid"),
+                "sphere": sweep_family("sphere"),
+                "sigmoid-MLP": family("sigmoid-MLP", [sig_mlp_cfg], [69, 24, 48])}
+
+    def noise_for(row, n, rs, kind):
+        """External (x, z1, z2) of ``n`` steps for one row: x on its manifold."""
+        if kind == "linear":
+            z = rs.randn(n, B, row.intrinsic_dim).astype(np.float32)
+            x = np.zeros((n, B, row.data_dim), np.float32)
+            x[:, :, :row.manifold_dim] = z @ row.a.cpu().numpy().T
+            return tuple(torch.as_tensor(t.astype(np.float32), device=dev) for t in (
+                x, rs.randn(n, B, row.latent_dim), rs.randn(n, B, row.data_dim)))
+        return _manifold_noise(torch, np, rs, row, n, B, dev)
+
+    # --- 22 -------------------------------------------------------------------
+    phase(22, "K4: each kernel's bf16 moments against its plain version on the card")
+    print("one step at a time from the kernel's own state, each step also launched with f32 "
+          "moments from the same state: the bf16 launch's matrix moments must be the f32 "
+          "launch's rounded to nearest even, bitwise; against the plain version: losses and "
+          "the f32 slots at TOL (MLP: MLP_TOL, p, m, v by relative 2-norm), the matrix "
+          "slots by the ulp contract (K1, K2, K6a strict: <= 1 bf16 ulp above the f32 atol; "
+          "the MLP kernel: at most 0.1% of a row's matrix moments outside the drift bound "
+          "max(1e-3, 0.02|x|); >= 95% bitwise)")
+    errs, exact = {}, {}
+
+    def step_hold(label, launch, plain, bufs, rows_of, layouts, n, mlp, noise_at):
+        """``n`` steps one at a time: launch(bufs, step, noise, adam) runs one step
+        of the kernel in place, plain(...) its plain version; rows_of(bufs) are
+        the rows' (p, m, v). Returns (largest |d|, smallest bitwise share)."""
+        worst, share = 0.0, 1.0
+        for step in range(n):
+            one = noise_at(step)
+            f32 = tuple(t.clone() for t in bufs)
+            pb = tuple(t.clone() for t in bufs)
+            lf = launch(f32, step, one, "f32")
+            kl = launch(bufs, step, one, "bf16")
+            pl = plain(pb, step, one, "bf16")
+            torch.cuda.synchronize()
+            _require_rounded(torch, f"{label} step {step}", lf, kl, rows_of(f32), rows_of(bufs),
+                             layouts)
+            w, e = _hold_bf16(torch, np, f"{label} step {step}", kl, pl, rows_of(bufs),
+                              rows_of(pb), layouts, MLP_TOL if mlp else TOL,
+                              "tail" if mlp else "strict", norms=mlp)
+            worst, share = max(worst, w), min(share, e)
+        return worst, share
+
+    for label in ("K1", "K2", "K5", "K5-dual"):
+        cfg = configs[label]
+        mlp = label.startswith("K5")
+        n = 32 if mlp else 64
+        ext = noise_for(cfg["row"], n, np.random.RandomState(22),
+                        "linear" if label == "K1" else ("sphere" if label == "K5" else "sigmoid"))
+        errs[label], exact[label] = 0.0, 1.0
+        for tdv in ((True,) if mlp else (True, False)):
+            for mode in ("external", "sampler"):
+                _, st = state_of(cfg, tdv)
+                bufs = cfg["pack"](st)
+
+                def launch(b, step, one, adam, fn=cfg["kernel"], tdv=tdv):
+                    return cfg["chunk"](fn, b, 1, step, tdv, one, adam)
+
+                def plain(b, step, one, adam, tdv=tdv):
+                    return cfg["chunk"](cfg["plain"], b, 1, step, tdv, one, adam)
+
+                def noise_at(step, mode=mode):
+                    return None if mode == "sampler" else tuple(
+                        t[step:step + 1].contiguous() for t in ext)
+
+                w, e = step_hold(f"{label} tdv={tdv} {mode}", launch, plain, bufs,
+                                 lambda b: [b], [cfg["layout"]], n, mlp, noise_at)
+                errs[label], exact[label] = max(errs[label], w), min(exact[label], e)
+                print(f"{label} tdv={tdv!s:5} {mode:8}: {n} steps one at a time, max |d| {w:.2e}, "
+                      f"bitwise share of the matrix moments >= {e:.4f}")
+                if not mlp:  # and one launch of all 64 steps against the plain chunk
+                    _, st = state_of(cfg, tdv)
+                    kb = cfg["pack"](st)
+                    pb = tuple(t.clone() for t in kb)
+                    noise = None if mode == "sampler" else ext
+                    kl = cfg["chunk"](cfg["kernel"], kb, n, 0, tdv, noise)
+                    pl = cfg["chunk"](cfg["plain"], pb, n, 0, tdv, noise)
+                    torch.cuda.synchronize()
+                    w, e = _hold_bf16(torch, np, f"{label} tdv={tdv} {mode} {n}-step launch", kl,
+                                      pl, [kb], [pb], [cfg["layout"]], TOL, "drift")
+                    errs[label] = max(errs[label], w)
+                    print(f"{label} tdv={tdv!s:5} {mode:8}: one {n}-step launch, max |d| {w:.2e}, "
+                          f"bitwise share >= {e:.4f} (drift contract)")
+    for which, fam in families.items():
+        n = 32 if fam["mlp"] else 16
+        rs = np.random.RandomState(23)
+        kind = {"linear": "linear", "sigmoid": "sigmoid", "sphere": "sphere",
+                "sigmoid-MLP": "sigmoid"}[which]
+        noise = [noise_for(r, n, rs, kind) for r in fam["rows"]]
+        bufs = fam["pack"](fam["states"])
+        rows = fam["rows"]
+
+        def launch(b, step, one, adam, fam=fam, rows=rows, fn="run_grid_chunk"):
+            srows = [dataclasses.replace(r, step0=r.step0 + step, t0=r.t0 + step) for r in rows]
+            return getattr(fam["module"], fn)(*b, srows, n_steps=1, external_noise=one,
+                                              **fam["kw"], adam_dtype=adam)
+
+        def plain(b, step, one, adam, launch=launch):
+            return launch(b, step, one, adam, fn="plain_grid_chunk")
+
+        def noise_at(step, noise=noise):
+            return [tuple(t[step:step + 1].contiguous() for t in nz) for nz in noise]
+
+        w, e = step_hold(fam["label"], launch, plain, bufs, lambda b, fam=fam: fam["views"](*b),
+                         fam["layouts"], n, fam["mlp"], noise_at)
+        errs[fam["label"]], exact[fam["label"]] = w, e
+        print(f"{fam['label']}: {len(rows)} rows, {n} steps one at a time, external noise, max "
+              f"|d| {w:.2e}, bitwise share of the matrix moments >= {e:.4f}")
+
+    # --- 23 -------------------------------------------------------------------
+    phase(23, "K4 bitwise: grid rows equal their solo launches, 40 = 15 + 25, in bf16")
+    for which, fam in families.items():
+        p, m, v = fam["pack"](fam["states"])
+        losses = fam["module"].run_grid_chunk(p, m, v, fam["rows"], n_steps=64, **fam["kw"],
+                                              adam_dtype="bf16")
+        views = fam["views"](p, m, v)
+        for i in range(len(fam["rows"])):
+            bufs = fam["pack_solo"](i)
+            want = fam["solo"](i, bufs, 64)
+            torch.cuda.synchronize()
+            require(torch.equal(losses[i], want), f"{fam['label']} row {i}: bf16 losses equal "
+                                                  f"the solo launch's bitwise")
+            for name, got, ref in zip("pmv", views[i], bufs):
+                require(torch.equal(got, ref), f"{fam['label']} row {i}: bf16 {name} equals "
+                                               f"the solo launch's bitwise")
+            for got, lay in zip(views[i][1:], (fam["layouts"][i],) * 2):
+                mask = k1.matrix_mask(lay).to(dev)
+                require(torch.equal(got[mask], got[mask].bfloat16().float()),
+                        f"{fam['label']} row {i}: matrix moments are bfloat16 values")
+        print(f"{fam['label']}: {len(fam['rows'])} rows, 64 bf16 steps: every row's losses, p, "
+              f"m and v equal its solo launch bitwise")
+        a = fam["pack"](fam["states"])
+        b = tuple(t.clone() for t in a)
+        la = fam["module"].run_grid_chunk(*a, fam["rows"], n_steps=40, **fam["kw"],
+                                          adam_dtype="bf16")
+        later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in fam["rows"]]
+        lb = torch.cat([fam["module"].run_grid_chunk(*b, fam["rows"], n_steps=15, **fam["kw"],
+                                                     adam_dtype="bf16"),
+                        fam["module"].run_grid_chunk(*b, later, n_steps=25, **fam["kw"],
+                                                     adam_dtype="bf16")], dim=1)
+        torch.cuda.synchronize()
+        require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{fam['label']}: a 40-step bf16 launch equals a 15 + 25 split bitwise")
+        print(f"{fam['label']}: bf16 chunk split 40 = 15 + 25 bitwise equal")
+    for label, cfg in configs.items():
+        _split(torch, f"{label} bf16", lambda tdv, cfg=cfg: cfg["pack"](state_of(cfg, tdv)[1]),
+               cfg["kernel"], cfg["chunk"])
+
+    # --- 24 -------------------------------------------------------------------
+    phase(24, "K4 main paths: the CLI and the sweep runner with --adam_dtype bf16 "
+              "--kernels cuda, 12000 steps")
+
+    def cli(name, row, num_batches, *extra):
+        cfg = parse_arguments([name, *row, "--num_batches", str(num_batches), "--kernels", "cuda",
+                               "--device", "cuda", "--data_dir", data_dir, "--adam_dtype",
+                               "bf16", *extra])
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t
+
+    def require_bf16_state(label, run_dir):
+        st = restore_checkpoint(run_dir)
+        for tree in (st.m, st.v):
+            for k, t in tree.items():
+                require(t.dtype == moment_dtype(t.shape, "bf16"),
+                        f"{label}: checkpoint moment {k} is {t.dtype}")
+        require((read_checkpoint_meta(run_dir) or {}).get("adam_dtype") == "bf16",
+                f"{label}: ckpt_meta.json records adam_dtype bf16")
+
+    launches = {}
+    for label, row, counter in (("K1", ROW1, k1.run_fused_chunk),
+                                ("K2", SIGMOID_ROW1, k1.run_fused_chunk),
+                                ("K5", SPHERE_ROW1, k5.run_mlp_fused_chunk),
+                                ("K5-dual", SIGMOID_MLP_ROW1, k5.run_mlp_fused_chunk)):
+        name = f"bf16_{label}"
+        reset_counts()
+        rc, out, secs = cli(name, row, 12000)
+        launches[label] = counter.launches
+        others = sum(c.launches for c in counters) - counter.launches
+        plain = sum(c.calls for c in plain_counters)
+        kline = [ln for ln in out.splitlines() if ln.startswith("[kernels]")]
+        print("\n".join(kline + [ln for ln in out.splitlines() if ln.startswith("Batch |")]))
+        print(f"{label} bf16 main path: rc {rc}, {secs:.2f} s, {label} launches "
+              f"{launches[label]}, other launches {others}, plain chunks {plain}")
+        require(rc == 0, f"{label} bf16: main() returned 0")
+        name_in_line = ("kernel K5 (dual decoder) (" if label == "K5-dual"
+                        else f"kernel {label} (")
+        require(len(kline) == 1 and name_in_line in kline[0]
+                and kline[0].endswith("with bf16 Adam moments"),
+                f"{label} bf16: the [kernels] line names {label} and bf16 moments")
+        require(launches[label] > 0 and others == 0 and plain == 0,
+                f"{label} bf16: {label} launched, nothing else, no plain chunk")
+        evals = {int(mt.group(1)): float(mt.group(2)) for mt in re.finditer(
+            r"^Batch \| (\d+) \| VAE Loss \| (-?[\d.]+)", out, re.M)}
+        require(sorted(evals) == [0, 5000, 10000] and evals[10000] < evals[0],
+                f"{label} bf16: eval VAE Loss lower at 10000 than at 0")
+        run_dir = os.path.join(data_dir, name)
+        z = np.load(os.path.join(run_dir, "losses.npz"))
+        require(bool(np.all(np.isfinite(z["VAE Loss"]))) and z["VAE Loss"].shape == (12003,),
+                f"{label} bf16: finite per-step loss trace of 12000 steps + 3 evals")
+        require_bf16_state(label, run_dir)
+        print(f"{label} bf16: eval VAE Loss {evals[0]:.3f} -> {evals[10000]:.3f}; "
+              f"checkpoint moments bf16 for the weight matrices, f32 for the rest")
+
+    rc1, _, _ = cli("bf16_part", SPHERE_ROW1, 7000)
+    require(rc1 == 0, "sphere bf16 7000 steps returned 0")
+    require_bf16_state("sphere bf16 part", os.path.join(data_dir, "bf16_part"))
+    rc2, _, _ = cli("bf16_resumed", SPHERE_ROW1, 12000, "--resume",
+                    os.path.join(data_dir, "bf16_part"))
+    require(rc2 == 0, "sphere bf16 --resume returned 0")
+    _require_same_run(np, os.path.join(data_dir, "bf16_K5"), os.path.join(data_dir, "bf16_resumed"))
+    print("sphere bf16 --resume from 7000 to 12000: losses.npz and model.pkl params equal the "
+          "uninterrupted bf16 run bitwise")
+
+    def run_sweep(which, sub, *extra):
+        reset_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep.main([which, "--grouped", "--kernels", "cuda", "--num_batches", "12000",
+                             "--adam_dtype", "bf16", "--data_dir", os.path.join(data_dir, sub),
+                             *extra])
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t
+
+    for which, grid_label, module, rows in (("sphere", "K6b", k5, 15), ("linear", "K6a", k1, 21)):
+        rc, out, secs = run_sweep(which, f"bf16_{which}")
+        grid_n = module.run_grid_chunk.launches
+        others = sum(c.launches for c in counters) - grid_n
+        plain = sum(c.calls for c in plain_counters)
+        launches[grid_label] = grid_n
+        kline = [ln for ln in out.splitlines() if ln.startswith("[kernels]")]
+        print("\n".join(kline + [ln for ln in out.splitlines() if ln.startswith("[sweep]")]))
+        print(f"{which} bf16 sweep: rc {rc}, {secs:.2f} s, {grid_label} launches {grid_n}, other "
+              f"launches {others}, plain chunks {plain}")
+        require(rc == 0, f"{which} bf16 sweep returned 0")
+        require(len(kline) == 1 and kline[0].startswith(f"[kernels] cuda: {grid_label}, the grid "
+                                                        f"mode") and f"{rows} rows" in kline[0]
+                and kline[0].endswith("with bf16 Adam moments"),
+                f"{which} bf16 sweep: the [kernels] line names {grid_label} and bf16 moments")
+        require(grid_n == 4 and others == 0 and plain == 0,
+                f"{which} bf16 sweep: one {grid_label} launch a chunk and nothing else")
+        falling = 0
+        for c in sweep.sweep_configs(which, data_dir, 12000, "cuda"):
+            run_dir = os.path.join(data_dir, f"bf16_{which}", c.name)
+            trace = np.load(os.path.join(run_dir, "losses.npz"))["VAE Loss"]
+            require(bool(np.all(np.isfinite(trace))) and trace.shape == (12003,),
+                    f"{c.name} bf16: finite loss trace of 12000 steps + 3 evals")
+            falling += bool(trace[-100:].mean() < trace[0])
+        require_bf16_state(f"{which} bf16 sweep", run_dir)
+        print(f"{which} bf16: the last 100 steps' mean loss is below the step-0 eval's in "
+              f"{falling} of {rows} runs")
+        require(falling == rows, f"{which} bf16: every run's loss falls")
+
+    # --- 25 -------------------------------------------------------------------
+    phase(25, "K4 times: each kernel with f32 and bf16 moments in turn (f32, bf16, bf16, f32), "
+              "and the bf16 plain versions")
+    records = []
+    timed = [(label, configs[label]) for label in ("K1", "K2", "K5", "K5-dual")]
+    timed += [("K6a", families["linear"]), ("K6b", families["sphere"])]
+    for label, cfg in timed:
+        grid = label.startswith("K6")
+        if grid:
+            k_steps, p_steps = (5000 if label == "K6a" else 200), 2
+            bufs = {a: cfg["pack"](cfg["states"]) for a in ("f32", "bf16")}
+            mod, rows, kw = cfg["module"], cfg["rows"], cfg["kw"]
+            pbufs = cfg["pack"](cfg["states"])
+
+            def kernel_call(adam, bufs=bufs, mod=mod, rows=rows, kw=kw, k_steps=k_steps):
+                mod.run_grid_chunk(*bufs[adam], rows, n_steps=k_steps, **kw, adam_dtype=adam)
+
+            def plain_call(mod=mod, rows=rows, kw=kw, pbufs=pbufs):
+                mod.plain_grid_chunk(*pbufs, rows, n_steps=2, **kw, adam_dtype="bf16")
+
+            n_matrix = sum(int(k1.matrix_mask(lay).sum()) for lay in cfg["layouts"])
+            state_bytes, rows_n = cfg["state_bytes"], len(rows)
+        else:
+            mlp = label.startswith("K5")
+            k_steps, p_steps = (1000, 50) if mlp else (5000, 100)
+            bufs = {a: cfg["pack"](state_of(cfg, True, a)[1]) for a in ("f32", "bf16")}
+            model, pstate = state_of(cfg, True, "bf16", seeded=True)
+
+            def kernel_call(adam, cfg=cfg, bufs=bufs, k_steps=k_steps):
+                cfg["chunk"](cfg["kernel"], bufs[adam], k_steps, 0, True, None, adam)
+
+            def plain_call(cfg=cfg, model=model, pstate=pstate, p_steps=p_steps):
+                torch_step.train_chunk(model, cfg["ds"], pstate, p_steps, batch_size=B,
+                                       lr=cfg["lr"])
+
+            n_matrix = int(k1.matrix_mask(cfg["layout"]).sum())
+            state_bytes = 6 * 4 * len(k1.matrix_mask(cfg["layout"]))
+            rows_n = 1
+        rates = {}
+        for name, fn, n in (("plain", plain_call, p_steps),
+                            ("f32", lambda: kernel_call("f32"), k_steps),
+                            ("bf16", lambda: kernel_call("bf16"), k_steps),
+                            ("bf16 2", lambda: kernel_call("bf16"), k_steps),
+                            ("f32 2", lambda: kernel_call("f32"), k_steps),
+                            ("plain 2", plain_call, p_steps)):
+            rates[name] = _steps_per_second(torch, fn, n)
+        ms = {k: 1e3 / r for k, r in rates.items()}
+        b_ms, f_ms = min(ms["bf16"], ms["bf16 2"]), min(ms["f32"], ms["f32 2"])
+        p_ms = min(ms["plain"], ms["plain 2"])
+        # K4's work: the kernel's, plus 4 operations a matrix element a step
+        # (m and v each rounded to bf16 and widened back)
+        bound = _bound(cfg["flops"] + 4 * n_matrix, state_bytes, k_steps, losses_per_step=rows_n)
+        unit = "a launch-step" if grid else "a step"
+        print(f"card: {smi}")
+        print(f"{label}: f32 {ms['f32'] * 1e3:.3f} / {ms['f32 2'] * 1e3:.3f} us {unit}, bf16 "
+              f"{ms['bf16'] * 1e3:.3f} / {ms['bf16 2'] * 1e3:.3f} us (bf16 / f32 "
+              f"{b_ms / f_ms:.4f}); bf16 plain version {ms['plain']:.3f} / "
+              f"{ms['plain 2']:.3f} ms; bound {bound['bound_ms'] * 1e3:.4f} us "
+              f"({bound['bound_by']}), bf16 kernel at {100 * bound['bound_ms'] / b_ms:.3f}% "
+              f"of it")
+        source = "linear_vae.cu" if label in ("K1", "K2", "K6a") else "mlp_vae.cu"
+        records.append({
+            "name": f"K4 bf16 Adam moments in {label}", "route": "cuda",
+            "source": f"vae_training_tpu_torch/csrc/{source}",
+            "replaces": "vae_training_tpu/kernels/linear_vae.py:188",
+            "launches": launches[label],
+            "max_abs_err": errs[label if not grid else cfg["label"]],
+            "ms": b_ms, "plain_ms": p_ms, **bound, "library_ms": None,
+            "f32_ms": f_ms})
+    return records
+
+
+def _ulp_keys(torch, x):
+    """bfloat16 values → int32 keys monotonic in float order, 1 apart per
+    ulp (tests/kernel_test_helpers.py's _bf16_ulp_keys)."""
+    s = x.bfloat16().view(torch.int16).to(torch.int32)
+    return torch.where(s < 0, -32768 - s, s)
+
+
+def _require_rounded(torch, label, f32_losses, losses, f32_rows, rows, layouts):
+    """One step from the same state: the bf16 launch's weight-matrix moments
+    are the f32 launch's rounded to nearest even, bitwise; its other
+    moments, its vector parameters and its losses are the f32 launch's (the
+    gradients and the f32 update are the same code; K4 only rounds)."""
+    from vae_training_tpu_torch.kernels.linear_vae import matrix_mask
+
+    require(torch.equal(f32_losses, losses), f"{label}: bf16 losses equal the f32 launch's")
+    for i, ((fp, fm, fv), (p, m, v), lay) in enumerate(zip(f32_rows, rows, layouts)):
+        mask = matrix_mask(lay).to(p.device)
+        require(torch.equal(p[~mask], fp[~mask]), f"{label} row {i}: vector params equal")
+        for name, got, ref in (("m", m, fm), ("v", v, fv)):
+            require(torch.equal(got[mask], ref[mask].bfloat16().float()),
+                    f"{label} row {i}: bf16 {name} is the f32 launch's rounded to nearest even")
+            require(torch.equal(got[~mask], ref[~mask]),
+                    f"{label} row {i}: f32-slot {name} equals the f32 launch's")
+
+
+def _hold_bf16(torch, np, label, losses, plain_losses, rows, plain_rows, layouts, tol, mode,
+               norms=False):
+    """Hold a bf16-moment launch to its plain version. Losses at ``tol``;
+    params and the f32 moment slots elementwise at ``tol`` (``norms``: p, m
+    and v by relative 2-norm, as _hold_mlp). Each weight matrix's moments
+    (bfloat16 values on both sides, checked) by tests/kernel_test_helpers.py's
+    ulp contract: ``strict``, at most 1 bf16 ulp apart where they differ by
+    more than the f32 atol; ``drift``, |d| <= max(1e-3, 0.02|x|); and at
+    least 95% bitwise, each matrix. ``tail`` (the MLP kernel at full width):
+    at most 0.1% of a row's matrix moments outside the drift bound, and 95%
+    of them bitwise: the ReLU-mask and rounding-floor partings that
+    _hold_mlp describes move single elements of m past any elementwise
+    bound (one SigDecoder.FC0.kernel element at 2.7x the drift bound in 32
+    steps of 3 sigmoid-MLP rows, on the H100), in bf16 as in f32. Returns
+    (largest |d|, smallest bitwise share)."""
+    from vae_training_tpu_torch.kernels.linear_vae import matrix_mask
+
+    if norms:
+        worst = _hold_mlp(torch, np, label, losses, plain_losses, rows, plain_rows)
+    else:
+        a, b = losses.cpu().numpy(), plain_losses.cpu().numpy()
+        require(bool(np.all(np.isfinite(a))), f"{label}: finite losses")
+        np.testing.assert_allclose(a, b, *tol["losses"], err_msg=f"{label} losses")
+        worst = float(np.abs(a - b).max())
+    share = 1.0
+    for i, (got, want, lay) in enumerate(zip(rows, plain_rows, layouts)):
+        mask = matrix_mask(lay)
+        got, want = [t.cpu() for t in got], [t.cpu() for t in want]
+        if not norms:
+            np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), *tol["params"],
+                                       err_msg=f"{label} row {i} params")
+            worst = max(worst, float((got[0] - want[0]).abs().max()))
+        for name, x, y in (("m", got[1], want[1]), ("v", got[2], want[2])):
+            if not norms:
+                np.testing.assert_allclose(x[~mask].numpy(), y[~mask].numpy(), *tol[name],
+                                           err_msg=f"{label} row {i} f32-slot {name}")
+            worst = max(worst, float((x - y).abs().max()))
+            require(torch.equal(x[mask], x[mask].bfloat16().float())
+                    and torch.equal(y[mask], y[mask].bfloat16().float()),
+                    f"{label} row {i}: {name} of the weight matrices are bfloat16 values")
+            same = _ulp_keys(torch, x) == _ulp_keys(torch, y)
+            if mode == "tail":
+                share = min(share, float(same[mask].float().mean()))
+                out = (x - y).abs() > (0.02 * y.abs()).clamp_min(1e-3)
+                tail = float(out[mask].float().mean())
+                require(tail <= 1e-3, f"{label} row {i} {name}: {tail:.2e} of the matrix moments "
+                                      f"outside max(1e-3, 0.02|x|) (at most 1e-3)")
+                continue
+            off = 0
+            for leaf, shape in lay:
+                n = int(np.prod(shape))
+                if len(shape) >= 2:
+                    xs, ys = x[off:off + n], y[off:off + n]
+                    diff = (xs - ys).abs()
+                    if mode == "strict":
+                        ulp = (_ulp_keys(torch, xs) - _ulp_keys(torch, ys)).abs()
+                        far = ulp[diff > tol[name][1]]
+                        w = int(far.max()) if far.numel() else 0
+                        require(w <= 1, f"{label} row {i} {name} {leaf}: {w} bf16 ulp apart above "
+                                        f"the {tol[name][1]} floor (at most 1)")
+                    else:
+                        w = float((diff / (0.02 * ys.abs()).clamp_min(1e-3)).max())
+                        require(w <= 1.0, f"{label} row {i} {name} {leaf}: drift {w:.2f}x the "
+                                          f"bound max(1e-3, 0.02|x|)")
+                    share = min(share, float(same[off:off + n].float().mean()))
+                off += n
+    require(share >= 0.95, f"{label}: only {share:.1%} of the bf16 moments bitwise equal")
+    return worst, share
 
 
 def _manifold_noise(torch, np, rs, row, n, batch, device):

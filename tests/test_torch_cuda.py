@@ -1,6 +1,7 @@
 """K1, K2, K5, K5-dual, K6a and K6b on the card: the CUDA kernels against
 their plain PyTorch versions, and the grid modes' rows against the solo
-kernels.
+kernels, each with f32 Adam moments and with bf16 ones (K4,
+``--adam_dtype bf16``).
 
 These tests need a CUDA device of compute capability 9.0 and nvcc; they
 carry the ``cuda`` marker and skip elsewhere. The file imports no JAX, so on
@@ -11,7 +12,12 @@ a machine without it run them with the repository's conftest left out:
 Tolerances are those of tests/test_pallas_kernel.py for K1, K2 and K6a and
 of tests/test_mlp_kernel.py for K5, K5-dual and K6b: both sides are fp32,
 and only summation order and libm ulps differ (the MLP kernel's 200-term
-sums through four layers each way compound more of them).
+sums through four layers each way compound more of them). bf16 moments
+(the weight matrices' slots of the flat buffers) must hold bfloat16 values
+on both sides and agree by the drift form of
+tests/kernel_test_helpers.py's ulp contract: at least 95% bitwise, the rest
+within max(1e-3, 0.02|x|), since a legitimate 1-ulp rounding flip perturbs
+the trajectory that later steps follow.
 """
 
 import dataclasses
@@ -33,6 +39,7 @@ from vae_training_tpu_torch.ops import rng  # noqa: E402
 from vae_training_tpu_torch.train import TrainState  # noqa: E402
 
 D, L, ID, B = 12, 20, 3, 100
+DTYPES = pytest.mark.parametrize("adam_dtype", ["f32", "bf16"])
 
 
 @pytest.fixture
@@ -45,25 +52,73 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _flat_state(device, tdv):
+def _keys(x):
+    """bfloat16 values → int keys monotonic in float order, 1 apart per ulp."""
+    s = x.bfloat16().view(torch.int16).to(torch.int32)
+    return torch.where(s < 0, -32768 - s, s)
+
+
+def _assert_moments(kb, pb, layout, adam_dtype, tol_m, tol_v):
+    """Kernel vs plain flat m and v: f32 slots at (rtol, atol); with bf16
+    moments each weight matrix's slots bfloat16 values on both sides, at
+    least 95% bitwise and the rest within max(1e-3, 0.02|x|)."""
+    mask = k1.matrix_mask(layout) if adam_dtype == "bf16" else torch.zeros(0, dtype=torch.bool)
+    for got, want, (rtol, atol) in ((kb[1], pb[1], tol_m), (kb[2], pb[2], tol_v)):
+        got, want = got.cpu(), want.cpu()
+        if adam_dtype == "f32":
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+            continue
+        np.testing.assert_allclose(got[~mask], want[~mask], rtol=rtol, atol=atol)
+        _assert_bf16_slots(got, want, layout)
+
+
+def _assert_bf16_slots(got, want, layout, per_matrix=True):
+    """Each weight matrix's moment slots: bfloat16 values on both sides,
+    within max(1e-3, 0.02|x|), and at least 95% bitwise, each matrix; or
+    (``per_matrix=False``, the MLP kernel one step at a time at full
+    width) over all of them together, with at most 0.1% outside the bound:
+    the partings _assert_mlp_step_close describes move single elements past
+    any elementwise bound, in bf16 as in f32."""
+    got, want = got.cpu(), want.cpu()
+    mask = k1.matrix_mask(layout)
+    x, y = got[mask], want[mask]
+    assert torch.equal(x, x.bfloat16().float()) and torch.equal(y, y.bfloat16().float())
+    out = (x - y).abs() > (0.02 * y.abs()).clamp_min(1e-3)
+    if not per_matrix:
+        assert float(out.float().mean()) <= 1e-3
+        assert float((_keys(x) == _keys(y)).float().mean()) >= 0.95
+        return
+    assert not bool(out.any())
+    off = 0
+    for name, shape in layout:
+        n = int(np.prod(shape))
+        if len(shape) >= 2:
+            x, y = got[off:off + n], want[off:off + n]
+            assert float((_keys(x) == _keys(y)).float().mean()) >= 0.95, name
+        off += n
+
+
+def _flat_state(device, tdv, adam_dtype="f32"):
     model = build_vae(data_dim=D, latent_dim=L, epsilon=-1.0, tunable_decoder_var=tdv)
     model.init_parameters(0)
-    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2, adam_dtype).to(device)
     return k1.pack_state(state, D, L)
 
 
-def _chunk(p, m, v, a, n, step0, tdv, noise=None, plain=False):
+def _chunk(p, m, v, a, n, step0, tdv, noise=None, plain=False, adam_dtype="f32"):
     fn = k1.plain_fused_chunk if plain else k1.run_fused_chunk
     return fn(p, m, v, a, n_steps=n, batch=B, data_dim=D, latent_dim=L,
               intrinsic_dim=ID, manifold_dim=ID, step0=step0, t0=step0,
               data_seed=rng.derive_seed(2, 1), model_seed=rng.derive_seed(0, 3),
-              var_added=0.0, eps_const=-1.0, tdv=tdv, lr=1e-3, external_noise=noise)
+              var_added=0.0, eps_const=-1.0, tdv=tdv, lr=1e-3, external_noise=noise,
+              adam_dtype=adam_dtype)
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("tdv", [True, False])
-def test_kernel_matches_plain(cuda_device, tdv, external):
+def test_kernel_matches_plain(cuda_device, tdv, external, adam_dtype):
     ds = LinearGaussianDataset.create(2, 3, 3, 9, device=cuda_device)
     n = 32
     noise = None
@@ -73,25 +128,26 @@ def test_kernel_matches_plain(cuda_device, tdv, external):
         xs[:, :, :3] = rs.randn(n, B, 3).astype(np.float32) @ ds.A.cpu().numpy().T
         noise = tuple(torch.as_tensor(a, device=cuda_device) for a in (
             xs, rs.randn(n, B, L).astype(np.float32), rs.randn(n, B, D).astype(np.float32)))
-    kp, km, kv = _flat_state(cuda_device, tdv)
-    pp, pm, pv = (t.clone() for t in (kp, km, kv))
-    kl = _chunk(kp, km, kv, ds.A, n, 0, tdv, noise)
-    pl = _chunk(pp, pm, pv, ds.A, n, 0, tdv, noise, plain=True)
+    kb = _flat_state(cuda_device, tdv, adam_dtype)
+    pb = tuple(t.clone() for t in kb)
+    kl = _chunk(*kb, ds.A, n, 0, tdv, noise, adam_dtype=adam_dtype)
+    pl = _chunk(*pb, ds.A, n, 0, tdv, noise, plain=True, adam_dtype=adam_dtype)
     torch.cuda.synchronize()
     np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=2e-4, atol=2e-4)
-    np.testing.assert_allclose(kp.cpu(), pp.cpu(), rtol=5e-4, atol=5e-5)
-    np.testing.assert_allclose(km.cpu(), pm.cpu(), rtol=5e-4, atol=1e-6)
-    np.testing.assert_allclose(kv.cpu(), pv.cpu(), rtol=5e-4, atol=1e-7)
+    np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=5e-4, atol=5e-5)
+    _assert_moments(kb, pb, k1.param_layout(D, L), adam_dtype, (5e-4, 1e-6), (5e-4, 1e-7))
 
 
 @pytest.mark.cuda
-def test_kernel_is_chunk_independent(cuda_device):
+@DTYPES
+def test_kernel_is_chunk_independent(cuda_device, adam_dtype):
     """One 40-step launch equals a 15 + 25 split bitwise (resume relies on it)."""
     ds = LinearGaussianDataset.create(2, 3, 3, 9, device=cuda_device)
-    a = _flat_state(cuda_device, True)
+    a = _flat_state(cuda_device, True, adam_dtype)
     b = tuple(t.clone() for t in a)
-    la = _chunk(*a, ds.A, 40, 0, True)
-    lb = torch.cat([_chunk(*b, ds.A, 15, 0, True), _chunk(*b, ds.A, 25, 15, True)])
+    la = _chunk(*a, ds.A, 40, 0, True, adam_dtype=adam_dtype)
+    lb = torch.cat([_chunk(*b, ds.A, 15, 0, True, adam_dtype=adam_dtype),
+                    _chunk(*b, ds.A, 25, 15, True, adam_dtype=adam_dtype)])
     torch.cuda.synchronize()
     assert torch.equal(la, lb)
     for x, y in zip(a, b):
@@ -112,26 +168,27 @@ def test_sampler_words_are_bitwise(cuda_device):
 SD, SL, SDD = 7, 6, 3
 
 
-def _k2_state(device, tdv):
+def _k2_state(device, tdv, adam_dtype="f32"):
     model = build_vae(data_dim=SD, latent_dim=SL, epsilon=-3.0, tunable_decoder_var=tdv,
                       dataset_name="sigmoid")
     model.init_parameters(0)
-    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2, adam_dtype).to(device)
     return k1.pack_state(state, SD, SL, dual=True)
 
 
-def _k2_chunk(bufs, a, n, step0, tdv, noise=None, plain=False):
+def _k2_chunk(bufs, a, n, step0, tdv, noise=None, plain=False, adam_dtype="f32"):
     fn = k1.plain_fused_chunk if plain else k1.run_fused_chunk
     return fn(*bufs, a, n_steps=n, batch=B, data_dim=SD, latent_dim=SL, intrinsic_dim=SDD,
               manifold_dim=SDD, step0=step0, t0=step0, data_seed=rng.derive_seed(69, 1),
               model_seed=rng.derive_seed(0, 3), var_added=0.0, eps_const=-3.0, tdv=tdv,
-              lr=1e-4, external_noise=noise, dual=True)
+              lr=1e-4, external_noise=noise, dual=True, adam_dtype=adam_dtype)
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("tdv", [True, False])
-def test_k2_matches_plain(cuda_device, tdv, external):
+def test_k2_matches_plain(cuda_device, tdv, external, adam_dtype):
     ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
     n = 32
     noise = None
@@ -142,24 +199,26 @@ def test_k2_matches_plain(cuda_device, tdv, external):
                              np.zeros((n, B, 3), np.float32)], axis=-1)
         noise = tuple(torch.as_tensor(a.astype(np.float32), device=cuda_device) for a in (
             xs, rs.randn(n, B, SL), rs.randn(n, B, SD)))
-    kb = _k2_state(cuda_device, tdv)
+    kb = _k2_state(cuda_device, tdv, adam_dtype)
     pb = tuple(t.clone() for t in kb)
-    kl = _k2_chunk(kb, ds.A, n, 0, tdv, noise)
-    pl = _k2_chunk(pb, ds.A, n, 0, tdv, noise, plain=True)
+    kl = _k2_chunk(kb, ds.A, n, 0, tdv, noise, adam_dtype=adam_dtype)
+    pl = _k2_chunk(pb, ds.A, n, 0, tdv, noise, plain=True, adam_dtype=adam_dtype)
     torch.cuda.synchronize()
     np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=5e-4, atol=5e-5)
-    np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=5e-4, atol=1e-6)
-    np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=5e-4, atol=1e-7)
+    _assert_moments(kb, pb, k1.param_layout(SD, SL, True), adam_dtype, (5e-4, 1e-6),
+                    (5e-4, 1e-7))
 
 
 @pytest.mark.cuda
-def test_k2_is_chunk_independent(cuda_device):
+@DTYPES
+def test_k2_is_chunk_independent(cuda_device, adam_dtype):
     ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
-    a = _k2_state(cuda_device, True)
+    a = _k2_state(cuda_device, True, adam_dtype)
     b = tuple(t.clone() for t in a)
-    la = _k2_chunk(a, ds.A, 40, 0, True)
-    lb = torch.cat([_k2_chunk(b, ds.A, 15, 0, True), _k2_chunk(b, ds.A, 25, 15, True)])
+    la = _k2_chunk(a, ds.A, 40, 0, True, adam_dtype=adam_dtype)
+    lb = torch.cat([_k2_chunk(b, ds.A, 15, 0, True, adam_dtype=adam_dtype),
+                    _k2_chunk(b, ds.A, 25, 15, True, adam_dtype=adam_dtype)])
     torch.cuda.synchronize()
     assert torch.equal(la, lb)
     for x, y in zip(a, b):
@@ -172,35 +231,36 @@ def test_k2_is_chunk_independent(cuda_device):
 ENC, DEC = (6, 200, 200, 200, 6), (6, 200, 200, 200, 6)
 
 
-def _k5_state(device, tdv, enc=ENC, dec=DEC):
+def _k5_state(device, tdv, enc=ENC, dec=DEC, adam_dtype="f32"):
     model = build_vae(data_dim=enc[0], latent_dim=enc[-1],
                       encoder_layer_sizes="|".join(map(str, enc[1:-1])),
                       decoder_layer_sizes="|".join(map(str, dec[1:-1])),
                       epsilon=-3.0, tunable_decoder_var=tdv)
     model.init_parameters(0)
-    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2, adam_dtype).to(device)
     return k5.pack_state(state, enc, dec)
 
 
-def _k5_chunk(bufs, n, step0, tdv, noise=None, plain=False):
+def _k5_chunk(bufs, n, step0, tdv, noise=None, plain=False, adam_dtype="f32"):
     fn = k5.plain_mlp_fused_chunk if plain else k5.run_mlp_fused_chunk
     return fn(*bufs, None, n_steps=n, batch=B, enc_widths=ENC, dec_widths=DEC, kind="sphere",
               intrinsic_dim=3, manifold_dim=3, step0=step0, t0=step0,
               data_seed=rng.derive_seed(69, 1), model_seed=rng.derive_seed(0, 3),
-              var_added=0.0, eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise)
+              var_added=0.0, eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise,
+              adam_dtype=adam_dtype)
 
 
-def _assert_k5_close(kl, pl, kb, pb):
+def _assert_k5_close(kl, pl, kb, pb, layout, adam_dtype="f32"):
     np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=3e-4, atol=3e-4)
     np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=1e-3, atol=1e-5)
-    np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=1e-3, atol=1e-6)
-    np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=1e-3, atol=1e-9)
+    _assert_moments(kb, pb, layout, adam_dtype, (1e-3, 1e-6), (1e-3, 1e-9))
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("tdv", [True, False])
-def test_k5_matches_plain(cuda_device, tdv, external):
+def test_k5_matches_plain(cuda_device, tdv, external, adam_dtype):
     n = 16
     noise = None
     if external:
@@ -210,35 +270,38 @@ def test_k5_matches_plain(cuda_device, tdv, external):
                              np.zeros((n, B, 3), np.float32)], axis=-1)
         noise = tuple(torch.as_tensor(a.astype(np.float32), device=cuda_device) for a in (
             xs, rs.randn(n, B, 6), rs.randn(n, B, 6)))
-    kb = _k5_state(cuda_device, tdv)
+    kb = _k5_state(cuda_device, tdv, adam_dtype=adam_dtype)
     pb = tuple(t.clone() for t in kb)
-    kl = _k5_chunk(kb, n, 0, tdv, noise)
-    pl = _k5_chunk(pb, n, 0, tdv, noise, plain=True)
+    kl = _k5_chunk(kb, n, 0, tdv, noise, adam_dtype=adam_dtype)
+    pl = _k5_chunk(pb, n, 0, tdv, noise, plain=True, adam_dtype=adam_dtype)
     torch.cuda.synchronize()
-    _assert_k5_close(kl, pl, kb, pb)
+    _assert_k5_close(kl, pl, kb, pb, k5.param_layout(ENC, DEC), adam_dtype)
 
 
 @pytest.mark.cuda
-def test_k5_linear_gaussian_matches_plain(cuda_device):
+@DTYPES
+def test_k5_linear_gaussian_matches_plain(cuda_device, adam_dtype):
     ds = LinearGaussianDataset.create(2, 3, 3, 9, device=cuda_device)
     enc, dec = (12, 32, 20), (20, 32, 32, 12)
-    kb = _k5_state(cuda_device, True, enc, dec)
+    kb = _k5_state(cuda_device, True, enc, dec, adam_dtype)
     pb = tuple(t.clone() for t in kb)
     kw = dict(n_steps=16, batch=B, enc_widths=enc, dec_widths=dec, kind="linear",
               intrinsic_dim=3, manifold_dim=3, step0=5, t0=5, data_seed=7, model_seed=8,
-              var_added=0.25, eps_const=-1.0, tdv=True, lr=1e-3)
+              var_added=0.25, eps_const=-1.0, tdv=True, lr=1e-3, adam_dtype=adam_dtype)
     kl = k5.run_mlp_fused_chunk(*kb, ds.A, **kw)
     pl = k5.plain_mlp_fused_chunk(*pb, ds.A, **kw)
     torch.cuda.synchronize()
-    _assert_k5_close(kl, pl, kb, pb)
+    _assert_k5_close(kl, pl, kb, pb, k5.param_layout(enc, dec), adam_dtype)
 
 
 @pytest.mark.cuda
-def test_k5_is_chunk_independent(cuda_device):
-    a = _k5_state(cuda_device, True)
+@DTYPES
+def test_k5_is_chunk_independent(cuda_device, adam_dtype):
+    a = _k5_state(cuda_device, True, adam_dtype=adam_dtype)
     b = tuple(t.clone() for t in a)
-    la = _k5_chunk(a, 40, 0, True)
-    lb = torch.cat([_k5_chunk(b, 15, 0, True), _k5_chunk(b, 25, 15, True)])
+    la = _k5_chunk(a, 40, 0, True, adam_dtype=adam_dtype)
+    lb = torch.cat([_k5_chunk(b, 15, 0, True, adam_dtype=adam_dtype),
+                    _k5_chunk(b, 25, 15, True, adam_dtype=adam_dtype)])
     torch.cuda.synchronize()
     assert torch.equal(la, lb)
     for x, y in zip(a, b):
@@ -251,7 +314,7 @@ LIN_ROWS = [(3, 9, 20), (6, 14, 20), (9, 11, 10), (12, 8, 10)]  # (dd, pd, ld)
 SIG_ROWS = [(3, 3, 6), (5, 16, 16), (7, 20, 24)]
 
 
-def _grid(device, dual, tdv=True):
+def _grid(device, dual, tdv=True, adam_dtype="f32"):
     """Rows of the linear (K1) or sigmoid (K2) sweep, each with its own
     dataset seed, init and counters: (states, GridRows)."""
     states, rows = [], []
@@ -263,8 +326,8 @@ def _grid(device, dual, tdv=True):
         model = build_vae(data_dim=ds.dimension, latent_dim=ld, epsilon=-3.0 if dual else -1.0,
                           tunable_decoder_var=tdv, dataset_name="sigmoid" if dual else None)
         model.init_parameters(i)
-        state = TrainState.create(dict(model.named_parameters()),
-                                  rng.derive_seed(2 + i, 1), rng.derive_seed(0, 3)).to(device)
+        state = TrainState.create(dict(model.named_parameters()), rng.derive_seed(2 + i, 1),
+                                  rng.derive_seed(0, 3), adam_dtype).to(device)
         state.step, state.count = 11 * i, 11 * i
         states.append(state)
         rows.append(k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim, ds.A, state.step,
@@ -273,25 +336,26 @@ def _grid(device, dual, tdv=True):
     return states, rows
 
 
-def _grid_kw(dual, tdv=True):
+def _grid_kw(dual, tdv=True, adam_dtype="f32"):
     return dict(batch=B, eps_const=-3.0 if dual else -1.0, tdv=tdv,
-                lr=1e-4 if dual else 1e-3, dual=dual)
+                lr=1e-4 if dual else 1e-3, dual=dual, adam_dtype=adam_dtype)
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("dual", [False, True], ids=["K1-rows", "K2-rows"])
-def test_k6a_rows_equal_solo_launches_bitwise(cuda_device, dual):
-    states, rows = _grid(cuda_device, dual)
+def test_k6a_rows_equal_solo_launches_bitwise(cuda_device, dual, adam_dtype):
+    states, rows = _grid(cuda_device, dual, adam_dtype=adam_dtype)
     p, m, v = k1.pack_rows(states, rows, dual)
-    losses = k1.run_grid_chunk(p, m, v, rows, n_steps=48, **_grid_kw(dual))
-    kw = _grid_kw(dual)
+    kw = _grid_kw(dual, adam_dtype=adam_dtype)
+    losses = k1.run_grid_chunk(p, m, v, rows, n_steps=48, **kw)
     for i, (state, r) in enumerate(zip(states, rows)):
         sp, sm, sv = k1.pack_state(state, r.data_dim, r.latent_dim, dual)
         solo = k1.run_fused_chunk(
             sp, sm, sv, r.a, n_steps=48, batch=B, data_dim=r.data_dim, latent_dim=r.latent_dim,
             intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
             t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=r.var_added,
-            eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual)
+            eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual, adam_dtype=adam_dtype)
         torch.cuda.synchronize()
         assert torch.equal(losses[i], solo), f"row {i} losses"
         for got, want in zip(k1.row_views(p, m, v, rows, dual)[i], (sp, sm, sv)):
@@ -299,35 +363,39 @@ def test_k6a_rows_equal_solo_launches_bitwise(cuda_device, dual):
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("dual", [False, True], ids=["K1-rows", "K2-rows"])
-def test_k6a_matches_plain(cuda_device, dual):
+def test_k6a_matches_plain(cuda_device, dual, adam_dtype):
     n = 16
-    states, rows = _grid(cuda_device, dual)
+    states, rows = _grid(cuda_device, dual, adam_dtype=adam_dtype)
+    layout = [e for r in rows for e in k1.param_layout(r.data_dim, r.latent_dim, dual)]
     rs = np.random.RandomState(3)
     noise = [tuple(torch.as_tensor(rs.randn(n, B, d).astype(np.float32), device=cuda_device)
                    for d in (r.data_dim, r.latent_dim, r.data_dim)) for r in rows]
     kb = k1.pack_rows(states, rows, dual)
     pb = tuple(t.clone() for t in kb)
+    kw = _grid_kw(dual, adam_dtype=adam_dtype)
     for ext in (noise, None):
-        kl = k1.run_grid_chunk(*kb, rows, n_steps=n, external_noise=ext, **_grid_kw(dual))
-        pl = k1.plain_grid_chunk(*pb, rows, n_steps=n, external_noise=ext, **_grid_kw(dual))
+        kl = k1.run_grid_chunk(*kb, rows, n_steps=n, external_noise=ext, **kw)
+        pl = k1.plain_grid_chunk(*pb, rows, n_steps=n, external_noise=ext, **kw)
         torch.cuda.synchronize()
         np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=2e-4, atol=2e-4)
         np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=5e-4, atol=5e-5)
-        np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=5e-4, atol=1e-6)
-        np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=5e-4, atol=1e-7)
+        _assert_moments(kb, pb, layout, adam_dtype, (5e-4, 1e-6), (5e-4, 1e-7))
         rows = [dataclasses.replace(r, step0=r.step0 + n, t0=r.t0 + n) for r in rows]
 
 
 @pytest.mark.cuda
-def test_k6a_is_chunk_independent(cuda_device):
-    states, rows = _grid(cuda_device, False)
+@DTYPES
+def test_k6a_is_chunk_independent(cuda_device, adam_dtype):
+    states, rows = _grid(cuda_device, False, adam_dtype=adam_dtype)
+    kw = _grid_kw(False, adam_dtype=adam_dtype)
     a = k1.pack_rows(states, rows)
     b = tuple(t.clone() for t in a)
-    la = k1.run_grid_chunk(*a, rows, n_steps=40, **_grid_kw(False))
-    lb1 = k1.run_grid_chunk(*b, rows, n_steps=15, **_grid_kw(False))
+    la = k1.run_grid_chunk(*a, rows, n_steps=40, **kw)
+    lb1 = k1.run_grid_chunk(*b, rows, n_steps=15, **kw)
     later = [dataclasses.replace(r, step0=r.step0 + 15, t0=r.t0 + 15) for r in rows]
-    lb2 = k1.run_grid_chunk(*b, later, n_steps=25, **_grid_kw(False))
+    lb2 = k1.run_grid_chunk(*b, later, n_steps=25, **kw)
     torch.cuda.synchronize()
     assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
     for x, y in zip(a, b):
@@ -338,22 +406,22 @@ def test_k6a_is_chunk_independent(cuda_device):
 DUAL_ENC, DUAL_DEC = (SD, 200, 200, 200, SL), (SL, 200, 200, 200, SD)
 
 
-def _dual_state(device, tdv):
+def _dual_state(device, tdv, adam_dtype="f32"):
     model = build_vae(data_dim=SD, latent_dim=SL, encoder_layer_sizes="200|200|200",
                       decoder_layer_sizes="200|200|200", epsilon=-3.0, tunable_decoder_var=tdv,
                       dataset_name="sigmoid")
     model.init_parameters(0)
-    state = TrainState.create(dict(model.named_parameters()), 1, 2).to(device)
+    state = TrainState.create(dict(model.named_parameters()), 1, 2, adam_dtype).to(device)
     return k5.pack_state(state, DUAL_ENC, DUAL_DEC, dual=True)
 
 
-def _dual_chunk(bufs, a, n, step0, tdv, noise=None, plain=False):
+def _dual_chunk(bufs, a, n, step0, tdv, noise=None, plain=False, adam_dtype="f32"):
     fn = k5.plain_mlp_fused_chunk if plain else k5.run_mlp_fused_chunk
     return fn(*bufs, a, n_steps=n, batch=B, enc_widths=DUAL_ENC, dec_widths=DUAL_DEC,
               kind="sigmoid", intrinsic_dim=SDD, manifold_dim=SDD, step0=step0, t0=step0,
               data_seed=rng.derive_seed(69, 1), model_seed=rng.derive_seed(0, 3),
               var_added=0.0, eps_const=-3.0, tdv=tdv, lr=1e-4, external_noise=noise,
-              dual=True)
+              dual=True, adam_dtype=adam_dtype)
 
 
 def _manifold_noise(device, n, rows, seed=0):
@@ -374,7 +442,7 @@ def _manifold_noise(device, n, rows, seed=0):
     return out
 
 
-def _assert_mlp_step_close(kl, pl, rows, plain_rows):
+def _assert_mlp_step_close(kl, pl, rows, plain_rows, layouts=None):
     """One step of the MLP kernel against its plain version from the same
     state: losses at tests/test_mlp_kernel.py's tolerance, each row's p, m
     and v by the 2-norm of the difference relative to the plain version's,
@@ -383,38 +451,49 @@ def _assert_mlp_step_close(kl, pl, rows, plain_rows):
     gradient differently in two correct sums, and Adam turns gradients at
     the rounding floor into steps of up to lr: elementwise, two float32
     versions part at some steps, and the partings compound (chip_smoke.py's
-    _hold_mlp)."""
+    _hold_mlp). With bf16 moments (``layouts``, one a row) the weight
+    matrices' m and v are held by _assert_bf16_slots too, the bitwise share
+    over all of a row's matrices: the same gradient noise flips one bf16
+    rounding in ~5% of a small first layer's elements at some steps
+    (1 ulp = 2⁻⁸ relative; the parted f32 sums differ by ~1e-4)."""
     np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=3e-4, atol=3e-4)
-    for got, want in zip(rows, plain_rows):
+    for i, (got, want) in enumerate(zip(rows, plain_rows)):
         for x, y in zip(got, want):
             x, y = x.double(), y.double()
             assert float((x - y).norm() / y.norm()) <= 1e-3
+        if layouts is not None:
+            for x, y in zip(got[1:], want[1:]):
+                _assert_bf16_slots(x, y, layouts[i], per_matrix=False)
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("tdv", [True, False])
-def test_k5_dual_matches_plain(cuda_device, tdv, external):
+def test_k5_dual_matches_plain(cuda_device, tdv, external, adam_dtype):
     ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
     n = 16
     noise = _manifold_noise(cuda_device, n, [(SD, SL, SDD, ds.A)])[0] if external else None
-    kb = _dual_state(cuda_device, tdv)
+    kb = _dual_state(cuda_device, tdv, adam_dtype)
+    layouts = [k5.param_layout(DUAL_ENC, DUAL_DEC, True)] if adam_dtype == "bf16" else None
     for step in range(n):  # one step at a time from the kernel's state
         pb = tuple(t.clone() for t in kb)
         one = None if noise is None else tuple(t[step:step + 1].contiguous() for t in noise)
-        kl = _dual_chunk(kb, ds.A, 1, step, tdv, one)
-        pl = _dual_chunk(pb, ds.A, 1, step, tdv, one, plain=True)
+        kl = _dual_chunk(kb, ds.A, 1, step, tdv, one, adam_dtype=adam_dtype)
+        pl = _dual_chunk(pb, ds.A, 1, step, tdv, one, plain=True, adam_dtype=adam_dtype)
         torch.cuda.synchronize()
-        _assert_mlp_step_close(kl, pl, [kb], [pb])
+        _assert_mlp_step_close(kl, pl, [kb], [pb], layouts)
 
 
 @pytest.mark.cuda
-def test_k5_dual_is_chunk_independent(cuda_device):
+@DTYPES
+def test_k5_dual_is_chunk_independent(cuda_device, adam_dtype):
     ds = SigmoidDataset.create(69, SDD, 3, device=cuda_device)
-    a = _dual_state(cuda_device, True)
+    a = _dual_state(cuda_device, True, adam_dtype)
     b = tuple(t.clone() for t in a)
-    la = _dual_chunk(a, ds.A, 40, 0, True)
-    lb = torch.cat([_dual_chunk(b, ds.A, 15, 0, True), _dual_chunk(b, ds.A, 25, 15, True)])
+    la = _dual_chunk(a, ds.A, 40, 0, True, adam_dtype=adam_dtype)
+    lb = torch.cat([_dual_chunk(b, ds.A, 15, 0, True, adam_dtype=adam_dtype),
+                    _dual_chunk(b, ds.A, 25, 15, True, adam_dtype=adam_dtype)])
     torch.cuda.synchronize()
     assert torch.equal(la, lb)
     for x, y in zip(a, b):
@@ -425,7 +504,7 @@ def test_k5_dual_is_chunk_independent(cuda_device):
 SPH_ROWS = [(3, 3, 6), (5, 16, 16), (7, 7, 13)]  # (dd, pd, ld): the sphere sweep's
 
 
-def _mlp_grid(device, kind, hidden):
+def _mlp_grid(device, kind, hidden, adam_dtype="f32"):
     """Rows of the sphere sweep, or sigmoid rows with the dual decoder, each
     with its own dataset seed, init and counters: (states, GridRows)."""
     states, rows = [], []
@@ -439,8 +518,8 @@ def _mlp_grid(device, kind, hidden):
                           decoder_layer_sizes=spec, epsilon=-3.0, tunable_decoder_var=True,
                           dataset_name="sigmoid" if kind == "sigmoid" else None)
         model.init_parameters(i)
-        state = TrainState.create(dict(model.named_parameters()),
-                                  rng.derive_seed(69 + i, 1), rng.derive_seed(0, 3)).to(device)
+        state = TrainState.create(dict(model.named_parameters()), rng.derive_seed(69 + i, 1),
+                                  rng.derive_seed(0, 3), adam_dtype).to(device)
         state.step, state.count = 11 * i, 11 * i
         states.append(state)
         rows.append(k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim,
@@ -449,17 +528,18 @@ def _mlp_grid(device, kind, hidden):
     return states, rows
 
 
-def _mlp_grid_kw(kind, hidden):
+def _mlp_grid_kw(kind, hidden, adam_dtype="f32"):
     return dict(batch=B, enc_hidden=hidden, dec_hidden=hidden, kind=kind, eps_const=-3.0,
-                tdv=True, lr=1e-4, dual=kind == "sigmoid")
+                tdv=True, lr=1e-4, dual=kind == "sigmoid", adam_dtype=adam_dtype)
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("kind", ["sphere", "sigmoid"])
-def test_k6b_rows_equal_solo_launches_bitwise(cuda_device, kind):
+def test_k6b_rows_equal_solo_launches_bitwise(cuda_device, kind, adam_dtype):
     hidden = (200, 200, 200)
-    states, rows = _mlp_grid(cuda_device, kind, hidden)
-    kw = _mlp_grid_kw(kind, hidden)
+    states, rows = _mlp_grid(cuda_device, kind, hidden, adam_dtype)
+    kw = _mlp_grid_kw(kind, hidden, adam_dtype)
     dual = kw["dual"]
     p, m, v = k5.pack_rows(states, rows, hidden, hidden, dual)
     losses = k5.run_grid_chunk(p, m, v, rows, n_steps=24, **kw)
@@ -471,7 +551,7 @@ def test_k6b_rows_equal_solo_launches_bitwise(cuda_device, kind):
             sp, sm, sv, r.a, n_steps=24, batch=B, enc_widths=enc, dec_widths=dec, kind=kind,
             intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
             t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=0.0,
-            eps_const=-3.0, tdv=True, lr=1e-4, dual=dual)
+            eps_const=-3.0, tdv=True, lr=1e-4, dual=dual, adam_dtype=adam_dtype)
         torch.cuda.synchronize()
         assert torch.equal(losses[i], solo), f"row {i} losses"
         for got, want in zip(views[i], (sp, sm, sv)):
@@ -479,13 +559,16 @@ def test_k6b_rows_equal_solo_launches_bitwise(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("kind", ["sphere", "sigmoid"])
-def test_k6b_matches_plain(cuda_device, kind, external):
+def test_k6b_matches_plain(cuda_device, kind, external, adam_dtype):
     hidden, n = (200, 200, 200), 8
-    states, rows = _mlp_grid(cuda_device, kind, hidden)
-    kw = _mlp_grid_kw(kind, hidden)
+    states, rows = _mlp_grid(cuda_device, kind, hidden, adam_dtype)
+    kw = _mlp_grid_kw(kind, hidden, adam_dtype)
     dual = kw["dual"]
+    layouts = [k5.param_layout(*k5.row_widths(r, hidden, hidden), dual) for r in rows] \
+        if adam_dtype == "bf16" else None
     noise = _manifold_noise(cuda_device, n, [(r.data_dim, r.latent_dim, r.manifold_dim, r.a)
                                              for r in rows], seed=3)
     kb = k5.pack_rows(states, rows, hidden, hidden, dual)
@@ -498,14 +581,15 @@ def test_k6b_matches_plain(cuda_device, kind, external):
         pl = k5.plain_grid_chunk(*pb, srows, n_steps=1, external_noise=ext, **kw)
         torch.cuda.synchronize()
         _assert_mlp_step_close(kl, pl, k5.row_views(*kb, rows, hidden, hidden, dual),
-                               k5.row_views(*pb, rows, hidden, hidden, dual))
+                               k5.row_views(*pb, rows, hidden, hidden, dual), layouts)
 
 
 @pytest.mark.cuda
-def test_k6b_is_chunk_independent(cuda_device):
+@DTYPES
+def test_k6b_is_chunk_independent(cuda_device, adam_dtype):
     hidden = (200, 200, 200)
-    states, rows = _mlp_grid(cuda_device, "sphere", hidden)
-    kw = _mlp_grid_kw("sphere", hidden)
+    states, rows = _mlp_grid(cuda_device, "sphere", hidden, adam_dtype)
+    kw = _mlp_grid_kw("sphere", hidden, adam_dtype)
     a = k5.pack_rows(states, rows, hidden, hidden)
     b = tuple(t.clone() for t in a)
     la = k5.run_grid_chunk(*a, rows, n_steps=40, **kw)
@@ -516,3 +600,71 @@ def test_k6b_is_chunk_independent(cuda_device):
     assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# --- K4: a bf16 launch is the f32 launch, its matrix moments rounded ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K5-dual", "K6a", "K6b"])
+def test_bf16_launch_is_the_f32_launch_rounded(cuda_device, kernel):
+    """One step from the same state: the bf16 launch's weight-matrix
+    moments are the f32 launch's rounded to nearest even, bit for bit, and
+    its other moments, its vector parameters and its losses are the f32
+    launch's (the gradients and the f32 update are the same code; K4 only
+    rounds). Independent of how far the kernel and the plain version part."""
+    dev = cuda_device
+    if kernel == "K1":
+        bufs, layout = _flat_state(dev, True, "bf16"), k1.param_layout(D, L)
+        a = LinearGaussianDataset.create(2, 3, 3, 9, device=dev).A
+
+        def launch(b, step, adam):
+            return _chunk(*b, a, 1 if step else 3, step, True, adam_dtype=adam)
+    elif kernel == "K2":
+        bufs, layout = _k2_state(dev, True, "bf16"), k1.param_layout(SD, SL, True)
+        a = SigmoidDataset.create(69, SDD, 3, device=dev).A
+
+        def launch(b, step, adam):
+            return _k2_chunk(b, a, 1 if step else 3, step, True, adam_dtype=adam)
+    elif kernel == "K5":
+        bufs, layout = _k5_state(dev, True, adam_dtype="bf16"), k5.param_layout(ENC, DEC)
+
+        def launch(b, step, adam):
+            return _k5_chunk(b, 1 if step else 3, step, True, adam_dtype=adam)
+    elif kernel == "K5-dual":
+        bufs = _dual_state(dev, True, "bf16")
+        layout = k5.param_layout(DUAL_ENC, DUAL_DEC, True)
+        a = SigmoidDataset.create(69, SDD, 3, device=dev).A
+
+        def launch(b, step, adam):
+            return _dual_chunk(b, a, 1 if step else 3, step, True, adam_dtype=adam)
+    else:
+        dual = kernel == "K6a"  # the sigmoid sweep's rows on K6a; sphere rows on K6b
+        hidden = (200, 200, 200)
+        if kernel == "K6a":
+            states, rows = _grid(dev, dual, adam_dtype="bf16")
+            bufs = k1.pack_rows(states, rows, dual)
+            layout = [e for r in rows for e in k1.param_layout(r.data_dim, r.latent_dim, dual)]
+        else:
+            states, rows = _mlp_grid(dev, "sphere", hidden, "bf16")
+            bufs = k5.pack_rows(states, rows, hidden, hidden)
+            layout = [e for r in rows
+                      for e in k5.param_layout(*k5.row_widths(r, hidden, hidden))]
+
+        def launch(b, step, adam):
+            later = [dataclasses.replace(r, step0=r.step0 + step, t0=r.t0 + step) for r in rows]
+            if kernel == "K6a":
+                return k1.run_grid_chunk(*b, later, n_steps=1 if step else 3,
+                                         **_grid_kw(dual, adam_dtype=adam))
+            return k5.run_grid_chunk(*b, later, n_steps=1 if step else 3,
+                                     **_mlp_grid_kw("sphere", hidden, adam))
+    launch(bufs, 0, "bf16")  # three bf16 steps: moments of bf16 values, not zero
+    f32, bf16 = tuple(t.clone() for t in bufs), tuple(t.clone() for t in bufs)
+    lf, lb = launch(f32, 3, "f32"), launch(bf16, 3, "bf16")
+    torch.cuda.synchronize()
+    mask = k1.matrix_mask(layout).to(dev)
+    assert bool(mask.any()) and torch.equal(lf, lb)
+    assert torch.equal(bf16[0][~mask], f32[0][~mask])
+    for got, ref in zip(bf16[1:], f32[1:]):
+        assert torch.equal(got[mask], ref[mask].bfloat16().float())
+        assert torch.equal(got[~mask], ref[~mask])
+        assert not torch.equal(got[mask], ref[mask])  # the f32 launch did not round

@@ -228,7 +228,7 @@ def test_grid_row_equals_solo_plain_chunk_bitwise(dual):
 
 
 def _cfg(**kw):
-    base = dict(batch_size=100, device="cuda", kernels="auto", nojit=False,
+    base = dict(batch_size=100, adam_dtype="f32", device="cuda", kernels="auto", nojit=False,
                 learning_rate=1e-3, num_batches=100, n_print=50, n_plot=100)
     base.update(kw)
     return SimpleNamespace(**base)

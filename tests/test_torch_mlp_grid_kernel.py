@@ -280,7 +280,7 @@ def test_k6b_packed_rows_round_trip_bitwise(dual):
 
 
 def _cfg(**kw):
-    base = dict(batch_size=100, device="cuda", kernels="auto", nojit=False,
+    base = dict(batch_size=100, adam_dtype="f32", device="cuda", kernels="auto", nojit=False,
                 learning_rate=1e-4, num_batches=100, n_print=50, n_plot=100)
     base.update(kw)
     return SimpleNamespace(**base)

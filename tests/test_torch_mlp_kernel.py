@@ -195,7 +195,7 @@ def test_pack_unpack_round_trip():
 
 
 def _cfg(**kw):
-    base = dict(batch_size=100, device="cuda", kernels="auto", nojit=False,
+    base = dict(batch_size=100, adam_dtype="f32", device="cuda", kernels="auto", nojit=False,
                 learning_rate=1e-4)
     base.update(kw)
     return SimpleNamespace(**base)

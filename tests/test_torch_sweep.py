@@ -7,6 +7,7 @@ independence from JAX.
   - ``--grouped`` trains the linear and sigmoid sweeps as one plain K6a
     chunk per chunk on the CPU, and the sphere sweep as one plain K6b chunk
     per chunk (the one-launch path; counted);
+  - ``--adam_dtype bf16`` runs the grouped sweep with bf16 moments;
   - ``--shard K/N`` partitions the row groups disjointly; ``--report``
     summarises; the unported flags raise naming their ROADMAP items;
   - no module of the port and nothing in chip_smoke.py imports ``jax``,
@@ -84,6 +85,25 @@ def test_grouped_sweep_is_one_plain_grid_chunk_per_chunk(tmp_path, capsys, which
     assert f"MISSING: ['{names[0]} (FileNotFoundError)']" in capsys.readouterr().out
 
 
+def test_grouped_sweep_runs_with_bf16_moments(tmp_path, capsys):
+    from vae_training_tpu_torch.runio import checkpoint as ck
+
+    calls = k1.plain_grid_chunk.calls
+    assert sweep.main(["linear", "--grouped", "--num_batches", "2", "--device", "cpu",
+                       "--adam_dtype", "bf16", "--data_dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert k1.plain_grid_chunk.calls == calls + 2
+    assert re.search(r"^\[kernels\] plain: K6a's plain version on the CPU, 21 rows a chunk.* "
+                     r"with bf16 Adam moments$", out, re.M)
+    names = sorted(c.name for c in sweep.sweep_configs("linear", str(tmp_path), 2, "auto"))
+    assert _dirs(tmp_path) == names
+    for name in names:
+        state = ck.restore_checkpoint(str(tmp_path / name))
+        assert state.m["Encoder.FC0.kernel"].dtype == state.v["Decoder.FC0.kernel"].dtype \
+            == torch.bfloat16
+        assert state.m["Encoder.FC0.bias"].dtype == torch.float32
+
+
 def test_grouped_sphere_sweep_trains_per_row_grids(tmp_path, capsys):
     """The sphere sweep's rows (here one shard: one row group, 3 seeds) train
     as one launch a chunk, K6b's plain version on the CPU."""
@@ -128,7 +148,7 @@ def test_sequential_runs_in_process(tmp_path, capsys):
     (["--row_timeout", "60"], "ROADMAP Queue 1 item 12"),
     (["--retries", "1"], "ROADMAP Queue 1 item 12"),
     (["--grouped", "--mesh", "dp=2"], "ROADMAP Queue 1 item 11"),
-    (["--adam_dtype", "bf16"], "ROADMAP Queue 2 K4"),
+    (["--mesh", "dp=2"], "ROADMAP Queue 1 item 11"),
 ])
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

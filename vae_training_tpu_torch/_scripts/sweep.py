@@ -13,12 +13,13 @@ takes the linear and sigmoid sweeps, K6b, the MLP kernel's grid mode, the
 sphere sweep; a row set neither takes (``--kernels torch``, or rows that
 differ in more than dims and seeds) trains as one seed grid per row.
 Without ``--grouped`` the runs go one after another in this process.
-``--shard K/N`` trains a disjoint round-robin share; ``--report``
-summarises a finished sweep from its artifacts.
+``--adam_dtype bf16`` trains every run with bfloat16 Adam moments (on the
+same kernels). ``--shard K/N`` trains a disjoint round-robin share;
+``--report`` summarises a finished sweep from its artifacts.
 
 Not ported: ``--isolate`` / ``--row_timeout`` / ``--retries``, the TPU
 init-hang supervision (ROADMAP Queue 1 item 12); ``--mesh`` (Queue 1 item
-11); ``--adam_dtype bf16`` (Queue 2, K4). Each raises naming its item.
+11). Each raises naming its item.
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ def shard_items(items, shard):
 
 
 def run_grouped(sweep: str, data_dir: str, num_batches, kernels: str,
-                resume: bool = False, shard=(0, 1), device: str = "cuda") -> int:
+                resume: bool = False, shard=(0, 1), device: str = "cuda",
+                adam_dtype: str = "f32") -> int:
     """Every row's seeds as one grid; with ``--kernels auto|cuda`` first the
     whole sweep as one launch per chunk (``run_mixed_sweep``), and per-row
     grids where that is unavailable (``MixedSweepUnavailable``, raised
@@ -130,7 +132,8 @@ def run_grouped(sweep: str, data_dir: str, num_batches, kernels: str,
 
     seeds = SWEEP_SEEDS[sweep]
     rows = {}
-    for cfg in sweep_configs(sweep, data_dir, num_batches, kernels, device=device):
+    for cfg in sweep_configs(sweep, data_dir, num_batches, kernels, adam_dtype=adam_dtype,
+                             device=device):
         key = (cfg.dataset_dimension, cfg.padding_dim, cfg.latent_dimension)
         rows.setdefault(key, {})[cfg.dataset_seed] = cfg
     if shard != (0, 1):
@@ -244,7 +247,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--retries", type=int, default=None,
                    help="Not ported (ROADMAP Queue 1 item 12).")
     p.add_argument("--adam_dtype", default="f32", choices=["f32", "bf16"],
-                   help="bf16 is not yet ported (ROADMAP Queue 2, K4).")
+                   help="Adam moment storage of every run (vae-train-torch's "
+                        "--adam_dtype).")
     return p
 
 
@@ -257,9 +261,6 @@ def main(argv=None) -> int:
     if args.mesh:
         raise NotImplementedError("--mesh is not yet ported to vae_training_tpu_torch; "
                                   "see ROADMAP Queue 1 item 11 (parallel)")
-    if args.adam_dtype == "bf16":
-        raise NotImplementedError("--adam_dtype bf16 is not yet ported to "
-                                  "vae_training_tpu_torch; see ROADMAP Queue 2 K4")
     shard = parse_shard(args.shard)
     if args.report:
         return run_report(args.sweep, args.data_dir)
@@ -272,7 +273,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.grouped:
         rc = run_grouped(args.sweep, args.data_dir, args.num_batches, args.kernels,
-                         resume=args.resume, shard=shard, device=args.device)
+                         resume=args.resume, shard=shard, device=args.device,
+                         adam_dtype=args.adam_dtype)
         print(f"[sweep] grouped {args.sweep} in {time.perf_counter() - t0:.1f}s",
               flush=True)
         return rc
@@ -281,7 +283,8 @@ def main(argv=None) -> int:
     from vae_training_tpu_torch._scripts.run import main as run_one
 
     all_cfgs = list(sweep_configs(args.sweep, args.data_dir, args.num_batches,
-                                  args.kernels, device=args.device))
+                                  args.kernels, adam_dtype=args.adam_dtype,
+                                  device=args.device))
     cfgs = shard_items(all_cfgs, shard)
     if shard != (0, 1):
         print(f"[sweep] shard {shard[0]}/{shard[1]}: {len(cfgs)} of {len(all_cfgs)} runs",

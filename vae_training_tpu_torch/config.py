@@ -116,8 +116,6 @@ class RunConfig:
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu, got {self.device}")
         not_ported = {
-            "--adam_dtype bf16": (self.adam_dtype == "bf16",
-                                  "ROADMAP Queue 2 K4 (bf16 Adam moments)"),
             "--mesh": (bool(self.mesh), "ROADMAP Queue 1 item 11 (parallel)"),
             "--multihost": (self.multihost, "ROADMAP Queue 1 item 11 (parallel)"),
             "--ckpt_backend orbax": (self.ckpt_backend == "orbax",
@@ -245,7 +243,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "tensor-core kernel.")
     p.add_argument("--adam_dtype", dest="adam_dtype", default="f32",
                    choices=["f32", "bf16"],
-                   help="Adam moment storage (bf16 not yet ported).")
+                   help="Adam moment storage: bf16 stores the moments of every "
+                        "weight matrix in bfloat16 (computed in f32, rounded to "
+                        "nearest even every step); biases keep f32 moments. "
+                        "Must match across --resume.")
     p.add_argument("--device", dest="device", default="cuda",
                    choices=["cuda", "cpu"],
                    help="Device to train on. cuda without a CUDA device is "

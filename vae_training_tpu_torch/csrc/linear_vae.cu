@@ -15,6 +15,16 @@
 //   -> closed-form ELBO into losses[step] -> analytic gradients
 //   -> bias-corrected Adam (optax.adam's formula)
 //
+// bf16 moments (K4, the bf16 branch of the TPU kernels' _adam,
+// linear_vae.py:188-218; --adam_dtype bf16): with the launch-wide flag
+// moments_bf16, the Adam stage rounds each weight-matrix slot's new m and v
+// (We, Wd and, dual, Ws) to bfloat16, round to nearest even, every step, and
+// the update reads the rounded values; vector slots keep f32 moments. The
+// state stays float32 in shared and device memory, holding values bfloat16
+// represents exactly, so the wrapper's buffers and the Row table are the
+// f32 mode's. It adds four conversions a matrix element a step and moves no
+// byte off the critical path.
+//
 // K2's σ applies to every one of the D output columns, padding columns
 // included, as the flax model applies it (networks.py:78-79); the TPU
 // kernel's mask removes only its lanes beyond D.
@@ -54,6 +64,7 @@
 //
 // Plain C interface for ctypes: every entry returns a cudaError_t as int.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -113,6 +124,11 @@ __host__ __device__ inline size_t smem_floats(int B, int D, int L, int id, int d
 
 __device__ __forceinline__ float sigmoidf(float u) { return 1.0f / (1.0f + expf(-u)); }
 
+// x rounded to the nearest bfloat16 (ties to even), back as a float.
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // One row's K-step chunk, run by one CTA. The only body of the kernel: solo
 // and grid launches differ in where the block reads its Row, nothing else.
 template <bool kDual>
@@ -122,7 +138,7 @@ __device__ __forceinline__ void train_row(
     const float* __restrict__ ext_x, const float* __restrict__ ext_z1,
     const float* __restrict__ ext_z2, int n_steps, int B, int D, int L, int id,
     int dd, uint32_t step0, int t0, uint32_t dk0, uint32_t dk1, uint32_t mk0,
-    uint32_t mk1, float obs_scale, float eps_const, int tdv, float lr) {
+    uint32_t mk1, float obs_scale, float eps_const, int tdv, float lr, int moments_bf16) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -392,14 +408,20 @@ __device__ __forceinline__ void train_row(
     // bias corrections 1 − βᵗ in double, rounded once to float: float
     // powf(0.999f, t) carries 0.999f's rounding (~1e-5 relative in 1 − β₂ᵗ
     // at t ≈ 60), a systematic bias in every step size. A pure function of
-    // t, so chunk boundaries cannot change it.
+    // t, so chunk boundaries cannot change it. bf16 moments: the matrix
+    // slots' m and v are rounded before the update reads them (K4).
     const double t = static_cast<double>(t0 + it + 1);
     const float bc1 = static_cast<float>(1.0 - pow(0.9, t));
     const float bc2 = static_cast<float>(1.0 - pow(0.999, t));
     for (int i = tid; i < P; i += kThreads) {
       const float g = sg[i];
-      const float m_ = kB1 * sm[i] + kOneMinusB1 * g;
-      const float v_ = kB2 * sv[i] + kOneMinusB2 * g * g;
+      float m_ = kB1 * sm[i] + kOneMinusB1 * g;
+      float v_ = kB2 * sv[i] + kOneMinusB2 * g * g;
+      if (moments_bf16 &&
+          (i < o_be || (i >= o_wd && i < o_bd) || (kDual && i >= o_ws && i < o_bs))) {
+        m_ = bf16_rn(m_);
+        v_ = bf16_rn(v_);
+      }
       sm[i] = m_;
       sv[i] = v_;
       sp[i] -= lr * ((m_ / bc1) / (sqrtf(v_ / bc2) + kAdamEps));
@@ -419,11 +441,11 @@ __device__ __forceinline__ void train_row(
 template <bool kDual>
 __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
     Row solo, const Row* __restrict__ rows, int n_steps, int B, float eps_const, int tdv,
-    float lr) {
+    float lr, int moments_bf16) {
   const Row r = rows != nullptr ? rows[blockIdx.x] : solo;
   train_row<kDual>(r.p, r.m, r.v, r.losses, r.a, r.ext_x, r.ext_z1, r.ext_z2, n_steps, B,
                    r.D, r.L, r.id, r.dd, r.step0, r.t0, r.dk0, r.dk1, r.mk0, r.mk1,
-                   r.obs_scale, eps_const, tdv, lr);
+                   r.obs_scale, eps_const, tdv, lr, moments_bf16);
 }
 
 // Raw sampler output for the bitwise check against ops/rng.py: words and
@@ -453,22 +475,25 @@ size_t row_smem_bytes(int B, const Row& r, bool dual) {
 
 template <bool kDual>
 int launch(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_steps, int B,
-           float eps_const, int tdv, float lr, void* stream) {
+           float eps_const, int tdv, float lr, int moments_bf16, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(linear_vae_chunk_kernel<kDual>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   linear_vae_chunk_kernel<kDual>
       <<<n_rows, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-          solo, rows, n_steps, B, eps_const, tdv, lr);
+          solo, rows, n_steps, B, eps_const, tdv, lr, moments_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_rows(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_steps,
-                int B, int dual, float eps_const, int tdv, float lr, void* stream) {
+                int B, int dual, float eps_const, int tdv, float lr, int moments_bf16,
+                void* stream) {
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  return dual ? launch<true>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr, stream)
-              : launch<false>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr, stream);
+  return dual ? launch<true>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr,
+                             moments_bf16, stream)
+              : launch<false>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr,
+                              moments_bf16, stream);
 }
 
 }  // namespace
@@ -490,11 +515,11 @@ int linear_vae_chunk(float* p, float* m, float* v, float* losses, const float* a
                      int n_steps, int B, int D, int L, int id, int dd, int dual,
                      unsigned int step0, int t0, unsigned int dk0, unsigned int dk1,
                      unsigned int mk0, unsigned int mk1, float obs_scale,
-                     float eps_const, int tdv, float lr, void* stream) {
+                     float eps_const, int tdv, float lr, int moments_bf16, void* stream) {
   const Row row{p, m, v, losses, a, ext_x, ext_z1, ext_z2, D, L, id, dd,
                 step0, t0, dk0, dk1, mk0, mk1, obs_scale};
   return launch_rows(row, nullptr, 1, row_smem_bytes(B, row, dual != 0), n_steps, B, dual,
-                     eps_const, tdv, lr, stream);
+                     eps_const, tdv, lr, moments_bf16, stream);
 }
 
 // K6a: ``n_rows`` rows in one launch, one block each. ``rows_host`` and
@@ -502,7 +527,7 @@ int linear_vae_chunk(float* p, float* m, float* v, float* losses, const float* a
 // shared memory to its largest row.
 int linear_vae_grid_chunk(const Row* rows_host, const Row* rows_dev, int n_rows, int n_steps,
                           int B, int dual, float eps_const, int tdv, float lr,
-                          void* stream) {
+                          int moments_bf16, void* stream) {
   if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   size_t bytes = 0;
   for (int i = 0; i < n_rows; ++i) {
@@ -510,7 +535,7 @@ int linear_vae_grid_chunk(const Row* rows_host, const Row* rows_dev, int n_rows,
     if (b > bytes) bytes = b;
   }
   return launch_rows(Row{}, rows_dev, n_rows, bytes, n_steps, B, dual, eps_const, tdv, lr,
-                     stream);
+                     moments_bf16, stream);
 }
 
 // How many blocks of the kernel one SM can hold at ``bytes`` of dynamic

@@ -17,6 +17,16 @@
 //   (ReLU masks from the saved activations, a > 0; dual: g_u = g_y·σ(1 − σ),
 //   g_s = g_s,dec + g_s,sig) -> bias-corrected Adam
 //
+// bf16 moments (K4, the bf16 branch of the TPU kernels' _adam,
+// linear_vae.py:188-218, called at mlp_vae.py:373-379; --adam_dtype bf16):
+// with the launch-wide flag moments_bf16, the Adam phase rounds the new m and
+// v of every W slot of every stack (encoder, decoder, SigDecoder) to
+// bfloat16, round to nearest even, every step, and the update reads the
+// rounded values; biases, epsilon_p and epsilon keep f32 moments. The state
+// stays float32 in device memory, holding values bfloat16 represents
+// exactly: the kernel is latency-bound, so halving its moment bytes waits
+// for the redesign that makes it fast.
+//
 // What bounds it on this card: latency. At the sphere sweep's shapes
 // (batch 100, 200|200|200 on both stacks, D = L = 6) a step is ~100 MFLOP in
 // 16 dependent layer phases, ~1.5 µs of the card's fp32 peak, and step i+1
@@ -58,6 +68,7 @@
 // Plain C interface for ctypes: every entry returns a cudaError_t as int.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stddef.h>
@@ -137,7 +148,7 @@ struct Shape {
 struct Args {
   const Row* rows;  // the device table; in the kernel, its copy in shared memory
   int n_rows;
-  int n_steps, B, kind, dual, n_enc, n_dec, tdv;
+  int n_steps, B, kind, dual, n_enc, n_dec, tdv, moments_bf16;
   float eps_const, lr;
 };
 
@@ -611,10 +622,24 @@ __device__ void encoder_backward(const Args& A, int li, int gtid, int gsz) {
       });
 }
 
+// Whether flat slot i of a row lies in one of the stack's weight matrices.
+__device__ __forceinline__ bool in_weights(const Stack& st, int i) {
+  for (int li = 0; li < st.n; ++li) {
+    if (i >= st.w_off[li] && i < st.b_off[li]) return true;
+  }
+  return false;
+}
+
+// x rounded to the nearest bfloat16 (ties to even), back as a float.
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Adam (optax.adam: bias-corrected m̂/(√v̂ + eps)) over every parameter of
 // every row; the corrections 1 − βᵗ in double, rounded once to float, as in
 // K1. A row's t is its own, t0 + it + 1; each thread recomputes the
-// corrections only when t changes (a pure function of t).
+// corrections only when t changes (a pure function of t). bf16 moments: the
+// weight slots' m and v are rounded before the update reads them (K4).
 __device__ void adam_phase(const Args& A, int it, int gtid, int gsz) {
   int t_last = -1;
   float bc1 = 1.0f, bc2 = 1.0f;
@@ -628,8 +653,13 @@ __device__ void adam_phase(const Args& A, int it, int gtid, int gsz) {
           bc2 = static_cast<float>(1.0 - pow(0.999, static_cast<double>(t)));
         }
         const float gi = R.scratch[R.s_g + i];
-        const float m_ = kB1 * R.m[i] + kOneMinusB1 * gi;
-        const float v_ = kB2 * R.v[i] + kOneMinusB2 * gi * gi;
+        float m_ = kB1 * R.m[i] + kOneMinusB1 * gi;
+        float v_ = kB2 * R.v[i] + kOneMinusB2 * gi * gi;
+        if (A.moments_bf16 &&
+            (in_weights(R.enc, i) || in_weights(R.dec, i) || in_weights(R.sig, i))) {
+          m_ = bf16_rn(m_);
+          v_ = bf16_rn(v_);
+        }
         R.m[i] = m_;
         R.v[i] = v_;
         R.p[i] -= A.lr * ((m_ / bc1) / (sqrtf(v_ / bc2) + kAdamEps));
@@ -738,7 +768,7 @@ int mlp_vae_grid(int n_rows, int* blocks, int* blocks_per_sm_max) {
 // plan needs.
 int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B, int kind,
                   int dual, int n_enc, const int* enc_hidden, int n_dec, const int* dec_hidden,
-                  float eps_const, int tdv, float lr, void* stream) {
+                  float eps_const, int tdv, float lr, int moments_bf16, void* stream) {
   Shape S;
   if (n_rows < 1 || n_rows > kMaxRows || n_steps < 1 ||
       !fill_shape(S, B, kind, dual, n_enc, enc_hidden, n_dec, dec_hidden))
@@ -756,7 +786,7 @@ int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B
   A.rows = static_cast<const Row*>(rows_dev);
   A.n_rows = n_rows;
   A.n_steps = n_steps; A.B = B; A.kind = kind; A.dual = dual != 0;
-  A.n_enc = n_enc; A.n_dec = n_dec; A.tdv = tdv;
+  A.n_enc = n_enc; A.n_dec = n_dec; A.tdv = tdv; A.moments_bf16 = moments_bf16;
   A.eps_const = eps_const; A.lr = lr;
   int blocks = 0, occ = 0;
   const int err = mlp_vae_grid(n_rows, &blocks, &occ);

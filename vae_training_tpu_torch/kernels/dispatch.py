@@ -12,8 +12,11 @@ Port of ``vae_training_tpu/kernels/dispatch.py:19-40``. ``--kernels``:
     can run;
   - ``torch``: the plain torch path (``train/step.py``).
 
-Either way one line names the path taken and why. There is no fallback
-after the choice: a kernel that fails to build or launch raises.
+Either way one line names the path taken and why, and ends in "with bf16
+Adam moments" under ``--adam_dtype bf16``: every path takes that mode (the
+kernels' K4 branch; the torch path's bf16 update), as the JAX package gates
+no kernel on it. There is no fallback after the choice: a kernel that fails
+to build or launch raises.
 
 ``make_grid_chunk`` makes the same choice for the rows of a seed grid or a
 one-launch sweep (``train/grid.py``, ``train/mixed_grid.py``): K6a, the
@@ -31,6 +34,11 @@ import torch
 from ..train import step as torch_step
 
 
+def _moments(cfg) -> str:
+    """The tail of the ``[kernels]`` line: the Adam moment dtype."""
+    return " with bf16 Adam moments" if cfg.adam_dtype == "bf16" else ""
+
+
 def make_train_chunk(model, dataset, cfg):
     """→ ``train_chunk(state, n_steps)`` for the configured backend."""
     from . import linear_vae, mlp_vae
@@ -45,12 +53,14 @@ def make_train_chunk(model, dataset, cfg):
         ok, why_linear = linear_vae.supported(model, dataset, cfg)
         if ok:
             name = "K2" if model.dual_sigmoid_decoder else "K1"
-            print(f"[kernels] cuda: fused linear-VAE kernel {name} ({why_linear})", flush=True)
+            print(f"[kernels] cuda: fused linear-VAE kernel {name} ({why_linear})"
+                  f"{_moments(cfg)}", flush=True)
             return linear_vae.make_train_chunk(model, dataset, cfg)
         ok, why_mlp = mlp_vae.supported(model, dataset, cfg)
         if ok:
             name = "K5 (dual decoder)" if model.dual_sigmoid_decoder else "K5"
-            print(f"[kernels] cuda: fused MLP-VAE kernel {name} ({why_mlp})", flush=True)
+            print(f"[kernels] cuda: fused MLP-VAE kernel {name} ({why_mlp}){_moments(cfg)}",
+                  flush=True)
             return mlp_vae.make_train_chunk(model, dataset, cfg)
         if cfg.kernels == "cuda":
             raise RuntimeError(f"--kernels cuda requested but no fused kernel can run: "
@@ -58,7 +68,7 @@ def make_train_chunk(model, dataset, cfg):
         # the reason of the kernel this model's shape belongs to
         hidden = (len(model.encoder_features) > 1 or len(model.decoder_features) > 1)
         why = why_mlp if hidden else why_linear
-    print(f"[kernels] torch: plain PyTorch path ({why})", flush=True)
+    print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}", flush=True)
     return partial(torch_step.train_chunk, model, dataset,
                    batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
 
@@ -85,11 +95,12 @@ def make_grid_chunk(models, datasets, cfg):
             ok, why_grid = module.grid_supported(models, datasets, cfgs)
             if ok and on_card:
                 print(f"[kernels] cuda: {name}, the grid mode of the fused {kernel} kernel, "
-                      f"{n} rows in one launch a chunk ({why_grid})", flush=True)
+                      f"{n} rows in one launch a chunk ({why_grid}){_moments(cfg0)}", flush=True)
                 return module.make_grid_chunk(models, datasets, cfg0)
             if ok and cfg0.kernels != "cuda":
                 print(f"[kernels] plain: {name}'s plain version on the CPU, {n} rows a chunk, "
-                      f"one plain chunk a row ({why_dev}; {why_grid})", flush=True)
+                      f"one plain chunk a row ({why_dev}; {why_grid}){_moments(cfg0)}",
+                      flush=True)
                 return module.make_grid_chunk(models, datasets, cfg0)
             reasons[name] = why_dev if ok else why_grid
         if cfg0.kernels == "cuda":
@@ -98,8 +109,8 @@ def make_grid_chunk(models, datasets, cfg):
         hidden = any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1
                      for m in models)
         why = reasons["K6b"] if hidden else reasons["K6a"]
-    print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})",
-          flush=True)
+    print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})"
+          f"{_moments(cfg0)}", flush=True)
     chunks = [partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
                       lr=float(c.learning_rate)) for m, d, c in zip(models, datasets, cfgs)]
 

@@ -16,6 +16,13 @@ no TPU lane padding. The dual layout is K1's followed by the SigDecoder's
 two tensors, so K1's buffers are unchanged. ``run_fused_chunk`` updates
 them in place and returns the per-step losses.
 
+``adam_dtype="bf16"`` (``--adam_dtype bf16``) is K4, the bf16 branch of the
+TPU kernels' ``_adam`` (``linear_vae.py:188-218``): the kernel rounds each
+weight matrix's m and v to bfloat16 at every step (``train/state.py``'s
+rule). The flat buffers stay float32 and hold those bfloat16 values
+exactly, so packing a state's bf16 moments is exact, and so is copying the
+buffers back into them.
+
 ``run_fused_chunk`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors (and only for them) it runs ``plain_fused_chunk``,
 the same chunk on the torch path (``train/step.py``) behind the same
@@ -39,7 +46,7 @@ import numpy as np
 import torch
 
 from ..ops import rng
-from ..train.state import TrainState
+from ..train.state import TrainState, moment_dtype
 from ..train.step import Noise, train_chunk as torch_train_chunk
 
 THREADS = 256  # the kernel's CTA size (kThreads in csrc/linear_vae.cu)
@@ -87,7 +94,8 @@ def smem_bytes(batch: int, data_dim: int, latent_dim: int, intrinsic_dim: int,
 
 def pack_layout(tensors, layout: Layout) -> torch.Tensor:
     """Dict of named tensors → one flat float32 buffer in ``layout``'s
-    order; a slot missing from the dict (epsilon without -tdv) is zero."""
+    order (bf16 moments cast exactly); a slot missing from the dict
+    (epsilon without -tdv) is zero."""
     parts = []
     for name, shape in layout:
         t = tensors.get(name)
@@ -99,7 +107,8 @@ def pack_layout(tensors, layout: Layout) -> torch.Tensor:
 
 
 def unpack_layout_(flat: torch.Tensor, tensors, layout: Layout) -> None:
-    """Copy a flat buffer into the named tensors present, in place."""
+    """Copy a flat buffer into the named tensors present, in place. A bf16
+    tensor takes its slot's values exactly when the kernel rounded them."""
     off = 0
     for name, shape in layout:
         n = int(np.prod(shape))
@@ -142,6 +151,20 @@ def unpack_state(state: TrainState, p, m, v, n_steps: int, data_dim: int,
     state.step += n_steps
     state.count += n_steps
     return state
+
+
+def moments_bf16(adam_dtype: str) -> bool:
+    """The kernels' launch-wide flag: whether a weight matrix's moments are
+    bfloat16 under ``adam_dtype`` (``moment_dtype``'s rule)."""
+    return moment_dtype((1, 1), adam_dtype) == torch.bfloat16
+
+
+def matrix_mask(layout: Layout) -> torch.Tensor:
+    """(P,) bool: the flat slots whose moments are bfloat16 under
+    ``--adam_dtype bf16`` (``moment_dtype``'s rule: the weight matrices)."""
+    return torch.cat([torch.full((int(np.prod(shape)),),
+                                 moment_dtype(shape, "bf16") == torch.bfloat16)
+                      for _, shape in layout])
 
 
 def cuda_device_ok(cfg) -> Tuple[bool, str]:
@@ -213,8 +236,9 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
     its observation noise, and the step count and the print and plot
     cadences (so every row shares every chunk boundary) are uniform. The
     device is a CUDA device of compute capability 9.0, or the CPU, where
-    ``run_grid_chunk`` runs the plain version. A refusal names the first
-    row that fails."""
+    ``run_grid_chunk`` runs the plain version. The Adam moment dtype
+    (``--adam_dtype``) is uniform too: the kernel's flag is the launch's.
+    A refusal names the first row that fails."""
     cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
     if not models or not len(models) == len(datasets) == len(cfgs):
         return False, (f"need one model, dataset and config a row, got {len(models)}, "
@@ -222,6 +246,7 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
 
     def uniform(model, dataset, c):
         return {"batch size": c.batch_size, "learning rate": float(c.learning_rate),
+                "adam_dtype": c.adam_dtype,
                 "epsilon": model.epsilon_const, "-tdv": model.tunable_decoder_var,
                 "decoder head": model.dual_sigmoid_decoder,
                 "dataset": type(dataset).__name__,
@@ -263,7 +288,7 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("linear_vae")[0]
         vp, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.linear_vae_chunk.argtypes = (
-            [vp] * 8 + [i32] * 7 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, vp])
+            [vp] * 8 + [i32] * 7 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, i32, vp])
         lib.linear_vae_chunk.restype = i32
         lib.philox_normals.argtypes = [vp, vp, i32, i32, u32, u32, u32, u32, vp]
         lib.philox_normals.restype = i32
@@ -273,7 +298,7 @@ def _lib() -> ctypes.CDLL:
         lib.linear_vae_error_string.restype = ctypes.c_char_p
         lib.linear_vae_row_bytes.argtypes = []
         lib.linear_vae_row_bytes.restype = ctypes.c_size_t
-        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, vp]
+        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, i32, vp]
         lib.linear_vae_grid_chunk.restype = i32
         lib.linear_vae_blocks_per_sm.argtypes = [i32, ctypes.c_size_t, ctypes.POINTER(i32)]
         lib.linear_vae_blocks_per_sm.restype = i32
@@ -304,7 +329,7 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     step0: int, t0: int, data_seed: int, model_seed: int,
                     var_added: float, eps_const: float, tdv: bool, lr: float,
                     external_noise: Optional[Noise] = None,
-                    dual: bool = False) -> torch.Tensor:
+                    dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
     """Train ``n_steps`` steps from the flat state (p, m, v), in place.
     Returns the (n_steps,) losses. ``a`` is the manifold matrix: A
     (manifold_dim × intrinsic_dim) for linear_gaussian (K1), the sigmoid's
@@ -312,13 +337,15 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     ``dual`` (K2, no observation noise). ``step0`` is the absolute step of
     the first step (the Philox counter) and ``t0`` the Adam count before
     it. ``external_noise`` = (x, z1, z2), each (n_steps, batch, dim),
-    replaces the in-kernel sampler (the test hook of the TPU kernel)."""
+    replaces the in-kernel sampler (the test hook of the TPU kernel).
+    ``adam_dtype="bf16"`` rounds the weight matrices' moments to bfloat16
+    every step (K4)."""
     kw = dict(n_steps=n_steps, batch=batch, data_dim=data_dim,
               latent_dim=latent_dim, intrinsic_dim=intrinsic_dim,
               manifold_dim=manifold_dim, step0=step0, t0=t0,
               data_seed=data_seed, model_seed=model_seed, var_added=var_added,
               eps_const=eps_const, tdv=tdv, lr=lr, external_noise=external_noise,
-              dual=dual)
+              dual=dual, adam_dtype=adam_dtype)
     if p.device.type == "cpu":
         return plain_fused_chunk(p, m, v, a, **kw)
     if p.device.type != "cuda":
@@ -326,6 +353,7 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     D, L, B = data_dim, latent_dim, batch
     device = p.device
     P = n_params(D, L, dual)
+    bf16 = moments_bf16(adam_dtype)
     for t, name in ((p, "p"), (m, "m"), (v, "v")):
         _require(t, name, device, (P,))
     if dual:
@@ -355,7 +383,7 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         p.data_ptr(), m.data_ptr(), v.data_ptr(), losses.data_ptr(), a.data_ptr(),
         *ext, n_steps, B, D, L, intrinsic_dim, manifold_dim, int(dual),
         step0 & rng.MASK32, t0, dk[0], dk[1], mk[0], mk[1], obs_scale,
-        float(eps_const), int(bool(tdv)), float(lr), stream)
+        float(eps_const), int(bool(tdv)), float(lr), int(bf16), stream)
     _check(lib, err, "linear_vae_chunk launch")
     run_fused_chunk.launches += 1
     return losses
@@ -367,19 +395,22 @@ run_fused_chunk.launches = 0
 def run_plain_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, layout: Layout,
                     model, dataset, *, n_steps: int, batch: int, step0: int, t0: int,
                     data_seed: int, model_seed: int, tdv: bool, lr: float,
-                    external_noise: Optional[Noise]) -> torch.Tensor:
+                    external_noise: Optional[Noise], adam_dtype: str = "f32") -> torch.Tensor:
     """The torch path over flat state buffers, in place: what every plain
-    kernel version runs. Without -tdv the epsilon slot is not a parameter
-    of ``model`` and keeps its value."""
+    kernel version runs. The moments take ``moment_dtype``'s dtypes, so
+    bf16 runs the torch path's bf16 update (K4's plain version). Without
+    -tdv the epsilon slot is not a parameter of ``model`` and keeps its
+    value."""
 
-    def unflat(flat):
-        d = {name: torch.empty(shape, device=flat.device)
+    def unflat(flat, adam=None):
+        d = {name: torch.empty(shape, device=flat.device, dtype=(
+                 torch.float32 if adam is None else moment_dtype(shape, adam)))
              for name, shape in layout if tdv or name != "epsilon"}
         unpack_layout_(flat, d, layout)
         return d
 
-    state = TrainState(params=unflat(p), m=unflat(m), v=unflat(v), count=t0,
-                       step=step0, data_seed=data_seed, model_seed=model_seed)
+    state = TrainState(params=unflat(p), m=unflat(m, adam_dtype), v=unflat(v, adam_dtype),
+                       count=t0, step=step0, data_seed=data_seed, model_seed=model_seed)
     state, losses = torch_train_chunk(model, dataset, state, n_steps,
                                       batch_size=batch, lr=lr,
                                       noise=external_noise)
@@ -394,7 +425,7 @@ def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                       step0: int, t0: int, data_seed: int, model_seed: int,
                       var_added: float, eps_const: float, tdv: bool, lr: float,
                       external_noise: Optional[Noise] = None,
-                      dual: bool = False) -> torch.Tensor:
+                      dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
     """The plain PyTorch version of ``run_fused_chunk``: the same chunk on
     the torch path (autograd + the explicit Adam update), same signature,
     same in-place contract."""
@@ -413,7 +444,7 @@ def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     return run_plain_chunk(p, m, v, param_layout(D, L, dual), model, dataset,
                            n_steps=n_steps, batch=batch, step0=step0, t0=t0,
                            data_seed=data_seed, model_seed=model_seed, tdv=tdv,
-                           lr=lr, external_noise=external_noise)
+                           lr=lr, external_noise=external_noise, adam_dtype=adam_dtype)
 
 
 def make_train_chunk(model, dataset, cfg):
@@ -432,7 +463,8 @@ def make_train_chunk(model, dataset, cfg):
             manifold_dim=dataset.dim, step0=state.step, t0=state.count,
             data_seed=state.data_seed, model_seed=state.model_seed,
             var_added=dataset.var_added, eps_const=model.epsilon_const,
-            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual)
+            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual,
+            adam_dtype=cfg.adam_dtype)
         return unpack_state(state, p, m, v, n_steps, D, L, dual), losses
 
     return train_chunk
@@ -500,20 +532,22 @@ def unpack_rows(states: Sequence[TrainState], p: torch.Tensor, m: torch.Tensor,
 def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                    rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
                    tdv: bool, lr: float, dual: bool = False,
-                   external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+                   external_noise: Optional[Sequence[Noise]] = None,
+                   adam_dtype: str = "f32") -> torch.Tensor:
     """K6a: train every row ``n_steps`` steps from the packed state
     (``pack_rows``), in place, in one launch of one CTA per row. Returns
     the (rows, n_steps) losses. Row i runs what ``run_fused_chunk`` runs on
-    its slice with its ``GridRow``; batch, ε, -tdv, lr and the decoder head
-    are the launch's. ``external_noise``, one (x, z1, z2) a row, replaces
-    the in-kernel sampler (the test hook)."""
+    its slice with its ``GridRow``; batch, ε, -tdv, lr, the decoder head and
+    the moment dtype are the launch's. ``external_noise``, one (x, z1, z2)
+    a row, replaces the in-kernel sampler (the test hook)."""
     kw = dict(n_steps=n_steps, batch=batch, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
-              external_noise=external_noise)
+              external_noise=external_noise, adam_dtype=adam_dtype)
     if p.device.type == "cpu":
         return plain_grid_chunk(p, m, v, rows, **kw)
     if p.device.type != "cuda":
         raise ValueError(f"run_grid_chunk takes CPU or CUDA tensors, got {p.device}")
     device, B, n = p.device, batch, len(rows)
+    bf16 = moments_bf16(adam_dtype)
     if n == 0:
         raise ValueError("run_grid_chunk needs at least one row")
     if external_noise is not None and len(external_noise) != n:
@@ -555,7 +589,7 @@ def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.linear_vae_grid_chunk(ctypes.addressof(table), table_dev.data_ptr(), n,
                                     n_steps, B, int(dual), float(eps_const),
-                                    int(bool(tdv)), float(lr), stream)
+                                    int(bool(tdv)), float(lr), int(bf16), stream)
     _check(lib, err, "linear_vae_grid_chunk launch")
     run_grid_chunk.launches += 1
     return losses
@@ -567,7 +601,8 @@ run_grid_chunk.launches = 0
 def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                      rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
                      tdv: bool, lr: float, dual: bool = False,
-                     external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+                     external_noise: Optional[Sequence[Noise]] = None,
+                     adam_dtype: str = "f32") -> torch.Tensor:
     """The plain PyTorch version of ``run_grid_chunk``: one
     ``plain_fused_chunk`` per row on its slice of the packed buffers, same
     signature, same in-place contract."""
@@ -580,7 +615,7 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             manifold_dim=r.manifold_dim, step0=r.step0, t0=r.t0, data_seed=r.data_seed,
             model_seed=r.model_seed, var_added=r.var_added, eps_const=eps_const, tdv=tdv,
             lr=lr, external_noise=None if external_noise is None else external_noise[i],
-            dual=dual)
+            dual=dual, adam_dtype=adam_dtype)
     return losses
 
 
@@ -604,7 +639,8 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
         p, m, v = pack_rows(states, rows, dual)
         losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
                                 eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
-                                lr=lr, dual=dual, external_noise=noises)
+                                lr=lr, dual=dual, external_noise=noises,
+                                adam_dtype=cfg.adam_dtype)
         return unpack_rows(states, p, m, v, rows, n_steps, dual), losses
 
     return chunk

@@ -27,6 +27,10 @@ CUDA tensors and raise if they cannot; for CPU tensors (and only for them)
 they run ``plain_mlp_fused_chunk`` / ``plain_grid_chunk``, the same chunk on
 the torch path behind the same signature. ``.launches`` on each counts its
 kernel launches.
+
+``adam_dtype="bf16"`` is K4 here too: the kernel rounds the moments of every
+stack's weight matrices to bfloat16 at every step, in float32 buffers
+(``kernels/linear_vae.py`` says why that keeps packing exact).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .linear_vae import (
     Layout,
     _require,
     cuda_device_ok,
+    moments_bf16,
     pack_layout,
     run_plain_chunk,
     unpack_layout_,
@@ -156,9 +161,10 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
     counts and hidden widths, batch, learning rate, ε, -tdv, the decoder
     head, the dataset kind and its observation noise, and the step count
     and the print and plot cadences (so every row shares every chunk
-    boundary) are uniform. The device is a CUDA device of compute
-    capability 9.0, or the CPU, where ``run_grid_chunk`` runs the plain
-    version. A refusal names the first row that fails."""
+    boundary) are uniform, and so is the Adam moment dtype (``--adam_dtype``,
+    the launch's flag). The device is a CUDA device of compute capability
+    9.0, or the CPU, where ``run_grid_chunk`` runs the plain version. A
+    refusal names the first row that fails."""
     cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
     if not models or not len(models) == len(datasets) == len(cfgs):
         return False, (f"need one model, dataset and config a row, got {len(models)}, "
@@ -170,6 +176,7 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
         return {"layer counts": (len(model.encoder_features), len(model.decoder_features)),
                 "hidden widths": (model.encoder_features[:-1], model.decoder_features[:-1]),
                 "batch size": c.batch_size, "learning rate": float(c.learning_rate),
+                "adam_dtype": c.adam_dtype,
                 "epsilon": model.epsilon_const, "-tdv": model.tunable_decoder_var,
                 "decoder head": model.dual_sigmoid_decoder,
                 "dataset": type(dataset).__name__,
@@ -236,7 +243,7 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("mlp_vae")[0]
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip, rp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(Row)
-        lib.mlp_vae_chunk.argtypes = [rp, vp] + [i32] * 6 + [ip, i32, ip, f32, i32, f32, vp]
+        lib.mlp_vae_chunk.argtypes = [rp, vp] + [i32] * 6 + [ip, i32, ip, f32, i32, f32, i32, vp]
         lib.mlp_vae_chunk.restype = i32
         lib.mlp_vae_plan_row.argtypes = [rp] + [i32] * 4 + [ip, i32, ip]
         lib.mlp_vae_plan_row.restype = ctypes.c_longlong
@@ -282,7 +289,7 @@ def row_widths(row: GridRow, enc_hidden: Sequence[int], dec_hidden: Sequence[int
 
 def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int, batch: int,
             enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str, eps_const: float,
-            tdv: bool, lr: float, dual: bool, external_noise) -> None:
+            tdv: bool, lr: float, dual: bool, external_noise, adam_dtype: str) -> None:
     """One launch over ``rows``, row i training ``bufs[i]`` = its (p, m, v)
     in place and writing ``losses[i]``: what K5 (one row) and K6b share."""
     if kind not in KINDS:
@@ -296,6 +303,7 @@ def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int
     if len(rows) > MAX_ROWS:
         raise ValueError(f"{len(rows)} rows; one launch takes at most {MAX_ROWS}")
     device, B = losses.device, batch
+    bf16 = moments_bf16(adam_dtype)
     lib = _lib()
     enc_arr, dec_arr = _int_array(enc_hidden), _int_array(dec_hidden)
     shape = (B, KINDS[kind], int(dual), n_enc, enc_arr, n_dec, dec_arr)
@@ -344,7 +352,7 @@ def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int
     rows_dev = torch.empty(len(rows) * ctypes.sizeof(Row), dtype=torch.uint8, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.mlp_vae_chunk(table, rows_dev.data_ptr(), len(rows), n_steps, *shape,
-                            float(eps_const), int(bool(tdv)), float(lr), stream)
+                            float(eps_const), int(bool(tdv)), float(lr), int(bf16), stream)
     _check(lib, err, "mlp_vae_chunk launch")
 
 
@@ -355,7 +363,7 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                         step0: int, t0: int, data_seed: int, model_seed: int,
                         var_added: float, eps_const: float, tdv: bool, lr: float,
                         external_noise: Optional[Noise] = None,
-                        dual: bool = False) -> torch.Tensor:
+                        dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
     """Train ``n_steps`` steps from the flat state (p, m, v), in place.
     Returns the (n_steps,) losses. ``kind`` is "sphere" (``a`` unused,
     intrinsic_dim = manifold_dim), "linear" (``a`` is A, manifold_dim ×
@@ -365,12 +373,14 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     ``step0`` is the absolute step of the first step (the Philox counter)
     and ``t0`` the Adam count before it. ``external_noise`` = (x, z1, z2),
     each (n_steps, batch, dim), replaces the in-kernel sampler (the test
-    hook of the TPU kernel)."""
+    hook of the TPU kernel). ``adam_dtype="bf16"`` rounds the weight
+    matrices' moments to bfloat16 every step (K4)."""
     kw = dict(n_steps=n_steps, batch=batch, enc_widths=enc_widths,
               dec_widths=dec_widths, kind=kind, intrinsic_dim=intrinsic_dim,
               manifold_dim=manifold_dim, step0=step0, t0=t0, data_seed=data_seed,
               model_seed=model_seed, var_added=var_added, eps_const=eps_const,
-              tdv=tdv, lr=lr, external_noise=external_noise, dual=dual)
+              tdv=tdv, lr=lr, external_noise=external_noise, dual=dual,
+              adam_dtype=adam_dtype)
     if p.device.type == "cpu":
         return plain_mlp_fused_chunk(p, m, v, a, **kw)
     if p.device.type != "cuda":
@@ -385,7 +395,8 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                   model_seed, var_added)
     _launch([(p, m, v)], losses, [row], n_steps=n_steps, batch=batch, enc_hidden=enc[1:-1],
             dec_hidden=dec[1:-1], kind=kind, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
-            external_noise=None if external_noise is None else [external_noise])
+            external_noise=None if external_noise is None else [external_noise],
+            adam_dtype=adam_dtype)
     run_mlp_fused_chunk.launches += 1
     return losses[0]
 
@@ -400,7 +411,7 @@ def plain_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                           step0: int, t0: int, data_seed: int, model_seed: int,
                           var_added: float, eps_const: float, tdv: bool, lr: float,
                           external_noise: Optional[Noise] = None,
-                          dual: bool = False) -> torch.Tensor:
+                          dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
     """The plain PyTorch version of ``run_mlp_fused_chunk``: the same chunk
     on the torch path (autograd + the explicit Adam update), same signature,
     same in-place contract."""
@@ -424,7 +435,7 @@ def plain_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     return run_plain_chunk(p, m, v, param_layout(enc, dec, dual), model, dataset,
                            n_steps=n_steps, batch=batch, step0=step0, t0=t0,
                            data_seed=data_seed, model_seed=model_seed, tdv=tdv,
-                           lr=lr, external_noise=external_noise)
+                           lr=lr, external_noise=external_noise, adam_dtype=adam_dtype)
 
 
 def make_train_chunk(model, dataset, cfg):
@@ -444,7 +455,8 @@ def make_train_chunk(model, dataset, cfg):
             manifold_dim=dataset.dim, step0=state.step, t0=state.count,
             data_seed=state.data_seed, model_seed=state.model_seed,
             var_added=dataset.var_added, eps_const=model.epsilon_const,
-            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual)
+            tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual,
+            adam_dtype=cfg.adam_dtype)
         return unpack_state(state, p, m, v, n_steps, enc, dec, dual), losses
 
     return train_chunk
@@ -494,17 +506,19 @@ def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                    rows: Sequence[GridRow], *, n_steps: int, batch: int,
                    enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str,
                    eps_const: float, tdv: bool, lr: float, dual: bool = False,
-                   external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+                   external_noise: Optional[Sequence[Noise]] = None,
+                   adam_dtype: str = "f32") -> torch.Tensor:
     """K6b: train every row ``n_steps`` steps from the packed state
     (``pack_rows``), in place, in one launch. Returns the (rows, n_steps)
     losses. Row i runs what ``run_mlp_fused_chunk`` runs on its slice with
     its ``GridRow`` and the widths (D, *enc_hidden, L) and
     (L, *dec_hidden, D); batch, the hidden widths, the manifold kind, ε,
-    -tdv, lr and the decoder head are the launch's. ``external_noise``, one
-    (x, z1, z2) a row, replaces the in-kernel sampler (the test hook)."""
+    -tdv, lr, the decoder head and the moment dtype are the launch's.
+    ``external_noise``, one (x, z1, z2) a row, replaces the in-kernel
+    sampler (the test hook)."""
     kw = dict(n_steps=n_steps, batch=batch, enc_hidden=enc_hidden, dec_hidden=dec_hidden,
               kind=kind, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
-              external_noise=external_noise)
+              external_noise=external_noise, adam_dtype=adam_dtype)
     if p.device.type == "cpu":
         return plain_grid_chunk(p, m, v, rows, **kw)
     if p.device.type != "cuda":
@@ -529,7 +543,8 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                      rows: Sequence[GridRow], *, n_steps: int, batch: int,
                      enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str,
                      eps_const: float, tdv: bool, lr: float, dual: bool = False,
-                     external_noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+                     external_noise: Optional[Sequence[Noise]] = None,
+                     adam_dtype: str = "f32") -> torch.Tensor:
     """The plain PyTorch version of ``run_grid_chunk``: one
     ``plain_mlp_fused_chunk`` per row on its slice of the packed buffers,
     same signature, same in-place contract."""
@@ -543,7 +558,8 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             kind=kind, intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim,
             step0=r.step0, t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
             var_added=r.var_added, eps_const=eps_const, tdv=tdv, lr=lr,
-            external_noise=None if external_noise is None else external_noise[i], dual=dual)
+            external_noise=None if external_noise is None else external_noise[i], dual=dual,
+            adam_dtype=adam_dtype)
     return losses
 
 
@@ -570,7 +586,8 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
         losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
                                 enc_hidden=enc_hidden, dec_hidden=dec_hidden, kind=kind,
                                 eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
-                                lr=lr, dual=dual, external_noise=noises)
+                                lr=lr, dual=dual, external_noise=noises,
+                                adam_dtype=cfg.adam_dtype)
         return unpack_rows(states, p, m, v, rows, n_steps, enc_hidden, dec_hidden, dual), losses
 
     return chunk

@@ -4,7 +4,9 @@ Port of ``vae_training_tpu/runio/checkpoint.py:103-260`` (the msgpack
 backend) onto ``torch.save``. A checkpoint is the complete ``TrainState``
 (params, Adam moments, counts, and both run seeds) as CPU tensors and
 ints, so ``--resume <dir>`` continues bit-exactly: the Philox streams are
-keyed by (seed, step), which the state carries.
+keyed by (seed, step), which the state carries. ``torch.save`` keeps each
+tensor's dtype, so the bfloat16 moments of ``--adam_dtype bf16`` come back
+with their bits; ``ckpt_meta.json`` records the run's ``adam_dtype``.
 
 Kept from the reference implementation:
   - the trio ``ckpt.pt`` + ``ckpt_aux.pkl`` (host-side run state) +
@@ -69,7 +71,7 @@ def save_checkpoint(dirname: str, state: TrainState,
                     extra_meta: Optional[dict] = None,
                     aux: Optional[dict] = None) -> str:
     payload = _state_payload(state)
-    meta = {"step": int(state.step), "backend": BACKEND}
+    meta = {"step": int(state.step), "backend": BACKEND, "adam_dtype": state.adam_dtype}
     if extra_meta:
         meta.update(extra_meta)
     path = os.path.join(dirname, CKPT_NAME)

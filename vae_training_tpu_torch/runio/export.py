@@ -14,6 +14,13 @@ with numpy leaves, so a file written by either package loads in the other.
 package's parameters and Adam state (numpy, flax names) into the port's
 tensors; the port keeps the flax names and (in, out) layouts, so the
 conversion only flattens the tree into dotted names.
+
+Under ``--adam_dtype bf16`` the port writes its bfloat16 moments as float32
+arrays holding the same values (exact): numpy has no bfloat16 of its own,
+the JAX package's ``ml_dtypes.bfloat16`` arrays
+(``vae_training_tpu/runio/export.py:54``) need a package the port does not
+depend on, and so ``load_model_pkl`` of such a file gives float32 moments.
+A JAX package's bfloat16 leaf converts to a bfloat16 tensor, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 
 
 def _to_numpy(d: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: t.detach().cpu().numpy().copy() for k, t in d.items()}
+    """float32 numpy copies (a bfloat16 moment's values, exactly)."""
+    return {k: t.detach().cpu().float().numpy().copy() for k, t in d.items()}
 
 
 def to_reference_state_dict(state: TrainState) -> dict:
@@ -75,9 +83,15 @@ def state_from_flax(params_np, mu_np, nu_np, count: int, *, data_seed: int = 0,
                     model_seed: int = 0) -> TrainState:
     """The JAX package's params and optax Adam moments (nested numpy trees
     with flax names) → a port TrainState computing the same thing (at step
-    ``count``; the run seeds are the caller's)."""
-    flat = lambda tree: {k: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
-                         for k, a in _flatten(tree).items()}
+    ``count``; the run seeds are the caller's). A bfloat16 leaf (the JAX
+    package's ``--adam_dtype bf16`` moments) becomes a bfloat16 tensor of
+    the same bits: widened to float32 (exact), then narrowed back."""
+
+    def tensor(a):
+        t = torch.tensor(np.asarray(a, np.float32))
+        return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
+
+    flat = lambda tree: {k: tensor(a) for k, a in _flatten(tree).items()}  # noqa: E731
     return TrainState(params=flat(params_np), m=flat(mu_np), v=flat(nu_np),
                       count=int(count), step=int(count), data_seed=data_seed,
                       model_seed=model_seed)

@@ -51,7 +51,7 @@ from ..runio.checkpoint import (
 )
 from ..runio.export import save_model_pkl
 from ..runio.outdir import make_output_dir
-from .loop import EVAL_BATCH_SIZE, N_PLOT, N_PRINT, check_params, next_event
+from .loop import EVAL_BATCH_SIZE, N_PLOT, N_PRINT, check_moments, check_params, next_event
 from .state import TrainState
 from .step import eval_step, generate, sample_z
 
@@ -92,7 +92,8 @@ class GridTrainer:
         model_seed = rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z)
         self.states: List[TrainState] = [
             TrainState.create(params, data_seed=rng.derive_seed(s, rng.SEED_TRAIN_DATA),
-                              model_seed=model_seed) for s in self.seeds]
+                              model_seed=model_seed, adam_dtype=cfg.adam_dtype)
+            for s in self.seeds]
         self.eval_data_seeds = [rng.derive_seed(s, rng.SEED_EVAL_DATA) for s in self.seeds]
         self.eval_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_EVAL_Z)
         self.plot_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_PLOT_Z)
@@ -209,6 +210,7 @@ class GridTrainer:
             restored[i], steps[i] = prev, target
         for out, state in zip(outdirs, restored):
             check_params(self.model, state, f"--resume {out}")
+            check_moments(state, self.cfg.adam_dtype, f"--resume {out}")
         # pass 3: meta (current_epsilon) and aux (stat history, eval counter),
         # the .prev versions for rolled-back rows, either version where the
         # other does not carry the row's step

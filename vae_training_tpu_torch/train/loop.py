@@ -43,7 +43,7 @@ from ..runio.checkpoint import (
     save_checkpoint,
 )
 from ..runio.export import load_model_pkl, save_model_pkl
-from .state import TrainState
+from .state import TrainState, moment_dtype
 from .step import eval_step, generate, sample_z
 
 N_PLOT = 50000
@@ -71,6 +71,18 @@ def check_params(model, state: TrainState, source: str) -> None:
         if got != want:
             raise ValueError(f"{source}: parameters {got} do not match the "
                              f"model's {want}")
+
+
+def check_moments(state: TrainState, adam_dtype: str, source: str) -> None:
+    """A resumed state's Adam moments must have the dtypes ``--adam_dtype``
+    gives them (``moment_dtype``): the flag must match across ``--resume``."""
+    for tree in (state.m, state.v):
+        for k, t in tree.items():
+            if t.dtype != moment_dtype(t.shape, adam_dtype):
+                raise ValueError(
+                    f"{source}: the checkpoint's Adam moments are --adam_dtype "
+                    f"{state.adam_dtype} ({k} is {t.dtype}), this run's --adam_dtype is "
+                    f"{adam_dtype}; --adam_dtype must match across --resume")
 
 
 class Trainer:
@@ -105,7 +117,8 @@ class Trainer:
         self.state = TrainState.create(
             dict(self.model.named_parameters()),
             data_seed=rng.derive_seed(cfg.dataset_seed, rng.SEED_TRAIN_DATA),
-            model_seed=rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z))
+            model_seed=rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z),
+            adam_dtype=cfg.adam_dtype)
 
         self.train_chunk = make_train_chunk(self.model, dataset, cfg)
 
@@ -122,6 +135,7 @@ class Trainer:
                 raise FileNotFoundError(f"--resume {cfg.resume}: no checkpoint there")
             self.state = restore_checkpoint(cfg.resume, self.device)
             check_params(self.model, self.state, f"--resume {cfg.resume}")
+            check_moments(self.state, cfg.adam_dtype, f"--resume {cfg.resume}")
             self.batchnum = int(self.state.step)
             aux = restore_checkpoint_aux(cfg.resume)
             if aux is not None and aux.get("step", self.batchnum) != self.batchnum:
@@ -143,6 +157,8 @@ class Trainer:
                 raise FileNotFoundError(f"--state_dict {cfg.state_dict} does not exist")
             loaded = load_model_pkl(cfg.state_dict)
             check_params(self.model, loaded, f"--state_dict {cfg.state_dict}")
+            # copy_ casts into this run's moment dtypes: a bf16 moment takes
+            # the loaded float32 value rounded once, to nearest even
             for dst, src in ((self.state.params, loaded.params),
                              (self.state.m, loaded.m), (self.state.v, loaded.v)):
                 for k in dst:
