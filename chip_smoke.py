@@ -14,11 +14,13 @@ sweeps through K6a, the grid mode of the linear kernel (one launch a chunk
 over every row); then the sphere sweep and a sphere seed grid through K6b,
 the grid mode of the MLP kernel, and sigmoid MLPs with the dual decoder
 through K5-dual, the MLP kernel's dual branch; then all of them again with
-bf16 Adam moments (K4, --adam_dtype bf16). Twenty-five phases:
+bf16 Adam moments (K4, --adam_dtype bf16); then the probes T1–T5, each
+through its tool's entry point (vae_training_tpu_torch/tools/), on
+csrc/probes.cu and, for T1, the training kernels' sampler. Thirty phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
-  2. build: nvcc builds both kernel libraries from the checkout's sources,
-     the two builds started together;
+  2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
+     probes) from the checkout's sources, the builds started together;
   3. sampler: the kernel's Philox words equal ops/rng.py's bitwise, its
      normals agree to 1e-5, and 4M kernel normals have the right moments;
   4. parity: the kernel against its plain PyTorch version on the card,
@@ -91,7 +93,21 @@ bf16 Adam moments (K4, --adam_dtype bf16). Twenty-five phases:
      sphere (K6b) and linear (K6a) sweeps through `sweep --grouped
      --adam_dtype bf16`, 4 launches and nothing else;
  25. times: every kernel with f32 and bf16 moments in turn (f32, bf16,
-     bf16, f32) and its bf16 plain version, with K4's bound.
+     bf16, f32) and its bf16 plain version, with K4's bound;
+ 26. T4: chains of 24 dependent 104x256x256 dots, the phase and the cluster
+     form, against the plain version (3 steps, 1/2/4 chains, rtol 1e-6);
+     then the tool's table (1, 2, 1, 2, 4 chains, each form) and VERDICT;
+ 27. T3: 8 distinct weights a chain, renormalised a trip, against the
+     plain version (2 trips, rtol 1e-4 / atol 1e-5); then ns a dot for
+     1/2/4 chains and the independence speed-up;
+ 28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, against the
+     plain versions (3 steps, h and every w, m, v at MLP_TOL); then tail
+     and interleaved in turns and the VERDICT;
+ 29. T2: one dot in fp32, TF32 and bf16 modes against the plain versions
+     (rtol 1e-5 / atol 1e-4) and a float64 host product (fp32's error under
+     bf16's / 100, TF32's between), with torch.matmul's times;
+ 30. T1: the sampler's statistical battery (chi-squared, lags 1-4, the four
+     streams, 16 grid row keys).
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -140,6 +156,8 @@ SIGMOID_MLP_ROW1 = [a if a != "" else "200|200|200" for a in SIGMOID_ROW1]
 MLP_TOL = {"losses": (3e-4, 3e-4), "params": (1e-3, 1e-5), "m": (1e-3, 1e-6),
            "v": (1e-3, 1e-9)}
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet, 700 W)
+TF32_PEAK = 495e12  # dense TF32 on the tensor cores
+BF16_PEAK = 989e12  # dense bf16 on the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
 
@@ -191,13 +209,14 @@ def main() -> int:
     # --- 2 ---------------------------------------------------------------
     phase(2, "build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = dict(zip(("linear_vae", "mlp_vae"),
-                          pool.map(load_library, ("linear_vae", "mlp_vae"))))
+    libraries = ("linear_vae", "mlp_vae", "probes")
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
+        builds = dict(zip(libraries, pool.map(load_library, libraries)))
     for name, (_, record) in builds.items():
         print(f"{name}: built={record['built']} in {record['seconds']:.2f} s: {record['path']}")
-    print(f"both libraries loaded after {time.perf_counter() - t0:.2f} s")
+    print(f"all three libraries loaded after {time.perf_counter() - t0:.2f} s")
     _print_ptxas(builds["linear_vae"][1])
+    _print_ptxas(builds["probes"][1])
     need = k1.smem_bytes(B, D, L, ID, ID)
     require(k1.kernel_smem_bytes(B, D, L, ID, ID) == need,
             "shared-memory layout of the library equals kernels/linear_vae.py's")
@@ -375,6 +394,7 @@ def main() -> int:
     records += _grids(torch, np, smi, run_dir, data_dir)
     records += _mlp_grids(torch, np, smi, os.path.join(sweeps_dir, "main_K5"), data_dir)
     records += _bf16_moments(torch, np, smi, os.path.join(data_dir, "bf16"))
+    records += _probes(torch, np, smi)
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -1715,6 +1735,266 @@ def _bf16_moments(torch, np, smi, data_dir):
     return records
 
 
+def _probes(torch, np, smi):
+    """Phases 26–30: the probes T4, T3, T5 and T2 (csrc/probes.cu), each
+    kernel against its plain version on the card, then the tool's own run
+    through its entry point (the probes' main path; the launch counts are
+    read around it) with its verdict; and T1's battery on the kernels'
+    sampler. Returns their records for the kernels' JSON line."""
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.tools import check_kernel_rng as t1
+    from vae_training_tpu_torch.tools import check_precision as t2
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+    from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
+    from vae_training_tpu_torch.tools._common import seconds_per_step
+
+    dev = torch.device("cuda")
+    window = ["--device", "cuda", "--seconds", "0.5"]  # the tools' default is 1 s
+    R, Wd = probes.ROWS, probes.W
+    dot_flops = 2 * R * Wd * Wd
+
+    def sync_cpu(*ts):
+        torch.cuda.synchronize()
+        return [t.cpu().numpy() for t in ts]
+
+    def reset_counts():
+        probes.chain_chunk.launches = probes.chain_chunk.cluster_launches = 0
+        probes.adam_overlap_chunk.launches = probes.dot_modes.launches = 0
+        k1.sampler_check.launches = 0
+
+    def per_step_ms(fn, seconds=0.25):
+        """ms a step of ``fn(n)`` (n steps), in a ≥ ``seconds`` window."""
+        return 1e3 * seconds_per_step(fn, dev, seconds)[0]
+
+    def chain_library(xs, ws, depth, per_depth, clamp):
+        """The chain as one torch.matmul (+ clamp) a dot: the library's yardstick."""
+        def run(n):
+            h = xs
+            for _ in range(n):
+                for d in range(depth):
+                    h = torch.matmul(h, ws[:, d * Wd:(d + 1) * Wd] if per_depth else ws)
+                    if clamp:
+                        h = torch.clamp(h, max=probes.CLAMP)
+        return run
+
+    records = []
+
+    # --- 26 -------------------------------------------------------------------
+    phase(26, "T4: chains of 24 dependent dots, phase and cluster forms, against the plain "
+              "version; then the tool")
+    t4_err = {f: 0.0 for f in probes.FORMS}
+    kw = dict(n_steps=3, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
+    for form in probes.FORMS:
+        for n_chains in (1, 2, 4):
+            xs, ws = t4.inputs(n_chains, dev)
+            got, want = sync_cpu(probes.chain_chunk(xs, ws, form=form, **kw),
+                                 probes.plain_chain_chunk(xs, ws, **kw))
+            require(bool(np.all(np.isfinite(got))), f"T4 {form} finite")
+            np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=f"T4 {form} {n_chains}")
+            t4_err[form] = max(t4_err[form], float(np.abs(got - want).max()))
+            print(f"T4 {form:7s} {n_chains} chain(s), 3 steps: max |Δ| vs plain "
+                  f"{float(np.abs(got - want).max()):.2e} (bitwise: {np.array_equal(got, want)})")
+            # random inputs: a transposed or permuted slice, a misplaced
+            # exchange or a dropped term fails here, not on the identity
+            xs, ws = t4.check_inputs(n_chains, dev)
+            rkw = dict(n_steps=1, depth=8, weights_per_depth=False, epilogue="clamp")
+            got, want = sync_cpu(probes.chain_chunk(xs, ws, form=form, **rkw),
+                                 probes.plain_chain_chunk(xs, ws, **rkw))
+            require(bool(np.all(np.isfinite(got))), f"T4 {form} random finite")
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"T4 {form} {n_chains} random")
+            t4_err[form] = max(t4_err[form], float(np.abs(got - want).max()))
+            print(f"T4 {form:7s} {n_chains} chain(s), random inputs, 8 dots: max |Δ| vs plain "
+                  f"{float(np.abs(got - want).max()):.2e} (rtol 1e-4, atol 1e-5)")
+    reset_counts()
+    t4_report = t4.main(window)
+    t4_launches = {"phase": probes.chain_chunk.launches,
+                   "cluster": probes.chain_chunk.cluster_launches}
+    print(f"T4 tool launches: {t4_launches}")
+    xs, ws = t4.inputs(1, dev)
+    t4_plain = per_step_ms(lambda n: probes.plain_chain_chunk(
+        xs, ws, n_steps=n, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp"))
+    t4_lib = per_step_ms(chain_library(xs, ws, probes.T4_DEPTH, False, True))
+    # a step: 24 dots; x and w read and h written once (counted as if a
+    # call ran one step: the bound stays the operations')
+    bound = _bound(probes.T4_DEPTH * dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1,
+                   losses_per_step=0)
+    print(f"card: {smi}")
+    print(f"T4 one chain: plain {t4_plain * 1e3:.2f} us/step, torch.matmul + clamp "
+          f"{t4_lib * 1e3:.2f} us/step, bound {bound['bound_ms'] * 1e3:.3f} us/step "
+          f"({bound['bound_by']})")
+    for form in probes.FORMS:
+        us = t4_report[form]["us_per_step"]
+        require(t4_launches[form] > 0, f"T4's {form} kernel launched in the tool's run")
+        records.append({
+            "name": f"chain_{form}_kernel (T4, {form} form)", "route": "cuda",
+            "source": "vae_training_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/probe_mlp_interleave.py:62", "launches": t4_launches[form],
+            "max_abs_err": t4_err[form], "ms": min(us[1]) / 1e3, "plain_ms": t4_plain,
+            **bound, "library_ms": t4_lib,
+            "us_per_step_by_chains": {c: min(v) for c, v in us.items()},
+            "verdict": t4_report[form]["verdict"]})
+
+    # --- 27 -------------------------------------------------------------------
+    phase(27, "T3: chains of 8 dots with distinct weights, renormalised a trip, against the "
+              "plain version; then the tool")
+    t3_err = 0.0
+    kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
+    for n_chains in (1, 2, 4):
+        xs, ws = t3.inputs(n_chains, dev)
+        got, want = sync_cpu(probes.chain_chunk(xs, ws, **kw), probes.plain_chain_chunk(xs, ws, **kw))
+        require(bool(np.all(np.isfinite(got))), "T3 finite")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"T3 {n_chains}")
+        t3_err = max(t3_err, float(np.abs(got - want).max()))
+        print(f"T3 {n_chains} chain(s), 2 trips: max |Δ| vs plain "
+              f"{float(np.abs(got - want).max()):.2e}")
+    reset_counts()
+    t3_report = t3.main(window)
+    t3_launches = probes.chain_chunk.launches
+    require(t3_launches > 0, "T3's kernel launched in the tool's run")
+    xs, ws = t3.inputs(1, dev)
+    per_dot = 1.0 / probes.T3_DEPTH
+    t3_plain = per_dot * per_step_ms(lambda n: probes.plain_chain_chunk(
+        xs, ws, n_steps=n, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm"))
+    t3_lib = per_dot * per_step_ms(chain_library(xs, ws, probes.T3_DEPTH, True, False))
+    # a dot: its weight read, h read and written once
+    bound = _bound(dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1, losses_per_step=0)
+    print(f"card: {smi}")
+    print(f"T3 one chain: plain {t3_plain * 1e6:.1f} ns/dot, torch.matmul {t3_lib * 1e6:.1f} "
+          f"ns/dot, bound {bound['bound_ms'] * 1e6:.1f} ns/dot ({bound['bound_by']})")
+    records.append({
+        "name": "chain_phase_kernel (T3, distinct weights)", "route": "cuda",
+        "source": "vae_training_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches,
+        "max_abs_err": t3_err, "ms": t3_report["ns_per_dot"][1] / 1e6, "plain_ms": t3_plain,
+        **bound, "library_ms": t3_lib,
+        "ns_per_dot_by_chains": t3_report["ns_per_dot"],
+        "speedup_x2": t3_report["x2"], "speedup_x4": t3_report["x4"]})
+
+    # --- 28 -------------------------------------------------------------------
+    phase(28, "T5: 25 dots and Adam on 5 buffers, tail and interleaved, against the plain "
+              "version; then the tool (tail, interleaved, interleaved, tail)")
+    print(f"h at {MLP_TOL['params']} (rtol, atol), tests/test_mlp_kernel.py's; what Adam "
+          f"changed in w, m and v at rtol {t5.DELTA_RTOL}, atol {t5.DELTA_RTOL} of the plain "
+          f"version's largest change")
+    t5_err = {False: 0.0, True: 0.0}
+    for inputs_of, label in ((t5.inputs, "the tool's inputs"),
+                             (t5.check_inputs, "check inputs")):
+        for interleave in (False, True):
+            kb = inputs_of(dev)
+            pb, start, other = (tuple(t.clone() for t in kb) for _ in range(3))
+            h = probes.adam_overlap_chunk(*kb, n_steps=3, interleave=interleave)
+            ph = probes.plain_adam_overlap_chunk(*pb, n_steps=3, interleave=interleave)
+            probes.plain_adam_overlap_chunk(*other, n_steps=3, interleave=not interleave)
+            a, b = sync_cpu(h, ph)
+            require(bool(np.all(np.isfinite(a))), "T5 h finite")
+            np.testing.assert_allclose(a, b, *MLP_TOL["params"], err_msg=f"T5 h {interleave}")
+            errs, mism = [float(np.abs(a - b).max())], []
+            for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:], other[1:]):
+                require(bool(torch.isfinite(got).all()), f"T5 {name} finite")
+                mm = t5.delta_mismatch(got, ref, s0)
+                require(mm <= t5.DELTA_RTOL, f"T5 {label} interleave={interleave}: Δ{name} "
+                                             f"mismatch {mm:.3e} <= {t5.DELTA_RTOL}")
+                # controls: Adam dropped, and the other variant's gradients
+                require(t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL,
+                        f"T5 Δ{name}: the state left as it was fails the comparison")
+                if inputs_of is t5.check_inputs:
+                    require(t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL,
+                            f"T5 Δ{name}: the other variant fails the comparison")
+                errs.append(float((got - ref).abs().max()))
+                mism.append(mm)
+            t5_err[interleave] = max(t5_err[interleave], *errs)
+            print(f"T5 {label}, interleave={interleave!s:5}, 3 steps: max |Δ| h {errs[0]:.2e} "
+                  f"w {errs[1]:.2e} m {errs[2]:.2e} v {errs[3]:.2e}; Adam's change mismatch "
+                  f"w {mism[0]:.2e} m {mism[1]:.2e} v {mism[2]:.2e}")
+    reset_counts()
+    t5_report = t5.main(window)
+    t5_launches = probes.adam_overlap_chunk.launches
+    require(t5_launches > 0, "T5's kernel launched in the tool's run")
+    n_dots, n_w = probes.N_BUF * probes.DOTS_PER_BUF, probes.N_BUF * Wd * Wd
+    # a step: 25 dots, 5 column means of h, Adam's ~12 operations an element;
+    # h read and written, w, m and v read and written once (7.9 MB, which
+    # L2 holds: the bound is the operations')
+    flops = n_dots * dot_flops + probes.N_BUF * R * Wd + 12 * n_w
+    bound = _bound(flops, 4 * (2 * R * Wd + 6 * n_w), 1, losses_per_step=0)
+    t5_plain = {}
+    for interleave in (False, True):
+        kb = t5.inputs(dev)
+        t5_plain[interleave] = per_step_ms(lambda n, kb=kb, i=interleave:
+                                           probes.plain_adam_overlap_chunk(
+                                               *kb, n_steps=n, interleave=i))
+    print(f"card: {smi}")
+    print(f"T5 plain: tail {t5_plain[False]:.3f} ms/step, interleaved {t5_plain[True]:.3f} "
+          f"ms/step; bound {bound['bound_ms'] * 1e3:.3f} us/step ({bound['bound_by']}, "
+          f"{flops / 1e6:.1f} MFLOP)")
+    for interleave, label in ((False, "tail"), (True, "interleaved")):
+        records.append({
+            "name": f"chain_phase_kernel (T5, Adam {label})", "route": "cuda",
+            "source": "vae_training_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/probe_adam_overlap.py:110", "launches": t5_launches,
+            "max_abs_err": t5_err[interleave],
+            "ms": min(t5_report["us_per_step"][label]) / 1e3, "plain_ms": t5_plain[interleave],
+            **bound, "library_ms": None, "interleaved_over_tail": t5_report["ratio"]})
+
+    # --- 29 -------------------------------------------------------------------
+    phase(29, "T2: one (128x256)·(256x256) dot in fp32, TF32 and bf16 modes against the "
+              "plain versions and a float64 host product; library times")
+    reset_counts()
+    t2_report = t2.main(["--device", "cuda", "--seconds", "0.25"])
+    t2_launches = probes.dot_modes.launches
+    require(t2_launches > 0, "T2's kernel launched in the tool's run")
+    M, K, N = t2.M, t2.K, t2.N
+    us = t2_report["us"]
+    for mode, peak in (("fp32", FP32_PEAK), ("tf32", TF32_PEAK), ("bf16", BF16_PEAK)):
+        bound = _bound(2 * M * K * N, 4 * (M * K + K * N + M * N), 1, losses_per_step=0,
+                       peak=peak)
+        print(f"T2 {mode}: kernel {us[(mode, 'kernel')]:.3f} us, bound "
+              f"{bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']}); max error vs float64 "
+              f"{t2_report['err'][mode]:.3e}")
+        records.append({
+            "name": f"dot_kernel (T2, {mode})", "route": "cuda",
+            "source": "vae_training_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/check_precision.py:43", "launches": t2_launches,
+            "max_abs_err": t2_report["vs_plain"][mode], "ms": us[(mode, "kernel")] / 1e3,
+            "plain_ms": us[(mode, "plain")] / 1e3, **bound,
+            "library_ms": us[(mode, "library")] / 1e3,
+            "max_err_vs_float64": t2_report["err"][mode]})
+
+    # --- 30 -------------------------------------------------------------------
+    phase(30, "T1: the statistical battery of the kernels' sampler (philox_normals_kernel)")
+    words, normals = k1.sampler_check(16384, 32, 0, 0, 12345, dev)
+    ref = rng.words(12345, 0, 16384, 0, 32, device=dev)
+    require(torch.equal(words, ref), "sampler words bitwise at the battery's shape")
+    t1_err = float((normals - rng.box_muller(ref)).abs().max())
+    require(t1_err <= 1e-5, f"sampler normals |Δ| {t1_err} <= 1e-5")
+    reset_counts()
+    require(t1.main(["--device", "cuda"]), "T1's battery passes on the kernel's sampler")
+    t1_launches = k1.sampler_check.launches
+    require(t1_launches > 0, "the sampler launched in the battery's run")
+    n_calls = 16384 * 32  # Philox calls of one global-battery draw (2,097,152 normals)
+    t1_ms = per_step_ms(lambda n: [k1.sampler_check(16384, 32, 0, 0, 12345, dev)
+                                   for _ in range(n)])
+    t1_plain = per_step_ms(lambda n: [rng.box_muller(rng.words(12345, 0, 16384, 0, 32, device=dev))
+                                      for _ in range(n)])
+    # a Philox call: 10 rounds of 2 wide multiplies (hi, lo) and 4 xors/adds;
+    # Box–Muller: 2 logs, 2 square roots, 2 sincos, ~40 operations; it
+    # writes 4 words and 4 normals
+    bound = _bound(n_calls * (10 * 8 + 40), n_calls * 4 * 8, 1, losses_per_step=0)
+    print(f"card: {smi}")
+    print(f"T1 sampler draw of {4 * n_calls} normals: {t1_ms * 1e3:.2f} us (wrapper, with the "
+          f"words' widening), ops/rng.py on the card {t1_plain * 1e3:.2f} us, bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    records.append({
+        "name": "philox_normals_kernel (T1 battery)", "route": "cuda",
+        "source": "vae_training_tpu_torch/csrc/linear_vae.cu",
+        "replaces": "tools/check_kernel_rng.py:80", "launches": t1_launches,
+        "max_abs_err": t1_err, "ms": t1_ms, "plain_ms": t1_plain, **bound, "library_ms": None})
+    return records
+
+
 def _ulp_keys(torch, x):
     """bfloat16 values → int32 keys monotonic in float order, 1 apart per
     ulp (tests/kernel_test_helpers.py's _bf16_ulp_keys)."""
@@ -1878,12 +2158,14 @@ def mlp_flops(batch, enc, dec, dual=False):
     return 2 * batch * (3 * macs - enc[0] * enc[1]) + 12 * n_p
 
 
-def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_step=1):
+def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_step=1,
+           peak=FP32_PEAK):
     """The least time one step could take on the card: the larger of the
-    operations over the fp32 peak and the bytes over the memory rate: the
-    state read and written once per chunk of ``steps_per_chunk`` steps, and
-    each step's losses (one a row) written."""
-    t_ops = flops_per_step / FP32_PEAK
+    operations over the peak (fp32 unless the operands are TF32 or bf16)
+    and the bytes over the memory rate: the state read and written once per
+    chunk of ``steps_per_chunk`` steps, and each step's losses (one a row)
+    written."""
+    t_ops = flops_per_step / peak
     t_bytes = (state_bytes_per_chunk / steps_per_chunk + 4 * losses_per_step) / HBM_RATE
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}

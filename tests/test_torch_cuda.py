@@ -668,3 +668,114 @@ def test_bf16_launch_is_the_f32_launch_rounded(cuda_device, kernel):
         assert torch.equal(got[mask], ref[mask].bfloat16().float())
         assert torch.equal(got[~mask], ref[~mask])
         assert not torch.equal(got[mask], ref[mask])  # the f32 launch did not round
+
+
+# --- the probes T1–T5 (csrc/probes.cu; the training kernels' sampler) -------
+# chip_smoke.py phases 26–30's tolerances: T4's identity dots are one
+# rounding each (bitwise expected, held at rtol 1e-6); T3's sums, and T4's
+# on random inputs, run in another order (rtol 1e-4, atol 1e-5); T5's h at
+# the MLP kernel's tolerance, Adam's change at rtol 1e-3 of its own size;
+# T2's products are exact, its sums in another order (rtol 1e-5, atol 1e-4).
+PROBE_H_TOL = (1e-3, 1e-5)  # the MLP kernel's params tolerance
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["phase", "cluster"])
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t4_chain_forms_match_plain(cuda_device, n_chains, form):
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.probe_mlp_interleave import inputs
+
+    xs, ws = inputs(n_chains, cuda_device)
+    kw = dict(n_steps=3, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
+    before = (probes.chain_chunk.launches, probes.chain_chunk.cluster_launches)
+    got = probes.chain_chunk(xs, ws, form=form, **kw)
+    want = probes.plain_chain_chunk(xs, ws, **kw)
+    torch.cuda.synchronize()
+    after = (probes.chain_chunk.launches, probes.chain_chunk.cluster_launches)
+    assert after[form == "cluster"] == before[form == "cluster"] + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["phase", "cluster"])
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t4_random_chain_forms_match_plain(cuda_device, n_chains, form):
+    """Random xs and ws (check_inputs), 8 dots: a transposed or permuted
+    weight slice, a misplaced exchange or a dropped term fails here."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.probe_mlp_interleave import check_inputs
+
+    xs, ws = check_inputs(n_chains, cuda_device)
+    kw = dict(n_steps=1, depth=8, weights_per_depth=False, epilogue="clamp")
+    got = probes.chain_chunk(xs, ws, form=form, **kw)
+    want = probes.plain_chain_chunk(xs, ws, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t3_chains_match_plain(cuda_device, n_chains):
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.probe_mxu_pipelining import inputs
+
+    xs, ws = inputs(n_chains, cuda_device)
+    kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
+    got = probes.chain_chunk(xs, ws, **kw)
+    want = probes.plain_chain_chunk(xs, ws, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleave", [False, True], ids=["tail", "interleaved"])
+def test_t5_adam_overlap_matches_plain(cuda_device, interleave):
+    """h at the MLP kernel's tolerance; what Adam changed in w, m and v at
+    rtol 1e-3, atol 1e-3 of the plain version's largest change, on inputs
+    where Adam's arithmetic shows. Controls: the state left as it was (Adam
+    dropped) and the other variant's plain result fail that comparison."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+
+    kb = t5.check_inputs(cuda_device)
+    pb, start, other = (tuple(t.clone() for t in kb) for _ in range(3))
+    before = probes.adam_overlap_chunk.launches
+    h = probes.adam_overlap_chunk(*kb, n_steps=3, interleave=interleave)
+    ph = probes.plain_adam_overlap_chunk(*pb, n_steps=3, interleave=interleave)
+    probes.plain_adam_overlap_chunk(*other, n_steps=3, interleave=not interleave)
+    torch.cuda.synchronize()
+    assert probes.adam_overlap_chunk.launches == before + 1
+    np.testing.assert_allclose(h.cpu().numpy(), ph.cpu().numpy(), *PROBE_H_TOL)
+    for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:], other[1:]):
+        assert t5.delta_mismatch(got, ref, s0) <= t5.DELTA_RTOL, name
+        assert t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL, name
+        assert t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "bf16"])
+def test_dot_modes_match_plain(cuda_device, mode):
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.check_precision import inputs
+
+    x, w = inputs(cuda_device)
+    got = probes.dot_modes(x, w, mode)
+    want = probes.plain_dot_modes(x, w, mode)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dot_mode_errors_are_ordered(cuda_device):
+    from vae_training_tpu_torch.tools.check_precision import check
+
+    err = check(cuda_device)["err"]
+    assert err["fp32"] < err["bf16"] / 100 and err["fp32"] < err["tf32"] < err["bf16"]
+
+
+@pytest.mark.cuda
+def test_t1_battery_passes_on_the_kernel_sampler(cuda_device):
+    from vae_training_tpu_torch.tools import check_kernel_rng as t1
+
+    assert t1.battery(t1.card_draw(cuda_device))

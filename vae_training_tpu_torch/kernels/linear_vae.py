@@ -650,7 +650,9 @@ def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
                   device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's raw sampler on the card: (rows, n_draws, 4) words (as
     int64) and normals at counters (step, row, draw, stream_id) — the
-    bitwise check of the in-kernel Philox against ``ops/rng.py``."""
+    bitwise check of the in-kernel Philox against ``ops/rng.py``, and the
+    source of T1's statistical battery (``tools/check_kernel_rng.py``).
+    ``sampler_check.launches`` counts its launches."""
     lib = _lib()
     words = torch.empty(rows, n_draws, 4, dtype=torch.int32, device=device)
     normals = torch.empty(rows, n_draws, 4, dtype=torch.float32, device=device)
@@ -659,7 +661,11 @@ def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
                              step & rng.MASK32, stream_id, k0, k1,
                              torch.cuda.current_stream(device).cuda_stream)
     _check(lib, err, "philox_normals launch")
+    sampler_check.launches += 1
     return words.to(torch.int64) & rng.MASK32, normals
+
+
+sampler_check.launches = 0
 
 
 def blocks_per_sm(smem: int, dual: bool = False) -> int:

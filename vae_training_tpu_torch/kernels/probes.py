@@ -1,0 +1,284 @@
+"""T2–T5: the probes of the MLP kernel's design — CUDA wrappers and plain
+versions.
+
+Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
+
+- T4, ``tools/probe_mlp_interleave.py:62`` (``run`` → ``_chain_kernel``):
+  ``chain_chunk`` with identity-like weights, ``min(·, 8)`` after each dot,
+  in two forms: ``"phase"`` (the MLP kernel's design: one cooperative
+  launch, a grid-wide phase a dot) and ``"cluster"`` (a 4-CTA cluster a
+  chain, W and h in shared memory, no grid barrier);
+- T3, ``tools/probe_mxu_pipelining.py:82`` (``run`` → ``make_kernel``):
+  ``chain_chunk`` with ``weights_per_depth`` (8 distinct weights a chain)
+  and ``epilogue="renorm"``;
+- T5, ``tools/probe_adam_overlap.py:110`` (``run`` → ``_kernel``):
+  ``adam_overlap_chunk``, 25 dots and Adam on 5 buffers, in a tail or
+  interleaved;
+- T2, ``tools/check_precision.py:43`` (``check_dot_modes`` → ``mk``):
+  ``dot_modes``, one dot in fp32, TF32 or bf16 tensor-core operands.
+
+The kernels are ``csrc/probes.cu``. Each wrapper launches its kernel for
+CUDA tensors and raises if it cannot; for CPU tensors (and only for them) it
+runs its plain PyTorch version, which repeats the tool's math step by step
+(``torch.matmul`` for the dots). Each wrapper counts its launches in
+``.launches`` (``chain_chunk.cluster_launches`` for the cluster form).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .linear_vae import _require
+
+ROWS = 104  # the sphere sweep's batch 100, rounded to 8 (the tools' ROWS / M)
+W = 256  # its hidden width 200, rounded to 256 (the tools' W / K / N)
+T4_DEPTH = 24  # dependent dots a step (probe_mlp_interleave.DEPTH)
+T3_DEPTH = 8  # distinct weights a chain (probe_mxu_pipelining.DEPTH)
+N_BUF, DOTS_PER_BUF = 5, 5  # probe_adam_overlap's weight buffers and dots a buffer
+B1, B2, EPS = 0.9, 0.999, 1e-8
+ADAM_LR = 1e-9  # probe_adam_overlap's learning rate
+CLAMP = 8.0
+MAX_CHAINS = 4
+EPILOGUES = {"clamp": 0, "renorm": 1}
+FORMS = ("phase", "cluster")
+MODES = {"fp32": 0, "tf32": 1, "bf16": 2}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+
+        lib = load_library("probes")[0]
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.probes_error_string.argtypes = [i32]
+        lib.probes_error_string.restype = ctypes.c_char_p
+        lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+        lib.probes_chain_phase.restype = i32
+        lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 3 + [vp]
+        lib.probes_chain_cluster.restype = i32
+        lib.probes_dot.argtypes = [vp] * 3 + [i32] * 4 + [vp]
+        lib.probes_dot.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} "
+                           f"({lib.probes_error_string(err).decode()})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form) -> int:
+    if xs.dim() != 3 or tuple(xs.shape[1:]) != (ROWS, W) or not 1 <= xs.shape[0] <= MAX_CHAINS:
+        raise ValueError(f"xs must be (chains ≤ {MAX_CHAINS}, {ROWS}, {W}), got "
+                         f"{tuple(xs.shape)}")
+    n = xs.shape[0]
+    want = (n, depth * W if weights_per_depth else W, W)
+    if tuple(ws.shape) != want:
+        raise ValueError(f"ws must be {want}, got {tuple(ws.shape)}")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, got {epilogue!r}")
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if form == "cluster" and (weights_per_depth or epilogue != "clamp"):
+        raise ValueError("the cluster form is T4's: one weight a chain, the clamp epilogue")
+    return n
+
+
+def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
+                weights_per_depth: bool, epilogue: str, form: str = "phase") -> torch.Tensor:
+    """``n_steps`` trips of ``depth`` dependent dots h ← h·W on each of the
+    chains ``xs`` (chains, ROWS, W); returns the final h. ``ws`` is one
+    (W, W) weight a chain, or with ``weights_per_depth`` ``depth`` of them
+    stacked, (depth·W, W), dot d using rows d·W..(d+1)·W (T3). ``epilogue``
+    "clamp" takes min(·, 8) after every dot (T4); "renorm" scales each
+    chain's h by 1/max(max|h|, 1e-6) after each trip (T3). ``form``
+    "cluster" is T4's second kernel."""
+    n = _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form)
+    if xs.device.type == "cpu":
+        return plain_chain_chunk(xs, ws, n_steps=n_steps, depth=depth,
+                                 weights_per_depth=weights_per_depth, epilogue=epilogue)
+    if xs.device.type != "cuda":
+        raise ValueError(f"chain_chunk takes CPU or CUDA tensors, got {xs.device}")
+    device = xs.device
+    _require(xs, "xs", device)
+    _require(ws, "ws", device)
+    if n_steps < 1 or depth < 1:
+        raise ValueError(f"n_steps and depth must be ≥ 1, got {n_steps} and {depth}")
+    lib = _lib()
+    if form == "cluster":
+        out = torch.empty_like(xs)
+        err = lib.probes_chain_cluster(xs.data_ptr(), ws.data_ptr(), out.data_ptr(), n,
+                                       n_steps, depth, _stream(device))
+        _check(lib, err, "probes_chain_cluster launch")
+        chain_chunk.cluster_launches += 1
+        return out
+    h = torch.empty(2, *xs.shape, dtype=torch.float32, device=device)
+    h[0].copy_(xs)
+    maxbits = torch.zeros(2 * n, dtype=torch.int32, device=device)
+    err = lib.probes_chain_phase(h.data_ptr(), ws.data_ptr(), None, None, maxbits.data_ptr(), n,
+                                 n_steps, depth, 1 if weights_per_depth else depth,
+                                 EPILOGUES[epilogue], 0, 0, _stream(device))
+    _check(lib, err, "probes_chain_phase launch")
+    chain_chunk.launches += 1
+    return h[(n_steps * depth) % 2]
+
+
+chain_chunk.launches = 0
+chain_chunk.cluster_launches = 0
+
+
+def plain_chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
+                      weights_per_depth: bool, epilogue: str) -> torch.Tensor:
+    """The plain PyTorch version of ``chain_chunk`` (either form): the
+    tools' loops, one batched ``torch.matmul`` a dot over the chains."""
+    h = xs.clone()
+    for _ in range(n_steps):
+        for d in range(depth):
+            h = torch.matmul(h, ws[:, d * W:(d + 1) * W] if weights_per_depth else ws)
+            if epilogue == "clamp":
+                h = torch.clamp(h, max=CLAMP)
+        if epilogue == "renorm":
+            top = h.abs().amax(dim=(1, 2), keepdim=True)
+            h = h * (1.0 / torch.clamp(top, min=1e-6))
+    return h
+
+
+def _adam_shapes(x, ws, ms, vs) -> None:
+    if tuple(x.shape) != (ROWS, W):
+        raise ValueError(f"x must be ({ROWS}, {W}), got {tuple(x.shape)}")
+    for t, name in ((ws, "ws"), (ms, "ms"), (vs, "vs")):
+        if tuple(t.shape) != (N_BUF, W, W):
+            raise ValueError(f"{name} must be ({N_BUF}, {W}, {W}), got {tuple(t.shape)}")
+
+
+def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: torch.Tensor,
+                       *, n_steps: int, interleave: bool, t0: int = 0) -> torch.Tensor:
+    """T5: ``n_steps`` steps of 25 dependent dots (buffer d of ``ws`` for
+    dots 5d..5d+4, min(·, 8) after each) and Adam on every buffer, the
+    gradient of buffer d being the column mean of h broadcast down the rows
+    ·1e-6(d + 1), at lr ADAM_LR. ``interleave`` False: every Adam after the
+    25th dot (from the final h); True: buffer d's after dot 5d+4 (from h
+    there). ``ws``, ``ms`` and ``vs`` (N_BUF, W, W) are updated in place;
+    returns h. Adam's t is t0 + step + 1."""
+    _adam_shapes(x, ws, ms, vs)
+    kw = dict(n_steps=n_steps, interleave=interleave, t0=t0)
+    if x.device.type == "cpu":
+        return plain_adam_overlap_chunk(x, ws, ms, vs, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"adam_overlap_chunk takes CPU or CUDA tensors, got {x.device}")
+    device = x.device
+    for t, name in ((x, "x"), (ws, "ws"), (ms, "ms"), (vs, "vs")):
+        _require(t, name, device)
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be ≥ 1, got {n_steps}")
+    lib = _lib()
+    h = torch.empty(2, 1, ROWS, W, dtype=torch.float32, device=device)
+    h[0, 0].copy_(x)
+    depth = N_BUF * DOTS_PER_BUF
+    err = lib.probes_chain_phase(h.data_ptr(), ws.data_ptr(), ms.data_ptr(), vs.data_ptr(),
+                                 None, 1, n_steps, depth, DOTS_PER_BUF, EPILOGUES["clamp"],
+                                 2 if interleave else 1, t0, _stream(device))
+    _check(lib, err, "probes_chain_phase (Adam) launch")
+    adam_overlap_chunk.launches += 1
+    return h[(n_steps * depth) % 2, 0]
+
+
+adam_overlap_chunk.launches = 0
+
+
+def plain_adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor,
+                             vs: torch.Tensor, *, n_steps: int, interleave: bool,
+                             t0: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of ``adam_overlap_chunk``, in place. The
+    bias corrections 1 − βᵗ are taken in double and rounded to float32, as
+    the kernel (and ``csrc/mlp_vae.cu``) does; the tool takes
+    exp(t·log β) in float32."""
+    f32 = np.float32
+
+    def adam_(d, h, bc1, bc2):
+        g = h.mean(dim=0).expand(W, W) * float(f32(1e-6 * (d + 1)))
+        ms[d].copy_(B1 * ms[d] + (1.0 - B1) * g)
+        vs[d].copy_(B2 * vs[d] + (1.0 - B2) * g * g)
+        bc2_sqrt = np.sqrt(bc2)
+        lr_t = f32(ADAM_LR) * bc2_sqrt / bc1
+        ws[d].sub_(float(lr_t) * ms[d] / (vs[d].sqrt() + float(f32(EPS) * bc2_sqrt)))
+
+    h = x.clone()
+    for it in range(n_steps):
+        t = t0 + it + 1
+        bc1, bc2 = f32(1.0 - 0.9 ** t), f32(1.0 - 0.999 ** t)
+        for d in range(N_BUF):
+            for _ in range(DOTS_PER_BUF):
+                h = torch.clamp(torch.matmul(h, ws[d]), max=CLAMP)
+            if interleave:
+                adam_(d, h, bc1, bc2)
+        if not interleave:
+            for d in range(N_BUF):
+                adam_(d, h, bc1, bc2)
+    return h
+
+
+def dot_modes(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """T2: x (M, K) · w (K, N) with fp32 FMAs ("fp32"), or on the tensor
+    cores with operands rounded to TF32 ("tf32", nearest, ties away) or to
+    bfloat16 ("bf16", nearest even), summed in float32. M a multiple of 16,
+    N of 8, K of 16."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"x (M, K) and w (K, N) expected, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if x.device.type == "cpu":
+        return plain_dot_modes(x, w, mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"dot_modes takes CPU or CUDA tensors, got {x.device}")
+    (M, K), N = x.shape, w.shape[1]
+    if M % 16 or N % 8 or K % 16:
+        raise ValueError(f"M must be a multiple of 16, N of 8 and K of 16, got {M}, {N}, {K}")
+    device = x.device
+    _require(x, "x", device)
+    _require(w, "w", device)
+    out = torch.empty(M, N, dtype=torch.float32, device=device)
+    lib = _lib()
+    err = lib.probes_dot(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MODES[mode],
+                         _stream(device))
+    _check(lib, err, f"probes_dot ({mode}) launch")
+    dot_modes.launches += 1
+    return out
+
+
+dot_modes.launches = 0
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 → the nearest TF32 value (10 mantissa bits; ties away from
+    zero, as ``cvt.rna.tf32.f32``), on the float's bits; non-finite values
+    pass through."""
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & -0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), (mag | sign).view(torch.float32), x)
+
+
+def plain_dot_modes(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The plain PyTorch version of ``dot_modes``: the operands rounded as
+    the mode rounds them, then a float32 ``torch.matmul`` (products of TF32
+    or bfloat16 values are exact in float32; only the order of the sums
+    differs from the kernel's)."""
+    if mode == "tf32":
+        x, w = round_tf32(x), round_tf32(w)
+    elif mode == "bf16":
+        x, w = x.bfloat16().float(), w.bfloat16().float()
+    return torch.matmul(x, w)

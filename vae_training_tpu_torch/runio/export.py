@@ -17,10 +17,13 @@ conversion only flattens the tree into dotted names.
 
 Under ``--adam_dtype bf16`` the port writes its bfloat16 moments as float32
 arrays holding the same values (exact): numpy has no bfloat16 of its own,
-the JAX package's ``ml_dtypes.bfloat16`` arrays
+and the JAX package's ``ml_dtypes.bfloat16`` arrays
 (``vae_training_tpu/runio/export.py:54``) need a package the port does not
-depend on, and so ``load_model_pkl`` of such a file gives float32 moments.
-A JAX package's bfloat16 leaf converts to a bfloat16 tensor, bit for bit.
+depend on. So ``load_model_pkl`` of the port's file gives float32 moments,
+and it reads a JAX bf16 run's file without ``ml_dtypes``: its unpickler
+takes the ``ml_dtypes.bfloat16`` dtype as ``numpy.uint16``, which loads the
+same 16-bit patterns, and ``state_from_flax`` turns them into bfloat16
+tensors of the same bits.
 """
 
 from __future__ import annotations
@@ -83,13 +86,20 @@ def state_from_flax(params_np, mu_np, nu_np, count: int, *, data_seed: int = 0,
                     model_seed: int = 0) -> TrainState:
     """The JAX package's params and optax Adam moments (nested numpy trees
     with flax names) → a port TrainState computing the same thing (at step
-    ``count``; the run seeds are the caller's). A bfloat16 leaf (the JAX
-    package's ``--adam_dtype bf16`` moments) becomes a bfloat16 tensor of
-    the same bits: widened to float32 (exact), then narrowed back."""
+    ``count``; the run seeds are the caller's). Leaves are float32 (float64
+    is narrowed), or bfloat16: the JAX package's ``--adam_dtype bf16``
+    moments, either as ``ml_dtypes.bfloat16`` arrays or as the ``uint16``
+    bit patterns ``load_model_pkl`` reads them as (a model.pkl has no other
+    16-bit leaves). Both become bfloat16 tensors of the same bits. Any other
+    dtype raises."""
 
     def tensor(a):
-        t = torch.tensor(np.asarray(a, np.float32))
-        return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
+        if a.dtype.name in ("bfloat16", "uint16"):
+            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        if a.dtype not in (np.float32, np.float64):
+            raise TypeError(f"model state leaf of dtype {a.dtype}: expected float32, "
+                            f"or bfloat16 moments (uint16 bit patterns)")
+        return torch.tensor(np.asarray(a, np.float32))
 
     flat = lambda tree: {k: tensor(a) for k, a in _flatten(tree).items()}  # noqa: E731
     return TrainState(params=flat(params_np), m=flat(mu_np), v=flat(nu_np),
@@ -114,8 +124,22 @@ def save_model_pkl(path: str, state: TrainState) -> None:
         pickle.dump(to_reference_state_dict(state), f)
 
 
+class _Unpickler(pickle.Unpickler):
+    """``pickle.Unpickler`` that needs no ``ml_dtypes``: the dtype of a JAX
+    bf16 run's moments, ``numpy.dtype(ml_dtypes.bfloat16)``, loads as
+    ``numpy.dtype(numpy.uint16)``, so those arrays keep their 16-bit
+    patterns (bfloat16 and uint16 are both two bytes, little-endian)."""
+
+    def find_class(self, module, name):
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return np.uint16
+        return super().find_class(module, name)
+
+
 def load_model_pkl(path: str) -> TrainState:
-    """A model.pkl written by either package, as a port TrainState."""
+    """A model.pkl written by either package, as a port TrainState; a JAX
+    ``--adam_dtype bf16`` run's bfloat16 moments load bit for bit, with or
+    without ``ml_dtypes`` installed."""
     with open(path, "rb") as f:
-        sd = pickle.load(f)
+        sd = _Unpickler(f).load()
     return from_reference_state_dict(sd)

@@ -1,0 +1,95 @@
+"""What the probes share: the device flag, the card's name, and timing.
+
+A time is one window of at least ``min_seconds``, after a warm-up window
+of the same size: on a CUDA device with CUDA events around the window and a
+sync after every call, so the queue never runs ahead of the window (as
+``chip_smoke.py`` times the kernels); on the CPU with the host clock, and
+then it is no device number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from typing import Callable, Tuple
+
+import torch
+
+
+def parser(description: str, timed: bool = True) -> argparse.ArgumentParser:
+    """``--device``, and for a tool that times, ``--seconds``."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (the default) runs the CUDA kernels; cpu their plain "
+                        "PyTorch versions")
+    if timed:
+        p.add_argument("--seconds", type=float, default=1.0,
+                       help="the least length of each timed window (default 1 s)")
+    return p
+
+
+def device_from(name: str) -> torch.device:
+    """``--device`` as a torch device; cuda without a GPU is an error."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available "
+                           "(pass --device cpu to run the plain versions on the CPU)")
+    return torch.device(name)
+
+
+def card(device: torch.device) -> str:
+    """The card's name and power limit, as nvidia-smi prints them; for the
+    CPU a line that says its times are the host's."""
+    if device.type != "cuda":
+        return "cpu (host-clock times of the plain versions, not device numbers)"
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()
+        return out[torch.cuda.current_device()] if out else torch.cuda.get_device_name()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name()} (power limit not read)"
+
+
+def _window(launch: Callable[[int], object], n: int, min_seconds: float,
+            device: torch.device) -> Tuple[float, int]:
+    """Seconds of ``calls`` calls of ``launch(n)`` lasting ≥ min_seconds."""
+    calls = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        while True:
+            launch(n)
+            calls += 1
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+            if seconds >= min_seconds:
+                return seconds, calls
+    t0 = time.perf_counter()
+    while True:
+        launch(n)
+        calls += 1
+        seconds = time.perf_counter() - t0
+        if seconds >= min_seconds:
+            return seconds, calls
+
+
+def seconds_per_step(launch: Callable[[int], object], device: torch.device,
+                     min_seconds: float = 1.0) -> Tuple[float, int]:
+    """Time ``launch(n)``, which runs n steps. The steps a call are sized
+    so a call lasts about a quarter of the window (from calls of 1, 2, 4,
+    ... steps); then one warm-up window and one timed window. Returns
+    (seconds a step, steps a call)."""
+    n, target = 1, min_seconds / 4
+    while True:
+        seconds, _ = _window(launch, n, 0.0, device)
+        if seconds >= target / 8 or n >= 1 << 24:
+            break
+        n *= 2 if seconds <= 0 else max(2, min(64, int(target / 8 / seconds) + 1))
+    n = max(1, int(round(n * target / max(seconds, 1e-9))))
+    _window(launch, n, min_seconds, device)  # warm-up
+    seconds, calls = _window(launch, n, min_seconds, device)
+    return seconds / (calls * n), n

@@ -1,0 +1,137 @@
+"""T2 on the card: what the dot modes cost in accuracy and time.
+
+Counterpart of ``tools/check_precision.py:check_dot_modes``. On the TPU a
+default f32 dot is single-pass bf16 and ``Precision.HIGHEST`` recovers
+fp32. Hopper has no such implicit default, so the port's modes are: fp32
+(one thread an output, a fmaf chain: the port's kernels today, the analog
+of HIGHEST), tf32 (tensor cores, operands rounded to TF32) and bf16
+(tensor cores, operands rounded to bfloat16: the tool's "cast"). One
+(128×256)·(256×256) dot with N(0,1) operands (numpy seeds 0 and 1) in
+each mode (``csrc/probes.cu``), against a float64 host product:
+
+- each mode equals its plain version (rtol 1e-5, atol 1e-4: the products
+  are exact, the sums are in another order);
+- fp32's max error is under bf16's / 100 (the tool's HIGHEST check);
+- TF32's lies between fp32's and bf16's.
+
+Also times each mode, its plain version, and the same dot as one
+``torch.matmul`` in fp32, in TF32 (``allow_tf32`` for that call only) and
+on bf16 operands (the library's yardsticks).
+
+    python -m vae_training_tpu_torch.tools.check_precision [--device cuda|cpu]
+
+Its second half, ``check_kernel_divergence``, waits for the port's bench
+and a kernel that reads ``--precision`` (ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import probes
+from ._common import card, device_from, parser, seconds_per_step
+
+M, K, N = 128, 256, 256
+
+
+def inputs(device) -> tuple:
+    x = np.random.RandomState(0).randn(M, K).astype(np.float32)
+    w = np.random.RandomState(1).randn(K, N).astype(np.float32)
+    return torch.as_tensor(x, device=device), torch.as_tensor(w, device=device)
+
+
+@contextlib.contextmanager
+def tf32_matmul(on: bool):
+    """``torch.backends.cuda.matmul.allow_tf32`` set for one call."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def library_call(mode: str, x: torch.Tensor, w: torch.Tensor):
+    """One ``torch.matmul`` computing the mode's dot (bf16: on bf16
+    operands, which also rounds the output to bf16)."""
+    if mode == "bf16":
+        xb, wb = x.bfloat16(), w.bfloat16()
+        return lambda: torch.matmul(xb, wb)
+
+    def call():
+        with tf32_matmul(mode == "tf32"):
+            return torch.matmul(x, w)
+    return call
+
+
+def check(device: torch.device) -> dict:
+    """Each mode against its plain version and the float64 host product;
+    raises on a failed check. Returns the errors."""
+    x, w = inputs(device)
+    ref = x.double().cpu() @ w.double().cpu()
+    err, vs_plain = {}, {}
+    with tf32_matmul(False):
+        for mode in probes.MODES:
+            out = probes.dot_modes(x, w, mode)
+            plain = probes.plain_dot_modes(x, w, mode)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            out, plain = out.cpu(), plain.cpu()
+            if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (M, N):
+                raise RuntimeError(f"{mode}: output not finite or not ({M}, {N})")
+            np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-5, atol=1e-4,
+                                       err_msg=f"dot_modes {mode} vs its plain version")
+            vs_plain[mode] = float((out - plain).abs().max())
+            err[mode] = float((out.double() - ref).abs().max())
+            print(f"{mode:5s} vs host float64 maxdiff: {err[mode]:.3e}; vs its plain version "
+                  f"{vs_plain[mode]:.3e}")
+    if not err["fp32"] < err["bf16"] / 100:
+        raise RuntimeError(f"fp32 error {err['fp32']:.3e} is not under bf16's / 100")
+    if not err["fp32"] < err["tf32"] < err["bf16"]:
+        raise RuntimeError(f"tf32 error {err['tf32']:.3e} does not lie between fp32's "
+                           f"{err['fp32']:.3e} and bf16's {err['bf16']:.3e}")
+    print("dot modes: OK (fp32 < bf16/100; fp32 < tf32 < bf16)")
+    return {"err": err, "vs_plain": vs_plain}
+
+
+def times(device: torch.device, min_seconds: float) -> dict:
+    """µs a call of each mode's kernel, plain version and library call."""
+    x, w = inputs(device)
+    out = {}
+    with tf32_matmul(False):
+        for mode in probes.MODES:
+            lib = library_call(mode, x, w)
+            for label, fn in (("kernel", lambda m=mode: probes.dot_modes(x, w, m)),
+                              ("plain", lambda m=mode: probes.plain_dot_modes(x, w, m)),
+                              ("library", lib)):
+                def launch(n, fn=fn):
+                    for _ in range(n):
+                        fn()
+                out[(mode, label)] = seconds_per_step(launch, device, min_seconds)[0] * 1e6
+            print(f"{mode:5s}: kernel {out[(mode, 'kernel')]:.3f} us, plain "
+                  f"{out[(mode, 'plain')]:.3f} us, torch.matmul {out[(mode, 'library')]:.3f} us")
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parser(__doc__.splitlines()[0]).parse_args(argv)
+    device = device_from(args.device)
+    print(f"card: {card(device)}")
+    report = check(device)
+    report["us"] = times(device, args.seconds)
+    print("RESULT: PASS")
+    return report
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except (RuntimeError, AssertionError) as e:
+        print(f"RESULT: FAIL ({e})")
+        sys.exit(1)
+    sys.exit(0)
