@@ -16,7 +16,8 @@ the grid mode of the MLP kernel, and sigmoid MLPs with the dual decoder
 through K5-dual, the MLP kernel's dual branch; then all of them again with
 bf16 Adam moments (K4, --adam_dtype bf16); then the probes T1–T5, each
 through its tool's entry point (vae_training_tpu_torch/tools/), on
-csrc/probes.cu and, for T1, the training kernels' sampler. Thirty phases:
+csrc/probes.cu and, for T1, the training kernels' sampler; last, the MLP kernel's step
+split into its parts. Thirty-one phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -31,7 +32,10 @@ csrc/probes.cu and, for T1, the training kernels' sampler. Thirty phases:
      and the eval loss and padding norm must fall;
   6. resume: 7000 steps, then --resume to 12000, equal to phase 5 bitwise;
   7. times: kernel and torch-path steps/s at the slice's shapes;
-  8. the MLP library's registers and spills, and K5's cooperative grid;
+  8. the MLP library's registers and spills, its cluster plan (one cluster
+     a row, of 16 CTAs where that takes no more turns than 8; at 1, 7, 15
+     and 20 rows) and its shared memory a CTA at every sweep shape on both
+     cluster sizes, equal to kernels/mlp_vae.py's planner;
   9. K2 against its plain version at sigmoid row 1 (64 steps, external
      noise and in-kernel sampling, -tdv on and off; K1's tolerances) and a
      40 = 15 + 25 chunk split bitwise;
@@ -108,6 +112,13 @@ csrc/probes.cu and, for T1, the training kernels' sampler. Thirty phases:
      bf16's / 100, TF32's between), with torch.matmul's times;
  30. T1: the sampler's statistical battery (chi-squared, lags 1-4, the four
      streams, 16 grid row keys).
+
+ 31. the MLP kernel's step at sphere row 1 split by timing variants that
+     leave parts out: the layer sums, the operand stages, Adam, everything
+     but the cluster barriers (windows of at least 1 s); the step on
+     clusters of 8 beside the launch's 16; and 16 steps on clusters of 8
+     equal to 16 steps on clusters of 16 bitwise, solo and dual, f32 and
+     bf16 moments.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -395,6 +406,7 @@ def main() -> int:
     records += _mlp_grids(torch, np, smi, os.path.join(sweeps_dir, "main_K5"), data_dir)
     records += _bf16_moments(torch, np, smi, os.path.join(data_dir, "bf16"))
     records += _probes(torch, np, smi)
+    _mlp_split(torch, np, smi)
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -425,12 +437,33 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
     data_seed, model_seed = rng.derive_seed(69, rng.SEED_TRAIN_DATA), rng.derive_seed(0, rng.SEED_TRAIN_Z)
 
     # --- 8 ---------------------------------------------------------------
-    phase(8, "the MLP library (K5)")
+    phase(8, "the MLP library (K5): registers, cluster plan, shared memory")
     _print_ptxas(mlp_build)
-    for n_rows in (1, 15):
-        blocks, per_sm = k5.grid(n_rows)
-        print(f"MLP kernel's cooperative grid at {n_rows} row(s): {blocks} blocks of "
-              f"{k5.THREADS} threads, one per SM (up to {per_sm} per SM would fit)")
+    shapes = [(f"sphere {dd}|{pd}|{ld}", (dd + pd, *SPH_ENC[1:-1], ld), (ld, *SPH_ENC[1:-1], dd + pd),
+               False) for dd, pd, ld in ((3, 3, 6), (3, 13, 8), (5, 16, 16), (5, 5, 10), (7, 7, 13))]
+    shapes += [("sigmoid-MLP row 1", (SIG_D, 200, 200, 200, SIG_L), (SIG_L, 200, 200, 200, SIG_D),
+                True), ("linear_gaussian 64|64", (12, 64, 64, 20), (20, 64, 64, 12), False)]
+    smem = {k5.CLUSTER: 0, k5.CLUSTER_WIDE: 0}
+    for label, enc, dec, dual in shapes:
+        for size in smem:
+            need = k5.smem_bytes(B, enc, dec, dual, size)
+            require(k5.library_smem_bytes(B, enc, dec, dual, size) == need,
+                    f"{label}: the library's shared memory a CTA equals kernels/mlp_vae.py's")
+            require(0 < need <= k5.SMEM_MAX, f"{label}: {need} B a CTA fits {k5.SMEM_MAX} B")
+            smem[size] = max(smem[size], need)
+        print(f"{label}: " + ", ".join(f"{k5.smem_bytes(B, enc, dec, dual, size)} B" for size in smem)
+              + " of shared memory a CTA on clusters of " + " and ".join(map(str, smem))
+              + " (library and planner agree)")
+    most = {size: k5.grid(1, smem, size)["max_clusters"] for size in smem}
+    for n_rows in (1, 7, 15, 20):
+        plan = k5.grid(n_rows, smem)
+        turns = max(t for _, t in k5.cluster_plan(n_rows, plan["max_clusters"])) + 1
+        print(f"MLP kernel's cluster plan at {n_rows} row(s): {plan['clusters']} clusters of "
+              f"{plan['cluster_size']} CTAs x {k5.THREADS} threads ({plan['max_clusters']} fit "
+              f"at once), {turns} row(s) a cluster in turn")
+        require(plan["cluster_size"] == k5.cluster_size(n_rows, most),
+                "the cluster size the planner picks for the rows")
+        require(plan["clusters"] == min(n_rows, plan["max_clusters"]), "one cluster a row")
 
     # --- 9 ---------------------------------------------------------------
     phase(9, "K2 vs its plain PyTorch version at sigmoid row 1 (64 steps)")
@@ -604,6 +637,8 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
                 "replaces": "vae_training_tpu/kernels/linear_vae.py:678",
                 "launches": launches["K2"], "max_abs_err": k2_err})
         else:
+            print(f"K5's products as 3xTF32 passes on the tensor cores (a mode this kernel does "
+                  f"not have): {mlp_pass_ms(B, SPH_ENC, SPH_DEC) * 1e3:.4f} us/step")
             records.append({
                 "name": "mlp_vae_chunk (K5)", "route": "cuda",
                 "source": "vae_training_tpu_torch/csrc/mlp_vae.cu",
@@ -612,7 +647,7 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
         records[-1].update({"ms": 1e3 / k_rate, "plain_ms": 1e3 / p_rate, **bound,
                             "library_ms": None})
 
-    # K5's floor: the same 17 phases and grid barriers a step at 8|8|8
+    # K5's floor: the same 17 phases and cluster barriers a step at 8|8|8
     # widths, where the layers' work is ~1% of the sphere row's
     tiny = (6, 8, 8, 8, 6)
     kb = k5_state(True, tiny, tiny)
@@ -620,7 +655,7 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
         *kb, None, n_steps=1000, batch=B, enc_widths=tiny, dec_widths=tiny, kind="sphere",
         intrinsic_dim=SPH_DD, manifold_dim=SPH_DD, step0=0, t0=0, data_seed=data_seed,
         model_seed=model_seed, var_added=0.0, eps_const=-3.0, tdv=True, lr=1e-4), 1000)
-    print(f"K5 at 8|8|8 widths (the same 17 barriers a step): {rate:.1f} steps/s "
+    print(f"K5 at 8|8|8 widths (the same 17 cluster barriers a step): {rate:.1f} steps/s "
           f"({1e3 / rate:.5f} ms/step)")
     return records
 
@@ -1185,8 +1220,10 @@ def _mlp_grids(torch, np, smi, solo_sphere_dir, data_dir):
           f"{rates['solo2'] * n_rows:.1f} row-steps/s (K6b {g_rate / s_rate:.2f}x)")
     print(f"plain_grid_chunk: {rates['plain']:.3f} / {rates['plain2']:.3f} launch-steps/s "
           f"({1e3 / p_rate:.3f} ms a launch-step)")
+    passes = sum(mlp_pass_ms(B, e, d) for e, d in widths)
     print(f"K6b bound {bound['bound_ms'] * 1e3:.4f} us a launch-step ({bound['bound_by']}; "
-          f"{flops / 1e6:.3f} MFLOP), kernel at {bound['bound_ms'] * g_rate / 10:.4f}% of it")
+          f"{flops / 1e6:.3f} MFLOP), kernel at {bound['bound_ms'] * g_rate / 10:.4f}% of it; "
+          f"as 3xTF32 passes (not this kernel's mode) {passes * 1e3:.4f} us")
     records.append({
         "name": f"mlp_vae_chunk grid (K6b), sphere sweep, {n_rows} rows", "route": "cuda",
         "source": "vae_training_tpu_torch/csrc/mlp_vae.cu",
@@ -1230,8 +1267,10 @@ def _mlp_grids(torch, np, smi, solo_sphere_dir, data_dir):
           f"({1e3 / k_rate:.5f} ms/step, {k_steps}-step launches)")
     print(f"torch path: {rates['plain']:.1f} / {rates['plain2']:.1f} steps/s "
           f"({1e3 / p_rate:.5f} ms/step)")
+    passes = mlp_pass_ms(B, enc, dec, dual=True)
     print(f"K5-dual bound {bound['bound_ms'] * 1e3:.4f} us/step ({bound['bound_by']}; "
-          f"{flops / 1e6:.3f} MFLOP/step), kernel at {bound['bound_ms'] * k_rate / 10:.3f}% of it")
+          f"{flops / 1e6:.3f} MFLOP/step), kernel at {bound['bound_ms'] * k_rate / 10:.3f}% of it; "
+          f"as 3xTF32 passes (not this kernel's mode) {passes * 1e3:.4f} us")
     records.append({
         "name": "mlp_vae_chunk dual (K5-dual)", "route": "cuda",
         "source": "vae_training_tpu_torch/csrc/mlp_vae.cu",
@@ -1995,6 +2034,99 @@ def _probes(torch, np, smi):
     return records
 
 
+def _mlp_split(torch, np, smi):
+    """Phase 31: one K5 step at sphere row 1 split into its parts by timing
+    variants of the same launch that leave parts out (``k5.SKIP``): the
+    layer sums, the operand stages, Adam, and everything but the phases'
+    cluster barriers; the whole step on clusters of 8 against the launch's
+    own choice (16 for one row); and the cluster size held to change no
+    result. Windows of at least 1 s of 500-step launches; the skip
+    variants' results are not used."""
+    from vae_training_tpu_torch.data import SigmoidDataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState
+
+    phase(31, "the MLP kernel's step at sphere row 1, split by variants that leave parts out; "
+              "clusters of 8 against 16")
+    dev = torch.device("cuda")
+
+    def sphere_bufs(dual=False):
+        d, l = (SIG_D, SIG_L) if dual else (SPH_D, SPH_L)
+        model = build_vae(data_dim=d, latent_dim=l, encoder_layer_sizes="200|200|200",
+                          decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                          tunable_decoder_var=True, dataset_name="sigmoid" if dual else None)
+        model.init_parameters(0)
+        enc, dec = (d, 200, 200, 200, l), (l, 200, 200, 200, d)
+        return k5.pack_state(TrainState.create(dict(model.named_parameters()), 0, 0).to(dev),
+                             enc, dec, dual)
+
+    bufs = sphere_bufs()
+    row = k1.GridRow(SPH_D, SPH_L, SPH_DD, SPH_DD, None, 0, 0, rng.derive_seed(69, 1),
+                     rng.derive_seed(0, 3), 0.0)
+    steps = 500
+    losses = torch.empty(1, steps, device=dev)
+
+    sig = SigmoidDataset.create(69, SIG_DD, 3, device=dev)
+    sig_row = k1.GridRow(SIG_D, SIG_L, SIG_DD, SIG_DD, sig.A, 0, 0, rng.derive_seed(69, 1),
+                         rng.derive_seed(0, 3), 0.0)
+
+    def launch(skip, cluster=0, n=steps, state=bufs, out=losses, r=row, dual=False,
+               adam_dtype="f32"):
+        k5._launch([state], out, [r], n_steps=n, batch=B, enc_hidden=SPH_ENC[1:-1],
+                   dec_hidden=SPH_DEC[1:-1], kind="sigmoid" if dual else "sphere",
+                   eps_const=-3.0, tdv=True, lr=1e-4, dual=dual, external_noise=None,
+                   adam_dtype=adam_dtype, cluster=cluster, skip=skip)
+
+    launch(0, n=1)
+    size = k5.last_launch()["cluster_size"]
+    variants = {"whole step": (0, 0), "no layer sums": (k5.SKIP["mma"], 0),
+                "no sums, no stages": (k5.SKIP["mma"] | k5.SKIP["stage"], 0),
+                "no Adam": (k5.SKIP["adam"], 0),
+                "cluster barriers only": (k5.SKIP["work"], 0),
+                "clusters of 8": (0, k5.CLUSTER)}
+    us = {}
+    for name in list(variants) + ["clusters of 8", "whole step"]:  # in turns
+        us.setdefault(name, []).append(1e6 / _steps_per_second(
+            torch, lambda v=variants[name]: launch(*v), steps))
+    t = {k: min(v) for k, v in us.items()}
+    print(f"card: {smi}")
+    print(f"one row: clusters of {size} CTAs")
+    for name, vals in us.items():
+        print(f"{name:22}: " + " / ".join(f"{x:.2f}" for x in vals) + " us a step")
+    split = {"layer sums": t["whole step"] - t["no layer sums"],
+             "operand stages": t["no layer sums"] - t["no sums, no stages"],
+             "Adam": t["whole step"] - t["no Adam"],
+             "cluster barriers": t["cluster barriers only"]}
+    split["epilogues, sampler, loss, rest"] = (t["no sums, no stages"] - split["Adam"]
+                                               - split["cluster barriers"])
+    print("split of a step: " + "; ".join(
+        f"{k} {v:.2f} us ({100 * v / t['whole step']:.1f}%)" for k, v in split.items()))
+    require(all(v > 0 for v in t.values()), "every variant ran")
+    print(f"clusters of 8 / of {size}: {t['clusters of 8'] / t['whole step']:.4f}")
+
+    # no result depends on the cluster size: 16 steps on each, bitwise
+    for dual in (False, True):
+        for adam_dtype in ("f32", "bf16"):
+            start = sphere_bufs(dual)
+            got = {}
+            for cluster in (k5.CLUSTER, k5.CLUSTER_WIDE):
+                state = tuple(t_.clone() for t_ in start)
+                out = torch.empty(1, 16, device=dev)
+                launch(0, cluster, 16, state, out, sig_row if dual else row, dual, adam_dtype)
+                require(k5.last_launch()["cluster_size"] == cluster, f"clusters of {cluster}")
+                got[cluster] = (out, *state)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got[k5.CLUSTER],
+                                                          got[k5.CLUSTER_WIDE])),
+                    f"{'K5-dual' if dual else 'K5'} {adam_dtype}: clusters of 8 and of 16 "
+                    f"train bitwise the same")
+    print("16 steps on clusters of 8 = on clusters of 16, bitwise: K5 and K5-dual, f32 and "
+          "bf16 moments")
+
+
 def _ulp_keys(torch, x):
     """bfloat16 values → int32 keys monotonic in float order, 1 apart per
     ulp (tests/kernel_test_helpers.py's _bf16_ulp_keys)."""
@@ -2156,6 +2288,20 @@ def mlp_flops(batch, enc, dec, dual=False):
     macs = sum(a * b for a, b in layers)
     n_p = macs + sum(b for _, b in layers) + enc[-1] + 1
     return 2 * batch * (3 * macs - enc[0] * enc[1]) + 12 * n_p
+
+
+def mlp_pass_ms(batch, enc, dec, dual=False, passes=3):
+    """The time in ms of one step of one row if every layer product ran as
+    ``passes`` TF32 products a term on the tensor cores (495 TFLOP/s; 3 is
+    3xTF32) and Adam's 12 operations a parameter in fp32: the bound of a
+    tensor-core design, printed beside ``_bound``'s all-fp32 bound of the
+    kernel's own FMA chains."""
+    stacks = (enc, dec, dec) if dual else (enc, dec)
+    layers = [(a, b) for w in stacks for a, b in zip(w[:-1], w[1:])]
+    macs = sum(a * b for a, b in layers)
+    n_p = macs + sum(b for _, b in layers) + enc[-1] + 1
+    products = 2 * batch * (3 * macs - enc[0] * enc[1])
+    return 1e3 * (12 * n_p / FP32_PEAK + passes * products / TF32_PEAK)
 
 
 def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_step=1,

@@ -27,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from vae_training_tpu_torch._scripts.sweep import SPHERE_GRID  # noqa: E402
 from vae_training_tpu_torch.data import (  # noqa: E402
     LinearGaussianDataset,
     SigmoidDataset,
@@ -600,6 +601,129 @@ def test_k6b_is_chunk_independent(cuda_device, adam_dtype):
     assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# --- the cluster design: ragged widths, rows past one wave, the launch ---------
+
+@pytest.mark.cuda
+@DTYPES
+def test_mlp_ragged_widths_match_plain(cuda_device, adam_dtype):
+    """Widths that fill no tile: 7|13|200 stacks at D 21, L 16 (the sphere
+    sweep's widest row), one step at a time from the kernel's state."""
+    ds = SphereDataset(5, 16, device=cuda_device)
+    enc, dec = (21, 7, 13, 200, 16), (16, 7, 13, 200, 21)
+    kb = _k5_state(cuda_device, True, enc, dec, adam_dtype)
+    layouts = [k5.param_layout(enc, dec)] if adam_dtype == "bf16" else None
+    noise = _manifold_noise(cuda_device, 8, [(21, 16, 5, None)], seed=4)[0]
+    for step in range(8):
+        pb = tuple(t.clone() for t in kb)
+        kw = dict(n_steps=1, batch=B, enc_widths=enc, dec_widths=dec, kind="sphere",
+                  intrinsic_dim=ds.intrinsic_dim, manifold_dim=ds.dim, step0=step, t0=step,
+                  data_seed=7, model_seed=8, var_added=0.0, eps_const=-3.0, tdv=True, lr=1e-3,
+                  adam_dtype=adam_dtype,
+                  external_noise=tuple(t[step:step + 1].contiguous() for t in noise)
+                  if step % 2 else None)
+        kl = k5.run_mlp_fused_chunk(*kb, None, **kw)
+        pl = k5.plain_mlp_fused_chunk(*pb, None, **kw)
+        torch.cuda.synchronize()
+        _assert_mlp_step_close(kl, pl, [kb], [pb], layouts)
+
+
+def _sphere_rows(device, n_rows):
+    """``n_rows`` rows of the sphere sweep's dims, each with its own seeds."""
+    states, rows = [], []
+    for i in range(n_rows):
+        dd, pd, ld = SPHERE_GRID[i % len(SPHERE_GRID)]
+        ds = SphereDataset(dd, pd, device=device)
+        model = build_vae(data_dim=ds.dimension, latent_dim=ld, encoder_layer_sizes="200|200|200",
+                          decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                          tunable_decoder_var=True)
+        model.init_parameters(i)
+        state = TrainState.create(dict(model.named_parameters()), rng.derive_seed(69 + i, 1),
+                                  rng.derive_seed(i, 3)).to(device)
+        states.append(state)
+        rows.append(k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim, None, 0, 0,
+                               state.data_seed, state.model_seed))
+    return states, rows
+
+
+@pytest.mark.cuda
+def test_k6b_rows_past_one_wave_equal_solo_launches_bitwise(cuda_device):
+    """20 sphere rows: more rows than clusters of 8 the card holds at once,
+    so some clusters train two rows in turn; each row is its solo launch."""
+    hidden = (200, 200, 200)
+    states, rows = _sphere_rows(cuda_device, 20)
+    kw = _mlp_grid_kw("sphere", hidden)
+    p, m, v = k5.pack_rows(states, rows, hidden, hidden)
+    losses = k5.run_grid_chunk(p, m, v, rows, n_steps=6, **kw)
+    torch.cuda.synchronize()
+    plan = k5.last_launch()
+    assert plan["clusters"] < 20, plan  # a second turn on some clusters
+    views = k5.row_views(p, m, v, rows, hidden, hidden)
+    for i, (state, r) in enumerate(zip(states, rows)):
+        enc, dec = k5.row_widths(r, hidden, hidden)
+        sp, sm, sv = k5.pack_state(state, enc, dec)
+        solo = k5.run_mlp_fused_chunk(
+            sp, sm, sv, None, n_steps=6, batch=B, enc_widths=enc, dec_widths=dec, kind="sphere",
+            intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=0, t0=0,
+            data_seed=r.data_seed, model_seed=r.model_seed, var_added=0.0, eps_const=-3.0,
+            tdv=True, lr=1e-4)
+        torch.cuda.synchronize()
+        assert torch.equal(losses[i], solo), f"row {i} losses"
+        for got, want in zip(views[i], (sp, sm, sv)):
+            assert torch.equal(got, want), f"row {i} state"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1, 3, 15])
+def test_mlp_kernel_is_a_cluster_launch(cuda_device, n_rows):
+    """The launch is one cluster a row (no cooperative launch: the kernel
+    traps without its cluster), of CLUSTER_WIDE CTAs where that trains the
+    rows in no more turns than CLUSTER, with the shared memory the planner
+    gives the rows on that cluster size."""
+    hidden = (200, 200, 200)
+    states, rows = _sphere_rows(cuda_device, n_rows)
+    p, m, v = k5.pack_rows(states, rows, hidden, hidden)
+    k5.run_grid_chunk(p, m, v, rows, n_steps=1, **_mlp_grid_kw("sphere", hidden))
+    torch.cuda.synchronize()
+    smem = {size: max(k5.smem_bytes(B, *k5.row_widths(r, hidden, hidden), cluster=size)
+                      for r in rows) for size in (k5.CLUSTER, k5.CLUSTER_WIDE)}
+    most = {size: k5.grid(n_rows, smem, size)["max_clusters"] for size in smem}
+    plan = k5.grid(n_rows, smem)
+    size = k5.cluster_size(n_rows, most)
+    assert plan["cluster_size"] == size
+    assert k5.last_launch() == {"clusters": plan["clusters"], "cluster_size": size,
+                                "smem": smem[size]}
+    assert plan["clusters"] == min(n_rows, plan["max_clusters"]) and plan["max_clusters"] >= 1
+    for r in rows:
+        enc, dec = k5.row_widths(r, hidden, hidden)
+        for cluster in smem:
+            assert (k5.library_smem_bytes(B, enc, dec, cluster=cluster)
+                    == k5.smem_bytes(B, enc, dec, cluster=cluster))
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("widths", ["sphere", "ragged"])
+def test_mlp_cluster_size_changes_no_result(cuda_device, adam_dtype, widths):
+    """12 steps on clusters of 8 and of 16 CTAs train bitwise the same: no
+    output's sum is split, so the cut of the products changes nothing."""
+    enc, dec = (ENC, DEC) if widths == "sphere" else ((21, 7, 13, 200, 16), (16, 7, 13, 200, 21))
+    start = _k5_state(cuda_device, True, enc, dec, adam_dtype)
+    row = k1.GridRow(enc[0], enc[-1], 3, 3, None, 0, 0, rng.derive_seed(69, 1),
+                     rng.derive_seed(0, 3))
+    got = {}
+    for cluster in (k5.CLUSTER, k5.CLUSTER_WIDE):
+        state = tuple(t.clone() for t in start)
+        losses = torch.empty(1, 12, device=cuda_device)
+        k5._launch([state], losses, [row], n_steps=12, batch=B, enc_hidden=enc[1:-1],
+                   dec_hidden=dec[1:-1], kind="sphere", eps_const=-3.0, tdv=True, lr=1e-4,
+                   dual=False, external_noise=None, adam_dtype=adam_dtype, cluster=cluster)
+        assert k5.last_launch()["cluster_size"] == cluster
+        got[cluster] = (losses, *state)
+    torch.cuda.synchronize()
+    for a, b in zip(got[k5.CLUSTER], got[k5.CLUSTER_WIDE]):
+        assert torch.equal(a, b)
 
 
 # --- K4: a bf16 launch is the f32 launch, its matrix moments rounded ------------

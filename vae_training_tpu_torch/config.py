@@ -9,8 +9,13 @@ unchanged. What differs from the JAX package:
     device raises; nothing falls back to the CPU.
   - ``--kernels auto|torch|cuda`` replaces ``auto|xla|pallas``
     (``kernels/dispatch.py``).
-  - ``--precision``: both values compute in true fp32 (TF32 off) in this
-    slice; the bf16-operand meaning waits for a tensor-core kernel.
+  - ``--precision``: both values compute true fp32 products: TF32 off on
+    the torch path and in the plain versions, and fp32 FMA chains in the
+    kernels (the MLP kernel's in the order of an fp32 GEMM's thread; a
+    3xTF32 tensor-core split was measured and parted the fp32 trajectory
+    past the kernels' tolerances, PERF.md). The reference's bf16-operand
+    meaning (its default) is still to come, on every kernel and path
+    together (ROADMAP).
   - Flags whose machinery is not ported yet raise ``NotImplementedError``
     naming the ROADMAP item that ports them (``validate``).
 """
@@ -239,8 +244,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", dest="precision", default="bf16",
                    choices=["bf16", "fp32"],
                    help="Matmul precision. In this port both values compute "
-                        "in true fp32 (TF32 off); bf16 operands come with a "
-                        "tensor-core kernel.")
+                        "true fp32 products (TF32 off on the torch path, fp32 "
+                        "FMA chains in the kernels); the reference's "
+                        "bf16-operand meaning is still to come.")
     p.add_argument("--adam_dtype", dest="adam_dtype", default="f32",
                    choices=["f32", "bf16"],
                    help="Adam moment storage: bf16 stores the moments of every "

@@ -19,51 +19,96 @@
 //
 // bf16 moments (K4, the bf16 branch of the TPU kernels' _adam,
 // linear_vae.py:188-218, called at mlp_vae.py:373-379; --adam_dtype bf16):
-// with the launch-wide flag moments_bf16, the Adam phase rounds the new m and
-// v of every W slot of every stack (encoder, decoder, SigDecoder) to
-// bfloat16, round to nearest even, every step, and the update reads the
-// rounded values; biases, epsilon_p and epsilon keep f32 moments. The state
-// stays float32 in device memory, holding values bfloat16 represents
-// exactly: the kernel is latency-bound, so halving its moment bytes waits
-// for the redesign that makes it fast.
+// with the launch-wide flag moments_bf16, the Adam stage rounds the new m
+// and v of every weight matrix of every stack to bfloat16, round to nearest
+// even, every step, and the update reads the rounded values; biases,
+// epsilon_p and epsilon keep f32 moments. Whether a slot is a matrix's comes
+// from a per-thread cursor over the layout's layers that only moves forward
+// (MatrixCursor), not from a scan of every layer for every slot. The stage
+// is one pass over the row's slots, bf16 or not.
+// The state stays float32 in device memory, holding values bfloat16
+// represents exactly.
 //
-// What bounds it on this card: latency. At the sphere sweep's shapes
-// (batch 100, 200|200|200 on both stacks, D = L = 6) a step is ~100 MFLOP in
-// 16 dependent layer phases, ~1.5 µs of the card's fp32 peak, and step i+1
-// needs step i's parameters. A row's state (p, m, v and the gradients:
-// 4 × 166k floats, 2.7 MB) does not fit one SM's 227 KB of shared memory, so
-// the design is one persistent cooperative launch per chunk: one block per
-// SM, the state in the caller's device buffers (L2-resident: 50 MB of L2)
-// and each row's activations in its own scratch, each dependent phase a
-// grid-stride loop in which one thread owns one output element and runs a
-// fixed-order FMA loop, phases separated by grid-wide barriers (17 a step at
-// 3+3 hidden layers).
+// What bounds it on this card: latency and the few SMs a row gets. At the
+// sphere sweep's shapes (batch 100, 200|200|200 on both stacks, D = L = 6)
+// a step is 100.6 MFLOP (K5-dual 151.4) in 16 dependent layer phases, 1.5 µs
+// of the card's fp32 peak; step i + 1 needs step i's parameters, and a row's
+// state (p, m, v, g: 4 × 166k floats, 2.7 MB) fits no SM. A phase pays a
+// stage of its operands from L2, its sums, its epilogue and a cluster
+// barrier; the sums are bound by shared-memory wavefronts, the rest by
+// latency (PERF.md §5). The design:
+//
+// - One thread-block cluster per row: of kClusterWide = 16 CTAs (a
+//   non-portable size) where the card holds enough such clusters to train
+//   the launch's rows in no more turns than clusters of kCluster = 8 (the
+//   portable maximum) would, else of 8; mlp_vae_grid picks the size from
+//   the number of rows (a solo launch: 16; the sphere sweep's 15 rows: 15
+//   clusters of 8, side by side). A launch has min(rows, the clusters the
+//   card holds at once) clusters; cluster k trains rows k, k + n_clusters,
+//   … in turn, each for the whole chunk. The launch is a plain cluster
+//   launch (cudaLaunchKernelEx with a cluster dimension): no cooperative
+//   launch and no grid-wide barrier. A row's phases are separated by
+//   cluster barriers (cluster.sync(), release / acquire at cluster scope),
+//   17 a step at 3 + 3 hidden layers, and rows on other clusters never wait
+//   for each other.
+// - Each layer's products (the forward in·W, g_W = [a_in, 1]ᵀ·G with g_b as
+//   its last row, and g_in = G·Wᵀ, ReLU-masked) are cut into units of
+//   32 × 16 outputs, or 8 × 16 where M or N is at most 16 (the top layers,
+//   the first layers' g_W), one warp a unit: 4 × 4 outputs a lane (1 × 4 in
+//   a narrow unit), so that a lane loads 8 floats a k for 16 FMAs. The
+//   cluster's CTAs are qm × qn over a product's m- and n-tiles (qn the
+//   largest power of two up to the n-tiles, so that a narrow product spreads
+//   its rows); a CTA's warps take its units in turn. With the dual decoder
+//   the Decoder's and the SigDecoder's products run side by side, each on
+//   half the cluster (but the residual and g_s, which take both).
+// - Every output is one fp32 FMA chain over the whole contraction in
+//   ascending k, the order of an fp32 GEMM's thread, so that the kernel
+//   follows the fp32 plain version's trajectory as closely as the kernel it
+//   replaces did: ReLU pre-activations and bf16 moments within rounding of
+//   a boundary fall on the same side in both. (Tensor-core sums, mma.sync
+//   TF32 in 3xTF32 and in 6xTF32, were measured and parted that trajectory:
+//   PERF.md §6.) No output's sum is split, so no result depends on the
+//   cluster size, the cut of the products or the number of rows: a grid
+//   row equals its solo launch bitwise, a 40-step launch a 15 + 25 split,
+//   and --resume is bitwise.
+// - Where data lives: the state (p, m, v) in the caller's buffers and the
+//   row's activations and gradients in its scratch, all in device memory and
+//   L2-resident (the sphere sweep's 15 rows hold ~40 MB of state and ~6 MB of
+//   scratch against 50 MB of L2). Each product stages what its units read
+//   into shared memory by cp.async, in chunks of the contraction: the CTA's
+//   rows of the row operand (the layer's input activation, or its output
+//   gradient), its slice of the column operand (W's columns, W's rows for
+//   g_in, G's columns for g_W), zero-padded to whole tiles, with strides
+//   that keep a quarter-warp's 16-byte loads free of bank conflicts; and,
+//   with the first chunk, its slice of the epilogue's inputs (biases, z1,
+//   z2, x, the ReLU input, mu), so that their loads overlap the operands'.
+//   The chunk kc is the largest multiple of 4 whose stage fits (tiles();
+//   kernels/mlp_vae.py's planner mirrors it): the whole contraction at every
+//   sweep shape. The cluster barrier orders every read of data another CTA
+//   wrote. The row and the launch's arguments live in shared memory, and a
+//   product's descriptors in registers, so that no phase waits on a stack
+//   load after a barrier.
+// - Shared memory a CTA: kHeader (1 KB: the current row, the loss partials,
+//   the arguments) plus the largest stage of the row's products; the launch
+//   takes the largest over its rows. Sphere row 1: 88,576 B on 16 CTAs,
+//   150,016 B on 8 (a 200-wide layer's g_in); sigmoid-MLP row 1: 150,016 B
+//   and 192,512 B (a stack's products on half the cluster); every sweep
+//   shape fits 232,448 B.
+// - The loss sums (Σmu², Σr², Σr·z2) are taken by the cluster's last CTA in
+//   a fixed order; Adam is one cluster stage over the row's P slots after
+//   the backward, 1 − βᵗ in double, rounded once to float.
 //
 // Rows (the TPU kernel's scalar-prefetch rows [seed, t0, dd, ld, id],
 // mlp_vae.py:157-167): every row of the device table carries its own state,
 // dims, stack offsets, counters, Philox keys and scratch; batch, step count,
 // ε, -tdv, lr, the manifold kind, the decoder head, the layer counts and the
-// hidden widths are the launch's. All rows therefore run the same phase
-// sequence: each phase is one grid-stride loop over the concatenation of
-// every row's items of that phase, and the barriers serve all rows at once.
-// A solo launch (K5) is the same kernel with a one-row table. Each output
-// element is computed by the same code in the same order whichever thread
-// runs it, and row r's loss sums are taken by block r mod gridDim.x alone in
-// a fixed order: no atomics, and no result depends on the grid size or on
-// the other rows, so a grid row equals its solo launch bitwise, a 40-step
-// launch equals a 15 + 25 split bitwise and --resume is bitwise. Tensor
-// cores, clusters with distributed shared memory and per-row barriers in
-// place of grid-wide ones are later work.
+// hidden widths are the launch's. A solo launch (K5) is the same kernel
+// with a one-row table. Each CTA stages the row it trains into shared
+// memory.
 //
 // True dimensions throughout: the TPU kernel's 128-lane padding, masks and
-// live-row slicing are layout devices of the TPU and are not carried over.
-//
-// Loads of the state and the scratch go through plain (coherent) global
-// loads: those buffers change during the launch, so no pointer to them is
-// const __restrict__ (which would allow the non-coherent read-only path).
-// The row table does not change during a launch: each block stages it in
-// shared memory once, so the phases read a row's fields at shared-memory
-// latency instead of through an L1 the streamed state keeps evicting.
+// live-row slicing are layout devices of the TPU and are not carried over;
+// the tiles' zero padding is this kernel's own, and adds exact zeros.
 //
 // Plain C interface for ctypes: every entry returns a cudaError_t as int.
 
@@ -79,7 +124,7 @@
 namespace cg = cooperative_groups;
 
 constexpr int kMaxLayers = 8;  // Dense layers per stack
-constexpr int kMaxRows = 256;  // rows a launch; its table lives in shared memory
+constexpr int kMaxRows = 256;  // rows a launch
 
 // One ReLU stack: widths[0] is its input, widths[n] its output. Parameter
 // offsets index the row's flat state buffers; act[li] (li < n − 1) is the
@@ -116,17 +161,42 @@ struct Row {
   // epsilon, then the SigDecoder) and the scratch offsets, in floats
   int P, o_ep, o_eps;
   Stack enc, dec, sig;  // sig.n = 0 without the dual decoder
-  int s_g, s_nz, s_x, s_z1, s_z2, s_mu, s_s, s_r, s_su, s_gs, s_gmu;
+  int s_g, s_nz, s_x, s_z1, s_z2, s_mu, s_s, s_r, s_gy, s_gu, s_gs, s_gmu;
   int s_buf[2], s_sbuf[2];  // ping-pong input gradients: decoder/encoder, SigDecoder
 };
-static_assert(sizeof(Row) % 16 == 0, "the table is staged in 16-byte words");
+static_assert(sizeof(Row) % 16 == 0, "a row is staged in 16-byte words");
+
+// The CTA's shared memory: kHeader bytes (the row, the loss partials),
+// then the stage of the current product's operands. A symbol, not a
+// pointer handed down, so that every access compiles to a shared-memory
+// load or store.
+extern __shared__ __align__(16) unsigned char mlp_smem[];
 
 namespace {
 
 using namespace philox;
 
+// CTAs a row: the portable maximum cluster size, or the card's largest
+// (non-portable) where that runs a launch's rows in no more turns
+constexpr int kCluster = 8;
+constexpr int kClusterWide = 16;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTileM = 32;          // a unit: 32 × 16 outputs, one warp's,
+constexpr int kTileN = 16;          // 4 × 4 a lane;
+constexpr int kTileMNarrow = 8;     // 8 × 16, 1 × 4 a lane, where M or N ≤ 16
+constexpr int kKStep = 4;           // contractions run four k at a time
+constexpr int kSmemMax = 232448;    // shared memory a CTA can have on sm_90
+constexpr int kHeader = 1024;       // the row and the loss partials, before the stage
+constexpr int kStageBytes = kSmemMax - kHeader;
+
+
+// Timing variants (chip_smoke.py phase 31); 0 in training.
+constexpr int kSkipMma = 1;    // no layer sums (the stages still load)
+constexpr int kSkipStage = 2;  // no staging of operands
+constexpr int kSkipAdam = 4;   // no Adam stage
+constexpr int kSkipWork = 8;   // nothing but the phases' cluster barriers
+
 constexpr float kB1 = 0.9f;
 constexpr float kB2 = 0.999f;
 constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
@@ -146,11 +216,74 @@ struct Shape {
 };
 
 struct Args {
-  const Row* rows;  // the device table; in the kernel, its copy in shared memory
+  const Row* rows;  // the device table
   int n_rows;
-  int n_steps, B, kind, dual, n_enc, n_dec, tdv, moments_bf16;
+  int n_steps, B, kind, dual, n_enc, n_dec, tdv, moments_bf16, skip;
   float eps_const, lr;
 };
+
+// The shared-memory header: the current row, the loss partials, the
+// launch's arguments (read by every phase: in shared memory, not on the
+// stack, so that no phase waits on a local-memory load).
+constexpr int kRedOffset = sizeof(Row);
+constexpr int kArgsOffset = kRedOffset + 3 * kWarps * sizeof(float);
+static_assert(kArgsOffset + sizeof(Args) <= kHeader, "the header fits");
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The tile plan of one product out (M × N) = A (M × K) · B (K × N), `np`
+// products of one shape side by side (the dual decoder's pairs), on a
+// cluster of `cs` CTAs, with `ev` vectors (N) and `em` matrices (M × N) of
+// epilogue inputs. The outputs are cut into units of tm × kTileN (tm =
+// kTileM, or kTileMNarrow where M or N is at most kTileN); the
+// cluster's CTAs are qm × qn over the m-tiles and n-tiles (qn the largest
+// power of two up to the n-tiles, so that a narrow product spreads its
+// rows), mpc m-tiles and spc n-tiles a CTA. A is staged as [m][k] (a_t: as
+// [k][m], its layout in device memory), B as [k][n] (b_t: [n][k]), rows and
+// columns padded to whole tiles and the contraction to 4; then the CTA's
+// slice of the epilogue inputs. A stage of kc contraction columns takes
+// 4 · (np · (alpha·kc + beta) + e_floats) bytes; kc is the largest
+// multiple of 4 that fits kStageBytes (0: none does).
+// kernels/mlp_vae.py:tiles mirrors this function.
+struct Tiles {
+  int tm, m_tiles, n_tiles, qn, mpc, spc, k_pad, kc, sa, sb, se, a_floats, b_floats, e_floats,
+      bytes;
+};
+
+// The least 4·odd stride of at least x + 4 floats (x a multiple of 4): a
+// quarter-warp's 16-byte loads along such rows fall in distinct banks.
+__host__ __device__ inline int odd4(int x) { return (x / 4) % 2 == 0 ? x + 4 : x + 8; }
+
+__host__ __device__ inline Tiles tiles(int M, int N, int K, bool a_t, bool b_t, int np, int cs,
+                                       int ev, int em) {
+  Tiles t;
+  // a narrow product (the top layers', the first layers' g_W) in units of 8
+  // rows: more of them, each a quarter of a wide unit's latency
+  t.tm = M <= kTileN || N <= kTileN ? kTileMNarrow : kTileM;
+  t.m_tiles = cdiv(M, t.tm);
+  t.n_tiles = cdiv(N, kTileN);
+  t.qn = 1;
+  while (2 * t.qn <= cs && 2 * t.qn <= t.n_tiles) t.qn *= 2;
+  t.mpc = cdiv(t.m_tiles, cs / t.qn);  // m-tiles a CTA
+  t.spc = cdiv(t.n_tiles, t.qn);       // n-tiles a CTA
+  t.k_pad = cdiv(K, kKStep) * kKStep;
+  const int mp = t.tm * t.mpc, ncp = kTileN * t.spc;
+  t.se = ncp + 4;
+  t.e_floats = ev * ncp + em * mp * t.se;
+  const int alpha = (a_t ? mp + 8 : mp) + (b_t ? ncp : ncp + 8);
+  const int beta = (a_t ? 0 : 8 * mp) + (b_t ? 8 * ncp : 0);
+  const int per = (kStageBytes / 4 - t.e_floats) / np;
+  int kc = per > beta ? (per - beta) / alpha / kKStep * kKStep : 0;
+  if (kc > t.k_pad) kc = t.k_pad;
+  t.kc = kc;
+  // strides: [m][k] and [n][k] rows 4·odd floats, [k][m] and [k][n] 8·odd
+  t.sa = a_t ? mp + 8 : odd4(t.kc);
+  t.sb = b_t ? odd4(t.kc) : ncp + 8;
+  t.a_floats = a_t ? t.kc * t.sa : mp * t.sa;
+  t.b_floats = b_t ? ncp * t.sb : t.kc * t.sb;
+  t.bytes = kc > 0 ? 4 * (np * (t.a_floats + t.b_floats) + t.e_floats) : -1;
+  return t;
+}
 
 bool fill_stack(Stack& st, int n, int in, const int* hidden, int out) {
   if (n < 1 || n > kMaxLayers) return false;
@@ -165,9 +298,51 @@ bool fill_stack(Stack& st, int n, int in, const int* hidden, int out) {
   return true;
 }
 
+// The shared memory a CTA of a cluster of `cs` needs for one row: the
+// header and the largest stage of the row's products (the order of the
+// phases: encoder forward, decoder forward, decoder backward, encoder
+// backward); −1 if one does not fit.
+int row_smem(const Row& R, const Shape& S, int cs) {
+  int most = 0;
+  bool fits = true;
+  auto need = [&](int M, int N, int K, bool a_t, bool b_t, int np, int ev, int em, int ctas) {
+    const Tiles t = tiles(M, N, K, a_t, b_t, np, ctas, ev, em);
+    if (t.bytes < 0) fits = false;
+    most = t.bytes > most ? t.bytes : most;
+  };
+  // the epilogues' inputs (epi_vecs, epi_mats): a hidden layer's bias; mu's
+  // bias, epsilon_p and z1; the residual's biases, z2 and x; g_in's ReLU
+  // input a_in; g_s's mu
+  // (with the dual decoder, the decoder's products but the residual and g_s
+  // on half the cluster: decoder_forward, decoder_backward)
+  const int B = S.B, np = S.dual ? 2 : 1, half = S.dual ? cs / 2 : cs;
+  for (int li = 0; li < R.enc.n; ++li) {
+    const bool top = li + 1 == R.enc.n;
+    need(B, R.enc.widths[li + 1], R.enc.widths[li], false, false, 1, top ? 2 : 1, top ? 1 : 0,
+         cs);
+  }
+  for (int li = 0; li < R.dec.n; ++li) {
+    const bool top = li + 1 == R.dec.n;
+    need(B, R.dec.widths[li + 1], R.dec.widths[li], false, false, top ? np : 1, top ? np : 1,
+         top ? 2 : 0, top ? cs : half);
+  }
+  for (int li = R.dec.n - 1; li >= 0; --li) {
+    const int din = R.dec.widths[li], dout = R.dec.widths[li + 1];
+    need(din + 1, dout, B, true, false, 1, 0, 0, half);  // [a_in, 1]ᵀ·G: g_W and g_b
+    if (li > 0) need(B, din, dout, false, true, 1, 0, 1, half);
+    else need(B, din, dout, false, true, np, 0, 1, cs);  // g_s
+  }
+  for (int li = R.enc.n - 1; li >= 0; --li) {
+    const int din = R.enc.widths[li], dout = R.enc.widths[li + 1];
+    need(din + 1, dout, B, true, false, 1, 0, 0, cs);
+    if (li > 0) need(B, din, dout, false, true, 1, 0, 1, cs);
+  }
+  return fits ? kHeader + most : -1;
+}
+
 // Fills the planned fields of `R` from its dims and the launch's shape;
 // returns the row's scratch size in floats, or −1 for shapes the kernel
-// refuses or an offset that would overflow int.
+// refuses, an offset that would overflow int, or a stage that would not fit.
 long long plan(Row& R, const Shape& S) {
   const int B = S.B, D = R.D, L = R.L;
   if (B < 1 || D < 1 || L < 1 || R.id < 1 || R.dd < 1 || R.dd > D ||
@@ -198,9 +373,9 @@ long long plan(Row& R, const Shape& S) {
   R.P = static_cast<int>(off);
   const long long b = B;
   long long s = 0;
-  auto take = [&s](long long n) {
+  auto take = [&s](long long n) {  // 16-byte aligned, for the stages' vector loads
     const long long at = s;
-    s += n;
+    s += (n + 3) / 4 * 4;
     return static_cast<int>(at);
   };
   long long hidden = 1;
@@ -221,275 +396,538 @@ long long plan(Row& R, const Shape& S) {
   acts(R.dec);
   acts(R.sig);
   R.s_r = take(b * D);
-  R.s_su = S.dual ? take(b * D) : 0;
+  R.s_gy = take(b * D);
+  R.s_gu = S.dual ? take(b * D) : 0;
   R.s_gs = take(b * L);
   R.s_gmu = take(b * L);
   R.s_buf[0] = take(b * hidden);
   R.s_buf[1] = take(b * hidden);
   R.s_sbuf[0] = S.dual ? take(b * hidden) : 0;
   R.s_sbuf[1] = S.dual ? take(b * hidden) : 0;
-  return (off > INT_MAX || s > INT_MAX) ? -1 : s;
+  // a stage on the wide cluster is never larger than on the portable one
+  if (off > INT_MAX || s > INT_MAX || row_smem(R, S, kCluster) < 0) return -1;
+  return s;
 }
 
 __device__ __forceinline__ float sigmoidf(float u) { return 1.0f / (1.0f + expf(-u)); }
 
 // The decoder's log-variance ε of row R at this step (its epsilon slot
-// changes only in the Adam phase).
+// changes only in the Adam stage).
 __device__ __forceinline__ float row_eps(const Args& A, const Row& R) {
   return A.tdv ? R.p[R.o_eps] * A.eps_const : A.eps_const;
 }
 
-// Grid-stride loop over the concatenation of every row's count(R) items:
-// item i of row r is global item base_r + i, run by thread
-// (base_r + i) mod gsz, so the rows' work spreads over the whole grid.
-template <class Count, class Body>
-__device__ __forceinline__ void over_rows(const Args& A, int gtid, int gsz, Count count,
-                                          Body body) {
-  int base = 0;  // base_r mod gsz
-  for (int r = 0; r < A.n_rows; ++r) {
-    const Row& R = A.rows[r];
-    const int n = count(R);
-    int i = gtid - base;
-    if (i < 0) i += gsz;
-    for (; i < n; i += gsz) body(R, i);
-    base = static_cast<int>((base + static_cast<long long>(n)) % gsz);
-  }
-}
-
-// --- the per-step phases ---------------------------------------------------
-
-// x, z1, z2 of step `it` into each row's scratch (the external hook copies
-// them).
-__device__ void sample_phase(const Args& A, int it, int gtid, int gsz) {
-  const int B = A.B;
-  over_rows(
-      A, gtid, gsz,
-      [&](const Row& R) {
-        return R.ext_x != nullptr ? B * (R.D + R.L) : B + B * ((R.L + 3) / 4 + (R.D + 3) / 4);
-      },
-      [&](const Row& R, int item) {
-        float* S = R.scratch;
-        float* x = S + R.s_x;
-        float* z1 = S + R.s_z1;
-        float* z2 = S + R.s_z2;
-        const int D = R.D, L = R.L;
-        if (R.ext_x != nullptr) {
-          if (item < B * D) {
-            const size_t o = static_cast<size_t>(it) * B * D + item;
-            x[item] = R.ext_x[o];
-            z2[item] = R.ext_z2[o];
-          } else {
-            const int i = item - B * D;
-            z1[i] = R.ext_z1[static_cast<size_t>(it) * B * L + i];
-          }
-          return;
-        }
-        const uint32_t step = R.step0 + static_cast<uint32_t>(it);
-        const int nw_l = (L + 3) / 4;
-        const int nw_d = (D + 3) / 4;
-        float n[4];
-        if (item < B) {
-          // one thread per batch row: the manifold draw, then that row of x
-          const int b = item;
-          float* nz = S + R.s_nz + b * R.id;
-          for (int j = 0; 4 * j < R.id; ++j) {
-            normals4(step, b, j, kStreamManifold, R.dk0, R.dk1, n);
-            for (int q = 0; q < 4 && 4 * j + q < R.id; ++q) nz[4 * j + q] = n[q];
-          }
-          float* xr = x + b * D;
-          if (A.kind == kSphere) {
-            float norm2 = 0.0f;
-            for (int k = 0; k < R.dd; ++k) norm2 = fmaf(nz[k], nz[k], norm2);
-            const float inv = rsqrtf(fmaxf(norm2, 1e-20f));
-            for (int j = 0; j < D; ++j) xr[j] = j < R.dd ? nz[j] * inv : 0.0f;
-          } else if (A.kind == kSigmoid) {
-            // [n, σ(n·a), 0]: the sigmoid's formula of K2 (csrc/linear_vae.cu)
-            float acc = 0.0f;
-            for (int k = 0; k < R.dd; ++k) acc = fmaf(nz[k], R.a[k], acc);
-            for (int j = 0; j < D; ++j) xr[j] = j < R.dd ? nz[j] : 0.0f;
-            xr[R.dd] = sigmoidf(acc);
-          } else {
-            for (int j = 0; j < D; ++j) {
-              float acc = 0.0f;
-              if (j < R.dd) {
-                for (int k = 0; k < R.id; ++k) acc = fmaf(nz[k], R.a[j * R.id + k], acc);
-              }
-              xr[j] = acc;
-            }
-            if (R.obs_scale > 0.0f) {
-              for (int j = 0; 4 * j < D; ++j) {
-                normals4(step, b, j, kStreamObs, R.dk0, R.dk1, n);
-                for (int q = 0; q < 4 && 4 * j + q < D; ++q) xr[4 * j + q] += n[q] * R.obs_scale;
-              }
-            }
-          }
-        } else {
-          const int k = item - B;
-          const int b = k / (nw_l + nw_d);
-          int j = k - b * (nw_l + nw_d);
-          float* dst;
-          int dim;
-          uint32_t stream;
-          if (j < nw_l) {
-            stream = kStreamZ1; dst = z1 + b * L; dim = L;
-          } else {
-            j -= nw_l;
-            stream = kStreamZ2; dst = z2 + b * D; dim = D;
-          }
-          normals4(step, b, j, stream, R.mk0, R.mk1, n);
-          for (int q = 0; q < 4 && 4 * j + q < dim; ++q) dst[4 * j + q] = n[q];
-        }
-      });
-}
-
-// (in·W + b)[b, o] for one Dense layer of the flat state p; in is B × din.
-__device__ __forceinline__ float dense(const float* p, const float* in, int din, int w_off,
-                                       int b_off, int dout, int b, int o) {
-  const float* row = in + b * din;
-  const float* W = p + w_off;
-  float acc = 0.0f;
-  for (int k = 0; k < din; ++k) acc = fmaf(row[k], W[k * dout + o], acc);
-  return acc + p[b_off + o];
-}
-
-// Encoder layer li over B × dout: ReLU on hidden layers; the last layer
-// gives mu and s = mu + e^{ep/2}·z1.
-__device__ void encoder_forward(const Args& A, int li, int gtid, int gsz) {
-  over_rows(
-      A, gtid, gsz, [&](const Row& R) { return A.B * R.enc.widths[li + 1]; },
-      [&](const Row& R, int i) {
-        const Stack& st = R.enc;
-        float* S = R.scratch;
-        const int din = st.widths[li], dout = st.widths[li + 1];
-        const int b = i / dout;
-        const int o = i - b * dout;
-        const float* in = li == 0 ? S + R.s_x : S + st.act[li - 1];
-        const float z = dense(R.p, in, din, st.w_off[li], st.b_off[li], dout, b, o);
-        if (li + 1 < st.n) {
-          S[st.act[li] + i] = fmaxf(z, 0.0f);
-        } else {
-          S[R.s_mu + i] = z;
-          S[R.s_s + i] = z + expf(R.p[R.o_ep + o] * 0.5f) * S[R.s_z1 + i];
-        }
-      });
-}
-
-// Decoder layer li, and the SigDecoder's with the dual decoder. Hidden
-// layers: the decoder's B × dout items, then the SigDecoder's. The last
-// layer: one item per output (b, o), which takes both stacks' products and
-// gives the residual r = (x̂ + z2·e^{ε/2}) − x, with x̂ = σ(u) + Dec(s) and
-// σ(u) saved for the backward.
-__device__ void decoder_forward(const Args& A, int li, int gtid, int gsz) {
-  const bool last = li + 1 == A.n_dec;
-  over_rows(
-      A, gtid, gsz,
-      [&](const Row& R) {
-        const int n = A.B * R.dec.widths[li + 1];
-        return !last && A.dual ? 2 * n : n;
-      },
-      [&](const Row& R, int i) {
-        float* S = R.scratch;
-        const int din = R.dec.widths[li], dout = R.dec.widths[li + 1];
-        if (!last) {
-          const int n = A.B * dout;
-          const Stack& st = i < n ? R.dec : R.sig;
-          const int k = i < n ? i : i - n;
-          const int b = k / dout;
-          const int o = k - b * dout;
-          const float* in = li == 0 ? S + R.s_s : S + st.act[li - 1];
-          S[st.act[li] + k] =
-              fmaxf(dense(R.p, in, din, st.w_off[li], st.b_off[li], dout, b, o), 0.0f);
-          return;
-        }
-        const int b = i / dout;
-        const int o = i - b * dout;
-        const float* in = li == 0 ? S + R.s_s : S + R.dec.act[li - 1];
-        float x_hat = dense(R.p, in, din, R.dec.w_off[li], R.dec.b_off[li], dout, b, o);
-        if (A.dual) {
-          const float* in_s = li == 0 ? S + R.s_s : S + R.sig.act[li - 1];
-          const float sg =
-              sigmoidf(dense(R.p, in_s, din, R.sig.w_off[li], R.sig.b_off[li], dout, b, o));
-          S[R.s_su + i] = sg;
-          x_hat = sg + x_hat;
-        }
-        const float noise_sd = expf(row_eps(A, R) * 0.5f);
-        S[R.s_r + i] = (x_hat + S[R.s_z2 + i] * noise_sd) - S[R.s_x + i];
-      });
-}
-
-// Where a layer's output gradient comes from: G(b, o) = g[b·dout + o]·scale,
-// and with `su` (the SigDecoder's top layer) times σ(1 − σ) of the saved
-// sigmoid output. `scale` turns the decoder's residual into g_y; 1 is exact
-// elsewhere.
-struct Grad {
-  const float* g;
-  float scale;
-  const float* su;
+// A product's operand: a row-major matrix in device memory with row stride
+// ld. `ones` ≥ 0 names a column past the matrix's last that reads as 1
+// (the bias row of g_W = [a_in, 1]ᵀ·G, whose last row is g_b = Σ_b G(b, ·)).
+struct Operand {
+  const float* src;
+  int ld;
+  int ones;  // AT stages only: the staged column (m) that reads as 1
 };
 
-__device__ __forceinline__ float grad_at(const Grad& G, int idx) {
-  float g = G.g[idx] * G.scale;
-  if (G.su != nullptr) g = g * G.su[idx] * (1.0f - G.su[idx]);
-  return g;
+__device__ __forceinline__ Operand plain_operand(const float* src, int ld_) {
+  return Operand{src, ld_, -1};
 }
 
-// Item i of one layer's parameter gradients: i < din·dout is
-// g_W[k, o] = Σ_b a_in[b, k]·G(b, o); the next dout items g_b[o] = Σ_b G(b, o).
-__device__ __forceinline__ void param_grad(const Row& R, int B, const float* a_in, int din,
-                                           int dout, int w_off, int b_off, const Grad& G,
-                                           int i) {
-  float* g = R.scratch + R.s_g;
-  const int n_w = din * dout;
-  float acc = 0.0f;
-  if (i < n_w) {
-    const int k = i / dout;
-    const int o = i - k * dout;
-    for (int b = 0; b < B; ++b) acc = fmaf(a_in[b * din + k], grad_at(G, b * dout + o), acc);
-    g[w_off + i] = acc;
-  } else {
-    const int o = i - n_w;
-    for (int b = 0; b < B; ++b) acc += grad_at(G, b * dout + o);
-    g[b_off + o] = acc;
+constexpr int kBatch = 8;  // loads a thread keeps in flight in its sums
+
+
+// Asynchronous copies into shared memory (cp.async): `bytes` of them read
+// from src, the rest of the 4 or 16 written as zeros.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes));
+}
+
+// Rows [r0, r0 + nr_pad) × columns [c0, c0 + nc_pad) of op's matrix into
+// dst (row stride `stride`) by cp.async, which the caller waits for;
+// elements past nr live rows or nc live columns (counted from r0, c0; nc
+// always reaches the matrix's row end) are 0. Warp w copies rows w,
+// w + kWarps, …, its lanes along the row; where the rows and the block are
+// 16-byte aligned (the scratch's activations and gradients) each copy moves
+// 16 bytes.
+__device__ void stage_block(float* dst, int stride, const Operand& op, int r0, int c0, int nr,
+                            int nc, int nr_pad, int nc_pad) {
+  const bool vec = (reinterpret_cast<uintptr_t>(op.src) & 15) == 0 &&
+                   ((op.ld | c0 | nc_pad | stride) & 3) == 0;
+  const int w = vec ? 4 : 1;  // floats a copy
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nr_pad; r += kWarps) {
+    const float* src = op.src + (r0 + r) * op.ld + c0;
+    float* d = dst + r * stride;
+    for (int c = w * lane; c < nc_pad; c += 32 * w) {
+      const bool live = r < nr && c < nc;
+      if (vec) cp_async16(d + c, live ? src + c : op.src, live ? 16 : 0);
+      else cp_async4(d + c, live ? src + c : op.src, live ? 4 : 0);
+    }
   }
 }
 
-// g_in[b, j] = Σ_o G(b, o)·W[j, o] for a layer of output width dout.
-__device__ __forceinline__ float input_grad(const float* W, int dout, const Grad& G, int b,
-                                            int j) {
-  const float* wrow = W + j * dout;
-  float acc = 0.0f;
-  for (int o = 0; o < dout; ++o) acc = fmaf(grad_at(G, b * dout + o), wrow[o], acc);
-  return acc;
+// The cluster's threads: CTA q of cs; thread gt of gs, for the phases'
+// elementwise items.
+struct Team {
+  int q, cs, gt, gs;
+};
+
+// The epilogues, one per kind of product; what each reads and writes.
+enum EpiKind { kEpiHidden, kEpiMu, kEpiResidual, kEpiParamGrad, kEpiInputGrad, kEpiGradS };
+
+// The epilogue's inputs: vectors over the product's columns and matrices
+// of its shape, staged with the operands (row_smem() counts them so).
+template <EpiKind KIND, int NP>
+__host__ __device__ constexpr int epi_vecs() {
+  return KIND == kEpiHidden ? 1 : KIND == kEpiMu ? 2 : KIND == kEpiResidual ? NP : 0;
+}
+template <EpiKind KIND>
+__host__ __device__ constexpr int epi_mats() {
+  return KIND == kEpiMu || KIND == kEpiInputGrad || KIND == kEpiGradS ? 1
+         : KIND == kEpiResidual ? 2 : 0;
+}
+
+struct Epi {
+  int ld;                 // the output's and the input matrices' row stride
+  const float* vec[2];    // read at n
+  const float* mat[2];    // read at (m, n)
+  float* out[3];          // written at (m, n), by kind
+  float c0, c1;           // constants, by kind
+};
+
+// Output (m, n), its sums v[p] (NP of them) and the staged inputs vec[j]
+// (at n) and mat[j] (at (m, n)) through the epilogue `e`:
+// kEpiHidden: out0 = max(v + vec0, 0) (vec0: the bias).
+// kEpiMu: mu = out0 = v + vec0; s = out1 = mu + e^{vec1/2}·mat0 (bias,
+//   epsilon_p, z1).
+// kEpiResidual: x̂ = v₀ + vec0 (+ σ(v₁ + vec1) with the dual decoder),
+//   r = (x̂ + mat0·c0) − mat1 (z2, x; c0 = e^{ε/2}) into out0, g_y = r·c1
+//   into out1 (c1 = e^{−ε}/B), g_u = g_y·σ(1 − σ) into out2.
+// kEpiParamGrad: rows m < c0 (din) of [a_in, 1]ᵀ·G into out0 (g_W, stride
+//   ld), the last into out1[n] (g_b).
+// kEpiInputGrad: out0 = v where mat0 (the ReLU's input a_in) > 0, else 0.
+// kEpiGradS: g_s = v₀ (+ v₁) into out0, g_mu = g_s + mat0·c0 into out1.
+template <EpiKind KIND, int NP>
+__device__ __forceinline__ void epilogue(const Epi& e, int m, int n, const float (&v)[NP],
+                                         const float (&vec)[2], const float (&mat)[2]) {
+  const int i = m * e.ld + n;
+  if constexpr (KIND == kEpiHidden) {
+    e.out[0][i] = fmaxf(v[0] + vec[0], 0.0f);
+  } else if constexpr (KIND == kEpiMu) {
+    const float z = v[0] + vec[0];
+    e.out[0][i] = z;
+    e.out[1][i] = z + expf(vec[1] * 0.5f) * mat[0];
+  } else if constexpr (KIND == kEpiResidual) {
+    float x_hat = v[0] + vec[0];
+    float sg = 0.0f;
+    if (NP == 2) {
+      sg = sigmoidf(v[NP - 1] + vec[1]);
+      x_hat = sg + x_hat;
+    }
+    const float r = (x_hat + mat[0] * e.c0) - mat[1];
+    const float gy = r * e.c1;
+    e.out[0][i] = r;
+    e.out[1][i] = gy;
+    if (NP == 2) e.out[2][i] = gy * sg * (1.0f - sg);
+  } else if constexpr (KIND == kEpiParamGrad) {
+    if (m < static_cast<int>(e.c0)) e.out[0][i] = v[0];
+    else e.out[1][n] = v[0];
+  } else if constexpr (KIND == kEpiInputGrad) {
+    e.out[0][i] = mat[0] > 0.0f ? v[0] : 0.0f;
+  } else {  // kEpiGradS
+    float acc = v[0];
+    if (NP == 2) acc = acc + v[NP - 1];
+    e.out[0][i] = acc;
+    e.out[1][i] = acc + mat[0] * e.c0;
+  }
+}
+
+// A lane's share of a unit: rows r0 + RPL·g + i, i < RPL (RPL = 4 in a
+// unit of kTileM rows, 1 in a narrow one), and columns col(j), j < 4
+// (g = lane / 4, t = lane % 4): c0 + 4t + j where B is staged [k][n],
+// c0 + t + 4j where it is staged [n][k], so that a quarter-warp's 16-byte
+// loads fall in distinct banks.
+template <bool BT>
+__device__ __forceinline__ int lane_col(int c0, int t, int j) {
+  return BT ? c0 + t + 4 * j : c0 + 4 * t + j;
+}
+
+// Four contraction columns k … k + 3 of a lane's operands, in registers:
+// x[i][u] = A(r + i, k + u), y[u][j] = B(k + u, col(j)), in 16-byte loads
+// along k or along the rows and columns, whichever the layout holds
+// contiguous (strides and k are multiples of 4).
+template <bool AT, bool BT, int RPL>
+struct LaneBlock {
+  float x[RPL][4], y[4][4];
+  __device__ __forceinline__ void load(const float* As, const float* Bs, int sa, int sb, int r,
+                                       int c0, int t, int k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (AT && RPL == 4) {  // x[·][q]: rows r … r + 3 at k + q
+        const float4 z = *reinterpret_cast<const float4*>(As + (k + q) * sa + r);
+        x[0][q] = z.x; x[RPL > 1 ? 1 : 0][q] = z.y; x[RPL > 2 ? 2 : 0][q] = z.z;
+        x[RPL - 1][q] = z.w;
+      } else if (AT) {       // x[0][q]: row r at k + q
+        x[0][q] = As[(k + q) * sa + r];
+      } else if (q < RPL) {  // x[q][·]: row r + q at k … k + 3
+        const float4 z = *reinterpret_cast<const float4*>(As + (r + q) * sa + k);
+        x[q][0] = z.x; x[q][1] = z.y; x[q][2] = z.z; x[q][3] = z.w;
+      }
+      if (BT) {  // y[·][q]: column col(q) at k … k + 3
+        const float4 z = *reinterpret_cast<const float4*>(Bs + lane_col<BT>(c0, t, q) * sb + k);
+        y[0][q] = z.x; y[1][q] = z.y; y[2][q] = z.z; y[3][q] = z.w;
+      } else {   // y[q][·]: columns col(0) … col(3) at k + q
+        const float4 z = *reinterpret_cast<const float4*>(Bs + (k + q) * sb + lane_col<BT>(c0, t, 0));
+        y[q][0] = z.x; y[q][1] = z.y; y[q][2] = z.z; y[q][3] = z.w;
+      }
+    }
+  }
+  // acc[i][j] += Σ_u x[i][u]·y[u][j], each output's FMAs in ascending k
+  __device__ __forceinline__ void fma(float (&acc)[4][4]) const {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < RPL; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i][u], y[u][j], acc[i][j]);
+  }
+};
+
+// A lane's sums over a stage's kcp contraction columns: acc[i][j] is
+// (r + i, col(j)), i < RPL. Each output's FMA chain runs in ascending k,
+// the order of an fp32 GEMM's thread.
+template <bool AT, bool BT, int RPL>
+__device__ __forceinline__ void lane_sums(float (&acc)[4][4], const float* As, const float* Bs,
+                                          int sa, int sb, int r, int c0, int t, int kcp) {
+  for (int k = 0; k < kcp; k += 4) {
+    LaneBlock<AT, BT, RPL> blk;
+    blk.load(As, Bs, sa, sb, r, c0, t, k);
+    blk.fma(acc);
+  }
+}
+
+// An int as a type, to pick a template instance by a runtime value.
+template <int V>
+struct IntTag {
+  static constexpr int value = V;
+};
+
+// One cluster phase's product, NP of them side by side (the same shape;
+// their sums reach the epilogue together): out (M × N) = A·B over K, A(m, k)
+// = a[p] at m·ld + k (AT: k·ld + m), B(k, n) = b[p] at k·ld + n (BT:
+// n·ld + k), then the epilogue KIND with `e`. CTA q of the cluster's cs
+// takes m-tiles [(q / qn)·mpc, …) and n-tiles [(q % qn)·spc, …) and stages
+// their operands and epilogue inputs together; its warp w computes units
+// w, w + kWarps, … (a unit: an m-tile × an n-tile), each output one FMA
+// chain over the whole contraction, so that no result depends on the cut.
+template <bool AT, bool BT, int NP, EpiKind KIND>
+__device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, const Operand* b,
+                                  Team tm, int skip, const Epi& e) {
+  constexpr int NV = epi_vecs<KIND, NP>(), NM = epi_mats<KIND>();
+  float* const stage = reinterpret_cast<float*>(mlp_smem + kHeader);
+  const Tiles T = tiles(M, N, K, AT, BT, NP, tm.cs, NV, NM);
+  const int q = tm.q;
+  const int mt_lo = (q / T.qn) * T.mpc, nt_lo = (q % T.qn) * T.spc;
+  const int mt_n = min(T.mpc, T.m_tiles - mt_lo), nt_n = min(T.spc, T.n_tiles - nt_lo);
+  const int mp = T.tm * T.mpc, ncp = kTileN * T.spc;
+  const int m_lo = mt_lo * T.tm, n_lo = nt_lo * kTileN;
+  const int units = mt_n > 0 && nt_n > 0 ? mt_n * nt_n : 0;
+  const int n_chunks = cdiv(T.k_pad, T.kc);
+  float* const Es = stage + NP * (T.a_floats + T.b_floats);  // the epilogue's inputs
+  // One stage of contraction columns [k0, k0 + kcp) of every operand pair
+  // (and, with the first, the epilogue's inputs).
+  auto stage_chunk = [&](int k0, int kcp) {
+    __syncthreads();  // the stage's last readers are done
+    if (!(skip & kSkipStage)) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        float* As = stage + p * (T.a_floats + T.b_floats);
+        float* Bs = As + T.a_floats;
+        if (AT)
+          stage_block(As, T.sa, a[p], k0, m_lo, K - k0, (a[p].ones < 0 ? M : a[p].ones) - m_lo,
+                      kcp, mp);
+        else stage_block(As, T.sa, a[p], m_lo, k0, M - m_lo, K - k0, mp, kcp);
+        if (BT) stage_block(Bs, T.sb, b[p], n_lo, k0, N - n_lo, K - k0, ncp, kcp);
+        else stage_block(Bs, T.sb, b[p], k0, n_lo, K - k0, N - n_lo, kcp, ncp);
+      }
+      if (k0 == 0) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+          stage_block(Es + j * ncp, ncp, Operand{e.vec[j], N, -1}, 0, n_lo, 1, N - n_lo, 1, ncp);
+#pragma unroll
+        for (int j = 0; j < NM; ++j)
+          stage_block(Es + NV * ncp + j * mp * T.se, T.se, Operand{e.mat[j], e.ld, -1}, m_lo,
+                      n_lo, M - m_lo, N - n_lo, mp, ncp);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      const int ones = a[0].ones - m_lo;  // [a_in, 1]: after the copies' zeros have landed
+      if (AT && a[0].ones >= 0 && ones >= 0 && ones < mp) {
+        __syncthreads();
+        for (int r = threadIdx.x; r < kcp; r += kThreads) stage[r * T.sa + ones] = 1.0f;
+      }
+    }
+    __syncthreads();
+  };
+  if (units == 0) return;  // uniform over the CTA
+  if (n_chunks == 1) stage_chunk(0, T.k_pad);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  auto run = [&](auto rpl) {
+    constexpr int RPL = decltype(rpl)::value;
+    for (int s0 = 0; s0 < units; s0 += kWarps) {
+      const int s = s0 + warp;
+      const bool mine = s < units;  // uniform over the warp
+      const int r = (s % mt_n) * T.tm + RPL * g;  // the lane's first row, in the CTA's rows
+      const int c0 = (s / mt_n) * kTileN;          // the unit's first column, in the CTA's
+      float acc[NP][4][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.0f;
+      for (int c = 0; c < n_chunks; ++c) {
+        const int k0 = c * T.kc;
+        const int kcp = min(T.kc, T.k_pad - k0);
+        if (n_chunks > 1) stage_chunk(k0, kcp);  // every warp, unit or not
+        if (!mine || (skip & kSkipMma)) continue;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const float* As = stage + p * (T.a_floats + T.b_floats);
+          lane_sums<AT, BT, RPL>(acc[p], As, As + T.a_floats, T.sa, T.sb, r, c0, t, kcp);
+        }
+      }
+      if (!mine) continue;
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const int m = m_lo + r + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cl = lane_col<BT>(c0, t, j), n = n_lo + cl;
+          if (m >= M || n >= N) continue;
+          float v[NP], vec[2] = {0.0f, 0.0f}, mat[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int p = 0; p < NP; ++p) v[p] = acc[p][i][j];
+#pragma unroll
+          for (int x = 0; x < NV; ++x) vec[x] = Es[x * ncp + cl];
+#pragma unroll
+          for (int x = 0; x < NM; ++x) mat[x] = Es[NV * ncp + x * mp * T.se + (r + i) * T.se + cl];
+          epilogue<KIND, NP>(e, m, n, v, vec, mat);
+        }
+      }
+    }
+  };
+  if (T.tm == kTileM) run(IntTag<4>{});
+  else run(IntTag<1>{});
+}
+
+// --- the per-step phases of one row ------------------------------------------
+
+// x, z1, z2 of step `it` into the row's scratch (the external hook copies
+// them).
+__device__ __noinline__ void sample_phase(const Args& A, const Row& R, int it, Team tm) {
+  const int B = A.B, D = R.D, L = R.L;
+  float* S = R.scratch;
+  float* x = S + R.s_x;
+  float* z1 = S + R.s_z1;
+  float* z2 = S + R.s_z2;
+  if (R.ext_x != nullptr) {
+    for (int item = tm.gt; item < B * (D + L); item += tm.gs) {
+      if (item < B * D) {
+        const size_t o = static_cast<size_t>(it) * B * D + item;
+        x[item] = R.ext_x[o];
+        z2[item] = R.ext_z2[o];
+      } else {
+        const int i = item - B * D;
+        z1[i] = R.ext_z1[static_cast<size_t>(it) * B * L + i];
+      }
+    }
+    return;
+  }
+  const uint32_t step = R.step0 + static_cast<uint32_t>(it);
+  const int nw_l = (L + 3) / 4;
+  const int nw_d = (D + 3) / 4;
+  float n[4];
+  for (int item = tm.gt; item < B + B * (nw_l + nw_d); item += tm.gs) {
+    if (item < B) {
+      // one thread per batch row: the manifold draw, then that row of x
+      const int b = item;
+      float* nz = S + R.s_nz + b * R.id;
+      for (int j = 0; 4 * j < R.id; ++j) {
+        normals4(step, b, j, kStreamManifold, R.dk0, R.dk1, n);
+        for (int q = 0; q < 4 && 4 * j + q < R.id; ++q) nz[4 * j + q] = n[q];
+      }
+      float* xr = x + b * D;
+      if (A.kind == kSphere) {
+        float norm2 = 0.0f;
+        for (int k = 0; k < R.dd; ++k) norm2 = fmaf(nz[k], nz[k], norm2);
+        const float inv = rsqrtf(fmaxf(norm2, 1e-20f));
+        for (int j = 0; j < D; ++j) xr[j] = j < R.dd ? nz[j] * inv : 0.0f;
+      } else if (A.kind == kSigmoid) {
+        // [n, σ(n·a), 0]: the sigmoid's formula of K2 (csrc/linear_vae.cu)
+        float acc = 0.0f;
+        for (int k = 0; k < R.dd; ++k) acc = fmaf(nz[k], R.a[k], acc);
+        for (int j = 0; j < D; ++j) xr[j] = j < R.dd ? nz[j] : 0.0f;
+        xr[R.dd] = sigmoidf(acc);
+      } else {
+        for (int j = 0; j < D; ++j) {
+          float acc = 0.0f;
+          if (j < R.dd) {
+            for (int k = 0; k < R.id; ++k) acc = fmaf(nz[k], R.a[j * R.id + k], acc);
+          }
+          xr[j] = acc;
+        }
+        if (R.obs_scale > 0.0f) {
+          for (int j = 0; 4 * j < D; ++j) {
+            normals4(step, b, j, kStreamObs, R.dk0, R.dk1, n);
+            for (int q = 0; q < 4 && 4 * j + q < D; ++q) xr[4 * j + q] += n[q] * R.obs_scale;
+          }
+        }
+      }
+    } else {
+      const int k = item - B;
+      const int b = k / (nw_l + nw_d);
+      int j = k - b * (nw_l + nw_d);
+      float* dst;
+      int dim;
+      uint32_t stream;
+      if (j < nw_l) {
+        stream = kStreamZ1; dst = z1 + b * L; dim = L;
+      } else {
+        j -= nw_l;
+        stream = kStreamZ2; dst = z2 + b * D; dim = D;
+      }
+      normals4(step, b, j, stream, R.mk0, R.mk1, n);
+      for (int q = 0; q < 4 && 4 * j + q < dim; ++q) dst[4 * j + q] = n[q];
+    }
+  }
+}
+
+// Encoder layer li: z = in·W + b; ReLU on hidden layers; the last layer
+// gives mu and s = mu + e^{ep/2}·z1.
+__device__ __noinline__ void encoder_forward(const Args& A, const Row& R, int li,
+                                             Team tm) {
+  const Stack& st = R.enc;
+  float* S = R.scratch;
+  const int din = st.widths[li], dout = st.widths[li + 1];
+  const Operand a = plain_operand(li == 0 ? S + R.s_x : S + st.act[li - 1], din);
+  const Operand b = plain_operand(R.p + st.w_off[li], dout);
+  Epi e{};
+  e.ld = dout;
+  e.vec[0] = R.p + st.b_off[li];
+  if (li + 1 < st.n) {
+    e.out[0] = S + st.act[li];
+    gemm<false, false, 1, kEpiHidden>(A.B, dout, din, &a, &b, tm, A.skip, e);
+  } else {
+    e.vec[1] = R.p + R.o_ep;
+    e.mat[0] = S + R.s_z1;
+    e.out[0] = S + R.s_mu;
+    e.out[1] = S + R.s_s;
+    gemm<false, false, 1, kEpiMu>(A.B, dout, din, &a, &b, tm, A.skip, e);
+  }
+}
+
+// With the dual decoder, the Decoder's and the SigDecoder's hidden-layer
+// products (and their backward) run side by side, each on one half of the
+// cluster: the stack of this CTA, and the team of its half.
+__device__ __forceinline__ int stack_half(Team tm) { return tm.q / (tm.cs / 2); }
+__device__ __forceinline__ Team half_team(Team tm) {
+  return Team{tm.q % (tm.cs / 2), tm.cs / 2, tm.gt, tm.gs};
+}
+
+// Decoder layer li, and the SigDecoder's with the dual decoder. The last
+// layer takes both stacks' sums at each output (b, o) and gives the
+// residual r = (x̂ + z2·e^{ε/2}) − x, with x̂ = σ(u) + Dec(s), and the
+// backward's top gradients: g_y = r·e^{−ε}/B and, with the dual decoder,
+// g_u = g_y·σ(u)(1 − σ(u)).
+__device__ __noinline__ void decoder_forward(const Args& A, const Row& R, int li,
+                                             Team tm) {
+  float* S = R.scratch;
+  const int din = R.dec.widths[li], dout = R.dec.widths[li + 1];
+  const Stack* stacks[2] = {&R.dec, &R.sig};
+  Operand a[2], b[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const Stack& st = *stacks[k];
+    a[k] = plain_operand(li == 0 ? S + R.s_s : S + st.act[li - 1], din);
+    b[k] = plain_operand(R.p + st.w_off[li], dout);
+  }
+  Epi e{};
+  e.ld = dout;
+  if (li + 1 < A.n_dec) {
+    // with the dual decoder, each stack's product on its half of the cluster
+    const int k = A.dual ? stack_half(tm) : 0;
+    const Stack& st = k == 0 ? R.dec : R.sig;
+    const Operand ak = plain_operand(li == 0 ? S + R.s_s : S + st.act[li - 1], din);
+    const Operand bk = plain_operand(R.p + st.w_off[li], dout);
+    e.vec[0] = R.p + st.b_off[li];
+    e.out[0] = S + st.act[li];
+    gemm<false, false, 1, kEpiHidden>(A.B, dout, din, &ak, &bk, A.dual ? half_team(tm) : tm,
+                                      A.skip, e);
+    return;
+  }
+  const float eps = row_eps(A, R);
+  e.vec[0] = R.p + R.dec.b_off[li];
+  e.vec[1] = R.p + R.sig.b_off[li];
+  e.mat[0] = S + R.s_z2;
+  e.mat[1] = S + R.s_x;
+  e.out[0] = S + R.s_r;
+  e.out[1] = S + R.s_gy;
+  e.out[2] = S + R.s_gu;
+  e.c0 = expf(eps * 0.5f);
+  e.c1 = expf(-eps) * (1.0f / static_cast<float>(A.B));
+  if (A.dual) gemm<false, false, 2, kEpiResidual>(A.B, dout, din, a, b, tm, A.skip, e);
+  else gemm<false, false, 1, kEpiResidual>(A.B, dout, din, a, b, tm, A.skip, e);
 }
 
 // The output gradient of decoder layer li (stack 0) or SigDecoder layer li
-// (stack 1): at the top, g_y = r·inv_var/B (times σ(1 − σ) for the
-// SigDecoder); below it, the layer above's input gradient.
-__device__ __forceinline__ Grad decoder_grad(const Args& A, const Row& R, int stack, int li) {
+// (stack 1): at the top g_y (g_u), below it the layer above's input
+// gradient.
+__device__ __forceinline__ Operand decoder_grad(const Args& A, const Row& R, int stack, int li) {
   const float* S = R.scratch;
-  if (li + 1 == A.n_dec) {
-    const float inv_var = expf(-row_eps(A, R));
-    return Grad{S + R.s_r, inv_var * (1.0f / static_cast<float>(A.B)),
-                stack == 0 ? nullptr : S + R.s_su};
-  }
-  return Grad{S + (stack == 0 ? R.s_buf : R.s_sbuf)[(li + 1) & 1], 1.0f, nullptr};
+  const int dout = R.dec.widths[li + 1];
+  if (li + 1 == A.n_dec) return plain_operand(S + (stack == 0 ? R.s_gy : R.s_gu), dout);
+  return plain_operand(S + (stack == 0 ? R.s_buf : R.s_sbuf)[(li + 1) & 1], dout);
 }
 
-// Block-wide: row R's loss of step `it` and d loss / d epsilon, from Σmu²,
+// This thread's fmaf chain over its share of f(i)·h(i), i < n: i = tid,
+// tid + kThreads, … in turn, kBatch loads in flight at a time.
+template <class F, class H>
+__device__ __forceinline__ float thread_dot(int n, F f, H h) {
+  float acc = 0.0f;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
+    float x[kBatch], y[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = min(i0 + u * kThreads, n - 1);
+      x[u] = f(i);
+      y[u] = h(i);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < n) acc = fmaf(x[u], y[u], acc);
+  }
+  return acc;
+}
+
+// CTA-wide: the row's loss of step `it` and d loss / d epsilon, from Σmu²,
 // Σr² and Σr·z2 taken in a fixed order (per-thread strides, then warp
 // shuffles, then the warps' partials in order).
-__device__ void loss_block(const Args& A, const Row& R, int it) {
-  __shared__ float red[3 * kWarps];
+__device__ void loss_block(const Args& A, const Row& R, int it, float* red) {
   const float* S = R.scratch;
   const int tid = threadIdx.x;
   const int B = A.B;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  for (int i = tid; i < B * R.L; i += kThreads) a0 = fmaf(S[R.s_mu + i], S[R.s_mu + i], a0);
-  for (int i = tid; i < B * R.D; i += kThreads) {
-    const float r = S[R.s_r + i];
-    a1 = fmaf(r, r, a1);
-    a2 = fmaf(r, S[R.s_z2 + i], a2);
-  }
+  const auto mu = [&](int i) { return S[R.s_mu + i]; };
+  const auto r = [&](int i) { return S[R.s_r + i]; };
+  const auto z2 = [&](int i) { return S[R.s_z2 + i]; };
+  float a0 = thread_dot(B * R.L, mu, mu);
+  float a1 = thread_dot(B * R.D, r, r);
+  float a2 = thread_dot(B * R.D, r, z2);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     a0 += __shfl_down_sync(0xffffffffu, a0, off);
@@ -525,109 +963,113 @@ __device__ void loss_block(const Args& A, const Row& R, int it) {
                         (c_gy * sum_rz2) * 0.5f * noise_sd;
     R.scratch[R.s_g + R.o_eps] = A.tdv ? g_eps * A.eps_const : 0.0f;
   }
-  __syncthreads();  // `red` is free for the block's next row
+  __syncthreads();  // `red` is free again
 }
 
-// Decoder layer li's backward, and the SigDecoder's. Per row: the decoder's
-// g_W and g_b (and, below the first layer, its masked input gradient), the
-// same for the SigDecoder, and at the first layer g_s = g_s,dec + g_s,sig
-// with g_mu = g_s + mu/B. At the top, each block also takes the loss of its
-// rows (r mod gridDim.x).
-__device__ void decoder_backward(const Args& A, int it, int li, int gtid, int gsz) {
-  if (li + 1 == A.n_dec) {
-    for (int r = blockIdx.x; r < A.n_rows; r += gridDim.x) loss_block(A, A.rows[r], it);
+// One layer's parameter gradients from its output gradient G (B × dout)
+// and input activation a_in (B × din), both on the tensor cores:
+// [a_in, 1]ᵀ·G, whose first din rows are g_W and whose last is
+// g_b = Σ_b G(b, ·).
+__device__ void param_grads(const Args& A, const Row& R, const Stack& st, int li,
+                            const Operand& G, const float* a_in, Team tm) {
+  const int din = st.widths[li], dout = st.widths[li + 1];
+  float* g = R.scratch + R.s_g;
+  const Operand a{a_in, din, din};
+  Epi e{};
+  e.ld = dout;
+  e.out[0] = g + st.w_off[li];
+  e.out[1] = g + st.b_off[li];
+  e.c0 = static_cast<float>(din);
+  gemm<true, false, 1, kEpiParamGrad>(din + 1, dout, A.B, &a, &G, tm, A.skip, e);
+}
+
+// The masked input gradient of layer li > 0: g_in = (G·Wᵀ)·[a_in > 0] into
+// `out` (B × din).
+__device__ void input_grad(const Args& A, const Row& R, const Stack& st, int li,
+                           const Operand& G, const float* a_in, float* out, Team tm) {
+  const int din = st.widths[li], dout = st.widths[li + 1];
+  const Operand w = plain_operand(R.p + st.w_off[li], dout);
+  Epi e{};
+  e.ld = din;
+  e.mat[0] = a_in;
+  e.out[0] = out;
+  gemm<false, true, 1, kEpiInputGrad>(A.B, din, dout, &G, &w, tm, A.skip, e);
+}
+
+// Decoder layer li's backward, and the SigDecoder's: each stack's g_W and
+// g_b and, below the first layer, its masked input gradient; at the first
+// layer g_s = g_s,dec + g_s,sig with g_mu = g_s + mu/B. At the top, the
+// cluster's last CTA also takes the row's loss (at 200-wide hidden layers
+// it has no tile of the top layer's [a_in, 1]ᵀ·G).
+__device__ __noinline__ void decoder_backward(const Args& A, const Row& R, int it, int li,
+                                              Team tm, float* red) {
+  if (li + 1 == A.n_dec && tm.q == tm.cs - 1) loss_block(A, R, it, red);
+  float* S = R.scratch;
+  {  // with the dual decoder, each stack's products on its half of the cluster
+    const int k = A.dual ? stack_half(tm) : 0;
+    const Stack& st = k == 0 ? R.dec : R.sig;
+    const Operand Gk = decoder_grad(A, R, k, li);
+    const Team sub = A.dual ? half_team(tm) : tm;
+    const float* a_in = li == 0 ? S + R.s_s : S + st.act[li - 1];
+    param_grads(A, R, st, li, Gk, a_in, sub);
+    if (li > 0)
+      input_grad(A, R, st, li, Gk, a_in, S + (k == 0 ? R.s_buf : R.s_sbuf)[li & 1], sub);
   }
-  const int B = A.B;
-  const int n_stacks = A.dual ? 2 : 1;
-  over_rows(
-      A, gtid, gsz,
-      [&](const Row& R) {
-        const int din = R.dec.widths[li], dout = R.dec.widths[li + 1];
-        const int part = din * dout + dout + (li > 0 ? B * din : 0);
-        return n_stacks * part + (li == 0 ? B * R.L : 0);
-      },
-      [&](const Row& R, int i) {
-        float* S = R.scratch;
-        const int din = R.dec.widths[li], dout = R.dec.widths[li + 1];
-        const int n_p = din * dout + dout;
-        const int part = n_p + (li > 0 ? B * din : 0);
-        int k = i;
-        for (int stack = 0; stack < n_stacks; ++stack) {
-          if (k < part) {
-            const Stack& st = stack == 0 ? R.dec : R.sig;
-            const Grad G = decoder_grad(A, R, stack, li);
-            const float* a_in = li == 0 ? S + R.s_s : S + st.act[li - 1];
-            if (k < n_p) {
-              param_grad(R, B, a_in, din, dout, st.w_off[li], st.b_off[li], G, k);
-            } else {
-              const int q = k - n_p;
-              const int b = q / din;
-              float acc = input_grad(R.p + st.w_off[li], dout, G, b, q - b * din);
-              if (!(a_in[q] > 0.0f)) acc = 0.0f;  // the ReLU below
-              S[(stack == 0 ? R.s_buf : R.s_sbuf)[li & 1] + q] = acc;
-            }
-            return;
-          }
-          k -= part;
-        }
-        // li == 0: the gradient at s, the input of both stacks
-        const int b = k / R.L;
-        const int j = k - b * R.L;
-        float acc = input_grad(R.p + R.dec.w_off[0], dout, decoder_grad(A, R, 0, 0), b, j);
-        if (A.dual) acc = acc + input_grad(R.p + R.sig.w_off[0], dout, decoder_grad(A, R, 1, 0), b, j);
-        S[R.s_gs + k] = acc;
-        S[R.s_gmu + k] = acc + S[R.s_mu + k] * (1.0f / static_cast<float>(B));
-      });
+  if (li > 0) return;
+  // the gradient at s, the input of both stacks, on the whole cluster
+  const Operand G[2] = {decoder_grad(A, R, 0, li), decoder_grad(A, R, 1, li)};
+  const Operand W[2] = {plain_operand(R.p + R.dec.w_off[li], R.dec.widths[li + 1]),
+                        plain_operand(R.p + R.sig.w_off[li], R.dec.widths[li + 1])};
+  Epi e{};
+  e.ld = R.L;
+  e.mat[0] = S + R.s_mu;
+  e.out[0] = S + R.s_gs;
+  e.out[1] = S + R.s_gmu;
+  e.c0 = 1.0f / static_cast<float>(A.B);
+  const int dout = R.dec.widths[1];
+  if (A.dual) gemm<false, true, 2, kEpiGradS>(A.B, R.L, dout, G, W, tm, A.skip, e);
+  else gemm<false, true, 1, kEpiGradS>(A.B, R.L, dout, G, W, tm, A.skip, e);
+}
+
+// The fmaf chain over b < n of f(b)·h(b), in ascending b, on one warp: the
+// lanes load 32 b at a time, lane 0's chain reads them by shuffle (every
+// lane ends with the sum).
+template <class F, class H>
+__device__ __forceinline__ float warp_dot(int n, F f, H h) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+  for (int b0 = 0; b0 < n; b0 += 32) {
+    const int b = min(b0 + lane, n - 1);
+    const float x = f(b), y = h(b);
+    for (int k = 0; k < 32 && b0 + k < n; ++k)
+      acc = fmaf(__shfl_sync(0xffffffffu, x, k), __shfl_sync(0xffffffffu, y, k), acc);
+  }
+  return acc;
 }
 
 // Encoder layer li's backward from g_mu (top) or the layer above's input
-// gradient; the top layer's phase also takes g_ep (L items a row first).
-__device__ void encoder_backward(const Args& A, int li, int gtid, int gsz) {
-  const int B = A.B;
+// gradient; the top layer's phase also takes g_ep, one latent dim a warp
+// of the cluster's last CTA (as the loss, beside the top layer's tiles).
+__device__ __noinline__ void encoder_backward(const Args& A, const Row& R, int li,
+                                              Team tm) {
+  float* S = R.scratch;
+  const Stack& st = R.enc;
   const bool top = li + 1 == A.n_enc;
-  over_rows(
-      A, gtid, gsz,
-      [&](const Row& R) {
-        const int din = R.enc.widths[li], dout = R.enc.widths[li + 1];
-        return (top ? R.L : 0) + din * dout + dout + (li > 0 ? B * din : 0);
-      },
-      [&](const Row& R, int i) {
-        float* S = R.scratch;
-        const Stack& st = R.enc;
-        int k = i;
-        if (top) {
-          if (k < R.L) {
-            float acc = 0.0f;
-            for (int b = 0; b < B; ++b)
-              acc = fmaf(S[R.s_gs + b * R.L + k], S[R.s_z1 + b * R.L + k], acc);
-            const float ep = R.p[R.o_ep + k];
-            S[R.s_g + R.o_ep + k] = acc * 0.5f * expf(ep * 0.5f) + 0.5f * (expf(ep) - 1.0f);
-            return;
-          }
-          k -= R.L;
-        }
-        const int din = st.widths[li], dout = st.widths[li + 1];
-        const int n_p = din * dout + dout;
-        const Grad G{S + (top ? R.s_gmu : R.s_buf[(li + 1) & 1]), 1.0f, nullptr};
-        const float* a_in = li == 0 ? S + R.s_x : S + st.act[li - 1];
-        if (k < n_p) {
-          param_grad(R, B, a_in, din, dout, st.w_off[li], st.b_off[li], G, k);
-        } else {
-          const int q = k - n_p;
-          const int b = q / din;
-          float acc = input_grad(R.p + st.w_off[li], dout, G, b, q - b * din);
-          if (!(a_in[q] > 0.0f)) acc = 0.0f;
-          S[R.s_buf[li & 1] + q] = acc;
-        }
-      });
-}
-
-// Whether flat slot i of a row lies in one of the stack's weight matrices.
-__device__ __forceinline__ bool in_weights(const Stack& st, int i) {
-  for (int li = 0; li < st.n; ++li) {
-    if (i >= st.w_off[li] && i < st.b_off[li]) return true;
+  if (top) {
+    for (int k = tm.q == tm.cs - 1 ? threadIdx.x >> 5 : R.L; k < R.L; k += kWarps) {
+      const float acc = warp_dot(
+          A.B, [&](int b) { return S[R.s_gs + b * R.L + k]; },
+          [&](int b) { return S[R.s_z1 + b * R.L + k]; });
+      const float ep = R.p[R.o_ep + k];
+      if ((threadIdx.x & 31) == 0)
+        S[R.s_g + R.o_ep + k] = acc * 0.5f * expf(ep * 0.5f) + 0.5f * (expf(ep) - 1.0f);
+    }
   }
-  return false;
+  const Operand G = plain_operand(S + (top ? R.s_gmu : R.s_buf[(li + 1) & 1]),
+                                  st.widths[li + 1]);
+  const float* a_in = li == 0 ? S + R.s_x : S + st.act[li - 1];
+  param_grads(A, R, st, li, G, a_in, tm);
+  if (li > 0) input_grad(A, R, st, li, G, a_in, S + R.s_buf[li & 1], tm);
 }
 
 // x rounded to the nearest bfloat16 (ties to even), back as a float.
@@ -635,75 +1077,132 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Adam (optax.adam: bias-corrected m̂/(√v̂ + eps)) over every parameter of
-// every row; the corrections 1 − βᵗ in double, rounded once to float, as in
-// K1. A row's t is its own, t0 + it + 1; each thread recomputes the
-// corrections only when t changes (a pure function of t). bf16 moments: the
-// weight slots' m and v are rounded before the update reads them (K4).
-__device__ void adam_phase(const Args& A, int it, int gtid, int gsz) {
-  int t_last = -1;
-  float bc1 = 1.0f, bc2 = 1.0f;
-  over_rows(
-      A, gtid, gsz, [&](const Row& R) { return R.P; },
-      [&](const Row& R, int i) {
-        const int t = R.t0 + it + 1;
-        if (t != t_last) {
-          t_last = t;
-          bc1 = static_cast<float>(1.0 - pow(0.9, static_cast<double>(t)));
-          bc2 = static_cast<float>(1.0 - pow(0.999, static_cast<double>(t)));
-        }
-        const float gi = R.scratch[R.s_g + i];
-        float m_ = kB1 * R.m[i] + kOneMinusB1 * gi;
-        float v_ = kB2 * R.v[i] + kOneMinusB2 * gi * gi;
-        if (A.moments_bf16 &&
-            (in_weights(R.enc, i) || in_weights(R.dec, i) || in_weights(R.sig, i))) {
-          m_ = bf16_rn(m_);
-          v_ = bf16_rn(v_);
-        }
-        R.m[i] = m_;
-        R.v[i] = v_;
-        R.p[i] -= A.lr * ((m_ / bc1) / (sqrtf(v_ / bc2) + kAdamEps));
-      });
+// Whether slot i of a row's layout lies in a weight matrix (bf16 moments
+// round those): a cursor over the layout's layers (the encoder's, the
+// decoder's, the SigDecoder's; epsilon_p and epsilon lie between the
+// second and the third stack) that only moves forward, for a thread whose
+// slots ascend.
+struct MatrixCursor {
+  const Row& R;
+  int st = 0, li = 0;
+  __device__ __forceinline__ const Stack& stack() const {
+    return st == 0 ? R.enc : st == 1 ? R.dec : R.sig;
+  }
+  __device__ __forceinline__ bool matrix(int i) {
+    while (st < 3) {
+      const Stack& s = stack();
+      if (li < s.n && i < s.b_off[li] + s.widths[li + 1]) break;  // inside layer li or before it
+      if (li + 1 < s.n) {
+        ++li;
+      } else {
+        ++st;
+        li = 0;
+      }
+    }
+    if (st == 3) return false;
+    const Stack& s = stack();
+    return i >= s.w_off[li] && i < s.b_off[li];
+  }
+};
+
+// Adam (optax.adam: bias-corrected m̂/(√v̂ + eps)) over the row's P slots
+// in one pass on the cluster's threads: slot i = gt, gt + gs, …, kBatch of
+// them loaded before any is stored. With bf16 moments (K4) the new m and v
+// of a weight matrix's slot are rounded before the update reads them. The
+// corrections 1 − βᵗ in double, rounded once to float, as in K1;
+// t = t0 + it + 1.
+__device__ __noinline__ void adam_stage(const Args& A, const Row& R, int it, Team tm) {
+  const int t = R.t0 + it + 1;
+  const float bc1 = static_cast<float>(1.0 - pow(0.9, static_cast<double>(t)));
+  const float bc2 = static_cast<float>(1.0 - pow(0.999, static_cast<double>(t)));
+  const float lr = A.lr;
+  const int P = R.P;
+  const float* g = R.scratch + R.s_g;
+  float* p = R.p;
+  float* m = R.m;
+  float* v = R.v;
+  MatrixCursor cur{R};
+  for (int i0 = tm.gt; i0 < P; i0 += tm.gs * kBatch) {
+    float gv[kBatch], mv[kBatch], vv[kBatch], pv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = min(i0 + u * tm.gs, P - 1);
+      gv[u] = g[i];
+      mv[u] = m[i];
+      vv[u] = v[i];
+      pv[u] = p[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * tm.gs;
+      if (i >= P) break;
+      // the fp32 plain version's roundings: b1·m, then + (1 − b1)·g fused;
+      // b2·v, then + ((1 − b2)·g)·g fused
+      float m_ = __fmaf_rn(kOneMinusB1, gv[u], __fmul_rn(kB1, mv[u]));
+      float v_ = __fmaf_rn(__fmul_rn(kOneMinusB2, gv[u]), gv[u], __fmul_rn(kB2, vv[u]));
+      if (A.moments_bf16 && cur.matrix(i)) {
+        m_ = bf16_rn(m_);
+        v_ = bf16_rn(v_);
+      }
+      const float step = lr * ((m_ / bc1) / (sqrtf(v_ / bc2) + kAdamEps));
+      m[i] = m_;
+      v[i] = v_;
+      p[i] = pv[u] - step;
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) mlp_vae_chunk_kernel(Args table) {
-  cg::grid_group grid = cg::this_grid();
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int gsz = gridDim.x * blockDim.x;
-
-  extern __shared__ __align__(16) uint4 table_words[];  // n_rows × sizeof(Row) bytes
-  const int n_words = table.n_rows * static_cast<int>(sizeof(Row) / sizeof(uint4));
-  const uint4* src = reinterpret_cast<const uint4*>(table.rows);
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) table_words[i] = src[i];
-  __syncthreads();
-  Args A = table;
-  A.rows = reinterpret_cast<const Row*>(table_words);
-
-  sample_phase(A, 0, gtid, gsz);
-  grid.sync();
+// The whole chunk of one row on its cluster: 17 cluster phases a step at
+// 3 + 3 hidden layers.
+__device__ void train_row(const Args& A, const Row& R, Team tm, float* red) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const bool work = !(A.skip & kSkipWork);
+  if (work) sample_phase(A, R, 0, tm);
+  cluster.sync();
   for (int it = 0; it < A.n_steps; ++it) {
     for (int li = 0; li < A.n_enc; ++li) {  // encoder forward: x → mu, s
-      encoder_forward(A, li, gtid, gsz);
-      grid.sync();
+      if (work) encoder_forward(A, R, li, tm);
+      cluster.sync();
     }
     for (int li = 0; li < A.n_dec; ++li) {  // decoder(s) forward: s → r = y − x
-      decoder_forward(A, li, gtid, gsz);
-      grid.sync();
+      if (work) decoder_forward(A, R, li, tm);
+      cluster.sync();
     }
     for (int li = A.n_dec - 1; li >= 0; --li) {  // decoder(s) backward → g_s, g_mu
-      decoder_backward(A, it, li, gtid, gsz);
-      grid.sync();
+      if (work) decoder_backward(A, R, it, li, tm, red);
+      cluster.sync();
     }
     for (int li = A.n_enc - 1; li >= 0; --li) {  // encoder backward, g_ep
-      encoder_backward(A, li, gtid, gsz);
-      grid.sync();
+      if (work) encoder_backward(A, R, li, tm);
+      cluster.sync();
     }
     // Adam, and the next step's noise (which reads no parameter)
-    adam_phase(A, it, gtid, gsz);
+    if (work && !(A.skip & kSkipAdam)) adam_stage(A, R, it, tm);
     if (it + 1 < A.n_steps) {
-      sample_phase(A, it + 1, gtid, gsz);
-      grid.sync();
+      if (work) sample_phase(A, R, it + 1, tm);
+      cluster.sync();
     }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) mlp_vae_chunk_kernel(Args A) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  if (cs != kCluster && cs != kClusterWide) __trap();  // launched without its cluster
+  Row* row = reinterpret_cast<Row*>(mlp_smem);
+  float* red = reinterpret_cast<float*>(mlp_smem + kRedOffset);
+  Args* args = reinterpret_cast<Args*>(mlp_smem + kArgsOffset);
+  if (threadIdx.x == 0) *args = A;
+  const int q = static_cast<int>(cluster.block_rank());
+  const Team tm{q, cs, q * kThreads + static_cast<int>(threadIdx.x), cs * kThreads};
+  const int n_clusters = gridDim.x / cs;
+  constexpr int kWords = sizeof(Row) / sizeof(uint4);
+  for (int r = blockIdx.x / cs; r < A.n_rows; r += n_clusters) {
+    __syncthreads();  // the previous row's readers of `row` are done
+    const uint4* src = reinterpret_cast<const uint4*>(A.rows + r);
+    for (int i = threadIdx.x; i < kWords; i += kThreads) reinterpret_cast<uint4*>(row)[i] = src[i];
+    __syncthreads();
+    train_row(*args, *row, tm, red);
   }
 }
 
@@ -717,6 +1216,47 @@ bool fill_shape(Shape& S, int B, int kind, int dual, int n_enc, const int* enc_h
   return true;
 }
 
+// The launch configuration: `clusters` clusters of `cs` CTAs, smem bytes
+// of dynamic shared memory each.
+void launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int clusters, int cs,
+                   size_t smem, cudaStream_t stream) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(cs * clusters);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr = cudaLaunchAttribute{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+// The clusters of `cs` CTAs with `smem` bytes each that the card holds at
+// once (0 where it holds none, or refuses the size).
+cudaError_t fit_clusters(int cs, int smem, int* most) {
+  *most = 0;
+  cudaError_t err = cudaFuncSetAttribute(mlp_vae_chunk_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cs > 8)  // the portable cluster size
+    err = cudaFuncSetAttribute(mlp_vae_chunk_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  launch_config(cfg, attr, 1, cs, static_cast<size_t>(smem), nullptr);
+  if (cudaOccupancyMaxActiveClusters(most, mlp_vae_chunk_kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // a size the card refuses: none fit
+    *most = 0;
+  }
+  return cudaSuccess;
+}
+
+// What the last launch used (mlp_vae_last_launch).
+int g_last_clusters = 0, g_last_cluster_size = 0, g_last_smem = 0;
+
 }  // namespace
 
 extern "C" {
@@ -726,6 +1266,14 @@ const char* mlp_vae_error_string(int err) {
 }
 
 size_t mlp_vae_row_bytes() { return sizeof(Row); }
+
+// The cluster sizes a launch chooses from: the portable one, the wide one.
+void mlp_vae_cluster_sizes(int* sizes) {
+  sizes[0] = kCluster;
+  sizes[1] = kClusterWide;
+}
+
+int mlp_vae_threads() { return kThreads; }
 
 // Plans `row` (its layout and scratch offsets, from its dims and the
 // launch's shape, in place) and returns the scratch floats it needs, or −1
@@ -737,46 +1285,85 @@ long long mlp_vae_plan_row(Row* row, int B, int kind, int dual, int n_enc,
   return plan(*row, S);
 }
 
-// The grid of a launch of `n_rows` rows on the current device: one block
-// per SM, if the kernel fits one block per SM (occupancy ≥ 1) with the row
-// table in its shared memory and the device takes cooperative launches.
-int mlp_vae_grid(int n_rows, int* blocks, int* blocks_per_sm_max) {
-  if (n_rows < 1 || n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(Row) * n_rows;
-  int dev = 0, sms = 0, coop = 0, occ = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mlp_vae_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, mlp_vae_chunk_kernel, kThreads,
-                                                        smem);
+// The shared memory a CTA of a cluster of `cs` needs for a row of dims
+// (D, L) at this shape, or −1 (kernels/mlp_vae.py:smem_bytes mirrors it).
+int mlp_vae_smem_bytes(int B, int D, int L, int dual, int n_enc, const int* enc_hidden,
+                       int n_dec, const int* dec_hidden, int cs) {
+  Shape S;
+  if (!fill_shape(S, B, kSphere, dual, n_enc, enc_hidden, n_dec, dec_hidden)) return -1;
+  Row R{};
+  R.D = D; R.L = L;
+  if (!fill_stack(R.enc, S.n_enc, D, S.enc_hidden, L) ||
+      !fill_stack(R.dec, S.n_dec, L, S.dec_hidden, D) || B < 1 || D < 1 || L < 1 ||
+      (cs != kCluster && cs != kClusterWide))
+    return -1;
+  return row_smem(R, S, cs);
+}
+
+// The cluster plan of a launch of `n_rows` rows whose CTAs need smem[0]
+// bytes of shared memory on clusters of kCluster and smem[1] on clusters
+// of kClusterWide, on the current device: `clusters` clusters of
+// `cluster_size` CTAs, min(n_rows, `max_clusters`, the clusters of that
+// size the card holds at once). `request` 0 takes the size that trains the
+// rows in the fewest turns, the wide one on a tie (a row's phases then
+// spread over twice the SMs); kCluster or kClusterWide names one.
+int mlp_vae_grid(int n_rows, const int* smem, int request, int* clusters, int* cluster_size,
+                 int* max_clusters) {
+  if (n_rows < 1 || n_rows > kMaxRows || (request != 0 && request != kCluster &&
+                                          request != kClusterWide))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sizes[2] = {kCluster, kClusterWide};
+  int most[2] = {0, 0};
+  for (int k = 0; k < 2; ++k) {
+    if (smem[k] < kHeader || smem[k] > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (request != 0 && request != sizes[k]) continue;
+    const cudaError_t err = fit_clusters(sizes[k], smem[k], &most[k]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto turns = [&](int k) { return most[k] < 1 ? INT_MAX : cdiv(n_rows, most[k]); };
+  const int k = request == kCluster ? 0 : request == kClusterWide ? 1 :
+                turns(1) <= turns(0) ? 1 : 0;
+  if (most[k] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the chosen size's attributes stand for the launch
+  const cudaError_t err = fit_clusters(sizes[k], smem[k], &most[k]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *blocks = sms;
-  *blocks_per_sm_max = occ;
+  *clusters = n_rows < most[k] ? n_rows : most[k];
+  *cluster_size = sizes[k];
+  *max_clusters = most[k];
   return 0;
 }
 
+// The clusters, their size and the shared memory of the last launch.
+void mlp_vae_last_launch(int* clusters, int* cluster_size, int* smem) {
+  *clusters = g_last_clusters;
+  *cluster_size = g_last_cluster_size;
+  *smem = g_last_smem;
+}
+
 // K5 (one row) and K6b (many): `n_steps` steps of every row of the table in
-// one cooperative launch. The rows are planned here, in `rows_host`, and the
+// one cluster launch. The rows are planned here, in `rows_host`, and the
 // table copied in stream order to `rows_dev` (n_rows × sizeof(Row) bytes of
 // device memory the caller owns); every row's scratch must hold what its
-// plan needs.
+// plan needs. `cluster` is the cluster size (0: mlp_vae_grid's choice);
+// `skip` is 0 in training (timing variants otherwise).
 int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B, int kind,
                   int dual, int n_enc, const int* enc_hidden, int n_dec, const int* dec_hidden,
-                  float eps_const, int tdv, float lr, int moments_bf16, void* stream) {
+                  float eps_const, int tdv, float lr, int moments_bf16, int cluster, int skip,
+                  void* stream) {
   Shape S;
-  if (n_rows < 1 || n_rows > kMaxRows || n_steps < 1 ||
+  if (n_rows < 1 || n_rows > kMaxRows || n_steps < 1 || skip < 0 ||
+      skip > (kSkipMma | kSkipStage | kSkipAdam | kSkipWork) ||
       !fill_shape(S, B, kind, dual, n_enc, enc_hidden, n_dec, dec_hidden))
     return static_cast<int>(cudaErrorInvalidValue);
+  int smem[2] = {kHeader, kHeader};
   for (int r = 0; r < n_rows; ++r) {
     const long long need = plan(rows_host[r], S);
     if (need < 0 || rows_host[r].scratch_floats < need || rows_host[r].scratch == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
+    const int s8 = row_smem(rows_host[r], S, kCluster);
+    const int s16 = row_smem(rows_host[r], S, kClusterWide);
+    smem[0] = s8 > smem[0] ? s8 : smem[0];
+    smem[1] = s16 > smem[1] ? s16 : smem[1];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemcpyAsync(rows_dev, rows_host, sizeof(Row) * n_rows,
@@ -787,14 +1374,20 @@ int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B
   A.n_rows = n_rows;
   A.n_steps = n_steps; A.B = B; A.kind = kind; A.dual = dual != 0;
   A.n_enc = n_enc; A.n_dec = n_dec; A.tdv = tdv; A.moments_bf16 = moments_bf16;
+  A.skip = skip;
   A.eps_const = eps_const; A.lr = lr;
-  int blocks = 0, occ = 0;
-  const int err = mlp_vae_grid(n_rows, &blocks, &occ);
+  int clusters = 0, cs = 0, most = 0;
+  const int err = mlp_vae_grid(n_rows, smem, cluster, &clusters, &cs, &most);
   if (err != 0) return err;
-  void* params[] = {&A};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(mlp_vae_chunk_kernel), dim3(blocks),
-                                  dim3(kThreads), params, sizeof(Row) * n_rows, st);
+  const int bytes = cs == kCluster ? smem[0] : smem[1];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  launch_config(cfg, attr, clusters, cs, static_cast<size_t>(bytes), st);
+  e = cudaLaunchKernelEx(&cfg, mlp_vae_chunk_kernel, A);
   if (e != cudaSuccess) return static_cast<int>(e);
+  g_last_clusters = clusters;
+  g_last_cluster_size = cs;
+  g_last_smem = bytes;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,8 +8,9 @@ interface (no PyTorch headers, so a build takes seconds):
 
 The library name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
-unchanged one is reused. The MLP kernel's cooperative launch needs no flag
-of its own: ``grid.sync()`` builds without ``-rdc=true`` on CUDA 12.8.
+unchanged one is reused. The probes' cooperative launch needs no flag of
+its own: ``grid.sync()`` builds without ``-rdc=true`` on CUDA 12.8; the MLP
+kernel's cluster launch needs none either.
 ``--use_fast_math`` is deliberately absent: it would swap
 ``expf``/``logf``/``sincosf`` for approximations and break the agreement
 with the plain PyTorch versions.

@@ -7,12 +7,28 @@ the sphere sweep's 200|200|200 ReLU stacks and MLPs on linear_gaussian (K5);
 MLPs on the sigmoid dataset with the dual decoder x̂ = σ(SigDecoder(s)) +
 Decoder(s) (K5-dual, ``mlp_vae.py:308-311, 324-329, 349-352``); and grid
 mode (K6b, ``grid_n > 0``: many sweep rows, of mixed dims, in one launch).
-The kernel itself is ``csrc/mlp_vae.cu``: one persistent cooperative launch
-runs a whole K-step chunk of every row of a device table (sampling, forward
-through the stacks, closed-form ELBO, backward through every layer, Adam),
-its phases separated by grid-wide barriers, each row's state in the
-caller's buffers and its activations in a scratch buffer the wrapper
-allocates. A solo launch is the same kernel with a one-row table.
+The kernel itself is ``csrc/mlp_vae.cu``: one cluster launch runs a whole
+K-step chunk of every row of a device table (sampling, forward through the
+stacks, closed-form ELBO, backward through every layer, Adam). Each row is
+trained by one thread-block cluster, its phases separated by cluster
+barriers: of ``CLUSTER_WIDE`` CTAs (16, a non-portable size) where that
+trains the launch's rows in no more turns than clusters of ``CLUSTER``
+(8) would (a solo launch, a few rows), else of ``CLUSTER`` (the sphere
+sweep's 15 rows, side by side). A launch has min(rows, the clusters the
+card holds at once) clusters, each walking its rows in turn. One warp
+computes a unit of a layer product (32 rows × 16 columns, 4 × 4 a lane)
+over the whole contraction, as fp32 FMA chains in ascending k (the order
+of the fp32 plain version's GEMMs), so no result depends on the cluster
+size, the cut of the products or the number of rows. Each row's
+state stays in the caller's buffers and its activations in a scratch buffer
+the wrapper allocates. A solo launch is the same kernel with a one-row table.
+
+``tiles``, ``products``, ``smem_bytes``, ``unit_owners``, ``cluster_size``
+and ``cluster_plan`` are the kernel's plan in Python (the C side's
+``tiles()``, ``row_smem()`` and ``mlp_vae_grid``): which CTA and warp
+computes which unit of each product, the shared memory a CTA stages, and
+the cluster size a launch takes, so that the CPU tests can check every
+sweep shape and the card can check the library agrees.
 
 A row's state crosses the launch as three flat float32 buffers (params,
 Adam m, Adam v) in the layout of ``param_layout``: every Dense layer of the
@@ -36,6 +52,7 @@ stack's weight matrices to bfloat16 at every step, in float32 buffers
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,10 +72,173 @@ from .linear_vae import (
     unpack_layout_,
 )
 
-THREADS = 512  # the kernel's block size (kThreads in csrc/mlp_vae.cu)
+THREADS = 512  # a CTA's threads (kThreads in csrc/mlp_vae.cu)
+WARPS = THREADS // 32
+CLUSTER = 8  # CTAs a row: the portable cluster size (kCluster)
+CLUSTER_WIDE = 16  # the wide one, for launches of few rows (kClusterWide)
+TILE_M, TILE_N = 32, 16  # a unit: TILE_M × TILE_N outputs, one warp's (kTileM, kTileN)
+TILE_M_NARROW = 8  # a narrow product's units (M or N ≤ TILE_N): 8 rows (kTileMNarrow)
+KSTEP = 4  # contractions run four k at a time (kKStep)
+SMEM_MAX = 232448  # shared memory a CTA can have on sm_90 (kSmemMax)
+HEADER = 1024  # the row and the loss partials, before the stage (kHeader)
 MAX_LAYERS = 8  # Dense layers per stack (kMaxLayers)
-MAX_ROWS = 256  # rows a launch (kMaxRows): the row table lives in shared memory
+MAX_ROWS = 256  # rows a launch (kMaxRows)
+SKIP = {"mma": 1, "stage": 2, "adam": 4, "work": 8}  # timing variants (kSkip*)
 KINDS = {"sphere": 0, "linear": 1, "sigmoid": 2}  # the manifolds sampled in-kernel
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Product:
+    """One product of a cluster phase: out (M × N) = A (M × K) · B (K × N),
+    ``pairs`` of one shape side by side (the dual decoder's). ``a_t``: A is
+    read as [k][m] (its layout in device memory), ``b_t``: B as [n][k].
+    The epilogue reads ``vecs`` vectors and ``mats`` matrices, staged with
+    the operands. With the dual decoder the Decoder's and the SigDecoder's
+    products (but the residual and g_s, which take both) run side by side,
+    each on half the cluster (``half``)."""
+    phase: str
+    M: int
+    N: int
+    K: int
+    a_t: bool
+    b_t: bool
+    pairs: int = 1
+    vecs: int = 0  # the epilogue's input vectors (N) and matrices (M × N)
+    mats: int = 0
+    half: bool = False  # on half the cluster (the dual decoder's stacks side by side)
+
+    def ctas(self, cluster: int) -> int:
+        """The CTAs that share this product on a cluster of ``cluster``."""
+        return cluster // 2 if self.half else cluster
+
+
+def _odd4(x: int) -> int:
+    """The least 4·odd stride of at least x + 4 floats (``odd4()``)."""
+    return x + 4 if (x // 4) % 2 == 0 else x + 8
+
+
+def tiles(M: int, N: int, K: int, a_t: bool, b_t: bool, pairs: int = 1,
+          cluster: int = CLUSTER, vecs: int = 0, mats: int = 0) -> dict:
+    """The kernel's tile plan of one product (``tiles()`` in csrc/mlp_vae.cu,
+    the same integer arithmetic): units of ``tm`` × TILE_N outputs (``tm``
+    = TILE_M, or TILE_M_NARROW where M or N is at most TILE_N), the
+    cluster's CTAs as qm × qn over the m-tiles and n-tiles (qn the largest
+    power of two up to the n-tiles, so that a narrow product spreads its
+    rows), ``mpc`` m-tiles and ``spc`` n-tiles a CTA, the contraction padded
+    to 4 and staged in chunks of ``kc`` (the largest multiple of 4 whose
+    stage fits beside the epilogue's inputs), and the stage's bytes (-1:
+    none fits)."""
+    tm = TILE_M_NARROW if M <= TILE_N or N <= TILE_N else TILE_M
+    m_tiles, n_tiles = _cdiv(M, tm), _cdiv(N, TILE_N)
+    qn = 1  # the cluster as qm × qn CTAs: qn the largest power of two ≤ the n-tiles
+    while 2 * qn <= cluster and 2 * qn <= n_tiles:
+        qn *= 2
+    mpc, spc = _cdiv(m_tiles, cluster // qn), _cdiv(n_tiles, qn)
+    k_pad = _cdiv(K, KSTEP) * KSTEP
+    mp, ncp = tm * mpc, TILE_N * spc
+    e_floats = vecs * ncp + mats * mp * (ncp + 4)
+    alpha = (mp + 8 if a_t else mp) + (ncp if b_t else ncp + 8)
+    beta = (0 if a_t else 8 * mp) + (8 * ncp if b_t else 0)
+    per = ((SMEM_MAX - HEADER) // 4 - e_floats) // pairs
+    kc = min((per - beta) // alpha // KSTEP * KSTEP if per > beta else 0, k_pad)
+    sa = mp + 8 if a_t else _odd4(kc)
+    sb = _odd4(kc) if b_t else ncp + 8
+    a_floats = kc * sa if a_t else mp * sa
+    b_floats = ncp * sb if b_t else kc * sb
+    return dict(tm=tm, m_tiles=m_tiles, n_tiles=n_tiles, qn=qn, mpc=mpc, spc=spc, k_pad=k_pad,
+                kc=kc,
+                bytes=4 * (pairs * (a_floats + b_floats) + e_floats) if kc > 0 else -1)
+
+
+def products(batch: int, enc_widths: Sequence[int], dec_widths: Sequence[int],
+             dual: bool = False) -> List[Product]:
+    """Every product of one training step of a row, in the kernel's order:
+    the encoder's and the decoder's forward (the decoder's last layer one
+    pair with the dual decoder; its hidden layers run the SigDecoder's
+    product after the decoder's, of the same shape), then the decoder's and
+    the encoder's backward: each layer's [a_in, 1]ᵀ·G (g_W, and g_b as its
+    last row) and, below the first layer, g_in = G·Wᵀ; at the decoder's
+    first layer g_s (a pair with the dual decoder)."""
+    B, enc, dec = batch, tuple(enc_widths), tuple(dec_widths)
+    np_ = 2 if dual else 1
+    n_enc, n_dec = len(enc) - 1, len(dec) - 1
+    # the epilogues' inputs: a hidden layer's bias; mu's bias, epsilon_p and
+    # z1; the residual's biases, z2 and x; g_in's ReLU input; g_s's mu
+    out = [Product(f"enc fwd {li}", B, enc[li + 1], enc[li], False, False, 1,
+                   2 if li + 1 == n_enc else 1, 1 if li + 1 == n_enc else 0)
+           for li in range(n_enc)]
+    out += [Product(f"dec fwd {li}", B, dec[li + 1], dec[li], False, False, np_, np_, 2)
+            if li + 1 == n_dec else
+            Product(f"dec fwd {li}", B, dec[li + 1], dec[li], False, False, 1, 1, 0, dual)
+            for li in range(n_dec)]
+    for li in reversed(range(n_dec)):
+        out.append(Product(f"dec g_W {li}", dec[li] + 1, dec[li + 1], B, True, False,
+                           half=dual))
+        out.append(Product(f"dec g_in {li}", B, dec[li], dec[li + 1], False, True, 1, 0, 1, dual)
+                   if li else
+                   Product("dec g_s", B, dec[li], dec[li + 1], False, True, np_, 0, 1))
+    for li in reversed(range(n_enc)):
+        out.append(Product(f"enc g_W {li}", enc[li] + 1, enc[li + 1], B, True, False))
+        if li:
+            out.append(Product(f"enc g_in {li}", B, enc[li], enc[li + 1], False, True, 1, 0, 1))
+    return out
+
+
+def smem_bytes(batch: int, enc_widths: Sequence[int], dec_widths: Sequence[int],
+               dual: bool = False, cluster: int = CLUSTER) -> int:
+    """Shared memory a CTA of a cluster of ``cluster`` needs for one row
+    (``row_smem()`` in csrc/mlp_vae.cu): the header and the largest stage;
+    -1 if a product's stage fits no chunk."""
+    sizes = [tiles(p.M, p.N, p.K, p.a_t, p.b_t, p.pairs, p.ctas(cluster), p.vecs,
+                   p.mats)["bytes"]
+             for p in products(batch, enc_widths, dec_widths, dual)]
+    return -1 if min(sizes) < 0 else HEADER + max(sizes)
+
+
+def unit_owners(prod: Product, cluster: int = CLUSTER) -> List[Tuple[int, int, int, int, int]]:
+    """Who computes what of one product, as the kernel assigns it on a
+    cluster of ``cluster`` CTAs (of its half, for a ``half`` product): (cta,
+    round, warp, m0, n0), each the owner
+    of the tm × TILE_N unit at (m0, n0) (``tiles``' tm). CTA q = (q // qn, q % qn)
+    takes m-tiles [(q // qn)·mpc, …) and n-tiles [(q % qn)·spc, …); its
+    units s = nl·mt_n + ml go to warp s mod WARPS in round s // WARPS."""
+    cluster = prod.ctas(cluster)
+    t = tiles(prod.M, prod.N, prod.K, prod.a_t, prod.b_t, prod.pairs, cluster, prod.vecs,
+              prod.mats)
+    out = []
+    for q in range(cluster):
+        mt_lo, nt_lo = (q // t["qn"]) * t["mpc"], (q % t["qn"]) * t["spc"]
+        mt_n = min(t["mpc"], t["m_tiles"] - mt_lo)
+        nt_n = min(t["spc"], t["n_tiles"] - nt_lo)
+        if mt_n <= 0 or nt_n <= 0:
+            continue
+        for s in range(mt_n * nt_n):
+            out.append((q, s // WARPS, s % WARPS, t["tm"] * (mt_lo + s % mt_n),
+                        TILE_N * (nt_lo + s // mt_n)))
+    return out
+
+
+def cluster_size(n_rows: int, max_clusters: dict) -> int:
+    """The cluster size a launch of ``n_rows`` rows takes (``mlp_vae_grid``):
+    of {size: the clusters of that size the card holds at once}, the size
+    that trains the rows in the fewest turns, ``CLUSTER_WIDE`` on a tie."""
+    def turns(size):
+        most = max_clusters.get(size, 0)
+        return _cdiv(n_rows, most) if most >= 1 else float("inf")
+
+    return CLUSTER_WIDE if turns(CLUSTER_WIDE) <= turns(CLUSTER) else CLUSTER
+
+
+def cluster_plan(n_rows: int, max_clusters: int) -> List[Tuple[int, int]]:
+    """Row i of a launch → (its cluster, its turn on that cluster): the
+    launch has min(n_rows, max_clusters) clusters, and cluster k trains rows
+    k, k + n_clusters, … in turn."""
+    n = min(n_rows, max_clusters)
+    return [(i % n, i // n) for i in range(n_rows)]
 
 
 def stack_widths(model) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -133,6 +313,14 @@ def _structure(model, dataset) -> Tuple[bool, str]:
                   f"{n_params(enc, dec, model.dual_sigmoid_decoder)} parameters")
 
 
+def _fits(model, batch: int) -> Tuple[bool, str]:
+    enc, dec = stack_widths(model)
+    if smem_bytes(batch, enc, dec, model.dual_sigmoid_decoder) < 0:
+        return False, (f"batch {batch} with widths {enc} / {dec}: a product's stage does "
+                       f"not fit {SMEM_MAX} B of shared memory in chunks of 16")
+    return True, ""
+
+
 def supported(model, dataset, cfg) -> Tuple[bool, str]:
     """Whether K5 can run this configuration (the counterpart of
     ``mlp_pallas_supported``, ``mlp_vae.py:682-724``, re-derived for the
@@ -146,6 +334,9 @@ def supported(model, dataset, cfg) -> Tuple[bool, str]:
     ok, why = _structure(model, dataset)
     if not ok:
         return False, why
+    ok, why_smem = _fits(model, cfg.batch_size)
+    if not ok:
+        return False, why_smem
     ok, why_dev = cuda_device_ok(cfg)
     if not ok:
         return False, why_dev
@@ -193,6 +384,8 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
                                f"{ref[key]!r}); one launch takes rows that differ "
                                f"only in dims and seeds")
         ok, why = _structure(model, dataset)
+        if ok:
+            ok, why = _fits(model, c.batch_size)
         if not ok:
             return False, f"row {i}: {why}"
         sizes.append(n_params(*stack_widths(model), model.dual_sigmoid_decoder))
@@ -228,7 +421,7 @@ class Row(ctypes.Structure):
         (name, ctypes.c_int) for name in ("P", "o_ep", "o_eps")] + [
         (name, Stack) for name in ("enc", "dec", "sig")] + [
         (name, ctypes.c_int) for name in ("s_g", "s_nz", "s_x", "s_z1", "s_z2", "s_mu", "s_s",
-                                          "s_r", "s_su", "s_gs", "s_gmu")] + [
+                                          "s_r", "s_gy", "s_gu", "s_gs", "s_gmu")] + [
         ("s_buf", ctypes.c_int * 2), ("s_sbuf", ctypes.c_int * 2)]
 
 
@@ -243,19 +436,32 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("mlp_vae")[0]
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip, rp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(Row)
-        lib.mlp_vae_chunk.argtypes = [rp, vp] + [i32] * 6 + [ip, i32, ip, f32, i32, f32, i32, vp]
+        lib.mlp_vae_chunk.argtypes = [rp, vp] + [i32] * 6 + [ip, i32, ip, f32, i32, f32, i32,
+                                                               i32, i32, vp]  # bf16, cluster, skip
         lib.mlp_vae_chunk.restype = i32
         lib.mlp_vae_plan_row.argtypes = [rp] + [i32] * 4 + [ip, i32, ip]
         lib.mlp_vae_plan_row.restype = ctypes.c_longlong
+        lib.mlp_vae_smem_bytes.argtypes = [i32] * 5 + [ip, i32, ip, i32]
+        lib.mlp_vae_smem_bytes.restype = i32
         lib.mlp_vae_row_bytes.argtypes = []
         lib.mlp_vae_row_bytes.restype = ctypes.c_size_t
-        lib.mlp_vae_grid.argtypes = [i32, ip, ip]
+        lib.mlp_vae_grid.argtypes = [i32, ip, i32, ip, ip, ip]
+        lib.mlp_vae_cluster_sizes.argtypes = [ip]
+        lib.mlp_vae_cluster_sizes.restype = None
         lib.mlp_vae_grid.restype = i32
+        lib.mlp_vae_last_launch.argtypes = [ip, ip, ip]
+        lib.mlp_vae_last_launch.restype = None
         lib.mlp_vae_error_string.argtypes = [i32]
         lib.mlp_vae_error_string.restype = ctypes.c_char_p
         if lib.mlp_vae_row_bytes() != ctypes.sizeof(Row):
             raise RuntimeError(f"csrc/mlp_vae.cu's Row is {lib.mlp_vae_row_bytes()} B, "
                                f"kernels/mlp_vae.py's {ctypes.sizeof(Row)} B")
+        sizes = _int_array([0, 0])
+        lib.mlp_vae_cluster_sizes(sizes)
+        if (tuple(sizes), lib.mlp_vae_threads()) != ((CLUSTER, CLUSTER_WIDE), THREADS):
+            raise RuntimeError(f"csrc/mlp_vae.cu's clusters and CTA are "
+                               f"{tuple(sizes)} x {lib.mlp_vae_threads()}, "
+                               f"kernels/mlp_vae.py's {(CLUSTER, CLUSTER_WIDE)} x {THREADS}")
         _LIB = lib
     return _LIB
 
@@ -270,14 +476,37 @@ def _int_array(values: Sequence[int]):
     return (ctypes.c_int * max(len(values), 1))(*values)
 
 
-def grid(n_rows: int = 1) -> Tuple[int, int]:
-    """(blocks of a launch of ``n_rows`` rows, the most blocks an SM could
-    hold) on the current device: the kernel launches one block per SM."""
+def grid(n_rows: int, smem: dict, cluster: int = 0) -> dict:
+    """The cluster plan of a launch of ``n_rows`` rows whose CTAs need
+    ``smem[size]`` bytes of shared memory on clusters of each size, on the
+    current device: {"clusters", "cluster_size", "max_clusters"}; the
+    launch has ``clusters`` = min(n_rows, max_clusters) clusters of
+    ``cluster_size`` (``cluster_size`` picks it; ``cluster`` names one
+    instead), and ``cluster_plan`` maps rows to them."""
     lib = _lib()
-    blocks, occ = ctypes.c_int(0), ctypes.c_int(0)
-    _check(lib, lib.mlp_vae_grid(n_rows, ctypes.byref(blocks), ctypes.byref(occ)),
-           "mlp_vae_grid")
-    return blocks.value, occ.value
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _check(lib, lib.mlp_vae_grid(n_rows, _int_array([smem[CLUSTER], smem[CLUSTER_WIDE]]),
+                                 cluster, *map(ctypes.byref, vals)), "mlp_vae_grid")
+    return dict(zip(("clusters", "cluster_size", "max_clusters"), (x.value for x in vals)))
+
+
+def last_launch() -> dict:
+    """What the library's last launch used: {"clusters", "cluster_size",
+    "smem"} (a cluster launch; there is no other kind)."""
+    lib = _lib()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    lib.mlp_vae_last_launch(*map(ctypes.byref, vals))
+    return dict(zip(("clusters", "cluster_size", "smem"), (x.value for x in vals)))
+
+
+def library_smem_bytes(batch: int, enc_widths: Sequence[int], dec_widths: Sequence[int],
+                       dual: bool = False, cluster: int = CLUSTER) -> int:
+    """``smem_bytes`` as the library computes it (for the card's check that
+    the two plans agree)."""
+    enc, dec = tuple(enc_widths), tuple(dec_widths)
+    return _lib().mlp_vae_smem_bytes(batch, enc[0], enc[-1], int(dual), len(enc) - 1,
+                                     _int_array(enc[1:-1]), len(dec) - 1,
+                                     _int_array(dec[1:-1]), cluster)
 
 
 def row_widths(row: GridRow, enc_hidden: Sequence[int], dec_hidden: Sequence[int]):
@@ -289,9 +518,16 @@ def row_widths(row: GridRow, enc_hidden: Sequence[int], dec_hidden: Sequence[int
 
 def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int, batch: int,
             enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str, eps_const: float,
-            tdv: bool, lr: float, dual: bool, external_noise, adam_dtype: str) -> None:
+            tdv: bool, lr: float, dual: bool, external_noise, adam_dtype: str,
+            cluster: int = 0, skip: int = 0) -> None:
     """One launch over ``rows``, row i training ``bufs[i]`` = its (p, m, v)
-    in place and writing ``losses[i]``: what K5 (one row) and K6b share."""
+    in place and writing ``losses[i]``: what K5 (one row) and K6b share.
+    ``cluster`` names the cluster size (0: the launch's choice; no result
+    depends on it). ``skip`` (a sum of ``SKIP`` values) leaves parts of the
+    kernel out, for timing only: the training entry points
+    ``run_mlp_fused_chunk`` and ``run_grid_chunk`` take no such argument."""
+    if cluster not in (0, CLUSTER, CLUSTER_WIDE) or skip not in range(sum(SKIP.values()) + 1):
+        raise ValueError(f"cluster {cluster} or skip {skip} out of range")
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {sorted(KINDS)}, got {kind!r}")
     n_enc, n_dec = len(enc_hidden) + 1, len(dec_hidden) + 1
@@ -352,7 +588,8 @@ def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int
     rows_dev = torch.empty(len(rows) * ctypes.sizeof(Row), dtype=torch.uint8, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.mlp_vae_chunk(table, rows_dev.data_ptr(), len(rows), n_steps, *shape,
-                            float(eps_const), int(bool(tdv)), float(lr), int(bf16), stream)
+                            float(eps_const), int(bool(tdv)), float(lr), int(bf16),
+                            int(cluster), int(skip), stream)
     _check(lib, err, "mlp_vae_chunk launch")
 
 

@@ -5,8 +5,8 @@ Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
 
 - T4, ``tools/probe_mlp_interleave.py:62`` (``run`` → ``_chain_kernel``):
   ``chain_chunk`` with identity-like weights, ``min(·, 8)`` after each dot,
-  in two forms: ``"phase"`` (the MLP kernel's design: one cooperative
-  launch, a grid-wide phase a dot) and ``"cluster"`` (a 4-CTA cluster a
+  in two forms: ``"phase"`` (the MLP kernel's former design:
+  one cooperative launch, a grid-wide phase a dot) and ``"cluster"`` (a 4-CTA cluster a
   chain, W and h in shared memory, no grid barrier);
 - T3, ``tools/probe_mxu_pipelining.py:82`` (``run`` → ``make_kernel``):
   ``chain_chunk`` with ``weights_per_depth`` (8 distinct weights a chain)

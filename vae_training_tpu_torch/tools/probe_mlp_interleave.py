@@ -9,7 +9,7 @@ body; here they share each dot's phase: that is how K6b runs its rows.
 Both of the port's forms are timed, for 1, 2, 1, 2 and 4 chains (the
 tool's order):
 
-- ``phase``: the MLP kernel's design, one cooperative launch, one
+- ``phase``: the MLP kernel's former design, one cooperative launch, one
   grid-wide phase a dot (one thread an output, a 256-term FMA chain from
   L2, ``grid.sync()``);
 - ``cluster``: one 4-CTA cluster a chain, W's columns and h in shared

@@ -6,8 +6,8 @@ scripts run each (seed, row) as its own process; ``--seed_grid 2,3,4``
 trains the seeds together: one dataset and one ``TrainState`` a row, one
 model for the group, and between host events one chunk over every row
 (``kernels/dispatch.py:make_grid_chunk``: K6a, the grid mode of the linear
-kernel, one CTA per row; or K6b, the grid mode of the MLP kernel, every
-row's phases in one cooperative launch).
+kernel, one CTA per row; or K6b, the grid mode of the MLP kernel, one
+thread-block cluster per row in one launch).
 
 Seeds follow the solo Trainer exactly (``train/loop.py``): a row's data
 seed is ``derive_seed(dataset_seed, SEED_TRAIN_DATA)`` and its eval-data
