@@ -17,7 +17,7 @@ through K5-dual, the MLP kernel's dual branch; then all of them again with
 bf16 Adam moments (K4, --adam_dtype bf16); then the probes T1–T5, each
 through its tool's entry point (vae_training_tpu_torch/tools/), on
 csrc/probes.cu and, for T1, the training kernels' sampler; last, the MLP kernel's step
-split into its parts. Thirty-one phases:
+split into its parts, then the linear kernel's. Thirty-two phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -60,7 +60,8 @@ split into its parts. Thirty-one phases:
      the uninterrupted sweep bitwise;
  17. times: K6a against the same rows as sequential solo launches and its
      plain version, with each launch's bound; the launch-step time against
-     the number of rows (1, 21, 132, 264);
+     the number of rows (1, 21, 132, 264), with the SM clock nvidia-smi
+     reads during each window;
  18. K6b on the sphere sweep's 15 rows and on 3 sigmoid-MLP dual rows
      (200|200|200): every row equal to its solo K5 launch bitwise (64
      steps, in-kernel sampler), K6b against its plain version with external
@@ -109,7 +110,8 @@ split into its parts. Thirty-one phases:
      and interleaved in turns and the VERDICT;
  29. T2: one dot in fp32, TF32 and bf16 modes against the plain versions
      (rtol 1e-5 / atol 1e-4) and a float64 host product (fp32's error under
-     bf16's / 100, TF32's between), with torch.matmul's times;
+     bf16's / 100, TF32's between), with torch.matmul's times, each also in
+     device time (200 calls captured in one CUDA graph);
  30. T1: the sampler's statistical battery (chi-squared, lags 1-4, the four
      streams, 16 grid row keys).
 
@@ -118,7 +120,12 @@ split into its parts. Thirty-one phases:
      but the cluster barriers (windows of at least 1 s); the step on
      clusters of 8 beside the launch's 16; and 16 steps on clusters of 8
      equal to 16 steps on clusters of 16 bitwise, solo and dual, f32 and
-     bf16 moments.
+     bf16 moments;
+ 32. the linear kernel's step at linear row 1, sigmoid row 1 and the
+     sigmoid sweep's largest row (D 28, L 24) split by timing variants that
+     leave parts out: the noise (sampler and manifold draw), the per-row
+     pass, the per-parameter pass with Adam, everything but the two
+     barriers; what leaving each part out saves, and each part alone.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -407,6 +414,7 @@ def main() -> int:
     records += _bf16_moments(torch, np, smi, os.path.join(data_dir, "bf16"))
     records += _probes(torch, np, smi)
     _mlp_split(torch, np, smi)
+    _linear_split(torch, np, smi)
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -915,10 +923,11 @@ def _grids(torch, np, smi, solo_dir, data_dir):
     for n_rows in (1, 21, 132, 264):
         grows = [base] * n_rows
         bufs = k1.pack_rows([state0] * n_rows, grows)
-        rate = _steps_per_second(torch, lambda: k1.run_grid_chunk(
-            *bufs, grows, n_steps=1000, **fam["kw"]), 1000)
+        with _SmClock() as clock:
+            rate = _steps_per_second(torch, lambda: k1.run_grid_chunk(
+                *bufs, grows, n_steps=1000, **fam["kw"]), 1000)
         print(f"K6a with {n_rows:3d} copies of linear row 1: {1e3 / rate:.5f} ms a "
-              f"launch-step ({rate * n_rows:.1f} row-steps/s)")
+              f"launch-step ({rate * n_rows:.1f} row-steps/s); SM clock {clock}")
     return records
 
 
@@ -1987,19 +1996,31 @@ def _probes(torch, np, smi):
     require(t2_launches > 0, "T2's kernel launched in the tool's run")
     M, K, N = t2.M, t2.K, t2.N
     us = t2_report["us"]
+    # device time: 200 calls captured in one CUDA graph, replayed in windows
+    # timed with CUDA events (the per-call figures above include the host)
+    xs, ws = t2.inputs(dev)
+    dev_us = {}
+    with t2.tf32_matmul(False):
+        for mode in probes.MODES:
+            dev_us[(mode, "kernel")] = _device_us(torch, lambda m=mode: probes.dot_modes(xs, ws, m))
+            dev_us[(mode, "library")] = _device_us(torch, t2.library_call(mode, xs, ws))
+    print(f"card: {smi}")
     for mode, peak in (("fp32", FP32_PEAK), ("tf32", TF32_PEAK), ("bf16", BF16_PEAK)):
         bound = _bound(2 * M * K * N, 4 * (M * K + K * N + M * N), 1, losses_per_step=0,
                        peak=peak)
-        print(f"T2 {mode}: kernel {us[(mode, 'kernel')]:.3f} us, bound "
-              f"{bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']}); max error vs float64 "
-              f"{t2_report['err'][mode]:.3e}")
+        print(f"T2 {mode}: kernel {us[(mode, 'kernel')]:.3f} us a Python call, "
+              f"{dev_us[(mode, 'kernel')]:.3f} us device time; torch.matmul "
+              f"{us[(mode, 'library')]:.3f} us a Python call, {dev_us[(mode, 'library')]:.3f} us "
+              f"device time; bound {bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']}); max "
+              f"error vs float64 {t2_report['err'][mode]:.3e}")
         records.append({
             "name": f"dot_kernel (T2, {mode})", "route": "cuda",
             "source": "vae_training_tpu_torch/csrc/probes.cu",
             "replaces": "tools/check_precision.py:43", "launches": t2_launches,
-            "max_abs_err": t2_report["vs_plain"][mode], "ms": us[(mode, "kernel")] / 1e3,
+            "max_abs_err": t2_report["vs_plain"][mode], "ms": dev_us[(mode, "kernel")] / 1e3,
             "plain_ms": us[(mode, "plain")] / 1e3, **bound,
-            "library_ms": us[(mode, "library")] / 1e3,
+            "library_ms": dev_us[(mode, "library")] / 1e3,
+            "call_ms": us[(mode, "kernel")] / 1e3, "library_call_ms": us[(mode, "library")] / 1e3,
             "max_err_vs_float64": t2_report["err"][mode]})
 
     # --- 30 -------------------------------------------------------------------
@@ -2125,6 +2146,79 @@ def _mlp_split(torch, np, smi):
                     f"train bitwise the same")
     print("16 steps on clusters of 8 = on clusters of 16, bitwise: K5 and K5-dual, f32 and "
           "bf16 moments")
+
+
+LINEAR_SPLIT_SHAPES = (("linear row 1 (K1)", 3, 9, 20, False),
+                       ("sigmoid row 1 (K2)", 3, 3, 6, True),
+                       ("sigmoid sweep's largest row (K2, D 28, L 24)", 7, 20, 24, True))
+
+
+def _linear_split(torch, np, smi, steps=2000, min_seconds=0.5):
+    """Phase 32: one step of the linear kernel (K1, K2) split into its parts
+    by timing variants of the same launch that leave parts out
+    (``k1.SKIP``): the sampler and manifold draw, the per-row pass, the
+    per-parameter pass with Adam, and nothing but the barriers (and the
+    loop); the rest is what the whole step takes beyond those. A part that
+    overlaps another (the noise drawn beside the row pass) counts only what
+    it adds. At linear row 1, sigmoid row 1 and the sigmoid sweep's largest
+    row; the variants in turns, each a window of at least ``min_seconds``
+    of ``steps``-step launches; their results are not used. Returns
+    {shape: {part: µs}}."""
+    from vae_training_tpu_torch.data import LinearGaussianDataset, SigmoidDataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState
+
+    phase(32, "the linear kernel's step (K1, K2) split by variants that leave parts out")
+    dev = torch.device("cuda")
+    sk = k1.SKIP
+    variants = {"whole step": 0, "no noise": sk["noise"], "no per-row pass": sk["rows"],
+                "no per-parameter pass": sk["params"], "noise alone": sk["rows"] | sk["params"],
+                "per-row pass alone": sk["noise"] | sk["params"],
+                "per-parameter pass alone": sk["noise"] | sk["rows"],
+                "barriers only": sk["work"]}
+    order = list(variants) + ["whole step"]
+    out = {}
+    print(f"card: {smi}")
+    for label, dd, pd, ld, dual in LINEAR_SPLIT_SHAPES:
+        if dual:
+            ds = SigmoidDataset.create(69, dd, pd, device=dev)
+        else:
+            ds = LinearGaussianDataset.create(2, dd, dd, pd, device=dev)
+        model = build_vae(data_dim=ds.dimension, latent_dim=ld, epsilon=-3.0 if dual else -1.0,
+                          tunable_decoder_var=True, dataset_name="sigmoid" if dual else None)
+        model.init_parameters(0)
+        state = TrainState.create(dict(model.named_parameters()), 0, 0).to(dev)
+        bufs = k1.pack_state(state, ds.dimension, ld, dual)
+        row = k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim, ds.A, 0, 0,
+                         rng.derive_seed(69 if dual else 2, 1), rng.derive_seed(0, 3))
+        kw = dict(batch=B, eps_const=-3.0 if dual else -1.0, tdv=True,
+                  lr=1e-4 if dual else 1e-3, dual=dual)
+        us = {}
+        for name in order:
+            us.setdefault(name, []).append(1e6 / _steps_per_second(
+                torch, lambda s=variants[name]: k1._grid_launch(*bufs, [row], n_steps=steps,
+                                                                 skip=s, **kw),
+                steps, min_seconds))
+        t = {k: min(v) for k, v in us.items()}
+        split = {"sampler and manifold draw": t["whole step"] - t["no noise"],
+                 "per-row pass": t["whole step"] - t["no per-row pass"],
+                 "per-parameter pass with Adam": t["whole step"] - t["no per-parameter pass"],
+                 "barriers": t["barriers only"]}
+        split["rest"] = t["whole step"] - sum(split.values())
+        alone = {k: t[f"{k} alone"] - t["barriers only"]
+                 for k in ("noise", "per-row pass", "per-parameter pass")}
+        require(all(v > 0 for v in t.values()), f"{label}: every variant ran")
+        print(f"{label}: " + "; ".join(f"{k} " + " / ".join(f"{x:.3f}" for x in v) + " us"
+                                       for k, v in us.items()))
+        print(f"{label}, split of a {t['whole step']:.3f} us step (what leaving each part out "
+              f"saves): " + "; ".join(f"{k} {v:.3f} us ({100 * v / t['whole step']:.1f}%)"
+                                      for k, v in split.items()))
+        print(f"{label}, each part alone beyond the barriers: " + "; ".join(
+            f"{k} {v:.3f} us" for k, v in alone.items()))
+        out[label] = {"step": t["whole step"], **split, "alone": alone}
+    return out
 
 
 def _ulp_keys(torch, x):
@@ -2384,6 +2478,62 @@ def _leaves(tree):
             yield from _leaves(tree[k])
     else:
         yield tree
+
+
+def _device_us(torch, fn, calls=200, min_seconds=0.25):
+    """µs a call of ``fn`` in device time: ``calls`` calls captured in one
+    CUDA graph (after a warm-up on a side stream), the graph replayed in a
+    window of at least ``min_seconds`` timed with CUDA events. The host's
+    per-call cost is out; the graph's gap between kernels is in."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    replays = 0
+    start.record()
+    while True:
+        graph.replay()
+        replays += 1
+        end.record()
+        end.synchronize()
+        if start.elapsed_time(end) >= 1e3 * min_seconds:
+            return 1e3 * start.elapsed_time(end) / (replays * calls)
+
+
+class _SmClock:
+    """The SM clock in MHz as nvidia-smi reads it every 100 ms during a
+    ``with`` block: str() gives min / median / max of the samples."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms",
+             "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        self.mhz = sorted(int(x) for x in out.split() if x.strip().isdigit())
+        return False
+
+    def __str__(self):
+        m = self.mhz
+        if not m:
+            return "not read"
+        return f"{m[0]} / {m[len(m) // 2]} / {m[-1]} MHz (min / median / max of {len(m)})"
 
 
 def _steps_per_second(torch, fn, steps_per_call: int, min_seconds: float = 1.0) -> float:

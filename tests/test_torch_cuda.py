@@ -27,7 +27,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from vae_training_tpu_torch._scripts.sweep import SPHERE_GRID  # noqa: E402
+from vae_training_tpu_torch._scripts.sweep import (  # noqa: E402
+    LINEAR_GRID,
+    SIGMOID_GRID,
+    SPHERE_GRID,
+    SWEEP_SEEDS,
+)
 from vae_training_tpu_torch.data import (  # noqa: E402
     LinearGaussianDataset,
     SigmoidDataset,
@@ -162,7 +167,6 @@ def test_sampler_words_are_bitwise(cuda_device):
         ref = rng.words(seed, step, 100, stream, 6)
         assert torch.equal(words.cpu(), ref)
         np.testing.assert_allclose(normals.cpu(), rng.box_muller(ref), rtol=0, atol=1e-5)
-    assert k1.kernel_smem_bytes(B, D, L, ID, ID) == k1.smem_bytes(B, D, L, ID, ID)
 
 
 # --- K2: sigmoid row 1 (D 7 = 3 + 1 + 3, L 6) --------------------------------
@@ -224,8 +228,6 @@ def test_k2_is_chunk_independent(cuda_device, adam_dtype):
     assert torch.equal(la, lb)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert (k1.kernel_smem_bytes(B, SD, SL, SDD, SDD, True)
-            == k1.smem_bytes(B, SD, SL, SDD, SDD, True))
 
 
 # --- K5: sphere row 1 (200|200|200, D = L = 6) --------------------------------
@@ -401,6 +403,111 @@ def test_k6a_is_chunk_independent(cuda_device, adam_dtype):
     assert torch.equal(la, torch.cat([lb1, lb2], dim=1))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# --- the linear kernel at every shape of the linear and sigmoid sweeps ---------
+SWEEP_SHAPES = ([(dd, pd, ld, False) for dd, pd, ld in LINEAR_GRID]
+                + [(dd, pd, ld, True) for dd, pd, ld in SIGMOID_GRID])
+SWEEP_IDS = [f"{'sigmoid' if dual else 'linear'}-{dd}-{pd}-{ld}" for dd, pd, ld, dual in SWEEP_SHAPES]
+
+
+def _sweep_row(device, dd, pd, ld, dual, seed, i=0, tdv=True, adam_dtype="f32"):
+    """A sweep row's dataset, state (init i, counters 7·i) and GridRow."""
+    if dual:
+        ds = SigmoidDataset.create(seed, dd, pd, device=device)
+    else:
+        ds = LinearGaussianDataset.create(seed, dd, dd, pd, device=device)
+    model = build_vae(data_dim=ds.dimension, latent_dim=ld, epsilon=-3.0 if dual else -1.0,
+                      tunable_decoder_var=tdv, dataset_name="sigmoid" if dual else None)
+    model.init_parameters(i)
+    state = TrainState.create(dict(model.named_parameters()), rng.derive_seed(seed, 1),
+                              rng.derive_seed(i, 3), adam_dtype).to(device)
+    state.step = state.count = 7 * i
+    row = k1.GridRow(ds.dimension, ld, ds.intrinsic_dim, ds.dim, ds.A, state.step, state.count,
+                     state.data_seed, state.model_seed)
+    return ds, state, row
+
+
+def _sweep_noise(row, n, rs, dual, device):
+    """External (x, z1, z2) of n steps with x on the row's manifold."""
+    z = rs.randn(n, B, row.intrinsic_dim).astype(np.float32)
+    a = row.a.cpu().numpy()
+    if dual:
+        x = np.concatenate([z, 1 / (1 + np.exp(-(z @ a))),
+                            np.zeros((n, B, row.data_dim - row.manifold_dim - 1), np.float32)], -1)
+    else:
+        x = np.zeros((n, B, row.data_dim), np.float32)
+        x[:, :, :row.manifold_dim] = z @ a.T
+    return tuple(torch.as_tensor(t.astype(np.float32), device=device) for t in (
+        x, rs.randn(n, B, row.latent_dim), rs.randn(n, B, row.data_dim)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdv", [True, False])
+@pytest.mark.parametrize("shape", SWEEP_SHAPES, ids=SWEEP_IDS)
+def test_linear_kernel_matches_plain_at_every_sweep_shape(cuda_device, shape, tdv):
+    """K1 / K2 against the plain version over 64 steps at every sweep row's
+    shape, with external noise and with the in-kernel sampler, at K1's
+    tolerances."""
+    dd, pd, ld, dual = shape
+    ds, state, row = _sweep_row(cuda_device, dd, pd, ld, dual, 69 if dual else 2, tdv=tdv)
+    n = 64
+    ext = _sweep_noise(row, n, np.random.RandomState(8), dual, cuda_device)
+    for noise in (ext, None):
+        kb = k1.pack_state(state, ds.dimension, ld, dual)
+        pb = tuple(t.clone() for t in kb)
+        kw = dict(n_steps=n, batch=B, data_dim=ds.dimension, latent_dim=ld,
+                  intrinsic_dim=ds.intrinsic_dim, manifold_dim=ds.dim, step0=0, t0=0,
+                  data_seed=row.data_seed, model_seed=row.model_seed, var_added=0.0,
+                  eps_const=-3.0 if dual else -1.0, tdv=tdv, lr=1e-4 if dual else 1e-3,
+                  external_noise=noise, dual=dual)
+        kl = k1.run_fused_chunk(*kb, ds.A, **kw)
+        pl = k1.plain_fused_chunk(*pb, ds.A, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(kl.cpu(), pl.cpu(), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(kb[0].cpu(), pb[0].cpu(), rtol=5e-4, atol=5e-5)
+        np.testing.assert_allclose(kb[1].cpu(), pb[1].cpu(), rtol=5e-4, atol=1e-6)
+        np.testing.assert_allclose(kb[2].cpu(), pb[2].cpu(), rtol=5e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["linear", "sigmoid"])
+def test_k6a_sweep_rows_equal_solo_launches_bitwise(cuda_device, which):
+    """Every row of the whole sweep (21 linear, 18 sigmoid: each shape with
+    each of the sweep's seeds) in one K6a launch equals its solo launch
+    bitwise, over 64 steps of the in-kernel sampler."""
+    dual = which == "sigmoid"
+    grid = SIGMOID_GRID if dual else LINEAR_GRID
+    made = [_sweep_row(cuda_device, dd, pd, ld, dual, seed, i)
+            for i, ((dd, pd, ld), seed) in enumerate(
+                (shape, seed) for shape in grid for seed in SWEEP_SEEDS[which])]
+    states, rows = [m[1] for m in made], [m[2] for m in made]
+    assert len(rows) == (18 if dual else 21)
+    kw = dict(batch=B, eps_const=-3.0 if dual else -1.0, tdv=True, lr=1e-4 if dual else 1e-3,
+              dual=dual)
+    p, m, v = k1.pack_rows(states, rows, dual)
+    losses = k1.run_grid_chunk(p, m, v, rows, n_steps=64, **kw)
+    views = k1.row_views(p, m, v, rows, dual)
+    for i, (state, r) in enumerate(zip(states, rows)):
+        sp, sm, sv = k1.pack_state(state, r.data_dim, r.latent_dim, dual)
+        solo = k1.run_fused_chunk(
+            sp, sm, sv, r.a, n_steps=64, batch=B, data_dim=r.data_dim, latent_dim=r.latent_dim,
+            intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+            t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=0.0,
+            eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual)
+        torch.cuda.synchronize()
+        assert torch.equal(losses[i], solo), f"row {i} losses"
+        for got, want in zip(views[i], (sp, sm, sv)):
+            assert torch.equal(got, want), f"row {i} state"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SWEEP_SHAPES, ids=SWEEP_IDS)
+def test_library_smem_equals_planner_at_every_sweep_shape(cuda_device, shape):
+    dd, pd, ld, dual = shape
+    D = dd + pd + (1 if dual else 0)
+    assert (k1.kernel_smem_bytes(B, D, ld, dd, dd, dual)
+            == k1.smem_bytes(B, D, ld, dd, dd, dual) <= k1.SMEM_LIMIT)
 
 
 # --- K5-dual: sigmoid row 1 with 200|200|200 stacks (D 7, L 6) ----------------

@@ -49,7 +49,11 @@ from ..ops import rng
 from ..train.state import TrainState, moment_dtype
 from ..train.step import Noise, train_chunk as torch_train_chunk
 
-THREADS = 256  # the kernel's CTA size (kThreads in csrc/linear_vae.cu)
+THREADS = 1024  # the kernel's CTA size (kThreads in csrc/linear_vae.cu)
+# timing variants of a launch (kSkip* in csrc/linear_vae.cu; 0 in training)
+SKIP = {"noise": 1, "rows": 2, "params": 4, "work": 8}
+HEADER = 128  # floats of the launch header (kHeader)
+BC_STEPS = 256  # steps of the bias-correction table (kBcSteps)
 # Dynamic shared memory a block may opt into on sm_90 (227 KB).
 SMEM_LIMIT = 232448
 # compute capability the kernel is built for (sm_90a)
@@ -78,17 +82,35 @@ def n_params(data_dim: int, latent_dim: int, dual: bool = False) -> int:
     return 2 * D * L + 2 * L + D + 1 + (L * D + D if dual else 0)
 
 
+def _quad(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _stride(n: int) -> int:
+    """A row stride of at least n floats that is an odd multiple of 4
+    (``stride`` in the .cu file)."""
+    return _quad(n) + (0 if _quad(n) & 4 else 4)
+
+
 def smem_bytes(batch: int, data_dim: int, latent_dim: int, intrinsic_dim: int,
                manifold_dim: int, dual: bool = False) -> int:
-    """Shared memory of one launch (mirrors smem_floats in the .cu file):
-    params, m, v and grads; the manifold matrix (A, or the sigmoid's column
-    a) and e^{ep/2}; eight per-step activation buffers, and σ(u) with the
-    dual decoder; the reduction scratch."""
+    """Shared memory of one row (mirrors ``plan`` in the .cu file, buffer by
+    buffer): the launch header; params, m and v; the manifold matrix (A, or
+    the sigmoid's column a); e^{ep/2}; a 4-float slot for the KL constant;
+    the bias corrections of 256 steps; the weights' padded copies (WeT, Wd,
+    WdT and, dual, Ws, WsT); the double-buffered noise (x with its column
+    of ones, z1, z2); the intrinsic normals; s with its column of ones, g_y,
+    (dual) g_u, g_mu, g_s·z1 and the rows' partial sums."""
     D, L, B = data_dim, latent_dim, batch
-    floats = (4 * n_params(D, L, dual)
-              + (manifold_dim if dual else manifold_dim * intrinsic_dim) + L
-              + B * (intrinsic_dim + 4 * L + 3 * D) + (B * D if dual else 0)
-              + 3 * (THREADS // 32))
+    P = n_params(D, L, dual)
+    ldx, lds, ldg, ldm = _stride(D + 1), _stride(L + 1), _stride(D), _quad(L)
+    copies = L * ldx + (L * ldg + D * lds) * (2 if dual else 1)
+    floats = (HEADER + 3 * _quad(P)
+              + _quad(manifold_dim if dual else manifold_dim * intrinsic_dim)
+              + _quad(L) + 4 + 2 * BC_STEPS + copies
+              + 2 * (B * ldx + _quad(B * L) + _quad(B * D))
+              + _quad(B * intrinsic_dim) + B * lds + B * ldg * (2 if dual else 1)
+              + 2 * B * ldm + _quad(3 * B))
     return 4 * floats
 
 
@@ -298,7 +320,7 @@ def _lib() -> ctypes.CDLL:
         lib.linear_vae_error_string.restype = ctypes.c_char_p
         lib.linear_vae_row_bytes.argtypes = []
         lib.linear_vae_row_bytes.restype = ctypes.c_size_t
-        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, i32, vp]
+        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, i32, i32, vp]
         lib.linear_vae_grid_chunk.restype = i32
         lib.linear_vae_blocks_per_sm.argtypes = [i32, ctypes.c_size_t, ctypes.POINTER(i32)]
         lib.linear_vae_blocks_per_sm.restype = i32
@@ -546,6 +568,25 @@ def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         return plain_grid_chunk(p, m, v, rows, **kw)
     if p.device.type != "cuda":
         raise ValueError(f"run_grid_chunk takes CPU or CUDA tensors, got {p.device}")
+    losses = _grid_launch(p, m, v, rows, **kw)
+    if n_steps > 0:
+        run_grid_chunk.launches += 1
+    return losses
+
+
+run_grid_chunk.launches = 0
+
+
+def _grid_launch(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                 rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
+                 tdv: bool, lr: float, dual: bool = False,
+                 external_noise: Optional[Sequence[Noise]] = None,
+                 adam_dtype: str = "f32", skip: int = 0) -> torch.Tensor:
+    """One launch of the kernel over ``rows`` (``run_grid_chunk``'s CUDA
+    branch, uncounted). ``skip``, a sum of ``SKIP`` values, leaves parts of
+    every step out: timing variants whose results are not used; 0 trains."""
+    if skip not in range(sum(SKIP.values()) + 1):
+        raise ValueError(f"skip {skip} out of range")
     device, B, n = p.device, batch, len(rows)
     bf16 = moments_bf16(adam_dtype)
     if n == 0:
@@ -589,13 +630,9 @@ def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.linear_vae_grid_chunk(ctypes.addressof(table), table_dev.data_ptr(), n,
                                     n_steps, B, int(dual), float(eps_const),
-                                    int(bool(tdv)), float(lr), int(bf16), stream)
+                                    int(bool(tdv)), float(lr), int(bf16), int(skip), stream)
     _check(lib, err, "linear_vae_grid_chunk launch")
-    run_grid_chunk.launches += 1
     return losses
-
-
-run_grid_chunk.launches = 0
 
 
 def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
