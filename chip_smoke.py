@@ -102,18 +102,26 @@ split into its parts, then the linear kernel's. Thirty-two phases:
  26. T4: chains of 24 dependent 104x256x256 dots, the phase and the cluster
      form, against the plain version (3 steps, 1/2/4 chains, rtol 1e-6);
      then the tool's table (1, 2, 1, 2, 4 chains, each form) and VERDICT;
+     torch.matmul + clamp a step in device time (20 steps in a CUDA graph);
  27. T3: 8 distinct weights a chain, renormalised a trip, against the
      plain version (2 trips, rtol 1e-4 / atol 1e-5); then ns a dot for
-     1/2/4 chains and the independence speed-up;
+     1/2/4 chains and the independence speed-up; torch.matmul a dot in
+     device time (200 dots in a CUDA graph);
  28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, against the
      plain versions (3 steps, h and every w, m, v at MLP_TOL); then tail
      and interleaved in turns and the VERDICT;
- 29. T2: one dot in fp32, TF32 and bf16 modes against the plain versions
-     (rtol 1e-5 / atol 1e-4) and a float64 host product (fp32's error under
-     bf16's / 100, TF32's between), with torch.matmul's times, each also in
-     device time (200 calls captured in one CUDA graph);
+ 29. T2: the dot kernel's registers, shared memory and spills (ptxas) and
+     its plan, the library's equal to kernels/probes.py's; every mode
+     against its plain version at four odd shapes; then the tool: one dot in
+     fp32, TF32 and bf16 modes against the plain versions (rtol 1e-5 / atol
+     1e-4) and a float64 host product (fp32's error under bf16's / 100,
+     TF32's between), with torch.matmul's times, each also in device time
+     (200 calls captured in one CUDA graph); the kernel's split by launch
+     variants (launch only, + staging, + products, whole) and its staging
+     rate in bytes a clock an SM, with the SM clock read beside it;
  30. T1: the sampler's statistical battery (chi-squared, lags 1-4, the four
-     streams, 16 grid row keys).
+     streams, 16 grid row keys); the draw and torch.randn of as many
+     normals in device time.
 
  31. the MLP kernel's step at sphere row 1 split by timing variants that
      leave parts out: the layer sums, the operand stages, Adam, everything
@@ -1791,6 +1799,7 @@ def _probes(torch, np, smi):
     sampler. Returns their records for the kernels' JSON line."""
     from vae_training_tpu_torch.kernels import linear_vae as k1
     from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.kernels._build import load_library
     from vae_training_tpu_torch.ops import rng
     from vae_training_tpu_torch.tools import check_kernel_rng as t1
     from vae_training_tpu_torch.tools import check_precision as t2
@@ -1865,15 +1874,18 @@ def _probes(torch, np, smi):
     xs, ws = t4.inputs(1, dev)
     t4_plain = per_step_ms(lambda n: probes.plain_chain_chunk(
         xs, ws, n_steps=n, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp"))
-    t4_lib = per_step_ms(chain_library(xs, ws, probes.T4_DEPTH, False, True))
+    t4_lib_call = per_step_ms(chain_library(xs, ws, probes.T4_DEPTH, False, True))
+    # the library's step in device time: 20 steps (480 dots) in one CUDA graph
+    t4_lib = _device_us(torch, lambda: chain_library(xs, ws, probes.T4_DEPTH, False, True)(1),
+                        calls=20) / 1e3
     # a step: 24 dots; x and w read and h written once (counted as if a
     # call ran one step: the bound stays the operations')
     bound = _bound(probes.T4_DEPTH * dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1,
                    losses_per_step=0)
     print(f"card: {smi}")
     print(f"T4 one chain: plain {t4_plain * 1e3:.2f} us/step, torch.matmul + clamp "
-          f"{t4_lib * 1e3:.2f} us/step, bound {bound['bound_ms'] * 1e3:.3f} us/step "
-          f"({bound['bound_by']})")
+          f"{t4_lib * 1e3:.2f} us/step device time ({t4_lib_call * 1e3:.2f} in Python calls, one a "
+          f"dot), bound {bound['bound_ms'] * 1e3:.3f} us/step ({bound['bound_by']})")
     for form in probes.FORMS:
         us = t4_report[form]["us_per_step"]
         require(t4_launches[form] > 0, f"T4's {form} kernel launched in the tool's run")
@@ -1882,7 +1894,7 @@ def _probes(torch, np, smi):
             "source": "vae_training_tpu_torch/csrc/probes.cu",
             "replaces": "tools/probe_mlp_interleave.py:62", "launches": t4_launches[form],
             "max_abs_err": t4_err[form], "ms": min(us[1]) / 1e3, "plain_ms": t4_plain,
-            **bound, "library_ms": t4_lib,
+            **bound, "library_ms": t4_lib, "library_call_ms": t4_lib_call,
             "us_per_step_by_chains": {c: min(v) for c, v in us.items()},
             "verdict": t4_report[form]["verdict"]})
 
@@ -1907,18 +1919,22 @@ def _probes(torch, np, smi):
     per_dot = 1.0 / probes.T3_DEPTH
     t3_plain = per_dot * per_step_ms(lambda n: probes.plain_chain_chunk(
         xs, ws, n_steps=n, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm"))
-    t3_lib = per_dot * per_step_ms(chain_library(xs, ws, probes.T3_DEPTH, True, False))
+    t3_lib_call = per_dot * per_step_ms(chain_library(xs, ws, probes.T3_DEPTH, True, False))
+    # the library's dot in device time: 25 trips (200 dots) in one CUDA graph
+    t3_lib = per_dot * _device_us(
+        torch, lambda: chain_library(xs, ws, probes.T3_DEPTH, True, False)(1), calls=25) / 1e3
     # a dot: its weight read, h read and written once
     bound = _bound(dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1, losses_per_step=0)
     print(f"card: {smi}")
     print(f"T3 one chain: plain {t3_plain * 1e6:.1f} ns/dot, torch.matmul {t3_lib * 1e6:.1f} "
-          f"ns/dot, bound {bound['bound_ms'] * 1e6:.1f} ns/dot ({bound['bound_by']})")
+          f"ns/dot device time ({t3_lib_call * 1e6:.1f} a Python call), bound "
+          f"{bound['bound_ms'] * 1e6:.1f} ns/dot ({bound['bound_by']})")
     records.append({
         "name": "chain_phase_kernel (T3, distinct weights)", "route": "cuda",
         "source": "vae_training_tpu_torch/csrc/probes.cu",
         "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches,
         "max_abs_err": t3_err, "ms": t3_report["ns_per_dot"][1] / 1e6, "plain_ms": t3_plain,
-        **bound, "library_ms": t3_lib,
+        **bound, "library_ms": t3_lib, "library_call_ms": t3_lib_call,
         "ns_per_dot_by_chains": t3_report["ns_per_dot"],
         "speedup_x2": t3_report["x2"], "speedup_x4": t3_report["x4"]})
 
@@ -1989,30 +2005,75 @@ def _probes(torch, np, smi):
 
     # --- 29 -------------------------------------------------------------------
     phase(29, "T2: one (128x256)·(256x256) dot in fp32, TF32 and bf16 modes against the "
-              "plain versions and a float64 host product; library times")
+              "plain versions and a float64 host product; library times; the kernel's split")
+    _print_ptxas(load_library("probes")[1], only="dot_kernel")
+    M, K, N = t2.M, t2.K, t2.N
+    for mode in probes.MODES:
+        plan = probes.dot_plan(M, K, N, mode)
+        require(probes.library_dot_plan(M, K, N, mode) == plan, f"T2 {mode}: the library's plan")
+        print(f"T2 {mode} plan: {plan}")
+    shapes = ((16, 16, 8), (48, 32, 24), (112, 272, 40), (256, 512, 512))
+    for (m, k, n) in shapes:  # odd shapes: zero padding, uneven slices, several rounds
+        rs = np.random.RandomState(m + k + n)
+        xo = torch.as_tensor(rs.randn(m, k).astype(np.float32), device=dev)
+        wo = torch.as_tensor(rs.randn(k, n).astype(np.float32), device=dev)
+        for mode in probes.MODES:
+            got, want = sync_cpu(probes.dot_modes(xo, wo, mode), probes.plain_dot_modes(xo, wo, mode))
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4,
+                                       err_msg=f"T2 {mode} at {(m, k, n)}")
+    print(f"T2 at {shapes}, every mode: equal to the plain version (rtol 1e-5, atol 1e-4)")
     reset_counts()
     t2_report = t2.main(["--device", "cuda", "--seconds", "0.25"])
     t2_launches = probes.dot_modes.launches
     require(t2_launches > 0, "T2's kernel launched in the tool's run")
-    M, K, N = t2.M, t2.K, t2.N
     us = t2_report["us"]
     # device time: 200 calls captured in one CUDA graph, replayed in windows
-    # timed with CUDA events (the per-call figures above include the host)
+    # timed with CUDA events (the per-call figures above include the host);
+    # then the kernel's split by launch variants that stop after the launch,
+    # the staging, the products, in turns with the whole kernel
     xs, ws = t2.inputs(dev)
-    dev_us = {}
-    with t2.tf32_matmul(False):
+    dev_us, split_us = {}, {}
+    with t2.tf32_matmul(False), _SmClock() as clock:
         for mode in probes.MODES:
             dev_us[(mode, "kernel")] = _device_us(torch, lambda m=mode: probes.dot_modes(xs, ws, m))
             dev_us[(mode, "library")] = _device_us(torch, t2.library_call(mode, xs, ws))
-    print(f"card: {smi}")
+            runs = {}
+            for upto in ("all", "launch", "stage", "products", "all", "products", "stage",
+                         "launch"):
+                runs.setdefault(upto, []).append(_device_us(
+                    torch, lambda m=mode, u=upto: probes._dot_launch(xs, ws, m, u)))
+            split_us[mode] = {u: min(v) for u, v in runs.items()}
+            # the staging over 8 rounds a CTA (K 2048): what a further round costs
+            x8, w8 = (torch.randn(M, 8 * K, device=dev), torch.randn(8 * K, N, device=dev))
+            for upto in ("launch", "stage"):
+                split_us[mode][f"{upto}, K 2048"] = _device_us(
+                    torch, lambda m=mode, u=upto: probes._dot_launch(x8, w8, m, u))
+    mhz = clock.mhz[len(clock.mhz) // 2] if clock.mhz else float("nan")
+    print(f"card: {smi}; SM clock during the timings {clock}")
+    plan = probes.dot_plan(M, K, N, "fp32")
+    ctas = plan.grid_x * plan.grid_y
+    staged = 4 * (plan.tile_m * plan.chunk_k + plan.chunk_k * plan.tile_n)  # fp32 bytes a round
     for mode, peak in (("fp32", FP32_PEAK), ("tf32", TF32_PEAK), ("bf16", BF16_PEAK)):
         bound = _bound(2 * M * K * N, 4 * (M * K + K * N + M * N), 1, losses_per_step=0,
                        peak=peak)
+        sp = split_us[mode]
+        stage_us = sp["stage"] - sp["launch"]
+        rounds_us = (sp["stage, K 2048"] - sp["launch, K 2048"] - stage_us) / 7
         print(f"T2 {mode}: kernel {us[(mode, 'kernel')]:.3f} us a Python call, "
               f"{dev_us[(mode, 'kernel')]:.3f} us device time; torch.matmul "
               f"{us[(mode, 'library')]:.3f} us a Python call, {dev_us[(mode, 'library')]:.3f} us "
               f"device time; bound {bound['bound_ms'] * 1e3:.4f} us ({bound['bound_by']}); max "
               f"error vs float64 {t2_report['err'][mode]:.3e}")
+        print(f"T2 {mode} split, device time a call (min of two): launch only {sp['launch']:.3f} "
+              f"us, + staging {sp['stage']:.3f}, + products {sp['products']:.3f}, whole "
+              f"{sp['all']:.3f}; so staging {stage_us:.3f}, products "
+              f"{sp['products'] - sp['stage']:.3f}, exchange and store "
+              f"{sp['all'] - sp['products']:.3f} us")
+        print(f"T2 {mode} staging: {staged} B a CTA ({ctas} CTAs, one a round) in {stage_us:.3f} "
+              f"us = {staged / (stage_us * mhz):.2f} B a clock an SM at {mhz} MHz; a further "
+              f"round (K 2048: {sp['stage, K 2048']:.3f} us with staging, "
+              f"{sp['launch, K 2048']:.3f} launch only) {rounds_us:.3f} us = "
+              f"{staged / (rounds_us * mhz):.2f} B a clock an SM")
         records.append({
             "name": f"dot_kernel (T2, {mode})", "route": "cuda",
             "source": "vae_training_tpu_torch/csrc/probes.cu",
@@ -2021,7 +2082,8 @@ def _probes(torch, np, smi):
             "plain_ms": us[(mode, "plain")] / 1e3, **bound,
             "library_ms": dev_us[(mode, "library")] / 1e3,
             "call_ms": us[(mode, "kernel")] / 1e3, "library_call_ms": us[(mode, "library")] / 1e3,
-            "max_err_vs_float64": t2_report["err"][mode]})
+            "max_err_vs_float64": t2_report["err"][mode],
+            "split_us": split_us[mode], "sm_mhz": mhz})
 
     # --- 30 -------------------------------------------------------------------
     phase(30, "T1: the statistical battery of the kernels' sampler (philox_normals_kernel)")
@@ -2035,8 +2097,15 @@ def _probes(torch, np, smi):
     t1_launches = k1.sampler_check.launches
     require(t1_launches > 0, "the sampler launched in the battery's run")
     n_calls = 16384 * 32  # Philox calls of one global-battery draw (2,097,152 normals)
-    t1_ms = per_step_ms(lambda n: [k1.sampler_check(16384, 32, 0, 0, 12345, dev)
-                                   for _ in range(n)])
+    t1_call = per_step_ms(lambda n: [k1.sampler_check(16384, 32, 0, 0, 12345, dev)
+                                     for _ in range(n)])
+    # device time, 200 draws in one CUDA graph: the wrapper (the kernel and
+    # the words' widening) and torch.randn of as many normals on the CUDA
+    # default generator (another Philox stream than the port's; it writes
+    # the normals only, the kernel also the words)
+    t1_ms = _device_us(torch, lambda: k1.sampler_check(16384, 32, 0, 0, 12345, dev)) / 1e3
+    torch.cuda.manual_seed(12345)
+    t1_lib = _device_us(torch, lambda: torch.randn(4 * n_calls, device=dev)) / 1e3
     t1_plain = per_step_ms(lambda n: [rng.box_muller(rng.words(12345, 0, 16384, 0, 32, device=dev))
                                       for _ in range(n)])
     # a Philox call: 10 rounds of 2 wide multiplies (hi, lo) and 4 xors/adds;
@@ -2044,14 +2113,16 @@ def _probes(torch, np, smi):
     # writes 4 words and 4 normals
     bound = _bound(n_calls * (10 * 8 + 40), n_calls * 4 * 8, 1, losses_per_step=0)
     print(f"card: {smi}")
-    print(f"T1 sampler draw of {4 * n_calls} normals: {t1_ms * 1e3:.2f} us (wrapper, with the "
-          f"words' widening), ops/rng.py on the card {t1_plain * 1e3:.2f} us, bound "
-          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    print(f"T1 sampler draw of {4 * n_calls} normals: {t1_ms * 1e3:.2f} us device time "
+          f"({t1_call * 1e3:.2f} a Python call; the wrapper, with the words' widening), "
+          f"torch.randn {t1_lib * 1e3:.2f} us device time, ops/rng.py on the card "
+          f"{t1_plain * 1e3:.2f} us, bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
     records.append({
         "name": "philox_normals_kernel (T1 battery)", "route": "cuda",
         "source": "vae_training_tpu_torch/csrc/linear_vae.cu",
         "replaces": "tools/check_kernel_rng.py:80", "launches": t1_launches,
-        "max_abs_err": t1_err, "ms": t1_ms, "plain_ms": t1_plain, **bound, "library_ms": None})
+        "max_abs_err": t1_err, "ms": t1_ms, "plain_ms": t1_plain, **bound,
+        "library_ms": t1_lib, "call_ms": t1_call})
     return records
 
 
@@ -2411,9 +2482,14 @@ def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_st
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _print_ptxas(record):
+def _print_ptxas(record, only=None):
+    """The build log's per-kernel lines (registers, shared memory, spills);
+    with ``only``, just those of the kernels whose names contain it."""
+    keep = only is None
     for line in record["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "Compiling entry" in line:
+            keep = only is None or only in line
+        if keep and ("registers" in line or "spill" in line or "Compiling entry" in line):
             print("  ptxas:", line.strip())
 
 

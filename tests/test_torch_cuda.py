@@ -984,17 +984,101 @@ def test_t5_adam_overlap_matches_plain(cuda_device, interleave):
         assert t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL, name
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fp32", "tf32", "bf16"])
-def test_dot_modes_match_plain(cuda_device, mode):
-    from vae_training_tpu_torch.kernels import probes
-    from vae_training_tpu_torch.tools.check_precision import inputs
+# T2's shapes: the contract's smallest, zero-padded rows and columns, uneven
+# K slices (272 = 17 units of 16), the tool's, and several rounds a CTA
+DOT_SHAPES = [(16, 16, 8), (48, 32, 24), (112, 272, 40), (128, 256, 256), (256, 512, 512)]
 
-    x, w = inputs(cuda_device)
+
+def _dot_inputs(shape, device):
+    M, K, N = shape
+    rs = np.random.RandomState(M + K + N)
+    return (torch.as_tensor(rs.randn(M, K).astype(np.float32), device=device),
+            torch.as_tensor(rs.randn(K, N).astype(np.float32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DOT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "bf16"])
+def test_dot_modes_match_plain(cuda_device, mode, shape):
+    """The kernel against its plain version (the products are exact, the
+    sums in another order): a wrong wgmma descriptor, layout or slice gives
+    wrong numbers without a fault, so odd shapes too."""
+    from vae_training_tpu_torch.kernels import probes
+
+    x, w = _dot_inputs(shape, cuda_device)
+    before = probes.dot_modes.launches
     got = probes.dot_modes(x, w, mode)
     want = probes.plain_dot_modes(x, w, mode)
     torch.cuda.synchronize()
+    assert probes.dot_modes.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "bf16"])
+def test_dot_modes_are_bitwise_repeatable(cuda_device, mode):
+    """Split-K sums in cluster-rank order, no atomics: two calls, one bits."""
+    from vae_training_tpu_torch.kernels import probes
+
+    for shape in DOT_SHAPES:
+        x, w = _dot_inputs(shape, cuda_device)
+        a, b = probes.dot_modes(x, w, mode), probes.dot_modes(x, w, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), shape
+
+
+@pytest.mark.cuda
+def test_dot_tf32_rounds_ties_away(cuda_device):
+    """Operands whose low 13 bits sit exactly at a TF32 rounding tie, one
+    nonzero term an output (x has one nonzero a row), so every sum is exact:
+    the kernel must equal round_tf32(x) · round_tf32(w) bitwise, which a
+    tensor core fed the raw fp32 values (truncation) does not."""
+    from vae_training_tpu_torch.kernels import probes
+
+    M, K, N = 128, 256, 256
+    rs = np.random.RandomState(5)
+
+    def ties(shape):
+        mant = rs.randint(0, 1 << 10, size=shape).astype(np.uint32) << 13
+        expo = rs.randint(120, 134, size=shape).astype(np.uint32) << 23
+        sign = rs.randint(0, 2, size=shape).astype(np.uint32) << 31
+        return (sign | expo | mant | np.uint32(0x1000)).view(np.float32)
+
+    x = ties((M, K))
+    keep = np.zeros((M, K), np.float32)
+    keep[np.arange(M), rs.randint(0, K, M)] = 1.0
+    x = torch.as_tensor(x * keep, device=cuda_device)
+    w = torch.as_tensor(ties((K, N)), device=cuda_device)
+    got = probes.dot_modes(x, w, "tf32")
+    want = (probes.round_tf32(x).double() @ probes.round_tf32(w).double()).float()
+    trunc = ((x.view(torch.int32) & ~0x1FFF).view(torch.float32).double()
+             @ (w.view(torch.int32) & ~0x1FFF).view(torch.float32).double()).float()
+    torch.cuda.synchronize()
+    assert not torch.equal(want, trunc)  # the test can tell the two apart
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "bf16"])
+def test_dot_library_plan_equals_dot_plan(cuda_device, mode):
+    from vae_training_tpu_torch.kernels import probes
+
+    for shape in DOT_SHAPES + [(128, 2048, 256), (64 * 200, 16, 8)]:
+        assert probes.library_dot_plan(*shape, mode) == probes.dot_plan(*shape, mode), shape
+
+
+@pytest.mark.cuda
+def test_dot_launch_variants_are_uncounted(cuda_device):
+    """The time split's variants (launch only, staging, products) launch
+    the kernel without counting it; only dot_modes counts."""
+    from vae_training_tpu_torch.kernels import probes
+
+    x, w = _dot_inputs((128, 256, 256), cuda_device)
+    before = probes.dot_modes.launches
+    for upto in ("launch", "stage", "products"):
+        probes._dot_launch(x, w, "bf16", upto)
+    torch.cuda.synchronize()
+    assert probes.dot_modes.launches == before
 
 
 @pytest.mark.cuda

@@ -35,13 +35,31 @@
 // grid barrier. Its bound is shared-memory bandwidth: 13 outputs a thread,
 // h read as float4 (4 k at once) against one W value a k.
 //
-// dot_kernel is T2. Hopper has no implicit reduced-precision default, so the
-// modes are: fp32, one thread per output and a fmaf chain (the port's
-// kernels today; the analog of Precision.HIGHEST); tf32, mma.sync m16n8k8
-// with operands rounded by cvt.rna.tf32.f32 (nearest, ties away: explicit,
-// so the plain version knows which rounding happened); bf16, mma.sync
-// m16n8k16 with operands rounded by __float2bfloat16_rn (the tool's "cast").
-// Fragments are written by hand; no library GEMM.
+// dot_kernel<mode> is T2: out = x·w, x (M × K) and w (K × N) fp32 and
+// row-major, in three modes. Hopper has no implicit reduced-precision
+// default, so the modes are: fp32, fmaf chains on the CUDA cores (the analog
+// of Precision.HIGHEST; no tensor cores); tf32, wgmma with operands rounded
+// by cvt.rna.tf32.f32 (nearest, ties away: explicit, so the plain version
+// knows which rounding happened; a tensor core fed raw fp32 would truncate);
+// bf16, wgmma with operands rounded by __float2bfloat16_rn (the tool's
+// "cast"). Every mode sums in fp32. At the tool's shape, (128×256)·(256×256),
+// a call is 16.8 MFLOP on 0.5 MB that L2 holds, so no rate bounds it (250 ns
+// of fp32 FMAs, 157 ns of HBM bytes): latency does, that of the launch, of
+// each CTA's pull of its operands from L2 and of the dependent steps inside
+// a CTA. The work is cut for latency: 64 × 32 output tiles, K split over the
+// CTAs of one thread-block cluster (up to 8: 128 CTAs of one warpgroup at the
+// tool's shape, each with a 32-long K slice); each CTA stages its A (64 × 32)
+// and B (32 × 32) slices in shared memory by cp.async, 16 bytes a lane, all
+// in flight at once; tf32 and bf16 then round them in one pass into wgmma's
+// K-major layout (B transposed on the way); it multiplies (fp32: 4 × 4
+// outputs a thread; otherwise one wgmma m64n32 a K step) and sends each
+// band of its partial tile to the CTA of the cluster that owns the band
+// (st.async into distributed shared memory, counted by the owner's
+// mbarrier), which sums the bands in rank order (fixed, no atomics: two
+// calls give the same bits). What is left is latency: the launch, the pull
+// from L2, the exchange's wait for the cluster's slowest CTA (PERF.md §6).
+// The plan (tile, split, grid, shared bytes) is dot_plan's;
+// kernels/probes.py:dot_plan is the same arithmetic.
 //
 // Pointers to buffers a launch writes are never const __restrict__ (the
 // non-coherent read path can return stale data across grid.sync()).
@@ -281,6 +299,68 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 constexpr int kDotFp32 = 0;
 constexpr int kDotTf32 = 1;
 constexpr int kDotBf16 = 2;
+constexpr int kDotThreads = 128;    // one warpgroup a CTA
+constexpr int kDotTileM = 64;       // wgmma's M; rows past M are zeros
+constexpr int kDotTileN = 32;       // wgmma's N; columns past N are zeros
+constexpr int kDotChunkK = 32;      // K elements staged a round
+constexpr int kDotUnitK = 16;       // slices are whole units of bf16 wgmma's K
+constexpr int kDotMaxSplit = 8;     // the portable cluster size
+constexpr int kDotMaxBlocks = 132;  // the H100's SMs: the split fills at most one CTA an SM
+constexpr int kDotRawStride = 36;   // the staged A's row stride (floats): rows 16 bytes
+                                    // apart in the banks, for the rounding pass's reads
+constexpr int kDotPStride = 40;     // the partial sums' row stride (floats)
+// launch variants for the time split: return after the launch, after the
+// staging, after the products (partial tile in shared memory), or run whole
+constexpr int kUptoLaunch = 0;
+constexpr int kUptoStage = 1;
+constexpr int kUptoProducts = 2;
+constexpr int kUptoAll = 3;
+
+// Dynamic shared memory of a CTA: the staged fp32 slices (A 64 × 36, B
+// 32 × 32), then for tf32 and bf16 the rounded operands in wgmma's layout
+// (64 × 32 and 32 × 32 values), then the owner's slots of partial sums
+// (64 rows of kDotPStride floats).
+constexpr int dot_smem_bytes(int mode) {
+  return (kDotTileM * kDotRawStride + kDotChunkK * kDotTileN) * 4 +
+         (mode == kDotFp32 ? 0 : (kDotTileM + kDotTileN) * kDotChunkK * (mode == kDotBf16 ? 2 : 4)) +
+         kDotTileM * kDotPStride * 4;
+}
+
+struct DotPlan {
+  int tile_m, tile_n, chunk_k, split, cluster, grid_x, grid_y, smem, threads;
+};
+
+// The launch's plan (kernels/probes.py:dot_plan is the same arithmetic):
+// 64 × 32 output tiles, K cut into `split` slices of whole 16-element units
+// (the first units % split slices one unit longer), split the largest power
+// of two ≤ 8 with at most one slice a unit and at most 132 CTAs in all; one
+// cluster of `split` CTAs a tile, grid (split · tiles along N, tiles along M).
+// Returns false for a shape outside the contract (M a multiple of 16, N of 8,
+// K of 16) or past the grid's limits.
+bool dot_plan(int M, int K, int N, int mode, DotPlan* p) {
+  if (mode < kDotFp32 || mode > kDotBf16 || M < 16 || N < 8 || K < 16 || M % 16 != 0 ||
+      N % 8 != 0 || K % 16 != 0)
+    return false;
+  const int units = K / kDotUnitK;
+  const int tiles_m = (M + kDotTileM - 1) / kDotTileM;
+  const int tiles_n = (N + kDotTileN - 1) / kDotTileN;
+  if (tiles_m > 65535) return false;
+  int split = kDotMaxSplit;
+  while (split > 1 && (split > units || static_cast<long long>(tiles_m) * tiles_n * split >
+                                            kDotMaxBlocks))
+    split /= 2;
+  if (static_cast<long long>(tiles_n) * split > 0x7fffffffLL) return false;
+  *p = DotPlan{kDotTileM, kDotTileN, kDotChunkK, split,           split,
+               tiles_n * split, tiles_m, dot_smem_bytes(mode), kDotThreads};
+  return true;
+}
+
+struct DotArgs {
+  const float* x;  // (M, K) row-major
+  const float* w;  // (K, N) row-major
+  float* out;      // (M, N) row-major
+  int M, K, N, split, upto;
+};
 
 __device__ __forceinline__ uint32_t tf32_rna(float f) {
   uint32_t r;
@@ -293,71 +373,363 @@ __device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// T2: out = x·w, x (M × K), w (K × N), row-major. fp32: one thread an
-// output. tf32 and bf16: one warp a 16 × 8 tile of out, the fragments of
-// mma.sync's row.col layouts loaded by hand (groupID g = lane / 4, t =
-// lane % 4): A's (row g or g + 8, col t or t + 4) for m16n8k8, (g or g + 8,
-// 2t, 2t + 1, + 8) for m16n8k16; B's (k t or t + 4, col g), (k 2t, 2t + 1,
-// + 8, col g); the sums' (row g or g + 8, cols 2t and 2t + 1).
-__global__ void dot_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                           float* out, int M, int K, int N, int mode) {
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (mode == kDotFp32) {
-    if (gtid >= M * N) return;
-    const int r = gtid / N;
-    const int c = gtid - r * N;
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) acc = fmaf(x[r * K + k], w[k * N + c], acc);
-    out[gtid] = acc;
-    return;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A wgmma shared-memory descriptor, no swizzle: the start address, the
+// leading byte offset (between core matrices adjacent along K) and the
+// stride byte offset (between 8-row groups), each in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// d (64 × 32, fp32, wgmma's accumulator layout) += A · B over one K step:
+// 8 TF32 or 16 bf16 elements, both operands K-major in shared memory.
+template <int kMode>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db) {
+  if constexpr (kMode == kDotTf32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));  // scale-d 1: d += A · B
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));  // scale-d 1: d += A · B
   }
-  const int warp = gtid >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tiles_n = N / 8;
-  const int tm = warp / tiles_n;
-  const int tn = warp - tm * tiles_n;
-  if (tm * 16 >= M) return;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = tm * 16 + g;
-  const int r1 = r0 + 8;
-  const int cb = tn * 8 + g;
-  float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
-  if (mode == kDotTf32) {
-    for (int k = 0; k < K; k += 8) {
-      const uint32_t a0 = tf32_rna(x[r0 * K + k + t]);
-      const uint32_t a1 = tf32_rna(x[r1 * K + k + t]);
-      const uint32_t a2 = tf32_rna(x[r0 * K + k + t + 4]);
-      const uint32_t a3 = tf32_rna(x[r1 * K + k + t + 4]);
-      const uint32_t b0 = tf32_rna(w[(k + t) * N + cb]);
-      const uint32_t b1 = tf32_rna(w[(k + t + 4) * N + cb]);
-      asm volatile(
-          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void dot_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// One round's A rows [m0, m0 + 64) and B columns [n0, n0 + 32) over K
+// [kb, kb + kc), as they are (fp32), into ra (64 rows of kDotRawStride) and
+// rb (32 k-rows of 32), 16 bytes a cp.async, 8 lanes a 128-byte row piece;
+// the caller waits for them. What lies past M, N or kc is left as it is:
+// its products land only in outputs never stored, and the rounding pass
+// writes zeros for it.
+__device__ __forceinline__ void stage_raw(const DotArgs& A, float* ra, float* rb, int m0,
+                                          int n0, int kb, int kc) {
+#pragma unroll
+  for (int j = 0; j < kDotTileM * kDotChunkK / 4 / kDotThreads; ++j) {
+    const int i = threadIdx.x + j * kDotThreads;
+    const int r = i >> 3, q = i & 7;
+    if (4 * q < kc && m0 + r < A.M)
+      dot_cp_async16(ra + r * kDotRawStride + 4 * q,
+                     A.x + static_cast<size_t>(m0 + r) * A.K + kb + 4 * q);
+  }
+#pragma unroll
+  for (int j = 0; j < kDotChunkK * kDotTileN / 4 / kDotThreads; ++j) {
+    const int i = threadIdx.x + j * kDotThreads;
+    const int k = i >> 3, q = i & 7;
+    if (k < kc && n0 + 4 * q < A.N)
+      dot_cp_async16(rb + k * kDotTileN + 4 * q,
+                     A.w + static_cast<size_t>(kb + k) * A.N + n0 + 4 * q);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// fp32: thread (tm, tn) = (tid / 8, tid % 8) adds the round's kK products
+// to its 4 × 4 outputs (rows 4tm.., columns 4tn..), ascending k, a fmaf
+// each; A read as float4 along k (a quarter-warp shares the address), B
+// along n.
+template <int kK>
+__device__ __forceinline__ void products_fp32(float (&acc)[16], const float* ra,
+                                              const float* rb) {
+  const int tm = threadIdx.x >> 3, tn = threadIdx.x & 7;
+#pragma unroll
+  for (int k = 0; k < kK; k += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(ra + (4 * tm + i) * kDotRawStride + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(rb + (k + j) * kDotTileN + 4 * tn);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[4 * i + j] = fmaf(lane_of(a[i], kk), lane_of(b[kk], j), acc[4 * i + j]);
+  }
+}
+
+// A 16-byte chunk of operand values, rounded as the mode says: 4 TF32
+// (cvt.rna: nearest, ties away) or 8 bf16 (nearest even), lower k first.
+template <int kMode>
+__device__ __forceinline__ uint4 round_chunk(const float* v) {
+  if constexpr (kMode == kDotTf32)
+    return make_uint4(tf32_rna(v[0]), tf32_rna(v[1]), tf32_rna(v[2]), tf32_rna(v[3]));
+  else
+    return make_uint4(bf16x2_rn(v[0], v[1]), bf16x2_rn(v[2], v[3]), bf16x2_rn(v[4], v[5]),
+                      bf16x2_rn(v[6], v[7]));
+}
+
+// tf32 and bf16: the staged round, rounded, into wgmma's K-major layout
+// without swizzle (ca, cb). A 16-byte chunk holds 4 TF32 or 8 bf16 values
+// of one row along K; chunk c of row r of a tile sits at byte
+// ((r / 8) · chunks + c) · 128 + (r % 8) · 16 (8 × 16-byte core matrices,
+// adjacent along K). A's item i (r % 8 = i % 8, c = i / 8 % chunks, r / 8 =
+// i / (8 · chunks)) goes to byte 16 i: a quarter-warp fills one core matrix
+// from 8 staged rows 144 bytes apart (distinct banks). B's item i (n = i %
+// 32, c = i / 32) gathers w's column n at 4 or 8 consecutive k (a warp
+// reads whole staged rows): B is transposed here. K past kc and rows past M
+// or N are zeros.
+template <int kMode>
+__device__ __forceinline__ void round_tc(const DotArgs& A, const float* ra, const float* rb,
+                                         unsigned char* ca, unsigned char* cb, int m0, int n0,
+                                         int kc) {
+  constexpr int kElems = kMode == kDotBf16 ? 8 : 4;  // values a 16-byte chunk
+  constexpr int kChunks = kDotChunkK / kElems;       // chunks a row a round
+  constexpr int kItemsA = kDotTileM * kChunks / kDotThreads;
+  constexpr int kItemsB = kDotTileN * kChunks / kDotThreads;
+  float va[kItemsA][kElems], vb[kItemsB][kElems];  // every load before the first store
+#pragma unroll
+  for (int j = 0; j < kItemsA; ++j) {
+    const int i = threadIdx.x + j * kDotThreads;
+    const int r = (i / (8 * kChunks)) * 8 + (i & 7), c = (i >> 3) % kChunks;
+    const bool live = m0 + r < A.M && c * kElems < kc;
+#pragma unroll
+    for (int h = 0; h < kElems / 4; ++h) {
+      const float4 f = live ? *reinterpret_cast<const float4*>(ra + r * kDotRawStride +
+                                                               c * kElems + 4 * h)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      va[j][4 * h] = f.x; va[j][4 * h + 1] = f.y; va[j][4 * h + 2] = f.z; va[j][4 * h + 3] = f.w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kItemsB; ++j) {
+    const int i = threadIdx.x + j * kDotThreads;
+    const int n = i & 31, c = i >> 5;
+    const bool live = n0 + n < A.N && c * kElems < kc;
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) vb[j][e] = live ? rb[(c * kElems + e) * kDotTileN + n] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kItemsA; ++j)
+    *reinterpret_cast<uint4*>(ca + 16 * (threadIdx.x + j * kDotThreads)) = round_chunk<kMode>(va[j]);
+#pragma unroll
+  for (int j = 0; j < kItemsB; ++j) {
+    const int i = threadIdx.x + j * kDotThreads;
+    const int n = i & 31, c = i >> 5;
+    *reinterpret_cast<uint4*>(cb + ((n >> 3) * kChunks + c) * 128 + (n & 7) * 16) =
+        round_chunk<kMode>(vb[j]);
+  }
+  // the generic proxy's stores, seen by wgmma's reads (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// tf32 and bf16: the round's kK / (32 bytes) wgmma steps (8 TF32 or 16
+// bf16 values each) on the warpgroup's 64 × 32 accumulator, then a wait;
+// with `cluster_wait`, the cluster barrier's wait runs while they do.
+template <int kMode, int kK>
+__device__ __forceinline__ void products_tc(float (&acc)[16], const unsigned char* ca,
+                                            const unsigned char* cb, bool cluster_wait) {
+  constexpr int kElems = kMode == kDotBf16 ? 8 : 4;
+  constexpr int kChunks = kDotChunkK / kElems;
+  const uint64_t da = wgmma_desc(ca, 128, 128 * kChunks);
+  const uint64_t db = wgmma_desc(cb, 128, 128 * kChunks);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < kK / (2 * kElems); ++s)
+    wgmma_m64n32<kMode>(acc, da + 16 * s, db + 16 * s);  // + 256 bytes a step
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  if (cluster_wait) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 16 bytes of partial sums into the owner's slot in distributed shared
+// memory; the owner's mbarrier counts them (st.async: nothing waits for the
+// store here).
+__device__ __forceinline__ void send4(uint32_t dst, uint32_t bar, float4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(local), "r"(rank));
+  return a;
+}
+
+// T2: out = x · w. CTA (rank q of the cluster, tile) sums its K slice of a
+// 64 × 32 output tile in rounds of up to 32: stage the fp32 slices
+// (cp.async), round them into wgmma's layout (tf32, bf16), multiply. Rank q
+// owns rows [q · R, (q + 1) · R) of the tile, R = 64 / split: every CTA
+// sends its partial sums of those rows to slot (its rank) of the owner's
+// shared memory by st.async, which the owner's mbarrier counts (64 · 32 · 4
+// bytes from the cluster in all); the owner waits for them, sums its slots
+// in rank order and writes out. The mbarrier is set up before a cluster
+// barrier that every CTA arrives at once its first copies are in flight and
+// waits at before it sends (tf32, bf16: while its last wgmma steps run).
+template <int kMode>
+__global__ void __launch_bounds__(kDotThreads) dot_kernel(DotArgs A) {
+  if (A.upto == kUptoLaunch) return;
+  __shared__ __align__(8) uint64_t bar;  // the owner's: the cluster's partial sums arrived
+  extern __shared__ __align__(128) unsigned char dot_smem[];
+  const bool whole = A.upto == kUptoAll;
+  float* ra = reinterpret_cast<float*>(dot_smem);
+  float* rb = ra + kDotTileM * kDotRawStride;
+  unsigned char* ca = reinterpret_cast<unsigned char*>(rb + kDotChunkK * kDotTileN);
+  unsigned char* cb = ca + kDotTileM * kDotChunkK * (kMode == kDotBf16 ? 2 : 4);
+  float* slots = reinterpret_cast<float*>(
+      kMode == kDotFp32 ? ca : cb + kDotTileN * kDotChunkK * (kMode == kDotBf16 ? 2 : 4));
+  const int split = A.split;
+  const int rank = static_cast<int>(blockIdx.x) % split;
+  const int m0 = static_cast<int>(blockIdx.y) * kDotTileM;
+  const int n0 = (static_cast<int>(blockIdx.x) / split) * kDotTileN;
+  const int units = A.K / kDotUnitK;
+  const int base = units / split, extra = units % split;
+  const int k_begin = kDotUnitK * (rank * base + min(rank, extra));
+  const int k_end = k_begin + kDotUnitK * (base + (rank < extra ? 1 : 0));
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+  for (int kb = k_begin; kb < k_end; kb += kDotChunkK) {
+    const int kc = min(kDotChunkK, k_end - kb);  // 32 or 16
+    if (kb != k_begin) __syncthreads();  // the last round's products have read the stage
+    stage_raw(A, ra, rb, m0, n0, kb, kc);
+    if (whole && kb == k_begin) {  // the copies in flight: set up the mbarrier, arrive
+      if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar)));
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(&bar)),
+            "r"(kDotTileM * kDotTileN * 4)
+            : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+      __syncwarp();  // thread 0's fence above releases the set-up
+      asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if constexpr (kMode == kDotFp32) {
+      if (A.upto >= kUptoProducts) {
+        if (kc == kDotChunkK) products_fp32<kDotChunkK>(acc, ra, rb);
+        else products_fp32<kDotUnitK>(acc, ra, rb);
+      }
+    } else {
+      round_tc<kMode>(A, ra, rb, ca, cb, m0, n0, kc);
+      __syncthreads();
+      if (A.upto >= kUptoProducts) {
+        const bool last = whole && kb + kDotChunkK >= k_end;
+        if (kc == kDotChunkK) products_tc<kMode, kDotChunkK>(acc, ca, cb, last);
+        else products_tc<kMode, kDotUnitK>(acc, ca, cb, last);
+      }
+    }
+  }
+  if (A.upto == kUptoStage) return;
+  // Row r of the tile goes to slot `rank`, row r % R, of its owner r / R, at
+  // float (rank · R + r % R) · kDotPStride + column (the products variant:
+  // into its own slots, by plain stores).
+  const int R = kDotTileM / split;
+  if (whole && kMode == kDotFp32)  // every CTA of the cluster runs, its mbarrier set up
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  const uint32_t local_slots = smem_addr(slots);
+  auto dst = [&](int r, int col) {
+    return local_slots + 4 * ((rank * R + r % R) * kDotPStride + col);
+  };
+  if constexpr (kMode == kDotFp32) {
+    const int tm = threadIdx.x >> 3, tn = threadIdx.x & 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * tm + i;
+      const float4 v = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+      if (whole)
+        send4(peer_addr(dst(r, 4 * tn), r / R), peer_addr(smem_addr(&bar), r / R), v);
+      else
+        *reinterpret_cast<float4*>(slots + (rank * R + r % R) * kDotPStride + 4 * tn) = v;
     }
   } else {
-    for (int k = 0; k < K; k += 16) {
-      const int c0 = k + 2 * t;
-      const uint32_t a0 = bf16x2_rn(x[r0 * K + c0], x[r0 * K + c0 + 1]);
-      const uint32_t a1 = bf16x2_rn(x[r1 * K + c0], x[r1 * K + c0 + 1]);
-      const uint32_t a2 = bf16x2_rn(x[r0 * K + c0 + 8], x[r0 * K + c0 + 9]);
-      const uint32_t a3 = bf16x2_rn(x[r1 * K + c0 + 8], x[r1 * K + c0 + 9]);
-      const uint32_t b0 = bf16x2_rn(w[c0 * N + cb], w[(c0 + 1) * N + cb]);
-      const uint32_t b1 = bf16x2_rn(w[(c0 + 8) * N + cb], w[(c0 + 9) * N + cb]);
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    // wgmma's accumulator: warp v holds rows 16v.., lane (g, t) = (lane / 4,
+    // lane % 4) rows 16v + g and + 8, columns 8j + 2t and + 1 of n8 block j.
+    // Lanes t and t ^ 1 swap halves, so that an even lane holds 4 columns
+    // 8j + 2t.. of row 16v + g and an odd lane 4 columns 8j + 2t − 2.. of
+    // row 16v + g + 8: one 16-byte send each.
+    const int v = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const bool odd = t & 1;
+    const int r = 16 * v + g + (odd ? 8 : 0);
+    const uint32_t rbar = peer_addr(smem_addr(&bar), r / R);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float y0 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * j] : acc[4 * j + 2], 1);
+      const float y1 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * j + 1] : acc[4 * j + 3], 1);
+      const float4 q = odd ? make_float4(y0, y1, acc[4 * j + 2], acc[4 * j + 3])
+                           : make_float4(acc[4 * j], acc[4 * j + 1], y0, y1);
+      const int col = 8 * j + 2 * (t & 2);
+      if (whole)
+        send4(peer_addr(dst(r, col), r / R), rbar, q);
+      else
+        *reinterpret_cast<float4*>(slots + (rank * R + r % R) * kDotPStride + col) = q;
     }
   }
-  const int cc = tn * 8 + 2 * t;
-  out[r0 * N + cc] = d0;
-  out[r0 * N + cc + 1] = d1;
-  out[r1 * N + cc] = d2;
-  out[r1 * N + cc + 1] = d3;
+  if (!whole) return;
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(&bar))
+        : "memory");
+  for (int i = threadIdx.x; i < R * (kDotTileN / 4); i += kDotThreads) {
+    const int lr = i / (kDotTileN / 4), c = 4 * (i % (kDotTileN / 4));
+    const int row = m0 + rank * R + lr;
+    if (row < A.M && n0 + c < A.N) {
+      float4 y[kDotMaxSplit];
+#pragma unroll
+      for (int q = 0; q < kDotMaxSplit; ++q)
+        if (q < split)
+          y[q] = *reinterpret_cast<const float4*>(slots + (q * R + lr) * kDotPStride + c);
+      float4 s = y[0];
+#pragma unroll
+      for (int q = 1; q < kDotMaxSplit; ++q)
+        if (q < split) {
+          s.x += y[q].x; s.y += y[q].y; s.z += y[q].z; s.w += y[q].w;
+        }
+      *reinterpret_cast<float4*>(A.out + static_cast<size_t>(row) * A.N + n0 + c) = s;
+    }
+  }
+}
+
+template <int kMode>
+cudaError_t launch_dot(const DotArgs& A, const DotPlan& p, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(p.grid_x, p.grid_y);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, dot_kernel<kMode>, A);
 }
 
 // The cooperative grid of chain_phase_kernel: one block an SM, if one fits.
@@ -420,16 +792,32 @@ int probes_chain_cluster(const float* x, const float* w, float* out, int n_chain
   return static_cast<int>(cudaGetLastError());
 }
 
-// T2: out (M × N) = x (M × K) · w (K × N) in `mode` (0 fp32, 1 tf32, 2 bf16).
+// T2's plan for (M, K, N, mode) into plan[9]: tile_m, tile_n, chunk_k,
+// split, cluster, grid_x, grid_y, smem, threads (kernels/probes.py:dot_plan).
+int probes_dot_plan(int M, int K, int N, int mode, int* plan) {
+  DotPlan p;
+  if (!dot_plan(M, K, N, mode, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const int v[9] = {p.tile_m, p.tile_n, p.chunk_k, p.split, p.cluster, p.grid_x, p.grid_y,
+                    p.smem, p.threads};
+  for (int i = 0; i < 9; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// T2: out (M × N) = x (M × K) · w (K × N) in `mode` (0 fp32, 1 tf32, 2 bf16)
+// on the caller's plan (split, grid_x, grid_y, smem), which must be the
+// library's own; `upto` < 3 stops the launch early (the time split).
 int probes_dot(const float* x, const float* w, float* out, int M, int K, int N, int mode,
-               void* stream) {
-  if (mode < kDotFp32 || mode > kDotBf16 || M < 1 || N < 1 || K < 1 || M % 16 != 0 ||
-      N % 8 != 0 || K % 16 != 0)
+               int split, int grid_x, int grid_y, int smem, int upto, void* stream) {
+  DotPlan p;
+  if (!dot_plan(M, K, N, mode, &p) || p.split != split || p.grid_x != grid_x ||
+      p.grid_y != grid_y || p.smem != smem || upto < kUptoLaunch || upto > kUptoAll)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  const int work = mode == kDotFp32 ? M * N : (M / 16) * (N / 8) * 32;
-  dot_kernel<<<(work + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, out, M, K, N, mode);
+  const DotArgs A{x, w, out, M, K, N, split, upto};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = mode == kDotFp32   ? launch_dot<kDotFp32>(A, p, st)
+                        : mode == kDotTf32 ? launch_dot<kDotTf32>(A, p, st)
+                                           : launch_dot<kDotBf16>(A, p, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

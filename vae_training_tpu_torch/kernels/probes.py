@@ -15,7 +15,9 @@ Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
   ``adam_overlap_chunk``, 25 dots and Adam on 5 buffers, in a tail or
   interleaved;
 - T2, ``tools/check_precision.py:43`` (``check_dot_modes`` → ``mk``):
-  ``dot_modes``, one dot in fp32, TF32 or bf16 tensor-core operands.
+  ``dot_modes``, one dot in fp32 (CUDA-core FMAs), or on the tensor cores
+  (``wgmma``) with TF32 or bf16 operands; split-K over a thread-block
+  cluster, on the plan of ``dot_plan``.
 
 The kernels are ``csrc/probes.cu``. Each wrapper launches its kernel for
 CUDA tensors and raises if it cannot; for CPU tensors (and only for them) it
@@ -27,7 +29,8 @@ runs its plain PyTorch version, which repeats the tool's math step by step
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +49,16 @@ MAX_CHAINS = 4
 EPILOGUES = {"clamp": 0, "renorm": 1}
 FORMS = ("phase", "cluster")
 MODES = {"fp32": 0, "tf32": 1, "bf16": 2}
+# T2's kernel (csrc/probes.cu dot_kernel): one warpgroup a CTA, 64 × 32 output
+# tiles, K staged 32 at a time, slices of whole 16-element units, clusters of
+# at most 8 CTAs (the portable size), at most 132 CTAs (the H100's SMs) from
+# the split; the staged A's row stride 36 floats, the partial sums' 40
+DOT_THREADS, DOT_TILE_M, DOT_TILE_N, DOT_CHUNK_K, DOT_UNIT_K = 128, 64, 32, 32, 16
+DOT_MAX_SPLIT, DOT_MAX_BLOCKS, DOT_RAW_STRIDE, DOT_P_STRIDE = 8, 132, 36, 40
+DOT_MAX_SMEM = 232448  # a CTA's shared memory on Hopper
+# launch variants for the time split (``_dot_launch``): stop after the launch,
+# the staging, the products, or run whole
+DOT_UPTO = {"launch": 0, "stage": 1, "products": 2, "all": 3}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -63,8 +76,10 @@ def _lib() -> ctypes.CDLL:
         lib.probes_chain_phase.restype = i32
         lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 3 + [vp]
         lib.probes_chain_cluster.restype = i32
-        lib.probes_dot.argtypes = [vp] * 3 + [i32] * 4 + [vp]
+        lib.probes_dot.argtypes = [vp] * 3 + [i32] * 9 + [vp]
         lib.probes_dot.restype = i32
+        lib.probes_dot_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+        lib.probes_dot_plan.restype = i32
         _LIB = lib
     return _LIB
 
@@ -230,6 +245,108 @@ def plain_adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor
     return h
 
 
+@dataclasses.dataclass(frozen=True)
+class DotPlan:
+    """T2's launch: ``tile_m`` × ``tile_n`` output tiles, K staged
+    ``chunk_k`` at a time and cut into ``split`` slices, one cluster of
+    ``cluster`` (= split) CTAs a tile, grid (``grid_x``, ``grid_y``) =
+    (split · tiles along N, tiles along M), ``smem`` bytes of dynamic shared
+    memory and ``threads`` threads a CTA."""
+    tile_m: int
+    tile_n: int
+    chunk_k: int
+    split: int
+    cluster: int
+    grid_x: int
+    grid_y: int
+    smem: int
+    threads: int
+
+
+def _check_dot_shape(M: int, K: int, N: int, mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    if min(M, K, N) < 1 or M % 16 or N % 8 or K % 16:
+        raise ValueError(f"M must be a multiple of 16, N of 8 and K of 16, got {M}, {N}, {K}")
+
+
+def dot_plan(M: int, K: int, N: int, mode: str) -> DotPlan:
+    """The plan of T2's kernel for x (M, K) · w (K, N) in ``mode``; the same
+    integer arithmetic as ``dot_plan`` in csrc/probes.cu, which checks the
+    plan it is given against its own. The split is the largest power of two
+    ≤ 8 that gives every slice at least one 16-element unit of K and keeps
+    the CTAs at or under 132. Raises outside the contract (M a multiple of
+    16, N of 8, K of 16) or past the grid's limits."""
+    _check_dot_shape(M, K, N, mode)
+    units = K // DOT_UNIT_K
+    tiles_m = -(-M // DOT_TILE_M)
+    tiles_n = -(-N // DOT_TILE_N)
+    if tiles_m > 65535:
+        raise ValueError(f"M {M} needs {tiles_m} tiles along M, past the grid's 65535")
+    split = DOT_MAX_SPLIT
+    while split > 1 and (split > units or tiles_m * tiles_n * split > DOT_MAX_BLOCKS):
+        split //= 2
+    if tiles_n * split > 2**31 - 1:
+        raise ValueError(f"N {N} needs {tiles_n * split} CTAs along x, past the grid's limit")
+    smem = (DOT_TILE_M * DOT_RAW_STRIDE + DOT_CHUNK_K * DOT_TILE_N) * 4 + DOT_TILE_M * DOT_P_STRIDE * 4
+    if mode != "fp32":  # the operands rounded, in wgmma's layout
+        smem += (DOT_TILE_M + DOT_TILE_N) * DOT_CHUNK_K * (2 if mode == "bf16" else 4)
+    return DotPlan(DOT_TILE_M, DOT_TILE_N, DOT_CHUNK_K, split, split, tiles_n * split, tiles_m,
+                   smem, DOT_THREADS)
+
+
+def dot_slice(K: int, split: int, rank: int) -> Tuple[int, int]:
+    """[k0, k1): the K slice of cluster rank ``rank`` (the kernel's
+    arithmetic): whole 16-element units, the first units % split ranks one
+    unit longer."""
+    units = K // DOT_UNIT_K
+    base, extra = divmod(units, split)
+    k0 = DOT_UNIT_K * (rank * base + min(rank, extra))
+    return k0, k0 + DOT_UNIT_K * (base + (rank < extra))
+
+
+def dot_block(plan: DotPlan, M: int, K: int, N: int, bx: int, by: int) -> dict:
+    """What CTA (bx, by) of the plan's grid covers, by the kernel's index
+    arithmetic: its cluster rank, its tile's rows and columns (clipped to M
+    and N), its K slice, and the rows of the tile whose sum over the
+    cluster it writes to out."""
+    rank, tile_n = bx % plan.split, bx // plan.split
+    m0, n0 = by * plan.tile_m, tile_n * plan.tile_n
+    rows = plan.tile_m // plan.split
+    return {"rank": rank, "rows": (m0, min(M, m0 + plan.tile_m)),
+            "cols": (n0, min(N, n0 + plan.tile_n)), "k": dot_slice(K, plan.split, rank),
+            "sums_rows": (min(M, m0 + rank * rows), min(M, m0 + (rank + 1) * rows))}
+
+
+def library_dot_plan(M: int, K: int, N: int, mode: str) -> DotPlan:
+    """The library's own plan (``probes_dot_plan``), to hold ``dot_plan`` to it."""
+    _check_dot_shape(M, K, N, mode)
+    lib = _lib()
+    out = (ctypes.c_int * 9)()
+    _check(lib, lib.probes_dot_plan(M, K, N, MODES[mode], out), "probes_dot_plan")
+    return DotPlan(*out)
+
+
+def _dot_launch(x: torch.Tensor, w: torch.Tensor, mode: str, upto: str = "all") -> torch.Tensor:
+    """One launch of T2's kernel on CUDA tensors; ``upto`` other than "all"
+    stops it early (the time split; the output is then not written).
+    Uncounted."""
+    (M, K), N = x.shape, w.shape[1]
+    plan = dot_plan(M, K, N, mode)
+    device = x.device
+    _require(x, "x", device)
+    _require(w, "w", device)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+        raise ValueError("x and w must start on a 16-byte boundary")
+    out = torch.empty(M, N, dtype=torch.float32, device=device)
+    lib = _lib()
+    err = lib.probes_dot(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MODES[mode],
+                         plan.split, plan.grid_x, plan.grid_y, plan.smem, DOT_UPTO[upto],
+                         _stream(device))
+    _check(lib, err, f"probes_dot ({mode}) launch")
+    return out
+
+
 def dot_modes(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     """T2: x (M, K) · w (K, N) with fp32 FMAs ("fp32"), or on the tensor
     cores with operands rounded to TF32 ("tf32", nearest, ties away) or to
@@ -244,17 +361,7 @@ def dot_modes(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
         return plain_dot_modes(x, w, mode)
     if x.device.type != "cuda":
         raise ValueError(f"dot_modes takes CPU or CUDA tensors, got {x.device}")
-    (M, K), N = x.shape, w.shape[1]
-    if M % 16 or N % 8 or K % 16:
-        raise ValueError(f"M must be a multiple of 16, N of 8 and K of 16, got {M}, {N}, {K}")
-    device = x.device
-    _require(x, "x", device)
-    _require(w, "w", device)
-    out = torch.empty(M, N, dtype=torch.float32, device=device)
-    lib = _lib()
-    err = lib.probes_dot(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, MODES[mode],
-                         _stream(device))
-    _check(lib, err, f"probes_dot ({mode}) launch")
+    out = _dot_launch(x, w, mode)
     dot_modes.launches += 1
     return out
 

@@ -3,11 +3,19 @@
 Counterpart of ``tools/check_precision.py:check_dot_modes``. On the TPU a
 default f32 dot is single-pass bf16 and ``Precision.HIGHEST`` recovers
 fp32. Hopper has no such implicit default, so the port's modes are: fp32
-(one thread an output, a fmaf chain: the port's kernels today, the analog
-of HIGHEST), tf32 (tensor cores, operands rounded to TF32) and bf16
-(tensor cores, operands rounded to bfloat16: the tool's "cast"). One
-(128×256)·(256×256) dot with N(0,1) operands (numpy seeds 0 and 1) in
-each mode (``csrc/probes.cu``), against a float64 host product:
+(fmaf chains on the CUDA cores, as the port's kernels sum: the analog of
+HIGHEST), tf32 (``wgmma`` on the tensor cores, operands rounded to TF32,
+nearest with ties away) and bf16 (``wgmma``, operands rounded to
+bfloat16: the tool's "cast"); every mode sums in fp32. At this shape a dot
+is 16.8 MFLOP on 0.5 MB that L2 holds, so no rate bounds the kernel
+(``csrc/probes.cu`` ``dot_kernel``): latency does, that of the launch, of
+each CTA's pull of its operands from L2 and of the steps inside a CTA. So
+it cuts the work for latency: 64 × 32 output tiles, K split over the CTAs
+of a thread-block cluster (128 CTAs, 32 values of K each), operands staged
+in shared memory with every copy in flight at once, and the partial sums
+added through distributed shared memory in a fixed order (two calls give
+the same bits). One (128×256)·(256×256) dot with N(0,1) operands (numpy
+seeds 0 and 1) in each mode, against a float64 host product:
 
 - each mode equals its plain version (rtol 1e-5, atol 1e-4: the products
   are exact, the sums are in another order);
