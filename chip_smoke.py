@@ -23,7 +23,8 @@ split into its parts, then the linear kernel's. Thirty-two phases:
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
      probes) from the checkout's sources, the builds started together;
   3. sampler: the kernel's Philox words equal ops/rng.py's bitwise, its
-     normals agree to 1e-5, and 4M kernel normals have the right moments;
+     normals agree to 1e-5 and the normals-only draw's equal them bitwise,
+     and 4M kernel normals have the right moments;
   4. parity: the kernel against its plain PyTorch version on the card,
      from the same state, 64 steps, external noise and in-kernel sampling,
      -tdv on and off;
@@ -99,10 +100,16 @@ split into its parts, then the linear kernel's. Thirty-two phases:
      --adam_dtype bf16`, 4 launches and nothing else;
  25. times: every kernel with f32 and bf16 moments in turn (f32, bf16,
      bf16, f32) and its bf16 plain version, with K4's bound;
- 26. T4: chains of 24 dependent 104x256x256 dots, the phase and the cluster
-     form, against the plain version (3 steps, 1/2/4 chains, rtol 1e-6);
-     then the tool's table (1, 2, 1, 2, 4 chains, each form) and VERDICT;
-     torch.matmul + clamp a step in device time (20 steps in a CUDA graph);
+ 26. T4: the cluster kernel's registers, shared memory and spills (ptxas)
+     and its plan at 1, 2 and 4 chains, the library's equal to
+     kernels/probes.py's; chains of 24 dependent 104x256x256 dots, the
+     phase and the cluster form, against the plain version (3 steps, 1/2/4
+     chains, rtol 1e-6; random inputs, 8 dots, rtol 1e-4 / atol 1e-5), two
+     cluster launches bitwise equal; then the tool's table (1, 2, 1, 2, 4
+     chains, each form) and VERDICT; torch.matmul + clamp a step in device
+     time (20 steps in a CUDA graph); the cluster form's step split by
+     launch variants (staging, + products, + sums, whole) at 1, 2 and 4
+     chains, in device time;
  27. T3: 8 distinct weights a chain, renormalised a trip, against the
      plain version (2 trips, rtol 1e-4 / atol 1e-5); then ns a dot for
      1/2/4 chains and the independence speed-up; torch.matmul a dot in
@@ -119,9 +126,12 @@ split into its parts, then the linear kernel's. Thirty-two phases:
      (200 calls captured in one CUDA graph); the kernel's split by launch
      variants (launch only, + staging, + products, whole) and its staging
      rate in bytes a clock an SM, with the SM clock read beside it;
- 30. T1: the sampler's statistical battery (chi-squared, lags 1-4, the four
-     streams, 16 grid row keys); the draw and torch.randn of as many
-     normals in device time.
+ 30. T1: the draw at the battery's shape: words bitwise ops/rng.py's,
+     normals within 1e-5, the normals-only draw's bitwise the words
+     entry's; the statistical battery (chi-squared, lags 1-4, the four streams, 16
+     grid row keys) on the normals-only draw; the normals-only draw, the
+     words entry and torch.randn of as many normals in device time, in
+     turns.
 
  31. the MLP kernel's step at sphere row 1 split by timing variants that
      leave parts out: the layer sums, the operand stages, Adam, everything
@@ -254,10 +264,14 @@ def main() -> int:
                                (rng.derive_seed(2, 1), 11999, 1), (12345, 77, 2)):
         words, normals = k1.sampler_check(100, 6, step, stream, seed, dev)
         ref = rng.words(seed, step, 100, stream, 6)
-        require(torch.equal(words.cpu(), ref), f"words bitwise at {(seed, step, stream)}")
+        require(torch.equal(rng.widen(words.cpu()), ref),
+                f"words bitwise at {(seed, step, stream)}")
         err = (normals.cpu() - rng.box_muller(ref)).abs().max().item()
         require(err <= 1e-5, f"normals |Δ| {err} <= 1e-5 at {(seed, step, stream)}")
-    print("words bitwise equal; normals within 1e-5")
+        require(torch.equal(k1.sampler_normals(100, 6, step, stream, seed, dev), normals),
+                f"the normals-only draw equals the words entry's bitwise at {(seed, step, stream)}")
+    print("words bitwise equal; normals within 1e-5; the normals-only draw's bitwise the "
+          "words entry's")
     _, big = k1.sampler_check(65536, 16, 5, 0, 987654321, dev)  # 4M normals
     big = big.reshape(-1, 4).double()
     mean, std = big.mean().item(), big.std().item()
@@ -1820,7 +1834,7 @@ def _probes(torch, np, smi):
     def reset_counts():
         probes.chain_chunk.launches = probes.chain_chunk.cluster_launches = 0
         probes.adam_overlap_chunk.launches = probes.dot_modes.launches = 0
-        k1.sampler_check.launches = 0
+        k1.sampler_check.launches = k1.sampler_normals.launches = 0
 
     def per_step_ms(fn, seconds=0.25):
         """ms a step of ``fn(n)`` (n steps), in a ≥ ``seconds`` window."""
@@ -1842,6 +1856,12 @@ def _probes(torch, np, smi):
     # --- 26 -------------------------------------------------------------------
     phase(26, "T4: chains of 24 dependent dots, phase and cluster forms, against the plain "
               "version; then the tool")
+    _print_ptxas(load_library("probes")[1], only="chain_cluster")
+    for n_chains in (1, 2, 4):
+        plan = probes.chain_plan(n_chains)
+        require(probes.library_chain_plan(n_chains) == plan,
+                f"T4 cluster plan at {n_chains} chain(s): the library's")
+        print(f"T4 cluster plan, {n_chains} chain(s): {plan}")
     t4_err = {f: 0.0 for f in probes.FORMS}
     kw = dict(n_steps=3, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
     for form in probes.FORMS:
@@ -1866,6 +1886,16 @@ def _probes(torch, np, smi):
             t4_err[form] = max(t4_err[form], float(np.abs(got - want).max()))
             print(f"T4 {form:7s} {n_chains} chain(s), random inputs, 8 dots: max |Δ| vs plain "
                   f"{float(np.abs(got - want).max()):.2e} (rtol 1e-4, atol 1e-5)")
+    # the cluster form launched twice: fixed sums, no atomics, the same bits
+    random_kw = dict(n_steps=1, depth=8, weights_per_depth=False, epilogue="clamp")
+    for n_chains in (1, 2, 4):
+        for inputs_of, ckw in ((t4.inputs, kw), (t4.check_inputs, random_kw)):
+            xs, ws = inputs_of(n_chains, dev)
+            a, b = sync_cpu(*(probes._chain_cluster_launch(xs, ws, ckw["n_steps"], ckw["depth"])
+                              for _ in range(2)))
+            require(np.array_equal(a, b),
+                    f"T4 cluster form, {n_chains} chain(s): two launches give the same bits")
+    print("T4 cluster form: two launches bitwise equal (1, 2, 4 chains; both inputs)")
     reset_counts()
     t4_report = t4.main(window)
     t4_launches = {"phase": probes.chain_chunk.launches,
@@ -1886,6 +1916,30 @@ def _probes(torch, np, smi):
     print(f"T4 one chain: plain {t4_plain * 1e3:.2f} us/step, torch.matmul + clamp "
           f"{t4_lib * 1e3:.2f} us/step device time ({t4_lib_call * 1e3:.2f} in Python calls, one a "
           f"dot), bound {bound['bound_ms'] * 1e3:.3f} us/step ({bound['bound_by']})")
+    # the cluster form's step split by launch variants that stop each dot
+    # after the products, after the sums into the CTA's own h, or run whole
+    # (and one that stages W and x only), in turns, at 1, 2 and 4 chains;
+    # device time, 10 steps a launch
+    t4_split = {}
+    uptos = list(probes.CHAIN_UPTO)
+    for n_chains in (1, 2, 4):
+        xs, ws = t4.inputs(n_chains, dev)
+        runs = {}
+        for upto in uptos + uptos[::-1]:
+            runs.setdefault(upto, []).append(_device_us(
+                torch, lambda u=upto: probes._chain_cluster_launch(xs, ws, 10, probes.T4_DEPTH, u),
+                calls=5) / 10)
+        sp = t4_split[n_chains] = {u: min(v) for u, v in runs.items()}
+        print(f"T4 cluster split, {n_chains} chain(s), us a step (device time, min of two): "
+              f"staging {sp['stage']:.2f} (a launch of 10 steps / 10), + products "
+              f"{sp['products']:.2f}, + sums {sp['sums']:.2f}, whole {sp['all']:.2f}; so "
+              f"products {sp['products'] - sp['stage']:.2f}, sums "
+              f"{sp['sums'] - sp['products']:.2f}, push and wait {sp['all'] - sp['sums']:.2f}")
+    # the bound on the SMs one chain's cluster uses (the card's is the bound)
+    chain_sms = probes.chain_plan(1).cluster
+    card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain_bound_ms = bound["bound_ms"] * card_sms / chain_sms
+    print(f"T4 bound on one chain's {chain_sms} SMs: {chain_bound_ms * 1e3:.3f} us/step")
     for form in probes.FORMS:
         us = t4_report[form]["us_per_step"]
         require(t4_launches[form] > 0, f"T4's {form} kernel launched in the tool's run")
@@ -1896,7 +1950,9 @@ def _probes(torch, np, smi):
             "max_abs_err": t4_err[form], "ms": min(us[1]) / 1e3, "plain_ms": t4_plain,
             **bound, "library_ms": t4_lib, "library_call_ms": t4_lib_call,
             "us_per_step_by_chains": {c: min(v) for c, v in us.items()},
-            "verdict": t4_report[form]["verdict"]})
+            "verdict": t4_report[form]["verdict"],
+            **({"plan": dataclasses.asdict(probes.chain_plan(1)), "split_us_per_step": t4_split,
+                "bound_chain_sms_ms": chain_bound_ms} if form == "cluster" else {})})
 
     # --- 27 -------------------------------------------------------------------
     phase(27, "T3: chains of 8 dots with distinct weights, renormalised a trip, against the "
@@ -2086,43 +2142,58 @@ def _probes(torch, np, smi):
             "split_us": split_us[mode], "sm_mhz": mhz})
 
     # --- 30 -------------------------------------------------------------------
-    phase(30, "T1: the statistical battery of the kernels' sampler (philox_normals_kernel)")
-    words, normals = k1.sampler_check(16384, 32, 0, 0, 12345, dev)
-    ref = rng.words(12345, 0, 16384, 0, 32, device=dev)
-    require(torch.equal(words, ref), "sampler words bitwise at the battery's shape")
+    phase(30, "T1: the draw (philox_draw_kernel), words entry and normals-only, against "
+              "ops/rng.py; the statistical battery on the normals-only draw; times")
+    n_rows, n_draws = 16384, 32  # the global battery's draw: 2,097,152 normals
+    words, normals = k1.sampler_check(n_rows, n_draws, 0, 0, 12345, dev)
+    ref = rng.words(12345, 0, n_rows, 0, n_draws, device=dev)
+    require(torch.equal(rng.widen(words), ref), "sampler words bitwise at the battery's shape")
     t1_err = float((normals - rng.box_muller(ref)).abs().max())
     require(t1_err <= 1e-5, f"sampler normals |Δ| {t1_err} <= 1e-5")
+    only = k1.sampler_normals(n_rows, n_draws, 0, 0, 12345, dev)
+    require(torch.equal(only, normals), "the normals-only draw equals the words entry's bitwise")
     reset_counts()
-    require(t1.main(["--device", "cuda"]), "T1's battery passes on the kernel's sampler")
-    t1_launches = k1.sampler_check.launches
-    require(t1_launches > 0, "the sampler launched in the battery's run")
-    n_calls = 16384 * 32  # Philox calls of one global-battery draw (2,097,152 normals)
-    t1_call = per_step_ms(lambda n: [k1.sampler_check(16384, 32, 0, 0, 12345, dev)
+    require(t1.main(["--device", "cuda"]), "T1's battery passes on the normals-only draw")
+    t1_launches = k1.sampler_normals.launches
+    require(t1_launches > 0 and k1.sampler_check.launches == 0,
+            "the normals-only draw (and not the words entry) launched in the battery's run")
+    n_calls = n_rows * n_draws
+    t1_call = per_step_ms(lambda n: [k1.sampler_normals(n_rows, n_draws, 0, 0, 12345, dev)
                                      for _ in range(n)])
-    # device time, 200 draws in one CUDA graph: the wrapper (the kernel and
-    # the words' widening) and torch.randn of as many normals on the CUDA
-    # default generator (another Philox stream than the port's; it writes
-    # the normals only, the kernel also the words)
-    t1_ms = _device_us(torch, lambda: k1.sampler_check(16384, 32, 0, 0, 12345, dev)) / 1e3
+    # device time, 200 draws in one CUDA graph, in turns: the normals-only
+    # draw, the words entry (its kernel writes the words beside the
+    # normals; the wrapper widens nothing) and torch.randn of as many
+    # normals on the CUDA default generator (another Philox stream than the
+    # port's; normals only)
     torch.cuda.manual_seed(12345)
-    t1_lib = _device_us(torch, lambda: torch.randn(4 * n_calls, device=dev)) / 1e3
-    t1_plain = per_step_ms(lambda n: [rng.box_muller(rng.words(12345, 0, 16384, 0, 32, device=dev))
-                                      for _ in range(n)])
+    draws = {"normals": lambda: k1.sampler_normals(n_rows, n_draws, 0, 0, 12345, dev),
+             "words": lambda: k1.sampler_check(n_rows, n_draws, 0, 0, 12345, dev),
+             "randn": lambda: torch.randn(4 * n_calls, device=dev)}
+    t1_us = {}
+    for name in ("normals", "words", "randn", "randn", "words", "normals"):
+        t1_us.setdefault(name, []).append(_device_us(torch, draws[name]))
+    t1_ms, t1_words, t1_lib = (min(t1_us[k]) / 1e3 for k in ("normals", "words", "randn"))
+    t1_plain = per_step_ms(lambda n: [rng.box_muller(rng.words(12345, 0, n_rows, 0, n_draws,
+                                                               device=dev)) for _ in range(n)])
     # a Philox call: 10 rounds of 2 wide multiplies (hi, lo) and 4 xors/adds;
     # Box–Muller: 2 logs, 2 square roots, 2 sincos, ~40 operations; it
-    # writes 4 words and 4 normals
-    bound = _bound(n_calls * (10 * 8 + 40), n_calls * 4 * 8, 1, losses_per_step=0)
+    # writes 4 normals (the words entry also 4 words)
+    bound = _bound(n_calls * (10 * 8 + 40), n_calls * 4 * 4, 1, losses_per_step=0)
+    words_bound = _bound(n_calls * (10 * 8 + 40), n_calls * 4 * 8, 1, losses_per_step=0)
     print(f"card: {smi}")
-    print(f"T1 sampler draw of {4 * n_calls} normals: {t1_ms * 1e3:.2f} us device time "
-          f"({t1_call * 1e3:.2f} a Python call; the wrapper, with the words' widening), "
-          f"torch.randn {t1_lib * 1e3:.2f} us device time, ops/rng.py on the card "
-          f"{t1_plain * 1e3:.2f} us, bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    print(f"T1 draw of {4 * n_calls} normals, device time (min of two): normals only "
+          f"{t1_ms * 1e3:.3f} us (bound {bound['bound_ms'] * 1e3:.3f}, {bound['bound_by']}; "
+          f"{t1_call * 1e3:.2f} a Python call), words entry {t1_words * 1e3:.3f} us (bound "
+          f"{words_bound['bound_ms'] * 1e3:.3f}), torch.randn {t1_lib * 1e3:.3f} us; ops/rng.py on "
+          f"the card {t1_plain * 1e3:.2f} us; all: "
+          f"{ {k: [round(x, 3) for x in v] for k, v in t1_us.items()} }")
     records.append({
-        "name": "philox_normals_kernel (T1 battery)", "route": "cuda",
+        "name": "philox_draw_kernel (T1 battery, normals only)", "route": "cuda",
         "source": "vae_training_tpu_torch/csrc/linear_vae.cu",
         "replaces": "tools/check_kernel_rng.py:80", "launches": t1_launches,
         "max_abs_err": t1_err, "ms": t1_ms, "plain_ms": t1_plain, **bound,
-        "library_ms": t1_lib, "call_ms": t1_call})
+        "library_ms": t1_lib, "call_ms": t1_call, "words_entry_ms": t1_words,
+        "words_entry_bound_ms": words_bound["bound_ms"]})
     return records
 
 

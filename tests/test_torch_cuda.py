@@ -165,8 +165,32 @@ def test_sampler_words_are_bitwise(cuda_device):
     for seed, step, stream in ((0, 0, 0), (2**64 - 1, 123456, 3), (98765, 7, 1)):
         words, normals = k1.sampler_check(100, 6, step, stream, seed, cuda_device)
         ref = rng.words(seed, step, 100, stream, 6)
-        assert torch.equal(words.cpu(), ref)
+        assert words.dtype == torch.int32
+        assert torch.equal(rng.widen(words.cpu()), ref)
         np.testing.assert_allclose(normals.cpu(), rng.box_muller(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sampler_normals_equal_the_words_entry(cuda_device):
+    """T1's normals-only draw: bitwise the words entry's normals, within
+    1e-5 of ops/rng.py, at six (seed, step, stream) triples, at odd shapes
+    (calls no multiple of a block; a grid stride no multiple of n_draws)
+    and at T1's; each wrapper counts its own launches. The outputs are
+    uninitialised, so a (row, draw) the launch skips or misplaces fails."""
+    for (seed, step, stream), (rows, n_draws) in zip(
+            ((0, 0, 0), (2**64 - 1, 4_000_000_000, 3), (rng.derive_seed(2, 1), 11999, 1),
+             (12345, 0, 0), (7, 3, 2), (98765, 1, 1)),
+            ((100, 6), (37, 5), (1, 1), (16384, 32), (1000, 3), (300000, 7))):
+        before = (k1.sampler_normals.launches, k1.sampler_check.launches)
+        only = k1.sampler_normals(rows, n_draws, step, stream, seed, cuda_device)
+        words, normals = k1.sampler_check(rows, n_draws, step, stream, seed, cuda_device)
+        torch.cuda.synchronize()
+        assert (k1.sampler_normals.launches, k1.sampler_check.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = rng.words(seed, step, rows, stream, n_draws, device=cuda_device)
+        assert torch.equal(rng.widen(words), ref)
+        assert torch.equal(only, normals)
+        assert float((only - rng.box_muller(ref)).abs().max()) <= 1e-5
 
 
 # --- K2: sigmoid row 1 (D 7 = 3 + 1 + 3, L 6) --------------------------------
@@ -943,6 +967,45 @@ def test_t4_random_chain_forms_match_plain(cuda_device, n_chains, form):
     want = probes.plain_chain_chunk(xs, ws, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t4_cluster_launches_repeat_bitwise(cuda_device, n_chains):
+    """Fixed sums in K order, no atomics: two launches of the cluster form
+    give the same bits, on the tool's inputs and on random ones."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.probe_mlp_interleave import check_inputs, inputs
+
+    for make, n_steps, depth in ((inputs, 3, probes.T4_DEPTH), (check_inputs, 1, 8)):
+        xs, ws = make(n_chains, cuda_device)
+        a = probes._chain_cluster_launch(xs, ws, n_steps, depth)
+        b = probes._chain_cluster_launch(xs, ws, n_steps, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t4_library_chain_plan_equals_chain_plan(cuda_device, n_chains):
+    from vae_training_tpu_torch.kernels import probes
+
+    assert probes.library_chain_plan(n_chains) == probes.chain_plan(n_chains)
+
+
+@pytest.mark.cuda
+def test_t4_cluster_split_variants_are_uncounted(cuda_device):
+    """The time split's variants stop each dot early and count nothing;
+    only chain_chunk's cluster form counts."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.probe_mlp_interleave import inputs
+
+    xs, ws = inputs(2, cuda_device)
+    before = probes.chain_chunk.cluster_launches
+    for upto in ("stage", "products", "sums"):
+        probes._chain_cluster_launch(xs, ws, 2, probes.T4_DEPTH, upto=upto)
+    torch.cuda.synchronize()
+    assert probes.chain_chunk.cluster_launches == before
 
 
 @pytest.mark.cuda

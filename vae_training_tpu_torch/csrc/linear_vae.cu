@@ -147,7 +147,7 @@ constexpr int kOut = 3;          // outputs a lane a block of kGroup·kOut
 constexpr int kTeam = 8;         // lanes a gradient tile
 constexpr int kTeams = kRowWarps * 32 / kTeam;
 constexpr int kScalarWarp = kThreads / 32 - 1;  // the KL constant, the loss, ε
-constexpr int kSamplerThreads = 256;        // philox_normals_kernel's blocks
+constexpr int kSamplerThreads = 256;        // philox_draw_kernel's blocks
 constexpr int kHeader = 128;                // floats of the launch header (Hdr)
 constexpr int kBcSteps = 256;               // steps of the bias-correction table
 constexpr float kB1 = 0.9f;
@@ -859,25 +859,64 @@ __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
   train_row<kDual>(solo, rows, n_steps, B, eps_const, tdv, lr, moments_bf16, skip);
 }
 
-// Raw sampler output for the bitwise check against ops/rng.py: words and
-// normals at counters (step, row, draw, stream), laid out (rows, n_draws, 4).
-__global__ void philox_normals_kernel(uint32_t* __restrict__ words,
-                                      float* __restrict__ normals, int rows,
-                                      int n_draws, uint32_t step, uint32_t stream,
-                                      uint32_t k0, uint32_t k1) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * n_draws) return;
-  const int r = i / n_draws;
-  const int j = i - r * n_draws;
-  const uint4 w = philox4x32_10(
-      make_uint4(step, static_cast<uint32_t>(r), static_cast<uint32_t>(j), stream), k0, k1);
-  words[4 * i + 0] = w.x;
-  words[4 * i + 1] = w.y;
-  words[4 * i + 2] = w.z;
-  words[4 * i + 3] = w.w;
-  float n[4];
-  box_muller4(w, n);
-  for (int q = 0; q < 4; ++q) normals[4 * i + q] = n[q];
+// T1's draw (replaces tools/check_kernel_rng.py:80, draw -> sample_kernel):
+// (rows, n_draws, 4) normals of one stream at one step, Philox4x32-10 at
+// counters (step, row, draw, stream) under the 64-bit key, then
+// Box-Muller, through the same philox4x32_10 and box_muller4 as the
+// training kernels' noise; with kWords also the (rows, n_draws, 4) words,
+// for the bitwise check against ops/rng.py. Call i = row·n_draws + draw
+// writes normals[i] as one float4 (and words[i] as one uint4): a warp
+// stores 512 contiguous bytes at a time. The 8.4 MB of normals take 2.504
+// µs at 3.35 TB/s; the ~220 instructions of a call (10 Philox rounds, the
+// precise logf, sqrtf and sincosf twice) come, by estimate, to ~3.4 µs of
+// issue over the card's 132 SMs, so the design keeps every SM's
+// schedulers full: the grid is the SMs times the blocks one SM holds, each
+// thread strides through several calls, and (row, draw) steps with the
+// stride by an add and a compare (one division a thread, before the loop).
+template <bool kWords>
+__global__ void __launch_bounds__(kSamplerThreads) philox_draw_kernel(
+    uint4* __restrict__ words, float4* __restrict__ normals, int rows, int n_draws,
+    uint32_t step, uint32_t stream, uint32_t k0, uint32_t k1) {
+  const unsigned int n = static_cast<unsigned int>(rows) * static_cast<unsigned int>(n_draws);
+  const unsigned int stride = gridDim.x * blockDim.x;
+  unsigned int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned int nd = static_cast<unsigned int>(n_draws);
+  unsigned int r = i / nd, j = i - r * nd;
+  const unsigned int sr = stride / nd, sj = stride - sr * nd;
+  for (; i < n; i += stride) {
+    const uint4 w = philox4x32_10(make_uint4(step, r, j, stream), k0, k1);
+    float v[4];
+    box_muller4(w, v);
+    normals[i] = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (kWords) words[i] = w;
+    r += sr;
+    j += sj;
+    if (j >= nd) {
+      j -= nd;
+      ++r;
+    }
+  }
+}
+
+// The draw's grid: every SM filled with as many blocks as it holds, or
+// fewer when the calls run out.
+int draw_grid(int rows, int n_draws, bool with_words, int* blocks) {
+  if (rows < 1 || n_draws < 1 || static_cast<long long>(rows) * n_draws > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, with_words ? philox_draw_kernel<true> : philox_draw_kernel<false>,
+        kSamplerThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = (static_cast<long long>(rows) * n_draws + kSamplerThreads - 1) /
+                         kSamplerThreads;
+  const long long full = static_cast<long long>(sms) * per_sm;
+  *blocks = static_cast<int>(need < full ? need : full);
+  return 0;
 }
 
 size_t row_smem_bytes(int B, const Row& r, bool dual) {
@@ -962,13 +1001,22 @@ int linear_vae_blocks_per_sm(int dual, size_t bytes, int* blocks) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, bytes));
 }
 
-int philox_normals(unsigned int* words, float* normals, int rows, int n_draws,
-                   unsigned int step, unsigned int stream_id, unsigned int k0,
-                   unsigned int k1, void* stream) {
-  const int n = rows * n_draws;
-  const int blocks = (n + kSamplerThreads - 1) / kSamplerThreads;
-  philox_normals_kernel<<<blocks, kSamplerThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, normals, rows, n_draws, step, stream_id, k0, k1);
+// T1's draw: normals (rows, n_draws, 4) float32 and, unless words is null,
+// the words (rows, n_draws, 4) uint32, at counters (step, row, draw,
+// stream_id) under the key (k0, k1).
+int philox_draw(unsigned int* words, float* normals, int rows, int n_draws, unsigned int step,
+                unsigned int stream_id, unsigned int k0, unsigned int k1, void* stream) {
+  int blocks = 0;
+  const int err = draw_grid(rows, n_draws, words != nullptr, &blocks);
+  if (err != 0) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (words != nullptr)
+    philox_draw_kernel<true><<<blocks, kSamplerThreads, 0, st>>>(
+        reinterpret_cast<uint4*>(words), reinterpret_cast<float4*>(normals), rows, n_draws,
+        step, stream_id, k0, k1);
+  else
+    philox_draw_kernel<false><<<blocks, kSamplerThreads, 0, st>>>(
+        nullptr, reinterpret_cast<float4*>(normals), rows, n_draws, step, stream_id, k0, k1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,12 +28,13 @@
 // each fed by an L2 load, then for a grid barrier. One chain fills 26,624 of
 // the grid's 67,584 threads; four chains need two items a thread.
 //
-// chain_cluster_kernel is T4 on the design R1 considers in its place: one
-// 4-CTA thread-block cluster a chain, each CTA holding a 64-column slice of W
-// (64 KB) and the whole h (104 KB) in shared memory, the new h exchanged
-// through distributed shared memory with two cluster barriers a dot and no
-// grid barrier. Its bound is shared-memory bandwidth: 13 outputs a thread,
-// h read as float4 (4 k at once) against one W value a k.
+// chain_cluster_kernel is T4 on the design R1 considers in its place, as
+// K6b runs a row: one thread-block cluster a chain, here of 16 CTAs cut
+// into 8 row groups × 2 column slices (chain_plan), each CTA holding its
+// slice of W in registers and its row group's rows of h in shared memory,
+// the new rows pushed to the row group's other CTA by st.async after every
+// dot, one mbarrier wait a dot and no grid or cluster barrier (see the
+// kernel).
 //
 // dot_kernel<mode> is T2: out = x·w, x (M × K) and w (K × N) fp32 and
 // row-major, in three modes. Hopper has no implicit reduced-precision
@@ -223,76 +224,6 @@ __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
         adam_item(A, h, first + i / (kW * kW), i % (kW * kW), bc1, bc2);
       grid.sync();
     }
-  }
-}
-
-constexpr int kCluster = 4;                             // CTAs a chain
-constexpr int kSliceCols = kW / kCluster;               // 64 columns of W a CTA
-constexpr int kRowGroups = kThreads / kSliceCols;       // 8
-constexpr int kRowsPerThread = kRows / kRowGroups;      // 13 outputs a thread
-constexpr size_t kClusterSmem = (static_cast<size_t>(kW) * kSliceCols + kRows * kW) * sizeof(float);
-static_assert(kRows % kRowGroups == 0, "rows split evenly over the row groups");
-static_assert(kClusterSmem <= 232448, "a CTA's slice of W and h fit 227 KB");
-
-// T4's second form: one 4-CTA cluster a chain, W's column slice and the
-// whole h in each CTA's shared memory. Per dot: each thread computes its 13
-// outputs (rows rg, rg + 8, ...; column j of the CTA's slice) into
-// registers, a cluster barrier (every CTA has read h), the slice written
-// into every CTA's h through distributed shared memory, a cluster barrier.
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-    chain_cluster_kernel(const float* __restrict__ x, const float* __restrict__ w, float* out,
-                         int n_steps, int depth) {
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                    // kW × kSliceCols
-  float* h = smem + kW * kSliceCols;   // kRows × kW
-  const int q = static_cast<int>(cluster.block_rank());
-  const int chain = blockIdx.x / kCluster;
-  const float* xc = x + static_cast<size_t>(chain) * kRows * kW;
-  const float* wc = w + static_cast<size_t>(chain) * kW * kW;
-  for (int i = threadIdx.x; i < kW * kSliceCols; i += kThreads) {
-    const int k = i / kSliceCols;
-    ws[i] = wc[k * kW + q * kSliceCols + (i - k * kSliceCols)];
-  }
-  for (int i = threadIdx.x; i < kRows * kW; i += kThreads) h[i] = xc[i];
-  __syncthreads();
-  const int j = threadIdx.x % kSliceCols;
-  const int rg = threadIdx.x / kSliceCols;
-  float* peers[kCluster];
-#pragma unroll
-  for (int p = 0; p < kCluster; ++p) peers[p] = cluster.map_shared_rank(h, p);
-  const int total = n_steps * depth;
-  for (int dot = 0; dot < total; ++dot) {
-    float acc[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.0f;
-    for (int k = 0; k < kW; k += 4) {
-      const float w0 = ws[(k + 0) * kSliceCols + j];
-      const float w1 = ws[(k + 1) * kSliceCols + j];
-      const float w2 = ws[(k + 2) * kSliceCols + j];
-      const float w3 = ws[(k + 3) * kSliceCols + j];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) {
-        const float4 hv = *reinterpret_cast<const float4*>(h + (rg + kRowGroups * i) * kW + k);
-        acc[i] = fmaf(hv.x, w0, acc[i]);
-        acc[i] = fmaf(hv.y, w1, acc[i]);
-        acc[i] = fmaf(hv.z, w2, acc[i]);
-        acc[i] = fmaf(hv.w, w3, acc[i]);
-      }
-    }
-    cluster.sync();  // every CTA of the chain has read this dot's h
-#pragma unroll
-    for (int p = 0; p < kCluster; ++p) {
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        peers[p][(rg + kRowGroups * i) * kW + q * kSliceCols + j] = fminf(acc[i], kClamp);
-    }
-    cluster.sync();  // the next h is whole in every CTA
-  }
-  float* oc = out + static_cast<size_t>(chain) * kRows * kW;
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int at = (rg + kRowGroups * i) * kW + q * kSliceCols + j;
-    oc[at] = h[at];
   }
 }
 
@@ -715,6 +646,206 @@ __global__ void __launch_bounds__(kDotThreads) dot_kernel(DotArgs A) {
   }
 }
 
+// T4's cluster form: one thread-block cluster of 16 CTAs a chain (a
+// non-portable size), cut into 8 row groups of 13 rows × 2 column slices of
+// 128. Row r of h after a dot depends on row r before it alone, so a CTA
+// holds only its row group's rows of h, twice (this dot's input and the
+// next's), and after a dot pushes its slice of the new rows to the row
+// group's other CTA and nowhere else. Its 8 warps split K: warp w keeps
+// W[32w .. 32w + 32, its slice] in registers for the whole launch (a lane
+// 32 × 4 values: its 4 columns), so a dot reads only h from shared memory,
+// one float4 (4 k) broadcast to the warp a row for 16 FMAs a lane; a lane
+// sums 13 × 4 outputs over its warp's 32 k as fmaf chains in ascending k.
+// The 8 partial tiles go to shared memory and every thread sums 1 or 2
+// float4 of them in K order (warp 0's first), clamps, writes them into its
+// CTA's next h and pushes them to the peer by st.async, 16 bytes at a time,
+// counted by the peer's mbarrier; every thread waits on its own CTA's
+// mbarrier (one arrive/wait a dot, no cluster barrier), then a block
+// barrier. What bounds it: a 104×256×256 dot is 6.8 M FMAs, on 16 SMs ≥ 1.7
+// µs at 128 FMAs a clock and 1980 MHz; here the products issue 13,312 FMA
+// instructions a CTA a dot against 3,328 shared-memory wavefronts of h, and
+// the partial sums, the push and the wait follow. chain_plan is the plan;
+// kernels/probes.py:chain_plan is the same arithmetic.
+constexpr int kChainCluster = 16;
+constexpr int kChainThreads = 256;
+constexpr int kChainWarps = kChainThreads / 32;
+constexpr int kChainSlices = 2;                            // column slices a row group
+constexpr int kChainGroups = kChainCluster / kChainSlices;  // 8 row groups
+constexpr int kChainRows = kRows / kChainGroups;            // 13 rows a CTA
+constexpr int kChainCols = kW / kChainSlices;               // 128 columns a CTA: a lane 4
+constexpr int kChainKSlice = kW / kChainWarps;              // 32 k a warp
+constexpr int kChainTile = kChainRows * kChainCols;         // floats of a CTA's tile
+static_assert(kRows % kChainGroups == 0 && kChainCols == 4 * 32, "the plan's cut");
+// launch variants for the time split: stop after staging W and x, after
+// the products (and the partial tiles' stores), after the sums into the
+// CTA's own next h, or run whole (the push to the peer and the wait)
+constexpr int kChainUptoStage = 0;
+constexpr int kChainUptoProducts = 1;
+constexpr int kChainUptoSums = 2;
+constexpr int kChainUptoAll = 3;
+
+struct ChainPlan {
+  int cluster, row_groups, col_slices, rows, cols, k_split, threads, smem, grid;
+};
+
+// The plan of n_chains chains: dynamic shared memory holds h twice and the
+// 8 warps' partial tiles (W lives in registers).
+bool chain_plan(int n_chains, ChainPlan* p) {
+  if (n_chains < 1 || n_chains > kMaxChains) return false;
+  const int floats = 2 * kChainRows * kW + kChainWarps * kChainTile;
+  *p = ChainPlan{kChainCluster, kChainGroups,  kChainSlices, kChainRows,
+                 kChainCols,    kChainWarps,   kChainThreads, floats * 4,
+                 n_chains * kChainCluster};
+  return true;
+}
+
+struct ChainClusterArgs {
+  const float* x;  // (n_chains, kRows, kW)
+  const float* w;  // (n_chains, kW, kW)
+  float* out;      // (n_chains, kRows, kW)
+  int n_steps, depth, upto;
+};
+
+__device__ __forceinline__ float4 clamp4(float4 v) {
+  return make_float4(fminf(v.x, kClamp), fminf(v.y, kClamp), fminf(v.z, kClamp),
+                     fminf(v.w, kClamp));
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float h, const float4& w) {
+  acc.x = fmaf(h, w.x, acc.x);
+  acc.y = fmaf(h, w.y, acc.y);
+  acc.z = fmaf(h, w.z, acc.z);
+  acc.w = fmaf(h, w.w, acc.w);
+}
+
+__global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainClusterArgs A) {
+  constexpr uint32_t kPushBytes = kChainTile * 4;  // what the peer sends a dot
+  constexpr int kQuads = kChainTile / 4;           // float4 of a tile
+  __shared__ __align__(8) uint64_t bar[2];         // bar[b]: the peer's rows of h[b] arrived
+  extern __shared__ __align__(16) float csmem[];
+  float* hb = csmem;                        // 2 × kChainRows × kW
+  float* part = hb + 2 * kChainRows * kW;   // kChainWarps × kChainTile
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int group = rank / kChainSlices, slice = rank % kChainSlices;
+  const int peer = group * kChainSlices + (slice ^ 1);
+  const int chain = static_cast<int>(blockIdx.x) / kChainCluster;
+  const int row0 = group * kChainRows, col0 = slice * kChainCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kb = warp * kChainKSlice;
+  const float* xc = A.x + (static_cast<size_t>(chain) * kRows + row0) * kW;
+  const float* wc = A.w + (static_cast<size_t>(chain) * kW + kb) * kW + col0 + 4 * lane;
+  float4 wr[kChainKSlice];  // W[kb + k][col0 + 4 lane ..]: the lane's for the launch
+#pragma unroll
+  for (int k = 0; k < kChainKSlice; ++k) wr[k] = *reinterpret_cast<const float4*>(wc + k * kW);
+  for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads)
+    reinterpret_cast<float4*>(hb)[i] = reinterpret_cast<const float4*>(xc)[i];
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar[b])));
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       smem_addr(&bar[b])),
+                   "r"(kPushBytes)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA staged, its mbarriers set up, before any push
+
+  float* my_part = part + warp * kChainTile + 4 * lane;
+  const int total = A.upto == kChainUptoStage ? 0 : A.n_steps * A.depth;
+  for (int dot = 0; dot < total; ++dot) {
+    const int cur = dot & 1, nxt = cur ^ 1;
+    const float* h = hb + cur * kChainRows * kW + kb;
+    float4 acc[kChainRows];
+#pragma unroll
+    for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < kChainKSlice; k += 4) {
+#pragma unroll
+      for (int r = 0; r < kChainRows; ++r) {
+        const float4 hv = *reinterpret_cast<const float4*>(h + r * kW + k);
+        fma4(acc[r], hv.x, wr[k]);
+        fma4(acc[r], hv.y, wr[k + 1]);
+        fma4(acc[r], hv.z, wr[k + 2]);
+        fma4(acc[r], hv.w, wr[k + 3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kChainRows; ++r)
+      *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+    __syncthreads();  // the partial tiles stored; this dot's h read by every warp
+    if (A.upto == kChainUptoProducts) continue;
+    float* hn = hb + nxt * kChainRows * kW + col0;
+    for (int i = threadIdx.x; i < kQuads; i += kChainThreads) {
+      const int r = i / (kChainCols / 4), c = 4 * (i % (kChainCols / 4));
+      float4 s = *reinterpret_cast<const float4*>(part + r * kChainCols + c);
+#pragma unroll
+      for (int w = 1; w < kChainWarps; ++w)
+        add4(s, *reinterpret_cast<const float4*>(part + w * kChainTile + r * kChainCols + c));
+      const float4 y = clamp4(s);
+      float* at = hn + r * kW + c;
+      *reinterpret_cast<float4*>(at) = y;
+      if (A.upto == kChainUptoAll)
+        send4(peer_addr(smem_addr(at), peer), peer_addr(smem_addr(&bar[nxt]), peer), y);
+    }
+    if (A.upto == kChainUptoAll) {
+      const uint32_t parity = (dot >> 1) & 1;  // bar[nxt]'s uses: every other dot
+      uint32_t done = 0;
+      while (!done)
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_addr(&bar[nxt])), "r"(parity)
+            : "memory");
+    }
+    __syncthreads();  // the next h whole in this CTA: its own rows and the peer's
+    if (A.upto == kChainUptoAll && threadIdx.x == 0)  // re-arm for its use two dots on
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       smem_addr(&bar[nxt])),
+                   "r"(kPushBytes)
+                   : "memory");
+  }
+  const float* hf = hb + (total & 1) * kChainRows * kW + col0;
+  float* oc = A.out + (static_cast<size_t>(chain) * kRows + row0) * kW + col0;
+  for (int i = threadIdx.x; i < kQuads; i += kChainThreads) {
+    const int r = i / (kChainCols / 4), c = 4 * (i % (kChainCols / 4));
+    *reinterpret_cast<float4*>(oc + r * kW + c) = *reinterpret_cast<const float4*>(hf + r * kW + c);
+  }
+  cluster.sync();  // no CTA leaves while its peer may still address its shared memory
+}
+
+cudaError_t launch_chain_cluster(const ChainClusterArgs& A, const ChainPlan& p,
+                                 cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(chain_cluster_kernel,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(chain_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, chain_cluster_kernel, A);
+}
+
 template <int kMode>
 cudaError_t launch_dot(const DotArgs& A, const DotPlan& p, cudaStream_t stream) {
   cudaLaunchConfig_t cfg{};
@@ -779,16 +910,30 @@ int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* max
   return static_cast<int>(cudaGetLastError());
 }
 
-// T4's cluster form: x (n_chains, kRows, kW), w (n_chains, kW, kW) → out.
+// T4's cluster form's plan for n_chains into plan[9]: cluster, row_groups,
+// col_slices, rows, cols, k_split, threads, smem, grid
+// (kernels/probes.py:chain_plan).
+int probes_chain_plan(int n_chains, int* plan) {
+  ChainPlan p;
+  if (!chain_plan(n_chains, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const int v[9] = {p.cluster, p.row_groups, p.col_slices, p.rows, p.cols,
+                    p.k_split, p.threads,    p.smem,       p.grid};
+  for (int i = 0; i < 9; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// T4's cluster form: x (n_chains, kRows, kW), w (n_chains, kW, kW) → out,
+// on the caller's plan (smem, grid), which must be the library's own;
+// `upto` < 3 stops each dot early (the time split).
 int probes_chain_cluster(const float* x, const float* w, float* out, int n_chains,
-                         int n_steps, int depth, void* stream) {
-  if (n_chains < 1 || n_steps < 1 || depth < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(chain_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(kClusterSmem));
+                         int n_steps, int depth, int smem, int grid, int upto, void* stream) {
+  ChainPlan p;
+  if (!chain_plan(n_chains, &p) || p.smem != smem || p.grid != grid || n_steps < 1 ||
+      depth < 1 || upto < kChainUptoStage || upto > kChainUptoAll)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ChainClusterArgs A{x, w, out, n_steps, depth, upto};
+  const cudaError_t e = launch_chain_cluster(A, p, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
-  chain_cluster_kernel<<<n_chains * kCluster, kThreads, kClusterSmem,
-                         static_cast<cudaStream_t>(stream)>>>(x, w, out, n_steps, depth);
   return static_cast<int>(cudaGetLastError());
 }
 

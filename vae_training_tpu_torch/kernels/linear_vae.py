@@ -50,6 +50,7 @@ from ..train.state import TrainState, moment_dtype
 from ..train.step import Noise, train_chunk as torch_train_chunk
 
 THREADS = 1024  # the kernel's CTA size (kThreads in csrc/linear_vae.cu)
+SAMPLER_MAX_CALLS = 2**31 - 1  # Philox calls a draw (the kernel's 32-bit index)
 # timing variants of a launch (kSkip* in csrc/linear_vae.cu; 0 in training)
 SKIP = {"noise": 1, "rows": 2, "params": 4, "work": 8}
 HEADER = 128  # floats of the launch header (kHeader)
@@ -312,8 +313,8 @@ def _lib() -> ctypes.CDLL:
         lib.linear_vae_chunk.argtypes = (
             [vp] * 8 + [i32] * 7 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, i32, vp])
         lib.linear_vae_chunk.restype = i32
-        lib.philox_normals.argtypes = [vp, vp, i32, i32, u32, u32, u32, u32, vp]
-        lib.philox_normals.restype = i32
+        lib.philox_draw.argtypes = [vp, vp, i32, i32, u32, u32, u32, u32, vp]
+        lib.philox_draw.restype = i32
         lib.linear_vae_smem_bytes.argtypes = [i32] * 6
         lib.linear_vae_smem_bytes.restype = ctypes.c_size_t
         lib.linear_vae_error_string.argtypes = [i32]
@@ -683,23 +684,67 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
     return chunk
 
 
-def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
-                  device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's raw sampler on the card: (rows, n_draws, 4) words (as
-    int64) and normals at counters (step, row, draw, stream_id) — the
-    bitwise check of the in-kernel Philox against ``ops/rng.py``, and the
-    source of T1's statistical battery (``tools/check_kernel_rng.py``).
-    ``sampler_check.launches`` counts its launches."""
+def _check_draw_shape(rows: int, n_draws: int) -> None:
+    if rows < 1 or n_draws < 1 or rows * n_draws > SAMPLER_MAX_CALLS:
+        raise ValueError(f"rows and n_draws must be >= 1 with rows * n_draws <= "
+                         f"{SAMPLER_MAX_CALLS}, got {rows} and {n_draws}")
+
+
+def _draw(rows: int, n_draws: int, step: int, stream_id: int, seed: int, device,
+          with_words: bool):
+    """One launch of T1's draw (csrc/linear_vae.cu philox_draw_kernel)."""
     lib = _lib()
-    words = torch.empty(rows, n_draws, 4, dtype=torch.int32, device=device)
+    words = (torch.empty(rows, n_draws, 4, dtype=torch.int32, device=device)
+             if with_words else None)
     normals = torch.empty(rows, n_draws, 4, dtype=torch.float32, device=device)
     k0, k1 = rng.key_words(seed)
-    err = lib.philox_normals(words.data_ptr(), normals.data_ptr(), rows, n_draws,
-                             step & rng.MASK32, stream_id, k0, k1,
-                             torch.cuda.current_stream(device).cuda_stream)
-    _check(lib, err, "philox_normals launch")
+    err = lib.philox_draw(None if words is None else words.data_ptr(), normals.data_ptr(),
+                          rows, n_draws, step & rng.MASK32, stream_id, k0, k1,
+                          torch.cuda.current_stream(device).cuda_stream)
+    _check(lib, err, "philox_draw launch")
+    return words, normals
+
+
+def sampler_normals(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
+                    device) -> torch.Tensor:
+    """T1's draw: (rows, n_draws, 4) float32 normals at counters (step,
+    row, draw, stream_id) under ``seed``, the training kernels' Philox and
+    Box–Muller, with no words buffer. On the CPU it returns the plain
+    version, ``rng.box_muller(rng.words(...))``; on the card it launches
+    ``philox_draw_kernel`` or raises. ``sampler_normals.launches`` counts
+    its launches."""
+    _check_draw_shape(rows, n_draws)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return rng.box_muller(rng.words(seed, step, rows, stream_id, n_draws))
+    if device.type != "cuda":
+        raise ValueError(f"sampler_normals takes a CPU or CUDA device, got {device}")
+    normals = _draw(rows, n_draws, step, stream_id, seed, device, False)[1]
+    sampler_normals.launches += 1
+    return normals
+
+
+sampler_normals.launches = 0
+
+
+def sampler_check(rows: int, n_draws: int, step: int, stream_id: int, seed: int,
+                  device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The draw with its words: (rows, n_draws, 4) int32 words (the uint32
+    bits; ``rng.widen`` gives ops/rng.py's int64 values) and the normals, at
+    counters (step, row, draw, stream_id): the bitwise check of the
+    kernels' Philox against ``ops/rng.py``. On the CPU the plain version;
+    on the card the kernel or an error. ``sampler_check.launches`` counts
+    its launches."""
+    _check_draw_shape(rows, n_draws)
+    device = torch.device(device)
+    if device.type == "cpu":
+        w = rng.words(seed, step, rows, stream_id, n_draws)
+        return rng.narrow(w), rng.box_muller(w)
+    if device.type != "cuda":
+        raise ValueError(f"sampler_check takes a CPU or CUDA device, got {device}")
+    words, normals = _draw(rows, n_draws, step, stream_id, seed, device, True)
     sampler_check.launches += 1
-    return words.to(torch.int64) & rng.MASK32, normals
+    return words, normals
 
 
 sampler_check.launches = 0

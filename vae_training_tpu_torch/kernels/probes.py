@@ -6,8 +6,10 @@ Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
 - T4, ``tools/probe_mlp_interleave.py:62`` (``run`` → ``_chain_kernel``):
   ``chain_chunk`` with identity-like weights, ``min(·, 8)`` after each dot,
   in two forms: ``"phase"`` (the MLP kernel's former design:
-  one cooperative launch, a grid-wide phase a dot) and ``"cluster"`` (a 4-CTA cluster a
-  chain, W and h in shared memory, no grid barrier);
+  one cooperative launch, a grid-wide phase a dot) and ``"cluster"`` (a
+  cluster of 16 CTAs a chain, 8 row groups × 2 column slices, each CTA's
+  rows pushed to its row group's other CTA after a dot; the plan of
+  ``chain_plan``);
 - T3, ``tools/probe_mxu_pipelining.py:82`` (``run`` → ``make_kernel``):
   ``chain_chunk`` with ``weights_per_depth`` (8 distinct weights a chain)
   and ``epilogue="renorm"``;
@@ -48,6 +50,14 @@ CLAMP = 8.0
 MAX_CHAINS = 4
 EPILOGUES = {"clamp": 0, "renorm": 1}
 FORMS = ("phase", "cluster")
+# T4's cluster form (csrc/probes.cu chain_cluster_kernel): a cluster of 16
+# CTAs a chain, 8 row groups × 2 column slices of 128 (a lane 4 columns),
+# 8 warps a CTA splitting K, W in registers
+CHAIN_CLUSTER, CHAIN_SLICES, CHAIN_WARPS = 16, 2, 8
+# launch variants for the time split (``_chain_cluster_launch``): stop after
+# staging W and x, after the products, after the sums into the CTA's own h,
+# or run whole (the push to the row group's other CTA and the wait)
+CHAIN_UPTO = {"stage": 0, "products": 1, "sums": 2, "all": 3}
 MODES = {"fp32": 0, "tf32": 1, "bf16": 2}
 # T2's kernel (csrc/probes.cu dot_kernel): one warpgroup a CTA, 64 × 32 output
 # tiles, K staged 32 at a time, slices of whole 16-element units, clusters of
@@ -74,8 +84,10 @@ def _lib() -> ctypes.CDLL:
         lib.probes_error_string.restype = ctypes.c_char_p
         lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 7 + [vp]
         lib.probes_chain_phase.restype = i32
-        lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 3 + [vp]
+        lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 6 + [vp]
         lib.probes_chain_cluster.restype = i32
+        lib.probes_chain_plan.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.probes_chain_plan.restype = i32
         lib.probes_dot.argtypes = [vp] * 3 + [i32] * 9 + [vp]
         lib.probes_dot.restype = i32
         lib.probes_dot_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
@@ -119,7 +131,7 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
     stacked, (depth·W, W), dot d using rows d·W..(d+1)·W (T3). ``epilogue``
     "clamp" takes min(·, 8) after every dot (T4); "renorm" scales each
     chain's h by 1/max(max|h|, 1e-6) after each trip (T3). ``form``
-    "cluster" is T4's second kernel."""
+    "cluster" is T4's second kernel (one weight a chain, the clamp only)."""
     n = _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form)
     if xs.device.type == "cpu":
         return plain_chain_chunk(xs, ws, n_steps=n_steps, depth=depth,
@@ -131,14 +143,11 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
     _require(ws, "ws", device)
     if n_steps < 1 or depth < 1:
         raise ValueError(f"n_steps and depth must be ≥ 1, got {n_steps} and {depth}")
-    lib = _lib()
     if form == "cluster":
-        out = torch.empty_like(xs)
-        err = lib.probes_chain_cluster(xs.data_ptr(), ws.data_ptr(), out.data_ptr(), n,
-                                       n_steps, depth, _stream(device))
-        _check(lib, err, "probes_chain_cluster launch")
+        out = _chain_cluster_launch(xs, ws, n_steps, depth)
         chain_chunk.cluster_launches += 1
         return out
+    lib = _lib()
     h = torch.empty(2, *xs.shape, dtype=torch.float32, device=device)
     h[0].copy_(xs)
     maxbits = torch.zeros(2 * n, dtype=torch.int32, device=device)
@@ -152,6 +161,82 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
 
 chain_chunk.launches = 0
 chain_chunk.cluster_launches = 0
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """T4's cluster form: a cluster of ``cluster`` CTAs a chain, as
+    ``row_groups`` groups of ``rows`` rows × ``col_slices`` slices of
+    ``cols`` columns; a CTA's ``threads`` threads as ``k_split`` warps, each
+    a K slice of W (held in registers) for all the CTA's rows and columns;
+    ``smem`` bytes of dynamic shared memory a CTA (h twice, the warps'
+    partial tiles); ``grid`` CTAs."""
+    cluster: int
+    row_groups: int
+    col_slices: int
+    rows: int
+    cols: int
+    k_split: int
+    threads: int
+    smem: int
+    grid: int
+
+
+def chain_plan(n_chains: int) -> ChainPlan:
+    """The plan of T4's cluster form for ``n_chains`` chains: the same
+    integer arithmetic as ``chain_plan`` in csrc/probes.cu, which checks
+    the plan it is given against its own."""
+    if not 1 <= n_chains <= MAX_CHAINS:
+        raise ValueError(f"n_chains must be 1..{MAX_CHAINS}, got {n_chains}")
+    groups = CHAIN_CLUSTER // CHAIN_SLICES
+    rows, cols = ROWS // groups, W // CHAIN_SLICES
+    floats = 2 * rows * W + CHAIN_WARPS * rows * cols
+    return ChainPlan(CHAIN_CLUSTER, groups, CHAIN_SLICES, rows, cols, CHAIN_WARPS,
+                     32 * CHAIN_WARPS, 4 * floats, n_chains * CHAIN_CLUSTER)
+
+
+def chain_cta(plan: ChainPlan, block: int) -> dict:
+    """What CTA ``block`` of the plan's grid holds and does, by the
+    kernel's index arithmetic: its chain and cluster rank, its rows and
+    columns of the chain's h (it computes and writes that tile), the
+    cluster ranks its pushes reach, and each warp's K slice."""
+    chain, rank = divmod(block, plan.cluster)
+    group, slice_ = divmod(rank, plan.col_slices)
+    r0, c0 = group * plan.rows, slice_ * plan.cols
+    k_slice = W // plan.k_split
+    peers = [group * plan.col_slices + s for s in range(plan.col_slices) if s != slice_]
+    return {"chain": chain, "rank": rank, "rows": (r0, r0 + plan.rows),
+            "cols": (c0, c0 + plan.cols), "peers": peers,
+            "k_slices": [(q * k_slice, (q + 1) * k_slice) for q in range(plan.k_split)]}
+
+
+def library_chain_plan(n_chains: int) -> ChainPlan:
+    """The library's own plan (``probes_chain_plan``), to hold ``chain_plan`` to it."""
+    chain_plan(n_chains)
+    lib = _lib()
+    out = (ctypes.c_int * 9)()
+    _check(lib, lib.probes_chain_plan(n_chains, out), "probes_chain_plan")
+    return ChainPlan(*out)
+
+
+def _chain_cluster_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, depth: int,
+                          upto: str = "all") -> torch.Tensor:
+    """One launch of T4's cluster form on CUDA tensors; ``upto`` other than
+    "all" stops every dot early (the time split; the result is then not the
+    chain's). Uncounted."""
+    n = _chain_shapes(xs, ws, depth, False, "clamp", "cluster")
+    device = xs.device
+    _require(xs, "xs", device)
+    _require(ws, "ws", device)
+    if n_steps < 1 or depth < 1:
+        raise ValueError(f"n_steps and depth must be ≥ 1, got {n_steps} and {depth}")
+    plan = chain_plan(n)
+    out = torch.empty_like(xs)
+    lib = _lib()
+    err = lib.probes_chain_cluster(xs.data_ptr(), ws.data_ptr(), out.data_ptr(), n, n_steps,
+                                   depth, plan.smem, plan.grid, CHAIN_UPTO[upto],
+                                   _stream(device))
+    _check(lib, err, "probes_chain_cluster launch")
+    return out
 
 
 def plain_chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,

@@ -110,6 +110,17 @@ def words(seed: int, step: int, rows: int, stream: int, n_draws: int,
     return torch.stack(out, dim=-1)
 
 
+def widen(w32: torch.Tensor) -> torch.Tensor:
+    """int32 tensors of word bits (a CUDA kernel's uint32 words) → the int64
+    values in [0, 2**32) this module carries."""
+    return w32.to(torch.int64) & MASK32
+
+
+def narrow(w: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) → int32 tensors of the same bits."""
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
 def uniforms(w: torch.Tensor) -> torch.Tensor:
     """Words → float32 uniforms ((w >> 8) + 0.5)·2**-24 in (0, 1]."""
     return ((w >> 8).to(torch.float32) + 0.5) * INV_2_24

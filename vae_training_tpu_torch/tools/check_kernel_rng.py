@@ -2,11 +2,12 @@
 
 Counterpart of ``tools/check_kernel_rng.py``. The TPU tool drew from the
 TPU's hardware PRNG in a Pallas kernel; the port's kernels draw from
-Philox4x32-10 and Box–Muller (``csrc/philox.cuh``, ``normals4``), which
-``kernels/linear_vae.py:sampler_check`` runs on its own (the kernel
-``philox_normals_kernel`` in ``csrc/linear_vae.cu``). Its words equal
-``ops/rng.py``'s bitwise (``chip_smoke.py`` phase 3); this battery checks
-the normals' statistics, at the tool's sizes and bounds:
+Philox4x32-10 and Box–Muller (``csrc/philox.cuh``), which
+``kernels/linear_vae.py:sampler_normals`` runs on its own (the kernel
+``philox_draw_kernel`` in ``csrc/linear_vae.cu``, normals only). Its
+words equal ``ops/rng.py``'s bitwise and its normals those of the words
+entry, ``sampler_check`` (``chip_smoke.py`` phases 3 and 30); this battery
+checks the normals' statistics, at the tool's sizes and bounds:
 
 1. 4,194,304 normals (two seeds): |mean| and |std − 1| < 5e-3; χ² over 100
    exact-quantile N(0,1) bins (edges from ``torch.special.ndtri`` in
@@ -52,9 +53,9 @@ CHI2_LIMIT = 99 + 5 * math.sqrt(2 * 99)
 
 
 def card_draw(device) -> Draw:
-    """The kernel's sampler on the card."""
+    """The kernel's sampler on the card: the normals-only draw."""
     def draw(seed, step, rows, stream, n_draws):
-        return k1.sampler_check(rows, n_draws, step, stream, seed, device)[1].reshape(rows, -1)
+        return k1.sampler_normals(rows, n_draws, step, stream, seed, device).reshape(rows, -1)
     return draw
 
 

@@ -12,8 +12,10 @@ tool's order):
 - ``phase``: the MLP kernel's former design, one cooperative launch, one
   grid-wide phase a dot (one thread an output, a 256-term FMA chain from
   L2, ``grid.sync()``);
-- ``cluster``: one 4-CTA cluster a chain, W's columns and h in shared
-  memory, h exchanged through distributed shared memory, no grid barrier.
+- ``cluster``: one cluster of 16 CTAs a chain, 8 row groups × 2 column
+  slices, W's slice in registers and the row group's rows of h in shared
+  memory, each CTA's new rows pushed to its row group's other CTA, no grid
+  or cluster barrier a dot.
 
     python -m vae_training_tpu_torch.tools.probe_mlp_interleave [--device cuda|cpu]
 
