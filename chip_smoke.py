@@ -110,13 +110,21 @@ split into its parts, then the linear kernel's. Thirty-two phases:
      time (20 steps in a CUDA graph); the cluster form's step split by
      launch variants (staging, + products, + sums, whole) at 1, 2 and 4
      chains, in device time;
- 27. T3: 8 distinct weights a chain, renormalised a trip, against the
-     plain version (2 trips, rtol 1e-4 / atol 1e-5); then ns a dot for
-     1/2/4 chains and the independence speed-up; torch.matmul a dot in
-     device time (200 dots in a CUDA graph);
- 28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, against the
-     plain versions (3 steps, h and every w, m, v at MLP_TOL); then tail
-     and interleaved in turns and the VERDICT;
+ 27. T3: 8 distinct weights a chain, renormalised a trip, the phase and
+     the stream form (the stream kernel's registers and spills, ptxas),
+     against the plain version (2 trips, 1/2/4 chains, rtol 1e-4 / atol
+     1e-5), two stream launches bitwise equal; then the tool: ns a dot for
+     1/2/4 chains and the independence speed-up, each form; torch.matmul a
+     dot in device time (200 dots in a CUDA graph); the stream form's dot
+     split by launch variants (the weights streamed alone, the products
+     alone, the products with the stream, + sums and the row exchange,
+     whole) at 1, 2 and 4 chains, in turns;
+ 28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, each form,
+     against the plain versions (3 steps; h at MLP_TOL, what Adam changed
+     within DELTA_RTOL, with its controls), two stream launches bitwise
+     equal; then tail and interleaved in turns and the VERDICT, each form;
+     the stream form's step split by launch variants (as phase 27's, whole
+     with Adam), in turns;
  29. T2: the dot kernel's registers, shared memory and spills (ptxas) and
      its plan, the library's equal to kernels/probes.py's; every mode
      against its plain version at four odd shapes; then the tool: one dot in
@@ -1833,6 +1841,7 @@ def _probes(torch, np, smi):
 
     def reset_counts():
         probes.chain_chunk.launches = probes.chain_chunk.cluster_launches = 0
+        probes.chain_chunk.stream_launches = probes.adam_overlap_chunk.stream_launches = 0
         probes.adam_overlap_chunk.launches = probes.dot_modes.launches = 0
         k1.sampler_check.launches = k1.sampler_normals.launches = 0
 
@@ -1862,9 +1871,9 @@ def _probes(torch, np, smi):
         require(probes.library_chain_plan(n_chains) == plan,
                 f"T4 cluster plan at {n_chains} chain(s): the library's")
         print(f"T4 cluster plan, {n_chains} chain(s): {plan}")
-    t4_err = {f: 0.0 for f in probes.FORMS}
+    t4_err = {f: 0.0 for f in probes.T4_FORMS}
     kw = dict(n_steps=3, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
-    for form in probes.FORMS:
+    for form in probes.T4_FORMS:
         for n_chains in (1, 2, 4):
             xs, ws = t4.inputs(n_chains, dev)
             got, want = sync_cpu(probes.chain_chunk(xs, ws, form=form, **kw),
@@ -1940,7 +1949,7 @@ def _probes(torch, np, smi):
     card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chain_bound_ms = bound["bound_ms"] * card_sms / chain_sms
     print(f"T4 bound on one chain's {chain_sms} SMs: {chain_bound_ms * 1e3:.3f} us/step")
-    for form in probes.FORMS:
+    for form in probes.T4_FORMS:
         us = t4_report[form]["us_per_step"]
         require(t4_launches[form] > 0, f"T4's {form} kernel launched in the tool's run")
         records.append({
@@ -1955,22 +1964,34 @@ def _probes(torch, np, smi):
                 "bound_chain_sms_ms": chain_bound_ms} if form == "cluster" else {})})
 
     # --- 27 -------------------------------------------------------------------
-    phase(27, "T3: chains of 8 dots with distinct weights, renormalised a trip, against the "
-              "plain version; then the tool")
-    t3_err = 0.0
+    phase(27, "T3: chains of 8 dots with distinct weights, renormalised a trip, phase and "
+              "stream forms, against the plain version; then the tool")
+    _print_ptxas(load_library("probes")[1], only="chain_stream")
+    card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream_sms = probes.CHAIN_CLUSTER  # one chain's cluster
+    t3_err = {f: 0.0 for f in probes.T3_FORMS}
     kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
-    for n_chains in (1, 2, 4):
+    for form in probes.T3_FORMS:
+        for n_chains in (1, 2, 4):
+            xs, ws = t3.inputs(n_chains, dev)
+            got, want = sync_cpu(probes.chain_chunk(xs, ws, form=form, **kw),
+                                 probes.plain_chain_chunk(xs, ws, **kw))
+            require(bool(np.all(np.isfinite(got))), f"T3 {form} finite")
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"T3 {form} {n_chains}")
+            t3_err[form] = max(t3_err[form], float(np.abs(got - want).max()))
+            print(f"T3 {form:6s} {n_chains} chain(s), 2 trips: max |Δ| vs plain "
+                  f"{float(np.abs(got - want).max()):.2e} (rtol 1e-4, atol 1e-5)")
+    for n_chains in (1, 2, 4):  # fixed sums, no atomics: the same bits twice
         xs, ws = t3.inputs(n_chains, dev)
-        got, want = sync_cpu(probes.chain_chunk(xs, ws, **kw), probes.plain_chain_chunk(xs, ws, **kw))
-        require(bool(np.all(np.isfinite(got))), "T3 finite")
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=f"T3 {n_chains}")
-        t3_err = max(t3_err, float(np.abs(got - want).max()))
-        print(f"T3 {n_chains} chain(s), 2 trips: max |Δ| vs plain "
-              f"{float(np.abs(got - want).max()):.2e}")
+        a, b = sync_cpu(*(probes._stream_launch("t3", xs, ws, None, None, 2) for _ in range(2)))
+        require(np.array_equal(a, b), f"T3 stream, {n_chains} chain(s): two launches, same bits")
+    print("T3 stream form: two launches bitwise equal (1, 2, 4 chains)")
     reset_counts()
     t3_report = t3.main(window)
-    t3_launches = probes.chain_chunk.launches
-    require(t3_launches > 0, "T3's kernel launched in the tool's run")
+    t3_launches = {"phase": probes.chain_chunk.launches,
+                   "stream": probes.chain_chunk.stream_launches}
+    print(f"T3 tool launches: {t3_launches}")
     xs, ws = t3.inputs(1, dev)
     per_dot = 1.0 / probes.T3_DEPTH
     t3_plain = per_dot * per_step_ms(lambda n: probes.plain_chain_chunk(
@@ -1981,65 +2002,106 @@ def _probes(torch, np, smi):
         torch, lambda: chain_library(xs, ws, probes.T3_DEPTH, True, False)(1), calls=25) / 1e3
     # a dot: its weight read, h read and written once
     bound = _bound(dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1, losses_per_step=0)
+    t3_chain_bound = bound["bound_ms"] * card_sms / stream_sms
     print(f"card: {smi}")
     print(f"T3 one chain: plain {t3_plain * 1e6:.1f} ns/dot, torch.matmul {t3_lib * 1e6:.1f} "
           f"ns/dot device time ({t3_lib_call * 1e6:.1f} a Python call), bound "
-          f"{bound['bound_ms'] * 1e6:.1f} ns/dot ({bound['bound_by']})")
-    records.append({
-        "name": "chain_phase_kernel (T3, distinct weights)", "route": "cuda",
-        "source": "vae_training_tpu_torch/csrc/probes.cu",
-        "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches,
-        "max_abs_err": t3_err, "ms": t3_report["ns_per_dot"][1] / 1e6, "plain_ms": t3_plain,
-        **bound, "library_ms": t3_lib, "library_call_ms": t3_lib_call,
-        "ns_per_dot_by_chains": t3_report["ns_per_dot"],
-        "speedup_x2": t3_report["x2"], "speedup_x4": t3_report["x4"]})
+          f"{bound['bound_ms'] * 1e6:.1f} ns/dot ({bound['bound_by']}), on a chain's "
+          f"{stream_sms} SMs {t3_chain_bound * 1e6:.1f}")
+    # the stream form's dot split by launch variants (the weights streamed
+    # alone; the products alone, from a ring filled once; the products with
+    # the stream; + sums and the row exchange; whole), in turns, at 1, 2 and
+    # 4 chains; device time, 20 trips a launch
+    uptos = list(probes.STREAM_UPTO)
+    t3_split = {}
+    for n_chains in (1, 2, 4):
+        xs, ws = t3.inputs(n_chains, dev)
+        runs = {}
+        for upto in uptos + uptos[::-1]:
+            runs.setdefault(upto, []).append(1e3 * _device_us(
+                torch, lambda u=upto: probes._stream_launch("t3", xs, ws, None, None, 20, upto=u),
+                calls=5) / (20 * probes.T3_DEPTH))
+        sp = t3_split[n_chains] = {u: min(v) for u, v in runs.items()}
+        print(f"T3 stream split, {n_chains} chain(s), ns a dot (device time, min of two): "
+              f"weights alone {sp['weights']:.1f}, products alone {sp['compute']:.1f}, "
+              f"products with the stream {sp['products']:.1f} (the stream adds "
+              f"{sp['products'] - sp['compute']:.1f}), + sums and exchange "
+              f"{sp['exchange'] - sp['products']:.1f}, + renorm "
+              f"{sp['all'] - sp['exchange']:.1f}: whole {sp['all']:.1f}")
+    for form in probes.T3_FORMS:
+        require(t3_launches[form] > 0, f"T3's {form} kernel launched in the tool's run")
+        rep = t3_report[form]
+        records.append({
+            "name": f"chain_{form}_kernel (T3, distinct weights)", "route": "cuda",
+            "source": "vae_training_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches[form],
+            "max_abs_err": t3_err[form], "ms": rep["ns_per_dot"][1] / 1e6, "plain_ms": t3_plain,
+            **bound, "library_ms": t3_lib, "library_call_ms": t3_lib_call,
+            "ns_per_dot_by_chains": rep["ns_per_dot"], "speedup_x2": rep["x2"],
+            "speedup_x4": rep["x4"],
+            **({"split_ns_per_dot": t3_split, "bound_chain_sms_ms": t3_chain_bound}
+               if form == "stream" else {})})
 
     # --- 28 -------------------------------------------------------------------
-    phase(28, "T5: 25 dots and Adam on 5 buffers, tail and interleaved, against the plain "
-              "version; then the tool (tail, interleaved, interleaved, tail)")
+    phase(28, "T5: 25 dots and Adam on 5 buffers, tail and interleaved, phase and stream "
+              "forms, against the plain version; then the tool (tail, interleaved, "
+              "interleaved, tail; each form)")
     print(f"h at {MLP_TOL['params']} (rtol, atol), tests/test_mlp_kernel.py's; what Adam "
           f"changed in w, m and v at rtol {t5.DELTA_RTOL}, atol {t5.DELTA_RTOL} of the plain "
           f"version's largest change")
-    t5_err = {False: 0.0, True: 0.0}
-    for inputs_of, label in ((t5.inputs, "the tool's inputs"),
-                             (t5.check_inputs, "check inputs")):
-        for interleave in (False, True):
-            kb = inputs_of(dev)
-            pb, start, other = (tuple(t.clone() for t in kb) for _ in range(3))
-            h = probes.adam_overlap_chunk(*kb, n_steps=3, interleave=interleave)
-            ph = probes.plain_adam_overlap_chunk(*pb, n_steps=3, interleave=interleave)
-            probes.plain_adam_overlap_chunk(*other, n_steps=3, interleave=not interleave)
-            a, b = sync_cpu(h, ph)
-            require(bool(np.all(np.isfinite(a))), "T5 h finite")
-            np.testing.assert_allclose(a, b, *MLP_TOL["params"], err_msg=f"T5 h {interleave}")
-            errs, mism = [float(np.abs(a - b).max())], []
-            for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:], other[1:]):
-                require(bool(torch.isfinite(got).all()), f"T5 {name} finite")
-                mm = t5.delta_mismatch(got, ref, s0)
-                require(mm <= t5.DELTA_RTOL, f"T5 {label} interleave={interleave}: Δ{name} "
-                                             f"mismatch {mm:.3e} <= {t5.DELTA_RTOL}")
-                # controls: Adam dropped, and the other variant's gradients
-                require(t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL,
-                        f"T5 Δ{name}: the state left as it was fails the comparison")
-                if inputs_of is t5.check_inputs:
-                    require(t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL,
-                            f"T5 Δ{name}: the other variant fails the comparison")
-                errs.append(float((got - ref).abs().max()))
-                mism.append(mm)
-            t5_err[interleave] = max(t5_err[interleave], *errs)
-            print(f"T5 {label}, interleave={interleave!s:5}, 3 steps: max |Δ| h {errs[0]:.2e} "
-                  f"w {errs[1]:.2e} m {errs[2]:.2e} v {errs[3]:.2e}; Adam's change mismatch "
-                  f"w {mism[0]:.2e} m {mism[1]:.2e} v {mism[2]:.2e}")
+    t5_err = {(f, il): 0.0 for f in probes.T5_FORMS for il in (False, True)}
+    for form in probes.T5_FORMS:
+        for inputs_of, label in ((t5.inputs, "the tool's inputs"),
+                                 (t5.check_inputs, "check inputs")):
+            for interleave in (False, True):
+                kb = inputs_of(dev)
+                pb, start, other = (tuple(t.clone() for t in kb) for _ in range(3))
+                h = probes.adam_overlap_chunk(*kb, n_steps=3, interleave=interleave, form=form)
+                ph = probes.plain_adam_overlap_chunk(*pb, n_steps=3, interleave=interleave)
+                probes.plain_adam_overlap_chunk(*other, n_steps=3, interleave=not interleave)
+                a, b = sync_cpu(h, ph)
+                require(bool(np.all(np.isfinite(a))), "T5 h finite")
+                np.testing.assert_allclose(a, b, *MLP_TOL["params"],
+                                           err_msg=f"T5 {form} h {interleave}")
+                errs, mism = [float(np.abs(a - b).max())], []
+                for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:], other[1:]):
+                    require(bool(torch.isfinite(got).all()), f"T5 {name} finite")
+                    mm = t5.delta_mismatch(got, ref, s0)
+                    require(mm <= t5.DELTA_RTOL, f"T5 {form} {label} interleave={interleave}: "
+                                                 f"Δ{name} mismatch {mm:.3e} <= {t5.DELTA_RTOL}")
+                    # controls: Adam dropped, and the other variant's gradients
+                    require(t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL,
+                            f"T5 Δ{name}: the state left as it was fails the comparison")
+                    if inputs_of is t5.check_inputs:
+                        require(t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL,
+                                f"T5 Δ{name}: the other variant fails the comparison")
+                    errs.append(float((got - ref).abs().max()))
+                    mism.append(mm)
+                t5_err[form, interleave] = max(t5_err[form, interleave], *errs)
+                print(f"T5 {form:6s} {label}, interleave={interleave!s:5}, 3 steps: max |Δ| h "
+                      f"{errs[0]:.2e} w {errs[1]:.2e} m {errs[2]:.2e} v {errs[3]:.2e}; Adam's "
+                      f"change mismatch w {mism[0]:.2e} m {mism[1]:.2e} v {mism[2]:.2e}")
+    for mode in ("tail", "interleaved"):  # fixed sums, no atomics: the same bits twice
+        runs = []
+        for _ in range(2):
+            x, ws, ms, vs = t5.check_inputs(dev)
+            runs.append((probes._stream_launch(mode, x[None], ws, ms, vs, 3), ws, ms, vs))
+        torch.cuda.synchronize()
+        require(all(torch.equal(p, q) for p, q in zip(*runs)),
+                f"T5 stream {mode}: two launches give the same h, w, m and v")
+    print("T5 stream form: two launches bitwise equal (tail, interleaved; h, w, m, v)")
     reset_counts()
     t5_report = t5.main(window)
-    t5_launches = probes.adam_overlap_chunk.launches
-    require(t5_launches > 0, "T5's kernel launched in the tool's run")
+    t5_launches = {"phase": probes.adam_overlap_chunk.launches,
+                   "stream": probes.adam_overlap_chunk.stream_launches}
+    print(f"T5 tool launches: {t5_launches}")
     n_dots, n_w = probes.N_BUF * probes.DOTS_PER_BUF, probes.N_BUF * Wd * Wd
     # a step: 25 dots, 5 column means of h, Adam's ~12 operations an element;
     # h read and written, w, m and v read and written once (7.9 MB, which
     # L2 holds: the bound is the operations')
     flops = n_dots * dot_flops + probes.N_BUF * R * Wd + 12 * n_w
     bound = _bound(flops, 4 * (2 * R * Wd + 6 * n_w), 1, losses_per_step=0)
+    t5_chain_bound = bound["bound_ms"] * card_sms / stream_sms
     t5_plain = {}
     for interleave in (False, True):
         kb = t5.inputs(dev)
@@ -2049,15 +2111,38 @@ def _probes(torch, np, smi):
     print(f"card: {smi}")
     print(f"T5 plain: tail {t5_plain[False]:.3f} ms/step, interleaved {t5_plain[True]:.3f} "
           f"ms/step; bound {bound['bound_ms'] * 1e3:.3f} us/step ({bound['bound_by']}, "
-          f"{flops / 1e6:.1f} MFLOP)")
-    for interleave, label in ((False, "tail"), (True, "interleaved")):
-        records.append({
-            "name": f"chain_phase_kernel (T5, Adam {label})", "route": "cuda",
-            "source": "vae_training_tpu_torch/csrc/probes.cu",
-            "replaces": "tools/probe_adam_overlap.py:110", "launches": t5_launches,
-            "max_abs_err": t5_err[interleave],
-            "ms": min(t5_report["us_per_step"][label]) / 1e3, "plain_ms": t5_plain[interleave],
-            **bound, "library_ms": None, "interleaved_over_tail": t5_report["ratio"]})
+          f"{flops / 1e6:.1f} MFLOP), on the cluster's {stream_sms} SMs "
+          f"{t5_chain_bound * 1e3:.3f}")
+    # the stream form's step split by launch variants (as phase 27's, whole
+    # with Adam), in turns; device time, 4 steps a launch
+    t5_split = {}
+    for mode in ("tail", "interleaved"):
+        kb = t5.inputs(dev)
+        runs = {}
+        for upto in uptos + uptos[::-1]:
+            runs.setdefault(upto, []).append(_device_us(
+                torch, lambda u=upto: probes._stream_launch(mode, kb[0][None], *kb[1:], 4,
+                                                            upto=u), calls=5) / 4)
+        sp = t5_split[mode] = {u: min(v) for u, v in runs.items()}
+        print(f"T5 stream split, {mode}, us a step (device time, min of two): weights alone "
+              f"{sp['weights']:.2f}, products alone {sp['compute']:.2f}, products with the "
+              f"stream {sp['products']:.2f} (the stream adds "
+              f"{sp['products'] - sp['compute']:.2f}), + sums and exchange "
+              f"{sp['exchange'] - sp['products']:.2f}, + Adam "
+              f"{sp['all'] - sp['exchange']:.2f}: whole {sp['all']:.2f}")
+    for form in probes.T5_FORMS:
+        require(t5_launches[form] > 0, f"T5's {form} kernel launched in the tool's run")
+        rep = t5_report[form]
+        for interleave, label in ((False, "tail"), (True, "interleaved")):
+            records.append({
+                "name": f"chain_{form}_kernel (T5, Adam {label})", "route": "cuda",
+                "source": "vae_training_tpu_torch/csrc/probes.cu",
+                "replaces": "tools/probe_adam_overlap.py:110", "launches": t5_launches[form],
+                "max_abs_err": t5_err[form, interleave],
+                "ms": min(rep["us_per_step"][label]) / 1e3, "plain_ms": t5_plain[interleave],
+                **bound, "library_ms": None, "interleaved_over_tail": rep["ratio"],
+                **({"split_us_per_step": t5_split[label], "bound_chain_sms_ms": t5_chain_bound}
+                   if form == "stream" else {})})
 
     # --- 29 -------------------------------------------------------------------
     phase(29, "T2: one (128x256)·(256x256) dot in fp32, TF32 and bf16 modes against the "

@@ -1047,6 +1047,125 @@ def test_t5_adam_overlap_matches_plain(cuda_device, interleave):
         assert t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL, name
 
 
+# T3's and T5's stream form (chain_stream_kernel): at T3's and T5's
+# tolerances above, two launches bitwise equal, outputs written whole into
+# reused (uninitialised) memory, and a launch the library refuses raises.
+def _poison_allocator(shape, device, copies=4):
+    """Leave NaN-filled blocks of ``shape`` in the caching allocator, so the
+    next allocations of that size start as NaN, not zeros."""
+    blocks = [torch.full(shape, float("nan"), device=device) for _ in range(copies)]
+    del blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t3_stream_matches_plain(cuda_device, n_chains):
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools.probe_mxu_pipelining import inputs
+
+    xs, ws = inputs(n_chains, cuda_device)
+    kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
+    before = probes.chain_chunk.stream_launches
+    _poison_allocator(xs.shape, cuda_device)
+    got = probes.chain_chunk(xs, ws, form="stream", **kw)
+    want = probes.plain_chain_chunk(xs, ws, **kw)
+    torch.cuda.synchronize()
+    assert probes.chain_chunk.stream_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs_of", ["inputs", "check_inputs"])
+@pytest.mark.parametrize("interleave", [False, True], ids=["tail", "interleaved"])
+def test_t5_stream_matches_plain(cuda_device, interleave, inputs_of):
+    """T5's stream form on the tool's inputs and on check_inputs, 3 steps:
+    h at the MLP kernel's tolerance, what Adam changed within DELTA_RTOL;
+    the controls (state left as it was; on check_inputs the other mode's
+    plain result) fail the comparison."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+
+    kb = getattr(t5, inputs_of)(cuda_device)
+    pb, start, other = (tuple(t.clone() for t in kb) for _ in range(3))
+    before = probes.adam_overlap_chunk.stream_launches
+    _poison_allocator((1, *kb[0].shape), cuda_device)
+    h = probes.adam_overlap_chunk(*kb, n_steps=3, interleave=interleave, form="stream")
+    ph = probes.plain_adam_overlap_chunk(*pb, n_steps=3, interleave=interleave)
+    probes.plain_adam_overlap_chunk(*other, n_steps=3, interleave=not interleave)
+    torch.cuda.synchronize()
+    assert probes.adam_overlap_chunk.stream_launches == before + 1
+    assert bool(torch.isfinite(h).all())
+    np.testing.assert_allclose(h.cpu().numpy(), ph.cpu().numpy(), *PROBE_H_TOL)
+    for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:], other[1:]):
+        assert t5.delta_mismatch(got, ref, s0) <= t5.DELTA_RTOL, name
+        assert t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL, name
+        if inputs_of == "check_inputs":
+            assert t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["t3", "tail", "interleaved"])
+def test_stream_launches_repeat_bitwise(cuda_device, mode):
+    """Fixed sums (K order; the column sums in row-group order), no
+    atomics: two launches from the same state give the same bits."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+    from vae_training_tpu_torch.tools.probe_mxu_pipelining import inputs
+
+    for n_chains in ([1, 2, 4] if mode == "t3" else [1]):
+        if mode == "t3":
+            xs, ws = inputs(n_chains, cuda_device)
+            a, b = (probes._stream_launch("t3", xs, ws, None, None, 2) for _ in range(2))
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+            continue
+        runs = []
+        for _ in range(2):
+            x, ws, ms, vs = t5.check_inputs(cuda_device)
+            h = probes._stream_launch(mode, x[None], ws, ms, vs, 3)
+            runs.append((h, ws, ms, vs))
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_stream_refused_plans_raise(cuda_device):
+    """The library refuses 5 chains and T5 on more than one chain or without
+    its moments; the wrapper raises, and nothing runs in its place."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+    from vae_training_tpu_torch.tools.probe_mxu_pipelining import inputs
+
+    xs, ws = inputs(4, cuda_device)
+    x, w, m, v = t5.inputs(cuda_device)
+    x5, w5 = torch.cat([xs, xs[:1]]), torch.cat([ws, ws[:1]])
+    with pytest.raises(RuntimeError, match="probes_chain_stream \\(t3\\) launch failed"):
+        probes._stream_launch("t3", x5, w5, None, None, 1)
+    with pytest.raises(RuntimeError, match="probes_chain_stream \\(tail\\) launch failed"):
+        probes._stream_launch("tail", xs[:2], w, m, v, 1)
+    with pytest.raises(RuntimeError, match="probes_chain_stream \\(interleaved\\) launch"):
+        probes._stream_launch("interleaved", x[None], w, None, None, 1)
+
+
+@pytest.mark.cuda
+def test_stream_split_variants_are_uncounted(cuda_device):
+    """The time split's variants stop each dot early and count nothing."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+    from vae_training_tpu_torch.tools.probe_mxu_pipelining import inputs
+
+    xs, ws = inputs(2, cuda_device)
+    x, w5, m5, v5 = t5.inputs(cuda_device)
+    before = (probes.chain_chunk.stream_launches, probes.adam_overlap_chunk.stream_launches)
+    for upto in ("weights", "products", "exchange"):
+        probes._stream_launch("t3", xs, ws, None, None, 2, upto=upto)
+        probes._stream_launch("tail", x[None], w5, m5, v5, 2, upto=upto)
+    torch.cuda.synchronize()
+    assert (probes.chain_chunk.stream_launches,
+            probes.adam_overlap_chunk.stream_launches) == before
+
+
 # T2's shapes: the contract's smallest, zero-padded rows and columns, uneven
 # K slices (272 = 17 units of 16), the tool's, and several rounds a CTA
 DOT_SHAPES = [(16, 16, 8), (48, 32, 24), (112, 272, 40), (128, 256, 256), (256, 512, 512)]

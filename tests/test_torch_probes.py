@@ -74,7 +74,7 @@ def tool_t4():
     return load_tool("probe_mlp_interleave")
 
 
-@pytest.mark.parametrize("form", probes.FORMS)
+@pytest.mark.parametrize("form", probes.T4_FORMS)
 @pytest.mark.parametrize("n_chains", [1, 2, 4])
 def test_t4_chains_match_the_tool(tool_t4, n_chains, form):
     assert (tool_t4.ROWS, tool_t4.W, tool_t4.DEPTH) == (probes.ROWS, probes.W, probes.T4_DEPTH)
@@ -246,8 +246,9 @@ def test_t1_streams_and_rows_are_keyed_as_the_kernels():
 
 
 @pytest.mark.parametrize("tool, verdict", [
-    (t4, "VERDICT (cluster): 2-chain cost ratio"), (t3, "independence speedup: x2="),
-    (t5, "VERDICT: interleaved/tail = "), (t2, "RESULT: PASS")],
+    (t4, "VERDICT (cluster): 2-chain cost ratio"),
+    (t3, "VERDICT (stream): independence speedup: x2="),
+    (t5, "VERDICT (stream): interleaved/tail = "), (t2, "RESULT: PASS")],
     ids=["T4", "T3", "T5", "T2"])
 def test_tools_run_on_the_cpu(tool, verdict, capsys):
     tool.main(["--device", "cpu", "--seconds", "0.005"])
@@ -274,6 +275,59 @@ def test_wrappers_check_shapes():
                            weights_per_depth=False, epilogue="clamp")
     with pytest.raises(ValueError, match="mode must be"):
         probes.dot_modes(torch.zeros(16, 16), torch.zeros(16, 8), "fp16")
+    # the stream form is T3's and T5's: T4's chain, a depth other than the
+    # 8 weights, the clamp, and a form T5 has not are refused
+    with pytest.raises(ValueError, match="stream form is T3's"):
+        probes.chain_chunk(xs, ws, n_steps=1, depth=8, weights_per_depth=False,
+                           epilogue="clamp", form="stream")
+    x3, w3 = t3.inputs(2, "cpu")
+    with pytest.raises(ValueError, match="stream form is T3's"):
+        probes.chain_chunk(x3, w3[:, :4 * probes.W], n_steps=1, depth=4, weights_per_depth=True,
+                           epilogue="renorm", form="stream")
+    with pytest.raises(ValueError, match="stream form is T3's"):
+        probes.chain_chunk(x3, w3, n_steps=1, depth=8, weights_per_depth=True,
+                           epilogue="clamp", form="stream")
+    with pytest.raises(ValueError, match="form must be one of"):
+        probes.chain_chunk(x3, w3, n_steps=1, depth=8, weights_per_depth=True,
+                           epilogue="renorm", form="tile")
+    kb = t5.inputs("cpu")
+    for form in ("cluster", "tile"):
+        with pytest.raises(ValueError, match="form must be one of"):
+            probes.adam_overlap_chunk(*kb, n_steps=1, interleave=False, form=form)
+    with pytest.raises(ValueError, match="ms must be"):
+        probes.adam_overlap_chunk(kb[0], kb[1], kb[2][:4], kb[3], n_steps=1, interleave=False,
+                                  form="stream")
+
+
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t3_stream_form_runs_the_plain_version_on_the_cpu(n_chains):
+    """On CPU tensors the stream form is the plain version (bitwise the
+    phase form's) and launches nothing; the tool's Pallas body agrees."""
+    tool = load_tool("probe_mxu_pipelining")
+    tool.STEPS = 2
+    xs, ws = t3.inputs(n_chains, "cpu")
+    kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
+    before = probes.chain_chunk.stream_launches
+    got = probes.chain_chunk(xs, ws, form="stream", **kw)
+    assert probes.chain_chunk.stream_launches == before
+    assert torch.equal(got, probes.chain_chunk(xs, ws, form="phase", **kw))
+    want = pl.pallas_call(tool.make_kernel(n_chains),
+                          out_shape=[f32((probes.ROWS, probes.W))] * n_chains, interpret=True)(
+        *map(jnp.asarray, xs.numpy()), *map(jnp.asarray, ws.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.stack([np.asarray(w) for w in want]),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("interleave", [False, True], ids=["tail", "interleaved"])
+def test_t5_stream_form_runs_the_plain_version_on_the_cpu(interleave):
+    """On CPU tensors T5's stream form updates w, m and v as the phase form
+    does, bitwise (both are the plain version), and launches nothing."""
+    a, b = t5.check_inputs("cpu"), t5.check_inputs("cpu")
+    before = probes.adam_overlap_chunk.stream_launches
+    ha = probes.adam_overlap_chunk(*a, n_steps=2, interleave=interleave, form="stream")
+    hb = probes.adam_overlap_chunk(*b, n_steps=2, interleave=interleave, form="phase")
+    assert probes.adam_overlap_chunk.stream_launches == before
+    assert torch.equal(ha, hb) and all(torch.equal(p, q) for p, q in zip(a[1:], b[1:]))
 
 
 def test_probes_import_nothing_of_the_jax_tools():

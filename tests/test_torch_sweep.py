@@ -176,13 +176,13 @@ def _imports(path):
 
 def test_the_port_imports_no_jax():
     """Every module of vae_training_tpu_torch and chip_smoke.py, read as
-    source: no import of jax, flax, optax or the JAX package, anywhere in
-    the file (inside functions too)."""
+    source: no import of jax, flax, optax, the JAX package or the repo's
+    tools/, anywhere in the file (inside functions too)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "vae_training_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 25
-    banned = {"jax", "jaxlib", "flax", "optax", "vae_training_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "vae_training_tpu", "tools"}
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in banned]
     assert not bad, bad

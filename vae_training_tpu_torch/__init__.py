@@ -2,12 +2,16 @@
 
 The module paths mirror the JAX package so that each port module sits at the
 same relative path as its reference counterpart. Ported so far: the training
-paths of the reference's three sweeps: the reference CLI, the
+paths of the reference's three sweeps (the reference CLI, the
 ``linear_gaussian``, ``sigmoid`` and ``sphere`` datasets, the VAE with ReLU
-stacks and the dual sigmoid decoder, the plain PyTorch ("torch path")
-training chunk, and the fused multi-step training kernels written in CUDA
-C++ for ``sm_90a``: K1 and K2 (``csrc/linear_vae.cu``) and K5
-(``csrc/mlp_vae.cu``).
+stacks and the dual sigmoid decoder, the plain PyTorch "torch path"
+training chunk), seed grids and the one-launch sweep runner, bf16 Adam
+moments, and every TPU kernel of the reference as a kernel written by hand
+in CUDA C++ for ``sm_90a``: K1, K2 and their grid mode K6a
+(``csrc/linear_vae.cu``); K5, K5-dual and their grid mode K6b
+(``csrc/mlp_vae.cu``); K4, the bf16 moments' branch of both; and the
+probes T1 (the sampler's draw, ``csrc/linear_vae.cu``) and T2–T5
+(``csrc/probes.cu``), each behind a port of its tool (``tools/``).
 
 The package imports ``torch`` and ``numpy`` only; it never imports JAX,
 flax, optax or ``vae_training_tpu``.

@@ -36,6 +36,14 @@
 // dot, one mbarrier wait a dot and no grid or cluster barrier (see the
 // kernel).
 //
+// chain_stream_kernel<mode> is T3 and T5 on that cluster plan: their
+// weights change from dot to dot, so each warp streams its K slice of the
+// next dot's weights from L2 into a ring in shared memory (cp.async.bulk
+// on mbarriers) while the current dot runs; T3's renorm meets the chain's
+// 16 maxima through distributed shared memory, T5's Adam the column sums
+// of h (see the kernel). chain_phase_kernel stays as T3's and T5's "phase"
+// form, and as T4's.
+//
 // dot_kernel<mode> is T2: out = x·w, x (M × K) and w (K × N) fp32 and
 // row-major, in three modes. Hopper has no implicit reduced-precision
 // default, so the modes are: fp32, fmaf chains on the CUDA cores (the analog
@@ -67,6 +75,8 @@
 // Plain C interface for ctypes: every entry returns a cudaError_t as int.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -846,6 +856,446 @@ cudaError_t launch_chain_cluster(const ChainClusterArgs& A, const ChainPlan& p,
   return cudaLaunchKernelEx(&cfg, chain_cluster_kernel, A);
 }
 
+// T3's and T5's stream form: T4's cluster plan (16 CTAs a chain, 8 row
+// groups of 13 rows × 2 column slices of 128, K over 8 warps, rows pushed
+// to the row group's other CTA by st.async, h double-buffered, one mbarrier
+// a buffer) with weights that change from dot to dot. T3 has 8 distinct
+// weights a chain (2 MB a chain), T5 five buffers that Adam rewrites
+// every step: neither fits in registers or stays in shared memory, but
+// neither depends on h, so each warp streams its K slice of the next dot's
+// W[:, its 128 columns] from L2 into its own ring in shared memory while
+// the current dot runs: 4 stages of 8 k-rows × 128 columns (4 KB, one 2-D
+// bulk tensor copy (TMA) on a tensor map of the weights' stack, completed
+// on the stage's mbarrier), one dot's K slice in all, a stage refilled with
+// the next dot's chunk as soon as the warp has read it. (Eight 1-D
+// 512-byte cp.async.bulk copies a stage, the same bytes, streamed slower
+// and hid less of the stream behind the products: the copies' count, not
+// their bytes, held it.) A warp reads each stage as T4's lane reads its
+// registers: a float4 of W (the warp's 512 contiguous bytes of a k-row) a
+// k, a broadcast float4 of h a row for 16 FMAs; fp32 fmaf chains in
+// ascending k, the 8 partial tiles summed in K order, as T4's.
+//
+// T3's renorm: after each trip's last dot every CTA pushes the max|y| of
+// its tile to all 16 CTAs (st.async, 4 bytes each, onto an mbarrier of two
+// alternating by trip); each CTA then scales its row group's whole 13 ×
+// 256 rows (its own half and the half its peer pushed, unscaled) by
+// 1 / max(max of the 16, 1e-6): no global atomics, no grid barrier.
+//
+// T5's Adam (one chain): CTA (row group q, slice s) updates rows [32q, 32q
+// + 32) × its 128 columns of each buffer, m and v in device memory (L2
+// holds all 7.9 MB). The gradient needs the column sums of h over all 104
+// rows: each CTA sums its 13 rows of its 128 columns and pushes them to the
+// 8 CTAs of its slice, which sum the 8 in row-group order (two launches
+// give the same bits). Adam writes W with generic stores and the next
+// step's bulk copies read it through the async proxy: every writer fences
+// (fence.proxy.async.global) and arrives at a cluster barrier with release
+// semantics, and a CTA issues a copy of an updated buffer only after its
+// acquire wait and its own proxy fence. In the tail, the first dot of the
+// next step waits for that barrier (its copies are issued after it); when
+// interleaved, buffer b's next copy comes 15 or more dots later, so the
+// wait is deferred to the next Adam (whose column sums must not land
+// before every CTA has read the last ones).
+//
+// What bounds it: the products on one chain's 16 SMs (13,312 FMA
+// instructions a CTA a dot, ≥ 1.68 µs at 1980 MHz), fed by 68 shared-memory
+// wavefronts every 4 k a warp (16 of W, 52 of h: a warp's float4 load is
+// four wavefronts, broadcast or not): the products alone take most of a
+// dot (PERF.md §6). Then 128 KB a CTA a dot from L2, which the ring has a
+// dot to bring in;
+// T5 adds Adam's 480 KB of w, m and v a CTA a step and the column sums'
+// exchange. (A lane of 8 columns with the K slice split over half-warps
+// cut the wavefronts by 38% but ran the products slower, and was not
+// kept.)
+constexpr int kT3Depth = 8;    // distinct weights a chain, dots a trip
+constexpr int kT5Bufs = 5;     // T5's weight buffers
+constexpr int kT5DotsPerBuf = 5;
+constexpr int kStreamT3 = 0;   // modes: T3 (renorm), T5 with Adam in a tail, interleaved
+constexpr int kStreamTail = 1;
+constexpr int kStreamInterleaved = 2;
+constexpr int kStreamStages = 4;                             // ring stages a warp
+constexpr int kStreamChunkK = kChainKSlice / kStreamStages;  // 8 k-rows a stage
+constexpr uint32_t kStreamChunkBytes = kStreamChunkK * kChainCols * 4;
+constexpr int kStreamAdamRows = kW / kChainGroups;           // 32 rows of W a CTA's Adam
+// launch variants for the time split: stream the weights alone (each warp
+// waits for its chunks and refills them); the products and partial tiles
+// alone, from the first dot's chunks (the ring filled once, no stream); the
+// products with the stream; + the sums, the epilogue and the row exchange;
+// or run whole (+ T3's renorm or T5's Adam)
+constexpr int kStreamUptoWeights = 0;
+constexpr int kStreamUptoCompute = 1;
+constexpr int kStreamUptoProducts = 2;
+constexpr int kStreamUptoExchange = 3;
+constexpr int kStreamUptoAll = 4;
+static_assert(kChainKSlice % kStreamStages == 0 && kStreamChunkK % 4 == 0, "the ring's chunks");
+
+// Dynamic shared memory: the warps' rings, h twice, the partial tiles, then
+// T3's 2 × 16 maxima or T5's 8 × 128 column sums and 128 gradients.
+constexpr int stream_smem_bytes(int mode) {
+  return 4 * (kChainWarps * kStreamStages * kStreamChunkK * kChainCols + 2 * kChainRows * kW +
+              kChainWarps * kChainTile +
+              (mode == kStreamT3 ? 2 * kChainCluster : (kChainGroups + 1) * kChainCols));
+}
+
+struct StreamArgs {
+  const float* x;  // (n_chains, kRows, kW)
+  float* w;        // T3: (n_chains, kT3Depth · kW, kW); T5: (kT5Bufs, kW, kW), updated
+  float* m;        // T5: Adam's m and v of the buffers, updated
+  float* v;
+  float* out;      // (n_chains, kRows, kW)
+  int n_steps, t0, upto;
+};
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of the mbarrier's phase of parity `parity`. A
+// wait of 2^32 clocks (~2 s) means an arrival was lost: the kernel traps,
+// so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// 4 bytes into a CTA's shared memory in the cluster, counted by its mbarrier.
+__device__ __forceinline__ void send1(uint32_t dst, uint32_t bar, float v) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   dst),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// The warp's chunk of a dot: rows [row, row + 8) of the weights' stack (a
+// dot's W rows k0.. at row idx · kW + k0), columns [col0, col0 + 128), into
+// `stage` (8 × 128 floats, row-major) by one 2-D bulk tensor copy on the
+// stack's tensor map, completed on `bar`, which lane 0 arms with the
+// chunk's bytes first.
+__device__ __forceinline__ void stream_issue(const CUtensorMap* map, int row, int col0,
+                                             float* stage, uint64_t* bar, int lane) {
+  if (lane != 0) return;
+  mbar_expect(bar, kStreamChunkBytes);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(smem_addr(stage)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(row), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// One Adam element group: 4 columns of a row of buffer b (the phase
+// kernel's adam_item arithmetic), the gradient g the column mean times
+// 1e-6(b + 1), the caller's.
+__device__ __forceinline__ void adam4(float* w, float* m, float* v, const float (&g)[4],
+                                      float bc1, float bc2) {
+  const float4 wv = *reinterpret_cast<const float4*>(w), mv = *reinterpret_cast<const float4*>(m),
+               vv = *reinterpret_cast<const float4*>(v);
+  float wp[4] = {wv.x, wv.y, wv.z, wv.w}, mp[4] = {mv.x, mv.y, mv.z, mv.w},
+        vp[4] = {vv.x, vv.y, vv.z, vv.w};
+  const float bc2_sqrt = sqrtf(bc2);
+  const float lr_t = kAdamLr * bc2_sqrt / bc1;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mp[c] = kB1 * mp[c] + kOneMinusB1 * g[c];
+    vp[c] = kB2 * vp[c] + kOneMinusB2 * g[c] * g[c];
+    wp[c] -= lr_t * mp[c] / (sqrtf(vp[c]) + kAdamEps * bc2_sqrt);
+  }
+  *reinterpret_cast<float4*>(m) = make_float4(mp[0], mp[1], mp[2], mp[3]);
+  *reinterpret_cast<float4*>(v) = make_float4(vp[0], vp[1], vp[2], vp[3]);
+  *reinterpret_cast<float4*>(w) = make_float4(wp[0], wp[1], wp[2], wp[3]);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kChainThreads, 1)
+    chain_stream_kernel(const __grid_constant__ CUtensorMap wmap, StreamArgs A) {
+  constexpr bool kT3 = kMode == kStreamT3;
+  constexpr int kDepth = kT3 ? kT3Depth : kT5Bufs * kT5DotsPerBuf;
+  constexpr uint32_t kPushBytes = kChainTile * 4;
+  constexpr int kQuads = kChainTile / 4;
+  constexpr int kStageFloats = kStreamChunkK * kChainCols;
+  __shared__ __align__(8) uint64_t full[kChainWarps][kStreamStages];  // a stage's chunk landed
+  __shared__ __align__(8) uint64_t bar[2];   // bar[b]: the peer's rows of h[b] arrived
+  __shared__ __align__(8) uint64_t xbar[2];  // T3: trip parity's maxima arrived; T5 [0]: sums
+  __shared__ float red[kChainWarps];
+  extern __shared__ __align__(128) float ssmem[];
+  float* ring = ssmem;  // [warp][stage][k][column]
+  float* hb = ring + kChainWarps * kStreamStages * kStageFloats;
+  float* part = hb + 2 * kChainRows * kW;
+  float* extra = part + kChainWarps * kChainTile;  // T3 maxima [2][16]; T5 sums [8][128], g [128]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int group = rank / kChainSlices, slice = rank % kChainSlices;
+  const int peer = group * kChainSlices + (slice ^ 1);
+  const int chain = static_cast<int>(blockIdx.x) / kChainCluster;
+  const int row0 = group * kChainRows, col0 = slice * kChainCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kb = warp * kChainKSlice;
+  float* my_ring = ring + warp * kStreamStages * kStageFloats;
+  // dot g's weight, as its first row in the stack: T3 the chain's weight g
+  // mod 8; T5 buffer (g mod 25) / 5
+  auto weight = [&](int g) -> int {
+    const int d = g % kDepth;
+    return (kT3 ? chain * kT3Depth + d : d / kT5DotsPerBuf) * kW;
+  };
+  const int total = A.n_steps * kDepth;
+
+  const float* xc = A.x + (static_cast<size_t>(chain) * kRows + row0) * kW;
+  for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads)
+    reinterpret_cast<float4*>(hb)[i] = reinterpret_cast<const float4*>(xc)[i];
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kChainWarps; ++q)
+      for (int s = 0; s < kStreamStages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&full[q][s])));
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar[b])));
+      mbar_expect(&bar[b], kPushBytes);
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&xbar[b])));
+      if (kT3) mbar_expect(&xbar[b], kChainCluster * 4);
+    }
+    if (!kT3) mbar_expect(&xbar[0], kChainGroups * kChainCols * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the ring's mbarriers set up before the first copies
+  if (total > 0)
+    for (int s = 0; s < kStreamStages; ++s)
+      stream_issue(&wmap, weight(0) + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
+                   &full[warp][s], lane);
+  cluster.sync();  // every CTA staged, its mbarriers set up, before any push
+
+  float* my_part = part + warp * kChainTile + 4 * lane;
+  int adams = 0;               // T5: Adam passes so far (the sums' mbarrier parity)
+  bool cluster_wait = false;   // T5 interleaved: a cluster arrive not yet waited for
+  for (int g = 0; g < total; ++g) {
+    const int cur = g & 1, nxt = cur ^ 1;
+    const int d = g % kDepth, step = g / kDepth;
+    const bool whole = A.upto == kStreamUptoAll;
+    const bool renorm = kT3 && whole && d == kDepth - 1;
+    const bool adam = !kT3 && whole &&
+                      (kMode == kStreamTail ? d == kDepth - 1
+                                            : d % kT5DotsPerBuf == kT5DotsPerBuf - 1);
+    // the tail's next dot reads buffer 0 after this step's Adam: its copies
+    // wait for the cluster barrier below
+    const bool stream = A.upto != kStreamUptoCompute;
+    const bool refill = stream && g + 1 < total && !(kMode == kStreamTail && adam);
+    const int wn = refill ? weight(g + 1) : 0;
+    const float* h = hb + cur * kChainRows * kW + kb;
+    float4 acc[kChainRows];
+#pragma unroll
+    for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 1
+    for (int s = 0; s < kStreamStages; ++s) {
+      if (stream || g == 0) mbar_wait(&full[warp][s], g & 1);
+      if (A.upto != kStreamUptoWeights) {
+        const float* st = my_ring + s * kStageFloats + 4 * lane;
+#pragma unroll
+        for (int k = 0; k < kStreamChunkK; k += 4) {
+          const float4 w0 = *reinterpret_cast<const float4*>(st + k * kChainCols);
+          const float4 w1 = *reinterpret_cast<const float4*>(st + (k + 1) * kChainCols);
+          const float4 w2 = *reinterpret_cast<const float4*>(st + (k + 2) * kChainCols);
+          const float4 w3 = *reinterpret_cast<const float4*>(st + (k + 3) * kChainCols);
+#pragma unroll
+          for (int r = 0; r < kChainRows; ++r) {
+            const float4 hv =
+                *reinterpret_cast<const float4*>(h + r * kW + s * kStreamChunkK + k);
+            fma4(acc[r], hv.x, w0);
+            fma4(acc[r], hv.y, w1);
+            fma4(acc[r], hv.z, w2);
+            fma4(acc[r], hv.w, w3);
+          }
+        }
+      }
+      __syncwarp();  // every lane has read the stage: refill it with the next dot's chunk
+      if (refill)
+        stream_issue(&wmap, wn + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
+                     &full[warp][s], lane);
+    }
+    if (A.upto == kStreamUptoWeights) continue;
+#pragma unroll
+    for (int r = 0; r < kChainRows; ++r)
+      *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+    __syncthreads();  // the partial tiles stored; this dot's h read by every warp
+    if (A.upto < kStreamUptoExchange) continue;
+    float* hn = hb + nxt * kChainRows * kW;
+    float lmax = 0.0f;
+    for (int i = threadIdx.x; i < kQuads; i += kChainThreads) {
+      const int r = i / (kChainCols / 4), c = 4 * (i % (kChainCols / 4));
+      float4 y = *reinterpret_cast<const float4*>(part + r * kChainCols + c);
+#pragma unroll
+      for (int q = 1; q < kChainWarps; ++q)
+        add4(y, *reinterpret_cast<const float4*>(part + q * kChainTile + r * kChainCols + c));
+      if (!kT3) y = clamp4(y);
+      lmax = fmaxf(lmax, fmaxf(fmaxf(fabsf(y.x), fabsf(y.y)), fmaxf(fabsf(y.z), fabsf(y.w))));
+      float* at = hn + r * kW + col0 + c;
+      *reinterpret_cast<float4*>(at) = y;
+      send4(peer_addr(smem_addr(at), peer), peer_addr(smem_addr(&bar[nxt]), peer), y);
+    }
+    const int p = step & 1;  // T3: this trip's maxima buffer
+    float* maxima = extra + p * kChainCluster;
+    if (renorm) {  // the tile's max|y| to every CTA of the chain
+      for (int o = 16; o > 0; o >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+      if (lane == 0) red[warp] = lmax;
+      __syncthreads();
+      if (threadIdx.x < kChainCluster) {
+        float mx = red[0];
+        for (int q = 1; q < kChainWarps; ++q) mx = fmaxf(mx, red[q]);
+        const int to = static_cast<int>(threadIdx.x);
+        send1(peer_addr(smem_addr(maxima + rank), to), peer_addr(smem_addr(&xbar[p]), to), mx);
+      }
+    }
+    mbar_wait(&bar[nxt], (g >> 1) & 1);  // bar[nxt]'s uses: every other dot
+    if (renorm) mbar_wait(&xbar[p], (step >> 1) & 1);
+    __syncthreads();  // the next h whole in this CTA: its own rows and the peer's
+    if (threadIdx.x == 0)  // re-arm for its use two dots on
+      mbar_expect(&bar[nxt], kPushBytes);
+    if (renorm) {
+      float mx = maxima[0];
+      for (int q = 1; q < kChainCluster; ++q) mx = fmaxf(mx, maxima[q]);
+      const float scale = 1.0f / fmaxf(mx, 1e-6f);
+      for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads) {
+        float4* q = reinterpret_cast<float4*>(hn) + i;
+        float4 y = *q;
+        y.x *= scale; y.y *= scale; y.z *= scale; y.w *= scale;
+        *q = y;
+      }
+      __syncthreads();  // the trip's h scaled; the maxima read
+      if (threadIdx.x == 0) mbar_expect(&xbar[p], kChainCluster * 4);  // for two trips on
+    }
+    if (adam) {
+      if (cluster_wait) {  // every CTA has read the last sums and written its last Adam
+        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+        fence_proxy_async_global();
+        cluster_wait = false;
+      }
+      // this CTA's column sums of its 13 rows, its 128 columns, to slot
+      // `group` of each CTA of its slice (thread: destination q, 4 columns)
+      float* sums = extra;
+      float* grad = extra + kChainGroups * kChainCols;
+      {
+        const int q = threadIdx.x >> 5, c = 4 * lane;
+        const float* hc = hn + col0 + c;
+        float4 s = *reinterpret_cast<const float4*>(hc);
+        for (int r = 1; r < kChainRows; ++r) add4(s, *reinterpret_cast<const float4*>(hc + r * kW));
+        const int to = q * kChainSlices + slice;
+        send4(peer_addr(smem_addr(sums + group * kChainCols + c), to),
+              peer_addr(smem_addr(&xbar[0]), to), s);
+      }
+      mbar_wait(&xbar[0], adams & 1);
+      ++adams;
+      if (threadIdx.x < kChainCols) {
+        float s = sums[threadIdx.x];
+        for (int q = 1; q < kChainGroups; ++q) s += sums[q * kChainCols + threadIdx.x];
+        grad[threadIdx.x] = s / static_cast<float>(kRows);
+      }
+      __syncthreads();  // the means in shared memory, every slot read
+      if (threadIdx.x == 0) mbar_expect(&xbar[0], kChainGroups * kChainCols * 4);
+      const double t = static_cast<double>(A.t0 + step + 1);
+      const float bc1 = static_cast<float>(1.0 - pow(0.9, t));
+      const float bc2 = static_cast<float>(1.0 - pow(0.999, t));
+      const int b0 = kMode == kStreamTail ? 0 : d / kT5DotsPerBuf;
+      const int b1 = kMode == kStreamTail ? kT5Bufs : b0 + 1;
+      for (int b = b0; b < b1; ++b) {
+        const float gs = static_cast<float>(1e-6 * (b + 1));
+        float gc[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gc[c] = grad[4 * lane + c] * gs;
+#pragma unroll
+        for (int q = 0; q < kStreamAdamRows / kChainWarps; ++q) {
+          const int row = group * kStreamAdamRows + warp + kChainWarps * q;
+          const size_t at = (static_cast<size_t>(b) * kW + row) * kW + col0 + 4 * lane;
+          adam4(A.w + at, A.m + at, A.v + at, gc, bc1, bc2);
+        }
+      }
+      fence_proxy_async_global();  // the new W, for the other CTAs' bulk copies
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      if (kMode == kStreamTail) {
+        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+        fence_proxy_async_global();
+        if (g + 1 < total)
+          for (int s = 0; s < kStreamStages; ++s)
+            stream_issue(&wmap, weight(g + 1) + kb + s * kStreamChunkK, col0,
+                         my_ring + s * kStageFloats, &full[warp][s], lane);
+      } else {
+        cluster_wait = true;
+      }
+    }
+  }
+  if (cluster_wait) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  const float* hf = hb + (total & 1) * kChainRows * kW + col0;
+  float* oc = A.out + (static_cast<size_t>(chain) * kRows + row0) * kW + col0;
+  for (int i = threadIdx.x; i < kChainTile / 4; i += kChainThreads) {
+    const int r = i / (kChainCols / 4), c = 4 * (i % (kChainCols / 4));
+    *reinterpret_cast<float4*>(oc + r * kW + c) = *reinterpret_cast<const float4*>(hf + r * kW + c);
+  }
+  cluster.sync();  // no CTA leaves while another may still address its shared memory
+}
+
+// The weights' stack (rows × kW floats, row-major) as a 2-D tensor map whose
+// box is a ring stage: 8 rows × 128 columns. cuTensorMapEncodeTiled comes
+// from the driver through the runtime (the build links no -lcuda).
+cudaError_t stream_weight_map(const float* w, int rows, CUtensorMap* map) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kW), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kW) * 4};  // bytes a row
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChainCols),
+                             static_cast<cuuint32_t>(kStreamChunkK)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int kMode>
+cudaError_t launch_chain_stream(const StreamArgs& A, int n_chains, cudaStream_t stream) {
+  CUtensorMap wmap;
+  cudaError_t e = stream_weight_map(
+      A.w, (kMode == kStreamT3 ? n_chains * kT3Depth : kT5Bufs) * kW, &wmap);
+  if (e != cudaSuccess) return e;
+  const int smem = stream_smem_bytes(kMode);
+  e = cudaFuncSetAttribute(chain_stream_kernel<kMode>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(chain_stream_kernel<kMode>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(n_chains * kChainCluster);
+  cfg.blockDim = dim3(kChainThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kChainCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, chain_stream_kernel<kMode>, wmap, A);
+}
+
 template <int kMode>
 cudaError_t launch_dot(const DotArgs& A, const DotPlan& p, cudaStream_t stream) {
   cudaLaunchConfig_t cfg{};
@@ -933,6 +1383,26 @@ int probes_chain_cluster(const float* x, const float* w, float* out, int n_chain
     return static_cast<int>(cudaErrorInvalidValue);
   const ChainClusterArgs A{x, w, out, n_steps, depth, upto};
   const cudaError_t e = launch_chain_cluster(A, p, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T3's and T5's stream form: see chain_stream_kernel. `mode` 0 is T3 (x, w
+// (n_chains, 8·kW, kW), m and v null), 1 and 2 are T5 with Adam in a tail
+// or interleaved (one chain, w, m and v (5, kW, kW), updated in place, t0
+// Adam's step before the launch); the result goes to out (n_chains, kRows,
+// kW). `upto` < 4 stops each dot early (the time split).
+int probes_chain_stream(const float* x, float* w, float* m, float* v, float* out, int n_chains,
+                        int n_steps, int mode, int t0, int upto, void* stream) {
+  if (n_chains < 1 || n_chains > kMaxChains || n_steps < 1 || mode < kStreamT3 ||
+      mode > kStreamInterleaved || upto < kStreamUptoWeights || upto > kStreamUptoAll ||
+      (mode != kStreamT3 && (n_chains != 1 || m == nullptr || v == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StreamArgs A{x, w, m, v, out, n_steps, t0, upto};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = mode == kStreamT3     ? launch_chain_stream<kStreamT3>(A, n_chains, st)
+                        : mode == kStreamTail ? launch_chain_stream<kStreamTail>(A, n_chains, st)
+                                              : launch_chain_stream<kStreamInterleaved>(A, n_chains, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

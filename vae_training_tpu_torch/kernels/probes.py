@@ -12,10 +12,13 @@ Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
   ``chain_plan``);
 - T3, ``tools/probe_mxu_pipelining.py:82`` (``run`` → ``make_kernel``):
   ``chain_chunk`` with ``weights_per_depth`` (8 distinct weights a chain)
-  and ``epilogue="renorm"``;
+  and ``epilogue="renorm"``, in two forms: ``"phase"`` and ``"stream"``
+  (T4's cluster plan with each warp's K slice of the next dot's weights
+  streamed from L2 into a ring in shared memory; the events of
+  ``stream_schedule``, the partition of ``stream_cta``);
 - T5, ``tools/probe_adam_overlap.py:110`` (``run`` → ``_kernel``):
   ``adam_overlap_chunk``, 25 dots and Adam on 5 buffers, in a tail or
-  interleaved;
+  interleaved, in the same two forms;
 - T2, ``tools/check_precision.py:43`` (``check_dot_modes`` → ``mk``):
   ``dot_modes``, one dot in fp32 (CUDA-core FMAs), or on the tensor cores
   (``wgmma``) with TF32 or bf16 operands; split-K over a thread-block
@@ -25,7 +28,8 @@ The kernels are ``csrc/probes.cu``. Each wrapper launches its kernel for
 CUDA tensors and raises if it cannot; for CPU tensors (and only for them) it
 runs its plain PyTorch version, which repeats the tool's math step by step
 (``torch.matmul`` for the dots). Each wrapper counts its launches in
-``.launches`` (``chain_chunk.cluster_launches`` for the cluster form).
+``.launches`` (``.cluster_launches`` and ``.stream_launches`` for those
+forms).
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ ADAM_LR = 1e-9  # probe_adam_overlap's learning rate
 CLAMP = 8.0
 MAX_CHAINS = 4
 EPILOGUES = {"clamp": 0, "renorm": 1}
-FORMS = ("phase", "cluster")
+FORMS = ("phase", "cluster", "stream")  # chain_chunk's
+T4_FORMS = ("phase", "cluster")  # T4's forms (one weight a chain, the clamp)
+T3_FORMS = T5_FORMS = ("phase", "stream")  # T3's (chain_chunk), T5's (adam_overlap_chunk)
 # T4's cluster form (csrc/probes.cu chain_cluster_kernel): a cluster of 16
 # CTAs a chain, 8 row groups × 2 column slices of 128 (a lane 4 columns),
 # 8 warps a CTA splitting K, W in registers
@@ -58,6 +64,16 @@ CHAIN_CLUSTER, CHAIN_SLICES, CHAIN_WARPS = 16, 2, 8
 # staging W and x, after the products, after the sums into the CTA's own h,
 # or run whole (the push to the row group's other CTA and the wait)
 CHAIN_UPTO = {"stage": 0, "products": 1, "sums": 2, "all": 3}
+# T3's and T5's stream form (csrc/probes.cu chain_stream_kernel): T4's cut;
+# each warp's ring holds 4 stages of 8 k-rows of its K slice (one dot's);
+# a CTA's Adam takes 32 rows of W (8 bands) × its 128 columns
+STREAM_MODES = {"t3": 0, "tail": 1, "interleaved": 2}
+STREAM_STAGES, STREAM_CHUNK_K, STREAM_ADAM_ROWS = 4, 8, 32
+# launch variants for the time split (``_stream_launch``): stream the
+# weights alone; the products alone (from the first dot's chunks, no
+# stream); the products with the stream; + the sums and the row exchange;
+# or run whole (+ T3's renorm or T5's Adam)
+STREAM_UPTO = {"weights": 0, "compute": 1, "products": 2, "exchange": 3, "all": 4}
 MODES = {"fp32": 0, "tf32": 1, "bf16": 2}
 # T2's kernel (csrc/probes.cu dot_kernel): one warpgroup a CTA, 64 × 32 output
 # tiles, K staged 32 at a time, slices of whole 16-element units, clusters of
@@ -86,6 +102,8 @@ def _lib() -> ctypes.CDLL:
         lib.probes_chain_phase.restype = i32
         lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 6 + [vp]
         lib.probes_chain_cluster.restype = i32
+        lib.probes_chain_stream.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+        lib.probes_chain_stream.restype = i32
         lib.probes_chain_plan.argtypes = [i32, ctypes.POINTER(i32)]
         lib.probes_chain_plan.restype = i32
         lib.probes_dot.argtypes = [vp] * 3 + [i32] * 9 + [vp]
@@ -120,6 +138,9 @@ def _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form) -> int:
         raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     if form == "cluster" and (weights_per_depth or epilogue != "clamp"):
         raise ValueError("the cluster form is T4's: one weight a chain, the clamp epilogue")
+    if form == "stream" and (not weights_per_depth or epilogue != "renorm" or depth != T3_DEPTH):
+        raise ValueError(f"the stream form is T3's: {T3_DEPTH} distinct weights a chain, the "
+                         "renorm epilogue")
     return n
 
 
@@ -131,7 +152,8 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
     stacked, (depth·W, W), dot d using rows d·W..(d+1)·W (T3). ``epilogue``
     "clamp" takes min(·, 8) after every dot (T4); "renorm" scales each
     chain's h by 1/max(max|h|, 1e-6) after each trip (T3). ``form``
-    "cluster" is T4's second kernel (one weight a chain, the clamp only)."""
+    "cluster" is T4's second kernel (one weight a chain, the clamp only),
+    "stream" T3's (8 distinct weights a chain, the renorm only)."""
     n = _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form)
     if xs.device.type == "cpu":
         return plain_chain_chunk(xs, ws, n_steps=n_steps, depth=depth,
@@ -147,6 +169,10 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
         out = _chain_cluster_launch(xs, ws, n_steps, depth)
         chain_chunk.cluster_launches += 1
         return out
+    if form == "stream":
+        out = _stream_launch("t3", xs, ws, None, None, n_steps)
+        chain_chunk.stream_launches += 1
+        return out
     lib = _lib()
     h = torch.empty(2, *xs.shape, dtype=torch.float32, device=device)
     h[0].copy_(xs)
@@ -161,6 +187,7 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
 
 chain_chunk.launches = 0
 chain_chunk.cluster_launches = 0
+chain_chunk.stream_launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class ChainPlan:
@@ -239,6 +266,98 @@ def _chain_cluster_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, dept
     return out
 
 
+def stream_cta(n_chains: int, block: int) -> dict:
+    """What CTA ``block`` of the stream form's grid holds and does, by the
+    kernel's index arithmetic: T4's cut (``chain_cta``: its chain, cluster
+    rank, tile of h, peers and warps' K slices), plus each warp's ring
+    stages (the k-rows [k0, k1) of its K slice each streams a dot), the
+    rows of W its Adam updates (T5: a band of 32 × its columns), the ranks
+    its column sums go to (the 8 CTAs of its column slice) and those its
+    max|y| goes to (T3: every CTA of the chain)."""
+    cta = chain_cta(chain_plan(n_chains), block)
+    group = cta["rank"] // CHAIN_SLICES
+    cta["stages"] = [[(k0 + q * STREAM_CHUNK_K, k0 + (q + 1) * STREAM_CHUNK_K)
+                      for q in range(STREAM_STAGES)] for k0, _ in cta["k_slices"]]
+    cta["adam_rows"] = (group * STREAM_ADAM_ROWS, (group + 1) * STREAM_ADAM_ROWS)
+    cta["sum_ranks"] = [q * CHAIN_SLICES + cta["rank"] % CHAIN_SLICES
+                        for q in range(CHAIN_CLUSTER // CHAIN_SLICES)]
+    cta["max_ranks"] = list(range(CHAIN_CLUSTER))
+    return cta
+
+
+def _stream_depth(mode: str) -> int:
+    return T3_DEPTH if mode == "t3" else N_BUF * DOTS_PER_BUF
+
+
+def stream_weight(mode: str, chain: int, g: int) -> int:
+    """The index, in the stack of (W, W) weights the kernel is given, of the
+    weight dot ``g`` (counted over the launch) reads: T3 the chain's weight
+    g mod 8; T5 buffer (g mod 25) // 5."""
+    d = g % _stream_depth(mode)
+    return chain * T3_DEPTH + d if mode == "t3" else d // DOTS_PER_BUF
+
+
+def stream_schedule(mode: str, n_steps: int) -> list:
+    """One CTA's program in the stream form, whole, in the kernel's order
+    (every CTA runs the same one): ("issue", g), the warps' copies of dot
+    g's chunks; ("dot", g); ("renorm", trip), T3's max exchange and scale;
+    ("adam", b, step), T5's column sums and Adam on buffer b; ("arrive",)
+    and ("wait",), the halves of a cluster barrier. Dot g + 1's copies go
+    out as dot g reads its stages, except after the tail's last dot of a
+    step, where they wait for Adam's cluster barrier; when interleaved, the
+    wait after Adam on a buffer comes at the next Adam."""
+    depth, ev, pending = _stream_depth(mode), [("issue", 0)], False
+    total = n_steps * depth
+    for g in range(total):
+        d, step = g % depth, g // depth
+        adam = mode != "t3" and (d == depth - 1 if mode == "tail"
+                                 else d % DOTS_PER_BUF == DOTS_PER_BUF - 1)
+        ev.append(("dot", g))
+        if g + 1 < total and not (mode == "tail" and adam):
+            ev.append(("issue", g + 1))
+        if mode == "t3" and d == depth - 1:
+            ev.append(("renorm", step))
+        if adam:
+            if pending:
+                ev.append(("wait",))
+            bufs = range(N_BUF) if mode == "tail" else [d // DOTS_PER_BUF]
+            ev += [("adam", b, step) for b in bufs] + [("arrive",)]
+            if mode == "tail":
+                ev.append(("wait",))
+                if g + 1 < total:
+                    ev.append(("issue", g + 1))
+            pending = mode == "interleaved"
+    return ev + ([("wait",)] if pending else [])
+
+
+def _stream_launch(mode: str, x: torch.Tensor, w: torch.Tensor, m: Optional[torch.Tensor],
+                   v: Optional[torch.Tensor], n_steps: int, t0: int = 0,
+                   upto: str = "all") -> torch.Tensor:
+    """One launch of the stream form on CUDA tensors: ``mode`` "t3" (x
+    (chains, ROWS, W), w (chains, 8·W, W)) or T5's "tail" or "interleaved"
+    (x (1, ROWS, W); w, m and v (N_BUF, W, W), updated in place); returns
+    the final h. ``upto`` other than "all" stops every dot early (the time
+    split; the result is then not the chain's). Uncounted."""
+    device = x.device
+    for t, name in ((x, "x"), (w, "w"), (m, "m"), (v, "v")):
+        if t is None:  # T3 has no moments; the library refuses T5 without them
+            continue
+        _require(t, name, device)
+        if t.data_ptr() % 16:  # float4 loads; the tensor map wants 16-byte alignment
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be ≥ 1, got {n_steps}")
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.probes_chain_stream(x.data_ptr(), w.data_ptr(),
+                                  None if m is None else m.data_ptr(),
+                                  None if v is None else v.data_ptr(), out.data_ptr(),
+                                  x.shape[0], n_steps, STREAM_MODES[mode], t0,
+                                  STREAM_UPTO[upto], _stream(device))
+    _check(lib, err, f"probes_chain_stream ({mode}) launch")
+    return out
+
+
 def plain_chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
                       weights_per_depth: bool, epilogue: str) -> torch.Tensor:
     """The plain PyTorch version of ``chain_chunk`` (either form): the
@@ -264,15 +383,19 @@ def _adam_shapes(x, ws, ms, vs) -> None:
 
 
 def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: torch.Tensor,
-                       *, n_steps: int, interleave: bool, t0: int = 0) -> torch.Tensor:
+                       *, n_steps: int, interleave: bool, t0: int = 0,
+                       form: str = "phase") -> torch.Tensor:
     """T5: ``n_steps`` steps of 25 dependent dots (buffer d of ``ws`` for
     dots 5d..5d+4, min(·, 8) after each) and Adam on every buffer, the
     gradient of buffer d being the column mean of h broadcast down the rows
     ·1e-6(d + 1), at lr ADAM_LR. ``interleave`` False: every Adam after the
     25th dot (from the final h); True: buffer d's after dot 5d+4 (from h
     there). ``ws``, ``ms`` and ``vs`` (N_BUF, W, W) are updated in place;
-    returns h. Adam's t is t0 + step + 1."""
+    returns h. Adam's t is t0 + step + 1. ``form`` "phase" or "stream"
+    (``T5_FORMS``)."""
     _adam_shapes(x, ws, ms, vs)
+    if form not in T5_FORMS:
+        raise ValueError(f"form must be one of {T5_FORMS}, got {form!r}")
     kw = dict(n_steps=n_steps, interleave=interleave, t0=t0)
     if x.device.type == "cpu":
         return plain_adam_overlap_chunk(x, ws, ms, vs, **kw)
@@ -283,6 +406,11 @@ def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: 
         _require(t, name, device)
     if n_steps < 1:
         raise ValueError(f"n_steps must be ≥ 1, got {n_steps}")
+    if form == "stream":
+        h = _stream_launch("interleaved" if interleave else "tail", x.reshape(1, ROWS, W), ws,
+                           ms, vs, n_steps, t0)
+        adam_overlap_chunk.stream_launches += 1
+        return h[0]
     lib = _lib()
     h = torch.empty(2, 1, ROWS, W, dtype=torch.float32, device=device)
     h[0, 0].copy_(x)
@@ -296,6 +424,7 @@ def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: 
 
 
 adam_overlap_chunk.launches = 0
+adam_overlap_chunk.stream_launches = 0
 
 
 def plain_adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor,

@@ -4,19 +4,25 @@ than Adam in a tail after them?
 Counterpart of ``tools/probe_adam_overlap.py`` (``_kernel``). A step is 25
 dependent (104×256)·(256×256) fp32 dots over 5 weight buffers (5 dots each,
 min(·, 8) after each) and Adam on the 5 buffers, the gradient of buffer d
-being the column mean of h ·1e-6(d + 1), lr 1e-9. In the port's phase
-kernel (``csrc/probes.cu``) a step is 26 grid-wide phases either way:
+being the column mean of h ·1e-6(d + 1), lr 1e-9. Both of the port's forms
+(``csrc/probes.cu``) are timed:
 
-- tail: one Adam phase over the 5 buffers after the 25th dot (K5's
-  structure; every gradient from the final h);
-- interleaved: buffer d's Adam as extra items of the phase of dot
-  5(d + 1), from h after dot 5d + 4, the last buffer in a phase of its
-  own. It needs no barrier of its own and can hide behind the FMA chains.
+- ``phase``: a step is 26 grid-wide phases of the phase kernel either way:
+  in the tail, one Adam phase over the 5 buffers after the 25th dot (K5's
+  structure; every gradient from the final h); interleaved, buffer d's
+  Adam as extra items of the phase of dot 5(d + 1), from h after dot
+  5d + 4, the last buffer in a phase of its own;
+- ``stream``: one cluster of 16 CTAs, each warp streaming its K slice of
+  the next dot's weights into shared memory; Adam split over the 16 CTAs
+  after the column sums of h meet in distributed shared memory, once after
+  the 25th dot (tail) or after dot 5d + 4 for buffer d (interleaved),
+  each followed by a cluster barrier that orders the new weights before
+  their next copies.
 
     python -m vae_training_tpu_torch.tools.probe_adam_overlap [--device cuda|cpu]
 
-Times tail, interleaved, interleaved, tail (in turns) and prints the
-VERDICT line: interleaved/tail (< 0.93 ⇒ overlap).
+Times tail, interleaved, interleaved, tail (in turns) for each form and
+prints its VERDICT line: interleaved/tail (< 0.93 ⇒ overlap).
 """
 
 from __future__ import annotations
@@ -73,15 +79,15 @@ def delta_mismatch(got: torch.Tensor, ref: torch.Tensor, start: torch.Tensor) ->
     return float(((dg - dr).abs() / (dr.abs() + top)).max())
 
 
-def run(device: torch.device, interleave: bool, min_seconds: float):
-    """(µs a step, steps a call, checksum) of one variant."""
+def run(device: torch.device, form: str, interleave: bool, min_seconds: float):
+    """(µs a step, steps a call, checksum) of one variant of ``form``."""
     x, ws, ms, vs = inputs(device)
     out: List[torch.Tensor] = []
     done = [0]
 
     def launch(n):
         out[:] = [probes.adam_overlap_chunk(x, ws, ms, vs, n_steps=n, interleave=interleave,
-                                            t0=done[0])]
+                                            t0=done[0], form=form)]
         done[0] += n
 
     per_step, n = seconds_per_step(launch, device, min_seconds)
@@ -94,17 +100,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"card: {card(device)}")
     print(f"{probes.N_BUF * probes.DOTS_PER_BUF} serial {probes.ROWS}x{probes.W}x{probes.W} "
           f"dots + Adam over {probes.N_BUF}x{probes.W}x{probes.W} params/step")
-    res: Dict[str, List[float]] = {}
-    for label in ORDER:
-        us, n, checksum = run(device, label == "interleaved", args.seconds)
-        res.setdefault(label, []).append(us)
-        print(f"  {label:12s}: {us:.3f} us/step, {n} steps a call (checksum {checksum:.6g})")
-    tail, inter = min(res["tail"]), min(res["interleaved"])
-    ratio = inter / tail
-    overlap = ratio < 0.93
-    print(f"VERDICT: interleaved/tail = {ratio:.3f}x "
-          f"({'OVERLAP — restructure the kernel' if overlap else 'no overlap — keep the tail loop'})")
-    return {"us_per_step": res, "ratio": ratio, "overlap": overlap}
+    report = {}
+    for form in probes.T5_FORMS:
+        res: Dict[str, List[float]] = {}
+        for label in ORDER:
+            us, n, checksum = run(device, form, label == "interleaved", args.seconds)
+            res.setdefault(label, []).append(us)
+            print(f"  {form:6s} {label:12s}: {us:.3f} us/step, {n} steps a call "
+                  f"(checksum {checksum:.6g})")
+        tail, inter = min(res["tail"]), min(res["interleaved"])
+        ratio = inter / tail
+        overlap = ratio < 0.93
+        print(f"VERDICT ({form}): interleaved/tail = {ratio:.3f}x "
+              f"({'OVERLAP — restructure the kernel' if overlap else 'no overlap — keep the tail loop'})")
+        report[form] = {"us_per_step": res, "ratio": ratio, "overlap": overlap}
+    return report
 
 
 if __name__ == "__main__":

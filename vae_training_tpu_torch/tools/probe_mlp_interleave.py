@@ -85,7 +85,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"chain: {probes.T4_DEPTH} serially-dependent {probes.ROWS}x{probes.W}x{probes.W} "
           f"dots/step, fp32, windows >= {args.seconds} s")
     report = {}
-    for form in probes.FORMS:
+    for form in probes.T4_FORMS:
         results: Dict[int, List[float]] = {}
         for n_chains in ORDER:
             us, n, checksum = run(device, form, n_chains, args.seconds)

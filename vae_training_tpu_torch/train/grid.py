@@ -53,7 +53,7 @@ from ..runio.export import save_model_pkl
 from ..runio.outdir import make_output_dir
 from .loop import EVAL_BATCH_SIZE, N_PLOT, N_PRINT, check_moments, check_params, next_event
 from .state import TrainState
-from .step import eval_step, generate, sample_z
+from .step import banner_scores, eval_step, generate, sample_z
 
 
 class GridTrainer:
@@ -120,7 +120,7 @@ class GridTrainer:
         self._eval_counter += 1
         for seed, dataset, data_seed in zip(self.seeds, self.datasets, self.eval_data_seeds):
             batch = dataset.sample(data_seed, self._eval_counter, self.eval_batch_size)
-            score = {k: float(v) for k, v in dataset.score(batch).items()}
+            score = banner_scores(dataset, batch)
             print(f"[seed {seed}] Score for real data: {score}", flush=True)
 
     def compute_and_write_stats(self) -> None:

@@ -7,7 +7,11 @@ Behavioural contract kept:
     and at the last step, eval batch 1000;
   - events fire BEFORE that step's update (the batch-0 eval sees the freshly
     initialised model);
-  - the "Score for real data" line at train start;
+  - the "Score for real data" line at train start, printed as 0-d float32
+    arrays; its scores, the stat lines' and ``losses.npz``'s in the JAX
+    engine's key order (jit sorts a dict's keys);
+  - a tqdm bar on stderr when ``cfg.tqdm`` is set (the CLI sets it, the
+    sweep runner's rows do not);
   - per-step training losses recorded (the npz "VAE Loss" trace);
   - between events one ``train_chunk`` covers every intervening step (the
     fused kernel or the torch path, ``kernels/dispatch.py``).
@@ -44,7 +48,7 @@ from ..runio.checkpoint import (
 )
 from ..runio.export import load_model_pkl, save_model_pkl
 from .state import TrainState, moment_dtype
-from .step import eval_step, generate, sample_z
+from .step import banner_scores, eval_step, generate, sample_z
 
 N_PLOT = 50000
 N_PRINT = 5000
@@ -210,10 +214,18 @@ class Trainer:
             eval_batch = self.dataset.sample(self.eval_data_seed,
                                              self._next_eval_counter(),
                                              self.eval_batch_size)
-            score = {k: float(v) for k, v in self.dataset.score(eval_batch).items()}
+            score = banner_scores(self.dataset, eval_batch)
             print(f"Score for real data: {score}", flush=True)
 
         total = self.cfg.num_batches
+        progress = None
+        if self.cfg.tqdm:
+            try:  # as the JAX engine: without tqdm, only the bar is lost
+                from tqdm import tqdm
+
+                progress = tqdm(total=total, initial=self.batchnum)
+            except Exception:
+                progress = None
         b = self.batchnum
         last_rate_steps, last_rate_time = b, time.perf_counter()
         while b < total:
@@ -237,7 +249,11 @@ class Trainer:
                 # a between-chunk save: this step's events have not fired
                 self._save_checkpoint(events_fired_at_step=False)
             b += n
+            if progress is not None:
+                progress.update(n)
         self.batchnum = max(total - 1, 0)
+        if progress is not None:
+            progress.close()
 
     # ------------------------------------------------------------------
     def _snapshot_aux(self, events_fired_at_step: bool) -> dict:

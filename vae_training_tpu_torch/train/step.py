@@ -17,6 +17,7 @@ from __future__ import annotations
 from dataclasses import replace
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -106,5 +107,20 @@ def eval_step(model: VAE, dataset: DistributionDataset, params,
     loss, dkl, mse, logvar_e, eps_out = loss_terms(model, params, real, z1, z2)
     out = {"VAE Loss": loss, "KL divergence": dkl, "mse": mse,
            "_logvar_e": logvar_e, "_epsilon": eps_out}
-    out.update(dataset.score(fake))
+    out.update(sorted_scores(dataset.score(fake)))
     return out
+
+
+def sorted_scores(scores: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A dataset's scores in sorted key order, the order in which the JAX
+    engine's jitted programs return them (jit sorts a dict's keys); the
+    console columns, ``losses.npz`` and the banner all follow it. The
+    dataset's own ``score`` keeps the unjitted insertion order."""
+    return {k: scores[k] for k in sorted(scores)}
+
+
+def banner_scores(dataset: DistributionDataset, batch: torch.Tensor) -> Dict[str, np.ndarray]:
+    """The "Score for real data" values as the JAX engine prints them: sorted
+    keys, each a 0-d float32 array (``array(0., dtype=float32)``)."""
+    return {k: np.asarray(v.detach().cpu().numpy(), np.float32)
+            for k, v in sorted_scores(dataset.score(batch)).items()}
