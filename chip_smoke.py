@@ -16,8 +16,11 @@ the grid mode of the MLP kernel, and sigmoid MLPs with the dual decoder
 through K5-dual, the MLP kernel's dual branch; then all of them again with
 bf16 Adam moments (K4, --adam_dtype bf16); then the probes T1–T5, each
 through its tool's entry point (vae_training_tpu_torch/tools/), on
-csrc/probes.cu and, for T1, the training kernels' sampler; last, the MLP kernel's step
-split into its parts, then the linear kernel's. Thirty-two phases:
+csrc/probes.cu and, for T1, the training kernels' sampler; then the MLP kernel's step
+split into its parts, then the linear kernel's; last, the port's surfaces
+beyond the kernels: the bench, the sampler, the background artifact
+writer, the gaussian dataset, --profile, --debug_nans and the closed-form
+ELBO floor on K1. Thirty-nine phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -151,7 +154,38 @@ split into its parts, then the linear kernel's. Thirty-two phases:
      sigmoid sweep's largest row (D 28, L 24) split by timing variants that
      leave parts out: the noise (sampler and manifold draw), the per-row
      pass, the per-parameter pass with Adam, everything but the two
-     barriers; what leaving each part out saves, and each part alone.
+     barriers; what leaving each part out saves, and each part alone;
+ 33. the bench (``python -m vae_training_tpu_torch._scripts.bench``, the
+     console script vae-bench-torch) as a subprocess on linear, sigmoid,
+     sphere, grid_linear, grid_sigmoid and grid_sphere with f32 moments,
+     and on linear and grid_sphere with bf16 ones: one JSON line each with
+     a positive value, an mfu_pct and the card's name and power limit; its
+     launch counts on stderr: one launch of the config's kernel a chunk and
+     nothing else; each value within 25% of this run's phase 7, 13, 17 or
+     21 figure for that shape (the f32 figure for the bf16 runs); --config
+     conv exits nonzero naming ROADMAP item 9;
+ 34. sample (vae-sample-torch) on phase 5's linear run and phase 11's
+     sphere run: shapes, finite values, the same --seed bitwise, another
+     seed different, and a copy of the directory holding only model.pkl
+     giving the checkpoint's samples bitwise;
+ 35. the background writer: the linear, sigmoid and sphere sweeps through
+     `sweep --grouped` with the saves written synchronously (the parent's
+     way, a stand-in writer) and in the background, in turns: the
+     wall-accounting split of each, and every run's artifacts equal
+     between the two bitwise (phases 6, 12, 15, 16 and 20 already hold the
+     resumes and the grid rows bitwise with the writer);
+ 36. the gaussian dataset through the CLI on the torch path (dd 3, pd 9,
+     latent 20, 512|512, 400 steps): no kernel launches, the eval loss
+     falls, the banner and losses.npz carry the eigenvalue arrays; the
+     torch path's steps/s at that shape;
+ 37. --profile on linear row 1 through K1: the Chrome trace names K1's
+     kernel function once, and the artifacts equal phase 5's bitwise;
+ 38. --debug_nans: a NaN put into the state (--state_dict) raises
+     FloatingPointError at step 0; a diverging run (lr 1e30) on K1 raises
+     it at the first non-finite loss; a clean run equals phase 5 bitwise;
+ 39. the closed-form ELBO floor oracle of tests/test_convergence_oracles.py
+     (20000 + 200 steps, its config and its three asserts) through K1, on
+     the port's own dataset matrix A.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -167,6 +201,7 @@ import json
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -445,6 +480,7 @@ def main() -> int:
     records += _probes(torch, np, smi)
     _mlp_split(torch, np, smi)
     _linear_split(torch, np, smi)
+    _surfaces(torch, np, smi, records, data_dir, run_dir, os.path.join(sweeps_dir, "main_K5"))
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -2446,6 +2482,367 @@ def _linear_split(torch, np, smi, steps=2000, min_seconds=0.5):
             f"{k} {v:.3f} us" for k, v in alone.items()))
         out[label] = {"step": t["whole step"], **split, "alone": alone}
     return out
+
+
+def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
+    """Phases 33-39: the port's surfaces beyond the training kernels, on the
+    card: the bench, the sampler, the background writer, the gaussian
+    dataset, --profile, --debug_nans and the closed-form ELBO floor on K1.
+    ``records`` are the kernels' records (their times are phases 7, 13, 17
+    and 21's), ``solo_dir`` phase 5's run and ``sphere_dir`` phase 11's
+    sphere run."""
+    from vae_training_tpu_torch._scripts import sample as sample_mod
+    from vae_training_tpu_torch._scripts import sweep
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import RunConfig, parse_arguments
+    from vae_training_tpu_torch.data import get_dataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.runio import background, make_output_dir
+    from vae_training_tpu_torch.train import TrainState, grid as grid_mod
+    from vae_training_tpu_torch.train import loop as loop_mod
+    from vae_training_tpu_torch.train import mixed_grid as mixed_mod
+    from vae_training_tpu_torch.train import step as torch_step
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    counters = {"K1/K2": (k1.run_fused_chunk, "launches"), "K6a": (k1.run_grid_chunk, "launches"),
+                "K5": (k5.run_mlp_fused_chunk, "launches"), "K6b": (k5.run_grid_chunk, "launches"),
+                "torch path": (torch_step.train_chunk, "calls")}
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    def cli(name, row, num_batches, *extra):
+        cfg = parse_arguments([name, *row, "--num_batches", str(num_batches), "--device",
+                               "cuda", "--data_dir", data_dir, *extra])
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t
+
+    def record(prefix):
+        (rec,) = [r for r in records if r["name"].startswith(prefix)]
+        return rec
+
+    # --- 33 --------------------------------------------------------------
+    phase(33, "the bench (vae-bench-torch) on the six configs, f32 moments, and linear and "
+              "grid_sphere with bf16 moments")
+    # steps/s (row-steps/s for the grids) of phases 7, 13, 17 and 21
+    figures = {"linear": 1e3 / record("linear_vae_chunk (K1)")["ms"],
+               "sigmoid": 1e3 / record("linear_vae_chunk dual (K2)")["ms"],
+               "sphere": 1e3 / record("mlp_vae_chunk (K5)")["ms"],
+               "grid_linear": 21e3 / record("linear_vae_grid_chunk (K6a), linear")["ms"],
+               "grid_sigmoid": 18e3 / record("linear_vae_grid_chunk (K6a), sigmoid")["ms"],
+               "grid_sphere": 15e3 / record("mlp_vae_chunk grid (K6b)")["ms"]}
+    kernel_of = {"linear": "K1/K2", "sigmoid": "K1/K2", "sphere": "K5",
+                 "grid_linear": "K6a", "grid_sigmoid": "K6a", "grid_sphere": "K6b"}
+    card_name = smi.split(",")[0].strip()
+    for config, adam in [(c, "f32") for c in figures] + [("linear", "bf16"),
+                                                         ("grid_sphere", "bf16")]:
+        proc = subprocess.run([sys.executable, "-m", "vae_training_tpu_torch._scripts.bench",
+                               "--config", config, "--adam_dtype", adam], cwd=repo,
+                              capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"bench {config} {adam} exited {proc.returncode}:\n"
+                                      f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        require(len(lines) == 1, f"bench {config} {adam}: one line on stdout ({len(lines)})")
+        print(lines[0])
+        got = json.loads(lines[0])
+        for ln in proc.stderr.splitlines():
+            if ln.startswith(("steps/s:", "fp32 share", "flops/step", "[kernels]")):
+                print(f"  {ln}")
+        m = re.search(r"^\[kernels\] (\d+) chunks timed \(warm-up included\); launches: (.*)$",
+                      proc.stderr, re.M)
+        require(m is not None, f"bench {config} {adam}: the launch counts on stderr")
+        chunks = int(m.group(1))
+        launched = {k: int(v) for k, v in (s.rsplit(" ", 1) for s in m.group(2).split(", "))}
+        kernel = kernel_of[config]
+        require(launched[kernel] == chunks and sum(launched.values()) == chunks,
+                f"bench {config} {adam}: one {kernel} launch a chunk and nothing else "
+                f"({launched}, {chunks} chunks)")
+        require(got["metric"].endswith("_per_gpu") and got["value"] > 0
+                and got["mfu_pct"] is not None and got["flops_per_step"] > 0,
+                f"bench {config} {adam}: a positive value and an mfu_pct")
+        require(got["device"] == card_name, f"bench {config}: the card's name")
+        ratio = got["value"] / figures[config]
+        print(f"  {config} {adam}: {got['value']:.1f} steps/s against this run's phase figure "
+              f"{figures[config]:.1f} ({ratio:.3f}x)")
+        require(abs(ratio - 1) <= 0.25, f"bench {config} {adam} within 25% of the phase's "
+                                        f"figure ({ratio:.3f}x)")
+    proc = subprocess.run([sys.executable, "-m", "vae_training_tpu_torch._scripts.bench",
+                           "--config", "conv"], cwd=repo, capture_output=True, text=True,
+                          timeout=300)
+    require(proc.returncode != 0 and "item 9" in proc.stderr and not proc.stdout.strip(),
+            "bench --config conv exits nonzero naming ROADMAP item 9, with no result")
+    print(f"bench --config conv: exit {proc.returncode}, "
+          f"{proc.stderr.strip().splitlines()[-1]}")
+
+    # --- 34 --------------------------------------------------------------
+    phase(34, "sample (vae-sample-torch) on phase 5's linear run and phase 11's sphere run")
+    for label, run, width in (("linear row 1", solo_dir, (12, 32)),
+                              ("sphere row 1", sphere_dir, (6, 12))):
+        only_pkl = os.path.join(data_dir, f"{os.path.basename(run)}_pkl_only")
+        os.makedirs(only_pkl, exist_ok=True)
+        for f in ("args.json", "model.pkl"):
+            shutil.copy(os.path.join(run, f), only_pkl)
+        got = {}
+        for tag, d, extra in (("a", run, ["--png", os.path.join(data_dir, "s.png")]),
+                              ("b", run, []), ("seed7", run, ["--seed", "7"]),
+                              ("pkl", only_pkl, [])):
+            path = os.path.join(data_dir, f"samples_{os.path.basename(run)}_{tag}.npz")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = sample_mod.main([d, "-n", "1000", "-o", path, "--device", "cuda", *extra])
+            require(rc == 0, f"{label} sample {tag}: exit 0")
+            if tag == "a":
+                print("\n".join(f"  {ln}" for ln in buf.getvalue().splitlines()))
+            got[tag] = np.load(path)
+        a = got["a"]
+        require(a["samples"].shape == (1000, width[0]) and a["latents"].shape == (1000, width[1]),
+                f"{label}: shapes {a['samples'].shape}, {a['latents'].shape}")
+        require(bool(np.all(np.isfinite(a["samples"]))), f"{label}: finite samples")
+        require(np.array_equal(a["samples"], got["b"]["samples"]),
+                f"{label}: the same --seed gives the same samples bitwise")
+        require(not np.array_equal(a["samples"], got["seed7"]["samples"]),
+                f"{label}: another --seed gives other samples")
+        require(np.array_equal(a["samples"], got["pkl"]["samples"]),
+                f"{label}: the model.pkl-only copy gives the checkpoint's samples bitwise")
+        print(f"{label}: samples {a['samples'].shape}, latents {a['latents'].shape}, finite; "
+              f"seed 0 twice bitwise equal, seed 7 differs, model.pkl only = ckpt.pt bitwise")
+
+    # --- 35 --------------------------------------------------------------
+    phase(35, "the background writer: the grouped sweeps with saves written synchronously "
+              "(the parent's way) and in the background, in turns (sync, background, "
+              "background, sync)")
+
+    class SyncWriter:
+        """Writes each job when it is submitted, as the parent's saves did."""
+
+        def submit(self, job):
+            job()
+
+        def drain(self):
+            pass
+
+        drain_quietly = drain
+
+    sync_writer = SyncWriter()
+    writer_fns = {m: m.get_artifact_writer for m in (loop_mod, grid_mod, mixed_mod)}
+    # the training thread's parts of plot+save, summed over a sweep: the
+    # in-loop events', and apart from them the final saves' (what runs
+    # inside save_all(final=True), its drain included)
+    spent, final = {}, [False]
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **k):
+            outer = not final[0] and bool(k.get("final"))
+            final[0] = final[0] or outer
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                key = f"{name} final" if final[0] else name
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+                final[0] = final[0] and not outer
+        return fn, wrapper
+
+    patched = [(owner, name) for owner, name in ((grid_mod.GridTrainer, "plot_all"),
+                                                 (grid_mod.GridTrainer, "save_all"),
+                                                 (TrainState, "host_copy"),
+                                                 (background.ArtifactWriter, "drain"))]
+    acct_re = re.compile(r"banners ([\d.]+)s, train chunks ([\d.]+)s, stat evals ([\d.]+)s, "
+                         r"plot\+save ([\d.]+)s")
+    kernel_of = {"linear": "K6a", "sigmoid": "K6a", "sphere": "K6b"}
+    for which in ("linear", "sigmoid", "sphere"):
+        for turn, mode in enumerate(("sync", "background", "background", "sync")):
+            originals = []
+            for owner, name in patched:
+                fn, wrapper = timed(owner, name)
+                originals.append((owner, name, fn))
+                setattr(owner, name, wrapper)
+            if mode == "sync":
+                for mod in writer_fns:
+                    mod.get_artifact_writer = lambda: sync_writer
+            spent.clear()
+            try:
+                reset_counts()
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = sweep.main([which, "--grouped", "--kernels", "cuda", "--num_batches",
+                                     "12000", "--data_dir",
+                                     os.path.join(data_dir, f"writer_{mode}{turn}", which)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            finally:
+                for mod, fn in writer_fns.items():
+                    mod.get_artifact_writer = fn
+                for owner, name, fn in originals:
+                    setattr(owner, name, fn)
+            n = counts()
+            require(rc == 0 and n[kernel_of[which]] == 4
+                    and sum(n.values()) == 4,
+                    f"{which} {mode}: one {kernel_of[which]} launch a chunk and nothing else ({n})")
+            m = acct_re.search(buf.getvalue())
+            require(m is not None, f"{which} {mode}: the wall-accounting line")
+            banners, chunks, evals, io_s = (float(x) for x in m.groups())
+            print(f"{which} sweep, saves {mode:10}: wall {wall:.3f} s: banners {banners:.3f}, "
+                  f"train chunks {chunks:.3f}, stat evals {evals:.3f}, plot+save {io_s:.3f} "
+                  f"(of it on this thread: plot_all {spent.get('plot_all', 0):.3f}, save_all "
+                  f"{spent.get('save_all', 0):.3f} with host copies "
+                  f"{spent.get('host_copy', 0):.3f}, the drain "
+                  f"{spent.get('drain', 0):.3f}); final saves "
+                  f"{spent.get('save_all final', 0):.3f}")
+        for c in sweep.sweep_configs(which, data_dir, 12000, "cuda"):
+            for other in ("writer_background1", "writer_background2", "writer_sync3"):
+                _require_same_run(np, os.path.join(data_dir, "writer_sync0", which, c.name),
+                                  os.path.join(data_dir, other, which, c.name))
+        print(f"{which}: every run's losses.npz and model.pkl equal in all four sweeps bitwise")
+
+    # --- 36 --------------------------------------------------------------
+    phase(36, "the gaussian dataset on the card: the CLI on the torch path, 400 steps")
+    gauss = ["--dataset", "gaussian", "-dd", "3", "--padding_dim", "9", "--latent_dim", "20",
+             "-ow", "-lr", "1e-3", "--n_print", "100", "--n_plot", "400"]
+    reset_counts()
+    rc, out, secs = cli("gauss", gauss, 400)
+    n = counts()
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith(("[kernels]", "Batch |"))))
+    banner = re.search(r"^Score for real data: (\{.*?\})$", out, re.M | re.S)
+    require(rc == 0 and banner is not None, "the gaussian run returned 0 with its banner")
+    print("Score for real data: " + " ".join(banner.group(1).split()))
+    require("[kernels] torch: plain PyTorch path" in out and n["torch path"] > 0
+            and sum(n.values()) == n["torch path"], f"the torch path and no kernel ({n})")
+    require("'ground truth eigenvalue': array(" in banner.group(1)
+            and "'learnt eigenvalue': array(" in banner.group(1),
+            "the banner carries the eigenvalue arrays")
+    evals = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^Batch \| (\d+) \| VAE Loss \| (-?[\d.]+)", out, re.M)}
+    require(sorted(evals) == [0, 100, 200, 300], f"eval lines at 0/100/200/300 ({sorted(evals)})")
+    require(evals[300] < evals[0], "the gaussian eval loss falls")
+    z = np.load(os.path.join(data_dir, "gauss", "losses.npz"))
+    require(z["learnt eigenvalue"].shape == (4, 12) and z["ground truth eigenvalue"].shape == (4, 12),
+            "losses.npz holds the eigenvalues of every eval")
+    cfg = parse_arguments(["g", *gauss, "--device", "cuda"])
+    ds = get_dataset("gaussian", 69, cfg, device=torch.device("cuda"))
+    model = build_vae(data_dim=12, latent_dim=20, encoder_layer_sizes="512|512",
+                      decoder_layer_sizes="512|512", epsilon=0.0)
+    model.init_parameters(0)
+    model.to("cuda")
+    state = TrainState.create(dict(model.named_parameters()), 1, 2)
+    rate = _steps_per_second(torch, lambda: torch_step.train_chunk(
+        model, ds, state, 50, batch_size=B, lr=1e-3), 50)
+    print(f"card: {smi}")
+    print(f"gaussian on the torch path (512|512, D 12, L 20, batch {B}): {rate:.1f} steps/s "
+          f"({1e3 / rate:.4f} ms/step); the CLI run: eval loss {evals[0]:.3f} -> "
+          f"{evals[300]:.3f}, {secs:.2f} s for 400 steps with 4 evals")
+
+    # --- 37 --------------------------------------------------------------
+    phase(37, "--profile: linear row 1 through K1, 12000 steps, the first chunk traced")
+    reset_counts()
+    rc, out, _ = cli("prof", ROW1, 12000, "--kernels", "cuda", "--profile")
+    n = counts()
+    require(rc == 0 and n["K1/K2"] > 0 and n["torch path"] == 0, f"K1 ran ({n})")
+    trace = os.path.join(data_dir, "prof", "profile", "trace.json")
+    require(os.path.exists(trace), "the trace exists")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e["name"] for e in kernels})
+    print(f"{trace}: {len(events)} events, {len(kernels)} CUDA kernel events; kernels: "
+          f"{', '.join(name[:60] for name in names)}")
+    k1_events = [e for e in kernels if "linear_vae_chunk_kernel" in e["name"]]
+    require(len(k1_events) == 1, "the trace names K1's kernel function, once (one launch)")
+    print(f"linear_vae_chunk_kernel: {k1_events[0]['dur'] / 1e3:.3f} ms in the trace for the "
+          f"5000-step chunk")
+    _require_same_run(np, solo_dir, os.path.join(data_dir, "prof"))
+    print("the profiled run's losses.npz and model.pkl equal phase 5's bitwise")
+
+    # --- 38 --------------------------------------------------------------
+    phase(38, "--debug_nans: a NaN in the state, a diverging run on K1, a clean run")
+    with open(os.path.join(solo_dir, "model.pkl"), "rb") as f:
+        sd = pickle.load(f)
+    sd["target"]["Decoder"]["FC0"]["kernel"][1, 2] = np.nan
+    nan_pkl = os.path.join(data_dir, "nan.pkl")
+    with open(nan_pkl, "wb") as f:
+        pickle.dump(sd, f)
+    for label, extra, match in (
+            ("a NaN put into the state", ["--state_dict", nan_pkl],
+             "non-finite state at step 0: params[Decoder.FC0.kernel]"),
+            ("learning rate 1e30 on K1", ["-lr", "1e30"], "non-finite training loss at step")):
+        reset_counts()
+        try:
+            cli("nan", ROW1, 12000, "--kernels", "cuda", "--debug_nans", *extra)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        require(raised is not None and match in raised,
+                f"{label}: FloatingPointError ({raised!r})")
+        print(f"{label}: FloatingPointError: {raised} (K1 launches {counts()['K1/K2']})")
+    reset_counts()
+    rc, _, _ = cli("dn", ROW1, 12000, "--kernels", "cuda", "--debug_nans")
+    require(rc == 0 and counts()["K1/K2"] > 0, "the clean --debug_nans run on K1")
+    _require_same_run(np, solo_dir, os.path.join(data_dir, "dn"))
+    print("the clean --debug_nans run's losses.npz and model.pkl equal phase 5's bitwise")
+
+    # --- 39 --------------------------------------------------------------
+    phase(39, "the closed-form ELBO floor (tests/test_convergence_oracles.py) through K1, "
+              "20000 + 200 steps")
+    cfg = RunConfig(
+        name="floor", dataset="linear_gaussian", encoder_layer_sizes="", layer_sizes="",
+        latent_dimension=8, padding_dim=5, dataset_dimension=3, dataset_intrinsic_dimension=3,
+        num_batches=20000, batch_size=100, learning_rate=1e-3, epsilon=-1.0,
+        tunable_decoder_var=True, dataset_seed=2, overwrite=True, tqdm=False,
+        data_dir=data_dir, kernels="cuda", device="cuda").validate()
+    out = make_output_dir(cfg.name, True, cfg, data_dir=cfg.data_dir)
+    ds = get_dataset(cfg.dataset, cfg.dataset_seed, cfg, device=torch.device("cuda"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = loop_mod.Trainer(cfg, ds, out)
+    D = ds.dimension
+    a64 = ds.A.cpu().numpy().astype(np.float64)
+    s2 = np.sort(np.linalg.svd(a64, compute_uv=False) ** 2)[::-1]
+
+    def floor(eps):
+        active = s2 > np.exp(eps)
+        return float(np.sum(active * (0.5 + 0.5 * np.log(s2) - 0.5 * eps))
+                     + 0.5 * D + 0.5 * D * (np.log(2 * np.pi) + eps))
+
+    reset_counts()
+    t = time.perf_counter()
+    trainer.state, _ = trainer.train_chunk(trainer.state, 20000)
+    eps_a = float(trainer.state.params["epsilon"][0]) * -1.0
+    trainer.state, losses = trainer.train_chunk(trainer.state, 200)
+    eps_b = float(trainer.state.params["epsilon"][0]) * -1.0
+    secs = time.perf_counter() - t
+    require(counts()["K1/K2"] == 2 and counts()["torch path"] == 0, "two K1 launches")
+    l_obs = float(losses.mean())
+    gap = l_obs - floor(0.5 * (eps_a + eps_b))
+    print(f"A's singular values {np.sqrt(s2)}; eps {eps_a:.4f} -> {eps_b:.4f}; loss "
+          f"{l_obs:.4f}, floor {floor(0.5 * (eps_a + eps_b)):.4f}, gap {gap:.4f}; "
+          f"{secs:.3f} s for 20200 steps")
+    require(gap > -0.25, f"(1) the loss does not undercut the floor (gap {gap})")
+    require(gap < 3.0, f"(2) the loss is within 3 nats of the floor (gap {gap})")
+    p = {k: v.cpu().numpy().astype(np.float64) for k, v in trainer.state.params.items()}
+    wd, we = p["Decoder.FC0.kernel"], p["Encoder.FC0.kernel"]
+    dvals = np.sort(np.linalg.svd(wd, compute_uv=False))[::-1]
+    ep_sorted = np.sort(p["epsilon_p"])
+    for i in range(2):
+        pred = eps_b - np.log(dvals[i] ** 2)
+        print(f"direction {i}: ep {ep_sorted[i]:.4f}, conditional optimum {pred:.4f}")
+        require(abs(ep_sorted[i] - pred) < 0.3, f"(3) direction {i} at its optimum")
+    roundtrip = np.sort(np.linalg.svd(a64.T @ we[:ds.dim] @ wd[:, :ds.dim],
+                                      compute_uv=False))[::-1]
+    print(f"roundtrip singular values {roundtrip} against A's {np.sqrt(s2)}")
+    require(bool(np.allclose(roundtrip[:2], np.sqrt(s2)[:2], rtol=0.05, atol=0)),
+            "(3) c_i·d_i = s_i on the strong directions")
 
 
 def _ulp_keys(torch, x):

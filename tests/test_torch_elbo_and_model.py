@@ -116,3 +116,80 @@ def test_adam_update_matches_optax():
     _close(p, jp, rtol=1e-6, atol=1e-7)
     _close(m, jopt[0].mu, rtol=1e-6, atol=1e-7)
     _close(v, jopt[0].nu, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", [(16, 12), (5, 3, 4), (7,)])
+def test_binary_cross_entropy_matches_jax(shape):
+    from vae_training_tpu.ops.elbo import binary_cross_entropy as jax_bce
+    from vae_training_tpu_torch.ops import binary_cross_entropy
+
+    rs = np.random.RandomState(3)
+    probs = rs.uniform(0.01, 0.99, shape).astype(np.float32)
+    labels = (rs.uniform(size=shape) > 0.5).astype(np.float32)
+    got = binary_cross_entropy(torch.as_tensor(probs), torch.as_tensor(labels))
+    ref = jax_bce(jnp.asarray(probs), jnp.asarray(labels))
+    assert tuple(got.shape) == ref.shape == shape[:1]
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("shape,val", [((4, 4), 0.0), ((3, 5), 2.5), ((2, 6, 3), -1.0)])
+def test_fill_diagonal_matches_jax(shape, val):
+    from vae_training_tpu.ops.elbo import fill_diagonal as jax_fill
+    from vae_training_tpu_torch.ops import fill_diagonal
+
+    a = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    t = torch.as_tensor(a)
+    got = fill_diagonal(t, val)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_fill(jnp.asarray(a), val)))
+    np.testing.assert_array_equal(t.numpy(), a)  # a copy: the input is left as it was
+
+
+def test_fill_diagonal_needs_two_dims():
+    from vae_training_tpu.ops.elbo import fill_diagonal as jax_fill
+    from vae_training_tpu_torch.ops import fill_diagonal
+
+    for fill, arr in ((fill_diagonal, torch.zeros(3)), (jax_fill, jnp.zeros(3))):
+        with pytest.raises(ValueError, match="ndim >= 2"):
+            fill(arr, 1.0)
+
+
+def test_loss_never_undercuts_the_closed_form_floor(tmp_path):
+    """Assert (1) of tests/test_convergence_oracles.py's closed-form floor
+    oracle on the port, over 2000 steps on the CPU: the mean loss of every
+    100-step chunk stays above L*(ε) at the chunk's mid ε (the JAX oracle's
+    -0.25 margin), for the port's own dataset matrix A."""
+    import math
+
+    from vae_training_tpu_torch.config import RunConfig
+    from vae_training_tpu_torch.data import get_dataset
+    from vae_training_tpu_torch.runio import make_output_dir
+    from vae_training_tpu_torch.train.loop import Trainer
+
+    cfg = RunConfig(
+        name="floor", dataset="linear_gaussian", encoder_layer_sizes="", layer_sizes="",
+        latent_dimension=8, padding_dim=5, dataset_dimension=3,
+        dataset_intrinsic_dimension=3, num_batches=20000, batch_size=100,
+        learning_rate=1e-3, epsilon=-1.0, tunable_decoder_var=True, dataset_seed=2,
+        overwrite=True, tqdm=False, data_dir=str(tmp_path), device="cpu").validate()
+    out = make_output_dir(cfg.name, True, cfg, data_dir=cfg.data_dir)
+    ds = get_dataset(cfg.dataset, cfg.dataset_seed, cfg)
+    trainer = Trainer(cfg, ds, out)
+    D = ds.dimension
+    s2 = np.sort(np.linalg.svd(ds.A.numpy().astype(np.float64), compute_uv=False) ** 2)[::-1]
+
+    def floor(eps):
+        active = s2 > math.exp(eps)
+        return float(np.sum(active * (0.5 + 0.5 * np.log(s2) - 0.5 * eps))
+                     + 0.5 * D + 0.5 * D * (math.log(2 * math.pi) + eps))
+
+    def eps_now():
+        return float(trainer.state.params["epsilon"][0]) * -1.0
+
+    gaps = []
+    for _ in range(20):
+        eps_a = eps_now()
+        trainer.state, losses = trainer.train_chunk(trainer.state, 100)
+        gaps.append(float(losses.mean()) - floor(0.5 * (eps_a + eps_now())))
+    assert np.all(np.isfinite(gaps))
+    assert min(gaps) > -0.25, f"the loss undercuts the analytic floor: gaps {gaps}"
+    assert gaps[-1] < gaps[0]  # training moves toward the floor

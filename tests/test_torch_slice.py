@@ -235,9 +235,9 @@ def test_cpu_kernel_wrapper_runs_the_plain_chunk():
 @pytest.mark.parametrize("extra,exc,match", [
     (["--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
-    (["--profile"], NotImplementedError, "item 6"),
+    (["--arch", "conv"], NotImplementedError, "item 9"),
     (["--seed_grid", "2,3", "--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
-    (["--dataset", "gaussian"], NotImplementedError, "not yet ported"),
+    (["--dataset", "image"], NotImplementedError, "not yet ported"),
 ])
 def test_no_silent_fallback_and_unported_flags(tmp_path, extra, exc, match):
     if torch.cuda.is_available() and "cuda" in extra:

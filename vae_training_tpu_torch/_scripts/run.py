@@ -7,7 +7,8 @@
 ``vae_training_tpu/_scripts/run.py:32-103``: validate the config, make the
 output dir and args.json, build the dataset and the trainer, train, final
 save; ``--seed_grid`` routes to ``train/grid.py:run_seed_grid``.
-``--device`` names the device; ``--kernels`` the backend.
+``--device`` names the device; ``--kernels`` the backend. ``--debug_nans``
+(the JAX CLI's ``jax_debug_nans``) is read by the engine (``train/loop.py``).
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def main(cfg: RunConfig) -> int:
         loaded = dataset.load(cfg.data_fn)
         dataset = loaded if loaded is not None else dataset
     trainer = Trainer(cfg, dataset, output_dir)
-    trainer.train_distribution()
+    trainer.train()
     trainer.save(final=True)
     return 0
 

@@ -132,8 +132,6 @@ class RunConfig:
                 "ROADMAP Queue 1 item 10 (library surface)"),
             "--track_correlation": (self.track_correlation,
                                     "ROADMAP Queue 1 item 10 (library surface)"),
-            "--profile": (self.profile, "ROADMAP Queue 1 item 6 (torch.profiler)"),
-            "--debug_nans": (self.debug_nans, "ROADMAP Queue 1 item 1"),
         }
         if self.seed_grid and not self.grid_seeds():
             raise ValueError(f"--seed_grid names no seed: {self.seed_grid!r}")
@@ -214,8 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--seed_grid, any non-empty value resumes every row "
                         "from its own <name>_seed<N>/ checkpoint.")
     p.add_argument("--profile", dest="profile", action="store_true",
-                   help="Profile one training chunk (not yet ported).")
-    p.add_argument("--debug_nans", dest="debug_nans", action="store_true")
+                   help="Capture a torch.profiler trace of one training chunk "
+                        "(<run>/profile/trace.json).")
+    p.add_argument("--debug_nans", dest="debug_nans", action="store_true",
+                   help="Raise FloatingPointError at the first non-finite loss or "
+                        "parameter (the torch path also under "
+                        "torch.autograd.detect_anomaly).")
     p.add_argument("--data_dir", dest="data_dir", default="data")
     p.add_argument("--checkpoint_every", dest="checkpoint_every", type=int, default=0)
     p.add_argument("--seed_grid", dest="seed_grid", default="",

@@ -10,13 +10,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from .base import DistributionDataset
-from .synthetic import LinearGaussianDataset, SigmoidDataset, SphereDataset
+from .synthetic import GaussianDataset, LinearGaussianDataset, SigmoidDataset, SphereDataset
 
 _REGISTRY: Dict[str, Callable[..., DistributionDataset]] = {}
 
 # reference datasets still to port → the ROADMAP item that ports them
 NOT_YET_PORTED = {
-    "gaussian": "ROADMAP Queue 1 item 4",
     "image": "ROADMAP Queue 1 item 9 (epoch mode and the conv VAE)",
 }
 
@@ -31,6 +30,13 @@ def register_dataset(name: str):
 
 def dataset_names():
     return sorted(_REGISTRY)
+
+
+@register_dataset("gaussian")
+def _make_gaussian(seed, args, device="cpu") -> GaussianDataset:
+    # --dataset_noise is the padding's variance; the core takes no seed
+    return GaussianDataset(dim=args.dataset_dimension, padding_dim=args.padding_dim,
+                           noise_level=args.dataset_noise, device=device)
 
 
 @register_dataset("linear_gaussian")

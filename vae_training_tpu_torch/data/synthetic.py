@@ -1,4 +1,5 @@
-"""Synthetic manifold datasets: ``linear_gaussian``, ``sigmoid`` and ``sphere``.
+"""Synthetic manifold datasets: ``gaussian``, ``linear_gaussian``, ``sigmoid``
+and ``sphere``.
 
 Port of ``vae_training_tpu/data/synthetic.py:65-290``. Each dataset samples
 with the counter-keyed Philox streams of ``ops/rng.py``: the manifold
@@ -7,6 +8,10 @@ observation noise of ``linear_gaussian`` from ``STREAM_OBS``. The fused
 kernels draw the same words, so ``intrinsic_dim`` is also the width of the
 kernels' manifold draw.
 
+  - ``gaussian``: an isotropic N(0, I_dim) core (``STREAM_MANIFOLD``) and
+    ``padding_dim`` padding coordinates of variance ``noise_level``
+    (``STREAM_OBS``), zero where either is 0. Its score needs an
+    eigendecomposition, which stays on the host (``score_on_host``).
   - ``linear_gaussian``: Y = A·X with X ~ N(0, I_k) and A full-rank
     (dim × k), zero-padded to the ambient dimension, plus optional
     isotropic observation noise of variance ``var_added``.
@@ -30,6 +35,89 @@ import torch
 
 from ..ops import rng
 from .base import DistributionDataset, pad_with_zeros, padding_energy
+
+
+class GaussianDataset(DistributionDataset):
+    """Isotropic gaussian with optional noisy padding dimensions (the
+    reference defines it but never wires it to its CLI; ``--dataset
+    gaussian`` reaches it here, as in the JAX package)."""
+
+    var_added = 0.0  # no observation noise on the core
+    # the score's eigendecomposition runs on the host: the engine hands the
+    # generated batch back (``score_host``) instead of scoring on the device
+    score_on_host = True
+
+    def __init__(self, dim: int = 3, padding_dim: int = 0, noise_level: float = 0.01,
+                 device="cpu"):
+        self.dim = dim
+        self.padding_dim = padding_dim
+        self.noise_level = float(noise_level)
+        self._device = torch.device(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def intrinsic_dim(self) -> int:
+        return self.dim
+
+    @property
+    def ndim(self) -> int:
+        return self.dim + self.padding_dim
+
+    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+        """(n, ndim) batch at counter ``step``: the core from
+        STREAM_MANIFOLD, the padding from STREAM_OBS scaled by
+        √noise_level (zeros when either the noise or the padding is 0)."""
+        core = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim, device=self.device)
+        if self.noise_level > 0 and self.padding_dim > 0:
+            pad = rng.normals(seed, step, n, rng.STREAM_OBS, self.padding_dim,
+                              device=self.device)
+            return torch.cat([core, pad * float(np.sqrt(np.float32(self.noise_level)))], dim=1)
+        return pad_with_zeros(core, self.padding_dim)
+
+    def score(self, batch: torch.Tensor) -> Dict[str, np.ndarray]:
+        return self.score_host(batch.detach().cpu().numpy())
+
+    def score_host(self, batch: np.ndarray) -> Dict[str, np.ndarray]:
+        """The padding's mean squared norm (a float) and the eigenvalues of
+        the batch's covariance against the ground truth's (all ones), with
+        numpy's ``eigh`` on the host."""
+        padding = batch[:, self.dim:]
+        mse = float(np.mean(np.sum(np.square(padding), axis=1)))
+        w_ht = np.linalg.eigh(np.atleast_2d(np.cov(batch.T)))[0]
+        return {
+            "Squared Norm of padding dimensions": mse,
+            "ground truth eigenvalue": np.ones_like(w_ht),
+            "learnt eigenvalue": w_ht,
+        }
+
+    def plot_batch(self, batch, fn=None) -> bool:
+        """Sorted-norm curve (2-D scatter for dim 2); False where matplotlib
+        is not installed."""
+        return _plot_scatter_or_norms(self, batch, fn)
+
+
+def _plot_scatter_or_norms(dataset, batch, fn) -> bool:
+    try:
+        import matplotlib
+    except ImportError:
+        return False
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    b = np.asarray(batch.detach().cpu()) if isinstance(batch, torch.Tensor) else np.asarray(batch)
+    if dataset.dim == 2:
+        plt.scatter(b[:, 0], b[:, 1])
+    else:
+        plt.plot(np.sort(np.linalg.norm(b, axis=1)))
+        plt.ylabel("Norm of points")
+    plt.title(f"Gaussian with dimension {dataset.dim} and padding {dataset.padding_dim}")
+    if fn is not None:
+        plt.savefig(fn)
+    plt.close()
+    return True
 
 
 class LinearGaussianDataset(DistributionDataset):
@@ -88,24 +176,7 @@ class LinearGaussianDataset(DistributionDataset):
     def plot_batch(self, batch, fn=None) -> bool:
         """Sorted-norm curve (2-D scatter for dim 2); skipped, returning
         False, where matplotlib is not installed."""
-        try:
-            import matplotlib
-        except ImportError:
-            return False
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        b = np.asarray(batch.detach().cpu())
-        if self.dim == 2:
-            plt.scatter(b[:, 0], b[:, 1])
-        else:
-            plt.plot(np.sort(np.linalg.norm(b, axis=1)))
-            plt.ylabel("Norm of points")
-        plt.title(f"Gaussian with dimension {self.dim} and padding {self.padding_dim}")
-        if fn is not None:
-            plt.savefig(fn)
-        plt.close()
-        return True
+        return _plot_scatter_or_norms(self, batch, fn)
 
 
 class SigmoidDataset(DistributionDataset):

@@ -12,6 +12,10 @@ Port of ``vae_training_tpu/kernels/dispatch.py:19-40``. ``--kernels``:
     can run;
   - ``torch``: the plain torch path (``train/step.py``).
 
+Under ``--debug_nans`` the torch path's chunks run inside
+``torch.autograd.detect_anomaly``, which raises where a backward produces
+a NaN; every path's losses and state are checked by the engine.
+
 Either way one line names the path taken and why, and ends in "with bf16
 Adam moments" under ``--adam_dtype bf16``: every path takes that mode (the
 kernels' K4 branch; the torch path's bf16 update), as the JAX package gates
@@ -69,8 +73,21 @@ def make_train_chunk(model, dataset, cfg):
         hidden = (len(model.encoder_features) > 1 or len(model.decoder_features) > 1)
         why = why_mlp if hidden else why_linear
     print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}", flush=True)
-    return partial(torch_step.train_chunk, model, dataset,
-                   batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
+    return _anomaly(partial(torch_step.train_chunk, model, dataset,
+                            batch_size=cfg.batch_size, lr=float(cfg.learning_rate)), cfg)
+
+
+def _anomaly(chunk, cfg):
+    """``chunk`` run inside ``torch.autograd.detect_anomaly`` under
+    ``--debug_nans``; ``chunk`` itself otherwise."""
+    if not getattr(cfg, "debug_nans", False):  # callers may pass a partial config
+        return chunk
+
+    def checked(*args, **kwargs):
+        with torch.autograd.detect_anomaly():
+            return chunk(*args, **kwargs)
+
+    return checked
 
 
 def make_grid_chunk(models, datasets, cfg):
@@ -111,8 +128,9 @@ def make_grid_chunk(models, datasets, cfg):
         why = reasons["K6b"] if hidden else reasons["K6a"]
     print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})"
           f"{_moments(cfg0)}", flush=True)
-    chunks = [partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
-                      lr=float(c.learning_rate)) for m, d, c in zip(models, datasets, cfgs)]
+    chunks = [_anomaly(partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
+                               lr=float(c.learning_rate)), c)
+              for m, d, c in zip(models, datasets, cfgs)]
 
     def chunk(states, n_steps, noises=None):
         out = [c(s, n_steps, noise=None if noises is None else noises[i])

@@ -1,10 +1,13 @@
 """Closed-form gaussian ELBO decomposition.
 
-Port of ``vae_training_tpu/ops/elbo.py:53-89``. Semantics kept exactly:
+Port of ``vae_training_tpu/ops/elbo.py:34-89``. Semantics kept exactly:
 ``epsilon`` is a log-variance (decoder stdev e^{ε/2}); the posterior
 log-variance ``logvar_e`` is a global learned vector broadcast across the
 batch; the reconstruction term carries the gaussian normalisation constant
 0.5·(log 2π + ε) per output dimension.
+
+``binary_cross_entropy`` and ``fill_diagonal`` are the reference's library
+helpers (its ``networks.py:16-23``); the live ELBO uses neither.
 """
 
 from __future__ import annotations
@@ -15,6 +18,25 @@ from typing import Tuple
 import torch
 
 LOG_2PI = math.log(2.0 * math.pi)
+EPS = 1e-8
+
+
+def binary_cross_entropy(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample summed BCE over every axis but the first (the JAX
+    package's vmapped form): (n, ...) → (n,)."""
+    per = labels * torch.log(probs + EPS) + (1 - labels) * torch.log(1 - probs + EPS)
+    return -torch.sum(per.reshape(per.shape[0], -1), dim=1)
+
+
+def fill_diagonal(a: torch.Tensor, val) -> torch.Tensor:
+    """A copy of ``a`` with the leading diagonal of its trailing two dims
+    set to ``val``."""
+    if a.ndim < 2:
+        raise ValueError("fill_diagonal needs ndim >= 2")
+    out = a.clone()
+    i = torch.arange(min(a.shape[-2:]), device=a.device)
+    out[..., i, i] = val
+    return out
 
 
 def kl_to_standard_normal(mu: torch.Tensor, logvar_e: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,11 @@ z, eval z, plot z) are shared, as every solo run of a sweep uses the same
 K6b row runs the solo kernel's body and the plain path is per row.
 
 Each row writes ``<name>_seed<N>/`` (losses.npz, model.pkl, checkpoint with
-the host-side aux), synchronously; ``--resume`` resumes every row from its
-own directory and rolls a row that saved one event ahead back to the
-grid's common step through its ``.prev`` checkpoint. The JAX package's
+the host-side aux) from host copies taken at the event, on the background
+writer (``runio/background.py``); ``train`` returns with every write on
+disk, and a restore waits for queued writes first. ``--resume`` resumes
+every row from its own directory and rolls a row that saved one event
+ahead back to the grid's common step through its ``.prev`` checkpoint. The JAX package's
 mesh, multihost and warm-start branches are not ported: ``RunConfig.validate``
 raises for them, naming their ROADMAP items (Queue 1 items 10 and 11).
 """
@@ -40,6 +42,7 @@ from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_grid_chunk
 from ..models.networks import build_vae
 from ..ops import rng
+from ..runio.background import get_artifact_writer
 from ..runio.checkpoint import (
     checkpoint_exists,
     promote_prev_checkpoint,
@@ -51,9 +54,18 @@ from ..runio.checkpoint import (
 )
 from ..runio.export import save_model_pkl
 from ..runio.outdir import make_output_dir
-from .loop import EVAL_BATCH_SIZE, N_PLOT, N_PRINT, check_moments, check_params, next_event
+from .loop import (
+    EVAL_BATCH_SIZE,
+    N_PLOT,
+    N_PRINT,
+    check_finite_losses,
+    check_finite_state,
+    check_moments,
+    check_params,
+    next_event,
+)
 from .state import TrainState
-from .step import banner_scores, eval_step, generate, sample_z
+from .step import banner_scores, eval_step, eval_to_host, generate, sample_z
 
 
 class GridTrainer:
@@ -126,16 +138,15 @@ class GridTrainer:
     def compute_and_write_stats(self) -> None:
         """One eval per row at the shared counter: the solo Trainer's
         ``compute_stats`` and stat line, with a ``[seed N]`` tag."""
+        if self.cfg.debug_nans:
+            for seed, state in zip(self.seeds, self.states):
+                check_finite_state(state, self.batchnum, f" (row seed {seed})")
         self._eval_counter += 1
         for i, (seed, dataset, state) in enumerate(zip(self.seeds, self.datasets,
                                                        self.states)):
-            out = eval_step(self.model, dataset, state.params, self.eval_data_seeds[i],
-                            self.eval_z_seed, self._eval_counter, self._epsilon_tensor(i),
-                            n=self.eval_batch_size)
-            # copies: logvar_e is the live epsilon_p, which later steps update
-            out = {k: v.detach().cpu().numpy().copy() for k, v in out.items()}
-            logvar_e = out.pop("_logvar_e")
-            epsilon = out.pop("_epsilon")
+            out, logvar_e, epsilon = eval_to_host(dataset, eval_step(
+                self.model, dataset, state.params, self.eval_data_seeds[i], self.eval_z_seed,
+                self._eval_counter, self._epsilon_tensor(i), n=self.eval_batch_size))
             rec = self.recorders[i]
             rec.append_eval(out["VAE Loss"], logvar_e, epsilon)
             self.current_epsilon[i] = epsilon
@@ -153,26 +164,40 @@ class GridTrainer:
                 self._plot_skip_noted = True
 
     def save_all(self, outdirs: Sequence[str], final: bool = False) -> None:
-        """Every row's losses.npz, model.pkl and checkpoint. In-loop saves
-        run after this step's events (batchnum == step); the final save
-        after the loop, where no events at the state's step have fired."""
+        """Every row's losses.npz, model.pkl and checkpoint, one background
+        write a row from host copies taken now (the next chunk updates the
+        rows' state in place); ``final=True`` waits for the writes. In-loop
+        saves run after this step's events (batchnum == step); the final
+        save after the loop, where no events at the state's step have
+        fired."""
         events_fired = self.batchnum == int(self.states[0].step)
+        writer = get_artifact_writer()
         for i, (state, out) in enumerate(zip(self.states, outdirs)):
-            self.recorders[i].save_npz(out, final=final)
-            save_model_pkl(os.path.join(out, "model.pkl"), state)
-            eps = float(np.asarray(self.current_epsilon[i]).reshape(-1)[0])
-            save_checkpoint(out, state, extra_meta={"current_epsilon": eps},
-                            aux={"recorder": self.recorders[i].to_state(),
-                                 "eval_counter": self._eval_counter, "epoch_num": 0,
-                                 "params_and_gradients": [],
-                                 "events_fired_at_step": events_fired})
+            state = state.host_copy()
+            meta = {"current_epsilon": float(np.asarray(self.current_epsilon[i]).reshape(-1)[0])}
+            aux = {"recorder": self.recorders[i].to_state(),
+                   "eval_counter": self._eval_counter, "epoch_num": 0,
+                   "params_and_gradients": [], "events_fired_at_step": events_fired}
+
+            def write_row(out=out, state=state, meta=meta, aux=aux):
+                StatsRecorder.from_state(aux["recorder"]).save_npz(out, final=final)
+                save_model_pkl(os.path.join(out, "model.pkl"), state)
+                save_checkpoint(out, state, extra_meta=meta, aux=aux)
+
+            writer.submit(write_row)
+        if final:
+            writer.drain()
 
     def run_chunk(self, n_steps: int) -> None:
         self.states, losses = self.train_chunk(self.states, n_steps)
         self.record_losses(losses.cpu().numpy())
 
     def record_losses(self, losses: np.ndarray) -> None:
-        for rec, row in zip(self.recorders, losses):
+        """Each row's chunk losses (host copies, the chunk starting at
+        ``batchnum``), checked under ``--debug_nans``."""
+        for seed, rec, row in zip(self.seeds, self.recorders, losses):
+            if self.cfg.debug_nans:
+                check_finite_losses(row, self.batchnum, f" (row seed {seed})")
             rec.append_train_losses(row)
 
     # ------------------------------------------------------------------
@@ -182,7 +207,9 @@ class GridTrainer:
         rows' saves: then the rows that got one save ahead roll back to
         their retained ``.prev`` checkpoint at the grid's common step, and
         that trio is promoted to current (else the newer meta step would
-        make the step guard refuse every later save)."""
+        make the step guard refuse every later save). Writes still queued
+        for these directories land first."""
+        get_artifact_writer().drain()
         for out in outdirs:
             if not checkpoint_exists(out):
                 raise FileNotFoundError(f"--resume: no checkpoint in {out}")
@@ -241,20 +268,28 @@ class GridTrainer:
         self.states = restored
 
     def train(self, outdirs: Sequence[str]) -> None:
-        self.maybe_print_banner()
-        total = self.cfg.num_batches
-        b = self.batchnum  # 0 fresh; the checkpoint's step after restore()
-        while b < total:
-            self.batchnum = b
-            if b % self.n_print == 0 and b != self._skip_events_at:
-                self.compute_and_write_stats()
-            if (b % self.n_plot == 0 or b == total - 1) and b != self._skip_events_at:
-                self.plot_all(outdirs)
-                self.save_all(outdirs)
-            n = next_event(b, total, self.n_print, self.n_plot) - b
-            self.run_chunk(n)
-            b += n
-        self.batchnum = max(total - 1, 0)
+        """The grid's loop; returns with every queued write on disk. On a
+        crash the queued writes are flushed without masking the error."""
+        writer = get_artifact_writer()
+        try:
+            self.maybe_print_banner()
+            total = self.cfg.num_batches
+            b = self.batchnum  # 0 fresh; the checkpoint's step after restore()
+            while b < total:
+                self.batchnum = b
+                if b % self.n_print == 0 and b != self._skip_events_at:
+                    self.compute_and_write_stats()
+                if (b % self.n_plot == 0 or b == total - 1) and b != self._skip_events_at:
+                    self.plot_all(outdirs)
+                    self.save_all(outdirs)
+                n = next_event(b, total, self.n_print, self.n_plot) - b
+                self.run_chunk(n)
+                b += n
+            self.batchnum = max(total - 1, 0)
+        except BaseException:
+            writer.drain_quietly()
+            raise
+        writer.drain()
 
 
 def row_dirs(cfg: RunConfig, seeds: Sequence[int], names: Sequence[str],

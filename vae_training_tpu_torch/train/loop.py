@@ -14,7 +14,20 @@ Behavioural contract kept:
     sweep runner's rows do not);
   - per-step training losses recorded (the npz "VAE Loss" trace);
   - between events one ``train_chunk`` covers every intervening step (the
-    fused kernel or the torch path, ``kernels/dispatch.py``).
+    fused kernel or the torch path, ``kernels/dispatch.py``);
+  - saves (losses.npz, model.pkl, the checkpoint; ``--checkpoint_every``'s
+    too) are host copies taken at the event and written by the background
+    writer (``runio/background.py``); ``train`` returns with every one on
+    disk, and ``save(final=True)`` drains it;
+  - ``--profile`` traces the first chunk of more than one step with
+    ``torch.profiler`` into ``<run>/profile/``;
+  - ``--debug_nans`` (the JAX package's ``jax_debug_nans``) raises
+    ``FloatingPointError`` naming the step at the first non-finite loss of
+    a chunk (read from the host copy the loop makes anyway) or non-finite
+    parameter or moment at an eval; the torch path's chunks run under
+    ``torch.autograd.detect_anomaly`` (``kernels/dispatch.py``);
+  - ``sample_latent`` / ``sample_batch``: the serving path's prior draw and
+    ancestral sampling (``_scripts/sample.py``).
 
 Random streams: the JAX engine splits a host key chain for eval and plot
 draws; here every draw is counter-keyed (``ops/rng.py``): eval batches by
@@ -26,9 +39,12 @@ rejects the image dataset.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import sys
 import time
-from typing import Optional
+from functools import partial
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +55,7 @@ from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_train_chunk
 from ..models.networks import build_vae
 from ..ops import rng
+from ..runio.background import get_artifact_writer
 from ..runio.checkpoint import (
     checkpoint_exists,
     read_checkpoint_meta,
@@ -48,7 +65,7 @@ from ..runio.checkpoint import (
 )
 from ..runio.export import load_model_pkl, save_model_pkl
 from .state import TrainState, moment_dtype
-from .step import banner_scores, eval_step, generate, sample_z
+from .step import banner_scores, eval_step, eval_to_host, generate, sample_z
 
 N_PLOT = 50000
 N_PRINT = 5000
@@ -87,6 +104,47 @@ def check_moments(state: TrainState, adam_dtype: str, source: str) -> None:
                     f"{source}: the checkpoint's Adam moments are --adam_dtype "
                     f"{state.adam_dtype} ({k} is {t.dtype}), this run's --adam_dtype is "
                     f"{adam_dtype}; --adam_dtype must match across --resume")
+
+
+def check_finite_losses(losses: np.ndarray, step0: int, what: str = "") -> None:
+    """``--debug_nans``: raise ``FloatingPointError`` naming the step of the
+    first non-finite value of a chunk's host losses (steps from ``step0``)."""
+    bad = np.flatnonzero(~np.isfinite(np.asarray(losses).reshape(-1)))
+    if bad.size:
+        raise FloatingPointError(f"--debug_nans: non-finite training loss{what} at step "
+                                 f"{step0 + int(bad[0])}")
+
+
+def check_finite_state(state: TrainState, step: int, what: str = "") -> None:
+    """``--debug_nans``: raise ``FloatingPointError`` naming the step and the
+    leaves when a parameter or Adam moment holds a non-finite value."""
+    bad = [f"{tree}[{k}]" for tree, d in (("params", state.params), ("m", state.m),
+                                           ("v", state.v))
+           for k, t in d.items() if not bool(torch.isfinite(t).all())]
+    if bad:
+        raise FloatingPointError(f"--debug_nans: non-finite state{what} at step {step}: "
+                                 f"{', '.join(bad)}")
+
+
+@contextlib.contextmanager
+def profile_chunk(dirname: str, device: torch.device):
+    """``--profile``: ``torch.profiler`` around one chunk, CPU and (on a
+    card) CUDA activities, waited for before the trace stops; the Chrome
+    trace goes to ``<dirname>/profile/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    out = os.path.join(dirname, "profile")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] one chunk traced to {path}", file=sys.stderr, flush=True)
 
 
 class Trainer:
@@ -135,6 +193,7 @@ class Trainer:
         self._plot_skip_noted = False
 
         if cfg.resume:
+            get_artifact_writer().drain()  # a save still queued for that directory
             if not checkpoint_exists(cfg.resume):
                 raise FileNotFoundError(f"--resume {cfg.resume}: no checkpoint there")
             self.state = restore_checkpoint(cfg.resume, self.device)
@@ -180,15 +239,15 @@ class Trainer:
 
     def compute_stats(self) -> dict:
         """Eval pass: ELBO components on a real batch + the analytic score
-        of a generated batch; records the eval loss and variances."""
+        of a generated batch (on the host for a ``score_on_host`` dataset);
+        records the eval loss and variances. Under ``--debug_nans`` the
+        state is checked first."""
+        if self.cfg.debug_nans:
+            check_finite_state(self.state, self.batchnum)
         counter = self._next_eval_counter()
-        out = eval_step(self.model, self.dataset, self.state.params,
-                        self.eval_data_seed, self.eval_z_seed, counter,
-                        self._epsilon_tensor(), n=self.eval_batch_size)
-        # copies: logvar_e is the live epsilon_p, which later steps update
-        out = {k: v.detach().cpu().numpy().copy() for k, v in out.items()}
-        logvar_e = out.pop("_logvar_e")
-        epsilon = out.pop("_epsilon")
+        out, logvar_e, epsilon = eval_to_host(self.dataset, eval_step(
+            self.model, self.dataset, self.state.params, self.eval_data_seed,
+            self.eval_z_seed, counter, self._epsilon_tensor(), n=self.eval_batch_size))
         self.recorder.append_eval(out["VAE Loss"], logvar_e, epsilon)
         self.current_epsilon = epsilon
         return out
@@ -208,7 +267,36 @@ class Trainer:
                   flush=True)
             self._plot_skip_noted = True
 
+    def sample_latent(self, seed: int, n: int) -> torch.Tensor:
+        """Prior draw on the trainer's device: (n, latent_dim + data_dim) =
+        z1 ⊕ z2, from the Philox streams keyed ``seed`` at counter 0."""
+        z1, z2 = sample_z(seed, 0, n, self.latent_dim, self.dataset.dimension, self.device)
+        return torch.cat([z1, z2], dim=1)
+
+    def sample_batch(self, seed: int, n: int, latents: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Ancestral sampling with the current decoder log-variance:
+        (samples, latents), the latents drawn by ``sample_latent`` unless
+        given (z1 ⊕ z2, (n, latent_dim + data_dim))."""
+        z = (self.sample_latent(seed, n) if latents is None
+             else torch.as_tensor(latents, dtype=torch.float32, device=self.device))
+        z1, z2 = z[:, :self.latent_dim], z[:, self.latent_dim:]
+        return generate(self.model, self.state.params, z1, z2, self._epsilon_tensor()), z
+
     # ------------------------------------------------------------------
+    def train(self) -> None:
+        """``train_distribution``, then the writer drained: on return every
+        in-loop artifact is on disk. On a crash the queued writes are
+        flushed (the newest checkpoint a rerun resumes from) without
+        masking the error."""
+        writer = get_artifact_writer()
+        try:
+            self.train_distribution()
+        except BaseException:
+            writer.drain_quietly()
+            raise
+        writer.drain()
+
     def train_distribution(self) -> None:
         if not self._resumed_with_aux:
             eval_batch = self.dataset.sample(self.eval_data_seed,
@@ -226,6 +314,7 @@ class Trainer:
                 progress = tqdm(total=total, initial=self.batchnum)
             except Exception:
                 progress = None
+        profiled = False
         b = self.batchnum
         last_rate_steps, last_rate_time = b, time.perf_counter()
         while b < total:
@@ -242,8 +331,14 @@ class Trainer:
                 self.plot_epoch()
                 self.save()
             n = next_event(b, total, self.n_print, self.n_plot) - b
-            self.state, losses = self.train_chunk(self.state, n)
-            self.recorder.append_train_losses(losses.cpu().numpy())
+            trace = self.cfg.profile and not profiled and n > 1
+            with profile_chunk(self.dirname, self.device) if trace else contextlib.nullcontext():
+                self.state, losses = self.train_chunk(self.state, n)
+                losses = losses.cpu().numpy()
+            profiled = profiled or trace
+            if self.cfg.debug_nans:
+                check_finite_losses(losses, b)
+            self.recorder.append_train_losses(losses)
             every = self.cfg.checkpoint_every
             if every and (b + n) // every > b // every:
                 # a between-chunk save: this step's events have not fired
@@ -268,17 +363,34 @@ class Trainer:
             "events_fired_at_step": events_fired_at_step,
         }
 
-    def _save_checkpoint(self, events_fired_at_step: bool) -> None:
+    def _snapshot(self, events_fired_at_step: bool) -> Tuple[TrainState, dict, dict]:
+        """Host copies, taken now, of what a save writes: the state (the
+        chunks update the device tensors in place), the checkpoint's meta
+        and its aux."""
         eps = float(np.asarray(self.current_epsilon).reshape(-1)[0])
-        save_checkpoint(self.dirname, self.state,
-                        extra_meta={"current_epsilon": eps},
-                        aux=self._snapshot_aux(events_fired_at_step))
+        return (self.state.host_copy(), {"current_epsilon": eps},
+                self._snapshot_aux(events_fired_at_step))
+
+    def _save_checkpoint(self, events_fired_at_step: bool) -> None:
+        state, meta, aux = self._snapshot(events_fired_at_step)
+        get_artifact_writer().submit(partial(save_checkpoint, self.dirname, state,
+                                             extra_meta=meta, aux=aux))
 
     def save(self, final: bool = False) -> None:
-        """losses.npz, model.pkl and the checkpoint. In-loop saves run after
-        this step's events (batchnum == state.step); the final save runs
-        after the loop, where no events at state.step have fired."""
-        self.recorder.save_npz(self.dirname, final=final)
-        save_model_pkl(os.path.join(self.dirname, "model.pkl"), self.state)
-        self._save_checkpoint(
-            events_fired_at_step=(self.batchnum == int(self.state.step)))
+        """losses.npz, model.pkl and the checkpoint, from host copies taken
+        now and written by the background writer; ``final=True`` waits for
+        the writes. In-loop saves run after this step's events (batchnum ==
+        state.step); the final save runs after the loop, where no events at
+        state.step have fired."""
+        state, meta, aux = self._snapshot(self.batchnum == int(self.state.step))
+        dirname = self.dirname
+
+        def write_run():
+            StatsRecorder.from_state(aux["recorder"]).save_npz(dirname, final=final)
+            save_model_pkl(os.path.join(dirname, "model.pkl"), state)
+            save_checkpoint(dirname, state, extra_meta=meta, aux=aux)
+
+        writer = get_artifact_writer()
+        writer.submit(write_run)
+        if final:
+            writer.drain()

@@ -8,7 +8,9 @@ and artifacts; training concatenates every group's rows into one launch
 back: K6a, the linear kernel's grid mode, for the linear sweep's 21 runs
 and the sigmoid sweep's 18; K6b, the MLP kernel's grid mode, for the sphere
 sweep's 15 (uniform 200|200|200 hidden widths, mixed D and L). Each trains
-as one launch per chunk.
+as one launch per chunk. The groups' saves go to the background writer
+(``runio/background.py``); ``train`` drains it at the end and counts the
+wait in plot+save.
 
 There is no fallback after the choice: a row set outside both kernels'
 envelopes raises ``MixedSweepUnavailable`` before any IO, a launch that
@@ -24,6 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 from ..config import RunConfig
 from ..kernels import linear_vae, mlp_vae
 from ..kernels.dispatch import make_grid_chunk
+from ..runio.background import get_artifact_writer
 from .grid import GridTrainer, row_dirs
 from .loop import next_event
 
@@ -103,30 +106,39 @@ class MixedGridSweep:
         b, skip_at = g0.batchnum, g0._skip_events_at
         # where a one-launch sweep spends its wall time, printed at the end
         acct = {"chunk": 0.0, "stats": 0.0, "plot_save": 0.0}
-        while b < total:
-            for g in groups:
-                g.batchnum = b
-            if b % g0.n_print == 0 and b != skip_at:
-                t0 = time.perf_counter()
+        writer = get_artifact_writer()
+        try:
+            while b < total:
                 for g in groups:
-                    g.compute_and_write_stats()
-                acct["stats"] += time.perf_counter() - t0
-            if (b % g0.n_plot == 0 or b == total - 1) and b != skip_at:
+                    g.batchnum = b
+                if b % g0.n_print == 0 and b != skip_at:
+                    t0 = time.perf_counter()
+                    for g in groups:
+                        g.compute_and_write_stats()
+                    acct["stats"] += time.perf_counter() - t0
+                if (b % g0.n_plot == 0 or b == total - 1) and b != skip_at:
+                    t0 = time.perf_counter()
+                    for g, outs in zip(groups, outdirs_per_group):
+                        g.plot_all(outs)
+                        g.save_all(outs)
+                    acct["plot_save"] += time.perf_counter() - t0
+                n = next_event(b, total, g0.n_print, g0.n_plot) - b
                 t0 = time.perf_counter()
-                for g, outs in zip(groups, outdirs_per_group):
-                    g.plot_all(outs)
-                    g.save_all(outs)
-                acct["plot_save"] += time.perf_counter() - t0
-            n = next_event(b, total, g0.n_print, g0.n_plot) - b
-            t0 = time.perf_counter()
-            self.run_chunk(n)  # ends in the losses' copy to the host
-            acct["chunk"] += time.perf_counter() - t0
-            b += n
+                self.run_chunk(n)  # ends in the losses' copy to the host
+                acct["chunk"] += time.perf_counter() - t0
+                b += n
+        except BaseException:
+            writer.drain_quietly()
+            raise
         for g in groups:
             g.batchnum = max(total - 1, 0)
+        t0 = time.perf_counter()
+        writer.drain()  # "train returned" means every in-loop write is on disk
+        acct["plot_save"] += time.perf_counter() - t0
         print(f"[sweep] wall accounting: banners {t_banner:.3f}s, train chunks "
               f"{acct['chunk']:.3f}s, stat evals {acct['stats']:.3f}s, plot+save "
-              f"{acct['plot_save']:.3f}s over {self.n_rows} rows (synchronous IO)",
+              f"{acct['plot_save']:.3f}s over {self.n_rows} rows (writes in the background: "
+              f"plot+save counts the snapshots, the figures and the wait at the end)",
               flush=True)
 
 

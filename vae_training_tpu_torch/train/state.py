@@ -68,6 +68,12 @@ class TrainState:
         return replace(self, params=move(self.params), m=move(self.m),
                        v=move(self.v))
 
+    def host_copy(self) -> "TrainState":
+        """A copy in host memory that later in-place updates do not reach
+        (bfloat16 moments stay bfloat16): what the background writer saves."""
+        copy = lambda d: {k: t.detach().to("cpu", copy=True) for k, t in d.items()}  # noqa: E731
+        return replace(self, params=copy(self.params), m=copy(self.m), v=copy(self.v))
+
     @property
     def adam_dtype(self) -> str:
         """"bf16" when any moment is stored in bfloat16, else "f32"."""

@@ -99,7 +99,9 @@ def eval_step(model: VAE, dataset: DistributionDataset, params,
               n: int = 1000) -> Dict[str, torch.Tensor]:
     """One eval pass: a real batch and a prior draw at counter ``counter``,
     the ELBO decomposition on the real batch, and the dataset's analytic
-    score of a generated batch (decoded with the caller's ``epsilon``)."""
+    score of a generated batch (decoded with the caller's ``epsilon``). A
+    dataset that scores on the host (``score_on_host``) gets the generated
+    batch back as ``_fake`` instead, for ``eval_to_host``."""
     real = dataset.sample(data_seed, counter, n)
     z1, z2 = sample_z(z_seed, counter, n, model.latent_dim, dataset.dimension,
                       real.device)
@@ -107,8 +109,25 @@ def eval_step(model: VAE, dataset: DistributionDataset, params,
     loss, dkl, mse, logvar_e, eps_out = loss_terms(model, params, real, z1, z2)
     out = {"VAE Loss": loss, "KL divergence": dkl, "mse": mse,
            "_logvar_e": logvar_e, "_epsilon": eps_out}
-    out.update(sorted_scores(dataset.score(fake)))
+    if getattr(dataset, "score_on_host", False):
+        out["_fake"] = fake
+    else:
+        out.update(sorted_scores(dataset.score(fake)))
     return out
+
+
+def eval_to_host(dataset: DistributionDataset, out: Dict[str, torch.Tensor]
+                 ) -> Tuple[dict, np.ndarray, np.ndarray]:
+    """``eval_step``'s output on the host: (stats, logvar_e, epsilon), the
+    stats as numpy copies (``logvar_e`` is the live ``epsilon_p``, which
+    later steps update in place), a host-scored dataset's scores computed
+    from the generated batch, in sorted key order."""
+    out = {k: v.detach().cpu().numpy().copy() for k, v in out.items()}
+    logvar_e, epsilon = out.pop("_logvar_e"), out.pop("_epsilon")
+    fake = out.pop("_fake", None)
+    if fake is not None:
+        out.update(sorted_scores(dataset.score_host(fake)))
+    return out, logvar_e, epsilon
 
 
 def sorted_scores(scores: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -121,6 +140,10 @@ def sorted_scores(scores: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def banner_scores(dataset: DistributionDataset, batch: torch.Tensor) -> Dict[str, np.ndarray]:
     """The "Score for real data" values as the JAX engine prints them: sorted
-    keys, each a 0-d float32 array (``array(0., dtype=float32)``)."""
+    keys, each a 0-d float32 array (``array(0., dtype=float32)``); a
+    host-scored dataset's ``score_host`` values as they come (a float and
+    float64 arrays)."""
+    if getattr(dataset, "score_on_host", False):
+        return sorted_scores(dataset.score_host(batch.detach().cpu().numpy()))
     return {k: np.asarray(v.detach().cpu().numpy(), np.float32)
             for k, v in sorted_scores(dataset.score(batch)).items()}
