@@ -20,7 +20,8 @@ csrc/probes.cu and, for T1, the training kernels' sampler; then the MLP kernel's
 split into its parts, then the linear kernel's; last, the port's surfaces
 beyond the kernels: the bench, the sampler, the background artifact
 writer, the gaussian dataset, --profile, --debug_nans and the closed-form
-ELBO floor on K1. Thirty-nine phases:
+ELBO floor on K1; then the torch path as one CUDA graph replay a step, the
+warm starts and --track_correlation. Forty-two phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -185,7 +186,25 @@ ELBO floor on K1. Thirty-nine phases:
      it at the first non-finite loss; a clean run equals phase 5 bitwise;
  39. the closed-form ELBO floor oracle of tests/test_convergence_oracles.py
      (20000 + 200 steps, its config and its three asserts) through K1, on
-     the port's own dataset matrix A.
+     the port's own dataset matrix A;
+ 40. the torch path's graph form (train/step.py GraphChunk) against its
+     op-by-op chunk from the same state, 200 steps: sphere row 1 with
+     --kernels torch, gaussian 512|512 and the grid's torch path at linear
+     row 1 with --seed_grid 2,3,4 (losses, parameters and moments bitwise,
+     or within tests/kernel_test_helpers.py's tolerances where cuBLAS picks
+     another algorithm under capture; the phase says which held); wall ms a
+     step, the CUDA-event span and the profiler's kernel time a step, and
+     the busy share, for both forms; the CLI with --kernels torch, 300
+     steps, equal to 150 steps and --resume bitwise; --debug_nans and
+     -nojit op by op, the [kernels] line saying so; a capture that fails
+     raises and runs nothing op by op;
+ 41. -ws through the CLI: linear row 1 on K1 and a sigmoid run (latent 7)
+     on K2, each starting below its cold start, and --seed_grid 2,3,4 -ws
+     on K6a, every row equal to its solo -ws K1 run bitwise;
+ 42. --track_correlation on linear row 1 through K1: losses.npz carries the
+     whole-tree ratio and the per-parameter ones under the JAX package's
+     names, all finite, and a run resumed from 1500 steps equals the
+     uninterrupted run bitwise.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -391,9 +410,9 @@ def main() -> int:
         return rc, buf.getvalue(), time.perf_counter() - t
 
     k1.run_fused_chunk.launches = 0
-    torch_step.train_chunk.calls = 0
+    _torch_chunks(torch_step, reset=True)
     rc, out, secs = cli("main", 12000)
-    launches, plain_calls = k1.run_fused_chunk.launches, torch_step.train_chunk.calls
+    launches, plain_calls = k1.run_fused_chunk.launches, _torch_chunks(torch_step)
     batch_lines = [ln for ln in out.splitlines() if ln.startswith(("Batch |", "[kernels]", "Score"))]
     print("\n".join(batch_lines))
     print(f"main path: rc {rc}, {secs:.2f} s, K1 launches {launches}, "
@@ -481,6 +500,7 @@ def main() -> int:
     _mlp_split(torch, np, smi)
     _linear_split(torch, np, smi)
     _surfaces(torch, np, smi, records, data_dir, run_dir, os.path.join(sweeps_dir, "main_K5"))
+    _graph_and_library(torch, np, smi, data_dir, run_dir)
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -633,9 +653,9 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
             ("K5", SPHERE_ROW1, k5.run_mlp_fused_chunk, ("Sphere Error", "Padding Error"))):
         name = f"main_{label}"
         counter.launches = 0
-        torch_step.train_chunk.calls = 0
+        _torch_chunks(torch_step, reset=True)
         rc, out, secs = cli(row, name, 12000)
-        launches[label], plain_calls = counter.launches, torch_step.train_chunk.calls
+        launches[label], plain_calls = counter.launches, _torch_chunks(torch_step)
         print("\n".join(ln for ln in out.splitlines()
                         if ln.startswith(("Batch |", "[kernels]", "Score"))))
         print(f"{label} main path: rc {rc}, {secs:.2f} s, {label} launches {launches[label]}, "
@@ -849,7 +869,7 @@ def _grids(torch, np, smi, solo_dir, data_dir):
     counters = (k1.run_grid_chunk, k1.run_fused_chunk)
     for c in counters:
         c.launches = 0
-    torch_step.train_chunk.calls = 0
+    _torch_chunks(torch_step, reset=True)
     k1.plain_grid_chunk.calls = 0
     cfg = parse_arguments(["grid", *ROW1, "--num_batches", "12000", "--kernels", "cuda",
                            "--device", "cuda", "--data_dir", data_dir, "--seed_grid", "2,3,4"])
@@ -861,7 +881,7 @@ def _grids(torch, np, smi, solo_dir, data_dir):
     secs = time.perf_counter() - t
     out = buf.getvalue()
     grid_launches, solo_launches = (c.launches for c in counters)
-    plain = torch_step.train_chunk.calls + k1.plain_grid_chunk.calls
+    plain = _torch_chunks(torch_step) + k1.plain_grid_chunk.calls
     print("\n".join(ln for ln in out.splitlines()
                     if ln.startswith(("[kernels]", "[seed 2]"))))
     print(f"seed grid: rc {rc}, {secs:.2f} s for 3 rows, K6a launches {grid_launches}, "
@@ -881,7 +901,7 @@ def _grids(torch, np, smi, solo_dir, data_dir):
     def run_sweep(which, sub, num_batches, *extra):
         for c in counters:
             c.launches = 0
-        torch_step.train_chunk.calls = 0
+        _torch_chunks(torch_step, reset=True)
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -899,11 +919,11 @@ def _grids(torch, np, smi, solo_dir, data_dir):
         print("\n".join(ln for ln in out.splitlines() if ln.startswith("[kernels]")))
         print("\n".join(acct))
         print(f"{which} sweep: rc {rc}, {secs:.2f} s, K6a launches {grid_n}, solo launches "
-              f"{solo_n}, plain chunks {torch_step.train_chunk.calls}")
+              f"{solo_n}, plain chunks {_torch_chunks(torch_step)}")
         require(rc == 0, f"{which} sweep returned 0")
         require(f"[kernels] cuda: K6a, the grid mode of the fused linear-VAE kernel, {rows} "
                 f"rows in one launch a chunk" in out, f"{which}: one launch over {rows} rows")
-        require(grid_n == 4 and solo_n == 0 and torch_step.train_chunk.calls == 0,
+        require(grid_n == 4 and solo_n == 0 and _torch_chunks(torch_step) == 0,
                 f"{which}: one K6a launch a chunk and nothing else")
         require(any("wall accounting: banners" in ln for ln in acct),
                 f"{which}: the wall-accounting line")
@@ -1016,8 +1036,8 @@ def _mlp_grids(torch, np, smi, solo_sphere_dir, data_dir):
     dev = torch.device("cuda")
     hidden = (200, 200, 200)
     counters = (k5.run_grid_chunk, k5.run_mlp_fused_chunk, k1.run_grid_chunk,
-                k1.run_fused_chunk, torch_step.train_chunk, k5.plain_grid_chunk,
-                k1.plain_grid_chunk)
+                k1.run_fused_chunk, torch_step.train_chunk, torch_step.GraphChunk,
+                k5.plain_grid_chunk, k1.plain_grid_chunk)
 
     def reset_counts():
         for c in counters:
@@ -1027,7 +1047,7 @@ def _mlp_grids(torch, np, smi, solo_sphere_dir, data_dir):
                 c.calls = 0
 
     def plain_chunks():
-        return (torch_step.train_chunk.calls + k5.plain_grid_chunk.calls
+        return (_torch_chunks(torch_step) + k5.plain_grid_chunk.calls
                 + k1.plain_grid_chunk.calls)
 
     def family(cfgs, seeds):
@@ -1379,7 +1399,8 @@ def _bf16_moments(torch, np, smi, data_dir):
     hidden = (200, 200, 200)
     counters = (k1.run_fused_chunk, k1.run_grid_chunk, k5.run_mlp_fused_chunk,
                 k5.run_grid_chunk)
-    plain_counters = (torch_step.train_chunk, k1.plain_grid_chunk, k5.plain_grid_chunk)
+    plain_counters = (torch_step.train_chunk, torch_step.GraphChunk, k1.plain_grid_chunk,
+                      k5.plain_grid_chunk)
 
     def reset_counts():
         for c in counters:
@@ -2508,7 +2529,8 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     repo = os.path.dirname(os.path.abspath(__file__))
     counters = {"K1/K2": (k1.run_fused_chunk, "launches"), "K6a": (k1.run_grid_chunk, "launches"),
                 "K5": (k5.run_mlp_fused_chunk, "launches"), "K6b": (k5.run_grid_chunk, "launches"),
-                "torch path": (torch_step.train_chunk, "calls")}
+                "torch path": (torch_step.train_chunk, "calls"),
+                "torch graph": (torch_step.GraphChunk, "calls")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -2719,8 +2741,9 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     banner = re.search(r"^Score for real data: (\{.*?\})$", out, re.M | re.S)
     require(rc == 0 and banner is not None, "the gaussian run returned 0 with its banner")
     print("Score for real data: " + " ".join(banner.group(1).split()))
-    require("[kernels] torch: plain PyTorch path" in out and n["torch path"] > 0
-            and sum(n.values()) == n["torch path"], f"the torch path and no kernel ({n})")
+    torch_n = n["torch path"] + n["torch graph"]
+    require("[kernels] torch: plain PyTorch path" in out and torch_n > 0
+            and sum(n.values()) == torch_n, f"the torch path and no kernel ({n})")
     require("'ground truth eigenvalue': array(" in banner.group(1)
             and "'learnt eigenvalue': array(" in banner.group(1),
             "the banner carries the eigenvalue arrays")
@@ -2741,7 +2764,8 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     rate = _steps_per_second(torch, lambda: torch_step.train_chunk(
         model, ds, state, 50, batch_size=B, lr=1e-3), 50)
     print(f"card: {smi}")
-    print(f"gaussian on the torch path (512|512, D 12, L 20, batch {B}): {rate:.1f} steps/s "
+    print(f"gaussian on the torch path op by op (512|512, D 12, L 20, batch {B}): "
+          f"{rate:.1f} steps/s "
           f"({1e3 / rate:.4f} ms/step); the CLI run: eval loss {evals[0]:.3f} -> "
           f"{evals[300]:.3f}, {secs:.2f} s for 400 steps with 4 evals")
 
@@ -2750,7 +2774,8 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     reset_counts()
     rc, out, _ = cli("prof", ROW1, 12000, "--kernels", "cuda", "--profile")
     n = counts()
-    require(rc == 0 and n["K1/K2"] > 0 and n["torch path"] == 0, f"K1 ran ({n})")
+    require(rc == 0 and n["K1/K2"] > 0 and n["torch path"] + n["torch graph"] == 0,
+            f"K1 ran ({n})")
     trace = os.path.join(data_dir, "prof", "profile", "trace.json")
     require(os.path.exists(trace), "the trace exists")
     with open(trace) as f:
@@ -2822,7 +2847,8 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     trainer.state, losses = trainer.train_chunk(trainer.state, 200)
     eps_b = float(trainer.state.params["epsilon"][0]) * -1.0
     secs = time.perf_counter() - t
-    require(counts()["K1/K2"] == 2 and counts()["torch path"] == 0, "two K1 launches")
+    require(counts()["K1/K2"] == 2 and counts()["torch path"] + counts()["torch graph"] == 0,
+            "two K1 launches")
     l_obs = float(losses.mean())
     gap = l_obs - floor(0.5 * (eps_a + eps_b))
     print(f"A's singular values {np.sqrt(s2)}; eps {eps_a:.4f} -> {eps_b:.4f}; loss "
@@ -2843,6 +2869,299 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     print(f"roundtrip singular values {roundtrip} against A's {np.sqrt(s2)}")
     require(bool(np.allclose(roundtrip[:2], np.sqrt(s2)[:2], rtol=0.05, atol=0)),
             "(3) c_i·d_i = s_i on the strong directions")
+
+
+def _graph_and_library(torch, np, smi, data_dir, solo_dir):
+    """Phases 40-42: the torch path as one CUDA graph replay a step
+    (``train/step.py`` ``GraphChunk``) against its op-by-op chunk, then the
+    library surface on the card: warm starts through K1, K2 and K6a, and
+    ``--track_correlation`` through K1. ``solo_dir`` is phase 5's run."""
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments
+    from vae_training_tpu_torch.data import get_dataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels.dispatch import make_grid_chunk
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState, step as torch_step
+
+    dev = torch.device("cuda")
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(name, row, num_batches, *extra):
+        cfg = parse_arguments([name, *row, "--num_batches", str(num_batches), "--device",
+                               "cuda", "--data_dir", data_dir, *extra])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue()
+
+    def kernels_line(out):
+        return next(ln for ln in out.splitlines() if ln.startswith("[kernels]"))
+
+    # --- 40 --------------------------------------------------------------
+    phase(40, "the torch path as one CUDA graph replay a step against its op-by-op chunk: "
+              "sphere row 1 (--kernels torch), gaussian 512|512, the grid's torch path at "
+              "linear row 1 (--seed_grid 2,3,4), 200 steps each")
+    gauss = ["--dataset", "gaussian", "-dd", "3", "--padding_dim", "9", "--latent_dim", "20",
+             "-ow", "-lr", "1e-3"]
+
+    def setup(flags, seed=None):
+        cfg = parse_arguments(["g40", *flags, "--device", "cuda", "--kernels", "torch"])
+        seed = cfg.dataset_seed if seed is None else seed
+        ds = get_dataset(cfg.dataset, seed, cfg, device=dev)
+        model = build_vae(data_dim=ds.dimension, latent_dim=cfg.latent_dimension,
+                          encoder_layer_sizes=cfg.encoder_layer_sizes,
+                          decoder_layer_sizes=cfg.layer_sizes, epsilon=cfg.epsilon,
+                          tunable_decoder_var=cfg.tunable_decoder_var, dataset_name=cfg.dataset)
+        model.init_parameters(cfg.model_seed)
+        model.to(dev)
+        state = TrainState.create(dict(model.named_parameters()),
+                                  rng.derive_seed(seed, rng.SEED_TRAIN_DATA),
+                                  rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z))
+        return cfg, ds, model, state
+
+    def copy(state):
+        return dataclasses.replace(state, **{t: {k: x.clone() for k, x in getattr(state, t).items()}
+                                             for t in ("params", "m", "v")})
+
+    def hold(label, tol, eager, graph):
+        """Bitwise, else tests/kernel_test_helpers.py's tolerances (cuBLAS
+        may pick another algorithm under capture); says which held."""
+        (se, le), (sg, lg) = eager, graph
+        pairs = [("losses", "losses", le, lg)] + [
+            (t, f"{t}[{k}]", getattr(se, t)[k], getattr(sg, t)[k])
+            for t in ("params", "m", "v") for k in se.params]
+        require(all(bool(torch.isfinite(b).all()) for _, _, _, b in pairs), f"{label}: finite")
+        require((se.step, se.count) == (sg.step, sg.count), f"{label}: the same step and count")
+        if all(torch.equal(a, b) for _, _, a, b in pairs):
+            print(f"{label}: graph = eager bitwise (losses, parameters, moments)")
+            return
+        worst = 0.0
+        for tree, name, a, b in pairs:
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(b, a, *tol[tree], err_msg=f"{label} {name}")
+            worst = max(worst, float(np.abs(a - b).max()))
+        print(f"{label}: graph = eager within tests/kernel_test_helpers.py's tolerances "
+              f"(not bitwise; max |delta| {worst:.3e})")
+
+    def kernel_ms(fn):
+        """Device time of ``fn`` as the sum of its CUDA kernels' durations in
+        a torch.profiler trace (None when the trace holds no kernel)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.NamedTemporaryFile(suffix=".json") as f:
+            prof.export_chrome_trace(f.name)
+            with open(f.name) as g:
+                events = json.load(g)["traceEvents"]
+        durs = [e["dur"] for e in events if e.get("cat") == "kernel"]
+        return (sum(durs) / 1e3 if durs else None), len(durs)
+
+    def timed(label, fn, steps, traced):
+        """Wall ms a step (host clock to a sync) and the CUDA-event span a
+        step over one call of ``steps``, and the profiler's kernel time a
+        step over one call of ``traced`` steps."""
+        fn(2)  # warm: a graph chunk given a new state captures here
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        fn(steps)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / steps
+        event = e0.elapsed_time(e1) / steps
+        busy, n_kernels = kernel_ms(lambda: fn(traced))
+        busy = None if busy is None else busy / traced
+        busy_txt = ("kernel time not in the trace" if busy is None else
+                    f"kernels {busy:.4f} ms a step ({n_kernels // traced} a step), "
+                    f"busy share {busy / wall:.3f}")
+        print(f"  {label}: wall {wall:.4f} ms a step, CUDA-event span {event:.4f}, {busy_txt} "
+              f"(at {time.perf_counter() - _T0:.1f} s)")
+        return wall, event, busy
+
+    steps = 200
+    print(f"card: {smi}")
+    for label, flags, tol in (("sphere row 1", SPHERE_ROW1, MLP_TOL),
+                              ("gaussian 512|512", gauss, MLP_TOL)):
+        cfg, ds, model, s0 = setup(flags)
+        kw = dict(batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
+        graph = torch_step.GraphChunk(model, ds, **kw)
+        _torch_chunks(torch_step, reset=True)
+        eager = torch_step.train_chunk(model, ds, copy(s0), steps, **kw)
+        hold(label, tol, eager, graph(copy(s0), steps))
+        require(torch_step.GraphChunk.calls == 1 and torch_step.train_chunk.calls == 1,
+                 f"{label}: one graph chunk and one eager chunk")
+        state = [copy(s0), copy(s0)]
+
+        def run_eager(n):
+            state[0] = torch_step.train_chunk(model, ds, state[0], n, **kw)[0]
+
+        def run_graph(n):
+            state[1] = graph(state[1], n)[0]
+
+        e = timed(f"{label}, eager (op by op)", run_eager, 40, 10)
+        g = timed(f"{label}, graph (one replay a step)", run_graph, steps, 20)
+        print(f"  {label}: the graph's wall time a step is {e[0] / g[0]:.2f}x shorter")
+
+    seeds = (2, 3, 4)
+    rows = [setup(ROW1, seed) for seed in seeds]
+    cfg, model = rows[0][0], rows[0][2]
+    kw = dict(batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        chunk = make_grid_chunk([model] * 3, [r[1] for r in rows], cfg)
+    line = buf.getvalue().strip()
+    print(line)
+    require(line.startswith("[kernels] torch: plain PyTorch path, row by row for 3 rows "
+                            "(--kernels torch)") and line.endswith("; one CUDA graph replay a step"),
+            "the grid's torch path names the graph form")
+    _torch_chunks(torch_step, reset=True)
+    g_states, g_losses = chunk([copy(r[3]) for r in rows], steps)
+    require(torch_step.GraphChunk.calls == 3 and torch_step.train_chunk.calls == 0,
+            "one graph chunk a row")
+    for i, (seed, r) in enumerate(zip(seeds, rows)):
+        hold(f"linear row 1, grid row seed {seed}", TOL,
+             torch_step.train_chunk(model, r[1], copy(r[3]), steps, **kw),
+             (g_states[i], g_losses[i]))
+    box = [[copy(r[3]) for r in rows]]
+
+    def run_grid(n):
+        box[0] = chunk(box[0], n)[0]
+
+    def run_grid_eager(n):
+        box[0] = [torch_step.train_chunk(model, r[1], s, n, **kw)[0] for r, s in zip(rows, box[0])]
+
+    e = timed("linear row 1 grid of 3, eager, a launch-step of all rows", run_grid_eager, 15, 5)
+    g = timed("linear row 1 grid of 3, graph, a launch-step of all rows", run_grid, steps, 20)
+    print(f"  the grid's graph form is {e[0] / g[0]:.2f}x shorter a step")
+
+    # the CLI: --resume in the middle of an uninterrupted run's chunk
+    tflags = [*SPHERE_ROW1, "--kernels", "torch", "--n_print", "200", "--n_plot", "300"]
+    _torch_chunks(torch_step, reset=True)
+    t = time.perf_counter()
+    rc, out = cli("g40_full", tflags, 300)
+    print(f"the CLI, 300 steps with --kernels torch: {time.perf_counter() - t:.2f} s")
+    require(rc == 0 and torch_step.GraphChunk.calls == 3 and torch_step.train_chunk.calls == 0,
+            f"the CLI ran 3 graph chunks ({torch_step.GraphChunk.calls}) and no eager one")
+    print(kernels_line(out))
+    require(kernels_line(out) == "[kernels] torch: plain PyTorch path (--kernels torch); "
+                                 "one CUDA graph replay a step", "the [kernels] line")
+    rc1, _ = cli("g40_part", tflags, 150)
+    rc2, _ = cli("g40_resumed", tflags, 300, "--resume", os.path.join(data_dir, "g40_part"))
+    require(rc1 == 0 and rc2 == 0, "the part and the resumed run returned 0")
+    _require_same_run(np, os.path.join(data_dir, "g40_full"), os.path.join(data_dir, "g40_resumed"))
+    print("chunks [0, 200), [200, 299), [299, 300) against 150 steps, then --resume: [150, 200), "
+          "...; losses.npz and model.pkl bitwise equal")
+    for flag, words in (("--debug_nans", "eager (--debug_nans"), ("-nojit", "eager (-nojit")):
+        _torch_chunks(torch_step, reset=True)
+        rc, out = cli("g40_eager", gauss, 20, "--n_print", "10", "--n_plot", "20", flag)
+        print(kernels_line(out))
+        require(rc == 0 and words in kernels_line(out) and torch_step.GraphChunk.calls == 0
+                and torch_step.train_chunk.calls > 0, f"{flag}: op by op, and the line says so")
+    # a step the graph cannot capture (a host sync in the sample) raises and runs
+    # nothing op by op; in a process of its own, so that no capture state is left here
+    code = (
+        "import torch\n"
+        "from vae_training_tpu_torch.data import SphereDataset\n"
+        "from vae_training_tpu_torch.models import build_vae\n"
+        "from vae_training_tpu_torch.train import TrainState, step\n"
+        "class Syncing(SphereDataset):\n"
+        "    def sample(self, seed, step_, n):\n"
+        "        x = super().sample(seed, step_, n)\n"
+        "        float(x.sum())\n"
+        "        return x\n"
+        "ds = Syncing(3, 3, device='cuda')\n"
+        "m = build_vae(data_dim=6, latent_dim=6, encoder_layer_sizes='8', decoder_layer_sizes='8')\n"
+        "m.init_parameters(0)\n"
+        "m.to('cuda')\n"
+        "s = TrainState.create(dict(m.named_parameters()), 1, 2)\n"
+        "try:\n"
+        "    step.GraphChunk(m, ds, batch_size=10, lr=1e-3)(s, 5)\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, 'eager chunks', step.train_chunk.calls)\n"
+        "else:\n"
+        "    print('no error')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                          text=True, timeout=300)
+    print(f"a failed capture: {proc.stdout.strip()} (at {time.perf_counter() - _T0:.1f} s)")
+    require(proc.returncode == 0 and proc.stdout.startswith("raised")
+            and proc.stdout.strip().endswith("eager chunks 0"),
+            f"a failed capture raises and runs no eager chunk:\n{proc.stderr[-2000:]}")
+
+    # --- 41 --------------------------------------------------------------
+    phase(41, "-ws on the card: linear row 1 through K1, a sigmoid run (latent 7) through "
+              "K2, --seed_grid 2,3,4 -ws through K6a, 2000 steps each")
+    launch = (k1.run_fused_chunk, k1.run_grid_chunk)
+
+    def counted(name, row, *extra):
+        for c in launch:
+            c.launches = 0
+        _torch_chunks(torch_step, reset=True)
+        rc, out = cli(name, row, 2000, "--kernels", "cuda", *extra)
+        require(rc == 0 and _torch_chunks(torch_step) == 0, f"{name}: rc 0, no torch path")
+        return out, [c.launches for c in launch]
+
+    def first_eval(run):
+        return float(np.load(os.path.join(data_dir, run, "losses.npz"))["VAE Loss"][0])
+
+    out, (solo_n, grid_n) = counted("ws_lin", ROW1, "-ws")
+    require(solo_n > 0 and grid_n == 0 and "K1" in kernels_line(out), "-ws on K1")
+    sig_ws = [a if a != "6" else "7" for a in SIGMOID_ROW1]  # latent 7 = dd 3 + 1 + pd 3
+    counted("ws_sig_cold", sig_ws)
+    out, (solo_n, _) = counted("ws_sig", sig_ws, "-ws")
+    require(solo_n > 0 and "K2" in kernels_line(out), "-ws on K2")
+    for label, warm, cold in (("linear row 1 (K1)", "ws_lin", os.path.relpath(solo_dir, data_dir)),
+                              ("sigmoid, latent 7 (K2)", "ws_sig", "ws_sig_cold")):
+        w, c = first_eval(warm), first_eval(cold)
+        print(f"{label}: the first eval loss {w:.4f} with -ws, {c:.4f} cold")
+        require(w < c, f"{label}: -ws starts below the cold start")
+    for seed in (3, 4):
+        counted(f"ws_lin{seed}", ROW1, "-ws", "-ds", str(seed))
+    out, (solo_n, grid_n) = counted("ws_grid", ROW1, "-ws", "--seed_grid", "2,3,4")
+    print(kernels_line(out))
+    require(grid_n > 0 and solo_n == 0 and "K6a" in kernels_line(out), "the -ws grid on K6a")
+    for seed, solo in ((2, "ws_lin"), (3, "ws_lin3"), (4, "ws_lin4")):
+        _require_same_run(np, os.path.join(data_dir, solo),
+                          os.path.join(data_dir, f"ws_grid_seed{seed}"))
+    print(f"K6a launches {grid_n}; rows seed 2, 3, 4 equal their solo -ws K1 runs bitwise")
+
+    # --- 42 --------------------------------------------------------------
+    phase(42, "--track_correlation on linear row 1 through K1, 3000 steps; --resume from 1500")
+    tc = ["--track_correlation", "--n_print", "1000", "--n_plot", "3000"]
+    k1.run_fused_chunk.launches = 0
+    _torch_chunks(torch_step, reset=True)
+    rc, out = cli("tc", ROW1, 3000, "--kernels", "cuda", *tc)
+    require(rc == 0 and k1.run_fused_chunk.launches > 0 and _torch_chunks(torch_step) == 0,
+            "--track_correlation trains on K1")
+    z = np.load(os.path.join(data_dir, "tc", "losses.npz"))
+    names = {"Correlation Ratio"} | {f"Correlation Ratio/{p}" for p in (
+        "Decoder/FC0/bias", "Decoder/FC0/kernel", "Encoder/FC0/bias", "Encoder/FC0/kernel",
+        "epsilon", "epsilon_p")}
+    got = {k for k in z.files if k.startswith("Correlation Ratio")}
+    require(got == names, f"the JAX package's ratio keys ({sorted(got)})")
+    for k in sorted(names):
+        require(z[k].shape == (3,) and bool(np.all(np.isfinite(z[k]))), f"{k}: 3 finite ratios")
+        print(f"{k}: {z[k]}")
+    rc1, _ = cli("tc_part", ROW1, 1500, "--kernels", "cuda", *tc)
+    rc2, _ = cli("tc_resumed", ROW1, 3000, "--kernels", "cuda", *tc, "--resume",
+                 os.path.join(data_dir, "tc_part"))
+    require(rc1 == 0 and rc2 == 0, "the part and the resumed run returned 0")
+    _require_same_run(np, os.path.join(data_dir, "tc"), os.path.join(data_dir, "tc_resumed"))
+    print("the resumed run's ratios (and all of losses.npz, model.pkl) equal the "
+          "uninterrupted run's bitwise")
+
+
+def _torch_chunks(torch_step, reset: bool = False) -> int:
+    """Chunks the torch path ran, op by op (``train_chunk``) or as CUDA-graph
+    replays (``GraphChunk``); ``reset`` sets both counts to 0 first."""
+    if reset:
+        torch_step.train_chunk.calls = torch_step.GraphChunk.calls = 0
+    return torch_step.train_chunk.calls + torch_step.GraphChunk.calls
 
 
 def _ulp_keys(torch, x):

@@ -173,7 +173,7 @@ def test_mlp_seed_grid_prints_its_per_row_choice(tmp_path, capsys):
     (["--seed_grid", "2,x"], ValueError, "comma-separated integers"),
     (["--seed_grid", "2,2"], ValueError, "repeats a seed"),
     (["--mesh", "dp=2"], NotImplementedError, "item 11"),
-    (["--warm_start"], NotImplementedError, "item 10"),
+    (["--track_correlation"], NotImplementedError, "solo-run diagnostic"),
 ])
 def test_grid_refuses_what_it_cannot_run(tmp_path, extra, exc, match):
     if torch.cuda.is_available() and "cuda" in extra:

@@ -469,7 +469,8 @@ def _launch_counts(reset: bool = False) -> dict:
                 "K6b": (mlp_vae.run_grid_chunk, "launches"),
                 "plain K6a": (linear_vae.plain_grid_chunk, "calls"),
                 "plain K6b": (mlp_vae.plain_grid_chunk, "calls"),
-                "torch path": (torch_step.train_chunk, "calls")}
+                "torch path": (torch_step.train_chunk, "calls"),
+                "torch graph": (torch_step.GraphChunk, "calls")}
     if reset:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)

@@ -16,8 +16,14 @@ unchanged. What differs from the JAX package:
     past the kernels' tolerances, PERF.md). The reference's bf16-operand
     meaning (its default) is still to come, on every kernel and path
     together (ROADMAP).
-  - Flags whose machinery is not ported yet raise ``NotImplementedError``
-    naming the ROADMAP item that ports them (``validate``).
+  - ``-ws`` runs the analytic warm start (``models/warm_start.py``), solo
+    and in a seed grid; ``-wsl`` parses and does nothing, as in the JAX
+    package (nothing there reads it); ``--track_correlation`` records the
+    correlation ratios (``train/loop.py``, ``utils/trees.py``).
+  - Flags whose machinery is not ported yet (``--mesh``, ``--multihost``,
+    ``--ckpt_backend orbax``, ``--arch conv``) raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them
+    (``validate``).
 """
 
 from __future__ import annotations
@@ -127,11 +133,6 @@ class RunConfig:
                                      "ROADMAP Queue 1 item 12 (orbax is left out)"),
             "--arch conv": (self.arch == "conv",
                             "ROADMAP Queue 1 item 9 (epoch mode and the conv VAE)"),
-            "--warm_start/--warm_start_linear": (
-                self.warm_start or self.warm_start_linear,
-                "ROADMAP Queue 1 item 10 (library surface)"),
-            "--track_correlation": (self.track_correlation,
-                                    "ROADMAP Queue 1 item 10 (library surface)"),
         }
         if self.seed_grid and not self.grid_seeds():
             raise ValueError(f"--seed_grid names no seed: {self.seed_grid!r}")

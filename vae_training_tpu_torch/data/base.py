@@ -18,7 +18,11 @@ class DistributionDataset:
     """An infinite sampler over a known manifold, with analytic scoring.
 
     Subclasses implement ``sample(seed, step, n)``, ``score(batch)``,
-    ``plot_batch(batch, fn)`` and the ``ndim`` property."""
+    ``plot_batch(batch, fn)`` and the ``ndim`` property. ``step`` is a
+    Python int or a device int64 tensor (the CUDA-graph chunk's counter,
+    ``train/step.py``), with the same batch either way; a sample runs
+    only device work (no ``.item()``, no numpy), so a graph can capture
+    it."""
 
     @property
     def ndim(self) -> int:
@@ -35,7 +39,7 @@ class DistributionDataset:
             d *= int(s)
         return d
 
-    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int) -> torch.Tensor:
         raise NotImplementedError
 
     def score(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:

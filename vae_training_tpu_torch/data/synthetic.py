@@ -52,6 +52,7 @@ class GaussianDataset(DistributionDataset):
         self.dim = dim
         self.padding_dim = padding_dim
         self.noise_level = float(noise_level)
+        self._pad_scale = float(np.sqrt(np.float32(self.noise_level)))
         self._device = torch.device(device)
 
     @property
@@ -66,7 +67,7 @@ class GaussianDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim
 
-    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int) -> torch.Tensor:
         """(n, ndim) batch at counter ``step``: the core from
         STREAM_MANIFOLD, the padding from STREAM_OBS scaled by
         √noise_level (zeros when either the noise or the padding is 0)."""
@@ -74,7 +75,7 @@ class GaussianDataset(DistributionDataset):
         if self.noise_level > 0 and self.padding_dim > 0:
             pad = rng.normals(seed, step, n, rng.STREAM_OBS, self.padding_dim,
                               device=self.device)
-            return torch.cat([core, pad * float(np.sqrt(np.float32(self.noise_level)))], dim=1)
+            return torch.cat([core, pad * self._pad_scale], dim=1)
         return pad_with_zeros(core, self.padding_dim)
 
     def score(self, batch: torch.Tensor) -> Dict[str, np.ndarray]:
@@ -132,6 +133,7 @@ class LinearGaussianDataset(DistributionDataset):
         self.intrinsic_dim = intrinsic_dim
         self.padding_dim = padding_dim
         self.var_added = float(var_added)
+        self._obs_scale = float(np.sqrt(np.float32(self.var_added)))
 
     @classmethod
     def create(cls, seed: int, dimension: int = 3, intrinsic_dimension: int = 3,
@@ -156,7 +158,7 @@ class LinearGaussianDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim
 
-    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int) -> torch.Tensor:
         """(n, ndim) batch at counter ``step`` of the stream keyed ``seed``:
         intrinsic normals from STREAM_MANIFOLD, observation noise from
         STREAM_OBS."""
@@ -166,7 +168,7 @@ class LinearGaussianDataset(DistributionDataset):
         if self.var_added > 0:
             noise = rng.normals(seed, step, n, rng.STREAM_OBS, self.ndim,
                                 device=self.device)
-            y = y + noise * float(np.sqrt(np.float32(self.var_added)))
+            y = y + noise * self._obs_scale
         return y
 
     def score(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -211,7 +213,7 @@ class SigmoidDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim + 1
 
-    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int) -> torch.Tensor:
         z = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
                         device=self.device)
         out = torch.cat([z, torch.sigmoid(z @ self.A)], dim=1)
@@ -277,7 +279,7 @@ class SphereDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim
 
-    def sample(self, seed: int, step: int, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int) -> torch.Tensor:
         g = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
                         device=self.device)
         norm2 = torch.sum(g * g, dim=1, keepdim=True)

@@ -12,15 +12,22 @@ Port of ``vae_training_tpu/kernels/dispatch.py:19-40``. ``--kernels``:
     can run;
   - ``torch``: the plain torch path (``train/step.py``).
 
-Under ``--debug_nans`` the torch path's chunks run inside
-``torch.autograd.detect_anomaly``, which raises where a backward produces
-a NaN; every path's losses and state are checked by the engine.
+On the card the torch path runs as one CUDA graph replay a step
+(``GraphChunk``), the counterpart of the JAX chunk's one ``lax.scan``
+program; ``torch_path_form`` says when it runs op by op instead
+(``train_chunk``): on the CPU, under ``-nojit`` (the JAX package's
+disabled jit), under ``--debug_nans`` (its chunks run inside
+``torch.autograd.detect_anomaly``, which checks every backward on the
+host, as ``jax_debug_nans`` re-runs op by op), and for a chunk given
+external noise. Every path's losses and state are checked by the engine
+under ``--debug_nans``.
 
-Either way one line names the path taken and why, and ends in "with bf16
-Adam moments" under ``--adam_dtype bf16``: every path takes that mode (the
-kernels' K4 branch; the torch path's bf16 update), as the JAX package gates
-no kernel on it. There is no fallback after the choice: a kernel that fails
-to build or launch raises.
+Either way one line names the path taken and why, then "with bf16 Adam
+moments" under ``--adam_dtype bf16`` (every path takes that mode: the
+kernels' K4 branch, the torch path's bf16 update; the JAX package gates no
+kernel on it) and, for the torch path, its form after a semicolon. There
+is no fallback after the choice: a kernel that fails to build or launch,
+and a graph that fails to capture, raise.
 
 ``make_grid_chunk`` makes the same choice for the rows of a seed grid or a
 one-launch sweep (``train/grid.py``, ``train/mixed_grid.py``): K6a, the
@@ -32,6 +39,7 @@ one plain chunk per row); else the torch path row by row.
 from __future__ import annotations
 
 from functools import partial
+from typing import Tuple
 
 import torch
 
@@ -41,6 +49,32 @@ from ..train import step as torch_step
 def _moments(cfg) -> str:
     """The tail of the ``[kernels]`` line: the Adam moment dtype."""
     return " with bf16 Adam moments" if cfg.adam_dtype == "bf16" else ""
+
+
+def torch_path_form(cfg, noise: bool = False) -> Tuple[bool, str]:
+    """(graph?, the words the ``[kernels]`` line gives the form): whether
+    the torch path runs as a CUDA graph a step (``GraphChunk``) or op by op
+    (``train_chunk``), and why, for a config and a chunk with or without
+    an external noise hook."""
+    if noise:
+        return False, "eager (an external noise hook)"
+    if getattr(cfg, "device", "cuda") != "cuda":
+        return False, "eager (the CPU has no CUDA graphs)"
+    if getattr(cfg, "nojit", False):
+        return False, "eager (-nojit)"
+    if getattr(cfg, "debug_nans", False):
+        return False, ("eager (--debug_nans: each backward under "
+                       "torch.autograd.detect_anomaly, which checks on the host)")
+    return True, "one CUDA graph replay a step"
+
+
+def _torch_chunk(model, dataset, cfg):
+    """The torch path's ``chunk(state, n_steps, noise=None)`` in the form
+    ``torch_path_form`` picks."""
+    kwargs = dict(batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
+    if torch_path_form(cfg)[0]:
+        return torch_step.GraphChunk(model, dataset, **kwargs)
+    return _anomaly(partial(torch_step.train_chunk, model, dataset, **kwargs), cfg)
 
 
 def make_train_chunk(model, dataset, cfg):
@@ -72,9 +106,9 @@ def make_train_chunk(model, dataset, cfg):
         # the reason of the kernel this model's shape belongs to
         hidden = (len(model.encoder_features) > 1 or len(model.decoder_features) > 1)
         why = why_mlp if hidden else why_linear
-    print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}", flush=True)
-    return _anomaly(partial(torch_step.train_chunk, model, dataset,
-                            batch_size=cfg.batch_size, lr=float(cfg.learning_rate)), cfg)
+    print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}; "
+          f"{torch_path_form(cfg)[1]}", flush=True)
+    return _torch_chunk(model, dataset, cfg)
 
 
 def _anomaly(chunk, cfg):
@@ -127,10 +161,8 @@ def make_grid_chunk(models, datasets, cfg):
                      for m in models)
         why = reasons["K6b"] if hidden else reasons["K6a"]
     print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})"
-          f"{_moments(cfg0)}", flush=True)
-    chunks = [_anomaly(partial(torch_step.train_chunk, m, d, batch_size=c.batch_size,
-                               lr=float(c.learning_rate)), c)
-              for m, d, c in zip(models, datasets, cfgs)]
+          f"{_moments(cfg0)}; {torch_path_form(cfg0)[1]}", flush=True)
+    chunks = [_torch_chunk(m, d, c) for m, d, c in zip(models, datasets, cfgs)]
 
     def chunk(states, n_steps, noises=None):
         out = [c(s, n_steps, noise=None if noises is None else noises[i])

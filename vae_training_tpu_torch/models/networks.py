@@ -126,8 +126,10 @@ class VAE(nn.Module):
         """Decoder log-variance: learned scalar × constant, or the constant."""
         if self.tunable_decoder_var:
             return self.epsilon * self.epsilon_const
-        return torch.tensor(self.epsilon_const, dtype=torch.float32,
-                            device=self.epsilon_p.device)
+        # torch.full, not torch.tensor: a host-to-device copy breaks a CUDA
+        # graph's capture (train/step.py)
+        return torch.full((), self.epsilon_const, dtype=torch.float32,
+                          device=self.epsilon_p.device)
 
     def forward(self, x, z1, z2, sample_epsilon=None):
         """Training-mode forward: (x_hat, mu, logvar_e, epsilon). With

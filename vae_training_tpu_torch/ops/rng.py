@@ -56,6 +56,7 @@ SEED_EVAL_DATA = 2  # eval / banner real batches (JAX: fold_in(data_root, 2))
 SEED_TRAIN_Z = 3  # per-step z1/z2
 SEED_EVAL_Z = 4  # eval-time prior draws
 SEED_PLOT_Z = 5  # plot-time prior draws
+SEED_WARM_START = 6  # -ws perturbation draws (models/warm_start.py)
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -96,15 +97,24 @@ def derive_seed(seed: int, purpose: int) -> int:
     return int(w[0]) | (int(w[1]) << 32)
 
 
-def words(seed: int, step: int, rows: int, stream: int, n_draws: int,
+def words(seed: int, step, rows: int, stream: int, n_draws: int,
           device=None) -> torch.Tensor:
     """(rows, n_draws, 4) int64 Philox words at counters
-    (step, row, draw, stream) for every row < rows and draw < n_draws."""
+    (step, row, draw, stream) for every row < rows and draw < n_draws.
+
+    ``step`` is a Python int or a device int64 tensor holding the absolute
+    step (the CUDA-graph chunk's counter, ``train/step.py``): the counter
+    word is its low 32 bits either way, taken on the device for a tensor,
+    so the two forms give the same words and a captured graph reads the
+    step at replay time."""
     i64 = dict(dtype=torch.int64, device=device)
-    c0 = torch.tensor(step & MASK32, **i64)
+    if isinstance(step, torch.Tensor):
+        c0 = step.to(torch.int64) & MASK32
+    else:
+        c0 = torch.full((), step & MASK32, **i64)
     c1 = torch.arange(rows, **i64).view(rows, 1)
     c2 = torch.arange(n_draws, **i64).view(1, n_draws)
-    c3 = torch.tensor(stream, **i64)
+    c3 = torch.full((), stream, **i64)
     c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)
     out = philox4x32(c0, c1, c2, c3, *key_words(seed))
     return torch.stack(out, dim=-1)
@@ -136,9 +146,10 @@ def box_muller(w: torch.Tensor) -> torch.Tensor:
     return pairs.flatten(-2)
 
 
-def normals(seed: int, step: int, rows: int, stream: int, dim: int,
+def normals(seed: int, step, rows: int, stream: int, dim: int,
             device=None) -> torch.Tensor:
-    """(rows, dim) float32 standard normals of one stream at one step."""
+    """(rows, dim) float32 standard normals of one stream at one step
+    (``step`` an int or a device int64 tensor, as in ``words``)."""
     n_draws = (dim + 3) // 4
     w = words(seed, step, rows, stream, n_draws, device=device)
     return box_muller(w).reshape(rows, 4 * n_draws)[:, :dim]

@@ -48,11 +48,20 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def flax_keys(name: str) -> tuple:
+    """A port parameter name → its path in the flax tree:
+    ``"Decoder.FC0.kernel"`` → ``("Decoder", "FC0", "kernel")``. The one
+    name table between the two packages: the model.pkl layout and the
+    per-parameter ``Correlation Ratio/<path>`` keys (``utils/trees.py``)
+    both go through it."""
+    return tuple(name.split("."))
+
+
 def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
     tree: dict = {}
     for name, v in flat.items():
         node = tree
-        *path, leaf = name.split(".")
+        *path, leaf = flax_keys(name)
         for k in path:
             node = node.setdefault(k, {})
         node[leaf] = v

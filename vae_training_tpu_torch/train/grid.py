@@ -22,9 +22,15 @@ the host-side aux) from host copies taken at the event, on the background
 writer (``runio/background.py``); ``train`` returns with every write on
 disk, and a restore waits for queued writes first. ``--resume`` resumes
 every row from its own directory and rolls a row that saved one event
-ahead back to the grid's common step through its ``.prev`` checkpoint. The JAX package's
-mesh, multihost and warm-start branches are not ported: ``RunConfig.validate``
-raises for them, naming their ROADMAP items (Queue 1 items 10 and 11).
+ahead back to the grid's common step through its ``.prev`` checkpoint.
+
+``-ws`` gives each row its own analytic warm start over that row's
+manifold (its own ``pinv(A)``) from the shared warm-start draws, as the
+solo run with that row's seed makes it, so a warm-started row equals its
+warm-started solo run bitwise. ``--track_correlation`` and a non-gaussian
+latent are refused, with the JAX package's messages. The JAX package's mesh
+and multihost branches are not ported: ``RunConfig.validate`` raises for
+them, naming ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ..data.registry import get_dataset
 from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_grid_chunk
 from ..models.networks import build_vae
+from ..models.warm_start import apply_warm_start
 from ..ops import rng
 from ..runio.background import get_artifact_writer
 from ..runio.checkpoint import (
@@ -85,6 +92,15 @@ class GridTrainer:
             raise NotImplementedError(
                 "--seed_grid starts fresh or resumes from its own row checkpoints "
                 "(--resume); --state_dict applies to solo runs")
+        if cfg.track_correlation:
+            raise NotImplementedError(
+                "--track_correlation is a solo-run diagnostic (per-parameter "
+                "ratios against a converged target); run the row without "
+                "--seed_grid to record it")
+        if cfg.latent_distribution != "gaussian":
+            raise NotImplementedError(
+                "--seed_grid supports the gaussian latent distribution "
+                "(the CLI forces gaussian like the reference, run.py:41)")
         self.device = torch.device(cfg.device)
         self.n_print = cfg.n_print or N_PRINT
         self.n_plot = cfg.n_plot or N_PLOT
@@ -101,11 +117,16 @@ class GridTrainer:
         self.model.init_parameters(cfg.model_seed)
         self.model.to(self.device)
         params = dict(self.model.named_parameters())
+        ws_seed = rng.derive_seed(cfg.model_seed, rng.SEED_WARM_START)
         model_seed = rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z)
         self.states: List[TrainState] = [
-            TrainState.create(params, data_seed=rng.derive_seed(s, rng.SEED_TRAIN_DATA),
-                              model_seed=model_seed, adam_dtype=cfg.adam_dtype)
-            for s in self.seeds]
+            TrainState.create(
+                apply_warm_start(params, cfg.dataset, d, cfg.latent_dimension,
+                                 cfg.latent_off_dimension, ws_seed) if cfg.warm_start
+                else params,
+                data_seed=rng.derive_seed(s, rng.SEED_TRAIN_DATA),
+                model_seed=model_seed, adam_dtype=cfg.adam_dtype)
+            for s, d in zip(self.seeds, self.datasets)]
         self.eval_data_seeds = [rng.derive_seed(s, rng.SEED_EVAL_DATA) for s in self.seeds]
         self.eval_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_EVAL_Z)
         self.plot_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_PLOT_Z)

@@ -26,8 +26,20 @@ Behavioural contract kept:
     a chunk (read from the host copy the loop makes anyway) or non-finite
     parameter or moment at an eval; the torch path's chunks run under
     ``torch.autograd.detect_anomaly`` (``kernels/dispatch.py``);
+  - ``-ws`` applies the dataset's analytic warm start
+    (``models/warm_start.py``) after the init and before the state is
+    made, as the JAX engine does; ``-wsl`` parses and does nothing, as
+    there;
+  - ``--track_correlation`` records, at every stat eval, host copies of
+    the parameters and of the eval batch's gradients (autograd, whatever
+    path trains), carries them in the checkpoint's aux so that a resumed
+    run ends with the same history, and writes the correlation ratios
+    against the final parameters, whole-tree and per parameter, into the
+    final ``losses.npz`` (``utils/trees.py``);
   - ``sample_latent`` / ``sample_batch``: the serving path's prior draw and
-    ancestral sampling (``_scripts/sample.py``).
+    ancestral sampling (``_scripts/sample.py``); ``sample_latent`` and
+    ``latent_likelihood`` also take the reference's logistic latent
+    (``latent_distribution``, which the CLI forces to gaussian).
 
 Random streams: the JAX engine splits a host key chain for eval and plot
 draws; here every draw is counter-keyed (``ops/rng.py``): eval batches by
@@ -40,6 +52,7 @@ rejects the image dataset.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import sys
 import time
@@ -54,6 +67,7 @@ from ..data.base import DistributionDataset
 from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_train_chunk
 from ..models.networks import build_vae
+from ..models.warm_start import apply_warm_start
 from ..ops import rng
 from ..runio.background import get_artifact_writer
 from ..runio.checkpoint import (
@@ -64,8 +78,10 @@ from ..runio.checkpoint import (
     save_checkpoint,
 )
 from ..runio.export import load_model_pkl, save_model_pkl
+from ..utils.trees import correlation_ratio, correlation_ratio_per_param
 from .state import TrainState, moment_dtype
-from .step import banner_scores, eval_step, eval_to_host, generate, sample_z
+from .step import (banner_scores, eval_gradients, eval_step, eval_to_host, generate,
+                   sample_z)
 
 N_PLOT = 50000
 N_PRINT = 5000
@@ -176,8 +192,13 @@ class Trainer:
         self.eval_data_seed = rng.derive_seed(cfg.dataset_seed, rng.SEED_EVAL_DATA)
         self.eval_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_EVAL_Z)
         self.plot_z_seed = rng.derive_seed(cfg.model_seed, rng.SEED_PLOT_Z)
+        params = dict(self.model.named_parameters())
+        if cfg.warm_start:
+            params = apply_warm_start(
+                params, cfg.dataset, dataset, cfg.latent_dimension, cfg.latent_off_dimension,
+                rng.derive_seed(cfg.model_seed, rng.SEED_WARM_START))
         self.state = TrainState.create(
-            dict(self.model.named_parameters()),
+            params,
             data_seed=rng.derive_seed(cfg.dataset_seed, rng.SEED_TRAIN_DATA),
             model_seed=rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z),
             adam_dtype=cfg.adam_dtype)
@@ -191,6 +212,8 @@ class Trainer:
         self._resumed_with_aux = False
         self._skip_events_at = -1
         self._plot_skip_noted = False
+        # (params, grads) host copies an eval under --track_correlation
+        self.params_and_gradients: list = []
 
         if cfg.resume:
             get_artifact_writer().drain()  # a save still queued for that directory
@@ -209,6 +232,7 @@ class Trainer:
             if aux is not None:
                 self.recorder = StatsRecorder.from_state(aux["recorder"])
                 self._eval_counter = int(aux["eval_counter"])
+                self.params_and_gradients = list(aux.get("params_and_gradients", []))
                 self._resumed_with_aux = True
                 if aux.get("events_fired_at_step", False):
                     self._skip_events_at = self.batchnum
@@ -241,7 +265,8 @@ class Trainer:
         """Eval pass: ELBO components on a real batch + the analytic score
         of a generated batch (on the host for a ``score_on_host`` dataset);
         records the eval loss and variances. Under ``--debug_nans`` the
-        state is checked first."""
+        state is checked first; under ``--track_correlation`` host copies of
+        the parameters and of the eval batch's gradients are kept."""
         if self.cfg.debug_nans:
             check_finite_state(self.state, self.batchnum)
         counter = self._next_eval_counter()
@@ -250,6 +275,12 @@ class Trainer:
             self.eval_z_seed, counter, self._epsilon_tensor(), n=self.eval_batch_size))
         self.recorder.append_eval(out["VAE Loss"], logvar_e, epsilon)
         self.current_epsilon = epsilon
+        if self.cfg.track_correlation:
+            grads = eval_gradients(self.model, self.dataset, self.state.params,
+                                   self.eval_data_seed, self.eval_z_seed, counter,
+                                   n=self.eval_batch_size)
+            host = lambda d: {k: t.detach().cpu().numpy().copy() for k, t in d.items()}  # noqa: E731
+            self.params_and_gradients.append((host(self.state.params), host(grads)))
         return out
 
     def write_stats(self, stats: dict, console_only: Optional[dict] = None) -> None:
@@ -268,10 +299,40 @@ class Trainer:
             self._plot_skip_noted = True
 
     def sample_latent(self, seed: int, n: int) -> torch.Tensor:
-        """Prior draw on the trainer's device: (n, latent_dim + data_dim) =
-        z1 ⊕ z2, from the Philox streams keyed ``seed`` at counter 0."""
-        z1, z2 = sample_z(seed, 0, n, self.latent_dim, self.dataset.dimension, self.device)
-        return torch.cat([z1, z2], dim=1)
+        """Prior draw on the trainer's device, from the Philox streams keyed
+        ``seed``. Gaussian: (n, latent_dim + data_dim) = z1 ⊕ z2 at counter
+        0. Logistic: (n, latent_dim) = log(u) − log(1 − u) of the uniforms
+        of stream Z1, at counter 0, then 1, 2, … until every value is
+        finite (a uniform of exactly 1 gives +inf)."""
+        dist = self.cfg.latent_distribution
+        if dist == "gaussian":
+            z1, z2 = sample_z(seed, 0, n, self.latent_dim, self.dataset.dimension,
+                              self.device)
+            return torch.cat([z1, z2], dim=1)
+        if dist == "logistic":
+            attempt = 0
+            while True:
+                w = rng.words(seed, attempt, n, rng.STREAM_Z1, (self.latent_dim + 3) // 4,
+                              device=self.device)
+                u = rng.uniforms(w).reshape(n, -1)[:, :self.latent_dim]
+                sample = torch.log(u) - torch.log(1.0 - u)
+                if bool(torch.isfinite(sample).all()):
+                    return sample
+                attempt += 1
+        raise NotImplementedError(f"distribution {dist} is not implemented")
+
+    def latent_likelihood(self, latent_batch: torch.Tensor) -> torch.Tensor:
+        """Mean over the batch of the summed prior log-density of each
+        latent (``jax.scipy.stats`` norm or logistic ``logpdf``)."""
+        x = torch.as_tensor(latent_batch, dtype=torch.float32)
+        dist = self.cfg.latent_distribution
+        if dist == "gaussian":
+            logpdf = -0.5 * x * x - 0.5 * math.log(2.0 * math.pi)
+        elif dist == "logistic":
+            logpdf = -2.0 * torch.logaddexp(x / 2.0, -x / 2.0)
+        else:
+            raise NotImplementedError(f"distribution {dist} is not implemented")
+        return torch.mean(torch.sum(logpdf, dim=1), dim=0)
 
     def sample_batch(self, seed: int, n: int, latents: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,7 +420,7 @@ class Trainer:
             "recorder": self.recorder.to_state(),
             "eval_counter": self._eval_counter,
             "epoch_num": 0,
-            "params_and_gradients": [],
+            "params_and_gradients": list(self.params_and_gradients),
             "events_fired_at_step": events_fired_at_step,
         }
 
@@ -376,12 +437,28 @@ class Trainer:
         get_artifact_writer().submit(partial(save_checkpoint, self.dirname, state,
                                              extra_meta=meta, aux=aux))
 
+    def model_save_data(self, final: bool = False) -> None:
+        """At the final save under ``--track_correlation``: the correlation
+        ratio of every recorded eval against the final parameters, whole
+        tree and per parameter (``Correlation Ratio/<flax path>``)."""
+        if not (final and self.params_and_gradients):
+            return
+        final_params = {k: t.detach().cpu() for k, t in self.state.params.items()}
+        self.recorder.correlation_ratios = [
+            float(correlation_ratio(final_params, p, g)) for p, g in self.params_and_gradients]
+        per_param: dict = {}
+        for p, g in self.params_and_gradients:
+            for path, r in correlation_ratio_per_param(final_params, p, g).items():
+                per_param.setdefault(path, []).append(float(r))
+        self.recorder.correlation_ratios_per_param = per_param
+
     def save(self, final: bool = False) -> None:
         """losses.npz, model.pkl and the checkpoint, from host copies taken
         now and written by the background writer; ``final=True`` waits for
         the writes. In-loop saves run after this step's events (batchnum ==
         state.step); the final save runs after the loop, where no events at
         state.step have fired."""
+        self.model_save_data(final=final)
         state, meta, aux = self._snapshot(self.batchnum == int(self.state.step))
         dirname = self.dirname
 

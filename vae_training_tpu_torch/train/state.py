@@ -80,12 +80,37 @@ class TrainState:
         return "bf16" if any(t.dtype == torch.bfloat16 for t in self.m.values()) else "f32"
 
 
+def bias_correction(beta: float, count):
+    """``1 − beta**count``: a Python double for an int ``count``; for a
+    device int64 tensor (the CUDA-graph chunk's count, ``train/step.py``)
+    a float64 tensor computed on the device."""
+    if isinstance(count, torch.Tensor):
+        return 1.0 - torch.pow(beta, count.to(torch.float64))
+    return 1.0 - beta ** count
+
+
+def _unbias(x: torch.Tensor, correction) -> torch.Tensor:
+    """``x / correction`` as ATen computes it for a Python double (the int
+    form): for a CUDA tensor, a product with the double reciprocal rounded
+    to float32; for a CPU tensor, a true division by the double rounded to
+    float32. The tensor form does the same on each device, so the two
+    forms agree bitwise (``tests/test_torch_graph_chunk.py``, on the CPU
+    and on the card)."""
+    if not isinstance(correction, torch.Tensor):
+        return x / correction
+    if x.is_cuda:
+        return x * (1.0 / correction).to(torch.float32)
+    return x / correction.to(torch.float32)
+
+
 @torch.no_grad()
 def adam_update_(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                 g: torch.Tensor, count: int, lr: float) -> None:
+                 g: torch.Tensor, count, lr: float) -> None:
     """One optax.adam step in place; ``count`` is the post-increment step:
     m ← b1·m + (1−b1)·g, v ← b2·v + (1−b2)·g², p ← p − lr·m̂/(√v̂ + eps)
-    with m̂ = m/(1−b1^count), v̂ = v/(1−b2^count).
+    with m̂ = m/(1−b1^count), v̂ = v/(1−b2^count). ``count`` is a Python int
+    or a device int64 tensor (``bias_correction``); both give the same
+    update bitwise.
 
     bfloat16 moments (``moment_dtype``): m and v are computed in float32
     from the stored values and rounded once, to nearest even, by the copy
@@ -99,6 +124,6 @@ def adam_update_(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         m.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
         v.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
         m32, v32 = m, v
-    m_hat = m32 / (1.0 - ADAM_B1 ** count)
-    v_hat = v32 / (1.0 - ADAM_B2 ** count)
+    m_hat = _unbias(m32, bias_correction(ADAM_B1, count))
+    v_hat = _unbias(v32, bias_correction(ADAM_B2, count))
     p.sub_(lr * (m_hat / (torch.sqrt(v_hat) + ADAM_EPS)))
