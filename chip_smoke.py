@@ -21,7 +21,10 @@ split into its parts, then the linear kernel's; last, the port's surfaces
 beyond the kernels: the bench, the sampler, the background artifact
 writer, the gaussian dataset, --profile, --debug_nans and the closed-form
 ELBO floor on K1; then the torch path as one CUDA graph replay a step, the
-warm starts and --track_correlation. Forty-two phases:
+warm starts and --track_correlation; last, epoch mode and the conv VAE at
+the bench's conv configuration (BASELINE.json config 5), on the torch path
+as one CUDA graph replay an epoch (no TPU kernel lies on that path).
+Forty-eight phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -164,7 +167,7 @@ warm starts and --track_correlation. Forty-two phases:
      launch counts on stderr: one launch of the config's kernel a chunk and
      nothing else; each value within 25% of this run's phase 7, 13, 17 or
      21 figure for that shape (the f32 figure for the bf16 runs); --config
-     conv exits nonzero naming ROADMAP item 9;
+     conv is phase 47's;
  34. sample (vae-sample-torch) on phase 5's linear run and phase 11's
      sphere run: shapes, finite values, the same --seed bitwise, another
      seed different, and a copy of the directory holding only model.pkl
@@ -205,6 +208,28 @@ warm starts and --track_correlation. Forty-two phases:
      whole-tree ratio and the per-parameter ones under the JAX package's
      names, all finite, and a run resumed from 1500 steps equals the
      uninterrupted run bitwise.
+ 43. the conv VAE's epoch chunk (train/step.py EpochChunk) at the bench's
+     conv configuration (4096 synthetic 28x28x1 images from seed 0, batch
+     128, 32|64, latent 16, lr 1e-3, eps -1, -tdv; full width): one epoch
+     as one CUDA graph replay equal to the op-by-op epoch bitwise (32
+     losses, every parameter and Adam moment);
+ 44. the main path: the CLI's main() with --dataset image at that
+     configuration, 10 epochs (320 steps): the [kernels] line names the
+     graph form, ten graph epochs and no kernel launch or op-by-op epoch,
+     "Completed Epoch 9", args.json, losses.npz (320 losses + 11 evals)
+     and model.pkl, the eval loss falling;
+ 45. 4 epochs, then --resume to 10, equal to phase 44 bitwise;
+ 46. times: the epoch chunk op by op, as one graph replay an epoch (the
+     form EpochChunk keeps), and as one graph replay a step (the form it
+     was measured against; equal bitwise): wall ms a step, the CUDA-event
+     span, the profiler's kernel time and count a step, the busy share;
+ 47. the bench's --config conv as a subprocess (one JSON line, the JAX
+     bench's conv_step_flops, one graph epoch a chunk, within 25% of phase
+     46's graph figure) and vae-sample-torch on phase 44's run (shapes,
+     finite, a model.pkl-only copy giving the checkpoint's samples
+     bitwise);
+ 48. the synthetic corpus written to an .npz and one epoch through the CLI
+     from it, equal to phase 44's first epoch bitwise.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -253,6 +278,12 @@ SIGMOID_MLP_ROW1 = [a if a != "" else "200|200|200" for a in SIGMOID_ROW1]
 # tolerances are twice the linear kernel's
 MLP_TOL = {"losses": (3e-4, 3e-4), "params": (1e-3, 1e-5), "m": (1e-3, 1e-6),
            "v": (1e-3, 1e-9)}
+# the bench's conv configuration (_scripts/bench.py build_conv, BASELINE.json
+# config 5) as CLI flags: 4096 synthetic 28x28x1 images from seed 0, batch 128
+CONV = ["--dataset", "image", "--num_images", "4096", "--image_size", "28", "--batch_size",
+        "128", "--latent_dim", "16", "--conv_channels", "32|64", "-lr", "1e-3", "--epsilon",
+        "-1", "-tdv", "-ow", "-ds", "0"]
+CONV_NB = 4096 // 128  # steps an epoch
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet, 700 W)
 TF32_PEAK = 495e12  # dense TF32 on the tensor cores
 BF16_PEAK = 989e12  # dense bf16 on the tensor cores
@@ -501,6 +532,7 @@ def main() -> int:
     _linear_split(torch, np, smi)
     _surfaces(torch, np, smi, records, data_dir, run_dir, os.path.join(sweeps_dir, "main_K5"))
     _graph_and_library(torch, np, smi, data_dir, run_dir)
+    _epochs(torch, np, smi, os.path.join(data_dir, "epochs"))
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -2598,13 +2630,6 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
               f"{figures[config]:.1f} ({ratio:.3f}x)")
         require(abs(ratio - 1) <= 0.25, f"bench {config} {adam} within 25% of the phase's "
                                         f"figure ({ratio:.3f}x)")
-    proc = subprocess.run([sys.executable, "-m", "vae_training_tpu_torch._scripts.bench",
-                           "--config", "conv"], cwd=repo, capture_output=True, text=True,
-                          timeout=300)
-    require(proc.returncode != 0 and "item 9" in proc.stderr and not proc.stdout.strip(),
-            "bench --config conv exits nonzero naming ROADMAP item 9, with no result")
-    print(f"bench --config conv: exit {proc.returncode}, "
-          f"{proc.stderr.strip().splitlines()[-1]}")
 
     # --- 34 --------------------------------------------------------------
     phase(34, "sample (vae-sample-torch) on phase 5's linear run and phase 11's sphere run")
@@ -2946,44 +2971,6 @@ def _graph_and_library(torch, np, smi, data_dir, solo_dir):
         print(f"{label}: graph = eager within tests/kernel_test_helpers.py's tolerances "
               f"(not bitwise; max |delta| {worst:.3e})")
 
-    def kernel_ms(fn):
-        """Device time of ``fn`` as the sum of its CUDA kernels' durations in
-        a torch.profiler trace (None when the trace holds no kernel)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        with tempfile.NamedTemporaryFile(suffix=".json") as f:
-            prof.export_chrome_trace(f.name)
-            with open(f.name) as g:
-                events = json.load(g)["traceEvents"]
-        durs = [e["dur"] for e in events if e.get("cat") == "kernel"]
-        return (sum(durs) / 1e3 if durs else None), len(durs)
-
-    def timed(label, fn, steps, traced):
-        """Wall ms a step (host clock to a sync) and the CUDA-event span a
-        step over one call of ``steps``, and the profiler's kernel time a
-        step over one call of ``traced`` steps."""
-        fn(2)  # warm: a graph chunk given a new state captures here
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t = time.perf_counter()
-        e0.record()
-        fn(steps)
-        e1.record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / steps
-        event = e0.elapsed_time(e1) / steps
-        busy, n_kernels = kernel_ms(lambda: fn(traced))
-        busy = None if busy is None else busy / traced
-        busy_txt = ("kernel time not in the trace" if busy is None else
-                    f"kernels {busy:.4f} ms a step ({n_kernels // traced} a step), "
-                    f"busy share {busy / wall:.3f}")
-        print(f"  {label}: wall {wall:.4f} ms a step, CUDA-event span {event:.4f}, {busy_txt} "
-              f"(at {time.perf_counter() - _T0:.1f} s)")
-        return wall, event, busy
-
     steps = 200
     print(f"card: {smi}")
     for label, flags, tol in (("sphere row 1", SPHERE_ROW1, MLP_TOL),
@@ -3004,8 +2991,8 @@ def _graph_and_library(torch, np, smi, data_dir, solo_dir):
         def run_graph(n):
             state[1] = graph(state[1], n)[0]
 
-        e = timed(f"{label}, eager (op by op)", run_eager, 40, 10)
-        g = timed(f"{label}, graph (one replay a step)", run_graph, steps, 20)
+        e = _timed(torch, f"{label}, eager (op by op)", run_eager, 40, 10)
+        g = _timed(torch, f"{label}, graph (one replay a step)", run_graph, steps, 20)
         print(f"  {label}: the graph's wall time a step is {e[0] / g[0]:.2f}x shorter")
 
     seeds = (2, 3, 4)
@@ -3036,8 +3023,8 @@ def _graph_and_library(torch, np, smi, data_dir, solo_dir):
     def run_grid_eager(n):
         box[0] = [torch_step.train_chunk(model, r[1], s, n, **kw)[0] for r, s in zip(rows, box[0])]
 
-    e = timed("linear row 1 grid of 3, eager, a launch-step of all rows", run_grid_eager, 15, 5)
-    g = timed("linear row 1 grid of 3, graph, a launch-step of all rows", run_grid, steps, 20)
+    e = _timed(torch, "linear row 1 grid of 3, eager, a launch-step of all rows", run_grid_eager, 15, 5)
+    g = _timed(torch, "linear row 1 grid of 3, graph, a launch-step of all rows", run_grid, steps, 20)
     print(f"  the grid's graph form is {e[0] / g[0]:.2f}x shorter a step")
 
     # the CLI: --resume in the middle of an uninterrupted run's chunk
@@ -3154,6 +3141,300 @@ def _graph_and_library(torch, np, smi, data_dir, solo_dir):
     _require_same_run(np, os.path.join(data_dir, "tc"), os.path.join(data_dir, "tc_resumed"))
     print("the resumed run's ratios (and all of losses.npz, model.pkl) equal the "
           "uninterrupted run's bitwise")
+
+
+def _epochs(torch, np, smi, data_dir):
+    """Phases 43-48: epoch mode and the conv VAE on the card at the bench's
+    conv configuration (``CONV``, full width): the epoch chunk as one CUDA
+    graph replay a step against op by op, the CLI's 10 epochs, --resume,
+    times, the bench and the sampler, an .npz corpus."""
+    from vae_training_tpu_torch._scripts import bench
+    from vae_training_tpu_torch._scripts import sample as sample_mod
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments, use_fp32_math
+    from vae_training_tpu_torch.data import ImageDataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models.conv import build_conv_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState, step as torch_step
+
+    dev = torch.device("cuda")
+    use_fp32_math(dev)  # as every entry point: no TF32, cuDNN deterministic
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launchers = (k1.run_fused_chunk, k1.run_grid_chunk, k5.run_mlp_fused_chunk,
+                 k5.run_grid_chunk)
+
+    def reset_counts():
+        for fn in launchers:
+            fn.launches = 0
+        _torch_chunks(torch_step, reset=True)
+
+    def counts():
+        return (sum(fn.launches for fn in launchers), torch_step.GraphChunk.calls,
+                torch_step.train_chunk.calls)
+
+    def cli(name, *extra):
+        cfg = parse_arguments([name, *CONV, "--device", "cuda", "--data_dir", data_dir, *extra])
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t
+
+    def epoch_evals(out):
+        return [float(v) for v in re.findall(r"^Epoch \| \d+ \| VAE Loss \| (-?[\d.]+)", out,
+                                             re.M)]
+
+    # --- 43 --------------------------------------------------------------
+    phase(43, "the conv VAE's epoch chunk as one CUDA graph replay an epoch against its "
+              "op-by-op form at the bench's conv configuration (4096 28x28x1 images, batch "
+              "128, 32|64, latent 16), one epoch of 32 steps")
+    print(f"card: {smi}")
+    t = time.perf_counter()
+    ds = ImageDataset.synthetic_digits(0, n=4096, size=28, device=dev)
+    print(f"the synthetic corpus {tuple(ds.images.shape)} in {time.perf_counter() - t:.2f} s")
+    model = build_conv_vae(image_hwc=ds.shape, latent_dim=16, channels_spec="32|64",
+                           epsilon=-1.0, tunable_decoder_var=True)
+    model.init_parameters(0)
+    model.to(dev)
+    kw = dict(batch_size=128, lr=1e-3)
+
+    def fresh():
+        return TrainState.create(dict(model.named_parameters()),
+                                 rng.derive_seed(0, rng.SEED_TRAIN_DATA),
+                                 rng.derive_seed(0, rng.SEED_TRAIN_Z))
+
+    eager = torch_step.EpochChunk(model, ds, graph=False, **kw)
+    graph = torch_step.EpochChunk(model, ds, graph=True, **kw)
+    reset_counts()
+    se, le = eager(fresh(), 0)
+    sg, lg = graph(fresh(), 0)
+    torch.cuda.synchronize()
+    require(counts() == (0, 1, 1), f"one graph epoch and one op-by-op epoch ({counts()})")
+    require(le.shape == (CONV_NB,) and bool(torch.isfinite(le).all()), "32 finite losses")
+    require(torch.equal(le, lg), "graph losses = op-by-op losses bitwise")
+    require((se.step, se.count) == (sg.step, sg.count) == (CONV_NB, CONV_NB), "step and count")
+    for tree in ("params", "m", "v"):
+        for k, x in getattr(se, tree).items():
+            require(torch.equal(x, getattr(sg, tree)[k]), f"{tree}[{k}] bitwise")
+    print(f"one epoch: graph = op by op bitwise (32 losses, {len(se.params)} parameters and "
+          f"their moments); loss {le[0].item():.3f} -> {le[-1].item():.3f}")
+
+    # --- 44 --------------------------------------------------------------
+    phase(44, "main path: the CLI with --dataset image, 10 epochs (320 steps) at the bench's "
+              "conv configuration")
+    reset_counts()
+    rc, out, secs = cli("conv", "--num_epochs", "10")
+    (kline,) = [ln for ln in out.splitlines() if ln.startswith("[kernels]")]
+    print(kline)
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith(("Epoch |", "Completed"))))
+    print(f"the CLI, 10 epochs: rc {rc}, {secs:.2f} s; fused-kernel launches, graph epochs, "
+          f"op-by-op epochs: {counts()}")
+    require(rc == 0, "main() returned 0")
+    require(kline == "[kernels] torch: plain PyTorch path (an image corpus in epoch mode: the "
+                     "fused kernels train the manifolds); one CUDA graph replay an epoch",
+            "the [kernels] line names the graph form")
+    require(counts() == (0, 10, 0), "ten graph epochs, no kernel launch, no op-by-op epoch")
+    require("Completed Epoch 9" in out.splitlines(), "Completed Epoch 9")
+    conv_dir = os.path.join(data_dir, "conv")
+    for f in ("args.json", "losses.npz", "model.pkl", "ckpt.pt", "ckpt_meta.json"):
+        require(os.path.exists(os.path.join(conv_dir, f)), f"artifact {f}")
+    z = np.load(os.path.join(conv_dir, "losses.npz"))
+    require(z["VAE Loss"].shape == (10 * CONV_NB + 11,)
+            and bool(np.all(np.isfinite(z["VAE Loss"]))) and z["KL divergence"].shape == (11,),
+            "losses.npz: 320 finite losses + 11 evals")
+    evals = epoch_evals(out)
+    require(len(evals) == 11 and evals[-1] < evals[0], f"the eval loss falls ({evals})")
+    print(f"eval VAE Loss {evals[0]:.3f} -> {evals[-1]:.3f}")
+
+    # --- 45 --------------------------------------------------------------
+    phase(45, "resume: 4 epochs, then --resume to 10")
+    rc1, _, _ = cli("conv_part", "--num_epochs", "4")
+    reset_counts()
+    rc2, out, _ = cli("conv_resumed", "--num_epochs", "10", "--resume",
+                      os.path.join(data_dir, "conv_part"))
+    require(rc1 == 0 and rc2 == 0 and counts() == (0, 6, 0),
+            f"both returned 0; six graph epochs resumed ({counts()})")
+    require(out.count("Completed Epoch") == 6 and "Completed Epoch 4" in out.splitlines(),
+            "the resumed run trains epochs 4-9")
+    _require_same_run(np, conv_dir, os.path.join(data_dir, "conv_resumed"))
+    print("losses.npz and model.pkl equal the uninterrupted run bitwise")
+
+    # --- 46 --------------------------------------------------------------
+    phase(46, "times: the epoch chunk op by op, as one graph replay an epoch and as one "
+              "graph replay a step")
+    print(f"card: {smi}")
+    box = {}
+
+    def runner(chunk):
+        box[chunk] = [fresh(), 0]
+
+        def run(n):
+            while n > 0:
+                k = min(n, CONV_NB)
+                box[chunk][0] = chunk(box[chunk][0], box[chunk][1], k)[0]
+                box[chunk][1] += 1
+                n -= k
+        return run
+
+    step_graph = _StepGraphEpochs(torch_step, model, ds, **kw)
+    e = _timed(torch, "conv, op by op", runner(eager), CONV_NB, 8)
+    s1 = _timed(torch, "conv, one graph replay a step", runner(step_graph), 10 * CONV_NB,
+                CONV_NB)
+    run_graph = runner(graph)
+    g = _timed(torch, "conv, one graph replay an epoch (EpochChunk)", run_graph,
+               10 * CONV_NB, CONV_NB, warm=CONV_NB)
+    print(f"  the epoch graph's wall time a step is {e[0] / g[0]:.2f}x shorter than op by op "
+          f"and {s1[0] / g[0]:.3f}x shorter than one replay a step")
+    _kernel_table(torch, lambda: run_graph(CONV_NB), CONV_NB)
+    ss, ls = step_graph(fresh(), 0)
+    sg, lg = graph(fresh(), 0)
+    require(torch.equal(ls, lg) and all(torch.equal(x, sg.params[k])
+                                        for k, x in ss.params.items()),
+            "the epoch graph equals the one-step graph bitwise")
+    print("the epoch graph equals the one-step graph bitwise (losses, parameters)")
+
+    # --- 47 --------------------------------------------------------------
+    phase(47, "the bench (vae-bench-torch --config conv) and the sampler (vae-sample-torch) "
+              "on phase 44's run")
+    proc = subprocess.run([sys.executable, "-m", "vae_training_tpu_torch._scripts.bench",
+                           "--config", "conv"], cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0, f"bench conv exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    require(len(lines) == 1, f"bench conv: one line on stdout ({len(lines)})")
+    print(lines[0])
+    for ln in proc.stderr.splitlines():
+        if ln.startswith(("steps/s:", "fp32 share", "flops/step", "[kernels]")):
+            print(f"  {ln}")
+    got = json.loads(lines[0])
+    m = re.search(r"^\[kernels\] (\d+) chunks timed \(warm-up included\); launches: (.*)$",
+                  proc.stderr, re.M)
+    require(m is not None, "bench conv: the launch counts on stderr")
+    launched = {k: int(v) for k, v in (x.rsplit(" ", 1) for x in m.group(2).split(", "))}
+    require(launched["torch graph"] == int(m.group(1)) == sum(launched.values()),
+            f"bench conv: one graph epoch a chunk and nothing else ({launched})")
+    require(got["metric"] == "conv_vae_train_steps_per_sec_per_gpu" and got["value"] > 0
+            and got["mfu_pct"] is not None
+            and got["flops_per_step"] == bench.conv_step_flops(128, (28, 28, 1), 16, (32, 64))
+            and got["device"] == smi.split(",")[0].strip(),
+            "bench conv: metric, value, mfu_pct, the JAX bench's conv_step_flops, the card")
+    ratio = got["value"] / (1e3 / g[1])
+    print(f"  conv: {got['value']:.1f} steps/s against phase 46's graph figure "
+          f"{1e3 / g[1]:.1f} ({ratio:.3f}x)")
+    require(abs(ratio - 1) <= 0.25, f"bench conv within 25% of phase 46's figure ({ratio:.3f}x)")
+    only_pkl = os.path.join(data_dir, "conv_pkl_only")
+    os.makedirs(only_pkl, exist_ok=True)
+    for f in ("args.json", "model.pkl"):
+        shutil.copy(os.path.join(conv_dir, f), only_pkl)
+    samples = {}
+    for tag, d in (("ckpt", conv_dir), ("pkl", only_pkl)):
+        path = os.path.join(data_dir, f"conv_samples_{tag}.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(sample_mod.main([d, "-n", "1000", "-o", path, "--device", "cuda"]) == 0,
+                    f"sample {tag}: exit 0")
+        samples[tag] = np.load(path)
+    a = samples["ckpt"]
+    require(a["samples"].shape == (1000, 784) and a["latents"].shape == (1000, 800)
+            and bool(np.all(np.isfinite(a["samples"]))), "samples (1000, 784), finite")
+    require(np.array_equal(a["samples"], samples["pkl"]["samples"]),
+            "the model.pkl-only copy gives the checkpoint's samples bitwise")
+    print(f"sample: {a['samples'].shape}, latents {a['latents'].shape}, finite; model.pkl only "
+          f"= ckpt.pt bitwise (at {time.perf_counter() - _T0:.1f} s)")
+
+    # --- 48 --------------------------------------------------------------
+    phase(48, "an .npz corpus: the synthetic corpus written to an .npz, one epoch through the CLI")
+    corpus = os.path.join(data_dir, "digits.npz")
+    np.savez(corpus, images=ds.images.cpu().numpy())
+    reset_counts()
+    rc, out, secs = cli("conv_npz", "--num_epochs", "1", "--image_source", corpus)
+    require(rc == 0 and counts() == (0, 1, 0) and "Completed Epoch 0" in out.splitlines(),
+            f"one graph epoch from the .npz ({counts()})")
+    za = np.load(os.path.join(data_dir, "conv_npz", "losses.npz"))["VAE Loss"]
+    require(np.array_equal(za, z["VAE Loss"][:CONV_NB + 2]),
+            "its losses equal phase 44's first epoch bitwise (the same images)")
+    print(f"one epoch from {os.path.basename(corpus)} in {secs:.2f} s; its 32 losses and 2 evals "
+          f"equal phase 44's first epoch bitwise")
+
+
+class _StepGraphEpochs:
+    """Epochs as ``EpochChunk`` runs them, but one CUDA graph replay a step
+    (``GraphChunk`` with one step a replay over ``EpochBatches``): the form
+    phase 46 measures the kept one, one replay an epoch, against."""
+
+    def __init__(self, torch_step, model, dataset, batch_size, lr):
+        self.dataset = dataset
+        self.batches = torch_step.EpochBatches(dataset.images, batch_size)
+        self.chunk = torch_step.GraphChunk(model, self.batches, batch_size=batch_size, lr=lr)
+
+    def __call__(self, state, epoch, n_batches=None):
+        self.batches.set_epoch(self.dataset.epoch_permutation(state.data_seed, epoch),
+                               state.step)
+        return self.chunk(state, n_batches or self.batches.n_batches)
+
+
+def _kernel_events(torch, fn):
+    """(name, µs) of every CUDA kernel ``fn`` ran, from a torch.profiler
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as g:
+            events = json.load(g)["traceEvents"]
+    return [(e["name"], e["dur"]) for e in events if e.get("cat") == "kernel"]
+
+
+def _kernel_ms(torch, fn):
+    """Device time of ``fn`` as the sum of its CUDA kernels' durations in a
+    torch.profiler trace, and their count (None, 0 when the trace holds no
+    kernel)."""
+    durs = [d for _, d in _kernel_events(torch, fn)]
+    return (sum(durs) / 1e3 if durs else None), len(durs)
+
+
+def _kernel_table(torch, fn, steps, top=10):
+    """Where ``fn``'s ``steps`` steps spend their kernel time: the ``top``
+    kernel names by time, each with µs and launches a step."""
+    by_name = {}
+    for name, dur in _kernel_events(torch, fn):
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + dur, n + 1)
+    total = sum(t for t, _ in by_name.values())
+    print(f"  kernel time by name, a step ({total / steps:.1f} us in all):")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {t / steps:9.2f} us {n / steps:6.1f} launches  {name[:90]}")
+
+
+def _timed(torch, label, fn, steps, traced, warm=2):
+    """Wall ms a step (host clock to a sync) and the CUDA-event span a step
+    over one call of ``fn(steps)``, and the profiler's kernel time a step
+    over one call of ``fn(traced)``, after a warm call of ``fn(warm)`` (a
+    graph chunk given a new state captures there). Returns (wall, event,
+    kernel ms a step, kernels a step)."""
+    fn(warm)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    e0.record()
+    fn(steps)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / steps
+    event = e0.elapsed_time(e1) / steps
+    busy, n_kernels = _kernel_ms(torch, lambda: fn(traced))
+    busy = None if busy is None else busy / traced
+    busy_txt = ("kernel time not in the trace" if busy is None else
+                f"kernels {busy:.4f} ms a step ({n_kernels // traced} a step), "
+                f"busy share {busy / wall:.3f}")
+    print(f"  {label}: wall {wall:.4f} ms a step, CUDA-event span {event:.4f}, {busy_txt} "
+          f"(at {time.perf_counter() - _T0:.1f} s)")
+    return wall, event, busy, n_kernels // traced
 
 
 def _torch_chunks(torch_step, reset: bool = False) -> int:

@@ -8,7 +8,8 @@
     configs built by both benches (integers, compared exactly);
   - ``measure`` and ``measure_grid`` return positive rates at tiny chunks;
   - no fallback hides the device: ``--device cuda`` and ``--kernels cuda``
-    raise here, and ``--config conv`` raises naming its ROADMAP item.
+    raise here (``--config conv`` too: no fused kernel trains an image
+    corpus).
 """
 
 import dataclasses
@@ -30,7 +31,7 @@ def test_configs_and_seeds_are_the_jax_benchs():
     assert bench.CONFIGS == jax_bench.CONFIGS
     assert bench.CONFIG_SEEDS == jax_bench.CONFIG_SEEDS
     assert bench.GRID_FAMILIES == jax_bench.GRID_FAMILIES
-    assert set(bench.METRIC_NAMES) == set(jax_bench.METRIC_NAMES) - {"conv"}
+    assert set(bench.METRIC_NAMES) == set(jax_bench.METRIC_NAMES)
     for config, name in bench.METRIC_NAMES.items():
         assert jax_bench.METRIC_NAMES[config] == name + "_per_chip"
 
@@ -149,7 +150,8 @@ _windows = bench.windows
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--config", "conv", "--device", "cpu"], NotImplementedError, "item 9"),
+    (["--config", "conv", "--device", "cpu", "--kernels", "cuda"], RuntimeError,
+     "--kernels cuda requested"),
     (["--config", "linear"], RuntimeError, "no CUDA device"),
     (["--config", "sphere", "--device", "cpu", "--kernels", "cuda"], RuntimeError,
      "--kernels cuda requested"),

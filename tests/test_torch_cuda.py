@@ -1276,3 +1276,38 @@ def test_t1_battery_passes_on_the_kernel_sampler(cuda_device):
     from vae_training_tpu_torch.tools import check_kernel_rng as t1
 
     assert t1.battery(t1.card_draw(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", ["8|16", "32|64"])
+def test_epoch_graph_equals_op_by_op_bitwise(cuda_device, channels):
+    """The conv VAE's epoch chunk as one CUDA graph replay a step against
+    its op-by-op form, two epochs from the same state: losses, parameters
+    and moments bitwise (cuDNN deterministic, TF32 off: ``use_fp32_math``)."""
+    from vae_training_tpu_torch.config import use_fp32_math
+    from vae_training_tpu_torch.data import ImageDataset
+    from vae_training_tpu_torch.models.conv import build_conv_vae
+    from vae_training_tpu_torch.train import step as torch_step
+
+    use_fp32_math(cuda_device)
+    ds = ImageDataset.synthetic_digits(0, n=256, size=28, device=cuda_device)
+    model = build_conv_vae(image_hwc=ds.shape, latent_dim=16, channels_spec=channels,
+                           epsilon=-1.0, tunable_decoder_var=True)
+    model.init_parameters(0)
+    model.to(cuda_device)
+    got = {}
+    for graph in (False, True):
+        chunk = torch_step.EpochChunk(model, ds, batch_size=32, lr=1e-3, graph=graph)
+        state = TrainState.create(dict(model.named_parameters()), 5, 6)
+        losses = []
+        for epoch in range(2):
+            state, lo = chunk(state, epoch)
+            losses.append(lo)
+        got[graph] = (state, torch.cat(losses))
+    (se, le), (sg, lg) = got[False], got[True]
+    assert le.shape == (16,) and bool(torch.isfinite(le).all())
+    assert torch.equal(le, lg)
+    assert (se.step, se.count) == (sg.step, sg.count) == (16, 16)
+    for tree in ("params", "m", "v"):
+        for k, t in getattr(se, tree).items():
+            assert torch.equal(t, getattr(sg, tree)[k]), f"{tree}[{k}]"

@@ -7,7 +7,8 @@
   - model.pkl written by either package loads in the other;
   - ``--resume`` reproduces an uninterrupted run bitwise;
   - no silent CPU fallback: ``--device cuda`` / ``--kernels cuda`` raise
-    here; unported flags raise naming their ROADMAP item;
+    here; unported flags raise naming their ROADMAP item, and ``--arch
+    conv`` on a manifold raises the JAX engine's message;
   - the port never imports JAX.
 """
 
@@ -235,9 +236,9 @@ def test_cpu_kernel_wrapper_runs_the_plain_chunk():
 @pytest.mark.parametrize("extra,exc,match", [
     (["--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
-    (["--arch", "conv"], NotImplementedError, "item 9"),
+    (["--arch", "conv"], ValueError, "--arch conv requires an image dataset"),
     (["--seed_grid", "2,3", "--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
-    (["--dataset", "image"], NotImplementedError, "not yet ported"),
+    (["--mesh", "dp=2"], NotImplementedError, "item 11"),
 ])
 def test_no_silent_fallback_and_unported_flags(tmp_path, extra, exc, match):
     if torch.cuda.is_available() and "cuda" in extra:
@@ -253,6 +254,8 @@ def test_port_never_imports_jax():
             "import vae_training_tpu_torch.kernels.mlp_vae\n"
             "import vae_training_tpu_torch.kernels.dispatch\n"
             "from vae_training_tpu_torch.data import SigmoidDataset, SphereDataset\n"
+            "import vae_training_tpu_torch.data.images, vae_training_tpu_torch.models.conv\n"
+            "import vae_training_tpu_torch._scripts.bench, vae_training_tpu_torch._scripts.sample\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'vae_training_tpu'))\n"
             "assert not bad, bad\n")

@@ -11,7 +11,9 @@ artifacts written by a background thread (``runio/background.py``), the
 bench and the sampler (``_scripts/bench.py``, ``_scripts/sample.py``), bf16
 Adam moments, the library surface (warm starts, ``--track_correlation``
 with ``utils/trees.py``, the logistic latent, ``ops/flows.py``,
-``ops/images.py``), and every TPU kernel of the
+``ops/images.py``), epoch mode on image corpora with the conv VAE
+(``data/images.py``, ``models/conv.py``, ``train/step.py`` ``EpochChunk``,
+``--config conv`` in the bench), and every TPU kernel of the
 reference as a kernel written by hand in CUDA C++ for ``sm_90a``: K1, K2
 and their grid mode K6a
 (``csrc/linear_vae.cu``); K5, K5-dual and their grid mode K6b

@@ -26,12 +26,16 @@ bf16 tensor-core peak, by device name; stderr also gives the share of the
 fp32 peak, which is what the kernels' fp32 FMA chains can reach. ``device``
 and ``power_limit_w`` are what ``nvidia-smi`` reads.
 
+``--config conv`` is the JAX bench's ``build_conv`` (BASELINE.json config
+5): the conv VAE (32|64, latent 16) on 4096 synthetic 28×28 images, batch
+128, lr 1e-3, ε −1, -tdv; its value is minibatch steps/s of whole epochs
+(32 steps a chunk, each epoch's own permutation), windows as above.
+
 Left out of the JAX bench: its ``vs_baseline`` ratio (the 20,000 steps/s of
 ``BASELINE.json`` is a target set for the TPU, not for this card); its
 supervisor (``--no-supervise``, a workaround for a TPU runtime's hanging
 init); its retry of a failed solo backend on another (a kernel that fails
-raises here). ``--config conv`` waits for the conv VAE (ROADMAP Queue 1
-item 9). The grid configs fall back, under ``--kernels auto`` only, to one
+raises here). The grid configs fall back, under ``--kernels auto`` only, to one
 grid launch a group when the sweep cannot share one launch, and say so;
 ``--kernels torch`` measures the groups that way on purpose (the
 comparison column). ``--device cuda`` (the default) needs a card; on
@@ -51,7 +55,7 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from vae_training_tpu_torch.config import RunConfig
+from vae_training_tpu_torch.config import RunConfig, use_fp32_math
 
 
 def log(*a) -> None:
@@ -95,6 +99,7 @@ METRIC_NAMES = {
     "grid_linear": "linear_sweep21_aggregate_steps_per_sec",
     "grid_sigmoid": "sigmoid_sweep18_aggregate_steps_per_sec",
     "grid_sphere": "sphere_sweep15_aggregate_steps_per_sec",
+    "conv": "conv_vae_train_steps_per_sec",
 }
 
 # steps a timed chunk: a few to a few hundred ms of the card each, so that a
@@ -135,6 +140,24 @@ def build(kernels: str = "auto", config: str = "linear", precision: str = "bf16"
 
     cfg = make_cfg(config, kernels, precision, adam_dtype, device)
     dataset = get_dataset(cfg.dataset, cfg.dataset_seed, cfg, device=torch.device(device))
+    return Trainer(cfg, dataset, output_dir=".")
+
+
+def build_conv(kernels: str = "auto", precision: str = "bf16", adam_dtype: str = "f32",
+               device: str = "cuda"):
+    """The conv VAE's epoch-mode Trainer (the JAX bench's ``build_conv``:
+    4096 synthetic 28×28 images from seed 0, conv stack 32|64, latent 16,
+    batch 128, lr 1e-3, ε −1, -tdv; no output is written)."""
+    from vae_training_tpu_torch.data import get_dataset
+    from vae_training_tpu_torch.train.loop import Trainer
+
+    cfg = RunConfig(
+        name="bench_conv", dataset="image", image_source="synthetic", image_size=28,
+        num_images=4096, num_epochs=10, batch_size=128, latent_dimension=16,
+        conv_channels="32|64", learning_rate=1e-3, epsilon=-1.0, tunable_decoder_var=True,
+        tqdm=False, kernels=kernels, precision=precision, adam_dtype=adam_dtype,
+        device=device).validate()
+    dataset = get_dataset(cfg.dataset, 0, cfg, device=torch.device(device))
     return Trainer(cfg, dataset, output_dir=".")
 
 
@@ -249,6 +272,23 @@ def measure(trainer, chunk_steps: int = 20_000, n_windows: int = 5,
     return out
 
 
+def measure_conv(trainer, n_windows: int = 5, min_seconds: float = 1.0
+                 ) -> Tuple[List[float], int]:
+    """(minibatch steps/s a window, epochs run) of ``trainer``'s epoch
+    chunks, one epoch a call, the epochs numbered on and the state chained
+    through."""
+    n_batches = trainer.dataset.n // trainer.cfg.batch_size
+    box = [trainer.state, 0]
+
+    def call():
+        box[0], _ = trainer.epoch_chunk(box[0], box[1], n_batches)
+        box[1] += 1
+
+    out = windows(call, n_batches, trainer.device, n_windows, min_seconds)
+    trainer.state = box[0]
+    return out
+
+
 def measure_grid(sweep, chunk_steps: int = 5_000, n_windows: int = 5,
                  min_seconds: float = 1.0) -> Tuple[List[float], int]:
     """(aggregate row-steps/s a window, chunks run) of a sweep's chunks."""
@@ -312,7 +352,7 @@ def mlp_step_flops(batch: int, data_dim: int, latent_dim: int,
 def conv_step_flops(batch: int, image_hwc, latent_dim: int, channels) -> int:
     """Matmul FLOPs of ONE training step of the conv VAE (3×3 stride-2
     convolutions and transposed convolutions, dense layers as in
-    ``mlp_step_flops``, training ×3); the conv VAE is ROADMAP item 9."""
+    ``mlp_step_flops``, training ×3)."""
     h, w, c = image_hwc
     k2 = 9
     fwd = 0
@@ -398,16 +438,19 @@ def main(argv=None) -> int:
                    help="Perf-regression floor: exit 3 if steps/s falls below it "
                         "(the JSON line is still printed).")
     args = p.parse_args(argv)
-    if args.config == "conv":
-        raise NotImplementedError("--config conv is not yet ported to vae_training_tpu_torch; "
-                                  "see ROADMAP Queue 1 item 9 (epoch mode and the conv VAE)")
 
     device = torch.device(args.device)
+    use_fp32_math(device)
     trainer = None
-    chunk_steps = CHUNK_STEPS[args.config]
+    chunk_steps = CHUNK_STEPS.get(args.config)
     # the [kernels] lines go to stderr: stdout carries the one JSON line
     with contextlib.redirect_stdout(sys.stderr):
-        if args.config in GRID_FAMILIES:
+        if args.config == "conv":
+            measured = build_conv(args.kernels, args.precision, args.adam_dtype, args.device)
+            chunk_steps = measured.dataset.n // measured.cfg.batch_size
+            _launch_counts(reset=True)
+            rates, chunks = measure_conv(measured)
+        elif args.config in GRID_FAMILIES:
             measured = build_grid(args.kernels, args.precision, GRID_FAMILIES[args.config],
                                   args.adam_dtype, args.device)
             _launch_counts(reset=True)

@@ -18,7 +18,7 @@ import sys
 
 import torch
 
-from vae_training_tpu_torch.config import RunConfig, parse_arguments
+from vae_training_tpu_torch.config import RunConfig, parse_arguments, use_fp32_math
 from vae_training_tpu_torch.data import get_dataset
 from vae_training_tpu_torch.runio import make_output_dir
 from vae_training_tpu_torch.train.loop import Trainer
@@ -27,13 +27,8 @@ from vae_training_tpu_torch.train.loop import Trainer
 def main(cfg: RunConfig) -> int:
     cfg.validate()
     device = torch.device(cfg.device)
-    if device.type == "cuda":
-        # --precision: both values are true fp32 in this port
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        name = torch.cuda.get_device_name(device)
-    else:
-        name = "cpu"
+    use_fp32_math(device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {cfg.device} ({name})", file=sys.stderr, flush=True)
     if cfg.seed_grid:
         from vae_training_tpu_torch.train.grid import run_seed_grid

@@ -28,7 +28,7 @@ import sys
 import numpy as np
 import torch
 
-from vae_training_tpu_torch.config import RunConfig
+from vae_training_tpu_torch.config import RunConfig, use_fp32_math
 from vae_training_tpu_torch.data import get_dataset
 from vae_training_tpu_torch.runio import checkpoint_exists, load_model_pkl, restore_checkpoint
 from vae_training_tpu_torch.train.loop import Trainer, check_params
@@ -74,6 +74,7 @@ def main(argv=None) -> int:
                    help="Device to sample on. cuda without a CUDA device is an error.")
     args = p.parse_args(argv)
 
+    use_fp32_math(args.device)
     trainer = load_run(args.run_dir, args.device)
     samples, latents = trainer.sample_batch(args.seed, args.num_samples)
     samples_np, latents_np = samples.cpu().numpy(), latents.cpu().numpy()

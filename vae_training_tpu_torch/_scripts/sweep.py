@@ -29,7 +29,7 @@ import os
 import sys
 import time
 
-from vae_training_tpu_torch.config import RunConfig
+from vae_training_tpu_torch.config import RunConfig, use_fp32_math
 
 # (data_dim, padding_dim, latent_dim) rows: the reference's sweeps
 LINEAR_GRID = [(3, 9, 20), (3, 17, 20), (6, 6, 20), (6, 14, 20),
@@ -264,12 +264,7 @@ def main(argv=None) -> int:
     shard = parse_shard(args.shard)
     if args.report:
         return run_report(args.sweep, args.data_dir)
-    if args.device == "cuda":
-        import torch
-
-        # --precision is true fp32 in this port (as in _scripts/run.py)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    use_fp32_math(args.device)
     t0 = time.perf_counter()
     if args.grouped:
         rc = run_grouped(args.sweep, args.data_dir, args.num_batches, args.kernels,

@@ -10,7 +10,8 @@ unchanged. What differs from the JAX package:
   - ``--kernels auto|torch|cuda`` replaces ``auto|xla|pallas``
     (``kernels/dispatch.py``).
   - ``--precision``: both values compute true fp32 products: TF32 off on
-    the torch path and in the plain versions, and fp32 FMA chains in the
+    the torch path and in the plain versions (``use_fp32_math``, which
+    every entry point calls on the card), and fp32 FMA chains in the
     kernels (the MLP kernel's in the order of an fp32 GEMM's thread; a
     3xTF32 tensor-core split was measured and parted the fp32 trajectory
     past the kernels' tolerances, PERF.md). The reference's bf16-operand
@@ -21,9 +22,8 @@ unchanged. What differs from the JAX package:
     package (nothing there reads it); ``--track_correlation`` records the
     correlation ratios (``train/loop.py``, ``utils/trees.py``).
   - Flags whose machinery is not ported yet (``--mesh``, ``--multihost``,
-    ``--ckpt_backend orbax``, ``--arch conv``) raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them
-    (``validate``).
+    ``--ckpt_backend orbax``) raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them (``validate``).
 """
 
 from __future__ import annotations
@@ -131,8 +131,6 @@ class RunConfig:
             "--multihost": (self.multihost, "ROADMAP Queue 1 item 11 (parallel)"),
             "--ckpt_backend orbax": (self.ckpt_backend == "orbax",
                                      "ROADMAP Queue 1 item 12 (orbax is left out)"),
-            "--arch conv": (self.arch == "conv",
-                            "ROADMAP Queue 1 item 9 (epoch mode and the conv VAE)"),
         }
         if self.seed_grid and not self.grid_seeds():
             raise ValueError(f"--seed_grid names no seed: {self.seed_grid!r}")
@@ -151,6 +149,22 @@ class RunConfig:
 
     def to_json_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def use_fp32_math(device) -> None:
+    """The card's float32 contract (``--precision``), set once by every
+    entry point: no TF32 in cuBLAS or cuDNN, and cuDNN deterministic with
+    its autotuner off, so a convolution's algorithm (and its bits) is the
+    same in every run, op by op and under a CUDA graph. Nothing to set on
+    the CPU."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def build_parser() -> argparse.ArgumentParser:

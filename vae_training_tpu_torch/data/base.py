@@ -24,6 +24,8 @@ class DistributionDataset:
     only device work (no ``.item()``, no numpy), so a graph can capture
     it."""
 
+    is_epochs = False  # an infinite sampler: the engine's step loop, not epochs
+
     @property
     def ndim(self) -> int:
         raise NotImplementedError

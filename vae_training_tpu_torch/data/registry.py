@@ -1,8 +1,8 @@
 """Dataset registry / factory.
 
 Port of ``vae_training_tpu/data/registry.py``. An unknown name raises with
-the available choices; a reference dataset this port has not reached yet
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+the available choices. Every factory takes the run's device: the dataset's
+tensors (an image corpus, a manifold's matrix) live there.
 """
 
 from __future__ import annotations
@@ -13,11 +13,6 @@ from .base import DistributionDataset
 from .synthetic import GaussianDataset, LinearGaussianDataset, SigmoidDataset, SphereDataset
 
 _REGISTRY: Dict[str, Callable[..., DistributionDataset]] = {}
-
-# reference datasets still to port → the ROADMAP item that ports them
-NOT_YET_PORTED = {
-    "image": "ROADMAP Queue 1 item 9 (epoch mode and the conv VAE)",
-}
 
 
 def register_dataset(name: str):
@@ -67,13 +62,24 @@ def _make_sphere(seed, args, device="cpu") -> SphereDataset:
                          padding_dim=args.padding_dim, device=device)
 
 
+@register_dataset("image")
+def _make_image(seed, args, device="cpu"):
+    """Epoch-mode image corpus (the conv VAE's, BASELINE.json config 5):
+    synthetic digits from the seed, an .npz, or a folder of images."""
+    from .images import ImageDataset
+
+    source = args.image_source
+    if source == "synthetic":
+        return ImageDataset.synthetic_digits(seed, n=args.num_images, size=args.image_size,
+                                             device=device)
+    if source.endswith(".npz"):
+        return ImageDataset.from_npz(source, pixel_range=args.image_range, device=device)
+    return ImageDataset.from_folder(source, size=args.image_size, device=device)
+
+
 def check_dataset_name(name: str) -> None:
     if name in _REGISTRY:
         return
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"--dataset {name} is not yet ported to vae_training_tpu_torch; "
-            f"see {NOT_YET_PORTED[name]}")
     raise ValueError(f"Unknown dataset {name!r}. Available: {dataset_names()}")
 
 

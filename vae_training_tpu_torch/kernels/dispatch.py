@@ -22,6 +22,10 @@ host, as ``jax_debug_nans`` re-runs op by op), and for a chunk given
 external noise. Every path's losses and state are checked by the engine
 under ``--debug_nans``.
 
+An epoch dataset (an image corpus, the conv VAE's) always takes the
+torch path, one epoch a chunk (``EpochChunk``): on the card one CUDA graph
+replay an epoch, else op by op for the same reasons.
+
 Either way one line names the path taken and why, then "with bf16 Adam
 moments" under ``--adam_dtype bf16`` (every path takes that mode: the
 kernels' K4 branch, the torch path's bf16 update; the JAX package gates no
@@ -70,15 +74,22 @@ def torch_path_form(cfg, noise: bool = False) -> Tuple[bool, str]:
 
 def _torch_chunk(model, dataset, cfg):
     """The torch path's ``chunk(state, n_steps, noise=None)`` in the form
-    ``torch_path_form`` picks."""
+    ``torch_path_form`` picks; for an epoch dataset (an image corpus) its
+    ``EpochChunk``, ``chunk(state, epoch, n_batches=None, noise=None)``."""
     kwargs = dict(batch_size=cfg.batch_size, lr=float(cfg.learning_rate))
-    if torch_path_form(cfg)[0]:
+    graph = torch_path_form(cfg)[0]
+    if dataset.is_epochs:
+        return _anomaly(torch_step.EpochChunk(model, dataset, graph=graph, **kwargs), cfg)
+    if graph:
         return torch_step.GraphChunk(model, dataset, **kwargs)
     return _anomaly(partial(torch_step.train_chunk, model, dataset, **kwargs), cfg)
 
 
 def make_train_chunk(model, dataset, cfg):
-    """→ ``train_chunk(state, n_steps)`` for the configured backend."""
+    """→ ``train_chunk(state, n_steps)`` for the configured backend; for an
+    epoch dataset, the torch path's ``EpochChunk`` (no fused kernel trains
+    an image corpus: ``--kernels cuda`` raises with both kernels'
+    reasons)."""
     from . import linear_vae, mlp_vae
 
     if cfg.kernels == "torch":
@@ -103,11 +114,15 @@ def make_train_chunk(model, dataset, cfg):
         if cfg.kernels == "cuda":
             raise RuntimeError(f"--kernels cuda requested but no fused kernel can run: "
                                f"linear kernel: {why_linear}; MLP kernel: {why_mlp}")
-        # the reason of the kernel this model's shape belongs to
-        hidden = (len(model.encoder_features) > 1 or len(model.decoder_features) > 1)
-        why = why_mlp if hidden else why_linear
-    print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}; "
-          f"{torch_path_form(cfg)[1]}", flush=True)
+        if dataset.is_epochs:
+            why = "an image corpus in epoch mode: the fused kernels train the manifolds"
+        else:  # the reason of the kernel this model's shape belongs to
+            hidden = (len(model.encoder_features) > 1 or len(model.decoder_features) > 1)
+            why = why_mlp if hidden else why_linear
+    graph, form = torch_path_form(cfg)
+    if dataset.is_epochs:
+        form = "one CUDA graph replay an epoch" if graph else f"{form}, one epoch a chunk"
+    print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}; {form}", flush=True)
     return _torch_chunk(model, dataset, cfg)
 
 

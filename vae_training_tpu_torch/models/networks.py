@@ -35,6 +35,14 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
+def lecun_normal_(kernel: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` in place: a normal truncated at ±2σ of the
+    underlying normal, scaled to std sqrt(1/fan_in)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` (in, out), ``bias`` (out,)."""
 
@@ -44,10 +52,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        std = math.sqrt(1.0 / self.kernel.shape[0]) / _TRUNC_STD
+        lecun_normal_(self.kernel, self.kernel.shape[0], generator)
         with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -77,50 +83,37 @@ class FullyConnectedNetwork(nn.Module):
         return torch.sigmoid(x) if self.sigmoid_head else x
 
 
-class VAE(nn.Module):
-    """VAE with a global posterior log-variance and, for the sigmoid
-    dataset, the dual decoder; module names mirror the reference tree
-    (``Encoder``/``Decoder``/``SigDecoder`` with ``FC{i}``, ``epsilon_p``,
-    ``epsilon``)."""
+class LatentVAE(nn.Module):
+    """The reference's latent and noise semantics, shared by the MLP VAE and
+    the conv VAE (``models/conv.py``): a global posterior log-variance
+    ``epsilon_p``, the optional learned scale ``epsilon`` of the decoder
+    log-variance, and decoder output noise in both modes. A subclass makes
+    ``Encoder`` (flat or NHWC batch → posterior mean) and ``decode``
+    (latents → flat batch), then calls ``_add_variances``."""
 
-    def __init__(self, *, data_dim: int, encoder_features: Tuple[int, ...],
-                 decoder_features: Tuple[int, ...], latent_dim: int,
-                 epsilon: float = 0.0, tunable_decoder_var: bool = False,
-                 dual_sigmoid_decoder: bool = False):
-        super().__init__()
-        self.data_dim = data_dim
-        self.encoder_features = tuple(encoder_features)
-        self.decoder_features = tuple(decoder_features)
+    dual_sigmoid_decoder = False
+
+    def _add_variances(self, latent_dim: int, epsilon: float,
+                       tunable_decoder_var: bool) -> None:
         self.latent_dim = latent_dim
         self.epsilon_const = float(epsilon)  # the CLI ε
         self.tunable_decoder_var = tunable_decoder_var
-        self.dual_sigmoid_decoder = dual_sigmoid_decoder
-        self.Encoder = FullyConnectedNetwork(data_dim, self.encoder_features)
-        self.Decoder = FullyConnectedNetwork(latent_dim, self.decoder_features)
-        if dual_sigmoid_decoder:
-            self.SigDecoder = FullyConnectedNetwork(
-                latent_dim, self.decoder_features, sigmoid_head=True)
         self.epsilon_p = nn.Parameter(torch.ones(latent_dim))
         if tunable_decoder_var:
             self.epsilon = nn.Parameter(torch.ones(1))  # learned scale of ε
 
     def init_parameters(self, seed: int) -> None:
         """Deterministic flax-style init from ``seed`` (drawn on the CPU, so
-        a seed gives the same weights on every device)."""
+        a seed gives the same weights on every device): every layer's
+        ``reset_parameters`` in module order, ones for the variances."""
         gen = torch.Generator().manual_seed(seed)
         for mod in self.modules():
-            if isinstance(mod, Dense):
+            if mod is not self and hasattr(mod, "reset_parameters"):
                 mod.reset_parameters(gen)
         with torch.no_grad():
             self.epsilon_p.fill_(1.0)
             if self.tunable_decoder_var:
                 self.epsilon.fill_(1.0)
-
-    def decode(self, samples: torch.Tensor) -> torch.Tensor:
-        x_hat = self.Decoder(samples)
-        if self.dual_sigmoid_decoder:
-            x_hat = self.SigDecoder(samples) + x_hat
-        return x_hat
 
     def effective_epsilon(self) -> torch.Tensor:
         """Decoder log-variance: learned scalar × constant, or the constant."""
@@ -148,6 +141,35 @@ class VAE(nn.Module):
     def generate(self, z1, z2, epsilon):
         """Ancestral sampling with the caller's decoder log-variance."""
         return self.decode(z1) + z2 * torch.exp(epsilon / 2.0)
+
+
+class VAE(LatentVAE):
+    """VAE with a global posterior log-variance and, for the sigmoid
+    dataset, the dual decoder; module names mirror the reference tree
+    (``Encoder``/``Decoder``/``SigDecoder`` with ``FC{i}``, ``epsilon_p``,
+    ``epsilon``)."""
+
+    def __init__(self, *, data_dim: int, encoder_features: Tuple[int, ...],
+                 decoder_features: Tuple[int, ...], latent_dim: int,
+                 epsilon: float = 0.0, tunable_decoder_var: bool = False,
+                 dual_sigmoid_decoder: bool = False):
+        super().__init__()
+        self.data_dim = data_dim
+        self.encoder_features = tuple(encoder_features)
+        self.decoder_features = tuple(decoder_features)
+        self.dual_sigmoid_decoder = dual_sigmoid_decoder
+        self.Encoder = FullyConnectedNetwork(data_dim, self.encoder_features)
+        self.Decoder = FullyConnectedNetwork(latent_dim, self.decoder_features)
+        if dual_sigmoid_decoder:
+            self.SigDecoder = FullyConnectedNetwork(
+                latent_dim, self.decoder_features, sigmoid_head=True)
+        self._add_variances(latent_dim, epsilon, tunable_decoder_var)
+
+    def decode(self, samples: torch.Tensor) -> torch.Tensor:
+        x_hat = self.Decoder(samples)
+        if self.dual_sigmoid_decoder:
+            x_hat = self.SigDecoder(samples) + x_hat
+        return x_hat
 
 
 def parse_layer_sizes(spec: str) -> Tuple[int, ...]:

@@ -49,6 +49,8 @@ STREAM_MANIFOLD = 0  # intrinsic normals n, x = n·Aᵀ
 STREAM_Z1 = 1  # reparameterisation noise (latent_dim per row)
 STREAM_Z2 = 2  # decoder output noise (data_dim per row)
 STREAM_OBS = 3  # observation noise of variance var_added (data_dim per row)
+STREAM_IMAGE_INDEX = 4  # an image corpus's random subset (one word per row)
+STREAM_PERMUTATION = 5  # an image corpus's epoch permutation (one draw per image)
 
 # Purposes for derive_seed: the run seeds that key each stream family.
 SEED_TRAIN_DATA = 1  # per-step training batches (JAX: fold_in(data_root, 1))
@@ -153,3 +155,14 @@ def normals(seed: int, step, rows: int, stream: int, dim: int,
     n_draws = (dim + 3) // 4
     w = words(seed, step, rows, stream, n_draws, device=device)
     return box_muller(w).reshape(rows, 4 * n_draws)[:, :dim]
+
+
+def permutation(seed: int, counter: int, n: int, device=None) -> torch.Tensor:
+    """A permutation of ``range(n)`` (int64) keyed by ``seed`` at
+    ``counter``: the stable argsort of one 63-bit key a position, made
+    from words 0 and 1 of the Philox draw at (counter, position, 0,
+    STREAM_PERMUTATION). Integer work only, so it is the same on every
+    device; a repeated key (odds about n² / 2**64) keeps position order."""
+    w = words(seed, counter, n, STREAM_PERMUTATION, 1, device=device)[:, 0]
+    keys = (w[:, 0] << 31) | (w[:, 1] >> 1)
+    return torch.argsort(keys, stable=True)

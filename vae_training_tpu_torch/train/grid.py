@@ -28,7 +28,8 @@ ahead back to the grid's common step through its ``.prev`` checkpoint.
 manifold (its own ``pinv(A)``) from the shared warm-start draws, as the
 solo run with that row's seed makes it, so a warm-started row equals its
 warm-started solo run bitwise. ``--track_correlation`` and a non-gaussian
-latent are refused, with the JAX package's messages. The JAX package's mesh
+latent are refused, with the JAX package's messages, and so are an epoch
+dataset (an image corpus) and ``--arch conv``. The JAX package's mesh
 and multihost branches are not ported: ``RunConfig.validate`` raises for
 them, naming ROADMAP Queue 1 item 11.
 """
@@ -107,6 +108,12 @@ class GridTrainer:
         self.eval_batch_size = EVAL_BATCH_SIZE
         self.datasets = [get_dataset(cfg.dataset, s, cfg, device=self.device)
                          for s in self.seeds]
+        if any(d.is_epochs for d in self.datasets):
+            raise NotImplementedError(
+                "--seed_grid supports distribution datasets; epoch-mode "
+                "image corpora train one run at a time")
+        if cfg.arch == "conv":
+            raise ValueError("--seed_grid supports the MLP VAE architectures")
         self.data_dim = self.datasets[0].dimension
         self.latent_dim = cfg.latent_dimension
         self.model = build_vae(

@@ -45,8 +45,17 @@ Random streams: the JAX engine splits a host key chain for eval and plot
 draws; here every draw is counter-keyed (``ops/rng.py``): eval batches by
 the eval counter, plot draws by the step. A resumed run therefore draws
 exactly what an uninterrupted one draws, whatever events the interrupted
-run fired. Epoch-mode (image) training is not ported yet: the registry
-rejects the image dataset.
+run fired.
+
+Epoch mode (an image corpus, ``data/images.py``; the JAX engine's
+``train_epochs``, ``loop.py:478-516``): ``--arch auto`` builds the conv VAE
+(``models/conv.py``) for it and the MLP VAE otherwise, ``--arch conv`` on a
+dataset without an (H, W, C) shape raises the JAX engine's message, and
+``--arch mlp`` trains the MLP VAE on the flat images. ``train`` runs
+``train_epochs``: one ``EpochChunk`` an epoch (``train/step.py``), the
+stats, ``Completed Epoch k``, an "Epoch"-labelled stat line, a figure
+tagged by the epoch and a save every epoch; the checkpoint's aux carries
+``epoch_num``, and a resume continues at epoch ``step // n_batches``.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from ..config import RunConfig
 from ..data.base import DistributionDataset
 from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_train_chunk
+from ..models.conv import build_conv_vae
 from ..models.networks import build_vae
 from ..models.warm_start import apply_warm_start
 from ..ops import rng
@@ -177,12 +187,25 @@ class Trainer:
         self.eval_batch_size = EVAL_BATCH_SIZE
         self.latent_dim = cfg.latent_dimension
 
-        self.model = build_vae(
-            data_dim=dataset.dimension, latent_dim=cfg.latent_dimension,
-            encoder_layer_sizes=cfg.encoder_layer_sizes,
-            decoder_layer_sizes=cfg.layer_sizes, epsilon=cfg.epsilon,
-            tunable_decoder_var=cfg.tunable_decoder_var,
-            dataset_name=cfg.dataset)
+        arch = cfg.arch
+        if arch == "auto":
+            arch = "conv" if dataset.is_epochs else "mlp"
+        if arch == "conv":
+            if len(dataset.shape) != 3:
+                raise ValueError(
+                    "--arch conv requires an image dataset (H, W, C); "
+                    f"--dataset {cfg.dataset} has shape {tuple(dataset.shape)}")
+            self.model = build_conv_vae(
+                image_hwc=tuple(dataset.shape), latent_dim=cfg.latent_dimension,
+                channels_spec=cfg.conv_channels, epsilon=cfg.epsilon,
+                tunable_decoder_var=cfg.tunable_decoder_var)
+        else:
+            self.model = build_vae(
+                data_dim=dataset.dimension, latent_dim=cfg.latent_dimension,
+                encoder_layer_sizes=cfg.encoder_layer_sizes,
+                decoder_layer_sizes=cfg.layer_sizes, epsilon=cfg.epsilon,
+                tunable_decoder_var=cfg.tunable_decoder_var,
+                dataset_name=cfg.dataset)
         self.model.init_parameters(cfg.model_seed)
         self.model.to(self.device)
 
@@ -203,7 +226,13 @@ class Trainer:
             model_seed=rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z),
             adam_dtype=cfg.adam_dtype)
 
-        self.train_chunk = make_train_chunk(self.model, dataset, cfg)
+        # an epoch dataset's chunk is EpochChunk(state, epoch, n_batches)
+        chunk = make_train_chunk(self.model, dataset, cfg)
+        if dataset.is_epochs:
+            self.epoch_chunk = chunk
+        else:
+            self.train_chunk = chunk
+        self.epoch_num = 0
 
         self.recorder = StatsRecorder()
         self.current_epsilon = cfg.epsilon
@@ -233,6 +262,7 @@ class Trainer:
                 self.recorder = StatsRecorder.from_state(aux["recorder"])
                 self._eval_counter = int(aux["eval_counter"])
                 self.params_and_gradients = list(aux.get("params_and_gradients", []))
+                self.epoch_num = int(aux.get("epoch_num", 0))
                 self._resumed_with_aux = True
                 if aux.get("events_fired_at_step", False):
                     self._skip_events_at = self.batchnum
@@ -284,15 +314,23 @@ class Trainer:
         return out
 
     def write_stats(self, stats: dict, console_only: Optional[dict] = None) -> None:
-        print(self.recorder.write_stats(self.batchnum, stats,
+        """The stat line: "Batch | step" or, for an epoch dataset, "Epoch |
+        epoch"."""
+        is_epochs = self.dataset.is_epochs
+        num = self.epoch_num if is_epochs else self.batchnum
+        print(self.recorder.write_stats(num, stats, is_epochs=is_epochs,
                                         console_only=console_only), flush=True)
 
     def plot_epoch(self) -> None:
+        """The figure of a generated batch, ``output_<step>.png`` (for an
+        epoch dataset ``output_<epoch>.png``); the prior draw is keyed by
+        the step either way."""
         z1, z2 = sample_z(self.plot_z_seed, self.batchnum, self.eval_batch_size,
                           self.latent_dim, self.dataset.dimension, self.device)
         batch = generate(self.model, self.state.params, z1, z2,
                          self._epsilon_tensor())
-        fn = os.path.join(self.dirname, f"output_{self.batchnum}.png")
+        tag = self.epoch_num if self.dataset.is_epochs else self.batchnum
+        fn = os.path.join(self.dirname, f"output_{tag}.png")
         if not self.dataset.plot_batch(batch, fn=fn) and not self._plot_skip_noted:
             print("[plot] matplotlib is not installed; figures are skipped",
                   flush=True)
@@ -346,17 +384,54 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train(self) -> None:
-        """``train_distribution``, then the writer drained: on return every
-        in-loop artifact is on disk. On a crash the queued writes are
-        flushed (the newest checkpoint a rerun resumes from) without
-        masking the error."""
+        """``train_epochs`` for an epoch dataset, else ``train_distribution``,
+        then the writer drained: on return every in-loop artifact is on
+        disk. On a crash the queued writes are flushed (the newest
+        checkpoint a rerun resumes from) without masking the error."""
         writer = get_artifact_writer()
         try:
-            self.train_distribution()
+            if self.dataset.is_epochs:
+                self.train_epochs()
+            else:
+                self.train_distribution()
         except BaseException:
             writer.drain_quietly()
             raise
         writer.drain()
+
+    def train_epochs(self) -> None:
+        """Epoch mode (the JAX engine's ``train_epochs``): the stats before
+        training (unless resumed with the host-side history), then for every
+        epoch one ``EpochChunk``, the stats, "Completed Epoch k", the
+        "Epoch"-labelled stat line, the figure and a save. A resumed state
+        at step S has completed S // n_batches epochs and continues from
+        there; each epoch's permutation is keyed by its number, so none is
+        replayed."""
+        n_batches = self.dataset.n // self.cfg.batch_size  # > 0: EpochBatches checks
+        start_epoch = self.state.step // n_batches
+        self.batchnum = self.state.step
+        if not self._resumed_with_aux:
+            self.write_stats(self.compute_stats())
+        epochs = range(start_epoch, self.cfg.num_epochs)
+        if self.cfg.tqdm:
+            try:  # as the JAX engine: without tqdm, only the bar is lost
+                from tqdm import trange
+
+                epochs = trange(start_epoch, self.cfg.num_epochs)
+            except Exception:
+                pass
+        for self.epoch_num in epochs:
+            self.state, losses = self.epoch_chunk(self.state, self.epoch_num, n_batches)
+            losses = losses.cpu().numpy()
+            if self.cfg.debug_nans:
+                check_finite_losses(losses, self.batchnum)
+            self.recorder.append_train_losses(losses)
+            self.batchnum += n_batches
+            stats = self.compute_stats()
+            print(f"Completed Epoch {self.epoch_num}", flush=True)
+            self.write_stats(stats)
+            self.plot_epoch()
+            self.save()
 
     def train_distribution(self) -> None:
         if not self._resumed_with_aux:
@@ -419,7 +494,7 @@ class Trainer:
         return {
             "recorder": self.recorder.to_state(),
             "eval_counter": self._eval_counter,
-            "epoch_num": 0,
+            "epoch_num": self.epoch_num,
             "params_and_gradients": list(self.params_and_gradients),
             "events_fired_at_step": events_fired_at_step,
         }

@@ -17,6 +17,13 @@ step, so a step costs one graph launch instead of hundreds of op
 dispatches. Both give the same losses and state (``tests/
 test_torch_graph_chunk.py``; ``chip_smoke.py`` phase 40 on the card).
 
+``EpochChunk`` is epoch mode's chunk (an image corpus, the JAX package's
+``make_epoch_chunk``, ``step.py:188-307``): one epoch over a Philox
+permutation of the corpus, read through ``EpochBatches``, a dataset whose
+``sample`` returns the step's minibatch of the permutation, so the same two
+chunks train it, the graph holding a whole epoch
+(``tests/test_torch_epoch.py``; ``chip_smoke.py`` phases 43-48).
+
 This path is also the plain twin of the fused kernels
 (``kernels/linear_vae.py``, ``kernels/mlp_vae.py``): their hand-derived
 backwards are held against autograd here. ``--kernels torch`` runs it on
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import replace
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,6 +48,9 @@ from .state import TrainState, adam_update_
 
 # external noise for a chunk: (x, z1, z2), each (n_steps, batch, dim)
 Noise = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# external noise for an epoch: (perm, z1, z2), the corpus order (n,) and
+# z1, z2 (n_batches, batch, dim)
+EpochNoise = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def sample_z(seed: int, step, n: int, latent_dim: int, data_dim: int,
@@ -138,7 +149,11 @@ def counter_step_(model: VAE, dataset: DistributionDataset, state: TrainState,
 class GraphChunk:
     """``train_chunk`` on the card: ``counter_step_`` captured once as a CUDA
     graph and replayed ``n_steps`` times a chunk (one graph a step, not a
-    chunk, because the chunk lengths vary with the events).
+    chunk, because the chunk lengths vary with the events). With
+    ``steps_per_replay`` k the graph holds k steps and a chunk is a whole
+    number of replays: ``EpochChunk`` captures an epoch, whose length is
+    fixed (9.5–13.4% less wall time a step than one replay a step at the
+    bench's conv configuration on an H100 80GB HBM3 at 700 W, PERF.md).
 
     The graph reads the parameters, moments, counters and loss buffer at
     the addresses it captured. It is captured at the first chunk, after
@@ -153,9 +168,10 @@ class GraphChunk:
     WARMUP = 3
 
     def __init__(self, model: VAE, dataset: DistributionDataset, *, batch_size: int,
-                 lr: float):
+                 lr: float, steps_per_replay: int = 1):
         self.model, self.dataset = model, dataset
         self.batch_size, self.lr = batch_size, lr
+        self.steps_per_replay = steps_per_replay
         self._graph = None
         self._key = None
 
@@ -170,15 +186,19 @@ class GraphChunk:
         if noise is not None:
             return train_chunk(self.model, self.dataset, state, n_steps,
                                batch_size=self.batch_size, lr=self.lr, noise=noise)
+        k = self.steps_per_replay
+        if n_steps % k:
+            raise ValueError(f"a chunk of {n_steps} steps is not a whole number of "
+                             f"{k}-step graph replays")
         GraphChunk.calls += 1
         if (self._graph is None or self._key != self._key_of(state)
                 or n_steps > self._losses.numel()):
-            self._capture(state, max(n_steps, 1))
+            self._capture(state, max(n_steps, k))
         step, count, index = self._counters
         step.fill_(state.step)
         count.fill_(state.count + 1)
         index.zero_()
-        for _ in range(n_steps):
+        for _ in range(n_steps // k):
             self._graph.replay()
         return (replace(state, step=state.step + n_steps, count=state.count + n_steps),
                 self._losses[:n_steps].clone())
@@ -188,9 +208,12 @@ class GraphChunk:
         if device.type != "cuda":
             raise ValueError(f"GraphChunk needs a state on a CUDA device, not {device}")
         self._graph = None  # the old graph's memory pool goes first
-        # a power of two (longer chunks recapture rarely), and room for the
-        # warm-up steps' losses
-        capacity = max(1 << (n_steps - 1).bit_length(), self.WARMUP)
+        # the warm-up runs whole graph bodies, at least WARMUP steps; the loss
+        # buffer is a power of two (longer chunks recapture rarely) with room
+        # for the warm-up steps' losses
+        k = self.steps_per_replay
+        warm_bodies = -(-self.WARMUP // k)
+        capacity = max(1 << (n_steps - 1).bit_length(), warm_bodies * k)
         self._losses = torch.zeros(capacity, dtype=torch.float32, device=device)
         self._counters = tuple(torch.zeros((), dtype=torch.int64, device=device)
                                for _ in range(3))
@@ -200,8 +223,9 @@ class GraphChunk:
         saved = [t.clone() for t in held]
 
         def body():
-            counter_step_(self.model, self.dataset, state, self._counters, self._losses,
-                          batch_size=self.batch_size, lr=self.lr)
+            for _ in range(k):
+                counter_step_(self.model, self.dataset, state, self._counters, self._losses,
+                              batch_size=self.batch_size, lr=self.lr)
 
         graph = torch.cuda.CUDAGraph()
         try:
@@ -209,7 +233,7 @@ class GraphChunk:
                 side = torch.cuda.Stream(device)
                 side.wait_stream(torch.cuda.current_stream(device))
                 with torch.cuda.stream(side):
-                    for _ in range(self.WARMUP):
+                    for _ in range(warm_bodies):
                         body()
                 torch.cuda.current_stream(device).wait_stream(side)
                 with torch.cuda.graph(graph):
@@ -219,6 +243,92 @@ class GraphChunk:
                 for t, s in zip(held, saved):
                     t.copy_(s)
         self._graph, self._key, self._held = graph, self._key_of(state), held
+
+
+class EpochBatches:
+    """An image corpus read in one epoch's order, with the dataset
+    interface the chunks use: ``sample(seed, step, n)`` is minibatch
+    ``step − step0`` of the epoch's permutation (``seed`` is unused: the
+    permutation carries the randomness). ``step`` is a Python int or a
+    device int64 tensor, with the same batch; the permutation and ``step0``
+    live in buffers that ``set_epoch`` overwrites in place, so one CUDA
+    graph serves every epoch. The corpus is kept flat, (n, h·w·c) in NHWC
+    order, as the ELBO reads it; the conv VAE reshapes its input."""
+
+    def __init__(self, images: torch.Tensor, batch_size: int):
+        self.corpus = images.reshape(images.shape[0], -1)
+        self.batch_size = batch_size
+        self.n_batches = images.shape[0] // batch_size
+        if self.n_batches == 0:
+            raise ValueError("batch_size exceeds the dataset size")
+        device = images.device
+        self.perm = torch.zeros(self.n_batches * batch_size, dtype=torch.int64, device=device)
+        self.step0 = 0
+        self._step0 = torch.zeros((), dtype=torch.int64, device=device)
+
+    @property
+    def dimension(self) -> int:
+        return self.corpus.shape[1]
+
+    def set_epoch(self, perm: torch.Tensor, step0: int) -> None:
+        """Take the epoch's permutation (the first n_batches · batch_size
+        indices are used; the leftover images are dropped) and its first
+        step."""
+        self.perm.copy_(perm[:self.perm.numel()])
+        self.step0 = step0
+        self._step0.fill_(step0)
+
+    def sample(self, seed: int, step, n: int) -> torch.Tensor:
+        if n != self.batch_size:
+            raise ValueError(f"an epoch's minibatch is {self.batch_size} images, not {n}")
+        if isinstance(step, torch.Tensor):
+            i = (step - self._step0).view(1)
+            idx = self.perm.view(self.n_batches, n).index_select(0, i).view(n)
+        else:
+            i = step - self.step0
+            idx = self.perm[i * n:(i + 1) * n]
+        return self.corpus.index_select(0, idx)
+
+
+class EpochChunk:
+    """One epoch of an image corpus as one chunk: the counterpart of the
+    JAX package's ``make_epoch_chunk`` without a mesh (``step.py:188-307``).
+
+    ``chunk(state, epoch, n_batches=None, noise=None)`` trains on the
+    epoch's permutation (``dataset.epoch_permutation(state.data_seed,
+    epoch)``), step i on its slice i (``n // batch_size`` steps, the
+    leftover images dropped), with z1, z2 from the Philox streams at the
+    step (``sample_z``, the counterpart of ``fold_in(model_key, step)``),
+    and returns the advanced state and the (n_batches,) losses. ``noise``
+    is the test hook ``(perm, z1s, z2s)``: the caller's permutation and
+    (n_batches, batch, dim) noise. ``graph`` picks the form: one CUDA graph
+    replay an epoch (``GraphChunk`` with ``steps_per_replay`` = the epoch's
+    steps; the permutation is copied into the graph's static buffer before
+    the replay; a graph epoch is always whole) or op by op (``train_chunk``,
+    which a noise hook always takes)."""
+
+    def __init__(self, model: VAE, dataset, *, batch_size: int, lr: float, graph: bool):
+        self.model, self.dataset = model, dataset
+        self.batches = EpochBatches(dataset.images, batch_size)
+        self.batch_size = batch_size
+        kw = dict(batch_size=batch_size, lr=lr)
+        self._chunk = (GraphChunk(model, self.batches, steps_per_replay=self.batches.n_batches,
+                                  **kw) if graph
+                       else partial(train_chunk, model, self.batches, **kw))
+
+    def __call__(self, state: TrainState, epoch: int, n_batches: Optional[int] = None,
+                 noise: Optional[EpochNoise] = None) -> Tuple[TrainState, torch.Tensor]:
+        nb = self.batches.n_batches if n_batches is None else n_batches
+        if not 0 < nb <= self.batches.n_batches:
+            raise ValueError(f"an epoch has 1 to {self.batches.n_batches} steps, not {nb}")
+        perm = (self.dataset.epoch_permutation(state.data_seed, epoch) if noise is None
+                else noise[0])
+        self.batches.set_epoch(perm, state.step)
+        if noise is None:
+            return self._chunk(state, nb)
+        xs = torch.stack([self.batches.sample(state.data_seed, state.step + i, self.batch_size)
+                          for i in range(nb)])
+        return self._chunk(state, nb, noise=(xs, noise[1], noise[2]))
 
 
 @torch.no_grad()
