@@ -21,10 +21,13 @@ split into its parts, then the linear kernel's; last, the port's surfaces
 beyond the kernels: the bench, the sampler, the background artifact
 writer, the gaussian dataset, --profile, --debug_nans and the closed-form
 ELBO floor on K1; then the torch path as one CUDA graph replay a step, the
-warm starts and --track_correlation; last, epoch mode and the conv VAE at
+warm starts and --track_correlation; then epoch mode and the conv VAE at
 the bench's conv configuration (BASELINE.json config 5), on the torch path
-as one CUDA graph replay an epoch (no TPU kernel lies on that path).
-Forty-eight phases:
+as one CUDA graph replay an epoch (no TPU kernel lies on that path); last,
+the parallel backends that one card can check: the dp path over NCCL at
+world size 1, and the sharded seed grid and grouped sweep in two processes
+sharing the card, on K6a and K6b, one launch a rank over its own rows.
+Fifty-two phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -230,6 +233,30 @@ Forty-eight phases:
      bitwise);
  48. the synthetic corpus written to an .npz and one epoch through the CLI
      from it, equal to phase 44's first epoch bitwise.
+ 49. a one-rank process group (gloo for host objects; the dp path makes
+     its NCCL group on the card): --mesh dp=1 through the CLI at sphere
+     row 1 (1000 steps) and at the conv configuration (2 epochs): the
+     [kernels] line names the dp form, one CUDA graph replay a step (an
+     epoch) with the all-reduces captured, no kernel launch, and
+     losses.npz, model.pkl and the checkpoint's params, m and v equal the
+     no-mesh torch path's bitwise;
+ 50. two processes sharing the card, each a rank of a gloo group of two
+     (LOCAL_RANK 0): --seed_grid 2,3,4,5 --mesh dp=2 --multihost at linear
+     row 1 through K6a (2000 steps), each rank launching over its own 2
+     rows and printing only them, with its [pK] prefix; then
+     vae-sweep-torch sphere --grouped --mesh dp=2 through K6b (200 steps;
+     15 rows padded to 16, 8 a rank); every row equal to the one-process
+     run's bitwise; the processes load the kernels phase 2 built;
+ 51. times, with the card's name and power limit: the dp=1 step over NCCL
+     against the no-mesh graph step at sphere row 1 (wall, CUDA-event and
+     profiler kernel time, in turns), the world-size-1 all-reduce of a
+     step's gradients (device time in a CUDA graph and op by op), and K6a's
+     launch-step a rank over the linear sweep's rows sharded over two
+     processes on the card, beside phase 17's one-process figure;
+ 52. InvertibleBatchNorm with a one-rank NCCL group equal to it without a
+     group on the card: outputs, gradients and running stats bitwise.
+
+``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -350,6 +377,11 @@ def main() -> int:
     require(k1.kernel_smem_bytes(B, D, L, ID, ID) == need,
             "shared-memory layout of the library equals kernels/linear_vae.py's")
     print(f"shared memory per launch at the slice's shapes: {need} B")
+    if sys.argv[1:] == ["--only-parallel"]:  # phases 1, 2 and 49-52 alone, to develop them
+        with tempfile.TemporaryDirectory() as tmp:
+            _parallel(torch, np, smi, tmp, [])
+        print(f"phases 1, 2 and 49-52 passed in {time.perf_counter() - _T0:.1f} s")
+        return 0
 
     # --- 3 ---------------------------------------------------------------
     phase(3, "sampler: in-kernel Philox vs ops/rng.py")
@@ -533,6 +565,7 @@ def main() -> int:
     _surfaces(torch, np, smi, records, data_dir, run_dir, os.path.join(sweeps_dir, "main_K5"))
     _graph_and_library(torch, np, smi, data_dir, run_dir)
     _epochs(torch, np, smi, os.path.join(data_dir, "epochs"))
+    _parallel(torch, np, smi, os.path.join(data_dir, "parallel"), records)
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -3373,6 +3406,305 @@ class _StepGraphEpochs:
         self.batches.set_epoch(self.dataset.epoch_permutation(state.data_seed, epoch),
                                state.step)
         return self.chunk(state, n_batches or self.batches.n_batches)
+
+
+# the rank program of phases 50 and 51: one process of a gloo group
+# sharing the card (LOCAL_RANK 0). "run"/"sweep" drive vae-train-torch /
+# vae-sweep-torch and print the kernels' launch counts; "time <steps>
+# <mesh>" times K6a's launch-step over this rank's rows of the linear sweep
+# (sharded over the mesh, or all 21 rows without one)
+_RANK = r'''
+import json, sys, time
+from vae_training_tpu_torch.kernels import linear_vae as k1, mlp_vae as k5
+what, argv = sys.argv[1], sys.argv[2:]
+if what == "time":
+    import dataclasses, torch
+    from vae_training_tpu_torch._scripts.sweep import SWEEP_SEEDS, sweep_configs
+    from vae_training_tpu_torch.train.grid import GridTrainer
+    from vae_training_tpu_torch.train.mixed_grid import MixedGridSweep, _clone
+    from vae_training_tpu_torch.utils.process import init_distributed, process_index
+    init_distributed(True, "cuda")
+    rows, seeds = {}, SWEEP_SEEDS["linear"]
+    for cfg in sweep_configs("linear", "unused", 5000, "cuda"):
+        key = (cfg.dataset_dimension, cfg.padding_dim, cfg.latent_dimension)
+        rows.setdefault(key, {})[cfg.dataset_seed] = cfg
+    groups = [GridTrainer(by[seeds[0]], seeds, build_chunk=False) for by in rows.values()]
+    sweep = MixedGridSweep(groups, mesh_spec=argv[1] if len(argv) > 1 else "")
+    states = [g.states[i] for g, i in sweep._real] + [_clone(g.states[i]) for g, i in sweep._pads]
+    steps = int(argv[0])
+    sweep._chunk(states, steps)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    calls, t = 0, time.perf_counter()
+    start.record()
+    while True:
+        sweep._chunk(states, steps)
+        calls += 1
+        end.record()
+        end.synchronize()
+        if start.elapsed_time(end) >= 2000:
+            break
+    print("TIME " + json.dumps({
+        "rank": process_index(), "rows": len(states),
+        "event_ms": start.elapsed_time(end) / (calls * steps),
+        "wall_ms": (time.perf_counter() - t) * 1e3 / (calls * steps)}))
+    sys.exit(0)
+if what == "run":
+    from vae_training_tpu_torch._scripts.run import cli as entry
+else:
+    from vae_training_tpu_torch._scripts.sweep import main as entry
+rc = entry(argv)
+print("LAUNCHES " + json.dumps({
+    "K1": k1.run_fused_chunk.launches, "K5": k5.run_mlp_fused_chunk.launches,
+    "K6a": k1.run_grid_chunk.launches, "K6b": k5.run_grid_chunk.launches}))
+sys.exit(rc)
+'''
+
+
+def _parallel(torch, np, smi, data_dir, records):
+    """Phases 49-52: the parallel backends on one card. A one-rank process
+    group (gloo for host objects, NCCL for device collectives) for the dp
+    path, the dp epoch and InvertibleBatchNorm; two processes sharing the
+    card for the sharded seed grid and the sharded grouped sweep (their
+    training has no collective, so no NCCL group between them)."""
+    import torch.distributed as dist
+
+    from vae_training_tpu_torch._scripts import sweep as sweep_mod
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments, use_fp32_math
+    from vae_training_tpu_torch.data import SphereDataset
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.ops.flows import InvertibleBatchNorm
+    from vae_training_tpu_torch.parallel import data_parallel, make_mesh
+    from vae_training_tpu_torch.parallel.dryrun import spawn_ranks
+    from vae_training_tpu_torch.runio.checkpoint import restore_checkpoint
+    from vae_training_tpu_torch.train import TrainState, step as torch_step
+    from vae_training_tpu_torch.utils.process import device_group
+
+    dev = torch.device("cuda")
+    use_fp32_math(dev)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launchers = (k1.run_fused_chunk, k1.run_grid_chunk, k5.run_mlp_fused_chunk,
+                 k5.run_grid_chunk)
+
+    def reset_counts():
+        for fn in launchers:
+            fn.launches = 0
+        _torch_chunks(torch_step, reset=True)
+
+    def counts():
+        return (sum(fn.launches for fn in launchers), torch_step.GraphChunk.calls,
+                torch_step.train_chunk.calls)
+
+    def cli(name, flags, *extra):
+        cfg = parse_arguments([name, *flags, "--device", "cuda", "--data_dir", data_dir,
+                               *extra])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue()
+
+    def same_state(a, b):
+        """Max |Δ| of the checkpoints' losses-bearing state: params, m, v."""
+        sa, sb = restore_checkpoint(a), restore_checkpoint(b)
+        require((sa.step, sa.count) == (sb.step, sb.count), f"steps {a} {b}")
+        return max(float((t.float() - getattr(sb, tree)[k].float()).abs().max())
+                   for tree in ("params", "m", "v") for k, t in getattr(sa, tree).items())
+
+    def ranks(argv, n=2, timeout=300):
+        results = spawn_ranks(n, [sys.executable, "-c", _RANK, *argv], timeout=timeout,
+                              cwd=repo, local_rank=0)
+        for r, (rc, out, err) in enumerate(results):
+            if rc != 0:
+                print(out[-3000:])
+                print(err[-6000:], file=sys.stderr)
+            require(rc == 0, f"rank {r} of {argv[:2]} exited {rc}")
+        return [out for _, out, _ in results]
+
+    def launches(out):
+        (line,) = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")]
+        return json.loads(line[len("LAUNCHES "):])
+
+    rendezvous = tempfile.mkdtemp()
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        # --- 49 ----------------------------------------------------------
+        phase(49, "NCCL at world size 1: --mesh dp=1 through the CLI at sphere row 1 "
+                  "(1000 steps) and at the conv configuration (2 epochs), against the "
+                  "no-mesh torch path")
+        for name, flags, extra, form in (
+                ("sphere", SPHERE_ROW1, ["--num_batches", "1000"], "a step"),
+                ("conv", CONV, ["--num_epochs", "2"], "an epoch")):
+            reset_counts()
+            rc, out = cli(f"{name}_dp1", flags, *extra, "--mesh", "dp=1")
+            (kline,) = [ln for ln in out.splitlines() if ln.startswith("[kernels]")]
+            print(kline)
+            dp_counts = counts()
+            print(f"{name} --mesh dp=1: rc {rc}; kernel launches, graph chunks, op-by-op "
+                  f"chunks: {dp_counts}")
+            require(rc == 0, "main() returned 0")
+            require(kline == "[kernels] torch: plain PyTorch path (--mesh dp=1: data parallel "
+                             f"over dp=1); one CUDA graph replay {form}, the all-reduces "
+                             "captured in it", "the [kernels] line names the dp form")
+            require(dp_counts[0] == 0 and dp_counts[1] > 0 and dp_counts[2] == 0,
+                    "graph chunks only: no kernel launch, no op-by-op chunk")
+            rc, _ = cli(f"{name}_nomesh", flags, *extra, "--kernels", "torch")
+            require(rc == 0, "the no-mesh run returned 0")
+            a, b = (os.path.join(data_dir, f"{name}_{k}") for k in ("dp1", "nomesh"))
+            _require_same_run(np, a, b)
+            err = same_state(a, b)
+            require(err == 0.0, f"params, m and v bitwise (max |Δ| {err})")
+            print(f"{name}: losses.npz, model.pkl and the checkpoint's params, m and v equal "
+                  f"the no-mesh torch path bitwise")
+
+        # --- 50 ----------------------------------------------------------
+        phase(50, "two processes sharing the card (LOCAL_RANK 0, WORLD_SIZE 2, a gloo "
+                  "group): --seed_grid 2,3,4,5 --mesh dp=2 --multihost at linear row 1 on "
+                  "K6a, then vae-sweep-torch sphere --grouped --mesh dp=2 on K6b")
+        print("both processes load the kernel libraries phase 2 built (build/kernels/, keyed "
+              "by the sources' hash): neither builds")
+        grid = [*ROW1, "--num_batches", "2000", "--kernels", "cuda", "--device", "cuda",
+                "--seed_grid", "2,3,4,5"]
+        ref_dir, sh_dir = os.path.join(data_dir, "grid_ref"), os.path.join(data_dir, "grid_sh")
+        cfg = parse_arguments(["g", *grid, "--data_dir", ref_dir])
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            require(run_main(cfg) == 0, "the one-process grid returned 0")
+        t = time.perf_counter()
+        outs = ranks(["run", "g", *grid, "--data_dir", sh_dir, "--mesh", "dp=2",
+                      "--multihost"])
+        print(f"two ranks, --seed_grid 2,3,4,5 --mesh dp=2: {time.perf_counter() - t:.1f} s")
+        for r, out in enumerate(outs):
+            got = launches(out)
+            mine = [[2, 3], [4, 5]][r]
+            kline = [ln for ln in out.splitlines() if "[kernels]" in ln]
+            print(f"rank {r}: {kline[0]}; launches {got}")
+            require(got["K6a"] > 0 and got["K1"] == got["K5"] == got["K6b"] == 0,
+                    f"rank {r} launched K6a and nothing else")
+            require(kline[0].startswith(f"[p{r}] [kernels] cuda: K6a") and
+                    "2 rows in one launch a chunk" in kline[0], f"rank {r}: K6a over 2 rows")
+            seeds = set(map(int, re.findall(r"^\[p\d\] \[seed (\d+)\]", out, re.M)))
+            require(seeds == set(mine), f"rank {r} printed its rows {mine} ({seeds})")
+            require(not re.search(r"^\[seed ", out, re.M), f"rank {r}'s lines carry [p{r}]")
+        for s in (2, 3, 4, 5):
+            a, b = os.path.join(ref_dir, f"g_seed{s}"), os.path.join(sh_dir, f"g_seed{s}")
+            _require_same_run(np, a, b)
+            require(same_state(a, b) == 0.0, f"row seed{s}: params, m and v bitwise")
+        print("every row equals the one-process grid's bitwise (losses.npz, model.pkl, "
+              "checkpoint)")
+        sw = ["sphere", "--grouped", "--num_batches", "200", "--kernels", "cuda",
+              "--device", "cuda"]
+        ref_sw, sh_sw = os.path.join(data_dir, "sweep_ref"), os.path.join(data_dir, "sweep_sh")
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            require(sweep_mod.main([*sw, "--data_dir", ref_sw]) == 0, "one-process sweep")
+        t = time.perf_counter()
+        outs = ranks(["sweep", *sw, "--data_dir", sh_sw, "--mesh", "dp=2"])
+        print(f"two ranks, sphere --grouped --mesh dp=2: {time.perf_counter() - t:.1f} s")
+        for r, out in enumerate(outs):
+            got = launches(out)
+            kline = [ln for ln in out.splitlines() if "[kernels]" in ln]
+            print(f"rank {r}: {kline[0]}; launches {got}")
+            require(got["K6b"] > 0 and got["K1"] == got["K5"] == got["K6a"] == 0,
+                    f"rank {r} launched K6b and nothing else")
+            require("8 rows in one launch a chunk" in kline[0],
+                    f"rank {r}: K6b over 8 rows (15 rows padded to 16)")
+        names = sorted(os.listdir(ref_sw))
+        require(len(names) == 15 and sorted(os.listdir(sh_sw)) == names, "15 run dirs")
+        for name in names:
+            a, b = os.path.join(ref_sw, name), os.path.join(sh_sw, name)
+            _require_same_run(np, a, b)
+            require(same_state(a, b) == 0.0, f"{name}: params, m and v bitwise")
+        print("every sphere run equals the one-process grouped sweep's bitwise")
+
+        # --- 51 ----------------------------------------------------------
+        phase(51, "times: the dp=1 step over NCCL against the no-mesh step at sphere row 1; "
+                  "the world-size-1 all-reduce; the sharded grid's launch-step a rank with "
+                  "two processes on the card")
+        print(f"card: {smi}")
+        ds = SphereDataset(3, 3, device=dev)
+        model = build_vae(data_dim=SPH_D, latent_dim=SPH_L, encoder_layer_sizes="200|200|200",
+                          decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                          tunable_decoder_var=True, dataset_name="sphere")
+        model.init_parameters(0)
+        model.to(dev)
+        dp = data_parallel(make_mesh("dp=1"), B, 0, dev)
+        group = dp.groups[0][0]
+        require(dist.get_backend(group) == "nccl", "the dp group is NCCL on the card")
+        box = {}
+
+        def runner(par):
+            chunk = torch_step.GraphChunk(model, ds, batch_size=B, lr=1e-4, dp=par)
+            box[par is None] = TrainState.create(dict(model.named_parameters()),
+                                                 rng.derive_seed(69, rng.SEED_TRAIN_DATA),
+                                                 rng.derive_seed(0, rng.SEED_TRAIN_Z))
+
+            def run(n):
+                box[par is None] = chunk(box[par is None], n)[0]
+            return run
+
+        plain, dp_run = runner(None), runner(dp)
+        times = {}
+        for label, fn in (("no mesh", plain), ("dp=1 over NCCL", dp_run),
+                          ("dp=1 over NCCL (2)", dp_run), ("no mesh (2)", plain)):
+            times[label] = _timed(torch, f"sphere row 1, {label}", fn, 2000, 20)
+        wall = {k: min(times[k][0], times[k + " (2)"][0]) for k in ("no mesh", "dp=1 over NCCL")}
+        event = {k: min(times[k][1], times[k + " (2)"][1]) for k in ("no mesh", "dp=1 over NCCL")}
+        print(f"dp=1 step over NCCL: wall {wall['dp=1 over NCCL']:.4f} ms against "
+              f"{wall['no mesh']:.4f} ({wall['dp=1 over NCCL'] - wall['no mesh']:+.4f}); "
+              f"CUDA-event {event['dp=1 over NCCL']:.4f} against {event['no mesh']:.4f} "
+              f"({event['dp=1 over NCCL'] - event['no mesh']:+.4f})")
+        n_flat = sum(p.numel() for p in model.parameters()) + 1
+        flat = torch.zeros(n_flat, device=dev)
+        ms, n_kernels = _kernel_ms(torch, lambda: [dist.all_reduce(flat, group=group)
+                                                   for _ in range(100)])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(1000):
+            dist.all_reduce(flat, group=group)
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t) * 1e3
+        device = ("no kernel: NCCL returns a one-rank in-place all-reduce without device work"
+                  if not n_kernels else f"{ms * 10:.3f} us of {n_kernels // 100} kernel(s)")
+        print(f"the world-size-1 all-reduce of the step's {n_flat} floats, a call: on the "
+              f"device {device} (100 calls in a torch.profiler trace); {host_us:.3f} us op by "
+              f"op with the host's dispatch (1000 calls)")
+        linear = [rec for rec in records
+                  if rec["name"].startswith("linear_vae_grid_chunk (K6a), linear sweep")]
+        p17 = f"{linear[0]['ms']:.5f} ms" if linear else "not measured in this run"
+        times = [ranks(["time", "5000"], n=1)[0], *ranks(["time", "5000", "dp=2"])]
+        for out in times:
+            (line,) = [ln for ln in out.splitlines() if ln.startswith("TIME ")]
+            got = json.loads(line[5:])
+            who = ("one process alone" if got["rows"] == 21 else
+                   f"rank {got['rank']} of two processes on the card, dp=2")
+            print(f"K6a over {got['rows']} rows of the linear sweep, {who}: "
+                  f"{got['event_ms']:.5f} ms a launch-step (CUDA events), {got['wall_ms']:.5f} "
+                  f"wall; phase 17's one-process figure, 21 rows: {p17}")
+
+        # --- 52 ----------------------------------------------------------
+        phase(52, "InvertibleBatchNorm with a one-rank NCCL group against none, on the card")
+        nccl = device_group([0], dev)
+        x = torch.randn(4096, 64, generator=torch.Generator().manual_seed(0)).to(dev) * 3 + 2
+        got = []
+        for g in (None, nccl):
+            bn = InvertibleBatchNorm(64, process_group=g).to(dev)
+            xi = x.clone().requires_grad_(True)
+            y = bn(xi)
+            (y * y).sum().backward()
+            got.append((y.detach(), xi.grad, bn.scale.grad, bn.bias.grad,
+                        dict(bn.named_buffers())))
+        (ya, ga, sa, ba, bufa), (yb, gb, sb, bb, bufb) = got
+        require(torch.equal(ya, yb) and torch.equal(ga, gb) and torch.equal(sa, sb)
+                and torch.equal(ba, bb) and all(torch.equal(bufa[k], bufb[k]) for k in bufa),
+                "outputs, gradients and running stats bitwise")
+        print("(4096, 64): outputs, gradients and running stats equal the group-less module's "
+              "bitwise")
+    finally:
+        dist.destroy_process_group()
 
 
 def _kernel_events(torch, fn):

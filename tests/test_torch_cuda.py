@@ -1,7 +1,9 @@
 """K1, K2, K5, K5-dual, K6a and K6b on the card: the CUDA kernels against
 their plain PyTorch versions, and the grid modes' rows against the solo
 kernels, each with f32 Adam moments and with bf16 ones (K4,
-``--adam_dtype bf16``).
+``--adam_dtype bf16``); and, with a one-rank process group, the ``--mesh
+dp=1`` step over NCCL against the no-mesh graph step and
+``InvertibleBatchNorm`` with a one-rank NCCL group against none.
 
 These tests need a CUDA device of compute capability 9.0 and nvcc; they
 carry the ``cuda`` marker and skip elsewhere. The file imports no JAX, so on
@@ -1311,3 +1313,72 @@ def test_epoch_graph_equals_op_by_op_bitwise(cuda_device, channels):
     for tree in ("params", "m", "v"):
         for k, t in getattr(se, tree).items():
             assert torch.equal(t, getattr(sg, tree)[k]), f"{tree}[{k}]"
+
+
+@pytest.fixture
+def one_rank_group(cuda_device, tmp_path):
+    """A one-rank process group (gloo for host objects), as chip_smoke.py
+    phases 49 and 52 start it; the paths under test make their NCCL
+    groups on the card."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            rank=0, world_size=1)
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_one_dp_step_equals_the_graph_step(one_rank_group):
+    """``--mesh dp=1`` with a one-rank NCCL group: the dp step as one CUDA
+    graph replay, its all-reduce captured, equals the no-mesh graph step
+    bitwise (20 steps at sphere row 1's shapes, 200|200|200)."""
+    from vae_training_tpu_torch.config import use_fp32_math
+    from vae_training_tpu_torch.parallel import data_parallel, make_mesh
+    from vae_training_tpu_torch.train import step as torch_step
+
+    dev = one_rank_group
+    use_fp32_math(dev)
+    ds = SphereDataset(3, 3, device=dev)
+    model = build_vae(data_dim=6, latent_dim=6, encoder_layer_sizes="200|200|200",
+                      decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                      tunable_decoder_var=True, dataset_name="sphere")
+    model.init_parameters(0)
+    model.to(dev)
+    dp = data_parallel(make_mesh("dp=1"), B, 0, dev)
+    assert dp.groups[0][0] is not None  # a real one-rank NCCL group
+    got = []
+    for par in (None, dp):
+        state = TrainState.create(dict(model.named_parameters()),
+                                  rng.derive_seed(69, rng.SEED_TRAIN_DATA),
+                                  rng.derive_seed(0, rng.SEED_TRAIN_Z))
+        chunk = torch_step.GraphChunk(model, ds, batch_size=B, lr=1e-4, dp=par)
+        got.append(chunk(state, 20))
+    (sa, la), (sb, lb) = got
+    assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
+    for tree in ("params", "m", "v"):
+        for k, t in getattr(sa, tree).items():
+            assert torch.equal(t, getattr(sb, tree)[k]), f"{tree}[{k}]"
+
+
+@pytest.mark.cuda
+def test_batch_norm_with_a_one_rank_nccl_group(one_rank_group):
+    """``InvertibleBatchNorm`` with a one-rank NCCL group equals it without
+    a group: outputs, running stats and gradients bitwise."""
+    from vae_training_tpu_torch.ops.flows import InvertibleBatchNorm
+    from vae_training_tpu_torch.utils.process import device_group
+
+    dev = one_rank_group
+    group = device_group([0], dev)
+    x = torch.randn(64, 6, generator=torch.Generator().manual_seed(0)).to(dev) * 3 + 2
+    got = []
+    for g in (None, group):
+        bn = InvertibleBatchNorm(6, process_group=g).to(dev)
+        xi = x.clone().requires_grad_(True)
+        y = bn(xi)
+        (y * y).sum().backward()
+        got.append((y.detach(), xi.grad, bn.scale.grad, dict(bn.named_buffers())))
+    (ya, ga, sa, ba), (yb, gb, sb, bb) = got
+    assert torch.equal(ya, yb) and torch.equal(ga, gb) and torch.equal(sa, sb)
+    for k in ba:
+        assert torch.equal(ba[k], bb[k]), k

@@ -19,9 +19,10 @@
     same batch (rtol 1e-5); vae-sample-torch on a JAX conv run equals the
     JAX sampler, and the JAX sampler reads the port's conv run;
   - 2 epochs, then ``--resume`` to 3, equal 3 epochs bitwise;
-  - ``--kernels cuda``, ``--seed_grid`` and ``--mesh`` on an image corpus,
+  - ``--kernels cuda``, ``--seed_grid`` and ``--mesh dp=2`` (in one
+    process: the JAX package's ``make_mesh`` error) on an image corpus,
     and ``--arch conv`` on linear_gaussian, raise the JAX package's
-    messages (``--mesh`` names ROADMAP item 11);
+    messages;
   - ``vae-bench-torch --config conv --device cpu`` prints its line with the
     JAX bench's ``conv_step_flops``;
   - every entry point sets the card's fp32 math (``use_fp32_math``).
@@ -327,7 +328,8 @@ def test_resume_is_bitwise_equal_to_uninterrupted(tmp_path):
     ([*IMAGE, "--kernels", "cuda"], RuntimeError,
      r"--kernels cuda requested but no fused kernel can run: linear kernel: .*; MLP kernel: "),
     ([*IMAGE, "--seed_grid", "2,3"], NotImplementedError, "epoch-mode image corpora"),
-    ([*IMAGE, "--mesh", "dp=2"], NotImplementedError, "item 11"),
+    ([*IMAGE, "--mesh", "dp=2"], ValueError,
+     r"Mesh \{'dp': 2\} needs 2 devices but only 1 available"),
     (["--dataset", "linear_gaussian", "--arch", "conv"], ValueError,
      r"--arch conv requires an image dataset \(H, W, C\); --dataset linear_gaussian has "
      r"shape \(3,\)"),

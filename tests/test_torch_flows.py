@@ -3,8 +3,9 @@ the six single-device tests of ``tests/test_flow_ops.py``, each also
 holding the port's output to the JAX function's on the same numpy inputs
 (bitwise where both are exact elementwise or layout ops; rtol 1e-6 where
 float32 sums or a matrix inverse round in another order). The cross-device
-moment mean (the JAX module's ``axis_name``) waits for ROADMAP Queue 1
-item 11.
+moment mean (``process_group``, the JAX module's ``axis_name``) is held in
+four gloo ranks by tests/test_torch_parallel_training.py, and on the card
+with a one-rank NCCL group by tests/test_torch_cuda.py.
 """
 
 import jax

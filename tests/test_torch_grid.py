@@ -172,7 +172,7 @@ def test_mlp_seed_grid_prints_its_per_row_choice(tmp_path, capsys):
     (["--kernels", "cuda"], RuntimeError, "--kernels cuda requested but no fused kernel"),
     (["--seed_grid", "2,x"], ValueError, "comma-separated integers"),
     (["--seed_grid", "2,2"], ValueError, "repeats a seed"),
-    (["--mesh", "dp=2"], NotImplementedError, "item 11"),
+    (["--mesh", "dp=2"], ValueError, r"Mesh \{'dp': 2\} needs 2 devices but only 1 available"),
     (["--track_correlation"], NotImplementedError, "solo-run diagnostic"),
 ])
 def test_grid_refuses_what_it_cannot_run(tmp_path, extra, exc, match):

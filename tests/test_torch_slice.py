@@ -7,7 +7,8 @@
   - model.pkl written by either package loads in the other;
   - ``--resume`` reproduces an uninterrupted run bitwise;
   - no silent CPU fallback: ``--device cuda`` / ``--kernels cuda`` raise
-    here; unported flags raise naming their ROADMAP item, and ``--arch
+    here; ``--mesh dp=2`` in one process raises the JAX package's
+    ``make_mesh`` error (it never trains on fewer devices), and ``--arch
     conv`` on a manifold raises the JAX engine's message;
   - the port never imports JAX.
 """
@@ -238,7 +239,7 @@ def test_cpu_kernel_wrapper_runs_the_plain_chunk():
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
     (["--arch", "conv"], ValueError, "--arch conv requires an image dataset"),
     (["--seed_grid", "2,3", "--kernels", "cuda"], RuntimeError, "--kernels cuda requested"),
-    (["--mesh", "dp=2"], NotImplementedError, "item 11"),
+    (["--mesh", "dp=2"], ValueError, r"Mesh \{'dp': 2\} needs 2 devices but only 1 available"),
 ])
 def test_no_silent_fallback_and_unported_flags(tmp_path, extra, exc, match):
     if torch.cuda.is_available() and "cuda" in extra:
@@ -256,6 +257,9 @@ def test_port_never_imports_jax():
             "from vae_training_tpu_torch.data import SigmoidDataset, SphereDataset\n"
             "import vae_training_tpu_torch.data.images, vae_training_tpu_torch.models.conv\n"
             "import vae_training_tpu_torch._scripts.bench, vae_training_tpu_torch._scripts.sample\n"
+            "import vae_training_tpu_torch.parallel.api, vae_training_tpu_torch.parallel.dp\n"
+            "import vae_training_tpu_torch.parallel.gspmd, vae_training_tpu_torch.parallel.mesh\n"
+            "import vae_training_tpu_torch.parallel.dryrun, vae_training_tpu_torch.utils.process\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'vae_training_tpu'))\n"
             "assert not bad, bad\n")

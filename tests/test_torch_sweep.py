@@ -143,15 +143,18 @@ def test_sequential_runs_in_process(tmp_path, capsys):
     assert "[kernels] torch: plain PyTorch path (device 'cpu' is not a CUDA device)" in out
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--isolate"], "ROADMAP Queue 1 item 12"),
-    (["--row_timeout", "60"], "ROADMAP Queue 1 item 12"),
-    (["--retries", "1"], "ROADMAP Queue 1 item 12"),
-    (["--grouped", "--mesh", "dp=2"], "ROADMAP Queue 1 item 11"),
-    (["--mesh", "dp=2"], "ROADMAP Queue 1 item 11"),
+@pytest.mark.parametrize("extra,exc,match", [
+    (["--isolate"], NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (["--row_timeout", "60"], NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (["--retries", "1"], NotImplementedError, "ROADMAP Queue 1 item 12"),
+    # --mesh is ported: in one process dp=2 is the JAX make_mesh error, and
+    # it needs --grouped
+    (["--grouped", "--mesh", "dp=2"], ValueError,
+     r"Mesh \{'dp': 2\} needs 2 devices but only 1 available"),
+    (["--mesh", "dp=2"], ValueError, "--mesh shards the rows of --grouped sweeps"),
 ])
-def test_unported_flags_raise_naming_their_item(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise_naming_their_item(tmp_path, extra, exc, match):
+    with pytest.raises(exc, match=match):
         sweep.main(["linear", "--device", "cpu", "--data_dir", str(tmp_path), *extra])
     assert not os.listdir(tmp_path)
 

@@ -17,9 +17,17 @@ Without ``--grouped`` the runs go one after another in this process.
 same kernels). ``--shard K/N`` trains a disjoint round-robin share;
 ``--report`` summarises a finished sweep from its artifacts.
 
+``--grouped --mesh dp=N`` shards each launch's rows over the N ranks of a
+``torch.distributed`` run (one process a device, started by torchrun; the
+process group comes up when ``WORLD_SIZE`` > 1): every rank trains its
+block of the rows, with no collective, and writes only those rows'
+directories (``train/mixed_grid.py``, ``train/grid.py``); ``--shard K/N``
+composes with it, as in the JAX runner. Without ``--grouped`` the runs go
+one after another and ``--mesh`` raises.
+
 Not ported: ``--isolate`` / ``--row_timeout`` / ``--retries``, the TPU
-init-hang supervision (ROADMAP Queue 1 item 12); ``--mesh`` (Queue 1 item
-11). Each raises naming its item.
+init-hang supervision (ROADMAP Queue 1 item 12); each raises naming its
+item.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import sys
 import time
 
 from vae_training_tpu_torch.config import RunConfig, use_fp32_math
+from vae_training_tpu_torch.utils.process import init_distributed
 
 # (data_dim, padding_dim, latent_dim) rows: the reference's sweeps
 LINEAR_GRID = [(3, 9, 20), (3, 17, 20), (6, 6, 20), (6, 14, 20),
@@ -122,12 +131,13 @@ def shard_items(items, shard):
 
 
 def run_grouped(sweep: str, data_dir: str, num_batches, kernels: str,
-                resume: bool = False, shard=(0, 1), device: str = "cuda",
+                mesh: str = "", resume: bool = False, shard=(0, 1), device: str = "cuda",
                 adam_dtype: str = "f32") -> int:
     """Every row's seeds as one grid; with ``--kernels auto|cuda`` first the
     whole sweep as one launch per chunk (``run_mixed_sweep``), and per-row
     grids where that is unavailable (``MixedSweepUnavailable``, raised
-    before any IO). ``shard`` partitions the row groups round-robin."""
+    before any IO). ``mesh`` (e.g. 'dp=3') shards each launch's rows over
+    the run's ranks. ``shard`` partitions the row groups round-robin."""
     from vae_training_tpu_torch.train.grid import run_seed_grid
 
     seeds = SWEEP_SEEDS[sweep]
@@ -155,9 +165,10 @@ def run_grouped(sweep: str, data_dir: str, num_batches, kernels: str,
                       for by_seed in rows.values()]
         try:
             t0 = time.perf_counter()
-            rc = run_mixed_sweep(mixed_rows, resume=resume)
-            print(f"[sweep] ONE-LAUNCH {sweep}: {len(rows)} rows × {len(seeds)} seeds "
-                  f"in {time.perf_counter() - t0:.1f}s", flush=True)
+            rc = run_mixed_sweep(mixed_rows, mesh_spec=mesh, resume=resume)
+            print(f"[sweep] ONE-LAUNCH {sweep}: {len(rows)} rows × {len(seeds)} seeds"
+                  + (f" sharded over {mesh}" if mesh else "")
+                  + f" in {time.perf_counter() - t0:.1f}s", flush=True)
             return rc
         except MixedSweepUnavailable as e:
             print(f"[sweep] one-launch unavailable ({e}); per-row grid launches",
@@ -165,6 +176,7 @@ def run_grouped(sweep: str, data_dir: str, num_batches, kernels: str,
 
     for key, by_seed in rows.items():
         cfg = by_seed[seeds[0]]
+        cfg.mesh = mesh
         if resume:
             cfg.resume = "rows"  # grid semantics: each row's own output dir
         t0 = time.perf_counter()
@@ -238,8 +250,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard", default="",
                    help="'K/N': train only this process's round-robin share (row "
                         "groups with --grouped, runs otherwise).")
+    p.add_argument("--mesh", default="",
+                   help="With --grouped: shard each launch's rows over the run's ranks, "
+                        "e.g. 'dp=3' (torchrun, one process a device).")
     # the JAX runner's flags whose machinery is not ported: each raises
-    p.add_argument("--mesh", default="", help="Not yet ported (ROADMAP Queue 1 item 11).")
     p.add_argument("--isolate", action="store_true",
                    help="Not ported (ROADMAP Queue 1 item 12).")
     p.add_argument("--row_timeout", type=float, default=None,
@@ -258,18 +272,29 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--isolate/--row_timeout/--retries supervise TPU init hangs and are left "
             "out of vae_training_tpu_torch; see ROADMAP Queue 1 item 12")
-    if args.mesh:
-        raise NotImplementedError("--mesh is not yet ported to vae_training_tpu_torch; "
-                                  "see ROADMAP Queue 1 item 11 (parallel)")
+    if args.mesh and not args.grouped:
+        raise ValueError("--mesh shards the rows of --grouped sweeps; add --grouped")
     shard = parse_shard(args.shard)
     if args.report:
         return run_report(args.sweep, args.data_dir)
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    try:
+        init_distributed(False, args.device)  # WORLD_SIZE > 1: one rank of a sharded sweep
+        return _run(args, shard)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, shard) -> int:
     use_fp32_math(args.device)
     t0 = time.perf_counter()
     if args.grouped:
         rc = run_grouped(args.sweep, args.data_dir, args.num_batches, args.kernels,
-                         resume=args.resume, shard=shard, device=args.device,
-                         adam_dtype=args.adam_dtype)
+                         mesh=args.mesh, resume=args.resume, shard=shard,
+                         device=args.device, adam_dtype=args.adam_dtype)
         print(f"[sweep] grouped {args.sweep} in {time.perf_counter() - t0:.1f}s",
               flush=True)
         return rc

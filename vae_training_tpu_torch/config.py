@@ -21,9 +21,11 @@ unchanged. What differs from the JAX package:
     and in a seed grid; ``-wsl`` parses and does nothing, as in the JAX
     package (nothing there reads it); ``--track_correlation`` records the
     correlation ratios (``train/loop.py``, ``utils/trees.py``).
-  - Flags whose machinery is not ported yet (``--mesh``, ``--multihost``,
-    ``--ckpt_backend orbax``) raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them (``validate``).
+  - ``--mesh`` shards training over the ranks of a ``torch.distributed``
+    run, one process a device (``parallel/``); ``--multihost`` (or
+    ``WORLD_SIZE`` > 1) starts the process group (``utils/process.py``).
+  - ``--ckpt_backend orbax`` is left out and raises
+    ``NotImplementedError`` naming its ROADMAP item (``validate``).
 """
 
 from __future__ import annotations
@@ -126,18 +128,16 @@ class RunConfig:
             raise ValueError(f"--adam_dtype must be f32|bf16, got {self.adam_dtype}")
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu, got {self.device}")
-        not_ported = {
-            "--mesh": (bool(self.mesh), "ROADMAP Queue 1 item 11 (parallel)"),
-            "--multihost": (self.multihost, "ROADMAP Queue 1 item 11 (parallel)"),
-            "--ckpt_backend orbax": (self.ckpt_backend == "orbax",
-                                     "ROADMAP Queue 1 item 12 (orbax is left out)"),
-        }
         if self.seed_grid and not self.grid_seeds():
             raise ValueError(f"--seed_grid names no seed: {self.seed_grid!r}")
-        for flag, (used, item) in not_ported.items():
-            if used:
-                raise NotImplementedError(
-                    f"{flag} is not yet ported to vae_training_tpu_torch; see {item}")
+        if self.mesh:
+            from .parallel.mesh import parse_mesh_spec
+
+            parse_mesh_spec(self.mesh)  # a bad spec fails before any handshake
+        if self.ckpt_backend == "orbax":
+            raise NotImplementedError(
+                "--ckpt_backend orbax is not yet ported to vae_training_tpu_torch; see "
+                "ROADMAP Queue 1 item 12 (orbax is left out)")
         if self.device == "cuda":
             import torch
 
@@ -211,7 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-off", "--latent_off_dimension", type=int, default=1)
     # Framework flags (kept from the JAX package; unported ones raise).
     p.add_argument("--mesh", dest="mesh", default="",
-                   help="Device mesh spec (not yet ported).")
+                   help="Device mesh over the run's ranks, e.g. 'dp=8', 'dp=4,tp=2' "
+                        "or 'dp_dcn=2,dp=4' (one process a device; torchrun).")
     p.add_argument("--mesh_allow_uneven", dest="mesh_allow_uneven",
                    action="store_true")
     p.add_argument("--tp_allow_replicated", dest="tp_allow_replicated",
@@ -249,7 +250,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_images", dest="num_images", type=int, default=4096)
     p.add_argument("--track_correlation", dest="track_correlation",
                    action="store_true")
-    p.add_argument("--multihost", dest="multihost", action="store_true")
+    p.add_argument("--multihost", dest="multihost", action="store_true",
+                   help="Start the torch.distributed process group from torchrun's "
+                        "environment (also when WORLD_SIZE > 1 without it).")
     p.add_argument("--n_print", dest="n_print", type=int, default=5000,
                    help="Stat cadence in steps (reference: 5000).")
     p.add_argument("--n_plot", dest="n_plot", type=int, default=50000,

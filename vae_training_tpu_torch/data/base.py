@@ -17,12 +17,14 @@ import torch
 class DistributionDataset:
     """An infinite sampler over a known manifold, with analytic scoring.
 
-    Subclasses implement ``sample(seed, step, n)``, ``score(batch)``,
-    ``plot_batch(batch, fn)`` and the ``ndim`` property. ``step`` is a
-    Python int or a device int64 tensor (the CUDA-graph chunk's counter,
-    ``train/step.py``), with the same batch either way; a sample runs
-    only device work (no ``.item()``, no numpy), so a graph can capture
-    it."""
+    Subclasses implement ``sample(seed, step, n, row0=0)``,
+    ``score(batch)``, ``plot_batch(batch, fn)`` and the ``ndim`` property.
+    ``step`` is a Python int or a device int64 tensor (the CUDA-graph
+    chunk's counter, ``train/step.py``), with the same batch either way; a
+    sample runs only device work (no ``.item()``, no numpy), so a graph can
+    capture it. ``row0`` is the first row of the global batch that the
+    sample is: a data-parallel rank draws rows ``row0 .. row0 + n − 1`` of
+    the one-device batch (``parallel/dp.py``)."""
 
     is_epochs = False  # an infinite sampler: the engine's step loop, not epochs
 
@@ -41,7 +43,7 @@ class DistributionDataset:
             d *= int(s)
         return d
 
-    def sample(self, seed: int, step, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
         raise NotImplementedError
 
     def score(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -185,11 +185,12 @@ class ImageDataset:
         h, w, c = self.shape
         return h * w * c
 
-    def sample(self, seed: int, counter, n: int) -> torch.Tensor:
+    def sample(self, seed: int, counter, n: int, row0: int = 0) -> torch.Tensor:
         """(n, h·w·c) images drawn with replacement, flattened in NHWC
         order: image ``word % n_images`` for the first Philox word of each
-        row at (counter, row, 0, STREAM_IMAGE_INDEX)."""
-        w = rng.words(seed, counter, n, rng.STREAM_IMAGE_INDEX, 1, device=self.device)
+        row at (counter, row, 0, STREAM_IMAGE_INDEX), rows from ``row0``."""
+        w = rng.words(seed, counter, n, rng.STREAM_IMAGE_INDEX, 1, device=self.device,
+                      row0=row0)
         return self.images.index_select(0, w[:, 0, 0] % self.n).reshape(n, -1)
 
     def epoch_permutation(self, seed: int, epoch: int) -> torch.Tensor:

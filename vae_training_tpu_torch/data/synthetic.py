@@ -67,14 +67,15 @@ class GaussianDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim
 
-    def sample(self, seed: int, step, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
         """(n, ndim) batch at counter ``step``: the core from
         STREAM_MANIFOLD, the padding from STREAM_OBS scaled by
         √noise_level (zeros when either the noise or the padding is 0)."""
-        core = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim, device=self.device)
+        core = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim, device=self.device,
+                           row0=row0)
         if self.noise_level > 0 and self.padding_dim > 0:
             pad = rng.normals(seed, step, n, rng.STREAM_OBS, self.padding_dim,
-                              device=self.device)
+                              device=self.device, row0=row0)
             return torch.cat([core, pad * self._pad_scale], dim=1)
         return pad_with_zeros(core, self.padding_dim)
 
@@ -158,16 +159,16 @@ class LinearGaussianDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim
 
-    def sample(self, seed: int, step, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
         """(n, ndim) batch at counter ``step`` of the stream keyed ``seed``:
         intrinsic normals from STREAM_MANIFOLD, observation noise from
         STREAM_OBS."""
         lat = rng.normals(seed, step, n, rng.STREAM_MANIFOLD,
-                          self.intrinsic_dim, device=self.device)
+                          self.intrinsic_dim, device=self.device, row0=row0)
         y = pad_with_zeros(lat @ self.A.T, self.padding_dim)
         if self.var_added > 0:
             noise = rng.normals(seed, step, n, rng.STREAM_OBS, self.ndim,
-                                device=self.device)
+                                device=self.device, row0=row0)
             y = y + noise * self._obs_scale
         return y
 
@@ -213,9 +214,9 @@ class SigmoidDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim + 1
 
-    def sample(self, seed: int, step, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
         z = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
-                        device=self.device)
+                        device=self.device, row0=row0)
         out = torch.cat([z, torch.sigmoid(z @ self.A)], dim=1)
         return pad_with_zeros(out, self.padding_dim)
 
@@ -279,9 +280,9 @@ class SphereDataset(DistributionDataset):
     def ndim(self) -> int:
         return self.dim + self.padding_dim
 
-    def sample(self, seed: int, step, n: int) -> torch.Tensor:
+    def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
         g = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
-                        device=self.device)
+                        device=self.device, row0=row0)
         norm2 = torch.sum(g * g, dim=1, keepdim=True)
         return pad_with_zeros(g * torch.rsqrt(torch.clamp(norm2, min=1e-20)),
                               self.padding_dim)

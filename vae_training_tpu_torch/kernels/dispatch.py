@@ -33,6 +33,11 @@ kernel on it) and, for the torch path, its form after a semicolon. There
 is no fallback after the choice: a kernel that fails to build or launch,
 and a graph that fails to capture, raise.
 
+``make_parallel_chunk`` serves ``--mesh``: the torch path sharded over the
+run's ranks (``parallel/``), in the same two forms, the dp step's
+all-reduces captured in its graph; the fused kernels are single-device,
+so ``--kernels cuda`` with ``--mesh`` raises the JAX engine's message.
+
 ``make_grid_chunk`` makes the same choice for the rows of a seed grid or a
 one-launch sweep (``train/grid.py``, ``train/mixed_grid.py``): K6a, the
 grid mode of the linear kernel, else K6b, the grid mode of the MLP kernel,
@@ -126,6 +131,37 @@ def make_train_chunk(model, dataset, cfg):
     return _torch_chunk(model, dataset, cfg)
 
 
+def make_parallel_chunk(model, dataset, cfg):
+    """→ ``parallel/api.py`` ``ParallelFns`` for ``--mesh``: the torch path
+    sharded over the mesh's ranks, data parallel or tensor parallel, in the
+    form ``torch_path_form`` picks. The fused kernels are single-device, so
+    ``--kernels cuda`` raises the JAX engine's message (``loop.py:265-279``,
+    "pallas" read as "cuda"), as does tp in epoch mode. The primary
+    process prints the ``[kernels]`` line."""
+    from ..parallel.api import make_parallel_step_fns
+    from ..parallel.mesh import parse_mesh_spec
+    from ..utils.process import is_primary
+
+    if cfg.nojit and cfg.kernels == "cuda":
+        raise ValueError("-nojit selects the plain torch path; drop --kernels cuda")
+    if cfg.kernels == "cuda":
+        raise ValueError(
+            "--kernels cuda is single-chip; remove --mesh or use "
+            "--kernels auto/torch for mesh training (or shard a seed "
+            "grid: --seed_grid ... --mesh dp=N)")
+    if dataset.is_epochs and parse_mesh_spec(cfg.mesh).get("tp", 1) > 1:
+        raise ValueError(
+            "epoch-mode (image) training shards the batch over "
+            "dp; use a pure dp spec (e.g. --mesh dp=8)")
+    graph, form = torch_path_form(cfg)
+    fns = make_parallel_step_fns(model, dataset, cfg, graph=graph, form=form,
+                                 debug_wrap=lambda chunk: _anomaly(chunk, cfg))
+    if is_primary():
+        print(f"[kernels] torch: plain PyTorch path (--mesh {cfg.mesh}: {fns.kind})"
+              f"{_moments(cfg)}; {fns.form}", flush=True)
+    return fns
+
+
 def _anomaly(chunk, cfg):
     """``chunk`` run inside ``torch.autograd.detect_anomaly`` under
     ``--debug_nans``; ``chunk`` itself otherwise."""
@@ -139,10 +175,11 @@ def _anomaly(chunk, cfg):
     return checked
 
 
-def make_grid_chunk(models, datasets, cfg):
+def make_grid_chunk(models, datasets, cfg, prefix: str = ""):
     """→ ``chunk(states, n_steps, noises=None)`` over grid rows (one model,
     dataset and config each; ``cfg`` may be one config for all), returning
-    (states, (rows, n_steps) losses), for the configured backend."""
+    (states, (rows, n_steps) losses), for the configured backend. The
+    ``[kernels]`` line starts with ``prefix`` (a rank's ``[pK] ``)."""
     from . import linear_vae, mlp_vae
 
     cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
@@ -160,12 +197,13 @@ def make_grid_chunk(models, datasets, cfg):
                                      ("K6b", mlp_vae, "MLP-VAE")):
             ok, why_grid = module.grid_supported(models, datasets, cfgs)
             if ok and on_card:
-                print(f"[kernels] cuda: {name}, the grid mode of the fused {kernel} kernel, "
-                      f"{n} rows in one launch a chunk ({why_grid}){_moments(cfg0)}", flush=True)
+                print(f"{prefix}[kernels] cuda: {name}, the grid mode of the fused {kernel} "
+                      f"kernel, {n} rows in one launch a chunk ({why_grid}){_moments(cfg0)}",
+                      flush=True)
                 return module.make_grid_chunk(models, datasets, cfg0)
             if ok and cfg0.kernels != "cuda":
-                print(f"[kernels] plain: {name}'s plain version on the CPU, {n} rows a chunk, "
-                      f"one plain chunk a row ({why_dev}; {why_grid}){_moments(cfg0)}",
+                print(f"{prefix}[kernels] plain: {name}'s plain version on the CPU, {n} rows a "
+                      f"chunk, one plain chunk a row ({why_dev}; {why_grid}){_moments(cfg0)}",
                       flush=True)
                 return module.make_grid_chunk(models, datasets, cfg0)
             reasons[name] = why_dev if ok else why_grid
@@ -175,7 +213,7 @@ def make_grid_chunk(models, datasets, cfg):
         hidden = any(len(m.encoder_features) > 1 or len(m.decoder_features) > 1
                      for m in models)
         why = reasons["K6b"] if hidden else reasons["K6a"]
-    print(f"[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})"
+    print(f"{prefix}[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})"
           f"{_moments(cfg0)}; {torch_path_form(cfg0)[1]}", flush=True)
     chunks = [_torch_chunk(m, d, c) for m, d, c in zip(models, datasets, cfgs)]
 

@@ -7,8 +7,10 @@ masks, 2×2 space-to-depth and two classifier helpers. The live VAE path
 uses none of them. ``InvertibleBatchNorm`` keeps the flax module's
 ``batch_stats`` collection as buffers (``mean``, ``var``, ``recent_mul``,
 ``recent_mean``) and its parameters as ``scale`` and ``bias``; its
-cross-device moment mean (the JAX module's ``axis_name``) needs a process
-group and comes with ROADMAP Queue 1 item 11.
+``process_group`` is the JAX module's ``axis_name`` and
+``axis_index_groups``: the batch moments are averaged over the group's
+ranks (one all-reduce of ``[mean, mean2]``, with autograd), as
+``lax.pmean`` averages them over a mesh axis.
 """
 
 from __future__ import annotations
@@ -45,12 +47,22 @@ class InvertibleBatchNorm(nn.Module):
     ``num_features`` is the size of ``axis``. In training mode (the
     default, ``use_running_average=False``) the batch moments normalise the
     input and move the running averages by ``momentum``; ``recent_mul`` and
-    ``recent_mean`` record the call's rsqrt(var + ε) and mean."""
+    ``recent_mean`` record the call's rsqrt(var + ε) and mean.
+
+    With ``process_group`` (``torch.distributed``) the batch moments are
+    the means over the group's ranks of each rank's moments: equal local
+    batches give the moments of the whole batch. The all-reduce carries
+    autograd (its backward all-reduces the gradient), so every rank's
+    gradients are those of the sum of the ranks' losses. The flax module
+    skips the mean while it initialises; this module's initialisation runs
+    no forward, so every call takes it."""
 
     def __init__(self, num_features: int, axis: int = -1, momentum: float = 0.99,
-                 epsilon: float = 1e-5, use_bias: bool = True, use_scale: bool = True):
+                 epsilon: float = 1e-5, use_bias: bool = True, use_scale: bool = True,
+                 process_group=None):
         super().__init__()
         self.axis, self.momentum, self.epsilon = axis, momentum, epsilon
+        self.process_group = process_group
         self.use_bias, self.use_scale = use_bias, use_scale
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
@@ -72,6 +84,13 @@ class InvertibleBatchNorm(nn.Module):
         else:
             mean = torch.mean(x, dim=reduction)
             mean2 = torch.mean(torch.square(x), dim=reduction)
+            if self.process_group is not None:
+                import torch.distributed as dist
+                from torch.distributed.nn.functional import all_reduce
+
+                stacked = all_reduce(torch.cat([mean, mean2]), group=self.process_group)
+                stacked = stacked / dist.get_world_size(self.process_group)
+                mean, mean2 = torch.split(stacked, mean.shape[0])
             var = mean2 - torch.square(mean)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)

@@ -100,9 +100,12 @@ def derive_seed(seed: int, purpose: int) -> int:
 
 
 def words(seed: int, step, rows: int, stream: int, n_draws: int,
-          device=None) -> torch.Tensor:
+          device=None, row0: int = 0) -> torch.Tensor:
     """(rows, n_draws, 4) int64 Philox words at counters
-    (step, row, draw, stream) for every row < rows and draw < n_draws.
+    (step, row, draw, stream) for every row0 <= row < row0 + rows and
+    draw < n_draws. ``row0`` is a data-parallel rank's first row of the
+    global batch (``parallel/dp.py``): its rows are those rows of the
+    one-device draw, bit for bit.
 
     ``step`` is a Python int or a device int64 tensor holding the absolute
     step (the CUDA-graph chunk's counter, ``train/step.py``): the counter
@@ -114,7 +117,7 @@ def words(seed: int, step, rows: int, stream: int, n_draws: int,
         c0 = step.to(torch.int64) & MASK32
     else:
         c0 = torch.full((), step & MASK32, **i64)
-    c1 = torch.arange(rows, **i64).view(rows, 1)
+    c1 = torch.arange(row0, row0 + rows, **i64).view(rows, 1)
     c2 = torch.arange(n_draws, **i64).view(1, n_draws)
     c3 = torch.full((), stream, **i64)
     c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)
@@ -149,11 +152,12 @@ def box_muller(w: torch.Tensor) -> torch.Tensor:
 
 
 def normals(seed: int, step, rows: int, stream: int, dim: int,
-            device=None) -> torch.Tensor:
+            device=None, row0: int = 0) -> torch.Tensor:
     """(rows, dim) float32 standard normals of one stream at one step
-    (``step`` an int or a device int64 tensor, as in ``words``)."""
+    (``step`` an int or a device int64 tensor, ``row0`` the first row, as
+    in ``words``)."""
     n_draws = (dim + 3) // 4
-    w = words(seed, step, rows, stream, n_draws, device=device)
+    w = words(seed, step, rows, stream, n_draws, device=device, row0=row0)
     return box_muller(w).reshape(rows, 4 * n_draws)[:, :dim]
 
 

@@ -2,7 +2,9 @@
 
 Port of ``vae_training_tpu/runio/outdir.py``: ``-ow`` recursively clears
 the directory, an existing name without ``-ow`` raises, and an in-place
-resume keeps every artifact and reports flags that changed.
+resume keeps every artifact and reports flags that changed. In a
+multi-process run only the primary process makes and writes the directory
+(``utils/process.is_primary``); the others get its path.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ def get_output_dir(name: str, data_dir: str = "data") -> str:
 def make_output_dir(name: str, overwrite: bool, cfg, data_dir: str = "data",
                     reuse_existing: bool = False) -> str:
     dirname = get_output_dir(name, data_dir)
+    from ..utils.process import is_primary
+
+    if not is_primary():
+        return dirname
     os.makedirs(data_dir, exist_ok=True)
     if os.path.exists(dirname) and reuse_existing:
         pass  # in-place resume: keep every artifact, refresh the manifest

@@ -29,9 +29,21 @@ manifold (its own ``pinv(A)``) from the shared warm-start draws, as the
 solo run with that row's seed makes it, so a warm-started row equals its
 warm-started solo run bitwise. ``--track_correlation`` and a non-gaussian
 latent are refused, with the JAX package's messages, and so are an epoch
-dataset (an image corpus) and ``--arch conv``. The JAX package's mesh
-and multihost branches are not ported: ``RunConfig.validate`` raises for
-them, naming ROADMAP Queue 1 item 11.
+dataset (an image corpus) and ``--arch conv``.
+
+``--mesh dp=N`` shards the seed rows over the ranks of the run (JAX
+``grid.py:11-24, 210-260``): rank r owns the contiguous block of rows
+``[r·k, (r+1)·k)``, k = seeds / N, as ``P("dp")`` places them, and trains
+it with one launch a chunk (K6a or K6b, or the torch path) with no
+collective. The JAX package's refusals hold: the seed count must divide by
+dp, tp does not apply, dp_dcn makes no sense, and over several processes
+(``--multihost``) a mesh is required and must span every process. Each
+rank evaluates, prints (with a ``[pK] `` prefix when there are several
+processes), plots and writes only its own rows; the primary makes every
+row's directory and a barrier releases the other ranks' writes; a restore
+checks each row's checkpoint is seen by every process (``check_shared_fs``).
+Rows are independent, so a sharded row equals the same row of the
+unsharded grid bitwise.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from ..runio.checkpoint import (
 )
 from ..runio.export import save_model_pkl
 from ..runio.outdir import make_output_dir
+from ..utils.process import barrier, check_shared_fs, process_count, process_index
 from .loop import (
     EVAL_BATCH_SIZE,
     N_PLOT,
@@ -102,6 +115,17 @@ class GridTrainer:
             raise NotImplementedError(
                 "--seed_grid supports the gaussian latent distribution "
                 "(the CLI forces gaussian like the reference, run.py:41)")
+        # rows this rank trains, evaluates and writes; a MixedGridSweep sets
+        # them for the groups it shards (build_chunk=False)
+        self.rows = list(range(len(self.seeds)))
+        self.mesh = grid_mesh(cfg, len(self.seeds)) if cfg.mesh else None
+        if build_chunk:
+            require_spanning_mesh(self.mesh)
+        if self.mesh is not None:  # it spans every rank
+            k = len(self.seeds) // self.mesh.shape["dp"]
+            r = self.mesh.coords(process_index())["dp"]
+            self.rows = list(range(r * k, (r + 1) * k))
+        self.prefix = f"[p{process_index()}] " if process_count() > 1 else ""
         self.device = torch.device(cfg.device)
         self.n_print = cfg.n_print or N_PRINT
         self.n_plot = cfg.n_plot or N_PLOT
@@ -143,8 +167,9 @@ class GridTrainer:
         self._eval_counter = 0
         self._skip_events_at = -1  # set by restore() when the events already ran
         self._plot_skip_noted = False
-        self.train_chunk = (make_grid_chunk([self.model] * len(self.seeds),
-                                            self.datasets, cfg)
+        self.train_chunk = (make_grid_chunk([self.model] * len(self.rows),
+                                            [self.datasets[i] for i in self.rows], cfg,
+                                            prefix=self.prefix)
                             if build_chunk else None)
 
     # ------------------------------------------------------------------
@@ -158,36 +183,42 @@ class GridTrainer:
         if self._eval_counter != 0:
             return  # resumed with host state: the banner's counter is spent
         self._eval_counter += 1
-        for seed, dataset, data_seed in zip(self.seeds, self.datasets, self.eval_data_seeds):
-            batch = dataset.sample(data_seed, self._eval_counter, self.eval_batch_size)
+        for i in self.rows:
+            dataset = self.datasets[i]
+            batch = dataset.sample(self.eval_data_seeds[i], self._eval_counter,
+                                   self.eval_batch_size)
             score = banner_scores(dataset, batch)
-            print(f"[seed {seed}] Score for real data: {score}", flush=True)
+            print(f"{self.prefix}[seed {self.seeds[i]}] Score for real data: {score}",
+                  flush=True)
 
     def compute_and_write_stats(self) -> None:
         """One eval per row at the shared counter: the solo Trainer's
         ``compute_stats`` and stat line, with a ``[seed N]`` tag."""
         if self.cfg.debug_nans:
-            for seed, state in zip(self.seeds, self.states):
-                check_finite_state(state, self.batchnum, f" (row seed {seed})")
+            for i in self.rows:
+                check_finite_state(self.states[i], self.batchnum,
+                                   f" (row seed {self.seeds[i]})")
         self._eval_counter += 1
-        for i, (seed, dataset, state) in enumerate(zip(self.seeds, self.datasets,
-                                                       self.states)):
+        for i in self.rows:
+            seed, dataset, state = self.seeds[i], self.datasets[i], self.states[i]
             out, logvar_e, epsilon = eval_to_host(dataset, eval_step(
                 self.model, dataset, state.params, self.eval_data_seeds[i], self.eval_z_seed,
                 self._eval_counter, self._epsilon_tensor(i), n=self.eval_batch_size))
             rec = self.recorders[i]
             rec.append_eval(out["VAE Loss"], logvar_e, epsilon)
             self.current_epsilon[i] = epsilon
-            print(f"[seed {seed}] {rec.write_stats(self.batchnum, out)}", flush=True)
+            print(f"{self.prefix}[seed {seed}] {rec.write_stats(self.batchnum, out)}",
+                  flush=True)
 
     def plot_all(self, outdirs: Sequence[str]) -> None:
         """Each row's generated batch at this step (the shared plot draw)."""
         z1, z2 = sample_z(self.plot_z_seed, self.batchnum, self.eval_batch_size,
                           self.latent_dim, self.data_dim, self.device)
-        for i, (dataset, state, out) in enumerate(zip(self.datasets, self.states, outdirs)):
-            batch = generate(self.model, state.params, z1, z2, self._epsilon_tensor(i))
-            fn = os.path.join(out, f"output_{self.batchnum}.png")
-            if not dataset.plot_batch(batch, fn=fn) and not self._plot_skip_noted:
+        for i in self.rows:
+            batch = generate(self.model, self.states[i].params, z1, z2,
+                             self._epsilon_tensor(i))
+            fn = os.path.join(outdirs[i], f"output_{self.batchnum}.png")
+            if not self.datasets[i].plot_batch(batch, fn=fn) and not self._plot_skip_noted:
                 print("[plot] matplotlib is not installed; figures are skipped", flush=True)
                 self._plot_skip_noted = True
 
@@ -197,11 +228,14 @@ class GridTrainer:
         rows' state in place); ``final=True`` waits for the writes. In-loop
         saves run after this step's events (batchnum == step); the final
         save after the loop, where no events at the state's step have
-        fired."""
-        events_fired = self.batchnum == int(self.states[0].step)
+        fired. Each rank writes its own rows (a sharded sweep's group may
+        have none here)."""
+        if not self.rows:
+            return
+        events_fired = self.batchnum == int(self.states[self.rows[0]].step)
         writer = get_artifact_writer()
-        for i, (state, out) in enumerate(zip(self.states, outdirs)):
-            state = state.host_copy()
+        for i in self.rows:
+            state, out = self.states[i].host_copy(), outdirs[i]
             meta = {"current_epsilon": float(np.asarray(self.current_epsilon[i]).reshape(-1)[0])}
             aux = {"recorder": self.recorders[i].to_state(),
                    "eval_counter": self._eval_counter, "epoch_num": 0,
@@ -217,16 +251,18 @@ class GridTrainer:
             writer.drain()
 
     def run_chunk(self, n_steps: int) -> None:
-        self.states, losses = self.train_chunk(self.states, n_steps)
+        states, losses = self.train_chunk([self.states[i] for i in self.rows], n_steps)
+        for i, state in zip(self.rows, states):
+            self.states[i] = state
         self.record_losses(losses.cpu().numpy())
 
     def record_losses(self, losses: np.ndarray) -> None:
-        """Each row's chunk losses (host copies, the chunk starting at
-        ``batchnum``), checked under ``--debug_nans``."""
-        for seed, rec, row in zip(self.seeds, self.recorders, losses):
+        """The chunk losses of this rank's rows, in order (host copies, the
+        chunk starting at ``batchnum``), checked under ``--debug_nans``."""
+        for i, row in zip(self.rows, losses):
             if self.cfg.debug_nans:
-                check_finite_losses(row, self.batchnum, f" (row seed {seed})")
-            rec.append_train_losses(row)
+                check_finite_losses(row, self.batchnum, f" (row seed {self.seeds[i]})")
+            self.recorders[i].append_train_losses(row)
 
     # ------------------------------------------------------------------
     def restore(self, outdirs: Sequence[str]) -> None:
@@ -238,6 +274,11 @@ class GridTrainer:
         make the step guard refuse every later save). Writes still queued
         for these directories land first."""
         get_artifact_writer().drain()
+        # per-row visibility: with per-host disks each process sees only its
+        # own rows, and one all() would agree on False everywhere
+        check_shared_fs([checkpoint_exists(o) for o in outdirs],
+                        os.path.dirname(outdirs[0]) or outdirs[0],
+                        what="grid row checkpoints")
         for out in outdirs:
             if not checkpoint_exists(out):
                 raise FileNotFoundError(f"--resume: no checkpoint in {out}")
@@ -260,8 +301,9 @@ class GridTrainer:
                     f"at the common step {target} (found: {prev_step}). A kill between "
                     f"row saves skews rows by at most one save event; resume rows solo "
                     f"with --resume <name>_seed<N>")
-            print(f"[resume] {outdirs[i]}: rolling back from step {steps[i]} to the "
-                  f"grid's common step {target} (retained .prev checkpoint)", flush=True)
+            print(f"[resume] {self.prefix}{outdirs[i]}: rolling back from step {steps[i]} "
+                  f"to the grid's common step {target} (retained .prev checkpoint)",
+                  flush=True)
             restored[i], steps[i] = prev, target
         for out, state in zip(outdirs, restored):
             check_params(self.model, state, f"--resume {out}")
@@ -290,8 +332,12 @@ class GridTrainer:
                     self._eval_counter = int(aux["eval_counter"])
                     if aux.get("events_fired_at_step", False):
                         self._skip_events_at = steps[0]
+        # every process finishes reading the checkpoints before any of them
+        # promotes a row or saves again; then each promotes its own rows
+        barrier()
         for i in rolled:
-            promote_prev_checkpoint(outdirs[i])
+            if i in self.rows or process_count() == 1:
+                promote_prev_checkpoint(outdirs[i])
         self.batchnum = steps[0]
         self.states = restored
 
@@ -320,6 +366,50 @@ class GridTrainer:
         writer.drain()
 
 
+def grid_mesh(cfg: RunConfig, n_rows: int):
+    """The dp mesh that ``--seed_grid ... --mesh`` shards its rows over,
+    with the JAX package's refusals (``grid.py:210-236``)."""
+    from ..parallel.mesh import make_mesh, parse_mesh_spec
+
+    axes = parse_mesh_spec(cfg.mesh)
+    if axes.get("tp", 1) > 1:
+        raise ValueError(
+            "--seed_grid shards SEEDS over the mesh; use a pure dp "
+            "spec (e.g. --mesh dp=8), tp does not apply")
+    if axes.get("dp_dcn", 1) > 1:
+        raise ValueError(
+            "--seed_grid with dp_dcn makes no sense: the sharded "
+            "grid chunk has ZERO collectives (seeds are "
+            "independent), so there is nothing for a cross-slice "
+            "axis to reduce — launch one grid per slice instead "
+            "(same aggregate throughput, no DCN dependency)")
+    mesh = make_mesh(cfg.mesh, allow_uneven=cfg.mesh_allow_uneven)
+    dp = mesh.shape["dp"]
+    if n_rows % dp != 0:
+        raise ValueError(
+            f"--seed_grid with --mesh dp={dp} needs the seed count "
+            f"to divide evenly; got {n_rows} seeds")
+    return mesh
+
+
+def require_spanning_mesh(mesh) -> None:
+    """Over several processes, rows must shard across all of them, so that
+    each process owns and writes its own rows (``grid.py:238-258``)."""
+    if process_count() == 1:
+        return
+    if mesh is None:
+        raise ValueError(
+            "--seed_grid under --multihost requires a dp mesh "
+            "(--mesh dp=N): seed rows must shard across processes "
+            "so each process owns and writes its own rows")
+    if mesh.size != process_count():
+        raise ValueError(
+            f"--seed_grid --multihost: the mesh must span every "
+            f"process (mesh covers processes {list(range(mesh.size))} "
+            f"of {process_count()}); size dp to the global "
+            f"device count")
+
+
 def row_dirs(cfg: RunConfig, seeds: Sequence[int], names: Sequence[str],
              resume: bool) -> List[str]:
     """Each row's output directory and args.json (its own dataset seed);
@@ -338,6 +428,7 @@ def run_seed_grid(cfg: RunConfig, seeds: Sequence[int], name_fn=None) -> int:
         name_fn = lambda seed: f"{cfg.name}_seed{seed}"  # noqa: E731
     trainer = GridTrainer(cfg, seeds)
     outdirs = row_dirs(cfg, seeds, [name_fn(s) for s in seeds], bool(cfg.resume))
+    barrier()  # the primary made every row's directory; the others may write now
     if cfg.resume:
         trainer.restore(outdirs)
     trainer.train(outdirs)

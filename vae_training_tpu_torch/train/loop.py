@@ -41,6 +41,15 @@ Behavioural contract kept:
     ``latent_likelihood`` also take the reference's logistic latent
     (``latent_distribution``, which the CLI forces to gaussian).
 
+``--mesh`` (the JAX engine's ``_build_step_fns`` mesh branch,
+``loop.py:168-215, 252-290``) trains through ``kernels/dispatch.py``
+``make_parallel_chunk``: the torch path sharded over the ranks
+(``parallel/``), the state placed after the init and after
+``--resume``/``--state_dict`` (each restore behind ``check_shared_fs``).
+Every process runs every event; only the primary prints, draws the
+figures and writes (``utils/process.is_primary``); under tensor
+parallelism every event first all-gathers the state (``full_state``).
+
 Random streams: the JAX engine splits a host key chain for eval and plot
 draws; here every draw is counter-keyed (``ops/rng.py``): eval batches by
 the eval counter, plot draws by the step. A resumed run therefore draws
@@ -74,7 +83,7 @@ import torch
 from ..config import RunConfig
 from ..data.base import DistributionDataset
 from ..evals.stats import StatsRecorder
-from ..kernels.dispatch import make_train_chunk
+from ..kernels.dispatch import make_parallel_chunk, make_train_chunk
 from ..models.conv import build_conv_vae
 from ..models.networks import build_vae
 from ..models.warm_start import apply_warm_start
@@ -88,6 +97,7 @@ from ..runio.checkpoint import (
     save_checkpoint,
 )
 from ..runio.export import load_model_pkl, save_model_pkl
+from ..utils.process import check_shared_fs, is_primary
 from ..utils.trees import correlation_ratio, correlation_ratio_per_param
 from .state import TrainState, moment_dtype
 from .step import (banner_scores, eval_gradients, eval_step, eval_to_host, generate,
@@ -226,8 +236,10 @@ class Trainer:
             model_seed=rng.derive_seed(cfg.model_seed, rng.SEED_TRAIN_Z),
             adam_dtype=cfg.adam_dtype)
 
-        # an epoch dataset's chunk is EpochChunk(state, epoch, n_batches)
-        chunk = make_train_chunk(self.model, dataset, cfg)
+        # an epoch dataset's chunk is EpochChunk(state, epoch, n_batches);
+        # under --mesh the chunk is sharded over the ranks (parallel/api.py)
+        self.fns = make_parallel_chunk(self.model, dataset, cfg) if cfg.mesh else None
+        chunk = self.fns.train_chunk if self.fns else make_train_chunk(self.model, dataset, cfg)
         if dataset.is_epochs:
             self.epoch_chunk = chunk
         else:
@@ -246,6 +258,7 @@ class Trainer:
 
         if cfg.resume:
             get_artifact_writer().drain()  # a save still queued for that directory
+            check_shared_fs(checkpoint_exists(cfg.resume), cfg.resume)
             if not checkpoint_exists(cfg.resume):
                 raise FileNotFoundError(f"--resume {cfg.resume}: no checkpoint there")
             self.state = restore_checkpoint(cfg.resume, self.device)
@@ -270,6 +283,8 @@ class Trainer:
             if "current_epsilon" in meta:
                 self.current_epsilon = meta["current_epsilon"]
         elif cfg.state_dict:
+            check_shared_fs(os.path.exists(cfg.state_dict), cfg.state_dict,
+                            what="state dict")
             if not os.path.exists(cfg.state_dict):
                 raise FileNotFoundError(f"--state_dict {cfg.state_dict} does not exist")
             loaded = load_model_pkl(cfg.state_dict)
@@ -281,11 +296,19 @@ class Trainer:
                 for k in dst:
                     dst[k].copy_(src[k])
             self.state.count = loaded.count
+        if self.fns is not None:  # this rank's shard under tp; dp keeps it whole
+            self.state = self.fns.place_state(self.state)
 
     # ------------------------------------------------------------------
     def _next_eval_counter(self) -> int:
         self._eval_counter += 1
         return self._eval_counter
+
+    def full_state(self) -> TrainState:
+        """The whole state: under tensor parallelism every rank's shards
+        all-gathered (a collective: every rank calls it at the same
+        events), else the state itself."""
+        return self.fns.full_state(self.state) if self.fns else self.state
 
     def _epsilon_tensor(self) -> torch.Tensor:
         eps = np.asarray(self.current_epsilon, np.float32).reshape(-1)[0]
@@ -300,35 +323,40 @@ class Trainer:
         if self.cfg.debug_nans:
             check_finite_state(self.state, self.batchnum)
         counter = self._next_eval_counter()
+        params = self.full_state().params
         out, logvar_e, epsilon = eval_to_host(self.dataset, eval_step(
-            self.model, self.dataset, self.state.params, self.eval_data_seed,
+            self.model, self.dataset, params, self.eval_data_seed,
             self.eval_z_seed, counter, self._epsilon_tensor(), n=self.eval_batch_size))
         self.recorder.append_eval(out["VAE Loss"], logvar_e, epsilon)
         self.current_epsilon = epsilon
         if self.cfg.track_correlation:
-            grads = eval_gradients(self.model, self.dataset, self.state.params,
+            grads = eval_gradients(self.model, self.dataset, params,
                                    self.eval_data_seed, self.eval_z_seed, counter,
                                    n=self.eval_batch_size)
             host = lambda d: {k: t.detach().cpu().numpy().copy() for k, t in d.items()}  # noqa: E731
-            self.params_and_gradients.append((host(self.state.params), host(grads)))
+            self.params_and_gradients.append((host(params), host(grads)))
         return out
 
     def write_stats(self, stats: dict, console_only: Optional[dict] = None) -> None:
         """The stat line: "Batch | step" or, for an epoch dataset, "Epoch |
-        epoch"."""
+        epoch". Every process records it; the primary prints it."""
         is_epochs = self.dataset.is_epochs
         num = self.epoch_num if is_epochs else self.batchnum
-        print(self.recorder.write_stats(num, stats, is_epochs=is_epochs,
-                                        console_only=console_only), flush=True)
+        message = self.recorder.write_stats(num, stats, is_epochs=is_epochs,
+                                            console_only=console_only)
+        if is_primary():
+            print(message, flush=True)
 
     def plot_epoch(self) -> None:
         """The figure of a generated batch, ``output_<step>.png`` (for an
         epoch dataset ``output_<epoch>.png``); the prior draw is keyed by
-        the step either way."""
+        the step either way. The primary process draws and writes it."""
+        params = self.full_state().params
+        if not is_primary():
+            return
         z1, z2 = sample_z(self.plot_z_seed, self.batchnum, self.eval_batch_size,
                           self.latent_dim, self.dataset.dimension, self.device)
-        batch = generate(self.model, self.state.params, z1, z2,
-                         self._epsilon_tensor())
+        batch = generate(self.model, params, z1, z2, self._epsilon_tensor())
         tag = self.epoch_num if self.dataset.is_epochs else self.batchnum
         fn = os.path.join(self.dirname, f"output_{tag}.png")
         if not self.dataset.plot_batch(batch, fn=fn) and not self._plot_skip_noted:
@@ -380,7 +408,8 @@ class Trainer:
         z = (self.sample_latent(seed, n) if latents is None
              else torch.as_tensor(latents, dtype=torch.float32, device=self.device))
         z1, z2 = z[:, :self.latent_dim], z[:, self.latent_dim:]
-        return generate(self.model, self.state.params, z1, z2, self._epsilon_tensor()), z
+        return generate(self.model, self.full_state().params, z1, z2,
+                        self._epsilon_tensor()), z
 
     # ------------------------------------------------------------------
     def train(self) -> None:
@@ -388,6 +417,8 @@ class Trainer:
         then the writer drained: on return every in-loop artifact is on
         disk. On a crash the queued writes are flushed (the newest
         checkpoint a rerun resumes from) without masking the error."""
+        if self.fns is not None and not self.fns.active:
+            return  # a rank an uneven mesh leaves out trains nothing
         writer = get_artifact_writer()
         try:
             if self.dataset.is_epochs:
@@ -413,7 +444,7 @@ class Trainer:
         if not self._resumed_with_aux:
             self.write_stats(self.compute_stats())
         epochs = range(start_epoch, self.cfg.num_epochs)
-        if self.cfg.tqdm:
+        if self.cfg.tqdm and is_primary():
             try:  # as the JAX engine: without tqdm, only the bar is lost
                 from tqdm import trange
 
@@ -428,7 +459,8 @@ class Trainer:
             self.recorder.append_train_losses(losses)
             self.batchnum += n_batches
             stats = self.compute_stats()
-            print(f"Completed Epoch {self.epoch_num}", flush=True)
+            if is_primary():
+                print(f"Completed Epoch {self.epoch_num}", flush=True)
             self.write_stats(stats)
             self.plot_epoch()
             self.save()
@@ -439,11 +471,12 @@ class Trainer:
                                              self._next_eval_counter(),
                                              self.eval_batch_size)
             score = banner_scores(self.dataset, eval_batch)
-            print(f"Score for real data: {score}", flush=True)
+            if is_primary():
+                print(f"Score for real data: {score}", flush=True)
 
         total = self.cfg.num_batches
         progress = None
-        if self.cfg.tqdm:
+        if self.cfg.tqdm and is_primary():
             try:  # as the JAX engine: without tqdm, only the bar is lost
                 from tqdm import tqdm
 
@@ -500,17 +533,18 @@ class Trainer:
         }
 
     def _snapshot(self, events_fired_at_step: bool) -> Tuple[TrainState, dict, dict]:
-        """Host copies, taken now, of what a save writes: the state (the
-        chunks update the device tensors in place), the checkpoint's meta
-        and its aux."""
+        """Host copies, taken now, of what a save writes: the whole state
+        (the chunks update the device tensors in place; under tp every
+        rank takes part in the gather), the checkpoint's meta and its aux."""
         eps = float(np.asarray(self.current_epsilon).reshape(-1)[0])
-        return (self.state.host_copy(), {"current_epsilon": eps},
+        return (self.full_state().host_copy(), {"current_epsilon": eps},
                 self._snapshot_aux(events_fired_at_step))
 
     def _save_checkpoint(self, events_fired_at_step: bool) -> None:
         state, meta, aux = self._snapshot(events_fired_at_step)
-        get_artifact_writer().submit(partial(save_checkpoint, self.dirname, state,
-                                             extra_meta=meta, aux=aux))
+        if is_primary():  # the primary process writes every artifact
+            get_artifact_writer().submit(partial(save_checkpoint, self.dirname, state,
+                                                 extra_meta=meta, aux=aux))
 
     def model_save_data(self, final: bool = False) -> None:
         """At the final save under ``--track_correlation``: the correlation
@@ -518,7 +552,7 @@ class Trainer:
         tree and per parameter (``Correlation Ratio/<flax path>``)."""
         if not (final and self.params_and_gradients):
             return
-        final_params = {k: t.detach().cpu() for k, t in self.state.params.items()}
+        final_params = {k: t.detach().cpu() for k, t in self.full_state().params.items()}
         self.recorder.correlation_ratios = [
             float(correlation_ratio(final_params, p, g)) for p, g in self.params_and_gradients]
         per_param: dict = {}
@@ -535,6 +569,8 @@ class Trainer:
         state.step have fired."""
         self.model_save_data(final=final)
         state, meta, aux = self._snapshot(self.batchnum == int(self.state.step))
+        if not is_primary():
+            return
         dirname = self.dirname
 
         def write_run():

@@ -15,19 +15,32 @@ wait in plot+save.
 There is no fallback after the choice: a row set outside both kernels'
 envelopes raises ``MixedSweepUnavailable`` before any IO, a launch that
 fails raises, and the JAX package's per-group insurance is not ported.
-``--mesh`` is not ported either (ROADMAP Queue 1 item 11).
+
+``mesh_spec`` (``dp=N``, the JAX package's ``_shard_rows``,
+``mixed_grid.py:127-220``) shards the concatenated rows over the ranks:
+the rows are padded to a multiple of N with duplicates of the leading
+rows (row ``j`` of the padded list is row ``j mod n``), rank r trains the
+contiguous block ``[r·k, (r+1)·k)`` of the padded list in one launch a
+chunk with no collective, and the pads' results are discarded. A pad
+trains a copy of its source row as the rank holds it (the row's current
+state when the rank owns it, else its state at the start), so it never
+touches a real row. Each rank evaluates, prints and writes only the real
+rows of its block. Over several processes a mesh spanning every process is
+required, as for ``--seed_grid``.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import Dict, List, Sequence, Tuple
 
 from ..config import RunConfig
 from ..kernels import linear_vae, mlp_vae
 from ..kernels.dispatch import make_grid_chunk
 from ..runio.background import get_artifact_writer
-from .grid import GridTrainer, row_dirs
+from ..utils.process import barrier, process_index
+from .grid import GridTrainer, require_spanning_mesh, row_dirs
 from .loop import next_event
 
 
@@ -66,27 +79,58 @@ def mixed_launch_eligible(groups: Sequence[GridTrainer]) -> Tuple[str, str]:
     return "", why_mlp if hidden else why_linear
 
 
-class MixedGridSweep:
-    """Train many grid groups of different dims in one launch per chunk."""
+def _clone(state):
+    """A copy of a state whose tensors a launch may overwrite."""
+    copy = lambda d: {k: t.clone() for k, t in d.items()}  # noqa: E731
+    return replace(state, params=copy(state.params), m=copy(state.m), v=copy(state.v))
 
-    def __init__(self, groups: List[GridTrainer]):
+
+class MixedGridSweep:
+    """Train many grid groups of different dims in one launch per chunk;
+    with ``mesh_spec`` this rank's block of the rows (module docstring)."""
+
+    def __init__(self, groups: List[GridTrainer], mesh_spec: str = ""):
         family, why = mixed_launch_eligible(groups)
         if not family:
             raise MixedSweepUnavailable(f"mixed one-launch sweep unavailable: {why}")
         self.groups = groups
         self.cfg: RunConfig = groups[0].cfg
         self.n_rows = sum(len(g.seeds) for g in groups)
-        self._chunk = make_grid_chunk(*_rows(groups))
+        # (group, row) of every row of the sweep, then this rank's block
+        every = [(g, i) for g in groups for i in range(len(g.seeds))]
+        mesh = None
+        if mesh_spec:
+            from ..parallel.mesh import make_mesh, parse_mesh_spec
+
+            if parse_mesh_spec(mesh_spec).get("tp", 1) > 1:
+                raise MixedSweepUnavailable(
+                    "mixed sweep shards rows over dp; use a pure dp spec")
+            mesh = make_mesh(mesh_spec, allow_uneven=self.cfg.mesh_allow_uneven)
+        require_spanning_mesh(mesh)
+        block = list(range(self.n_rows))
+        if mesh is not None:
+            k = -(-self.n_rows // mesh.shape["dp"])
+            r = mesh.coords(process_index())["dp"]
+            block = list(range(r * k, (r + 1) * k))
+        self._real = [every[j] for j in block if j < self.n_rows]
+        self._pads = [every[j % self.n_rows] for j in block if j >= self.n_rows]
+        for g in groups:
+            g.rows = [i for h, i in self._real if h is g]
+        mine = self._real + self._pads
+        self._chunk = make_grid_chunk([g.model for g, _ in mine],
+                                      [g.datasets[i] for g, i in mine],
+                                      [g.cfg for g, _ in mine], prefix=groups[0].prefix)
 
     def run_chunk(self, n_steps: int) -> None:
-        states, losses = self._chunk([s for g in self.groups for s in g.states], n_steps)
-        losses = losses.cpu().numpy()
-        off = 0
+        states = ([g.states[i] for g, i in self._real]
+                  + [_clone(g.states[i]) for g, i in self._pads])
+        states, losses = self._chunk(states, n_steps)
+        losses = losses.cpu().numpy()[:len(self._real)]  # the pads' work is discarded
+        for (g, i), state in zip(self._real, states):
+            g.states[i] = state
         for g in self.groups:
-            k = len(g.seeds)
-            g.states = states[off:off + k]
-            g.record_losses(losses[off:off + k])
-            off += k
+            at = [j for j, (h, _) in enumerate(self._real) if h is g]
+            g.record_losses(losses[at])
 
     def restore(self, outdirs_per_group: Sequence[Sequence[str]]) -> None:
         """Resume the whole sweep from every row's own checkpoint."""
@@ -135,7 +179,7 @@ class MixedGridSweep:
         t0 = time.perf_counter()
         writer.drain()  # "train returned" means every in-loop write is on disk
         acct["plot_save"] += time.perf_counter() - t0
-        print(f"[sweep] wall accounting: banners {t_banner:.3f}s, train chunks "
+        print(f"{g0.prefix}[sweep] wall accounting: banners {t_banner:.3f}s, train chunks "
               f"{acct['chunk']:.3f}s, stat evals {acct['stats']:.3f}s, plot+save "
               f"{acct['plot_save']:.3f}s over {self.n_rows} rows (writes in the background: "
               f"plot+save counts the snapshots, the figures and the wait at the end)",
@@ -143,23 +187,26 @@ class MixedGridSweep:
 
 
 def run_mixed_sweep(rows: Sequence[Tuple[RunConfig, Sequence[int], Dict[int, str]]],
-                    resume: bool = False) -> int:
+                    mesh_spec: str = "", resume: bool = False) -> int:
     """One-launch sweep entry. ``rows`` = [(cfg, seeds, {seed: run name})].
+    ``mesh_spec`` shards the launch's rows over a dp mesh of the run's
+    ranks (the groups stay mesh-less: the sweep owns the sharding).
     ``resume`` continues every row from its own checkpoint. Raises
     ``MixedSweepUnavailable`` before any IO when the rows cannot share a
     launch; any other error propagates."""
     t0 = time.perf_counter()
     groups = [GridTrainer(cfg, seeds, build_chunk=False) for cfg, seeds, _ in rows]
-    sweep = MixedGridSweep(groups)  # raises if ineligible, before any IO
+    sweep = MixedGridSweep(groups, mesh_spec=mesh_spec)  # raises if ineligible, before any IO
     t_build = time.perf_counter() - t0
     outdirs_per_group = [row_dirs(cfg, seeds, [names[s] for s in seeds], resume)
                          for cfg, seeds, names in rows]
+    barrier()  # the primary made every row's directory; the others may write now
     if resume:
         sweep.restore(outdirs_per_group)
     sweep.train(outdirs_per_group)
     t0 = time.perf_counter()
     for g, outs in zip(groups, outdirs_per_group):
         g.save_all(outs, final=True)
-    print(f"[sweep] wall accounting: setup {t_build:.3f}s, final saves "
+    print(f"{groups[0].prefix}[sweep] wall accounting: setup {t_build:.3f}s, final saves "
           f"{time.perf_counter() - t0:.3f}s", flush=True)
     return 0

@@ -54,12 +54,13 @@ EpochNoise = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def sample_z(seed: int, step, n: int, latent_dim: int, data_dim: int,
-             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+             device=None, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prior draw at counter ``step`` (an int or a device int64 tensor):
     z1 (n, latent_dim) for the reparameterisation and z2 (n, data_dim) for
-    the decoder output noise."""
-    z1 = rng.normals(seed, step, n, rng.STREAM_Z1, latent_dim, device=device)
-    z2 = rng.normals(seed, step, n, rng.STREAM_Z2, data_dim, device=device)
+    the decoder output noise, rows ``row0 .. row0 + n − 1`` of the draw
+    (a data-parallel rank's shard, ``parallel/dp.py``)."""
+    z1 = rng.normals(seed, step, n, rng.STREAM_Z1, latent_dim, device=device, row0=row0)
+    z2 = rng.normals(seed, step, n, rng.STREAM_Z2, data_dim, device=device, row0=row0)
     return z1, z2
 
 
@@ -71,24 +72,38 @@ def loss_terms(model: VAE, params, x, z1, z2):
 
 
 def step_body(model: VAE, dataset: DistributionDataset, state: TrainState, step, count,
-              *, batch_size: int, lr: float, noise: Optional[Noise] = None) -> torch.Tensor:
+              *, batch_size: int, lr: float, noise: Optional[Noise] = None,
+              dp=None) -> torch.Tensor:
     """One step in place on the state's parameters and moments: the draw at
     counter ``step`` (or the caller's ``noise``, one step's (x, z1, z2)),
     the ELBO, its gradients by autograd and Adam at the post-increment
     ``count``. ``step`` and ``count`` are Python ints or device int64
     tensors, with the same result. Returns the detached 0-d loss; the
-    parameters must require grad."""
+    parameters must require grad.
+
+    A data-parallel rank passes ``dp`` (``parallel/dp.py``
+    ``DataParallel``): it draws its shard of the global batch of
+    ``batch_size`` rows, ``dp.local_batch`` rows from ``dp.row0`` (a
+    ``noise`` hook then holds that shard), ``dp.loss`` computes the loss
+    (``parallel/gspmd.py`` shards the model's layers there), and
+    ``dp.reduce`` maps (gradients, loss) to their means over the ranks
+    before Adam."""
     params = state.params
+    row0 = 0 if dp is None else dp.row0
+    batch_size = batch_size if dp is None else dp.local_batch
     if noise is not None:
         x, z1, z2 = noise
     else:
         device = next(iter(params.values())).device
-        x = dataset.sample(state.data_seed, step, batch_size)
+        x = dataset.sample(state.data_seed, step, batch_size, row0=row0)
         z1, z2 = sample_z(state.model_seed, step, batch_size, model.latent_dim,
-                          dataset.dimension, device)
-    loss = loss_terms(model, params, x, z1, z2)[0]
+                          dataset.dimension, device, row0=row0)
+    loss = (loss_terms(model, params, x, z1, z2)[0] if dp is None
+            else dp.loss(model, params, x, z1, z2))
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names])
+    if dp is not None:
+        grads, loss = dp.reduce(grads, loss)
     for k, g in zip(names, grads):
         adam_update_(params[k], state.m[k], state.v[k], g, count, lr)
     return loss.detach()
@@ -107,14 +122,15 @@ def _requiring_grad(params):
 
 def train_chunk(model: VAE, dataset: DistributionDataset, state: TrainState,
                 n_steps: int, *, batch_size: int, lr: float,
-                noise: Optional[Noise] = None) -> Tuple[TrainState, torch.Tensor]:
+                noise: Optional[Noise] = None, dp=None) -> Tuple[TrainState, torch.Tensor]:
     """Run ``n_steps`` autograd + Adam steps, op by op. Returns the
     advanced state and the (n_steps,) per-step losses.
 
     The state's parameter and moment tensors are updated in place (the JAX
     chunk donates its buffers the same way). ``noise`` replaces the
     sampler with caller-supplied (x, z1, z2) per step, the test hook the
-    fused kernel shares."""
+    fused kernel shares. ``dp``: a data-parallel rank's shard and
+    reduction (``step_body``)."""
     train_chunk.calls += 1
     params = state.params
     device = next(iter(params.values())).device
@@ -122,7 +138,7 @@ def train_chunk(model: VAE, dataset: DistributionDataset, state: TrainState,
     with _requiring_grad(params):
         for i in range(n_steps):
             losses[i] = step_body(model, dataset, state, state.step + i, state.count + i + 1,
-                                  batch_size=batch_size, lr=lr,
+                                  batch_size=batch_size, lr=lr, dp=dp,
                                   noise=None if noise is None else tuple(t[i] for t in noise))
     return replace(state, step=state.step + n_steps,
                    count=state.count + n_steps), losses
@@ -133,14 +149,14 @@ train_chunk.calls = 0  # chunks run op by op (chip_smoke reads it)
 
 def counter_step_(model: VAE, dataset: DistributionDataset, state: TrainState,
                   counters: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-                  losses: torch.Tensor, *, batch_size: int, lr: float) -> None:
+                  losses: torch.Tensor, *, batch_size: int, lr: float, dp=None) -> None:
     """``GraphChunk``'s step: ``step_body`` at the device counters (step,
     post-increment Adam count, loss index; int64 0-d tensors), the loss
     written to ``losses[index]``, every counter advanced by one. Nothing
     in it reads a tensor on the host, so a CUDA graph captures it; on the
     CPU it runs eagerly (the tests hold it to ``train_chunk``)."""
     step, count, index = counters
-    loss = step_body(model, dataset, state, step, count, batch_size=batch_size, lr=lr)
+    loss = step_body(model, dataset, state, step, count, batch_size=batch_size, lr=lr, dp=dp)
     losses.index_copy_(0, index.view(1), loss.view(1))
     for t in counters:
         t.add_(1)
@@ -162,16 +178,23 @@ class GraphChunk:
     other seeds, or more steps than the loss buffer. The warm-up steps that
     capture needs run on the real tensors, which are then restored, so the
     chunk starts from the state it was given. A failed capture raises.
-    With an external ``noise`` hook a chunk runs ``train_chunk`` instead."""
+    With an external ``noise`` hook a chunk runs ``train_chunk`` instead.
+
+    With ``dp`` (a data-parallel rank, ``step_body``) the graph holds the
+    step's all-reduces too: NCCL collectives are captured, and the capture
+    checks only this thread's CUDA calls (``capture_error_mode=
+    "thread_local"``), so that the NCCL watchdog's event queries on its own
+    thread do not void it."""
 
     calls = 0  # chunks run as graph replays (chip_smoke reads it)
     WARMUP = 3
 
     def __init__(self, model: VAE, dataset: DistributionDataset, *, batch_size: int,
-                 lr: float, steps_per_replay: int = 1):
+                 lr: float, steps_per_replay: int = 1, dp=None):
         self.model, self.dataset = model, dataset
         self.batch_size, self.lr = batch_size, lr
         self.steps_per_replay = steps_per_replay
+        self.dp = dp
         self._graph = None
         self._key = None
 
@@ -185,7 +208,8 @@ class GraphChunk:
                  ) -> Tuple[TrainState, torch.Tensor]:
         if noise is not None:
             return train_chunk(self.model, self.dataset, state, n_steps,
-                               batch_size=self.batch_size, lr=self.lr, noise=noise)
+                               batch_size=self.batch_size, lr=self.lr, noise=noise,
+                               dp=self.dp)
         k = self.steps_per_replay
         if n_steps % k:
             raise ValueError(f"a chunk of {n_steps} steps is not a whole number of "
@@ -225,9 +249,10 @@ class GraphChunk:
         def body():
             for _ in range(k):
                 counter_step_(self.model, self.dataset, state, self._counters, self._losses,
-                              batch_size=self.batch_size, lr=self.lr)
+                              batch_size=self.batch_size, lr=self.lr, dp=self.dp)
 
         graph = torch.cuda.CUDAGraph()
+        mode = "global" if self.dp is None else "thread_local"
         try:
             with _requiring_grad(state.params):
                 side = torch.cuda.Stream(device)
@@ -236,7 +261,7 @@ class GraphChunk:
                     for _ in range(warm_bodies):
                         body()
                 torch.cuda.current_stream(device).wait_stream(side)
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, capture_error_mode=mode):
                     body()
         finally:
             with torch.no_grad():
@@ -278,15 +303,20 @@ class EpochBatches:
         self.step0 = step0
         self._step0.fill_(step0)
 
-    def sample(self, seed: int, step, n: int) -> torch.Tensor:
-        if n != self.batch_size:
-            raise ValueError(f"an epoch's minibatch is {self.batch_size} images, not {n}")
+    def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
+        """Minibatch ``step − step0``, or its rows ``row0 .. row0 + n − 1``:
+        a data-parallel rank's slice ``perm[i·B + row0 : i·B + row0 + n]``
+        (the JAX package's ``step.py:245-256``)."""
+        b = self.batch_size
+        if row0 < 0 or n < 1 or row0 + n > b:
+            raise ValueError(f"an epoch's minibatch is {b} images, not rows "
+                             f"{row0}..{row0 + n - 1}")
         if isinstance(step, torch.Tensor):
             i = (step - self._step0).view(1)
-            idx = self.perm.view(self.n_batches, n).index_select(0, i).view(n)
+            idx = self.perm.view(self.n_batches, b).index_select(0, i).view(b)[row0:row0 + n]
         else:
             i = step - self.step0
-            idx = self.perm[i * n:(i + 1) * n]
+            idx = self.perm[i * b + row0:i * b + row0 + n]
         return self.corpus.index_select(0, idx)
 
 
@@ -305,13 +335,21 @@ class EpochChunk:
     replay an epoch (``GraphChunk`` with ``steps_per_replay`` = the epoch's
     steps; the permutation is copied into the graph's static buffer before
     the replay; a graph epoch is always whole) or op by op (``train_chunk``,
-    which a noise hook always takes)."""
+    which a noise hook always takes).
 
-    def __init__(self, model: VAE, dataset, *, batch_size: int, lr: float, graph: bool):
+    With ``dp`` (the JAX package's mesh branch, ``step.py:223-305``) rank
+    r of the data axes trains on ``perm[i·B + r·lb : i·B + (r+1)·lb]`` of
+    step i, its noise from row ``r·lb`` of the step's draw, the gradients
+    and the loss all-reduced as means; a noise hook's z1s, z2s are then the
+    rank's (n_batches, lb, dim) shard."""
+
+    def __init__(self, model: VAE, dataset, *, batch_size: int, lr: float, graph: bool,
+                 dp=None):
         self.model, self.dataset = model, dataset
         self.batches = EpochBatches(dataset.images, batch_size)
         self.batch_size = batch_size
-        kw = dict(batch_size=batch_size, lr=lr)
+        self.dp = dp
+        kw = dict(batch_size=batch_size, lr=lr, dp=dp)
         self._chunk = (GraphChunk(model, self.batches, steps_per_replay=self.batches.n_batches,
                                   **kw) if graph
                        else partial(train_chunk, model, self.batches, **kw))
@@ -326,7 +364,9 @@ class EpochChunk:
         self.batches.set_epoch(perm, state.step)
         if noise is None:
             return self._chunk(state, nb)
-        xs = torch.stack([self.batches.sample(state.data_seed, state.step + i, self.batch_size)
+        n, row0 = ((self.batch_size, 0) if self.dp is None
+                   else (self.dp.local_batch, self.dp.row0))
+        xs = torch.stack([self.batches.sample(state.data_seed, state.step + i, n, row0)
                           for i in range(nb)])
         return self._chunk(state, nb, noise=(xs, noise[1], noise[2]))
 
