@@ -26,8 +26,15 @@ the bench's conv configuration (BASELINE.json config 5), on the torch path
 as one CUDA graph replay an epoch (no TPU kernel lies on that path); last,
 the parallel backends that one card can check: the dp path over NCCL at
 world size 1, and the sharded seed grid and grouped sweep in two processes
-sharing the card, on K6a and K6b, one launch a rank over its own rows.
-Fifty-two phases:
+sharing the card, on K6a and K6b, one launch a rank over its own rows;
+last, ``--precision bf16``, the reference's default, which the CLI takes
+on the card when the flag is not given (every CLI phase above runs it):
+each training kernel in its bf16-dot mode against its bf16 plain version,
+the torch path's forms in it, the times of both modes, and the CLI's rows
+1 under ``--precision fp32``. The direct kernel calls of phases 4-32 keep
+the wrappers' default, fp32 dots; phases 33, 39 and 47 pass
+``--precision fp32`` (their figures and oracle are fp32's). Fifty-seven
+phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -93,7 +100,7 @@ Fifty-two phases:
      noise and the in-kernel sampler, -tdv on and off), K5 and K5-dual at
      row 1, K6a on the linear (21) and sigmoid (18) sweeps, K6b on the
      sphere sweep (15) and 3 sigmoid-MLP rows, one step at a time from the
-     kernel's state (32 steps on the MLP kernel, 16 on K6a). Every step is
+     kernel's state (16 steps on the MLP kernel and K6a). Every step is
      also launched with f32 moments from the same state, and the bf16
      launch's matrix moments must be the f32 launch's rounded to nearest
      even, bitwise. Against the plain version the matrix moments keep
@@ -162,8 +169,9 @@ Fifty-two phases:
      leave parts out: the noise (sampler and manifold draw), the per-row
      pass, the per-parameter pass with Adam, everything but the two
      barriers; what leaving each part out saves, and each part alone;
- 33. the bench (``python -m vae_training_tpu_torch._scripts.bench``, the
-     console script vae-bench-torch) as a subprocess on linear, sigmoid,
+ 33. the bench (``vae_training_tpu_torch._scripts.bench`` ``main``, the
+     console script vae-bench-torch's entry, ``--precision fp32``) in this
+     process on linear, sigmoid,
      sphere, grid_linear, grid_sigmoid and grid_sphere with f32 moments,
      and on linear and grid_sphere with bf16 ones: one JSON line each with
      a positive value, an mfu_pct and the card's name and power limit; its
@@ -226,7 +234,7 @@ Fifty-two phases:
      form EpochChunk keeps), and as one graph replay a step (the form it
      was measured against; equal bitwise): wall ms a step, the CUDA-event
      span, the profiler's kernel time and count a step, the busy share;
- 47. the bench's --config conv as a subprocess (one JSON line, the JAX
+ 47. the bench's --config conv in this process (one JSON line, the JAX
      bench's conv_step_flops, one graph epoch a chunk, within 25% of phase
      46's graph figure) and vae-sample-torch on phase 44's run (shapes,
      finite, a model.pkl-only copy giving the checkpoint's samples
@@ -256,11 +264,52 @@ Fifty-two phases:
  52. InvertibleBatchNorm with a one-rank NCCL group equal to it without a
      group on the card: outputs, gradients and running stats bitwise.
 
-``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone.
+ 53. bf16 dots, the linear kernel: K1 at linear row 1 and K2 at sigmoid
+     row 1, 32 steps one at a time from the bf16 plain version's state
+     (external noise and the in-kernel sampler, -tdv on and off); each
+     step launched in both dot modes, the kernel and the plain version.
+     ρ = ‖kernel − plain_bf16‖ / ‖plain_fp32 − plain_bf16‖ over the steps'
+     losses and over each step's m and v must be ≤ 0.1 for the bf16-dot
+     kernel and ≥ 0.5 for the fp32 one (the control). K6a the same on the
+     linear (21) and sigmoid (18) sweeps, 16 steps; every K6a row equal to
+     its solo launch bitwise (64 steps) and 40 = 15 + 25 bitwise, with f32
+     and bf16 moments;
+ 54. bf16 dots, the MLP kernel: K5 at sphere row 1 and a linear_gaussian
+     64|64 MLP with observation noise, K5-dual at sigmoid-MLP row 1 (32
+     steps one at a time, ρ as in phase 53), K6b on the sphere sweep's 15
+     rows and 3 sigmoid-MLP rows (16 steps); 40 = 15 + 25, clusters of 8 =
+     16 (16 steps) and every K6b row = its solo K5 launch (32 steps), all
+     bitwise;
+ 55. bf16 dots on the torch path: sphere row 1's CUDA graph step = op by
+     op bitwise over 200 steps, the conv epoch's graph = op by op bitwise;
+     the fp32 path parts from it (phases 40 and 45 hold --resume in the
+     CLI's default bf16);
+ 56. times, fp32 dots against bf16 dots in turn: µs a step of K1, K2, K5,
+     K5-dual, of their plain versions, µs a launch-step of K6a (both
+     sweeps) and K6b and of their plain versions, the torch path's graph
+     step at sphere row 1 and the conv step; the bench's line for linear,
+     sphere, grid_linear, grid_sphere and conv under each --precision (the
+     [kernels] line naming the dot mode); the bf16-dot records of the
+     kernels' JSON line, bound by the dense bf16 peak;
+ 57. the CLI's linear, sigmoid and sphere rows 1 at 12000 steps under
+     --precision fp32 (the [kernels] line without bf16 dots), their eval
+     loss and padding norm beside phases 5's and 11's bf16 runs; both
+     modes' must fall.
+
+Phase 29 also runs the T2 tool's check_kernel_divergence (sphere and
+linear through the bench's trainers, 50 steps each way: the first losses
+of --precision bf16 and fp32 differ).
+
+``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone,
+``--only-bf16-dots`` phases 1, 2 and 53-57 (phase 57 then runs the bf16
+rows too) and check_kernel_divergence.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. A training kernel's record names the dot
+mode it was timed in ("dots"); the bf16-dot records carry the fp32 figures
+of the same calls beside theirs, and every record's launches are the
+wrapper's count on the main path, which runs the CLI's default bf16 dots.
 """
 
 from __future__ import annotations
@@ -315,6 +364,10 @@ FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet, 
 TF32_PEAK = 495e12  # dense TF32 on the tensor cores
 BF16_PEAK = 989e12  # dense bf16 on the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
+
+
+# the bench's --precision fp32 lines of phases 33 and 47, for phase 56
+_BENCH_FP32: dict = {}
 
 
 def require(ok: bool, what: str) -> None:
@@ -381,6 +434,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             _parallel(torch, np, smi, tmp, [])
         print(f"phases 1, 2 and 49-52 passed in {time.perf_counter() - _T0:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2 and 53-57 alone, to develop them
+        from vae_training_tpu_torch.tools import check_precision as t2
+
+        with tempfile.TemporaryDirectory() as tmp:
+            recs = []
+            _bf16_dots(torch, np, smi, tmp, recs)
+            t2.check_kernel_divergence(dev)
+        print(json.dumps({"kernels": recs}))
+        print(f"phases 1, 2 and 53-57 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
 
     # --- 3 ---------------------------------------------------------------
@@ -566,6 +629,12 @@ def main() -> int:
     _graph_and_library(torch, np, smi, data_dir, run_dir)
     _epochs(torch, np, smi, os.path.join(data_dir, "epochs"))
     _parallel(torch, np, smi, os.path.join(data_dir, "parallel"), records)
+    _bf16_dots(torch, np, smi, os.path.join(data_dir, "bf16_dots"), records,
+               {"linear": run_dir, "sigmoid": os.path.join(sweeps_dir, "main_K2"),
+                "sphere": os.path.join(sweeps_dir, "main_K5")})
+    for r in records:  # the dot mode each training kernel was held in
+        if "(K" in r["name"]:
+            r.setdefault("dots", "bf16" if r["name"].endswith("bf16 dots") else "fp32")
     tmp.cleanup()
     print(f"all phases passed in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": records}))
@@ -1652,7 +1721,7 @@ def _bf16_moments(torch, np, smi, data_dir):
     for label in ("K1", "K2", "K5", "K5-dual"):
         cfg = configs[label]
         mlp = label.startswith("K5")
-        n = 32 if mlp else 64
+        n = 16 if mlp else 64
         ext = noise_for(cfg["row"], n, np.random.RandomState(22),
                         "linear" if label == "K1" else ("sphere" if label == "K5" else "sigmoid"))
         errs[label], exact[label] = 0.0, 1.0
@@ -1797,8 +1866,9 @@ def _bf16_moments(torch, np, smi, data_dir):
         name_in_line = ("kernel K5 (dual decoder) (" if label == "K5-dual"
                         else f"kernel {label} (")
         require(len(kline) == 1 and name_in_line in kline[0]
-                and kline[0].endswith("with bf16 Adam moments"),
-                f"{label} bf16: the [kernels] line names {label} and bf16 moments")
+                and kline[0].endswith("with bf16-operand dots and bf16 Adam moments"),
+                f"{label} bf16: the [kernels] line names {label}, the CLI's default bf16 "
+                f"dots and bf16 moments")
         require(launches[label] > 0 and others == 0 and plain == 0,
                 f"{label} bf16: {label} launched, nothing else, no plain chunk")
         evals = {int(mt.group(1)): float(mt.group(2)) for mt in re.finditer(
@@ -1847,8 +1917,9 @@ def _bf16_moments(torch, np, smi, data_dir):
         require(rc == 0, f"{which} bf16 sweep returned 0")
         require(len(kline) == 1 and kline[0].startswith(f"[kernels] cuda: {grid_label}, the grid "
                                                         f"mode") and f"{rows} rows" in kline[0]
-                and kline[0].endswith("with bf16 Adam moments"),
-                f"{which} bf16 sweep: the [kernels] line names {grid_label} and bf16 moments")
+                and kline[0].endswith("with bf16-operand dots and bf16 Adam moments"),
+                f"{which} bf16 sweep: the [kernels] line names {grid_label}, the CLI's default "
+                f"bf16 dots and bf16 moments")
         require(grid_n == 4 and others == 0 and plain == 0,
                 f"{which} bf16 sweep: one {grid_label} launch a chunk and nothing else")
         falling = 0
@@ -2289,6 +2360,12 @@ def _probes(torch, np, smi):
     t2_report = t2.main(["--device", "cuda", "--seconds", "0.25"])
     t2_launches = probes.dot_modes.launches
     require(t2_launches > 0, "T2's kernel launched in the tool's run")
+    require(set(t2_report["divergence"]) == {"sphere", "linear"},
+            "the tool's check_kernel_divergence ran on sphere and linear")
+    for config, ls in t2_report["divergence"].items():
+        print(f"check_kernel_divergence {config}: step-1 loss bf16 {ls['bf16'][0]:.6f}, "
+              f"fp32 {ls['fp32'][0]:.6f}; 50-step mean bf16 {ls['bf16'].mean():.6f}, fp32 "
+              f"{ls['fp32'].mean():.6f}")
     us = t2_report["us"]
     # device time: 200 calls captured in one CUDA graph, replayed in windows
     # timed with CUDA events (the per-call figures above include the host);
@@ -2633,15 +2710,17 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
     card_name = smi.split(",")[0].strip()
     for config, adam in [(c, "f32") for c in figures] + [("linear", "bf16"),
                                                          ("grid_sphere", "bf16")]:
-        proc = subprocess.run([sys.executable, "-m", "vae_training_tpu_torch._scripts.bench",
-                               "--config", config, "--adam_dtype", adam], cwd=repo,
-                              capture_output=True, text=True, timeout=600)
+        # --precision fp32: the phases' figures are the fp32-dot kernels'
+        # (phase 56 runs the bench under both values)
+        proc = _bench(["--config", config, "--adam_dtype", adam, "--precision", "fp32"])
         require(proc.returncode == 0, f"bench {config} {adam} exited {proc.returncode}:\n"
                                       f"{proc.stderr[-3000:]}")
         lines = proc.stdout.strip().splitlines()
         require(len(lines) == 1, f"bench {config} {adam}: one line on stdout ({len(lines)})")
         print(lines[0])
         got = json.loads(lines[0])
+        if adam == "f32":
+            _BENCH_FP32[config] = lines[0]
         for ln in proc.stderr.splitlines():
             if ln.startswith(("steps/s:", "fp32 share", "flops/step", "[kernels]")):
                 print(f"  {ln}")
@@ -2884,7 +2963,8 @@ def _surfaces(torch, np, smi, records, data_dir, solo_dir, sphere_dir):
         latent_dimension=8, padding_dim=5, dataset_dimension=3, dataset_intrinsic_dimension=3,
         num_batches=20000, batch_size=100, learning_rate=1e-3, epsilon=-1.0,
         tunable_decoder_var=True, dataset_seed=2, overwrite=True, tqdm=False,
-        data_dir=data_dir, kernels="cuda", device="cuda").validate()
+        data_dir=data_dir, kernels="cuda", device="cuda",
+        precision="fp32").validate()  # the oracle is the fp32 model's closed form
     out = make_output_dir(cfg.name, True, cfg, data_dir=cfg.data_dir)
     ds = get_dataset(cfg.dataset, cfg.dataset_seed, cfg, device=torch.device("cuda"))
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3069,8 +3149,9 @@ def _graph_and_library(torch, np, smi, data_dir, solo_dir):
     require(rc == 0 and torch_step.GraphChunk.calls == 3 and torch_step.train_chunk.calls == 0,
             f"the CLI ran 3 graph chunks ({torch_step.GraphChunk.calls}) and no eager one")
     print(kernels_line(out))
-    require(kernels_line(out) == "[kernels] torch: plain PyTorch path (--kernels torch); "
-                                 "one CUDA graph replay a step", "the [kernels] line")
+    require(kernels_line(out) == "[kernels] torch: plain PyTorch path (--kernels torch) with "
+                                 "bf16-operand dots; one CUDA graph replay a step",
+            "the [kernels] line (the CLI's default --precision bf16)")
     rc1, _ = cli("g40_part", tflags, 150)
     rc2, _ = cli("g40_resumed", tflags, 300, "--resume", os.path.join(data_dir, "g40_part"))
     require(rc1 == 0 and rc2 == 0, "the part and the resumed run returned 0")
@@ -3267,8 +3348,8 @@ def _epochs(torch, np, smi, data_dir):
           f"op-by-op epochs: {counts()}")
     require(rc == 0, "main() returned 0")
     require(kline == "[kernels] torch: plain PyTorch path (an image corpus in epoch mode: the "
-                     "fused kernels train the manifolds); one CUDA graph replay an epoch",
-            "the [kernels] line names the graph form")
+                     "fused kernels train the manifolds) with bf16-operand dots; one CUDA graph "
+                     "replay an epoch", "the [kernels] line names bf16 dots and the graph form")
     require(counts() == (0, 10, 0), "ten graph epochs, no kernel launch, no op-by-op epoch")
     require("Completed Epoch 9" in out.splitlines(), "Completed Epoch 9")
     conv_dir = os.path.join(data_dir, "conv")
@@ -3332,13 +3413,12 @@ def _epochs(torch, np, smi, data_dir):
     # --- 47 --------------------------------------------------------------
     phase(47, "the bench (vae-bench-torch --config conv) and the sampler (vae-sample-torch) "
               "on phase 44's run")
-    proc = subprocess.run([sys.executable, "-m", "vae_training_tpu_torch._scripts.bench",
-                           "--config", "conv"], cwd=repo, capture_output=True, text=True,
-                          timeout=600)
+    proc = _bench(["--config", "conv", "--precision", "fp32"])  # phase 46's fp32 model
     require(proc.returncode == 0, f"bench conv exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     lines = proc.stdout.strip().splitlines()
     require(len(lines) == 1, f"bench conv: one line on stdout ({len(lines)})")
     print(lines[0])
+    _BENCH_FP32["conv"] = lines[0]
     for ln in proc.stderr.splitlines():
         if ln.startswith(("steps/s:", "fp32 share", "flops/step", "[kernels]")):
             print(f"  {ln}")
@@ -3549,8 +3629,9 @@ def _parallel(torch, np, smi, data_dir, records):
                   f"chunks: {dp_counts}")
             require(rc == 0, "main() returned 0")
             require(kline == "[kernels] torch: plain PyTorch path (--mesh dp=1: data parallel "
-                             f"over dp=1); one CUDA graph replay {form}, the all-reduces "
-                             "captured in it", "the [kernels] line names the dp form")
+                             f"over dp=1) with bf16-operand dots; one CUDA graph replay {form}, "
+                             "the all-reduces captured in it", "the [kernels] line names the dp "
+                             "form")
             require(dp_counts[0] == 0 and dp_counts[1] > 0 and dp_counts[2] == 0,
                     "graph chunks only: no kernel launch, no op-by-op chunk")
             rc, _ = cli(f"{name}_nomesh", flags, *extra, "--kernels", "torch")
@@ -3705,6 +3786,610 @@ def _parallel(torch, np, smi, data_dir, records):
               "bitwise")
     finally:
         dist.destroy_process_group()
+
+
+def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
+    """Phases 53-57: ``--precision bf16``, the reference's default, on the
+    card. Each kernel in its bf16-dot mode against its bf16 plain version
+    (one step at a time from the plain's state, by ρ = ‖kernel − plain_bf16‖
+    / ‖plain_fp32 − plain_bf16‖, with the fp32 kernel as the negative
+    control) and its bitwise properties in that mode; the torch path's
+    graph and epoch forms in it; the times of both modes in turn; the CLI's
+    rows 1 under ``--precision fp32`` beside the bf16 runs of phases 5 and
+    11 (``row1_dirs``; run here when None). Appends the bf16-dot records to
+    ``records``."""
+    from vae_training_tpu_torch._scripts import bench
+    from vae_training_tpu_torch._scripts import sweep
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments, use_fp32_math
+    from vae_training_tpu_torch.data import (ImageDataset, LinearGaussianDataset,
+                                             SigmoidDataset, SphereDataset)
+    from vae_training_tpu_torch.kernels import linear_vae as k1
+    from vae_training_tpu_torch.kernels import mlp_vae as k5
+    from vae_training_tpu_torch.models import build_vae
+    from vae_training_tpu_torch.models.conv import build_conv_vae
+    from vae_training_tpu_torch.ops import rng
+    from vae_training_tpu_torch.train import TrainState, step as torch_step
+    from vae_training_tpu_torch.train.grid import GridTrainer
+
+    dev = torch.device("cuda")
+    use_fp32_math(dev)
+    hidden = (200, 200, 200)
+    seeds = (rng.derive_seed(2, rng.SEED_TRAIN_DATA), rng.derive_seed(0, rng.SEED_TRAIN_Z))
+    RHO_MAX, RHO_CONTROL = 0.1, 0.5
+
+    def rho(got, plain_b, plain_f):
+        g, b, f = (t.double().flatten() for t in (got, plain_b, plain_f))
+        return float((g - b).norm() / (f - b).norm().clamp_min(1e-300))
+
+    def clone(bufs):
+        return tuple(t.clone() for t in bufs)
+
+    class Hold:
+        """ρ of the kernel's losses over the steps (one vector), and of each
+        row's m and v over the steps (each row's vectors of every step, one
+        ratio of norms a row), in both kernel modes; then the checks. The
+        largest single step's ρ is printed too: a bf16-dot mode rounds
+        intermediates (g_y, g_mu) that differ between two f32 orders by an
+        ulp, so now and then an element lands one bfloat16 ulp apart, and
+        one step of one row can show it."""
+
+        def __init__(self, label):
+            self.label, self.losses, self.err = label, {}, 0.0
+            self.sq = {}  # (dots, row, "m"|"v") → [Σ‖kernel − plain_bf16‖², Σ‖plain_fp32 − plain_bf16‖²]
+            self.worst_step = 0.0
+
+        def step(self, losses, views, plain_losses, plain_views):
+            """losses[mode], views[mode]: each kernel mode's (rows, 1) losses
+            and per-row (p, m, v); plain_*[mode] the plain version's."""
+            for dots in (True, False):
+                self.losses.setdefault(dots, []).append(losses[dots])
+                for i, ((_, m, v), (_, mb, vb), (_, mf, vf)) in enumerate(zip(
+                        views[dots], plain_views[True], plain_views[False])):
+                    for key, got, b, f in (("m", m, mb, mf), ("v", v, vb, vf)):
+                        num = float((got.double() - b.double()).norm() ** 2)
+                        den = float((f.double() - b.double()).norm() ** 2)
+                        acc = self.sq.setdefault((dots, i, key), [0.0, 0.0])
+                        acc[0] += num
+                        acc[1] += den
+                        if dots:
+                            self.worst_step = max(self.worst_step, (num / max(den, 1e-300)) ** 0.5)
+            self.losses.setdefault("pb", []).append(plain_losses[True])
+            self.losses.setdefault("pf", []).append(plain_losses[False])
+            self.err = max(self.err, float((losses[True] - plain_losses[True]).abs().max()))
+
+        def check(self):
+            cat = {k: torch.cat([x.reshape(-1) for x in v]) for k, v in self.losses.items()}
+            require(bool(torch.isfinite(cat[True]).all()), f"{self.label}: finite losses")
+            r_b, r_f = rho(cat[True], cat["pb"], cat["pf"]), rho(cat[False], cat["pb"], cat["pf"])
+            rows = {dots: [(num / max(den, 1e-300)) ** 0.5 for (d, _, _), (num, den)
+                           in self.sq.items() if d == dots] for dots in (True, False)}
+            mv_b, mv_f = max(rows[True]), min(rows[False])
+            print(f"{self.label}: losses rho {r_b:.2e} (fp32 kernel {r_f:.2f}); each row's m, v "
+                  f"rho max {mv_b:.2e} (fp32 kernel min {mv_f:.2f}; one step's max "
+                  f"{self.worst_step:.2e}); max |Δ| losses {self.err:.2e}")
+            require(r_b <= RHO_MAX and mv_b <= RHO_MAX,
+                    f"{self.label}: the bf16-dot kernel within rho {RHO_MAX} of its bf16 plain "
+                    f"version (losses {r_b:.2e}, m/v {mv_b:.2e})")
+            require(r_f >= RHO_CONTROL and mv_f >= RHO_CONTROL,
+                    f"{self.label}: the fp32 kernel at rho >= {RHO_CONTROL} from the bf16 plain "
+                    f"version (losses {r_f:.2f}, m/v {mv_f:.2f})")
+            return self.err
+
+    def walk(label, n, state, kernel, plain, views, noise=None):
+        """n steps one at a time from the bf16 plain version's state:
+        kernel(bufs, step, ext, dots) and plain(...) launch one step in
+        place and return (rows, 1) losses; views(bufs) → per-row (p, m, v)."""
+        hold = Hold(label)
+        for step in range(n):
+            ext = None if noise is None else noise(step)
+            lk, vk, lp, vp, nxt = {}, {}, {}, {}, None
+            for dots in (True, False):
+                kb, pb = clone(state), clone(state)
+                lk[dots] = kernel(kb, step, ext, dots).reshape(-1, 1)
+                lp[dots] = plain(pb, step, ext, dots).reshape(-1, 1)
+                vk[dots], vp[dots] = views(kb), views(pb)
+                if dots:
+                    nxt = pb
+            torch.cuda.synchronize()
+            hold.step(lk, vk, lp, vp)
+            state = nxt
+        return hold.check()
+
+    errs = {}
+
+    # --- 53 --------------------------------------------------------------
+    phase(53, "bf16 dots, the linear kernel: K1 and K2 at rows 1 (32 steps one at a time from "
+              "the bf16 plain version's state, external noise and in-kernel sampler, -tdv on "
+              "and off) and K6a on the linear (21) and sigmoid (18) sweeps; rho against "
+              "the bf16 plain version, the fp32 kernel as control; bitwise properties")
+    print(f"card: {smi}; rho = |kernel - plain_bf16| / |plain_fp32 - plain_bf16|, "
+          f"<= {RHO_MAX} for the bf16-dot kernel, >= {RHO_CONTROL} for the fp32 one")
+    lin_ds = LinearGaussianDataset.create(2, 3, 3, 9, device=dev)
+    sig_ds = SigmoidDataset.create(69, 3, 3, device=dev)
+    solo = {"K1": dict(ds=lin_ds, D=D, L=L, dd=ID, eps=-1.0, lr=1e-3, dual=False),
+            "K2": dict(ds=sig_ds, D=SIG_D, L=SIG_L, dd=SIG_DD, eps=-3.0, lr=1e-4, dual=True)}
+
+    def k1_state(c, tdv, adam="f32"):
+        model = build_vae(data_dim=c["D"], latent_dim=c["L"], epsilon=c["eps"],
+                          tunable_decoder_var=tdv, dataset_name="sigmoid" if c["dual"] else None)
+        model.init_parameters(0)
+        st = TrainState.create(dict(model.named_parameters()), *seeds, adam).to(dev)
+        return k1.pack_state(st, c["D"], c["L"], c["dual"])
+
+    def k1_call(fn, c, bufs, n, step0, tdv, ext, dots, adam="f32"):
+        return fn(*bufs, c["ds"].A, n_steps=n, batch=B, data_dim=c["D"], latent_dim=c["L"],
+                  intrinsic_dim=c["dd"], manifold_dim=c["dd"], step0=step0, t0=step0,
+                  data_seed=seeds[0], model_seed=seeds[1], var_added=0.0,
+                  eps_const=c["eps"], tdv=tdv, lr=c["lr"], external_noise=ext,
+                  dual=c["dual"], adam_dtype=adam, bf16_dots=dots)
+
+    n = 32
+    for name, c in solo.items():
+        rs = np.random.RandomState(53)
+        row = k1.GridRow(c["D"], c["L"], c["dd"], c["dd"], c["ds"].A if c["dual"] else None,
+                         0, 0, 0, 0)
+        if c["dual"]:
+            ext_all = _manifold_noise(torch, np, rs, row, n, B, dev)
+        else:
+            xs = np.zeros((n, B, c["D"]), np.float32)
+            xs[:, :, :c["dd"]] = rs.randn(n, B, c["dd"]).astype(np.float32) @ \
+                c["ds"].A.cpu().numpy().T
+            ext_all = tuple(torch.as_tensor(a, device=dev) for a in (
+                xs, rs.randn(n, B, c["L"]).astype(np.float32),
+                rs.randn(n, B, c["D"]).astype(np.float32)))
+        for tdv in (True, False):
+            for mode in ("external", "sampler"):
+                noise = None if mode == "sampler" else (
+                    lambda s: tuple(t[s:s + 1].contiguous() for t in ext_all))
+                errs[name] = max(errs.get(name, 0.0), walk(
+                    f"{name} tdv={tdv} {mode}", n, k1_state(c, tdv),
+                    lambda b, s, e, d, c=c, t=tdv: k1_call(k1.run_fused_chunk, c, b, 1, s, t, e, d),
+                    lambda b, s, e, d, c=c, t=tdv: k1_call(k1.plain_fused_chunk, c, b, 1, s, t, e,
+                                                         d),
+                    lambda b: [b], noise))
+        for adam in ("f32", "bf16"):
+            a = k1_state(c, True, adam)
+            b = clone(a)
+            la = k1_call(k1.run_fused_chunk, c, a, 40, 0, True, None, True, adam)
+            lb = torch.cat([k1_call(k1.run_fused_chunk, c, b, 15, 0, True, None, True, adam),
+                            k1_call(k1.run_fused_chunk, c, b, 25, 15, True, None, True, adam)])
+            torch.cuda.synchronize()
+            require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                    f"{name} bf16 dots, {adam} moments: 40 = 15 + 25 bitwise")
+        print(f"{name} bf16 dots: a 40-step launch = 15 + 25 bitwise, f32 and bf16 moments")
+
+    def sweep_family(which, hid=None):
+        cfgs = list(sweep.sweep_configs(which, data_dir, 64, "cuda"))
+        groups = {}
+        for cfg in cfgs:
+            groups.setdefault((cfg.dataset_dimension, cfg.padding_dim, cfg.latent_dimension), cfg)
+        grids = [GridTrainer(cfg, sweep.SWEEP_SEEDS[which], build_chunk=False)
+                 for cfg in groups.values()]
+        trip = [(g.model, ds, st) for g in grids for ds, st in zip(g.datasets, g.states)]
+        require(all(m.bf16_dots and ds.bf16_dots for m, ds, _ in trip),
+                f"{which}: --precision bf16 resolved to bf16 dots on the card")
+        sphere = which == "sphere"
+        rows = [k1.GridRow(ds.dimension, m.latent_dim, ds.intrinsic_dim, ds.dim,
+                           None if sphere else ds.A, st.step, st.count, st.data_seed,
+                           st.model_seed, ds.var_added) for m, ds, st in trip]
+        c0 = cfgs[0]
+        kw = dict(batch=c0.batch_size, eps_const=c0.epsilon, tdv=True, lr=c0.learning_rate,
+                  dual=which == "sigmoid" or bool(hid and trip[0][0].dual_sigmoid_decoder))
+        if hid:
+            kw.update(enc_hidden=hid, dec_hidden=hid, kind=k5.dataset_kind(trip[0][1]))
+        return [st for _, _, st in trip], rows, kw
+
+    grid_fams = {"linear": sweep_family("linear"), "sigmoid": sweep_family("sigmoid")}
+    for which, (states, rows, kw) in grid_fams.items():
+        dual = kw["dual"]
+        rs = np.random.RandomState(530)
+        noise_rows = [_manifold_noise(torch, np, rs, r, 16, B, dev) if dual else None
+                      for r in rows]
+        if not dual:  # the linear manifold: x = pad(z·Aᵀ)
+            noise_rows = []
+            for r in rows:
+                xs = np.zeros((16, B, r.data_dim), np.float32)
+                xs[:, :, :r.manifold_dim] = rs.randn(16, B, r.intrinsic_dim).astype(
+                    np.float32) @ r.a.cpu().numpy().T
+                noise_rows.append(tuple(torch.as_tensor(t, device=dev) for t in (
+                    xs, rs.randn(16, B, r.latent_dim).astype(np.float32),
+                    rs.randn(16, B, r.data_dim).astype(np.float32))))
+        packed = k1.pack_rows(states, rows, dual)
+
+        def at(s, rows=rows):
+            return [dataclasses.replace(r, step0=r.step0 + s, t0=r.t0 + s) for r in rows]
+
+        for mode in ("external", "sampler"):
+            def ext(s, mode=mode, noise_rows=noise_rows):
+                return None if mode == "sampler" else [
+                    tuple(t[s:s + 1].contiguous() for t in nz) for nz in noise_rows]
+            errs["K6a"] = max(errs.get("K6a", 0.0), walk(
+                f"K6a {which} ({len(rows)} rows) {mode}", 16, packed,
+                lambda b, s, e, d, rows=rows, kw=kw: k1.run_grid_chunk(
+                    *b, at(s, rows), n_steps=1, external_noise=e, bf16_dots=d, **kw),
+                lambda b, s, e, d, rows=rows, kw=kw: k1.plain_grid_chunk(
+                    *b, at(s, rows), n_steps=1, external_noise=e, bf16_dots=d, **kw),
+                lambda b, rows=rows, dual=dual: k1.row_views(*b, rows, dual),
+                None if mode == "sampler" else ext))
+        for adam in ("f32", "bf16"):
+            st = [dataclasses.replace(s, m={k: t.to(torch.bfloat16) if t.dim() >= 2 and
+                                            adam == "bf16" else t for k, t in s.m.items()},
+                                      v={k: t.to(torch.bfloat16) if t.dim() >= 2 and
+                                         adam == "bf16" else t for k, t in s.v.items()})
+                  for s in states]
+            p = k1.pack_rows(st, rows, dual)
+            grid = k1.run_grid_chunk(*p, rows, n_steps=64, adam_dtype=adam, bf16_dots=True,
+                                     **kw)
+            views = k1.row_views(*p, rows, dual)
+            for i, r in enumerate(rows):
+                bufs = k1.pack_state(st[i], r.data_dim, r.latent_dim, dual)
+                want = k1.run_fused_chunk(
+                    *bufs, r.a, n_steps=64, batch=B, data_dim=r.data_dim,
+                    latent_dim=r.latent_dim, intrinsic_dim=r.intrinsic_dim,
+                    manifold_dim=r.manifold_dim, step0=r.step0, t0=r.t0,
+                    data_seed=r.data_seed, model_seed=r.model_seed, var_added=r.var_added,
+                    eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual,
+                    adam_dtype=adam, bf16_dots=True)
+                torch.cuda.synchronize()
+                require(torch.equal(grid[i], want) and all(
+                    torch.equal(x, y) for x, y in zip(views[i], bufs)),
+                    f"K6a {which} row {i}, bf16 dots, {adam} moments: = its solo launch bitwise")
+            a = k1.pack_rows(st, rows, dual)
+            b = clone(a)
+            la = k1.run_grid_chunk(*a, rows, n_steps=40, adam_dtype=adam, bf16_dots=True, **kw)
+            lb = torch.cat([
+                k1.run_grid_chunk(*b, rows, n_steps=15, adam_dtype=adam, bf16_dots=True, **kw),
+                k1.run_grid_chunk(*b, at(15), n_steps=25, adam_dtype=adam, bf16_dots=True,
+                                  **kw)], dim=1)
+            torch.cuda.synchronize()
+            require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                    f"K6a {which} bf16 dots, {adam} moments: 40 = 15 + 25 bitwise")
+        print(f"K6a {which} bf16 dots: every row = its solo launch bitwise (64 steps), "
+              f"40 = 15 + 25 bitwise, f32 and bf16 moments")
+
+    # --- 54 --------------------------------------------------------------
+    phase(54, "bf16 dots, the MLP kernel: K5 at sphere row 1 and a linear_gaussian MLP, "
+              "K5-dual at sigmoid-MLP row 1 (32 steps one at a time), K6b on the sphere "
+              "sweep (15 rows) and 3 sigmoid-MLP rows (16 steps); clusters of 8 = 16 "
+              "bitwise; rho as in phase 53")
+    lin_enc, lin_dec = (12, 64, 64, 20), (20, 64, 64, 12)
+    mlp = {"K5": dict(enc=SPH_ENC, dec=SPH_DEC, kind="sphere", a=None, dd=SPH_DD, eps=-3.0,
+                      lr=1e-4, dual=False, var=0.0),
+           "K5 linear_gaussian 64|64 +obs": dict(enc=lin_enc, dec=lin_dec, kind="linear",
+                                                 a=lin_ds.A, dd=3, eps=-1.0, lr=1e-3,
+                                                 dual=False, var=0.25),
+           "K5-dual": dict(enc=(SIG_D, *hidden, SIG_L), dec=(SIG_L, *hidden, SIG_D),
+                           kind="sigmoid", a=sig_ds.A, dd=SIG_DD, eps=-3.0, lr=1e-4,
+                           dual=True, var=0.0)}
+
+    def k5_state(c, tdv):
+        model = build_vae(data_dim=c["enc"][0], latent_dim=c["enc"][-1],
+                          encoder_layer_sizes="|".join(map(str, c["enc"][1:-1])),
+                          decoder_layer_sizes="|".join(map(str, c["dec"][1:-1])),
+                          epsilon=c["eps"], tunable_decoder_var=tdv,
+                          dataset_name="sigmoid" if c["dual"] else None)
+        model.init_parameters(0)
+        st = TrainState.create(dict(model.named_parameters()), *seeds).to(dev)
+        return k5.pack_state(st, c["enc"], c["dec"], c["dual"])
+
+    def k5_call(fn, c, bufs, n, step0, tdv, ext, dots):
+        return fn(*bufs, c["a"], n_steps=n, batch=B, enc_widths=c["enc"], dec_widths=c["dec"],
+                  kind=c["kind"], intrinsic_dim=c["dd"], manifold_dim=c["dd"], step0=step0,
+                  t0=step0, data_seed=seeds[0], model_seed=seeds[1], var_added=c["var"],
+                  eps_const=c["eps"], tdv=tdv, lr=c["lr"], external_noise=ext, dual=c["dual"],
+                  bf16_dots=dots)
+
+    for name, c in mlp.items():
+        rs = np.random.RandomState(54)
+        row = k1.GridRow(c["enc"][0], c["enc"][-1], c["dd"], c["dd"], c["a"], 0, 0, 0, 0)
+        cases = [(True, "sampler")]
+        if c["kind"] != "linear":
+            ext_all = _manifold_noise(torch, np, rs, row, n, B, dev)
+            cases += [(True, "external")] + ([(False, "external")] if name == "K5" else [])
+        for tdv, mode in cases:
+            noise = None if mode == "sampler" else (
+                lambda s: tuple(t[s:s + 1].contiguous() for t in ext_all))
+            errs[name.split()[0]] = max(errs.get(name.split()[0], 0.0), walk(
+                f"{name} tdv={tdv} {mode}", n, k5_state(c, tdv),
+                lambda b, s, e, d, c=c, t=tdv: k5_call(k5.run_mlp_fused_chunk, c, b, 1, s, t, e,
+                                                     d),
+                lambda b, s, e, d, c=c, t=tdv: k5_call(k5.plain_mlp_fused_chunk, c, b, 1, s, t,
+                                                     e, d),
+                lambda b: [b], noise))
+        if name == "K5 linear_gaussian 64|64 +obs":
+            continue
+        a = k5_state(c, True)
+        b = clone(a)
+        la = k5_call(k5.run_mlp_fused_chunk, c, a, 40, 0, True, None, True)
+        lb = torch.cat([k5_call(k5.run_mlp_fused_chunk, c, b, 15, 0, True, None, True),
+                        k5_call(k5.run_mlp_fused_chunk, c, b, 25, 15, True, None, True)])
+        torch.cuda.synchronize()
+        require(torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{name} bf16 dots: 40 = 15 + 25 bitwise")
+        r = k1.GridRow(c["enc"][0], c["enc"][-1], c["dd"], c["dd"], c["a"], 0, 0, *seeds)
+        outs = {}
+        for cluster in (8, 16):
+            bufs = k5_state(c, True)
+            out = torch.empty(1, 16, device=dev)
+            k5._launch([bufs], out, [r], n_steps=16, batch=B, enc_hidden=c["enc"][1:-1],
+                       dec_hidden=c["dec"][1:-1], kind=c["kind"], eps_const=c["eps"], tdv=True,
+                       lr=c["lr"], dual=c["dual"], external_noise=None, adam_dtype="f32",
+                       bf16_dots=True, cluster=cluster)
+            torch.cuda.synchronize()
+            require(k5.last_launch()["cluster_size"] == cluster, f"clusters of {cluster}")
+            outs[cluster] = (out, bufs)
+        require(torch.equal(outs[8][0], outs[16][0]) and all(
+            torch.equal(x, y) for x, y in zip(outs[8][1], outs[16][1])),
+            f"{name} bf16 dots: clusters of 8 = 16 bitwise (16 steps)")
+        print(f"{name} bf16 dots: 40 = 15 + 25 bitwise; clusters of 8 = 16 bitwise")
+
+    sig_cfg = parse_arguments(["dual", *SIGMOID_MLP_ROW1, "--num_batches", "64",
+                               "--kernels", "cuda", "--device", "cuda", "--data_dir", data_dir])
+    k6b = {"sphere": sweep_family("sphere", hidden)}
+    grids = [GridTrainer(sig_cfg, [69, 24, 48], build_chunk=False)]
+    trip = [(g.model, ds, st) for g in grids for ds, st in zip(g.datasets, g.states)]
+    k6b["sigmoid-MLP"] = (
+        [st for _, _, st in trip],
+        [k1.GridRow(ds.dimension, m.latent_dim, ds.intrinsic_dim, ds.dim, ds.A, st.step,
+                    st.count, st.data_seed, st.model_seed, ds.var_added) for m, ds, st in trip],
+        dict(batch=B, eps_const=-3.0, tdv=True, lr=1e-4, dual=True, enc_hidden=hidden,
+             dec_hidden=hidden, kind="sigmoid"))
+    for which, (states, rows, kw) in k6b.items():
+        dual = kw["dual"]
+        rs = np.random.RandomState(54)
+        noise_rows = [_manifold_noise(torch, np, rs, r, 16, B, dev) for r in rows]
+        packed = k5.pack_rows(states, rows, hidden, hidden, dual)
+
+        def at(s, rows=rows):
+            return [dataclasses.replace(r, step0=r.step0 + s, t0=r.t0 + s) for r in rows]
+
+        for mode in ("external", "sampler") if which == "sphere" else ("external",):
+            def ext(s, noise_rows=noise_rows):
+                return [tuple(t[s:s + 1].contiguous() for t in nz) for nz in noise_rows]
+            errs["K6b"] = max(errs.get("K6b", 0.0), walk(
+                f"K6b {which} ({len(rows)} rows) {mode}", 16, packed,
+                lambda b, s, e, d, rows=rows, kw=kw: k5.run_grid_chunk(
+                    *b, at(s, rows), n_steps=1, external_noise=e, bf16_dots=d, **kw),
+                lambda b, s, e, d, rows=rows, kw=kw: k5.plain_grid_chunk(
+                    *b, at(s, rows), n_steps=1, external_noise=e, bf16_dots=d, **kw),
+                lambda b, rows=rows, dual=dual: k5.row_views(*b, rows, hidden, hidden, dual),
+                None if mode == "sampler" else ext))
+        p = k5.pack_rows(states, rows, hidden, hidden, dual)
+        grid = k5.run_grid_chunk(*p, rows, n_steps=32, bf16_dots=True, **kw)
+        views = k5.row_views(*p, rows, hidden, hidden, dual)
+        for i, r in enumerate(rows):
+            bufs = k5.pack_state(states[i], *k5.row_widths(r, hidden, hidden), dual)
+            e, d_ = k5.row_widths(r, hidden, hidden)
+            want = k5.run_mlp_fused_chunk(
+                *bufs, r.a, n_steps=32, batch=B, enc_widths=e, dec_widths=d_, kind=kw["kind"],
+                intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
+                t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=r.var_added,
+                eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual, bf16_dots=True)
+            torch.cuda.synchronize()
+            require(torch.equal(grid[i], want) and all(
+                torch.equal(x, y) for x, y in zip(views[i], bufs)),
+                f"K6b {which} row {i}, bf16 dots: = its solo launch bitwise")
+        print(f"K6b {which} bf16 dots: every row = its solo K5 launch bitwise (32 steps)")
+
+    # --- 55 --------------------------------------------------------------
+    phase(55, "bf16 dots, the torch path: one CUDA graph replay a step = op by op bitwise "
+              "at sphere row 1 (200 steps), the conv epoch's graph = op by op bitwise; "
+              "--resume in mid-chunk (phases 40 and 45 run the CLI's default bf16)")
+
+    def sphere_model(dots):
+        model = build_vae(data_dim=SPH_D, latent_dim=SPH_L, encoder_layer_sizes="200|200|200",
+                          decoder_layer_sizes="200|200|200", epsilon=-3.0,
+                          tunable_decoder_var=True, bf16_dots=dots)
+        model.init_parameters(0)
+        return model.to(dev)
+
+    def fresh(model):
+        return TrainState.create(dict(model.named_parameters()), *seeds)
+
+    def same(label, a, b):
+        (sa, la), (sb, lb) = a, b
+        require(bool(torch.isfinite(la).all()), f"{label}: finite losses")
+        require(torch.equal(la, lb) and all(
+            torch.equal(x, getattr(sb, t)[k]) for t in ("params", "m", "v")
+            for k, x in getattr(sa, t).items()), f"{label}: graph = op by op bitwise")
+
+    sph_ds = SphereDataset(SPH_DD, SPH_D - SPH_DD, device=dev)
+    model = sphere_model(True)
+    eager = torch_step.train_chunk(model, sph_ds, fresh(model), 200, batch_size=B, lr=1e-4)
+    graph = torch_step.GraphChunk(model, sph_ds, batch_size=B, lr=1e-4)(fresh(model), 200)
+    torch.cuda.synchronize()
+    same("sphere row 1 bf16 dots, 200 steps", eager, graph)
+    f32 = torch_step.train_chunk(sphere_model(False), sph_ds, fresh(model), 200, batch_size=B,
+                                 lr=1e-4)
+    require(not torch.equal(f32[1], eager[1]), "the bf16-dot torch path parts from fp32's")
+    print(f"sphere row 1, bf16 dots: graph = op by op bitwise over 200 steps; loss "
+          f"{eager[1][0].item():.4f} -> {eager[1][-1].item():.4f} (fp32: "
+          f"{f32[1][-1].item():.4f})")
+    img = ImageDataset.synthetic_digits(0, n=4096, size=28, device=dev)
+
+    def conv_model(dots):
+        m = build_conv_vae(image_hwc=img.shape, latent_dim=16, channels_spec="32|64",
+                           epsilon=-1.0, tunable_decoder_var=True, bf16_dots=dots)
+        m.init_parameters(0)
+        return m.to(dev)
+
+    cmodel = conv_model(True)
+    ckw = dict(batch_size=128, lr=1e-3)
+    ce = torch_step.EpochChunk(cmodel, img, graph=False, **ckw)(fresh(cmodel), 0)
+    cg = torch_step.EpochChunk(cmodel, img, graph=True, **ckw)(fresh(cmodel), 0)
+    torch.cuda.synchronize()
+    same("conv epoch bf16 dots", ce, cg)
+    print(f"conv epoch, bf16 dots: graph = op by op bitwise (32 steps); loss "
+          f"{ce[1][0].item():.3f} -> {ce[1][-1].item():.3f}")
+
+    # --- 56 --------------------------------------------------------------
+    phase(56, "times, bf16 dots against fp32 dots in turn (fp32, bf16, bf16, fp32), "
+              "with the card's name and power limit")
+    print(f"card: {smi}")
+
+    def in_turn(label, fn, steps, min_seconds=0.3):
+        r = {}
+        for dots in (False, True, True, False):
+            r.setdefault(dots, []).append(_steps_per_second(torch, lambda: fn(dots), steps,
+                                                            min_seconds))
+        ms = {dots: 1e3 / max(v) for dots, v in r.items()}
+        print(f"{label}: fp32 dots {ms[False] * 1e3:.3f} µs, bf16 dots {ms[True] * 1e3:.3f} µs "
+              f"a step ({ms[True] / ms[False]:.3f}x)")
+        return ms
+
+    times = {}
+    for name, c in solo.items():
+        bufs = k1_state(c, True)
+        times[name] = in_turn(f"{name} (5000-step launches)", lambda d, c=c, b=bufs: k1_call(
+            k1.run_fused_chunk, c, b, 5000, 0, True, None, d), 5000)
+    for name in ("K5", "K5-dual"):
+        c, bufs = mlp[name], k5_state(mlp[name], True)
+        times[name] = in_turn(f"{name} (200-step launches)", lambda d, c=c, b=bufs: k5_call(
+            k5.run_mlp_fused_chunk, c, b, 200, 0, True, None, d), 200)
+    for which, (states, rows, kw) in grid_fams.items():
+        p = k1.pack_rows(states, rows, kw["dual"])
+        times[f"K6a {which}"] = in_turn(
+            f"K6a {which}, {len(rows)} rows (2000-step launches; a launch-step)",
+            lambda d, p=p, rows=rows, kw=kw: k1.run_grid_chunk(*p, rows, n_steps=2000,
+                                                               bf16_dots=d, **kw), 2000)
+    states, rows, kw = k6b["sphere"]
+    p = k5.pack_rows(states, rows, hidden, hidden, False)
+    times["K6b"] = in_turn("K6b sphere, 15 rows (100-step launches; a launch-step)",
+                           lambda d: k5.run_grid_chunk(*p, rows, n_steps=100, bf16_dots=d,
+                                                       **kw), 100)
+    plain = {}
+    for name, c in solo.items():  # the plain versions: the torch path op by op
+        plain[name] = in_turn(f"{name}'s plain version (100 steps)", lambda d, c=c: k1_call(
+            k1.plain_fused_chunk, c, k1_state(c, True), 100, 0, True, None, d), 100)
+    for name in ("K5", "K5-dual"):
+        plain[name] = in_turn(f"{name}'s plain version (20 steps)", lambda d, name=name: k5_call(
+            k5.plain_mlp_fused_chunk, mlp[name], k5_state(mlp[name], True), 20, 0, True, None,
+            d), 20)
+    for which, (states, rows, kw) in grid_fams.items():
+        p = k1.pack_rows(states, rows, kw["dual"])
+        plain[f"K6a {which}"] = in_turn(
+            f"K6a {which}'s plain version (1 step; a launch-step)",
+            lambda d, p=p, rows=rows, kw=kw: k1.plain_grid_chunk(*p, rows, n_steps=1,
+                                                                 bf16_dots=d, **kw), 1)
+    states, rows, kw = k6b["sphere"]
+    p6 = k5.pack_rows(states, rows, hidden, hidden, False)
+    plain["K6b"] = in_turn("K6b sphere's plain version (1 step; a launch-step)",
+                           lambda d: k5.plain_grid_chunk(*p6, rows, n_steps=1, bf16_dots=d,
+                                                         **kw), 1)
+    gmodels = {d: sphere_model(d) for d in (False, True)}
+    gchunks = {d: torch_step.GraphChunk(gmodels[d], sph_ds, batch_size=B, lr=1e-4)
+               for d in (False, True)}
+    gstates = {d: fresh(gmodels[d]) for d in (False, True)}
+    in_turn("the torch path at sphere row 1, one CUDA graph replay a step (200 steps)",
+            lambda d: gchunks[d](gstates[d], 200), 200)
+    cmodels = {d: conv_model(d) for d in (False, True)}
+    cchunks = {d: torch_step.EpochChunk(cmodels[d], img, graph=True, **ckw) for d in (False, True)}
+    cstates = {d: fresh(cmodels[d]) for d in (False, True)}
+    in_turn("the conv step, one CUDA graph replay an epoch (32 steps)",
+            lambda d: cchunks[d](cstates[d], 0), CONV_NB)
+    for config in ("linear", "sphere", "grid_linear", "grid_sphere", "conv"):
+        if config in _BENCH_FP32:  # phase 33's or 47's run, --precision fp32
+            print(f"bench --config {config} --precision fp32 (phase 33 or 47): "
+                  f"{_BENCH_FP32[config]}")
+        for prec in ("bf16",) if config in _BENCH_FP32 else ("fp32", "bf16"):
+            proc = _bench(["--config", config, "--precision", prec])
+            require(proc.returncode == 0, f"bench {config} --precision {prec} returned 0")
+            (line,) = proc.stdout.strip().splitlines()
+            print(f"bench --config {config} --precision {prec}: {line}")
+            kl = [ln for ln in proc.stderr.splitlines() if ln.startswith("[kernels]")][:1]
+            require(not kl or ("bf16-operand dots" in kl[0]) == (prec == "bf16"),
+                    f"bench {config} {prec}: the [kernels] line names the dot mode")
+
+    flops = {"K1": linear_flops(B, D, L, ID, ID, False),
+             "K2": linear_flops(B, SIG_D, SIG_L, SIG_DD, SIG_DD, True),
+             "K5": mlp_flops(B, SPH_ENC, SPH_DEC),
+             "K5-dual": mlp_flops(B, mlp["K5-dual"]["enc"], mlp["K5-dual"]["dec"], True)}
+    state_bytes = {"K1": 6 * 4 * k1.n_params(D, L), "K2": 6 * 4 * k1.n_params(SIG_D, SIG_L, True),
+                   "K5": 6 * 4 * k5.n_params(SPH_ENC, SPH_DEC),
+                   "K5-dual": 6 * 4 * k5.n_params(mlp["K5-dual"]["enc"], mlp["K5-dual"]["dec"],
+                                                  True)}
+    steps = {"K1": 5000, "K2": 5000, "K5": 200, "K5-dual": 200}
+    for which, (states, rows, kw) in grid_fams.items():
+        flops[f"K6a {which}"] = sum(linear_flops(B, r.data_dim, r.latent_dim, r.intrinsic_dim,
+                                                 r.manifold_dim, kw["dual"]) for r in rows)
+        state_bytes[f"K6a {which}"] = 6 * 4 * k1.row_offsets(rows, kw["dual"])[-1]
+        steps[f"K6a {which}"] = 2000
+    states, rows, kw = k6b["sphere"]
+    flops["K6b"] = sum(mlp_flops(B, *k5.row_widths(r, hidden, hidden)) for r in rows)
+    state_bytes["K6b"] = 6 * 4 * k5.row_offsets(rows, hidden, hidden)[-1]
+    steps["K6b"] = 100
+    names = {"K1": ("linear_vae_chunk (K1)", "kernels/linear_vae.py:678"),
+             "K2": ("linear_vae_chunk dual (K2)", "kernels/linear_vae.py:678"),
+             "K6a linear": ("linear_vae_grid_chunk (K6a), linear sweep, 21 rows",
+                            "kernels/linear_vae.py:678"),
+             "K6a sigmoid": ("linear_vae_grid_chunk (K6a), sigmoid sweep, 18 rows",
+                             "kernels/linear_vae.py:678"),
+             "K5": ("mlp_vae_chunk (K5)", "kernels/mlp_vae.py:644"),
+             "K5-dual": ("mlp_vae_chunk dual (K5-dual)", "kernels/mlp_vae.py:644"),
+             "K6b": ("mlp_vae_chunk grid (K6b), sphere sweep, 15 rows",
+                     "kernels/mlp_vae.py:644")}
+    # launches: the wrapper's count on the main path (phases 5, 11, 16, 20),
+    # which runs the CLI's default, bf16 dots; 0 in --only-bf16-dots
+    by_name = {r["name"]: r for r in records}
+    for key, (name, site) in names.items():
+        fp32_rec = by_name.get(name, {})
+        err_key = key.split()[0]
+        rows_n = 1 if key in ("K1", "K2", "K5", "K5-dual") else None
+        records.append({
+            "name": f"{name}, bf16 dots", "route": "cuda",
+            "source": ("vae_training_tpu_torch/csrc/linear_vae.cu" if key.startswith(("K1", "K2",
+                       "K6a")) else "vae_training_tpu_torch/csrc/mlp_vae.cu"),
+            "replaces": f"vae_training_tpu/{site}",
+            "launches": fp32_rec.get("launches", 0), "max_abs_err": errs[err_key],
+            "ms": times[key][True], "plain_ms": plain[key][True],
+            **_bound(flops[key], state_bytes[key], steps[key],
+                     losses_per_step=rows_n or len(grid_fams.get(key.split()[-1], k6b["sphere"])[1]),
+                     peak=BF16_PEAK),
+            "library_ms": None, "fp32_dots_ms": times[key][False],
+            "fp32_dots_plain_ms": plain[key][False]})
+    print("the bf16-dot records: " + "; ".join(
+        f"{r['name']} {r['ms'] * 1e3:.3f} µs (fp32 dots {r['fp32_dots_ms'] * 1e3:.3f}), bound "
+        f"{r['bound_ms'] * 1e3:.4f} µs by {r['bound_by']}" for r in records
+        if r["name"].endswith("bf16 dots")))
+
+    # --- 57 --------------------------------------------------------------
+    phase(57, "the CLI's three rows 1 at 12000 steps under --precision fp32, beside the bf16 "
+              "runs of phases 5 and 11")
+
+    def cli(name, flags, *extra):
+        cfg = parse_arguments([name, *flags, "--num_batches", "12000", "--kernels", "cuda",
+                               "--device", "cuda", "--data_dir", data_dir, *extra])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        require(rc == 0, f"{name}: main() returned 0")
+        kline = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[kernels]")]
+        return buf.getvalue(), kline[0] if kline else ""
+
+    pad_key = {"linear": "Squared Norm of padding dimensions",
+               "sigmoid": "Squared Norm of Padding Dimensions", "sphere": "Padding Error"}
+    for which, flags in (("linear", ROW1), ("sigmoid", SIGMOID_ROW1), ("sphere", SPHERE_ROW1)):
+        dirs = {}
+        for prec in ("bf16", "fp32"):
+            given = (row1_dirs or {}).get(which) if prec == "bf16" else None
+            if given is None:
+                _, kline = cli(f"row1_{which}_{prec}", flags, "--precision", prec)
+                require(("bf16-operand dots" in kline) == (prec == "bf16"),
+                        f"{which} {prec}: the [kernels] line names the dot mode ({kline})")
+                given = os.path.join(data_dir, f"row1_{which}_{prec}")
+            dirs[prec] = given
+        z = {p: np.load(os.path.join(d, "losses.npz")) for p, d in dirs.items()}
+        for prec in ("bf16", "fp32"):
+            # the interleaved trace: the evals at 0, 5000 and 10000 sit at
+            # 0, 5001 and 10002, each after the steps before it
+            ev, pad = z[prec]["VAE Loss"][[0, 5001, 10002]], z[prec][pad_key[which]]
+            print(f"{which} row 1, --precision {prec}: eval VAE Loss {ev[0]:.4f} -> "
+                  f"{ev[-1]:.4f}; padding {pad[0]:.6f} -> {pad[-1]:.6f}")
+            require(bool(np.all(np.isfinite(z[prec]["VAE Loss"]))), f"{which} {prec}: finite")
+            require(ev[-1] < ev[0] and pad[-1] < pad[0],
+                    f"{which} {prec}: the eval loss and the padding norm fall")
 
 
 def _kernel_events(torch, fn):
@@ -4097,7 +4782,20 @@ class _SmClock:
         return f"{m[0]} / {m[len(m) // 2]} / {m[-1]} MHz (min / median / max of {len(m)})"
 
 
-def _steps_per_second(torch, fn, steps_per_call: int, min_seconds: float = 1.0) -> float:
+def _bench(argv):
+    """``vae-bench-torch`` with ``argv`` in this process (its ``main``, the
+    console script's entry): (returncode, stdout, stderr) as a completed
+    process; the kernels are loaded once for every bench call."""
+    from vae_training_tpu_torch._scripts import bench
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main(argv)
+    return subprocess.CompletedProcess(["vae-bench-torch", *argv], rc, out.getvalue(),
+                                       err.getvalue())
+
+
+def _steps_per_second(torch, fn, steps_per_call: int, min_seconds: float = 0.5) -> float:
     """Training steps per second over a window of at least ``min_seconds``
     of device time, timed with CUDA events after one warm-up call. Each call
     is waited for, so the queue never runs ahead of the window."""

@@ -257,6 +257,30 @@ def test_cli_matches_the_jax_cli(cli_runs, arch):
     assert ppkl["state"]["step"] == jpkl["state"]["step"] == 24
     for d in (jdir, pdir):
         assert {"args.json", "output_0.png", "output_2.png"} <= set(os.listdir(d))
+    # the JAX CLI's artifact set, the corpus copy included; the checkpoint's
+    # files are each package's own format (ckpt.msgpack; ckpt.pt + meta + aux)
+    artifacts = lambda d: {f for f in os.listdir(d) if not f.startswith("ckpt")}  # noqa: E731
+    assert artifacts(pdir) == artifacts(jdir) and "dataset.pk.npz" in artifacts(pdir)
+    pc, jc = np.load(pdir / "dataset.pk.npz"), np.load(jdir / "dataset.pk.npz")
+    assert set(pc.files) == set(jc.files)
+    for k in jc.files:
+        np.testing.assert_array_equal(pc[k], jc[k], err_msg=k)
+
+
+def test_data_fn_restores_the_saved_corpus_bitwise(cli_runs, tmp_path):
+    """--data_fn <run>/dataset.pk loads the corpus a port run saved, bitwise,
+    and a run fed it saves the same corpus again."""
+    pdir = cli_runs["auto"]["port"][1]
+    saved = np.load(pdir / "dataset.pk.npz")["images"]
+    flags = ["r", *IMAGE, "--num_epochs", "1", "--device", "cpu", "--data_fn",
+             str(pdir / "dataset.pk"), "--data_dir", str(tmp_path)]
+    cfg = parse_arguments(flags).validate()
+    loaded = get_dataset("image", 0, cfg).load(cfg.data_fn)
+    assert loaded.images.dtype == torch.float32
+    np.testing.assert_array_equal(loaded.images.numpy(), saved)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert port_run.cli(flags) == 0
+    np.testing.assert_array_equal(np.load(tmp_path / "r" / "dataset.pk.npz")["images"], saved)
 
 
 def test_a_jax_conv_model_pkl_gives_the_jax_eval_loss(cli_runs, tmp_path):

@@ -425,8 +425,9 @@ def main(argv=None) -> int:
     p.add_argument("--latency", action="store_true",
                    help="Also report per-step latency percentiles (stderr; solo configs).")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
-                   help="Recorded in the config; both values compute fp32 products "
-                        "in this port.")
+                   help="Matmul precision under test: bf16 (default, the "
+                        "reference's): bfloat16 dot operands with f32 sums on the "
+                        "card; fp32: true fp32 products (both fp32 on the CPU).")
     p.add_argument("--kernels", default="auto", choices=["auto", "torch", "cuda"],
                    help="Backend under test: auto (a fused kernel where one can run), "
                         "torch (the plain PyTorch path), cuda (the kernel or an error).")

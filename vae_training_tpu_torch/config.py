@@ -9,14 +9,21 @@ unchanged. What differs from the JAX package:
     device raises; nothing falls back to the CPU.
   - ``--kernels auto|torch|cuda`` replaces ``auto|xla|pallas``
     (``kernels/dispatch.py``).
-  - ``--precision``: both values compute true fp32 products: TF32 off on
-    the torch path and in the plain versions (``use_fp32_math``, which
-    every entry point calls on the card), and fp32 FMA chains in the
-    kernels (the MLP kernel's in the order of an fp32 GEMM's thread; a
-    3xTF32 tensor-core split was measured and parted the fp32 trajectory
-    past the kernels' tolerances, PERF.md). The reference's bf16-operand
-    meaning (its default) is still to come, on every kernel and path
-    together (ROADMAP).
+  - ``--precision`` (``bf16_dots``): on the card, ``bf16`` (the default)
+    is the reference's accelerator mode: every dot the JAX package runs at
+    ``precision=None`` (the Dense and conv layers' products and both their
+    gradient products, the kernels' forward, analytic backward and manifold
+    draws, the samplers' and the sigmoid score's manifold dots) takes its
+    operands rounded to bfloat16, round to nearest even, and sums the exact
+    products in f32; biases, bias gradients, masks, the ELBO, Adam and the
+    master weights stay f32 (``ops/precision.py``, the kernels' bf16-dot
+    instantiations). ``fp32`` computes true fp32 products. On the CPU both
+    values compute true fp32 products, bitwise alike, as XLA's CPU backend
+    does for the JAX package: this is the reference's own CPU semantics, not
+    a fallback. On the card a kernel that cannot run the bf16 mode raises;
+    nothing computes fp32 in its place. TF32 is off in both modes
+    (``use_fp32_math``, which every entry point calls on the card): a bf16
+    dot is an fp32 GEMM on rounded operands.
   - ``-ws`` runs the analytic warm start (``models/warm_start.py``), solo
     and in a seed grid; ``-wsl`` parses and does nothing, as in the JAX
     package (nothing there reads it); ``--track_correlation`` records the
@@ -93,7 +100,7 @@ class RunConfig:
     n_print: int = 5000
     n_plot: int = 50000
     ckpt_backend: str = "msgpack"
-    # Both values compute in true fp32 (TF32 off) in this slice.
+    # bf16: bfloat16 dot operands with f32 sums on the card (bf16_dots)
     precision: str = "bf16"
     adam_dtype: str = "f32"
     # --- port flags ---------------------------------------------------------
@@ -149,6 +156,21 @@ class RunConfig:
 
     def to_json_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def bf16_dots(precision: str, device) -> bool:
+    """The dot mode ``--precision`` resolves to on ``device``: True (bf16
+    operands, f32 sums) for ``bf16`` on a CUDA device; False (true fp32
+    products) for ``fp32``, and for either value on the CPU, where the JAX
+    package's XLA backend computes f32 dots exactly under every precision
+    (the counterpart of its ``fp32_dots``, negated). Every entry point
+    resolves the flag here once and hands the bool to the model, the
+    dataset and the kernels."""
+    import torch
+
+    if precision not in ("bf16", "fp32"):
+        raise ValueError(f"--precision must be fp32|bf16, got {precision}")
+    return precision == "bf16" and torch.device(device).type == "cuda"
 
 
 def use_fp32_math(device) -> None:
@@ -263,10 +285,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "torch.save checkpoint.")
     p.add_argument("--precision", dest="precision", default="bf16",
                    choices=["bf16", "fp32"],
-                   help="Matmul precision. In this port both values compute "
-                        "true fp32 products (TF32 off on the torch path, fp32 "
-                        "FMA chains in the kernels); the reference's "
-                        "bf16-operand meaning is still to come.")
+                   help="Matmul precision. bf16 (default): on the card every "
+                        "layer, gradient, sampler and kernel dot rounds its "
+                        "operands to bfloat16 and sums in f32, as the "
+                        "reference's accelerator does; fp32: true fp32 products. "
+                        "On the CPU both compute true fp32 products, as the "
+                        "reference does on its CPU.")
     p.add_argument("--adam_dtype", dest="adam_dtype", default="f32",
                    choices=["f32", "bf16"],
                    help="Adam moment storage: bf16 stores the moments of every "

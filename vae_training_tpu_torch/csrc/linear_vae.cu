@@ -80,6 +80,20 @@
 // logf/sincosf, ~2k cycles a call under load) take about as long as either
 // phase, so more of them would not hide; the two barriers ~1k.
 //
+// bf16 dots (--precision bf16 on the card; the TPU kernel's default dot
+// mode, prec = None at linear_vae.py:324-345): the kBf16 instantiation
+// rounds every dot's operands to bfloat16, round to nearest even, and keeps
+// the f32 FMA chains: the manifold draw n·Aᵀ (K2: n·a into σ), mu = x·We,
+// y = s·Wd (K2: s·Ws), g_s = g_y·Wdᵀ (+ g_u·Wsᵀ) and the three gradient
+// products Uᵀ·V. Nothing else is rounded: the biases (the last term of the
+// padded copies' chains), the bias gradients (the tiles' bias row, whose V
+// stays unrounded: g_b is a plain sum), the loss sums, g_ep's column sums,
+// Adam and the state. The activations stay unrounded in shared memory (r,
+// g_y and mu also feed the loss and g_mu) and are rounded where a dot loads
+// them; the weights' padded copies, which only the dots read, hold R(W)
+// (written by Adam's lanes and at the start), the bias slots W's own. The
+// fp32 instantiation (kBf16 = false) is the code of the fp32 mode, unchanged.
+//
 // Every sum has an order fixed by the algorithm (a row's chain and tree, a
 // team's b slices and tree, the scalar warp's tree), independent of the
 // launch, of the number of rows and of which lane or warp runs it; no
@@ -241,6 +255,20 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// A dot's operand in the launch's dot mode: rounded to bfloat16 in the
+// bf16-dot instantiation, unchanged in the fp32 one.
+template <bool kBf16>
+__device__ __forceinline__ float dot_op(float x) {
+  if constexpr (kBf16) return bf16_rn(x);
+  else return x;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float4 dot_op4(float4 v) {
+  return make_float4(dot_op<kBf16>(v.x), dot_op<kBf16>(v.y), dot_op<kBf16>(v.z),
+                     dot_op<kBf16>(v.w));
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -318,8 +346,9 @@ struct Walk {
 // columns of x: pad(n·Aᵀ) (+ the observation noise stage 0 left in x), or
 // [n, σ(n·a)] (the padding columns stay zero), then the z2 draws. External
 // noise: stage 0 copies z1, stage 1 x and z2. `pt` is the lane's index
-// among `np` noise lanes.
-template <bool kDual>
+// among `np` noise lanes. The manifold dot rounds n (and A, rounded when it
+// was staged) in the bf16-dot mode; K2's identity columns stay n.
+template <bool kDual, bool kBf16>
 __device__ __noinline__ void draw_noise(float* smem, int k, int stage, int it, uint32_t step,
                                         int pt, int np) {
   const Hdr& h = *reinterpret_cast<const Hdr*>(smem);
@@ -385,11 +414,11 @@ __device__ __noinline__ void draw_noise(float* smem, int k, int stage, int it, u
       if (j < d.dd) {
         acc = n[j];
       } else {
-        for (int c = 0; c < d.dd; ++c) acc = fmaf(n[c], sA[c], acc);
+        for (int c = 0; c < d.dd; ++c) acc = fmaf(dot_op<kBf16>(n[c]), sA[c], acc);
         acc = sigmoidf(acc);
       }
     } else {
-      for (int c = 0; c < id; ++c) acc = fmaf(n[c], sA[j * id + c], acc);
+      for (int c = 0; c < id; ++c) acc = fmaf(dot_op<kBf16>(n[c]), sA[j * id + c], acc);
     }
     float* xp = x + b * S.ldx + j;
     *xp = obs ? acc + *xp : acc;
@@ -413,8 +442,10 @@ __device__ __noinline__ void draw_noise(float* smem, int k, int stage, int it, u
 // at a time (float4 of the row, broadcast to the group, and of the weight's
 // padded row), the bias last, as the plain version sums (x·We + be). A
 // block loads weights only for the output slots some lane needs (`n_out`);
-// a lane's slots past the width repeat its last row and are not stored.
-template <bool kDual>
+// a lane's slots past the width repeat its last row and are not stored. In
+// the bf16-dot mode the row's operand (x, s, g_y, g_u) is rounded as it is
+// loaded, and the padded copies hold rounded weights.
+template <bool kDual, bool kBf16>
 __device__ __forceinline__ void row_pass(float* smem, const Smem& S, const Dims& d, int k,
                                          int group, int sub, float noise_sd, float c_gy,
                                          float inv_b) {
@@ -451,7 +482,7 @@ __device__ __forceinline__ void row_pass(float* smem, const Smem& S, const Dims&
       }
 #pragma unroll 1
       for (int c = 0; c < cx; c += 4) {
-        const float4 xv = ld4(xr + c);
+        const float4 xv = dot_op4<kBf16>(ld4(xr + c));
 #pragma unroll
         for (int o = 0; o < kOut; ++o)
           if (o < n_out) acc[o] = dot4(xv, ld4(w[o] + c), acc[o]);
@@ -482,7 +513,7 @@ __device__ __forceinline__ void row_pass(float* smem, const Smem& S, const Dims&
       }
 #pragma unroll 1
       for (int c = 0; c < cs; c += 4) {
-        const float4 sv = ld4(sr + c);
+        const float4 sv = dot_op4<kBf16>(ld4(sr + c));
 #pragma unroll
         for (int o = 0; o < kOut; ++o) {
           if (o < n_out) {
@@ -525,9 +556,9 @@ __device__ __forceinline__ void row_pass(float* smem, const Smem& S, const Dims&
       }
 #pragma unroll 1
       for (int c = 0; c < cg; c += 4) {
-        const float4 gv = ld4(gyr + c);
+        const float4 gv = dot_op4<kBf16>(ld4(gyr + c));
         float4 uv;
-        if (kDual) uv = ld4(gur + c);
+        if (kDual) uv = dot_op4<kBf16>(ld4(gur + c));
 #pragma unroll
         for (int o = 0; o < kOut; ++o) {
           if (o < n_out) {
@@ -577,8 +608,11 @@ __device__ __forceinline__ float team_sum(float a, unsigned mask) {
 // ascending) and tree, then Adam on it by one lane (lane t: column t % 4,
 // rows 2·(t / 4) and 2·(t / 4) + 1 of the tile), which also writes the new
 // value into the padded copies the per-row pass reads. Tiles are numbered
-// [We; be], [Wd; bd], dual [Ws; bs], then ep (4 columns a tile).
-template <bool kDual>
+// [We; be], [Wd; bd], dual [Ws; bs], then ep (4 columns a tile). In the
+// bf16-dot mode U and V are rounded as they are loaded, but V in the bias
+// row (r = R − 1, where U is the column of ones): g_b is a plain sum. Adam's
+// lane writes R(W) into the copies, the bias as it is.
+template <bool kDual, bool kBf16>
 __device__ __forceinline__ void param_pass(float* smem, const Smem& S, const Dims& d, int k,
                                            int team, int t, float lr, bool bf16, float bc1,
                                            float bc2) {
@@ -621,18 +655,24 @@ __device__ __forceinline__ void param_pass(float* smem, const Smem& S, const Dim
         for (int cc = 0; cc < 4; ++cc) a[rr][cc] = 0.0f;
       const float* u_p = U + t * ldu + r0;
       const float* v_p = V + t * ldv + c0;
+      bool bias_row[4];  // the tile's row that sums V unrounded (bf16 dots)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) bias_row[rr] = kBf16 && r0 + rr == R - 1;
 #pragma unroll 2
       for (int b = t; b < B; b += kTeam) {
-        const float4 u = ld4(u_p);
+        const float4 u = dot_op4<kBf16>(ld4(u_p));
         const float4 w = ld4(v_p);
+        const float4 wr = dot_op4<kBf16>(w);
         u_p += kTeam * ldu;
         v_p += kTeam * ldv;
         const float uu[4] = {u.x, u.y, u.z, u.w};
         const float ww[4] = {w.x, w.y, w.z, w.w};
+        const float wwr[4] = {wr.x, wr.y, wr.z, wr.w};
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-          for (int cc = 0; cc < 4; ++cc) a[rr][cc] = fmaf(uu[rr], ww[cc], a[rr][cc]);
+          for (int cc = 0; cc < 4; ++cc)
+            a[rr][cc] = fmaf(uu[rr], bias_row[rr] ? ww[cc] : wwr[cc], a[rr][cc]);
       }
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr)
@@ -652,8 +692,8 @@ __device__ __forceinline__ void param_pass(float* smem, const Smem& S, const Dim
             if (rr == 2 * rh + h && q == cc) g = a[rr][q];
         if (r < R && c < C) {
           const float x = adam(sp, sm, sv, off + r * C + c, g, bc1, bc2, lr, bf16 && r < R - 1);
-          cpT[c * ldT + r] = x;
-          if (cp != nullptr && r < R - 1) cp[r * ldc + c] = x;
+          cpT[c * ldT + r] = r < R - 1 ? dot_op<kBf16>(x) : x;
+          if (cp != nullptr && r < R - 1) cp[r * ldc + c] = dot_op<kBf16>(x);
         }
       }
     } else {
@@ -685,7 +725,7 @@ __device__ __forceinline__ void param_pass(float* smem, const Smem& S, const Dim
 
 // One row's K-step chunk, run by one CTA. The only body of the kernel: solo
 // and grid launches differ in where the block reads its Row, nothing else.
-template <bool kDual>
+template <bool kDual, bool kBf16>
 __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int n_steps, int B,
                                           float eps_const, int tdv, float lr, int moments_bf16,
                                           int skip) {
@@ -725,21 +765,24 @@ __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int 
     smem[S.m + i] = r.m[i];
     smem[S.v + i] = r.v[i];
   }
-  for (int i = tid; i < n_a; i += kThreads) smem[S.a + i] = r.a[i];
+  for (int i = tid; i < n_a; i += kThreads) smem[S.a + i] = dot_op<kBf16>(r.a[i]);
   __syncthreads();
   {
     const float* sp = smem + S.p;
+    // the copies' matrix slots in the dot mode, the bias slots as they are
     for (int i = tid; i < (D + 1) * L; i += kThreads) {  // [We; be] → WeT
       const int j = i / L, l = i - j * L;
-      smem[S.weT + l * S.ldx + j] = sp[i];
+      smem[S.weT + l * S.ldx + j] = j < D ? dot_op<kBf16>(sp[i]) : sp[i];
     }
     for (int i = tid; i < (L + 1) * D; i += kThreads) {  // [Wd; bd], [Ws; bs]
       const int l = i / D, j = i - l * D;
-      smem[S.wdT + j * S.lds + l] = sp[d.o_wd + i];
-      if (l < L) smem[S.wd + l * S.ldg + j] = sp[d.o_wd + i];
+      const float wd = sp[d.o_wd + i];
+      smem[S.wdT + j * S.lds + l] = l < L ? dot_op<kBf16>(wd) : wd;
+      if (l < L) smem[S.wd + l * S.ldg + j] = dot_op<kBf16>(wd);
       if (kDual) {
-        smem[S.wsT + j * S.lds + l] = sp[d.o_ws + i];
-        if (l < L) smem[S.ws + l * S.ldg + j] = sp[d.o_ws + i];
+        const float ws = sp[d.o_ws + i];
+        smem[S.wsT + j * S.lds + l] = l < L ? dot_op<kBf16>(ws) : ws;
+        if (l < L) smem[S.ws + l * S.ldg + j] = dot_op<kBf16>(ws);
       }
     }
   }
@@ -760,9 +803,9 @@ __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int 
   const bool scalars = !(skip & kSkipWork);
 
   // step 0's noise into buffer 0
-  if (!row_warp && noise) draw_noise<kDual>(smem, 0, 0, 0, r.step0, pt, np);
+  if (!row_warp && noise) draw_noise<kDual, kBf16>(smem, 0, 0, 0, r.step0, pt, np);
   __syncthreads();
-  if (!row_warp && noise) draw_noise<kDual>(smem, 0, 1, 0, r.step0, pt, np);
+  if (!row_warp && noise) draw_noise<kDual, kBf16>(smem, 0, 1, 0, r.step0, pt, np);
   __syncthreads();
 
   for (int it = 0; it < n_steps; ++it) {
@@ -793,7 +836,7 @@ __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int 
 
     // --- phase A: the per-row pass; the next step's draws; the KL constant
     if (row_warp) {
-      if (do_rows) row_pass<kDual>(smem, S, d, k, tid / kGroup, tid % kGroup, noise_sd, c_gy, inv_b);
+      if (do_rows) row_pass<kDual, kBf16>(smem, S, d, k, tid / kGroup, tid % kGroup, noise_sd, c_gy, inv_b);
     } else {
       if (warp == kScalarWarp && scalars) {
         float kl = 0.0f;
@@ -805,14 +848,15 @@ __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int 
         for (int off = 16; off > 0; off >>= 1) kl += __shfl_xor_sync(0xffffffffu, kl, off);
         if (lane == 0) smem[S.sc] = kl;
       }
-      if (ahead && noise) draw_noise<kDual>(smem, k ^ 1, 0, it + 1, next, pt, np);
+      if (ahead && noise) draw_noise<kDual, kBf16>(smem, k ^ 1, 0, it + 1, next, pt, np);
     }
     __syncthreads();
 
     // --- phase B: gradients fused with Adam; the loss and ε; next draws --
     if (row_warp) {
-      if (params) param_pass<kDual>(smem, S, d, k, tid / kTeam, tid % kTeam, lr, moments_bf16 != 0, bc1,
-                                    bc2);
+      if (params)
+        param_pass<kDual, kBf16>(smem, S, d, k, tid / kTeam, tid % kTeam, lr, moments_bf16 != 0,
+                                 bc1, bc2);
     } else {
       if (warp == kScalarWarp && scalars) {
         float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
@@ -838,7 +882,7 @@ __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int 
                bc1, bc2, lr, false);
         }
       }
-      if (ahead && noise) draw_noise<kDual>(smem, k ^ 1, 1, it + 1, next, pt, np);
+      if (ahead && noise) draw_noise<kDual, kBf16>(smem, k ^ 1, 1, it + 1, next, pt, np);
     }
     __syncthreads();
   }
@@ -851,12 +895,13 @@ __device__ __forceinline__ void train_row(const Row& solo, const Row* rows, int 
 }
 
 // Solo launches pass their one row by value (rows == nullptr); grid
-// launches (K6a) pass the device table, one row per block.
-template <bool kDual>
+// launches (K6a) pass the device table, one row per block. kBf16: the
+// bf16-dot mode (the launch's bf16_dots).
+template <bool kDual, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) linear_vae_chunk_kernel(
     Row solo, const Row* __restrict__ rows, int n_steps, int B, float eps_const, int tdv,
     float lr, int moments_bf16, int skip) {
-  train_row<kDual>(solo, rows, n_steps, B, eps_const, tdv, lr, moments_bf16, skip);
+  train_row<kDual, kBf16>(solo, rows, n_steps, B, eps_const, tdv, lr, moments_bf16, skip);
 }
 
 // T1's draw (replaces tools/check_kernel_rng.py:80, draw -> sample_kernel):
@@ -923,14 +968,14 @@ size_t row_smem_bytes(int B, const Row& r, bool dual) {
   return static_cast<size_t>(plan(B, r.D, r.L, r.id, r.dd, dual).total) * sizeof(float);
 }
 
-template <bool kDual>
+template <bool kDual, bool kBf16>
 int launch(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_steps, int B,
            float eps_const, int tdv, float lr, int moments_bf16, int skip, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(linear_vae_chunk_kernel<kDual>,
+  cudaError_t err = cudaFuncSetAttribute(linear_vae_chunk_kernel<kDual, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  linear_vae_chunk_kernel<kDual>
+  linear_vae_chunk_kernel<kDual, kBf16>
       <<<n_rows, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
           solo, rows, n_steps, B, eps_const, tdv, lr, moments_bf16, skip);
   return static_cast<int>(cudaGetLastError());
@@ -938,13 +983,13 @@ int launch(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_ste
 
 int launch_rows(const Row& solo, const Row* rows, int n_rows, size_t bytes, int n_steps,
                 int B, int dual, float eps_const, int tdv, float lr, int moments_bf16,
-                int skip, void* stream) {
+                int bf16_dots, int skip, void* stream) {
   if (bytes > kSmemLimit || skip < 0 || skip > kSkipAll)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dual ? launch<true>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr,
-                             moments_bf16, skip, stream)
-              : launch<false>(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr,
-                              moments_bf16, skip, stream);
+  const auto go = dual ? (bf16_dots ? launch<true, true> : launch<true, false>)
+                       : (bf16_dots ? launch<false, true> : launch<false, false>);
+  return go(solo, rows, n_rows, bytes, n_steps, B, eps_const, tdv, lr, moments_bf16, skip,
+            stream);
 }
 
 }  // namespace
@@ -966,20 +1011,21 @@ int linear_vae_chunk(float* p, float* m, float* v, float* losses, const float* a
                      int n_steps, int B, int D, int L, int id, int dd, int dual,
                      unsigned int step0, int t0, unsigned int dk0, unsigned int dk1,
                      unsigned int mk0, unsigned int mk1, float obs_scale,
-                     float eps_const, int tdv, float lr, int moments_bf16, void* stream) {
+                     float eps_const, int tdv, float lr, int moments_bf16, int bf16_dots,
+                     void* stream) {
   const Row row{p, m, v, losses, a, ext_x, ext_z1, ext_z2, D, L, id, dd,
                 step0, t0, dk0, dk1, mk0, mk1, obs_scale};
   return launch_rows(row, nullptr, 1, row_smem_bytes(B, row, dual != 0), n_steps, B, dual,
-                     eps_const, tdv, lr, moments_bf16, 0, stream);
+                     eps_const, tdv, lr, moments_bf16, bf16_dots, 0, stream);
 }
 
 // K6a: ``n_rows`` rows in one launch, one block each. ``rows_host`` and
 // ``rows_dev`` hold the same table; the host copy sizes the launch's
-// shared memory to its largest row. ``skip`` is 0 in training (timing
-// variants otherwise).
+// shared memory to its
+// largest row. ``skip`` is 0 in training (timing variants otherwise).
 int linear_vae_grid_chunk(const Row* rows_host, const Row* rows_dev, int n_rows, int n_steps,
                           int B, int dual, float eps_const, int tdv, float lr,
-                          int moments_bf16, int skip, void* stream) {
+                          int moments_bf16, int bf16_dots, int skip, void* stream) {
   if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   size_t bytes = 0;
   for (int i = 0; i < n_rows; ++i) {
@@ -987,13 +1033,14 @@ int linear_vae_grid_chunk(const Row* rows_host, const Row* rows_dev, int n_rows,
     if (b > bytes) bytes = b;
   }
   return launch_rows(Row{}, rows_dev, n_rows, bytes, n_steps, B, dual, eps_const, tdv, lr,
-                     moments_bf16, skip, stream);
+                     moments_bf16, bf16_dots, skip, stream);
 }
 
 // How many blocks of the kernel one SM can hold at ``bytes`` of dynamic
 // shared memory (the grid mode asks whether rows share SMs).
 int linear_vae_blocks_per_sm(int dual, size_t bytes, int* blocks) {
-  const auto kernel = dual ? linear_vae_chunk_kernel<true> : linear_vae_chunk_kernel<false>;
+  const auto kernel =
+      dual ? linear_vae_chunk_kernel<true, false> : linear_vae_chunk_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);

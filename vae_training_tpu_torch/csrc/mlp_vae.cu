@@ -106,6 +106,20 @@
 // with a one-row table. Each CTA stages the row it trains into shared
 // memory.
 //
+// bf16 dots (--precision bf16 on the card; the TPU kernel's default dot
+// mode, dotf / dot_t1 / dot_t2 with prec = None at mlp_vae.py:193-205): the
+// kernel's kBf16 instantiation, chosen by the launch's bf16_dots, rounds
+// every product's operands to bfloat16, round to nearest even, as a lane
+// loads them from the stage into registers (cp.async copies bytes, so the
+// stage holds the f32 values), and keeps the f32 FMA chains: the forward
+// in·W, g_W = [a_in, 1]ᵀ·G, g_in = G·Wᵀ, g_s, and the linear_gaussian and
+// sigmoid manifold draws. g_b, the last row of [a_in, 1]ᵀ·G, sums G
+// unrounded (a plain sum in the reference): a lane that holds that row keeps
+// G's f32 values for it. The biases, the ReLU masks (from the unrounded
+// activations), the loss sums, g_ep, Adam and the state stay f32, and
+// nothing is staged twice, so shared memory is the fp32 mode's. The fp32
+// instantiation is the fp32 mode's code, unchanged.
+//
 // True dimensions throughout: the TPU kernel's 128-lane padding, masks and
 // live-row slicing are layout devices of the TPU and are not carried over;
 // the tiles' zero padding is this kernel's own, and adds exact zeros.
@@ -230,6 +244,19 @@ constexpr int kArgsOffset = kRedOffset + 3 * kWarps * sizeof(float);
 static_assert(kArgsOffset + sizeof(Args) <= kHeader, "the header fits");
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// x rounded to the nearest bfloat16 (ties to even), back as a float.
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A dot's operand in the launch's dot mode: rounded to bfloat16 in the
+// bf16-dot instantiation, unchanged in the fp32 one.
+template <bool kBf16>
+__device__ __forceinline__ float dot_op(float x) {
+  if constexpr (kBf16) return bf16_rn(x);
+  else return x;
+}
 
 // The tile plan of one product out (M × N) = A (M × K) · B (K × N), `np`
 // products of one shape side by side (the dual decoder's pairs), on a
@@ -560,8 +587,10 @@ __device__ __forceinline__ int lane_col(int c0, int t, int j) {
 // Four contraction columns k … k + 3 of a lane's operands, in registers:
 // x[i][u] = A(r + i, k + u), y[u][j] = B(k + u, col(j)), in 16-byte loads
 // along k or along the rows and columns, whichever the layout holds
-// contiguous (strides and k are multiples of 4).
-template <bool AT, bool BT, int RPL>
+// contiguous (strides and k are multiples of 4). In the bf16-dot mode
+// (kBf16) the sums read both operands rounded, but in row `raw` of a lane
+// (the bias row of [a_in, 1]ᵀ·G), where B is read as it is.
+template <bool AT, bool BT, int RPL, bool kBf16>
 struct LaneBlock {
   float x[RPL][4], y[4][4];
   __device__ __forceinline__ void load(const float* As, const float* Bs, int sa, int sb, int r,
@@ -587,27 +616,49 @@ struct LaneBlock {
       }
     }
   }
-  // acc[i][j] += Σ_u x[i][u]·y[u][j], each output's FMAs in ascending k
-  __device__ __forceinline__ void fma(float (&acc)[4][4]) const {
+  // acc[i][j] += Σ_u x[i][u]·y[u][j], each output's FMAs in ascending k, on
+  // the dot mode's operands; y as it is in the lane's row `raw` (bf16 dots:
+  // the bias row of [a_in, 1]ᵀ·G; −1: none)
+  __device__ __forceinline__ void fma(float (&acc)[4][4], int raw) const {
+    float xr[RPL][4], yr[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) xr[i][u] = dot_op<kBf16>(x[i][u]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) yr[u][j] = dot_op<kBf16>(y[u][j]);
+    }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
       for (int i = 0; i < RPL; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i][u], y[u][j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(xr[i][u], i == raw ? y[u][j] : yr[u][j], acc[i][j]);
   }
 };
 
 // A lane's sums over a stage's kcp contraction columns: acc[i][j] is
 // (r + i, col(j)), i < RPL. Each output's FMA chain runs in ascending k,
-// the order of an fp32 GEMM's thread.
-template <bool AT, bool BT, int RPL>
+// the order of an fp32 GEMM's thread. `raw` is the lane's row whose B
+// operand the bf16-dot mode leaves unrounded (the bias row; else outside
+// [0, RPL)).
+template <bool AT, bool BT, int RPL, bool kBf16>
 __device__ __forceinline__ void lane_sums(float (&acc)[4][4], const float* As, const float* Bs,
-                                          int sa, int sb, int r, int c0, int t, int kcp) {
+                                          int sa, int sb, int r, int c0, int t, int kcp,
+                                          int raw) {
+  if (kBf16 && AT && raw >= 0 && raw < RPL) {
+    for (int k = 0; k < kcp; k += 4) {
+      LaneBlock<AT, BT, RPL, kBf16> blk;
+      blk.load(As, Bs, sa, sb, r, c0, t, k);
+      blk.fma(acc, raw);
+    }
+    return;
+  }
   for (int k = 0; k < kcp; k += 4) {
-    LaneBlock<AT, BT, RPL> blk;
+    LaneBlock<AT, BT, RPL, kBf16> blk;
     blk.load(As, Bs, sa, sb, r, c0, t, k);
-    blk.fma(acc);
+    blk.fma(acc, -1);
   }
 }
 
@@ -625,7 +676,7 @@ struct IntTag {
 // their operands and epilogue inputs together; its warp w computes units
 // w, w + kWarps, … (a unit: an m-tile × an n-tile), each output one FMA
 // chain over the whole contraction, so that no result depends on the cut.
-template <bool AT, bool BT, int NP, EpiKind KIND>
+template <bool AT, bool BT, int NP, EpiKind KIND, bool kBf16>
 __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, const Operand* b,
                                   Team tm, int skip, const Epi& e) {
   constexpr int NV = epi_vecs<KIND, NP>(), NM = epi_mats<KIND>();
@@ -684,6 +735,8 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, cons
       const bool mine = s < units;  // uniform over the warp
       const int r = (s % mt_n) * T.tm + RPL * g;  // the lane's first row, in the CTA's rows
       const int c0 = (s / mt_n) * kTileN;          // the unit's first column, in the CTA's
+      // the lane's row (from r) that is [a_in, 1]'s bias row, or −1
+      const int raw = AT && a[0].ones >= 0 ? a[0].ones - m_lo - r : -1;
       float acc[NP][4][4];
 #pragma unroll
       for (int p = 0; p < NP; ++p)
@@ -699,7 +752,8 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, cons
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
           const float* As = stage + p * (T.a_floats + T.b_floats);
-          lane_sums<AT, BT, RPL>(acc[p], As, As + T.a_floats, T.sa, T.sb, r, c0, t, kcp);
+          lane_sums<AT, BT, RPL, kBf16>(acc[p], As, As + T.a_floats, T.sa, T.sb, r, c0, t, kcp,
+                                        raw);
         }
       }
       if (!mine) continue;
@@ -730,6 +784,7 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, cons
 
 // x, z1, z2 of step `it` into the row's scratch (the external hook copies
 // them).
+template <bool kBf16>
 __device__ __noinline__ void sample_phase(const Args& A, const Row& R, int it, Team tm) {
   const int B = A.B, D = R.D, L = R.L;
   float* S = R.scratch;
@@ -771,14 +826,16 @@ __device__ __noinline__ void sample_phase(const Args& A, const Row& R, int it, T
       } else if (A.kind == kSigmoid) {
         // [n, σ(n·a), 0]: the sigmoid's formula of K2 (csrc/linear_vae.cu)
         float acc = 0.0f;
-        for (int k = 0; k < R.dd; ++k) acc = fmaf(nz[k], R.a[k], acc);
+        for (int k = 0; k < R.dd; ++k)
+          acc = fmaf(dot_op<kBf16>(nz[k]), dot_op<kBf16>(R.a[k]), acc);
         for (int j = 0; j < D; ++j) xr[j] = j < R.dd ? nz[j] : 0.0f;
         xr[R.dd] = sigmoidf(acc);
       } else {
         for (int j = 0; j < D; ++j) {
           float acc = 0.0f;
           if (j < R.dd) {
-            for (int k = 0; k < R.id; ++k) acc = fmaf(nz[k], R.a[j * R.id + k], acc);
+            for (int k = 0; k < R.id; ++k)
+              acc = fmaf(dot_op<kBf16>(nz[k]), dot_op<kBf16>(R.a[j * R.id + k]), acc);
           }
           xr[j] = acc;
         }
@@ -810,6 +867,7 @@ __device__ __noinline__ void sample_phase(const Args& A, const Row& R, int it, T
 
 // Encoder layer li: z = in·W + b; ReLU on hidden layers; the last layer
 // gives mu and s = mu + e^{ep/2}·z1.
+template <bool kBf16>
 __device__ __noinline__ void encoder_forward(const Args& A, const Row& R, int li,
                                              Team tm) {
   const Stack& st = R.enc;
@@ -822,13 +880,13 @@ __device__ __noinline__ void encoder_forward(const Args& A, const Row& R, int li
   e.vec[0] = R.p + st.b_off[li];
   if (li + 1 < st.n) {
     e.out[0] = S + st.act[li];
-    gemm<false, false, 1, kEpiHidden>(A.B, dout, din, &a, &b, tm, A.skip, e);
+    gemm<false, false, 1, kEpiHidden, kBf16>(A.B, dout, din, &a, &b, tm, A.skip, e);
   } else {
     e.vec[1] = R.p + R.o_ep;
     e.mat[0] = S + R.s_z1;
     e.out[0] = S + R.s_mu;
     e.out[1] = S + R.s_s;
-    gemm<false, false, 1, kEpiMu>(A.B, dout, din, &a, &b, tm, A.skip, e);
+    gemm<false, false, 1, kEpiMu, kBf16>(A.B, dout, din, &a, &b, tm, A.skip, e);
   }
 }
 
@@ -845,6 +903,7 @@ __device__ __forceinline__ Team half_team(Team tm) {
 // residual r = (x̂ + z2·e^{ε/2}) − x, with x̂ = σ(u) + Dec(s), and the
 // backward's top gradients: g_y = r·e^{−ε}/B and, with the dual decoder,
 // g_u = g_y·σ(u)(1 − σ(u)).
+template <bool kBf16>
 __device__ __noinline__ void decoder_forward(const Args& A, const Row& R, int li,
                                              Team tm) {
   float* S = R.scratch;
@@ -867,8 +926,8 @@ __device__ __noinline__ void decoder_forward(const Args& A, const Row& R, int li
     const Operand bk = plain_operand(R.p + st.w_off[li], dout);
     e.vec[0] = R.p + st.b_off[li];
     e.out[0] = S + st.act[li];
-    gemm<false, false, 1, kEpiHidden>(A.B, dout, din, &ak, &bk, A.dual ? half_team(tm) : tm,
-                                      A.skip, e);
+    gemm<false, false, 1, kEpiHidden, kBf16>(A.B, dout, din, &ak, &bk,
+                                             A.dual ? half_team(tm) : tm, A.skip, e);
     return;
   }
   const float eps = row_eps(A, R);
@@ -881,8 +940,8 @@ __device__ __noinline__ void decoder_forward(const Args& A, const Row& R, int li
   e.out[2] = S + R.s_gu;
   e.c0 = expf(eps * 0.5f);
   e.c1 = expf(-eps) * (1.0f / static_cast<float>(A.B));
-  if (A.dual) gemm<false, false, 2, kEpiResidual>(A.B, dout, din, a, b, tm, A.skip, e);
-  else gemm<false, false, 1, kEpiResidual>(A.B, dout, din, a, b, tm, A.skip, e);
+  if (A.dual) gemm<false, false, 2, kEpiResidual, kBf16>(A.B, dout, din, a, b, tm, A.skip, e);
+  else gemm<false, false, 1, kEpiResidual, kBf16>(A.B, dout, din, a, b, tm, A.skip, e);
 }
 
 // The output gradient of decoder layer li (stack 0) or SigDecoder layer li
@@ -970,6 +1029,7 @@ __device__ void loss_block(const Args& A, const Row& R, int it, float* red) {
 // and input activation a_in (B × din), both on the tensor cores:
 // [a_in, 1]ᵀ·G, whose first din rows are g_W and whose last is
 // g_b = Σ_b G(b, ·).
+template <bool kBf16>
 __device__ void param_grads(const Args& A, const Row& R, const Stack& st, int li,
                             const Operand& G, const float* a_in, Team tm) {
   const int din = st.widths[li], dout = st.widths[li + 1];
@@ -980,11 +1040,12 @@ __device__ void param_grads(const Args& A, const Row& R, const Stack& st, int li
   e.out[0] = g + st.w_off[li];
   e.out[1] = g + st.b_off[li];
   e.c0 = static_cast<float>(din);
-  gemm<true, false, 1, kEpiParamGrad>(din + 1, dout, A.B, &a, &G, tm, A.skip, e);
+  gemm<true, false, 1, kEpiParamGrad, kBf16>(din + 1, dout, A.B, &a, &G, tm, A.skip, e);
 }
 
 // The masked input gradient of layer li > 0: g_in = (G·Wᵀ)·[a_in > 0] into
 // `out` (B × din).
+template <bool kBf16>
 __device__ void input_grad(const Args& A, const Row& R, const Stack& st, int li,
                            const Operand& G, const float* a_in, float* out, Team tm) {
   const int din = st.widths[li], dout = st.widths[li + 1];
@@ -993,7 +1054,7 @@ __device__ void input_grad(const Args& A, const Row& R, const Stack& st, int li,
   e.ld = din;
   e.mat[0] = a_in;
   e.out[0] = out;
-  gemm<false, true, 1, kEpiInputGrad>(A.B, din, dout, &G, &w, tm, A.skip, e);
+  gemm<false, true, 1, kEpiInputGrad, kBf16>(A.B, din, dout, &G, &w, tm, A.skip, e);
 }
 
 // Decoder layer li's backward, and the SigDecoder's: each stack's g_W and
@@ -1001,6 +1062,7 @@ __device__ void input_grad(const Args& A, const Row& R, const Stack& st, int li,
 // layer g_s = g_s,dec + g_s,sig with g_mu = g_s + mu/B. At the top, the
 // cluster's last CTA also takes the row's loss (at 200-wide hidden layers
 // it has no tile of the top layer's [a_in, 1]ᵀ·G).
+template <bool kBf16>
 __device__ __noinline__ void decoder_backward(const Args& A, const Row& R, int it, int li,
                                               Team tm, float* red) {
   if (li + 1 == A.n_dec && tm.q == tm.cs - 1) loss_block(A, R, it, red);
@@ -1011,9 +1073,10 @@ __device__ __noinline__ void decoder_backward(const Args& A, const Row& R, int i
     const Operand Gk = decoder_grad(A, R, k, li);
     const Team sub = A.dual ? half_team(tm) : tm;
     const float* a_in = li == 0 ? S + R.s_s : S + st.act[li - 1];
-    param_grads(A, R, st, li, Gk, a_in, sub);
+    param_grads<kBf16>(A, R, st, li, Gk, a_in, sub);
     if (li > 0)
-      input_grad(A, R, st, li, Gk, a_in, S + (k == 0 ? R.s_buf : R.s_sbuf)[li & 1], sub);
+      input_grad<kBf16>(A, R, st, li, Gk, a_in, S + (k == 0 ? R.s_buf : R.s_sbuf)[li & 1],
+                        sub);
   }
   if (li > 0) return;
   // the gradient at s, the input of both stacks, on the whole cluster
@@ -1027,8 +1090,8 @@ __device__ __noinline__ void decoder_backward(const Args& A, const Row& R, int i
   e.out[1] = S + R.s_gmu;
   e.c0 = 1.0f / static_cast<float>(A.B);
   const int dout = R.dec.widths[1];
-  if (A.dual) gemm<false, true, 2, kEpiGradS>(A.B, R.L, dout, G, W, tm, A.skip, e);
-  else gemm<false, true, 1, kEpiGradS>(A.B, R.L, dout, G, W, tm, A.skip, e);
+  if (A.dual) gemm<false, true, 2, kEpiGradS, kBf16>(A.B, R.L, dout, G, W, tm, A.skip, e);
+  else gemm<false, true, 1, kEpiGradS, kBf16>(A.B, R.L, dout, G, W, tm, A.skip, e);
 }
 
 // The fmaf chain over b < n of f(b)·h(b), in ascending b, on one warp: the
@@ -1050,6 +1113,7 @@ __device__ __forceinline__ float warp_dot(int n, F f, H h) {
 // Encoder layer li's backward from g_mu (top) or the layer above's input
 // gradient; the top layer's phase also takes g_ep, one latent dim a warp
 // of the cluster's last CTA (as the loss, beside the top layer's tiles).
+template <bool kBf16>
 __device__ __noinline__ void encoder_backward(const Args& A, const Row& R, int li,
                                               Team tm) {
   float* S = R.scratch;
@@ -1068,13 +1132,8 @@ __device__ __noinline__ void encoder_backward(const Args& A, const Row& R, int l
   const Operand G = plain_operand(S + (top ? R.s_gmu : R.s_buf[(li + 1) & 1]),
                                   st.widths[li + 1]);
   const float* a_in = li == 0 ? S + R.s_x : S + st.act[li - 1];
-  param_grads(A, R, st, li, G, a_in, tm);
-  if (li > 0) input_grad(A, R, st, li, G, a_in, S + R.s_buf[li & 1], tm);
-}
-
-// x rounded to the nearest bfloat16 (ties to even), back as a float.
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+  param_grads<kBf16>(A, R, st, li, G, a_in, tm);
+  if (li > 0) input_grad<kBf16>(A, R, st, li, G, a_in, S + R.s_buf[li & 1], tm);
 }
 
 // Whether slot i of a row's layout lies in a weight matrix (bf16 moments
@@ -1154,37 +1213,39 @@ __device__ __noinline__ void adam_stage(const Args& A, const Row& R, int it, Tea
 
 // The whole chunk of one row on its cluster: 17 cluster phases a step at
 // 3 + 3 hidden layers.
+template <bool kBf16>
 __device__ void train_row(const Args& A, const Row& R, Team tm, float* red) {
   cg::cluster_group cluster = cg::this_cluster();
   const bool work = !(A.skip & kSkipWork);
-  if (work) sample_phase(A, R, 0, tm);
+  if (work) sample_phase<kBf16>(A, R, 0, tm);
   cluster.sync();
   for (int it = 0; it < A.n_steps; ++it) {
     for (int li = 0; li < A.n_enc; ++li) {  // encoder forward: x → mu, s
-      if (work) encoder_forward(A, R, li, tm);
+      if (work) encoder_forward<kBf16>(A, R, li, tm);
       cluster.sync();
     }
     for (int li = 0; li < A.n_dec; ++li) {  // decoder(s) forward: s → r = y − x
-      if (work) decoder_forward(A, R, li, tm);
+      if (work) decoder_forward<kBf16>(A, R, li, tm);
       cluster.sync();
     }
     for (int li = A.n_dec - 1; li >= 0; --li) {  // decoder(s) backward → g_s, g_mu
-      if (work) decoder_backward(A, R, it, li, tm, red);
+      if (work) decoder_backward<kBf16>(A, R, it, li, tm, red);
       cluster.sync();
     }
     for (int li = A.n_enc - 1; li >= 0; --li) {  // encoder backward, g_ep
-      if (work) encoder_backward(A, R, li, tm);
+      if (work) encoder_backward<kBf16>(A, R, li, tm);
       cluster.sync();
     }
     // Adam, and the next step's noise (which reads no parameter)
     if (work && !(A.skip & kSkipAdam)) adam_stage(A, R, it, tm);
     if (it + 1 < A.n_steps) {
-      if (work) sample_phase(A, R, it + 1, tm);
+      if (work) sample_phase<kBf16>(A, R, it + 1, tm);
       cluster.sync();
     }
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) mlp_vae_chunk_kernel(Args A) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -1202,7 +1263,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_vae_chunk_kernel(Args A) {
     const uint4* src = reinterpret_cast<const uint4*>(A.rows + r);
     for (int i = threadIdx.x; i < kWords; i += kThreads) reinterpret_cast<uint4*>(row)[i] = src[i];
     __syncthreads();
-    train_row(*args, *row, tm, red);
+    train_row<kBf16>(*args, *row, tm, red);
   }
 }
 
@@ -1234,20 +1295,25 @@ void launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int clust
   cfg.numAttrs = 1;
 }
 
+// The kernel of a dot mode: the fp32 one, or the bf16-dot one.
+using KernelFn = void (*)(Args);
+KernelFn kernel_of(int bf16_dots) {
+  return bf16_dots ? mlp_vae_chunk_kernel<true> : mlp_vae_chunk_kernel<false>;
+}
+
 // The clusters of `cs` CTAs with `smem` bytes each that the card holds at
-// once (0 where it holds none, or refuses the size).
-cudaError_t fit_clusters(int cs, int smem, int* most) {
+// once of `kernel` (0 where it holds none, or refuses the size).
+cudaError_t fit_clusters(KernelFn kernel, int cs, int smem, int* most) {
   *most = 0;
-  cudaError_t err = cudaFuncSetAttribute(mlp_vae_chunk_kernel,
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && cs > 8)  // the portable cluster size
-    err = cudaFuncSetAttribute(mlp_vae_chunk_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   launch_config(cfg, attr, 1, cs, static_cast<size_t>(smem), nullptr);
-  if (cudaOccupancyMaxActiveClusters(most, mlp_vae_chunk_kernel, &cfg) != cudaSuccess) {
+  if (cudaOccupancyMaxActiveClusters(most, kernel, &cfg) != cudaSuccess) {
     cudaGetLastError();  // a size the card refuses: none fit
     *most = 0;
   }
@@ -1256,6 +1322,33 @@ cudaError_t fit_clusters(int cs, int smem, int* most) {
 
 // What the last launch used (mlp_vae_last_launch).
 int g_last_clusters = 0, g_last_cluster_size = 0, g_last_smem = 0;
+
+// mlp_vae_grid's plan for `kernel` (the dot mode's).
+int grid_plan(KernelFn kernel, int n_rows, const int* smem, int request, int* clusters,
+              int* cluster_size, int* max_clusters) {
+  if (n_rows < 1 || n_rows > kMaxRows || (request != 0 && request != kCluster &&
+                                          request != kClusterWide))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sizes[2] = {kCluster, kClusterWide};
+  int most[2] = {0, 0};
+  for (int k = 0; k < 2; ++k) {
+    if (smem[k] < kHeader || smem[k] > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (request != 0 && request != sizes[k]) continue;
+    const cudaError_t err = fit_clusters(kernel, sizes[k], smem[k], &most[k]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto turns = [&](int k) { return most[k] < 1 ? INT_MAX : cdiv(n_rows, most[k]); };
+  const int k = request == kCluster ? 0 : request == kClusterWide ? 1 :
+                turns(1) <= turns(0) ? 1 : 0;
+  if (most[k] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // the chosen size's attributes stand for the launch
+  const cudaError_t err = fit_clusters(kernel, sizes[k], smem[k], &most[k]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *clusters = n_rows < most[k] ? n_rows : most[k];
+  *cluster_size = sizes[k];
+  *max_clusters = most[k];
+  return 0;
+}
 
 }  // namespace
 
@@ -1306,31 +1399,12 @@ int mlp_vae_smem_bytes(int B, int D, int L, int dual, int n_enc, const int* enc_
 // `cluster_size` CTAs, min(n_rows, `max_clusters`, the clusters of that
 // size the card holds at once). `request` 0 takes the size that trains the
 // rows in the fewest turns, the wide one on a tie (a row's phases then
-// spread over twice the SMs); kCluster or kClusterWide names one.
+// spread over twice the SMs); kCluster or kClusterWide names one. The plan
+// of the fp32 kernel; a launch plans its own dot mode's (the same at every
+// sweep shape: shared memory bounds both).
 int mlp_vae_grid(int n_rows, const int* smem, int request, int* clusters, int* cluster_size,
                  int* max_clusters) {
-  if (n_rows < 1 || n_rows > kMaxRows || (request != 0 && request != kCluster &&
-                                          request != kClusterWide))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int sizes[2] = {kCluster, kClusterWide};
-  int most[2] = {0, 0};
-  for (int k = 0; k < 2; ++k) {
-    if (smem[k] < kHeader || smem[k] > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-    if (request != 0 && request != sizes[k]) continue;
-    const cudaError_t err = fit_clusters(sizes[k], smem[k], &most[k]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  auto turns = [&](int k) { return most[k] < 1 ? INT_MAX : cdiv(n_rows, most[k]); };
-  const int k = request == kCluster ? 0 : request == kClusterWide ? 1 :
-                turns(1) <= turns(0) ? 1 : 0;
-  if (most[k] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // the chosen size's attributes stand for the launch
-  const cudaError_t err = fit_clusters(sizes[k], smem[k], &most[k]);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *clusters = n_rows < most[k] ? n_rows : most[k];
-  *cluster_size = sizes[k];
-  *max_clusters = most[k];
-  return 0;
+  return grid_plan(kernel_of(0), n_rows, smem, request, clusters, cluster_size, max_clusters);
 }
 
 // The clusters, their size and the shared memory of the last launch.
@@ -1345,11 +1419,12 @@ void mlp_vae_last_launch(int* clusters, int* cluster_size, int* smem) {
 // table copied in stream order to `rows_dev` (n_rows × sizeof(Row) bytes of
 // device memory the caller owns); every row's scratch must hold what its
 // plan needs. `cluster` is the cluster size (0: mlp_vae_grid's choice);
-// `skip` is 0 in training (timing variants otherwise).
+// `bf16_dots` picks the bf16-dot kernel; `skip` is 0 in training (timing
+// variants otherwise).
 int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B, int kind,
                   int dual, int n_enc, const int* enc_hidden, int n_dec, const int* dec_hidden,
-                  float eps_const, int tdv, float lr, int moments_bf16, int cluster, int skip,
-                  void* stream) {
+                  float eps_const, int tdv, float lr, int moments_bf16, int bf16_dots,
+                  int cluster, int skip, void* stream) {
   Shape S;
   if (n_rows < 1 || n_rows > kMaxRows || n_steps < 1 || skip < 0 ||
       skip > (kSkipMma | kSkipStage | kSkipAdam | kSkipWork) ||
@@ -1377,13 +1452,14 @@ int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B
   A.skip = skip;
   A.eps_const = eps_const; A.lr = lr;
   int clusters = 0, cs = 0, most = 0;
-  const int err = mlp_vae_grid(n_rows, smem, cluster, &clusters, &cs, &most);
+  const KernelFn kernel = kernel_of(bf16_dots);
+  const int err = grid_plan(kernel, n_rows, smem, cluster, &clusters, &cs, &most);
   if (err != 0) return err;
   const int bytes = cs == kCluster ? smem[0] : smem[1];
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   launch_config(cfg, attr, clusters, cs, static_cast<size_t>(bytes), st);
-  e = cudaLaunchKernelEx(&cfg, mlp_vae_chunk_kernel, A);
+  e = cudaLaunchKernelEx(&cfg, kernel, A);
   if (e != cudaSuccess) return static_cast<int>(e);
   g_last_clusters = clusters;
   g_last_cluster_size = cs;

@@ -27,6 +27,8 @@ class DistributionDataset:
     the one-device batch (``parallel/dp.py``)."""
 
     is_epochs = False  # an infinite sampler: the engine's step loop, not epochs
+    # the manifold dots' mode (config.bf16_dots): bf16 operands, f32 sums
+    bf16_dots = False
 
     @property
     def ndim(self) -> int:
@@ -52,6 +54,17 @@ class DistributionDataset:
     def plot_batch(self, batch, fn=None) -> bool:
         """Write a diagnostic figure; False when it was skipped."""
         raise NotImplementedError
+
+    def host_copy(self) -> "DistributionDataset":
+        """What ``save`` reads, on the host: taken when a save is submitted,
+        written by the background writer (the live datasets hold nothing
+        to write)."""
+        return self
+
+    def save(self, fn: str) -> None:
+        """The reference's manifold persistence, a no-op for the live
+        datasets (``vae_training_tpu/data/base.py:97-101``); an image
+        corpus writes ``fn + ".npz"``."""
 
     def load(self, fn: str):
         """--data_fn hook: a persisted manifold (none for the live datasets)."""

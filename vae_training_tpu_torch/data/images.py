@@ -221,8 +221,13 @@ class ImageDataset:
         img_tile(b[:64], fn, save=fn is not None)
         return True
 
+    def host_copy(self) -> "ImageDataset":
+        """The corpus on the host, for ``save`` in the background writer."""
+        return self if self.images.device.type == "cpu" else ImageDataset(self.images.cpu())
+
     def save(self, fn: str) -> None:
-        # the pixel_range marker makes a save→load round trip exact
+        """``fn + ".npz"`` (np.savez's suffix), as the JAX corpus writes it;
+        the pixel_range marker makes a save→load round trip exact."""
         np.savez(fn, images=self.images.cpu().numpy(), pixel_range="pm1")
 
     def load(self, fn: str) -> "ImageDataset":

@@ -2,7 +2,10 @@
 
 Port of ``vae_training_tpu/data/registry.py``. An unknown name raises with
 the available choices. Every factory takes the run's device: the dataset's
-tensors (an image corpus, a manifold's matrix) live there.
+tensors (an image corpus, a manifold's matrix) live there. ``get_dataset``
+resolves ``--precision`` on that device (``config.bf16_dots``) and sets the
+dataset's ``bf16_dots``: the manifold dots of ``linear_gaussian`` and
+``sigmoid`` take bfloat16 operands on the card under ``bf16``.
 """
 
 from __future__ import annotations
@@ -84,5 +87,9 @@ def check_dataset_name(name: str) -> None:
 
 
 def get_dataset(name: str, seed: int, args, device="cpu") -> DistributionDataset:
+    from ..config import bf16_dots
+
     check_dataset_name(name)
-    return _REGISTRY[name](seed, args, device=device)
+    dataset = _REGISTRY[name](seed, args, device=device)
+    dataset.bf16_dots = bf16_dots(getattr(args, "precision", "bf16"), device)
+    return dataset

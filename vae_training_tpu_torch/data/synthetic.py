@@ -21,6 +21,13 @@ kernels' manifold draw.
     (the formula the TPU MLP kernel uses, ``mlp_vae.py:239-242``), zero
     padding after.
 
+With ``bf16_dots`` (``--precision bf16`` on the card) the manifold dots,
+``n·Aᵀ`` of ``linear_gaussian`` and ``z·A`` of ``sigmoid`` (its sample and
+its score), take bfloat16 operands and f32 sums, as the JAX datasets'
+``precision=None`` dots do on the TPU (``vae_training_tpu/data/
+synthetic.py:26-31``); the fused kernels' in-kernel draws round the same
+operands.
+
 ``A`` is drawn with numpy from the dataset seed. The JAX package draws it
 with threefry, which this port does not reproduce, so ``create`` also
 accepts an injected ``A``: the parity tests pass in the JAX dataset's.
@@ -34,7 +41,15 @@ import numpy as np
 import torch
 
 from ..ops import rng
+from ..ops.precision import bf16_round
 from .base import DistributionDataset, pad_with_zeros, padding_energy
+
+
+def _manifold_dot(a: torch.Tensor, b: torch.Tensor, bf16_dots: bool) -> torch.Tensor:
+    """``a @ b``, on bfloat16-rounded operands with ``bf16_dots``."""
+    if bf16_dots:
+        return bf16_round(a) @ bf16_round(b)
+    return a @ b
 
 
 class GaussianDataset(DistributionDataset):
@@ -126,7 +141,7 @@ class LinearGaussianDataset(DistributionDataset):
     """Y = A X with X ~ N(0, I_k), A full-rank (dim × k), zero padding."""
 
     def __init__(self, A: torch.Tensor, dim: int, intrinsic_dim: int,
-                 padding_dim: int = 0, var_added: float = 0.0):
+                 padding_dim: int = 0, var_added: float = 0.0, bf16_dots: bool = False):
         if tuple(A.shape) != (dim, intrinsic_dim):
             raise ValueError(f"A must be ({dim}, {intrinsic_dim}), got {tuple(A.shape)}")
         self.A = A.to(torch.float32)
@@ -135,12 +150,13 @@ class LinearGaussianDataset(DistributionDataset):
         self.padding_dim = padding_dim
         self.var_added = float(var_added)
         self._obs_scale = float(np.sqrt(np.float32(self.var_added)))
+        self.bf16_dots = bf16_dots
 
     @classmethod
     def create(cls, seed: int, dimension: int = 3, intrinsic_dimension: int = 3,
                padding_dimension: int = 0, var_added: float = 0.0,
                A: Optional[np.ndarray] = None,
-               device="cpu") -> "LinearGaussianDataset":
+               device="cpu", bf16_dots: bool = False) -> "LinearGaussianDataset":
         if A is None:
             target_rank = min(dimension, intrinsic_dimension)
             gen = np.random.default_rng(seed)
@@ -149,7 +165,7 @@ class LinearGaussianDataset(DistributionDataset):
                 if int(np.linalg.matrix_rank(A)) == target_rank:
                     break
         A = torch.tensor(np.asarray(A, np.float32), device=device)
-        return cls(A, dimension, intrinsic_dimension, padding_dimension, var_added)
+        return cls(A, dimension, intrinsic_dimension, padding_dimension, var_added, bf16_dots)
 
     @property
     def device(self) -> torch.device:
@@ -165,7 +181,7 @@ class LinearGaussianDataset(DistributionDataset):
         STREAM_OBS."""
         lat = rng.normals(seed, step, n, rng.STREAM_MANIFOLD,
                           self.intrinsic_dim, device=self.device, row0=row0)
-        y = pad_with_zeros(lat @ self.A.T, self.padding_dim)
+        y = pad_with_zeros(_manifold_dot(lat, self.A.T, self.bf16_dots), self.padding_dim)
         if self.var_added > 0:
             noise = rng.normals(seed, step, n, rng.STREAM_OBS, self.ndim,
                                 device=self.device, row0=row0)
@@ -187,20 +203,23 @@ class SigmoidDataset(DistributionDataset):
 
     var_added = 0.0  # no observation noise on this manifold
 
-    def __init__(self, A: torch.Tensor, dim: int, padding_dim: int = 0):
+    def __init__(self, A: torch.Tensor, dim: int, padding_dim: int = 0,
+                 bf16_dots: bool = False):
         if tuple(A.shape) != (dim, 1):
             raise ValueError(f"A must be ({dim}, 1), got {tuple(A.shape)}")
         self.A = A.to(torch.float32)
         self.dim = dim
         self.padding_dim = padding_dim
+        self.bf16_dots = bf16_dots
 
     @classmethod
     def create(cls, seed: int, dimension: int = 3, padding_dimension: int = 0,
-               A: Optional[np.ndarray] = None, device="cpu") -> "SigmoidDataset":
+               A: Optional[np.ndarray] = None, device="cpu",
+               bf16_dots: bool = False) -> "SigmoidDataset":
         if A is None:
             A = np.random.default_rng(seed).standard_normal((dimension, 1))
         A = torch.tensor(np.asarray(A, np.float32), device=device)
-        return cls(A, dimension, padding_dimension)
+        return cls(A, dimension, padding_dimension, bf16_dots)
 
     @property
     def device(self) -> torch.device:
@@ -217,7 +236,7 @@ class SigmoidDataset(DistributionDataset):
     def sample(self, seed: int, step, n: int, row0: int = 0) -> torch.Tensor:
         z = rng.normals(seed, step, n, rng.STREAM_MANIFOLD, self.dim,
                         device=self.device, row0=row0)
-        out = torch.cat([z, torch.sigmoid(z @ self.A)], dim=1)
+        out = torch.cat([z, torch.sigmoid(_manifold_dot(z, self.A, self.bf16_dots))], dim=1)
         return pad_with_zeros(out, self.padding_dim)
 
     def score(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -228,7 +247,7 @@ class SigmoidDataset(DistributionDataset):
         # computed here in the same closed form:
         # mean(ĉ²) − 2·mean(ĉ)·mean(c) + mean(c²).
         codomain_hat = batch[:, self.dim]
-        codomain = (batch[:, :self.dim] @ self.A)[:, 0]
+        codomain = _manifold_dot(batch[:, :self.dim], self.A, self.bf16_dots)[:, 0]
         manifold_error = (torch.mean(torch.square(codomain_hat))
                           - 2.0 * torch.mean(codomain_hat) * torch.mean(codomain)
                           + torch.mean(torch.square(codomain)))

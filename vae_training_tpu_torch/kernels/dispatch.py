@@ -26,10 +26,14 @@ An epoch dataset (an image corpus, the conv VAE's) always takes the
 torch path, one epoch a chunk (``EpochChunk``): on the card one CUDA graph
 replay an epoch, else op by op for the same reasons.
 
-Either way one line names the path taken and why, then "with bf16 Adam
-moments" under ``--adam_dtype bf16`` (every path takes that mode: the
+Either way one line names the path taken and why, then the modes that
+differ from f32: "with bf16-operand dots" where ``--precision bf16``
+resolved to bf16 dots (``config.bf16_dots``: on the card; every path takes
+that mode: the kernels' bf16-dot instantiations, the torch path's rounded
+operands), "with bf16 Adam moments" under ``--adam_dtype bf16`` (the
 kernels' K4 branch, the torch path's bf16 update; the JAX package gates no
-kernel on it) and, for the torch path, its form after a semicolon. There
+kernel on either), both joined by "and"; and, for the torch path, its form
+after a semicolon. No dot phrase means true fp32 products. There
 is no fallback after the choice: a kernel that fails to build or launch,
 and a graph that fails to capture, raise.
 
@@ -55,9 +59,12 @@ import torch
 from ..train import step as torch_step
 
 
-def _moments(cfg) -> str:
-    """The tail of the ``[kernels]`` line: the Adam moment dtype."""
-    return " with bf16 Adam moments" if cfg.adam_dtype == "bf16" else ""
+def _modes(cfg, model) -> str:
+    """The tail of the ``[kernels]`` line: the dot mode the model was built
+    with and the Adam moment dtype, where they are bf16."""
+    modes = (["bf16-operand dots"] if getattr(model, "bf16_dots", False) else []) + (
+        ["bf16 Adam moments"] if cfg.adam_dtype == "bf16" else [])
+    return " with " + " and ".join(modes) if modes else ""
 
 
 def torch_path_form(cfg, noise: bool = False) -> Tuple[bool, str]:
@@ -108,13 +115,13 @@ def make_train_chunk(model, dataset, cfg):
         if ok:
             name = "K2" if model.dual_sigmoid_decoder else "K1"
             print(f"[kernels] cuda: fused linear-VAE kernel {name} ({why_linear})"
-                  f"{_moments(cfg)}", flush=True)
+                  f"{_modes(cfg, model)}", flush=True)
             return linear_vae.make_train_chunk(model, dataset, cfg)
         ok, why_mlp = mlp_vae.supported(model, dataset, cfg)
         if ok:
             name = "K5 (dual decoder)" if model.dual_sigmoid_decoder else "K5"
-            print(f"[kernels] cuda: fused MLP-VAE kernel {name} ({why_mlp}){_moments(cfg)}",
-                  flush=True)
+            print(f"[kernels] cuda: fused MLP-VAE kernel {name} ({why_mlp})"
+                  f"{_modes(cfg, model)}", flush=True)
             return mlp_vae.make_train_chunk(model, dataset, cfg)
         if cfg.kernels == "cuda":
             raise RuntimeError(f"--kernels cuda requested but no fused kernel can run: "
@@ -127,7 +134,8 @@ def make_train_chunk(model, dataset, cfg):
     graph, form = torch_path_form(cfg)
     if dataset.is_epochs:
         form = "one CUDA graph replay an epoch" if graph else f"{form}, one epoch a chunk"
-    print(f"[kernels] torch: plain PyTorch path ({why}){_moments(cfg)}; {form}", flush=True)
+    print(f"[kernels] torch: plain PyTorch path ({why}){_modes(cfg, model)}; {form}",
+          flush=True)
     return _torch_chunk(model, dataset, cfg)
 
 
@@ -158,7 +166,7 @@ def make_parallel_chunk(model, dataset, cfg):
                                  debug_wrap=lambda chunk: _anomaly(chunk, cfg))
     if is_primary():
         print(f"[kernels] torch: plain PyTorch path (--mesh {cfg.mesh}: {fns.kind})"
-              f"{_moments(cfg)}; {fns.form}", flush=True)
+              f"{_modes(cfg, model)}; {fns.form}", flush=True)
     return fns
 
 
@@ -198,12 +206,14 @@ def make_grid_chunk(models, datasets, cfg, prefix: str = ""):
             ok, why_grid = module.grid_supported(models, datasets, cfgs)
             if ok and on_card:
                 print(f"{prefix}[kernels] cuda: {name}, the grid mode of the fused {kernel} "
-                      f"kernel, {n} rows in one launch a chunk ({why_grid}){_moments(cfg0)}",
+                      f"kernel, {n} rows in one launch a chunk ({why_grid})"
+                      f"{_modes(cfg0, models[0])}",
                       flush=True)
                 return module.make_grid_chunk(models, datasets, cfg0)
             if ok and cfg0.kernels != "cuda":
                 print(f"{prefix}[kernels] plain: {name}'s plain version on the CPU, {n} rows a "
-                      f"chunk, one plain chunk a row ({why_dev}; {why_grid}){_moments(cfg0)}",
+                      f"chunk, one plain chunk a row ({why_dev}; {why_grid})"
+                      f"{_modes(cfg0, models[0])}",
                       flush=True)
                 return module.make_grid_chunk(models, datasets, cfg0)
             reasons[name] = why_dev if ok else why_grid
@@ -214,7 +224,7 @@ def make_grid_chunk(models, datasets, cfg, prefix: str = ""):
                      for m in models)
         why = reasons["K6b"] if hidden else reasons["K6a"]
     print(f"{prefix}[kernels] torch: plain PyTorch path, row by row for {n} rows ({why})"
-          f"{_moments(cfg0)}; {torch_path_form(cfg0)[1]}", flush=True)
+          f"{_modes(cfg0, models[0])}; {torch_path_form(cfg0)[1]}", flush=True)
     chunks = [_torch_chunk(m, d, c) for m, d, c in zip(models, datasets, cfgs)]
 
     def chunk(states, n_steps, noises=None):

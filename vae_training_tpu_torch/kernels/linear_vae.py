@@ -23,6 +23,14 @@ rule). The flat buffers stay float32 and hold those bfloat16 values
 exactly, so packing a state's bf16 moments is exact, and so is copying the
 buffers back into them.
 
+``bf16_dots`` (``--precision bf16`` on the card, ``config.bf16_dots``) is
+the TPU kernels' default dot mode (``prec = None``, ``linear_vae.py:324-
+345``): every dot of the step (the manifold draw, the forward, the three
+gradient products) takes bfloat16 operands, round to nearest even, and sums
+in f32; the biases, the bias gradients, the ELBO, g_ep's column sums and
+Adam stay f32. It is a launch-wide flag of every kernel (K1, K2, K6a) and a
+flag of the plain versions, which build the model and the dataset with it.
+
 ``run_fused_chunk`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors (and only for them) it runs ``plain_fused_chunk``,
 the same chunk on the torch path (``train/step.py``) behind the same
@@ -260,8 +268,9 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
     cadences (so every row shares every chunk boundary) are uniform. The
     device is a CUDA device of compute capability 9.0, or the CPU, where
     ``run_grid_chunk`` runs the plain version. The Adam moment dtype
-    (``--adam_dtype``) is uniform too: the kernel's flag is the launch's.
-    A refusal names the first row that fails."""
+    (``--adam_dtype``) and ``--precision`` (the dot mode, with the model's
+    resolved ``bf16_dots``) are uniform too: the kernel's flags are the
+    launch's. A refusal names the first row that fails."""
     cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
     if not models or not len(models) == len(datasets) == len(cfgs):
         return False, (f"need one model, dataset and config a row, got {len(models)}, "
@@ -270,6 +279,7 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
     def uniform(model, dataset, c):
         return {"batch size": c.batch_size, "learning rate": float(c.learning_rate),
                 "adam_dtype": c.adam_dtype,
+                "precision": (getattr(c, "precision", "bf16"), getattr(model, "bf16_dots", False)),
                 "epsilon": model.epsilon_const, "-tdv": model.tunable_decoder_var,
                 "decoder head": model.dual_sigmoid_decoder,
                 "dataset": type(dataset).__name__,
@@ -311,7 +321,8 @@ def _lib() -> ctypes.CDLL:
         lib = load_library("linear_vae")[0]
         vp, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.linear_vae_chunk.argtypes = (
-            [vp] * 8 + [i32] * 7 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, i32, vp])
+            [vp] * 8 + [i32] * 7 + [u32, i32, u32, u32, u32, u32, f32, f32, i32, f32, i32, i32,
+                                    vp])
         lib.linear_vae_chunk.restype = i32
         lib.philox_draw.argtypes = [vp, vp, i32, i32, u32, u32, u32, u32, vp]
         lib.philox_draw.restype = i32
@@ -321,7 +332,8 @@ def _lib() -> ctypes.CDLL:
         lib.linear_vae_error_string.restype = ctypes.c_char_p
         lib.linear_vae_row_bytes.argtypes = []
         lib.linear_vae_row_bytes.restype = ctypes.c_size_t
-        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, i32, i32, vp]
+        lib.linear_vae_grid_chunk.argtypes = [vp, vp] + [i32] * 4 + [f32, i32, f32, i32, i32, i32,
+                                                                      vp]
         lib.linear_vae_grid_chunk.restype = i32
         lib.linear_vae_blocks_per_sm.argtypes = [i32, ctypes.c_size_t, ctypes.POINTER(i32)]
         lib.linear_vae_blocks_per_sm.restype = i32
@@ -352,7 +364,8 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     step0: int, t0: int, data_seed: int, model_seed: int,
                     var_added: float, eps_const: float, tdv: bool, lr: float,
                     external_noise: Optional[Noise] = None,
-                    dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
+                    dual: bool = False, adam_dtype: str = "f32",
+                    bf16_dots: bool = False) -> torch.Tensor:
     """Train ``n_steps`` steps from the flat state (p, m, v), in place.
     Returns the (n_steps,) losses. ``a`` is the manifold matrix: A
     (manifold_dim × intrinsic_dim) for linear_gaussian (K1), the sigmoid's
@@ -362,13 +375,14 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     it. ``external_noise`` = (x, z1, z2), each (n_steps, batch, dim),
     replaces the in-kernel sampler (the test hook of the TPU kernel).
     ``adam_dtype="bf16"`` rounds the weight matrices' moments to bfloat16
-    every step (K4)."""
+    every step (K4); ``bf16_dots`` makes every dot take bfloat16 operands
+    and f32 sums."""
     kw = dict(n_steps=n_steps, batch=batch, data_dim=data_dim,
               latent_dim=latent_dim, intrinsic_dim=intrinsic_dim,
               manifold_dim=manifold_dim, step0=step0, t0=t0,
               data_seed=data_seed, model_seed=model_seed, var_added=var_added,
               eps_const=eps_const, tdv=tdv, lr=lr, external_noise=external_noise,
-              dual=dual, adam_dtype=adam_dtype)
+              dual=dual, adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     if p.device.type == "cpu":
         return plain_fused_chunk(p, m, v, a, **kw)
     if p.device.type != "cuda":
@@ -406,7 +420,7 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         p.data_ptr(), m.data_ptr(), v.data_ptr(), losses.data_ptr(), a.data_ptr(),
         *ext, n_steps, B, D, L, intrinsic_dim, manifold_dim, int(dual),
         step0 & rng.MASK32, t0, dk[0], dk[1], mk[0], mk[1], obs_scale,
-        float(eps_const), int(bool(tdv)), float(lr), int(bf16), stream)
+        float(eps_const), int(bool(tdv)), float(lr), int(bf16), int(bool(bf16_dots)), stream)
     _check(lib, err, "linear_vae_chunk launch")
     run_fused_chunk.launches += 1
     return losses
@@ -448,22 +462,24 @@ def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                       step0: int, t0: int, data_seed: int, model_seed: int,
                       var_added: float, eps_const: float, tdv: bool, lr: float,
                       external_noise: Optional[Noise] = None,
-                      dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
+                      dual: bool = False, adam_dtype: str = "f32",
+                      bf16_dots: bool = False) -> torch.Tensor:
     """The plain PyTorch version of ``run_fused_chunk``: the same chunk on
     the torch path (autograd + the explicit Adam update), same signature,
-    same in-place contract."""
+    same in-place contract; the model and the dataset take ``bf16_dots``
+    (on the card, fp32 GEMMs of rounded operands)."""
     from ..data.synthetic import LinearGaussianDataset, SigmoidDataset
     from ..models.networks import build_vae
 
     D, L = data_dim, latent_dim
     model = build_vae(data_dim=D, latent_dim=L, epsilon=eps_const,
                       tunable_decoder_var=tdv,
-                      dataset_name="sigmoid" if dual else None)
+                      dataset_name="sigmoid" if dual else None, bf16_dots=bf16_dots)
     if dual:
-        dataset = SigmoidDataset(a, manifold_dim, D - manifold_dim - 1)
+        dataset = SigmoidDataset(a, manifold_dim, D - manifold_dim - 1, bf16_dots)
     else:
         dataset = LinearGaussianDataset(a, manifold_dim, intrinsic_dim,
-                                        D - manifold_dim, var_added)
+                                        D - manifold_dim, var_added, bf16_dots)
     return run_plain_chunk(p, m, v, param_layout(D, L, dual), model, dataset,
                            n_steps=n_steps, batch=batch, step0=step0, t0=t0,
                            data_seed=data_seed, model_seed=model_seed, tdv=tdv,
@@ -472,7 +488,7 @@ def plain_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 
 def make_train_chunk(model, dataset, cfg):
     """The Trainer's ``train_chunk(state, n_steps)`` on K1 (K2 with the dual
-    decoder)."""
+    decoder), in the dot mode the model was built with."""
     D, L = dataset.dimension, model.latent_dim
     dual = model.dual_sigmoid_decoder
     a = dataset.A.contiguous()
@@ -487,7 +503,7 @@ def make_train_chunk(model, dataset, cfg):
             data_seed=state.data_seed, model_seed=state.model_seed,
             var_added=dataset.var_added, eps_const=model.epsilon_const,
             tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual,
-            adam_dtype=cfg.adam_dtype)
+            adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
         return unpack_state(state, p, m, v, n_steps, D, L, dual), losses
 
     return train_chunk
@@ -556,15 +572,15 @@ def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                    rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
                    tdv: bool, lr: float, dual: bool = False,
                    external_noise: Optional[Sequence[Noise]] = None,
-                   adam_dtype: str = "f32") -> torch.Tensor:
+                   adam_dtype: str = "f32", bf16_dots: bool = False) -> torch.Tensor:
     """K6a: train every row ``n_steps`` steps from the packed state
     (``pack_rows``), in place, in one launch of one CTA per row. Returns
     the (rows, n_steps) losses. Row i runs what ``run_fused_chunk`` runs on
-    its slice with its ``GridRow``; batch, ε, -tdv, lr, the decoder head and
-    the moment dtype are the launch's. ``external_noise``, one (x, z1, z2)
-    a row, replaces the in-kernel sampler (the test hook)."""
+    its slice with its ``GridRow``; batch, ε, -tdv, lr, the decoder head,
+    the moment dtype and the dot mode are the launch's. ``external_noise``,
+    one (x, z1, z2) a row, replaces the in-kernel sampler (the test hook)."""
     kw = dict(n_steps=n_steps, batch=batch, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
-              external_noise=external_noise, adam_dtype=adam_dtype)
+              external_noise=external_noise, adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     if p.device.type == "cpu":
         return plain_grid_chunk(p, m, v, rows, **kw)
     if p.device.type != "cuda":
@@ -582,7 +598,8 @@ def _grid_launch(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                  rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
                  tdv: bool, lr: float, dual: bool = False,
                  external_noise: Optional[Sequence[Noise]] = None,
-                 adam_dtype: str = "f32", skip: int = 0) -> torch.Tensor:
+                 adam_dtype: str = "f32", bf16_dots: bool = False,
+                 skip: int = 0) -> torch.Tensor:
     """One launch of the kernel over ``rows`` (``run_grid_chunk``'s CUDA
     branch, uncounted). ``skip``, a sum of ``SKIP`` values, leaves parts of
     every step out: timing variants whose results are not used; 0 trains."""
@@ -631,7 +648,8 @@ def _grid_launch(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.linear_vae_grid_chunk(ctypes.addressof(table), table_dev.data_ptr(), n,
                                     n_steps, B, int(dual), float(eps_const),
-                                    int(bool(tdv)), float(lr), int(bf16), int(skip), stream)
+                                    int(bool(tdv)), float(lr), int(bf16),
+                                    int(bool(bf16_dots)), int(skip), stream)
     _check(lib, err, "linear_vae_grid_chunk launch")
     return losses
 
@@ -640,7 +658,7 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                      rows: Sequence[GridRow], *, n_steps: int, batch: int, eps_const: float,
                      tdv: bool, lr: float, dual: bool = False,
                      external_noise: Optional[Sequence[Noise]] = None,
-                     adam_dtype: str = "f32") -> torch.Tensor:
+                     adam_dtype: str = "f32", bf16_dots: bool = False) -> torch.Tensor:
     """The plain PyTorch version of ``run_grid_chunk``: one
     ``plain_fused_chunk`` per row on its slice of the packed buffers, same
     signature, same in-place contract."""
@@ -653,7 +671,7 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             manifold_dim=r.manifold_dim, step0=r.step0, t0=r.t0, data_seed=r.data_seed,
             model_seed=r.model_seed, var_added=r.var_added, eps_const=eps_const, tdv=tdv,
             lr=lr, external_noise=None if external_noise is None else external_noise[i],
-            dual=dual, adam_dtype=adam_dtype)
+            dual=dual, adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     return losses
 
 
@@ -678,7 +696,7 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
         losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
                                 eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
                                 lr=lr, dual=dual, external_noise=noises,
-                                adam_dtype=cfg.adam_dtype)
+                                adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
         return unpack_rows(states, p, m, v, rows, n_steps, dual), losses
 
     return chunk

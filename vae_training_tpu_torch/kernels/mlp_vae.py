@@ -47,6 +47,14 @@ kernel launches.
 ``adam_dtype="bf16"`` is K4 here too: the kernel rounds the moments of every
 stack's weight matrices to bfloat16 at every step, in float32 buffers
 (``kernels/linear_vae.py`` says why that keeps packing exact).
+
+``bf16_dots`` (``--precision bf16`` on the card) is the TPU kernel's
+default dot mode (``dotf``, ``dot_t1``, ``dot_t2`` at ``mlp_vae.py:193-205``
+with ``prec = None``): every layer product, forward and backward, and the
+in-kernel manifold draws take bfloat16 operands, round to nearest even,
+with f32 sums; the biases, g_b (the last row of [a_in, 1]ᵀ·G, summed from
+the unrounded G), the ReLU masks, the ELBO and Adam stay f32. A launch-wide
+flag of K5, K5-dual and K6b, and of the plain versions.
 """
 
 from __future__ import annotations
@@ -352,8 +360,9 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
     counts and hidden widths, batch, learning rate, ε, -tdv, the decoder
     head, the dataset kind and its observation noise, and the step count
     and the print and plot cadences (so every row shares every chunk
-    boundary) are uniform, and so is the Adam moment dtype (``--adam_dtype``,
-    the launch's flag). The device is a CUDA device of compute capability
+    boundary) are uniform, and so are the Adam moment dtype
+    (``--adam_dtype``) and ``--precision`` (the dot mode, with the model's
+    resolved ``bf16_dots``), the launch's flags. The device is a CUDA device of compute capability
     9.0, or the CPU, where ``run_grid_chunk`` runs the plain version. A
     refusal names the first row that fails."""
     cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(models)
@@ -368,6 +377,7 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
                 "hidden widths": (model.encoder_features[:-1], model.decoder_features[:-1]),
                 "batch size": c.batch_size, "learning rate": float(c.learning_rate),
                 "adam_dtype": c.adam_dtype,
+                "precision": (getattr(c, "precision", "bf16"), getattr(model, "bf16_dots", False)),
                 "epsilon": model.epsilon_const, "-tdv": model.tunable_decoder_var,
                 "decoder head": model.dual_sigmoid_decoder,
                 "dataset": type(dataset).__name__,
@@ -437,7 +447,8 @@ def _lib() -> ctypes.CDLL:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip, rp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(Row)
         lib.mlp_vae_chunk.argtypes = [rp, vp] + [i32] * 6 + [ip, i32, ip, f32, i32, f32, i32,
-                                                               i32, i32, vp]  # bf16, cluster, skip
+                                                               i32, i32, i32, vp]
+        # ... moments bf16, dots bf16, cluster, skip, stream
         lib.mlp_vae_chunk.restype = i32
         lib.mlp_vae_plan_row.argtypes = [rp] + [i32] * 4 + [ip, i32, ip]
         lib.mlp_vae_plan_row.restype = ctypes.c_longlong
@@ -519,7 +530,7 @@ def row_widths(row: GridRow, enc_hidden: Sequence[int], dec_hidden: Sequence[int
 def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int, batch: int,
             enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str, eps_const: float,
             tdv: bool, lr: float, dual: bool, external_noise, adam_dtype: str,
-            cluster: int = 0, skip: int = 0) -> None:
+            bf16_dots: bool = False, cluster: int = 0, skip: int = 0) -> None:
     """One launch over ``rows``, row i training ``bufs[i]`` = its (p, m, v)
     in place and writing ``losses[i]``: what K5 (one row) and K6b share.
     ``cluster`` names the cluster size (0: the launch's choice; no result
@@ -589,7 +600,7 @@ def _launch(bufs, losses: torch.Tensor, rows: Sequence[GridRow], *, n_steps: int
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.mlp_vae_chunk(table, rows_dev.data_ptr(), len(rows), n_steps, *shape,
                             float(eps_const), int(bool(tdv)), float(lr), int(bf16),
-                            int(cluster), int(skip), stream)
+                            int(bool(bf16_dots)), int(cluster), int(skip), stream)
     _check(lib, err, "mlp_vae_chunk launch")
 
 
@@ -600,7 +611,8 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                         step0: int, t0: int, data_seed: int, model_seed: int,
                         var_added: float, eps_const: float, tdv: bool, lr: float,
                         external_noise: Optional[Noise] = None,
-                        dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
+                        dual: bool = False, adam_dtype: str = "f32",
+                        bf16_dots: bool = False) -> torch.Tensor:
     """Train ``n_steps`` steps from the flat state (p, m, v), in place.
     Returns the (n_steps,) losses. ``kind`` is "sphere" (``a`` unused,
     intrinsic_dim = manifold_dim), "linear" (``a`` is A, manifold_dim ×
@@ -611,13 +623,14 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     and ``t0`` the Adam count before it. ``external_noise`` = (x, z1, z2),
     each (n_steps, batch, dim), replaces the in-kernel sampler (the test
     hook of the TPU kernel). ``adam_dtype="bf16"`` rounds the weight
-    matrices' moments to bfloat16 every step (K4)."""
+    matrices' moments to bfloat16 every step (K4); ``bf16_dots`` makes every
+    dot take bfloat16 operands and f32 sums."""
     kw = dict(n_steps=n_steps, batch=batch, enc_widths=enc_widths,
               dec_widths=dec_widths, kind=kind, intrinsic_dim=intrinsic_dim,
               manifold_dim=manifold_dim, step0=step0, t0=t0, data_seed=data_seed,
               model_seed=model_seed, var_added=var_added, eps_const=eps_const,
               tdv=tdv, lr=lr, external_noise=external_noise, dual=dual,
-              adam_dtype=adam_dtype)
+              adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     if p.device.type == "cpu":
         return plain_mlp_fused_chunk(p, m, v, a, **kw)
     if p.device.type != "cuda":
@@ -633,7 +646,7 @@ def run_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     _launch([(p, m, v)], losses, [row], n_steps=n_steps, batch=batch, enc_hidden=enc[1:-1],
             dec_hidden=dec[1:-1], kind=kind, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
             external_noise=None if external_noise is None else [external_noise],
-            adam_dtype=adam_dtype)
+            adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     run_mlp_fused_chunk.launches += 1
     return losses[0]
 
@@ -648,10 +661,11 @@ def plain_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                           step0: int, t0: int, data_seed: int, model_seed: int,
                           var_added: float, eps_const: float, tdv: bool, lr: float,
                           external_noise: Optional[Noise] = None,
-                          dual: bool = False, adam_dtype: str = "f32") -> torch.Tensor:
+                          dual: bool = False, adam_dtype: str = "f32",
+                          bf16_dots: bool = False) -> torch.Tensor:
     """The plain PyTorch version of ``run_mlp_fused_chunk``: the same chunk
     on the torch path (autograd + the explicit Adam update), same signature,
-    same in-place contract."""
+    same in-place contract; the model and the dataset take ``bf16_dots``."""
     from ..data.synthetic import LinearGaussianDataset, SigmoidDataset, SphereDataset
     from ..models.networks import build_vae
 
@@ -661,14 +675,14 @@ def plain_mlp_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                       encoder_layer_sizes="|".join(map(str, enc[1:-1])),
                       decoder_layer_sizes="|".join(map(str, dec[1:-1])),
                       epsilon=eps_const, tunable_decoder_var=tdv,
-                      dataset_name="sigmoid" if dual else None)
+                      dataset_name="sigmoid" if dual else None, bf16_dots=bf16_dots)
     if kind == "sphere":
         dataset = SphereDataset(manifold_dim, D - manifold_dim, device=p.device)
     elif kind == "sigmoid":
-        dataset = SigmoidDataset(a, manifold_dim, D - manifold_dim - 1)
+        dataset = SigmoidDataset(a, manifold_dim, D - manifold_dim - 1, bf16_dots)
     else:
         dataset = LinearGaussianDataset(a, manifold_dim, intrinsic_dim,
-                                        D - manifold_dim, var_added)
+                                        D - manifold_dim, var_added, bf16_dots)
     return run_plain_chunk(p, m, v, param_layout(enc, dec, dual), model, dataset,
                            n_steps=n_steps, batch=batch, step0=step0, t0=t0,
                            data_seed=data_seed, model_seed=model_seed, tdv=tdv,
@@ -693,7 +707,7 @@ def make_train_chunk(model, dataset, cfg):
             data_seed=state.data_seed, model_seed=state.model_seed,
             var_added=dataset.var_added, eps_const=model.epsilon_const,
             tdv=model.tunable_decoder_var, lr=lr, external_noise=noise, dual=dual,
-            adam_dtype=cfg.adam_dtype)
+            adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
         return unpack_state(state, p, m, v, n_steps, enc, dec, dual), losses
 
     return train_chunk
@@ -744,18 +758,18 @@ def run_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                    enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str,
                    eps_const: float, tdv: bool, lr: float, dual: bool = False,
                    external_noise: Optional[Sequence[Noise]] = None,
-                   adam_dtype: str = "f32") -> torch.Tensor:
+                   adam_dtype: str = "f32", bf16_dots: bool = False) -> torch.Tensor:
     """K6b: train every row ``n_steps`` steps from the packed state
     (``pack_rows``), in place, in one launch. Returns the (rows, n_steps)
     losses. Row i runs what ``run_mlp_fused_chunk`` runs on its slice with
     its ``GridRow`` and the widths (D, *enc_hidden, L) and
     (L, *dec_hidden, D); batch, the hidden widths, the manifold kind, ε,
-    -tdv, lr, the decoder head and the moment dtype are the launch's.
-    ``external_noise``, one (x, z1, z2) a row, replaces the in-kernel
-    sampler (the test hook)."""
+    -tdv, lr, the decoder head, the moment dtype and the dot mode are the
+    launch's. ``external_noise``, one (x, z1, z2) a row, replaces the
+    in-kernel sampler (the test hook)."""
     kw = dict(n_steps=n_steps, batch=batch, enc_hidden=enc_hidden, dec_hidden=dec_hidden,
               kind=kind, eps_const=eps_const, tdv=tdv, lr=lr, dual=dual,
-              external_noise=external_noise, adam_dtype=adam_dtype)
+              external_noise=external_noise, adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     if p.device.type == "cpu":
         return plain_grid_chunk(p, m, v, rows, **kw)
     if p.device.type != "cuda":
@@ -781,7 +795,7 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                      enc_hidden: Sequence[int], dec_hidden: Sequence[int], kind: str,
                      eps_const: float, tdv: bool, lr: float, dual: bool = False,
                      external_noise: Optional[Sequence[Noise]] = None,
-                     adam_dtype: str = "f32") -> torch.Tensor:
+                     adam_dtype: str = "f32", bf16_dots: bool = False) -> torch.Tensor:
     """The plain PyTorch version of ``run_grid_chunk``: one
     ``plain_mlp_fused_chunk`` per row on its slice of the packed buffers,
     same signature, same in-place contract."""
@@ -796,7 +810,7 @@ def plain_grid_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             step0=r.step0, t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed,
             var_added=r.var_added, eps_const=eps_const, tdv=tdv, lr=lr,
             external_noise=None if external_noise is None else external_noise[i], dual=dual,
-            adam_dtype=adam_dtype)
+            adam_dtype=adam_dtype, bf16_dots=bf16_dots)
     return losses
 
 
@@ -824,7 +838,7 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
                                 enc_hidden=enc_hidden, dec_hidden=dec_hidden, kind=kind,
                                 eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
                                 lr=lr, dual=dual, external_noise=noises,
-                                adam_dtype=cfg.adam_dtype)
+                                adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
         return unpack_rows(states, p, m, v, rows, n_steps, enc_hidden, dec_hidden, dual), losses
 
     return chunk

@@ -23,7 +23,9 @@ flipped) in ``forward``. Flax's conventions that differ from torch's:
     ``FCin``'s output is reshaped to (B, h0, w0, C).
 
 Kernels are initialised like flax's ``lecun_normal`` (fan-in 9·in for a
-conv), biases to zero.
+conv), biases to zero. ``bf16_dots`` (``--precision bf16`` on the card)
+makes every conv, transposed conv and Dense product a bf16 dot
+(``ops/precision.py``), the bias added after it.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import precision
 from .networks import Dense, LatentVAE, lecun_normal_, parse_layer_sizes
 
 KSIZE, STRIDE = 3, 2
@@ -51,10 +54,11 @@ class Conv(nn.Module):
     """flax ``nn.Conv(features, (3, 3), strides=(2, 2))``: ``kernel``
     (3, 3, in, out), ``bias`` (out,); (B, C, H, W) in and out."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bf16_dots: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(KSIZE, KSIZE, in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bf16_dots = bf16_dots
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.kernel, KSIZE * KSIZE * self.kernel.shape[2], generator)
@@ -64,7 +68,8 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (top, bottom), (left, right) = _same_pads(x.shape[2]), _same_pads(x.shape[3])
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias, stride=STRIDE)
+        return precision.conv2d(x, self.kernel.permute(3, 2, 0, 1), self.bias, self.bf16_dots,
+                                stride=STRIDE)
 
 
 class ConvTranspose(Conv):
@@ -74,7 +79,7 @@ class ConvTranspose(Conv):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[2], x.shape[3]
         weight = self.kernel.flip(0, 1).permute(2, 3, 0, 1)  # (in, out, kh, kw)
-        y = F.conv_transpose2d(x, weight, self.bias, stride=STRIDE)
+        y = precision.conv_transpose2d(x, weight, self.bias, self.bf16_dots, stride=STRIDE)
         return y[:, :, :STRIDE * h, :STRIDE * w]
 
 
@@ -83,15 +88,15 @@ class ConvEncoder(nn.Module):
     Takes NHWC batches or their flat vectors."""
 
     def __init__(self, image_hwc: Tuple[int, int, int], latent_dim: int,
-                 channels: Sequence[int]):
+                 channels: Sequence[int], bf16_dots: bool = False):
         super().__init__()
         self.image_hwc = tuple(image_hwc)
         h, w, cin = self.image_hwc
         for i, ch in enumerate(channels):
-            self.add_module(f"Conv{i}", Conv(cin, ch))
+            self.add_module(f"Conv{i}", Conv(cin, ch, bf16_dots))
             cin, h, w = ch, -(-h // STRIDE), -(-w // STRIDE)
         self.n_convs = len(channels)
-        self.FCmu = Dense(h * w * cin, latent_dim)
+        self.FCmu = Dense(h * w * cin, latent_dim, bf16_dots)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], *self.image_hwc).permute(0, 3, 1, 2)
@@ -105,16 +110,16 @@ class ConvDecoder(nn.Module):
     order. ``channels`` are the encoder's, reversed."""
 
     def __init__(self, image_hwc: Tuple[int, int, int], latent_dim: int,
-                 channels: Sequence[int]):
+                 channels: Sequence[int], bf16_dots: bool = False):
         super().__init__()
         h, w, c = image_hwc
         n_up = len(channels)
         self.h0, self.w0, self.c0 = h // 2 ** n_up, w // 2 ** n_up, channels[0]
-        self.FCin = Dense(latent_dim, self.h0 * self.w0 * self.c0)
+        self.FCin = Dense(latent_dim, self.h0 * self.w0 * self.c0, bf16_dots)
         for i in range(1, n_up):
-            self.add_module(f"Up{i}", ConvTranspose(channels[i - 1], channels[i]))
+            self.add_module(f"Up{i}", ConvTranspose(channels[i - 1], channels[i], bf16_dots))
         self.n_up = n_up
-        self.UpOut = ConvTranspose(channels[-1], c)
+        self.UpOut = ConvTranspose(channels[-1], c, bf16_dots)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.FCin(z))
@@ -131,7 +136,7 @@ class ConvVAE(LatentVAE):
 
     def __init__(self, *, image_hwc: Tuple[int, int, int], latent_dim: int,
                  channels: Tuple[int, ...] = (32, 64), epsilon: float = 0.0,
-                 tunable_decoder_var: bool = False):
+                 tunable_decoder_var: bool = False, bf16_dots: bool = False):
         super().__init__()
         h, w, c = image_hwc
         n_up = len(channels)
@@ -139,8 +144,9 @@ class ConvVAE(LatentVAE):
             raise ValueError(f"image size {h}x{w} must be divisible by 2^{n_up}")
         self.image_hwc = (h, w, c)
         self.channels = tuple(channels)
-        self.Encoder = ConvEncoder(self.image_hwc, latent_dim, self.channels)
-        self.Decoder = ConvDecoder(self.image_hwc, latent_dim, self.channels[::-1])
+        self.bf16_dots = bf16_dots
+        self.Encoder = ConvEncoder(self.image_hwc, latent_dim, self.channels, bf16_dots)
+        self.Decoder = ConvDecoder(self.image_hwc, latent_dim, self.channels[::-1], bf16_dots)
         self._add_variances(latent_dim, epsilon, tunable_decoder_var)
 
     @property
@@ -154,9 +160,10 @@ class ConvVAE(LatentVAE):
 
 def build_conv_vae(*, image_hwc: Tuple[int, int, int], latent_dim: int,
                    channels_spec: str = "32|64", epsilon: float = 0.0,
-                   tunable_decoder_var: bool = False) -> ConvVAE:
-    """A ConvVAE from the CLI's ``--conv_channels`` (empty: 32|64)."""
+                   tunable_decoder_var: bool = False, bf16_dots: bool = False) -> ConvVAE:
+    """A ConvVAE from the CLI's ``--conv_channels`` (empty: 32|64);
+    ``bf16_dots`` is the resolved ``--precision``."""
     channels = parse_layer_sizes(channels_spec) or (32, 64)
     return ConvVAE(image_hwc=tuple(image_hwc), latent_dim=latent_dim,
                    channels=tuple(channels), epsilon=epsilon,
-                   tunable_decoder_var=tunable_decoder_var)
+                   tunable_decoder_var=tunable_decoder_var, bf16_dots=bf16_dots)

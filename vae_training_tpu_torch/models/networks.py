@@ -20,6 +20,11 @@ and the forward computes ``x @ kernel + bias``, so no transpose stands
 between the two packages. Dense kernels are initialised like flax's
 ``lecun_normal`` (a normal truncated at ±2σ of the underlying normal, scaled
 to std sqrt(1/fan_in)), biases to zero — not torch's ``nn.Linear`` default.
+
+``bf16_dots`` (``config.bf16_dots``, ``--precision bf16`` on the card) is
+the JAX model's ``matmul_precision``: every Dense product then takes
+bfloat16 operands and f32 sums in both directions (``ops/precision.py``),
+the bias added after.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from ..ops.precision import dot
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling
 # "truncated_normal" correction constant)
@@ -44,12 +51,14 @@ def lecun_normal_(kernel: torch.Tensor, fan_in: int, generator: torch.Generator)
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel`` (in, out), ``bias`` (out,)."""
+    """flax ``nn.Dense``: ``kernel`` (in, out), ``bias`` (out,); with
+    ``bf16_dots`` its product is the bf16 dot (``ops/precision.py``)."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bf16_dots: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bf16_dots = bf16_dots
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.kernel, self.kernel.shape[0], generator)
@@ -57,7 +66,7 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        return dot(x, self.kernel, self.bf16_dots) + self.bias
 
 
 class FullyConnectedNetwork(nn.Module):
@@ -67,13 +76,14 @@ class FullyConnectedNetwork(nn.Module):
     layer: a pure linear map."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 sigmoid_head: bool = False):
+                 sigmoid_head: bool = False, bf16_dots: bool = False):
         super().__init__()
         widths = (in_features,) + tuple(features)
         for i in range(len(features)):
-            self.add_module(f"FC{i}", Dense(widths[i], widths[i + 1]))
+            self.add_module(f"FC{i}", Dense(widths[i], widths[i + 1], bf16_dots))
         self.n_layers = len(features)
         self.sigmoid_head = sigmoid_head
+        self.bf16_dots = bf16_dots
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
@@ -92,6 +102,7 @@ class LatentVAE(nn.Module):
     (latents → flat batch), then calls ``_add_variances``."""
 
     dual_sigmoid_decoder = False
+    bf16_dots = False  # the dot mode its layers were built with
 
     def _add_variances(self, latent_dim: int, epsilon: float,
                        tunable_decoder_var: bool) -> None:
@@ -152,17 +163,20 @@ class VAE(LatentVAE):
     def __init__(self, *, data_dim: int, encoder_features: Tuple[int, ...],
                  decoder_features: Tuple[int, ...], latent_dim: int,
                  epsilon: float = 0.0, tunable_decoder_var: bool = False,
-                 dual_sigmoid_decoder: bool = False):
+                 dual_sigmoid_decoder: bool = False, bf16_dots: bool = False):
         super().__init__()
         self.data_dim = data_dim
         self.encoder_features = tuple(encoder_features)
         self.decoder_features = tuple(decoder_features)
         self.dual_sigmoid_decoder = dual_sigmoid_decoder
-        self.Encoder = FullyConnectedNetwork(data_dim, self.encoder_features)
-        self.Decoder = FullyConnectedNetwork(latent_dim, self.decoder_features)
+        self.bf16_dots = bf16_dots
+        self.Encoder = FullyConnectedNetwork(data_dim, self.encoder_features,
+                                             bf16_dots=bf16_dots)
+        self.Decoder = FullyConnectedNetwork(latent_dim, self.decoder_features,
+                                             bf16_dots=bf16_dots)
         if dual_sigmoid_decoder:
             self.SigDecoder = FullyConnectedNetwork(
-                latent_dim, self.decoder_features, sigmoid_head=True)
+                latent_dim, self.decoder_features, sigmoid_head=True, bf16_dots=bf16_dots)
         self._add_variances(latent_dim, epsilon, tunable_decoder_var)
 
     def decode(self, samples: torch.Tensor) -> torch.Tensor:
@@ -182,12 +196,14 @@ def parse_layer_sizes(spec: str) -> Tuple[int, ...]:
 def build_vae(*, data_dim: int, latent_dim: int, encoder_layer_sizes: str = "",
               decoder_layer_sizes: str = "", epsilon: float = 0.0,
               tunable_decoder_var: bool = False,
-              dataset_name: Optional[str] = None) -> VAE:
+              dataset_name: Optional[str] = None, bf16_dots: bool = False) -> VAE:
     """Construct a VAE from the reference's CLI-level hyperparameters; the
-    sigmoid dataset gets the dual decoder."""
+    sigmoid dataset gets the dual decoder. ``bf16_dots`` is the resolved
+    ``--precision`` (``config.bf16_dots``), the JAX ``build_vae``'s
+    ``precision``."""
     enc = parse_layer_sizes(encoder_layer_sizes) + (latent_dim,)
     dec = parse_layer_sizes(decoder_layer_sizes) + (data_dim,)
     return VAE(data_dim=data_dim, encoder_features=enc, decoder_features=dec,
                latent_dim=latent_dim, epsilon=epsilon,
                tunable_decoder_var=tunable_decoder_var,
-               dual_sigmoid_decoder=dataset_name == "sigmoid")
+               dual_sigmoid_decoder=dataset_name == "sigmoid", bf16_dots=bf16_dots)

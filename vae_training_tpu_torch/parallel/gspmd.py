@@ -25,6 +25,9 @@ every parameter and of its Adam moments (``place_state``);
 ``full_state`` all-gathers them, for evals, figures, ``model.pkl`` and
 checkpoints in the reference layout. Tensor parallelism runs op by op on
 every device: its collectives sit inside the forward and the backward.
+Under bf16 dots (``--precision bf16`` on the card) each rank's local
+product is the bf16 dot (``ops/precision.py``) and the collectives sum its
+f32 results, as XLA's partitioned dot rounds its local operands.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import elbo_terms
+from ..ops.precision import dot
 from ..train.state import TrainState
 from .dp import DataParallel
 
@@ -188,22 +192,23 @@ class TensorParallel(DataParallel):
     def _stack(self, net: str, module, x, params):
         group, rank, tp = self.tp_group, self.tp_rank, self.tp
         sharded = False  # is x split over tp along its features?
+        bf16 = module.bf16_dots  # each local product a bf16 dot; the collectives outside it
         for i in range(module.n_layers):
             kernel, bias = params[f"{net}.FC{i}.kernel"], params[f"{net}.FC{i}.bias"]
             spec = self.specs[f"{net}.FC{i}.kernel"]
             if spec == ("tp", None):  # row-parallel
                 if not sharded:
                     x = _ScatterToTP.apply(x, group, rank, tp)
-                x = _ReduceFromTP.apply(x @ kernel, group) + bias
+                x = _ReduceFromTP.apply(dot(x, kernel, bf16), group) + bias
                 sharded = False
             else:
                 if sharded:
                     x = _GatherFromTP.apply(x, group, rank, tp)
                 if spec == (None, "tp"):  # column-parallel
-                    x = _CopyToTP.apply(x, group) @ kernel + bias
+                    x = dot(_CopyToTP.apply(x, group), kernel, bf16) + bias
                     sharded = True
                 else:
-                    x = x @ kernel + bias
+                    x = dot(x, kernel, bf16) + bias
                     sharded = False
             if i + 1 < module.n_layers:
                 x = torch.relu(x)

@@ -28,8 +28,16 @@ on bf16 operands (the library's yardsticks).
 
     python -m vae_training_tpu_torch.tools.check_precision [--device cuda|cpu]
 
-Its second half, ``check_kernel_divergence``, waits for the port's bench
-and a kernel that reads ``--precision`` (ROADMAP Queue 2).
+Its second half, ``check_kernel_divergence`` (``tools/check_precision.py:56``),
+runs on the card only: it builds the bench's sphere and linear trainers
+(``_scripts/bench.py`` ``build``) under ``--precision bf16`` and ``fp32``,
+trains each 50 steps and requires the first losses of the two modes to
+differ: the flag reaches the fused kernels (K5 and K1). On the CPU both
+modes compute fp32 products, so the check is skipped there, and
+``--divergence`` (that half alone) exits 2, as the JAX tool does off the
+TPU.
+
+    python -m vae_training_tpu_torch.tools.check_precision --divergence
 """
 
 from __future__ import annotations
@@ -126,12 +134,55 @@ def times(device: torch.device, min_seconds: float) -> dict:
     return out
 
 
+def check_kernel_divergence(device: torch.device, configs: Sequence[str] = ("sphere", "linear"),
+                            steps: int = 50) -> dict:
+    """Each bench config trained ``steps`` steps under ``--precision bf16``
+    and ``fp32`` on the card; raises unless the first losses differ.
+    Returns {config: {precision: losses}}."""
+    from .._scripts.bench import build
+
+    if device.type != "cuda":
+        raise RuntimeError("check_kernel_divergence runs on the card: on the CPU both "
+                           "--precision values compute fp32 products")
+    out = {}
+    for config in configs:
+        losses = {}
+        for prec in ("bf16", "fp32"):
+            trainer = build("auto", config, prec, device=str(device))
+            losses[prec] = trainer.train_chunk(trainer.state, steps)[1].cpu().numpy()
+        if not np.isfinite(np.concatenate(list(losses.values()))).all():
+            raise RuntimeError(f"{config}: a loss is not finite")
+        if losses["bf16"][0] == losses["fp32"][0]:
+            raise RuntimeError(f"{config}: --precision fp32 did not change the fused "
+                               f"kernel's first step")
+        print(f"{config}: kernel step-1 loss bf16={losses['bf16'][0]:.6f} "
+              f"fp32={losses['fp32'][0]:.6f} — flag reaches the kernel: OK")
+        out[config] = losses
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    args = parser(__doc__.splitlines()[0]).parse_args(argv)
+    p = parser(__doc__.splitlines()[0])
+    p.add_argument("--divergence", action="store_true",
+                   help="run check_kernel_divergence alone (the card only; exits 2 "
+                        "elsewhere)")
+    args = p.parse_args(argv)
     device = device_from(args.device)
     print(f"card: {card(device)}")
+    if args.divergence:
+        if device.type != "cuda":
+            print("check_kernel_divergence runs on the card", file=sys.stderr)
+            sys.exit(2)
+        report = {"divergence": check_kernel_divergence(device)}
+        print("RESULT: PASS")
+        return report
     report = check(device)
     report["us"] = times(device, args.seconds)
+    if device.type == "cuda":
+        report["divergence"] = check_kernel_divergence(device)
+    else:
+        print("check_kernel_divergence: skipped on the CPU (both --precision values "
+              "compute fp32 products there)")
     print("RESULT: PASS")
     return report
 

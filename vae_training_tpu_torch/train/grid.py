@@ -55,7 +55,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..config import RunConfig
+from ..config import RunConfig, bf16_dots
 from ..data.registry import get_dataset
 from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_grid_chunk
@@ -144,7 +144,8 @@ class GridTrainer:
             data_dim=self.data_dim, latent_dim=cfg.latent_dimension,
             encoder_layer_sizes=cfg.encoder_layer_sizes,
             decoder_layer_sizes=cfg.layer_sizes, epsilon=cfg.epsilon,
-            tunable_decoder_var=cfg.tunable_decoder_var, dataset_name=cfg.dataset)
+            tunable_decoder_var=cfg.tunable_decoder_var, dataset_name=cfg.dataset,
+            bf16_dots=bf16_dots(cfg.precision, self.device))
         self.model.init_parameters(cfg.model_seed)
         self.model.to(self.device)
         params = dict(self.model.named_parameters())

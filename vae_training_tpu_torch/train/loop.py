@@ -80,7 +80,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import RunConfig
+from ..config import RunConfig, bf16_dots
 from ..data.base import DistributionDataset
 from ..evals.stats import StatsRecorder
 from ..kernels.dispatch import make_parallel_chunk, make_train_chunk
@@ -192,11 +192,14 @@ class Trainer:
         self.device = torch.device(cfg.device)
         self.dataset = dataset
         self.dirname = output_dir
+        self._corpus_saved = False  # the dataset's copy is written at the first save
         self.n_plot = cfg.n_plot or N_PLOT
         self.n_print = cfg.n_print or N_PRINT
         self.eval_batch_size = EVAL_BATCH_SIZE
         self.latent_dim = cfg.latent_dimension
 
+        dots = bf16_dots(cfg.precision, self.device)  # --precision on this device
+        dataset.bf16_dots = dots  # its manifold dots take the model's mode
         arch = cfg.arch
         if arch == "auto":
             arch = "conv" if dataset.is_epochs else "mlp"
@@ -208,14 +211,14 @@ class Trainer:
             self.model = build_conv_vae(
                 image_hwc=tuple(dataset.shape), latent_dim=cfg.latent_dimension,
                 channels_spec=cfg.conv_channels, epsilon=cfg.epsilon,
-                tunable_decoder_var=cfg.tunable_decoder_var)
+                tunable_decoder_var=cfg.tunable_decoder_var, bf16_dots=dots)
         else:
             self.model = build_vae(
                 data_dim=dataset.dimension, latent_dim=cfg.latent_dimension,
                 encoder_layer_sizes=cfg.encoder_layer_sizes,
                 decoder_layer_sizes=cfg.layer_sizes, epsilon=cfg.epsilon,
                 tunable_decoder_var=cfg.tunable_decoder_var,
-                dataset_name=cfg.dataset)
+                dataset_name=cfg.dataset, bf16_dots=dots)
         self.model.init_parameters(cfg.model_seed)
         self.model.to(self.device)
 
@@ -562,21 +565,28 @@ class Trainer:
         self.recorder.correlation_ratios_per_param = per_param
 
     def save(self, final: bool = False) -> None:
-        """losses.npz, model.pkl and the checkpoint, from host copies taken
-        now and written by the background writer; ``final=True`` waits for
-        the writes. In-loop saves run after this step's events (batchnum ==
-        state.step); the final save runs after the loop, where no events at
-        state.step have fired."""
+        """losses.npz, model.pkl, the checkpoint and the dataset's copy
+        (``dataset.pk``: an image corpus writes ``dataset.pk.npz``), from
+        host copies taken now and written by the background writer;
+        ``final=True`` waits for the writes. The corpus never changes, so
+        its file is written at a run's first save only, with the bytes every
+        later save would write. In-loop saves run after this step's events
+        (batchnum == state.step); the final save runs after the loop, where
+        no events at state.step have fired."""
         self.model_save_data(final=final)
         state, meta, aux = self._snapshot(self.batchnum == int(self.state.step))
         if not is_primary():
             return
         dirname = self.dirname
+        corpus = None if self._corpus_saved else self.dataset.host_copy()
+        self._corpus_saved = True
 
         def write_run():
             StatsRecorder.from_state(aux["recorder"]).save_npz(dirname, final=final)
             save_model_pkl(os.path.join(dirname, "model.pkl"), state)
             save_checkpoint(dirname, state, extra_meta=meta, aux=aux)
+            if corpus is not None:
+                corpus.save(os.path.join(dirname, "dataset.pk"))
 
         writer = get_artifact_writer()
         writer.submit(write_run)
