@@ -53,7 +53,7 @@ phases:
   8. the MLP library's registers and spills, its cluster plan (one cluster
      a row, of 16 CTAs where that takes no more turns than 8; at 1, 7, 15
      and 20 rows) and its shared memory a CTA at every sweep shape on both
-     cluster sizes, equal to kernels/mlp_vae.py's planner;
+     cluster sizes in both dot modes, equal to kernels/mlp_vae.py's planner;
   9. K2 against its plain version at sigmoid row 1 (64 steps, external
      noise and in-kernel sampling, -tdv on and off; K1's tolerances) and a
      40 = 15 + 25 chunk split bitwise;
@@ -160,10 +160,11 @@ phases:
 
  31. the MLP kernel's step at sphere row 1 split by timing variants that
      leave parts out: the layer sums, the operand stages, Adam, everything
-     but the cluster barriers (windows of at least 1 s); the step on
+     but the cluster barriers (windows of at least 0.5 s), in both dot
+     modes in turn (fp32 FMA chains, bf16 tensor-core sums); the step on
      clusters of 8 beside the launch's 16; and 16 steps on clusters of 8
      equal to 16 steps on clusters of 16 bitwise, solo and dual, f32 and
-     bf16 moments;
+     bf16 moments, fp32 and bf16 dots;
  32. the linear kernel's step at linear row 1, sigmoid row 1 and the
      sigmoid sweep's largest row (D 28, L 24) split by timing variants that
      leave parts out: the noise (sampler and manifold draw), the per-row
@@ -274,9 +275,13 @@ phases:
      linear (21) and sigmoid (18) sweeps, 16 steps; every K6a row equal to
      its solo launch bitwise (64 steps) and 40 = 15 + 25 bitwise, with f32
      and bf16 moments;
- 54. bf16 dots, the MLP kernel: K5 at sphere row 1 and a linear_gaussian
-     64|64 MLP with observation noise, K5-dual at sigmoid-MLP row 1 (32
-     steps one at a time, ρ as in phase 53), K6b on the sphere sweep's 15
+ 54. bf16 dots, the MLP kernel (tensor-core sums): K5 at sphere row 1
+     and a linear_gaussian 64|64 MLP with observation noise, K5-dual at
+     sigmoid-MLP row 1 (32 steps one at a time, ρ as in phase 53), K5 and
+     K5-dual at the narrow and ragged 7|13|200 stacks (16 steps:
+     contractions that are no multiple of 16, narrow units) and K5 at three
+     8-layer stacks that put the bias row of [a_in, 1]ᵀ·G at every row of
+     a 32-row and of a 16-row unit (16 steps), K6b on the sphere sweep's 15
      rows and 3 sigmoid-MLP rows (16 steps); 40 = 15 + 25, clusters of 8 =
      16 (16 steps) and every K6b row = its solo K5 launch (32 steps), all
      bitwise;
@@ -286,7 +291,8 @@ phases:
      CLI's default bf16);
  56. times, fp32 dots against bf16 dots in turn: µs a step of K1, K2, K5,
      K5-dual, of their plain versions, µs a launch-step of K6a (both
-     sweeps) and K6b and of their plain versions, the torch path's graph
+     sweeps) and K6b and of their plain versions, K4 in K5, K5-dual and
+     K6b under bf16 dots (f32 against bf16 moments, in turn), the torch path's graph
      step at sphere row 1 and the conv step; the bench's line for linear,
      sphere, grid_linear, grid_sphere and conv under each --precision (the
      [kernels] line naming the dot mode); the bf16-dot records of the
@@ -301,8 +307,9 @@ linear through the bench's trainers, 50 steps each way: the first losses
 of --precision bf16 and fp32 differ).
 
 ``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone,
-``--only-bf16-dots`` phases 1, 2 and 53-57 (phase 57 then runs the bf16
-rows too) and check_kernel_divergence.
+``--only-bf16-dots`` phases 1, 2, 31 and 53-57 (with the MLP library's
+ptxas lines; phase 57 then runs the bf16 rows too) and
+check_kernel_divergence: the quick card check of the bf16-dot modes.
 
 Imports no JAX. Every check raises on failure, so any failed phase exits
 nonzero. The last two stdout lines are JSON: the kernels' record, then
@@ -345,6 +352,13 @@ SPHERE_ROW1 = ["--dataset", "sphere", "--encoder_layer_sizes", "200|200|200",
 SIG_D, SIG_L, SIG_DD = 7, 6, 3  # sigmoid row 1: ambient 3 + 1 + 3, latent 6
 SPH_D, SPH_L, SPH_DD = 6, 6, 3  # sphere row 1: ambient 3 + 3, latent 6
 SPH_ENC, SPH_DEC = (6, 200, 200, 200, 6), (6, 200, 200, 200, 6)
+# (encoder widths, decoder widths) whose layers' g_W products hold the bias
+# row of [a_in, 1]ᵀ·G at every row of a unit in the bf16-dot plan: rows 0-7,
+# 30 and 8-14 of a 32-row unit; 15-22, 31 and 23-29; every row of a
+# 16-row one (tests/test_torch_mlp_tc.py:BIAS_ROW_STACKS, which checks it)
+BIAS_ROW_STACKS = (((32, 33, 34, 35, 36, 37, 38, 39, 30), (30, 40, 41, 42, 43, 44, 45, 46, 32)),
+                   ((47, 48, 49, 50, 51, 52, 53, 54, 31), (31, 55, 56, 57, 58, 59, 60, 61, 47)),
+                   ((8, 1, 2, 3, 4, 5, 6, 7, 9), (9, 10, 11, 12, 13, 14, 15, 16, 8)))
 # sigmoid row 1 with the sphere sweep's 200|200|200 stacks: the MLP kernel's
 # dual-decoder branch (K5-dual); no reference script runs it
 SIGMOID_MLP_ROW1 = [a if a != "" else "200|200|200" for a in SIGMOID_ROW1]
@@ -435,15 +449,17 @@ def main() -> int:
             _parallel(torch, np, smi, tmp, [])
         print(f"phases 1, 2 and 49-52 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
-    if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2 and 53-57 alone, to develop them
+    if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2, 31 and 53-57 alone
         from vae_training_tpu_torch.tools import check_precision as t2
 
+        _print_ptxas(builds["mlp_vae"][1])
+        _mlp_split(torch, np, smi)
         with tempfile.TemporaryDirectory() as tmp:
             recs = []
             _bf16_dots(torch, np, smi, tmp, recs)
             t2.check_kernel_divergence(dev)
         print(json.dumps({"kernels": recs}))
-        print(f"phases 1, 2 and 53-57 passed in {time.perf_counter() - _T0:.1f} s")
+        print(f"phases 1, 2, 31 and 53-57 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
 
     # --- 3 ---------------------------------------------------------------
@@ -672,15 +688,21 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
     shapes += [("sigmoid-MLP row 1", (SIG_D, 200, 200, 200, SIG_L), (SIG_L, 200, 200, 200, SIG_D),
                 True), ("linear_gaussian 64|64", (12, 64, 64, 20), (20, 64, 64, 12), False)]
     smem = {k5.CLUSTER: 0, k5.CLUSTER_WIDE: 0}
+    smem_bf16 = dict(smem)  # the bf16-dot mode's plan (tensor-core sums)
     for label, enc, dec, dual in shapes:
-        for size in smem:
-            need = k5.smem_bytes(B, enc, dec, dual, size)
-            require(k5.library_smem_bytes(B, enc, dec, dual, size) == need,
-                    f"{label}: the library's shared memory a CTA equals kernels/mlp_vae.py's")
-            require(0 < need <= k5.SMEM_MAX, f"{label}: {need} B a CTA fits {k5.SMEM_MAX} B")
-            smem[size] = max(smem[size], need)
+        for dots in (False, True):
+            for size in smem:
+                need = k5.smem_bytes(B, enc, dec, dual, size, dots)
+                require(k5.library_smem_bytes(B, enc, dec, dual, size, dots) == need,
+                        f"{label}: the library's shared memory a CTA equals kernels/mlp_vae.py's "
+                        f"(bf16 dots {dots})")
+                require(0 < need <= k5.SMEM_MAX, f"{label}: {need} B a CTA fits {k5.SMEM_MAX} B")
+                mode = smem_bf16 if dots else smem
+                mode[size] = max(mode[size], need)
         print(f"{label}: " + ", ".join(f"{k5.smem_bytes(B, enc, dec, dual, size)} B" for size in smem)
-              + " of shared memory a CTA on clusters of " + " and ".join(map(str, smem))
+              + " (bf16 dots: " + ", ".join(f"{k5.smem_bytes(B, enc, dec, dual, size, True)} B"
+                                            for size in smem)
+              + ") of shared memory a CTA on clusters of " + " and ".join(map(str, smem))
               + " (library and planner agree)")
     most = {size: k5.grid(1, smem, size)["max_clusters"] for size in smem}
     for n_rows in (1, 7, 15, 20):
@@ -692,6 +714,11 @@ def _sweeps(torch, np, smi, mlp_build, data_dir):
         require(plan["cluster_size"] == k5.cluster_size(n_rows, most),
                 "the cluster size the planner picks for the rows")
         require(plan["clusters"] == min(n_rows, plan["max_clusters"]), "one cluster a row")
+        plan_bf16 = k5.grid(n_rows, smem_bf16, bf16_dots=True)
+        print(f"  bf16 dots: {plan_bf16['clusters']} clusters of {plan_bf16['cluster_size']} "
+              f"CTAs ({plan_bf16['max_clusters']} fit at once)")
+        require(plan_bf16["clusters"] == min(n_rows, plan_bf16["max_clusters"]),
+                "one cluster a row, bf16 dots")
 
     # --- 9 ---------------------------------------------------------------
     phase(9, "K2 vs its plain PyTorch version at sigmoid row 1 (64 steps)")
@@ -1979,7 +2006,7 @@ def _bf16_moments(torch, np, smi, data_dir):
                             ("bf16 2", lambda: kernel_call("bf16"), k_steps),
                             ("f32 2", lambda: kernel_call("f32"), k_steps),
                             ("plain 2", plain_call, p_steps)):
-            rates[name] = _steps_per_second(torch, fn, n)
+            rates[name] = _steps_per_second(torch, fn, n, 0.3)
         ms = {k: 1e3 / r for k, r in rates.items()}
         b_ms, f_ms = min(ms["bf16"], ms["bf16 2"]), min(ms["f32"], ms["f32 2"])
         p_ms = min(ms["plain"], ms["plain 2"])
@@ -2486,9 +2513,10 @@ def _mlp_split(torch, np, smi):
     variants of the same launch that leave parts out (``k5.SKIP``): the
     layer sums, the operand stages, Adam, and everything but the phases'
     cluster barriers; the whole step on clusters of 8 against the launch's
-    own choice (16 for one row); and the cluster size held to change no
-    result. Windows of at least 1 s of 500-step launches; the skip
-    variants' results are not used."""
+    own choice (16 for one row); in both dot modes, in turn (fp32 FMA
+    chains, bf16 tensor-core sums); and the cluster size held to change no
+    result in either mode. Windows of at least 0.5 s of 500-step launches;
+    the skip variants' results are not used."""
     from vae_training_tpu_torch.data import SigmoidDataset
     from vae_training_tpu_torch.kernels import linear_vae as k1
     from vae_training_tpu_torch.kernels import mlp_vae as k5
@@ -2496,8 +2524,8 @@ def _mlp_split(torch, np, smi):
     from vae_training_tpu_torch.ops import rng
     from vae_training_tpu_torch.train import TrainState
 
-    phase(31, "the MLP kernel's step at sphere row 1, split by variants that leave parts out; "
-              "clusters of 8 against 16")
+    phase(31, "the MLP kernel's step at sphere row 1, split by variants that leave parts out, "
+              "fp32 and bf16 dots in turn; clusters of 8 against 16")
     dev = torch.device("cuda")
 
     def sphere_bufs(dual=False):
@@ -2521,11 +2549,11 @@ def _mlp_split(torch, np, smi):
                          rng.derive_seed(0, 3), 0.0)
 
     def launch(skip, cluster=0, n=steps, state=bufs, out=losses, r=row, dual=False,
-               adam_dtype="f32"):
+               adam_dtype="f32", dots=False):
         k5._launch([state], out, [r], n_steps=n, batch=B, enc_hidden=SPH_ENC[1:-1],
                    dec_hidden=SPH_DEC[1:-1], kind="sigmoid" if dual else "sphere",
                    eps_const=-3.0, tdv=True, lr=1e-4, dual=dual, external_noise=None,
-                   adam_dtype=adam_dtype, cluster=cluster, skip=skip)
+                   adam_dtype=adam_dtype, bf16_dots=dots, cluster=cluster, skip=skip)
 
     launch(0, n=1)
     size = k5.last_launch()["cluster_size"]
@@ -2534,44 +2562,51 @@ def _mlp_split(torch, np, smi):
                 "no Adam": (k5.SKIP["adam"], 0),
                 "cluster barriers only": (k5.SKIP["work"], 0),
                 "clusters of 8": (0, k5.CLUSTER)}
-    us = {}
+    modes = {False: "fp32 dots", True: "bf16 dots"}
+    us = {dots: {} for dots in modes}
     for name in list(variants) + ["clusters of 8", "whole step"]:  # in turns
-        us.setdefault(name, []).append(1e6 / _steps_per_second(
-            torch, lambda v=variants[name]: launch(*v), steps))
-    t = {k: min(v) for k, v in us.items()}
+        for dots in modes:
+            us[dots].setdefault(name, []).append(1e6 / _steps_per_second(
+                torch, lambda v=variants[name], d=dots: launch(*v, dots=d), steps))
     print(f"card: {smi}")
     print(f"one row: clusters of {size} CTAs")
-    for name, vals in us.items():
-        print(f"{name:22}: " + " / ".join(f"{x:.2f}" for x in vals) + " us a step")
-    split = {"layer sums": t["whole step"] - t["no layer sums"],
-             "operand stages": t["no layer sums"] - t["no sums, no stages"],
-             "Adam": t["whole step"] - t["no Adam"],
-             "cluster barriers": t["cluster barriers only"]}
-    split["epilogues, sampler, loss, rest"] = (t["no sums, no stages"] - split["Adam"]
-                                               - split["cluster barriers"])
-    print("split of a step: " + "; ".join(
-        f"{k} {v:.2f} us ({100 * v / t['whole step']:.1f}%)" for k, v in split.items()))
-    require(all(v > 0 for v in t.values()), "every variant ran")
-    print(f"clusters of 8 / of {size}: {t['clusters of 8'] / t['whole step']:.4f}")
+    for dots, mode in modes.items():
+        t = {k: min(v) for k, v in us[dots].items()}
+        for name, vals in us[dots].items():
+            print(f"{mode}, {name:22}: " + " / ".join(f"{x:.2f}" for x in vals) + " us a step")
+        split = {"layer sums": t["whole step"] - t["no layer sums"],
+                 "operand stages": t["no layer sums"] - t["no sums, no stages"],
+                 "Adam": t["whole step"] - t["no Adam"],
+                 "cluster barriers": t["cluster barriers only"]}
+        split["epilogues, sampler, loss, rest"] = (t["no sums, no stages"] - split["Adam"]
+                                                   - split["cluster barriers"])
+        print(f"split of a step, {mode}: " + "; ".join(
+            f"{k} {v:.2f} us ({100 * v / t['whole step']:.1f}%)" for k, v in split.items()))
+        require(all(v > 0 for v in t.values()), f"every variant ran ({mode})")
+        print(f"{mode}: clusters of 8 / of {size}: {t['clusters of 8'] / t['whole step']:.4f}")
 
-    # no result depends on the cluster size: 16 steps on each, bitwise
+    # no result depends on the cluster size: 16 steps on each, bitwise, in
+    # both dot modes and with both moment dtypes (K4 in each)
     for dual in (False, True):
         for adam_dtype in ("f32", "bf16"):
-            start = sphere_bufs(dual)
-            got = {}
-            for cluster in (k5.CLUSTER, k5.CLUSTER_WIDE):
-                state = tuple(t_.clone() for t_ in start)
-                out = torch.empty(1, 16, device=dev)
-                launch(0, cluster, 16, state, out, sig_row if dual else row, dual, adam_dtype)
-                require(k5.last_launch()["cluster_size"] == cluster, f"clusters of {cluster}")
-                got[cluster] = (out, *state)
-            torch.cuda.synchronize()
-            require(all(torch.equal(a, b) for a, b in zip(got[k5.CLUSTER],
-                                                          got[k5.CLUSTER_WIDE])),
-                    f"{'K5-dual' if dual else 'K5'} {adam_dtype}: clusters of 8 and of 16 "
-                    f"train bitwise the same")
+            for dots, mode in modes.items():
+                start = sphere_bufs(dual)
+                got = {}
+                for cluster in (k5.CLUSTER, k5.CLUSTER_WIDE):
+                    state = tuple(t_.clone() for t_ in start)
+                    out = torch.empty(1, 16, device=dev)
+                    launch(0, cluster, 16, state, out, sig_row if dual else row, dual,
+                           adam_dtype, dots)
+                    require(k5.last_launch()["cluster_size"] == cluster,
+                            f"clusters of {cluster}")
+                    got[cluster] = (out, *state)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(got[k5.CLUSTER],
+                                                              got[k5.CLUSTER_WIDE])),
+                        f"{'K5-dual' if dual else 'K5'} {adam_dtype} moments, {mode}: clusters "
+                        f"of 8 and of 16 train bitwise the same")
     print("16 steps on clusters of 8 = on clusters of 16, bitwise: K5 and K5-dual, f32 and "
-          "bf16 moments")
+          "bf16 moments, fp32 and bf16 dots")
 
 
 LINEAR_SPLIT_SHAPES = (("linear row 1 (K1)", 3, 9, 20, False),
@@ -3731,7 +3766,7 @@ def _parallel(torch, np, smi, data_dir, records):
         times = {}
         for label, fn in (("no mesh", plain), ("dp=1 over NCCL", dp_run),
                           ("dp=1 over NCCL (2)", dp_run), ("no mesh (2)", plain)):
-            times[label] = _timed(torch, f"sphere row 1, {label}", fn, 2000, 20)
+            times[label] = _timed(torch, f"sphere row 1, {label}", fn, 1000, 20)
         wall = {k: min(times[k][0], times[k + " (2)"][0]) for k in ("no mesh", "dp=1 over NCCL")}
         event = {k: min(times[k][1], times[k + " (2)"][1]) for k in ("no mesh", "dp=1 over NCCL")}
         print(f"dp=1 step over NCCL: wall {wall['dp=1 over NCCL']:.4f} ms against "
@@ -4050,9 +4085,11 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
 
     # --- 54 --------------------------------------------------------------
     phase(54, "bf16 dots, the MLP kernel: K5 at sphere row 1 and a linear_gaussian MLP, "
-              "K5-dual at sigmoid-MLP row 1 (32 steps one at a time), K6b on the sphere "
-              "sweep (15 rows) and 3 sigmoid-MLP rows (16 steps); clusters of 8 = 16 "
-              "bitwise; rho as in phase 53")
+              "K5-dual at sigmoid-MLP row 1 (32 steps one at a time), K5 and K5-dual at the "
+              "narrow and ragged 7|13|200 stacks and K5 at three 8-layer stacks that put the "
+              "bias row at every row of a unit (16 steps), K6b on the sphere sweep (15 "
+              "rows) and 3 sigmoid-MLP rows (16 steps); clusters of 8 = 16 bitwise; rho as "
+              "in phase 53")
     lin_enc, lin_dec = (12, 64, 64, 20), (20, 64, 64, 12)
     mlp = {"K5": dict(enc=SPH_ENC, dec=SPH_DEC, kind="sphere", a=None, dd=SPH_DD, eps=-3.0,
                       lr=1e-4, dual=False, var=0.0),
@@ -4061,7 +4098,22 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
                                                  dual=False, var=0.25),
            "K5-dual": dict(enc=(SIG_D, *hidden, SIG_L), dec=(SIG_L, *hidden, SIG_D),
                            kind="sigmoid", a=sig_ds.A, dd=SIG_DD, eps=-3.0, lr=1e-4,
-                           dual=True, var=0.0)}
+                           dual=True, var=0.0),
+           # the narrow and ragged stacks of tests/test_torch_mlp_tc.py: contractions
+           # of 7, 13, 16 and 21 (padded to 16 or 32), narrow units on both sides of
+           # a stack, the bias row at several rows of a unit (din 7, 13, 200, 21)
+           "K5 narrow 7|13|200": dict(enc=(21, 7, 13, 200, 16), dec=(16, 7, 13, 200, 21),
+                                      kind="sphere", a=None, dd=5, eps=-3.0, lr=1e-3,
+                                      dual=False, var=0.0, n=16),
+           "K5-dual narrow 7|13|200": dict(enc=(7, 7, 13, 200, 6), dec=(6, 7, 13, 200, 7),
+                                           kind="sigmoid", a=sig_ds.A, dd=SIG_DD, eps=-3.0,
+                                           lr=1e-3, dual=True, var=0.0, n=16)}
+    # 8-layer stacks whose [a_in, 1]ᵀ·G products put the bias row at every row
+    # of a 32-row unit (the first two) and of a narrow 16-row one (the third):
+    # BIAS_ROW_STACKS, as tests/test_torch_mlp_tc.py checks
+    for i, (enc, dec) in enumerate(BIAS_ROW_STACKS):
+        mlp[f"K5 bias rows {i}"] = dict(enc=enc, dec=dec, kind="sphere", a=None, dd=3, eps=-3.0,
+                                        lr=1e-3, dual=False, var=0.0, n=16)
 
     def k5_state(c, tdv):
         model = build_vae(data_dim=c["enc"][0], latent_dim=c["enc"][-1],
@@ -4073,25 +4125,26 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
         st = TrainState.create(dict(model.named_parameters()), *seeds).to(dev)
         return k5.pack_state(st, c["enc"], c["dec"], c["dual"])
 
-    def k5_call(fn, c, bufs, n, step0, tdv, ext, dots):
+    def k5_call(fn, c, bufs, n, step0, tdv, ext, dots, adam="f32"):
         return fn(*bufs, c["a"], n_steps=n, batch=B, enc_widths=c["enc"], dec_widths=c["dec"],
                   kind=c["kind"], intrinsic_dim=c["dd"], manifold_dim=c["dd"], step0=step0,
                   t0=step0, data_seed=seeds[0], model_seed=seeds[1], var_added=c["var"],
                   eps_const=c["eps"], tdv=tdv, lr=c["lr"], external_noise=ext, dual=c["dual"],
-                  bf16_dots=dots)
+                  bf16_dots=dots, adam_dtype=adam)
 
     for name, c in mlp.items():
         rs = np.random.RandomState(54)
         row = k1.GridRow(c["enc"][0], c["enc"][-1], c["dd"], c["dd"], c["a"], 0, 0, 0, 0)
         cases = [(True, "sampler")]
+        n_walk = c.get("n", n)
         if c["kind"] != "linear":
-            ext_all = _manifold_noise(torch, np, rs, row, n, B, dev)
+            ext_all = _manifold_noise(torch, np, rs, row, n_walk, B, dev)
             cases += [(True, "external")] + ([(False, "external")] if name == "K5" else [])
         for tdv, mode in cases:
             noise = None if mode == "sampler" else (
                 lambda s: tuple(t[s:s + 1].contiguous() for t in ext_all))
             errs[name.split()[0]] = max(errs.get(name.split()[0], 0.0), walk(
-                f"{name} tdv={tdv} {mode}", n, k5_state(c, tdv),
+                f"{name} tdv={tdv} {mode}", n_walk, k5_state(c, tdv),
                 lambda b, s, e, d, c=c, t=tdv: k5_call(k5.run_mlp_fused_chunk, c, b, 1, s, t, e,
                                                      d),
                 lambda b, s, e, d, c=c, t=tdv: k5_call(k5.plain_mlp_fused_chunk, c, b, 1, s, t,
@@ -4258,6 +4311,24 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
     times["K6b"] = in_turn("K6b sphere, 15 rows (100-step launches; a launch-step)",
                            lambda d: k5.run_grid_chunk(*p, rows, n_steps=100, bf16_dots=d,
                                                        **kw), 100)
+
+    def moments_in_turn(label, fn, steps):
+        """K4 in the bf16-dot mode: f32 against bf16 moments, in turn."""
+        r = {}
+        for adam in ("f32", "bf16", "bf16", "f32"):
+            r.setdefault(adam, []).append(_steps_per_second(torch, lambda: fn(adam), steps, 0.3))
+        us = {a: 1e6 / max(v) for a, v in r.items()}
+        print(f"{label}, bf16 dots: f32 moments {us['f32']:.3f} µs, bf16 moments "
+              f"{us['bf16']:.3f} µs a step ({us['bf16'] / us['f32']:.4f}x)")
+
+    for name in ("K5", "K5-dual"):
+        c, mbufs = mlp[name], {a: k5_state(mlp[name], True) for a in ("f32", "bf16")}
+        moments_in_turn(f"K4 in {name} (200-step launches)", lambda a, c=c, b=mbufs: k5_call(
+            k5.run_mlp_fused_chunk, c, b[a], 200, 0, True, None, True, a), 200)
+    pm = {a: k5.pack_rows(states, rows, hidden, hidden, False) for a in ("f32", "bf16")}
+    moments_in_turn("K4 in K6b sphere, 15 rows (100-step launches; a launch-step)",
+                    lambda a: k5.run_grid_chunk(*pm[a], rows, n_steps=100, bf16_dots=True,
+                                                adam_dtype=a, **kw), 100)
     plain = {}
     for name, c in solo.items():  # the plain versions: the torch path op by op
         plain[name] = in_turn(f"{name}'s plain version (100 steps)", lambda d, c=c: k1_call(

@@ -1,7 +1,8 @@
 """K1, K2, K5, K5-dual, K6a and K6b on the card: the CUDA kernels against
 their plain PyTorch versions, and the grid modes' rows against the solo
 kernels, each with f32 Adam moments and with bf16 ones (K4,
-``--adam_dtype bf16``); and, with a one-rank process group, the ``--mesh
+``--adam_dtype bf16``); K5 and K5-dual in the bf16-dot mode (tensor-core
+sums) against the bf16 plain version by ρ; and, with a one-rank process group, the ``--mesh
 dp=1`` step over NCCL against the no-mesh graph step and
 ``InvertibleBatchNorm`` with a one-rank NCCL group against none.
 
@@ -857,6 +858,90 @@ def test_mlp_cluster_size_changes_no_result(cuda_device, adam_dtype, widths):
     torch.cuda.synchronize()
     for a, b in zip(got[k5.CLUSTER], got[k5.CLUSTER_WIDE]):
         assert torch.equal(a, b)
+
+
+# --- bf16 dots: the MLP kernel's tensor-core sums -------------------------------
+# (21, 7, 13, 200, 16) and the dual (7, 7, 13, 200, 6): contractions of 7, 13,
+# 16, 21 and 100 (no multiple of 16), narrow units on both sides of a stack;
+# and three 8-layer stacks whose [a_in, 1]ᵀ·G products hold the bias row at
+# every row of a unit (tests/test_torch_mlp_tc.py:BIAS_ROW_STACKS)
+BF16_STACKS = {"narrow": ((21, 7, 13, 200, 16), (16, 7, 13, 200, 21), 5, False),
+               "narrow-dual": ((7, 7, 13, 200, 6), (6, 7, 13, 200, 7), 3, True),
+               "bias-rows-0": ((32, 33, 34, 35, 36, 37, 38, 39, 30),
+                               (30, 40, 41, 42, 43, 44, 45, 46, 32), 3, False),
+               "bias-rows-1": ((47, 48, 49, 50, 51, 52, 53, 54, 31),
+                               (31, 55, 56, 57, 58, 59, 60, 61, 47), 3, False),
+               "bias-rows-2": ((8, 1, 2, 3, 4, 5, 6, 7, 9), (9, 10, 11, 12, 13, 14, 15, 16, 8),
+                               3, False)}
+
+
+def _rho(got, plain_bf16, plain_fp32):
+    g, b, f = (t.double().flatten() for t in (got, plain_bf16, plain_fp32))
+    return float((g - b).norm() / (f - b).norm().clamp_min(1e-300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(BF16_STACKS))
+def test_k5_bf16_dots_match_plain_by_rho(cuda_device, widths):
+    """K5 (and K5-dual) in the bf16-dot mode at BF16_STACKS, 8 steps
+    one at a time from the bf16 plain version's state, in both dot modes:
+    ρ = ‖kernel − plain_bf16‖ / ‖plain_fp32 − plain_bf16‖ over the steps'
+    losses, m and v at most 0.1 for the bf16-dot kernel and at least 0.5 for
+    the fp32 one, the control (chip_smoke.py phase 54's contract: the
+    kernel's f32 sums run in another order than the plain version's, and a
+    one-ulp difference can round an activation to the next bfloat16); then
+    12 steps on clusters of 8 and of 16 bitwise the same."""
+    enc, dec, dd, dual = BF16_STACKS[widths]
+    a = SigmoidDataset.create(69, dd, 3, device=cuda_device).A if dual else None
+    model = build_vae(data_dim=enc[0], latent_dim=enc[-1],
+                      encoder_layer_sizes="|".join(map(str, enc[1:-1])),
+                      decoder_layer_sizes="|".join(map(str, dec[1:-1])), epsilon=-3.0,
+                      tunable_decoder_var=True, dataset_name="sigmoid" if dual else None)
+    model.init_parameters(0)
+    start = k5.pack_state(TrainState.create(dict(model.named_parameters()), 1, 2).to(
+        cuda_device), enc, dec, dual)
+    kw = dict(batch=B, enc_widths=enc, dec_widths=dec, kind="sigmoid" if dual else "sphere",
+              intrinsic_dim=dd, manifold_dim=dd, data_seed=7, model_seed=8, var_added=0.0,
+              eps_const=-3.0, tdv=True, lr=1e-3, dual=dual)
+    sq = {}  # (dots, losses|m|v) → [Σ‖kernel − plain_bf16‖², Σ‖plain_fp32 − plain_bf16‖²]
+    state = start
+    for step in range(8):
+        got, plain = {}, {}
+        for dots in (True, False):
+            kb, pb = tuple(t.clone() for t in state), tuple(t.clone() for t in state)
+            kl = k5.run_mlp_fused_chunk(*kb, a, n_steps=1, step0=step, t0=step, bf16_dots=dots,
+                                        **kw)
+            pl = k5.plain_mlp_fused_chunk(*pb, a, n_steps=1, step0=step, t0=step,
+                                          bf16_dots=dots, **kw)
+            got[dots], plain[dots] = (kl, kb[1], kb[2]), (pl, pb[1], pb[2])
+            if dots:
+                nxt = pb
+        torch.cuda.synchronize()
+        for dots in (True, False):
+            for key, x, b, f in zip(("losses", "m", "v"), got[dots], plain[True], plain[False]):
+                acc = sq.setdefault((dots, key), [0.0, 0.0])
+                acc[0] += float((x.double() - b.double()).norm() ** 2)
+                acc[1] += float((f.double() - b.double()).norm() ** 2)
+        state = nxt
+    rho = {k: (num / max(den, 1e-300)) ** 0.5 for k, (num, den) in sq.items()}
+    for key in ("losses", "m", "v"):
+        assert rho[(True, key)] <= 0.1, (key, rho)
+        assert rho[(False, key)] >= 0.5, (key, rho)
+    row = k1.GridRow(enc[0], enc[-1], dd, dd, a, 0, 0, 7, 8)
+    outs = {}
+    for cluster in (k5.CLUSTER, k5.CLUSTER_WIDE):
+        bufs = tuple(t.clone() for t in start)
+        losses = torch.empty(1, 12, device=cuda_device)
+        k5._launch([bufs], losses, [row], n_steps=12, batch=B, enc_hidden=enc[1:-1],
+                   dec_hidden=dec[1:-1], kind=kw["kind"], eps_const=-3.0, tdv=True, lr=1e-3,
+                   dual=dual, external_noise=None, adam_dtype="f32", bf16_dots=True,
+                   cluster=cluster)
+        assert k5.last_launch()["cluster_size"] == cluster
+        outs[cluster] = (losses, *bufs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[k5.CLUSTER][0]).all())
+    for x, y in zip(outs[k5.CLUSTER], outs[k5.CLUSTER_WIDE]):
+        assert torch.equal(x, y)
 
 
 # --- K4: a bf16 launch is the f32 launch, its matrix moments rounded ------------

@@ -61,13 +61,14 @@
 //   its rows); a CTA's warps take its units in turn. With the dual decoder
 //   the Decoder's and the SigDecoder's products run side by side, each on
 //   half the cluster (but the residual and g_s, which take both).
-// - Every output is one fp32 FMA chain over the whole contraction in
-//   ascending k, the order of an fp32 GEMM's thread, so that the kernel
-//   follows the fp32 plain version's trajectory as closely as the kernel it
-//   replaces did: ReLU pre-activations and bf16 moments within rounding of
-//   a boundary fall on the same side in both. (Tensor-core sums, mma.sync
-//   TF32 in 3xTF32 and in 6xTF32, were measured and parted that trajectory:
-//   PERF.md §6.) No output's sum is split, so no result depends on the
+// - In the fp32 mode every output is one fp32 FMA chain over the whole
+//   contraction in ascending k, the order of an fp32 GEMM's thread, so that
+//   the kernel follows the fp32 plain version's trajectory as closely as
+//   the kernel it replaces did: ReLU pre-activations and bf16 moments within
+//   rounding of a boundary fall on the same side in both. (Tensor-core sums,
+//   mma.sync TF32 in 3xTF32 and in 6xTF32, were measured and parted that
+//   trajectory: PERF.md §6.) The bf16-dot mode sums on the tensor cores
+//   (below). In both, no output's sum is split, so no result depends on the
 //   cluster size, the cut of the products or the number of rows: a grid
 //   row equals its solo launch bitwise, a 40-step launch a 15 + 25 split,
 //   and --resume is bitwise.
@@ -107,17 +108,31 @@
 // memory.
 //
 // bf16 dots (--precision bf16 on the card; the TPU kernel's default dot
-// mode, dotf / dot_t1 / dot_t2 with prec = None at mlp_vae.py:193-205): the
-// kernel's kBf16 instantiation, chosen by the launch's bf16_dots, rounds
-// every product's operands to bfloat16, round to nearest even, as a lane
-// loads them from the stage into registers (cp.async copies bytes, so the
-// stage holds the f32 values), and keeps the f32 FMA chains: the forward
-// in·W, g_W = [a_in, 1]ᵀ·G, g_in = G·Wᵀ, g_s, and the linear_gaussian and
-// sigmoid manifold draws. g_b, the last row of [a_in, 1]ᵀ·G, sums G
-// unrounded (a plain sum in the reference): a lane that holds that row keeps
-// G's f32 values for it. The biases, the ReLU masks (from the unrounded
-// activations), the loss sums, g_ep, Adam and the state stay f32, and
-// nothing is staged twice, so shared memory is the fp32 mode's. The fp32
+// mode, dotf / dot_t1 / dot_t2 with prec = None at mlp_vae.py:193-205: bf16
+// operands on the matrix unit, f32 sums): the kernel's kBf16 instantiation,
+// chosen by the launch's bf16_dots, computes every layer product (the
+// forward in·W, g_W = [a_in, 1]ᵀ·G, g_in = G·Wᵀ, g_s) on the tensor cores,
+// mma.sync m16n8k16 with bf16 operands and f32 sums. A product of two
+// bfloat16 values is exact in f32, so this is the reference's arithmetic;
+// only the order of the f32 sums differs: each k16 step's partial on the
+// tensor cores, then one IEEE add into the output's running f32 sum, in
+// ascending k16 steps. A warp still owns whole units, 32 × 16 as 2 × 2
+// tiles of 16 × 8 (a narrow unit: 16 × 16, one tile high), and sums each
+// over the whole contraction, padded with zeros to a multiple of 16, so the
+// bitwise properties above hold as in the fp32 mode. cp.async copies bytes,
+// so the stage holds the f32 values: each lane reads its fragment pairs
+// from it (8-byte loads where the layout holds k contiguous, two 4-byte
+// loads where not; tiles() picks strides free of bank conflicts for both)
+// and rounds each pair to bfloat16, round to nearest even, as it packs it
+// (tc_sums). g_b, the last row of [a_in, 1]ᵀ·G, is a plain sum in the
+// reference: it stays out of the mma, and the lanes that hold that row sum
+// G's unrounded f32 values in ascending b. The linear_gaussian and sigmoid
+// manifold draws (tiny FMA chains) round their operands on load (dot_op).
+// The biases, the ReLU masks (from the unrounded activations), the loss
+// sums, g_ep, Adam and the state stay f32. The mode's plan pads the
+// contraction to 16 and takes other strides (tiles()), so its shared memory
+// differs a little from the fp32 mode's: sphere row 1 93,184 B on 16 CTAs
+// and 157,696 B on 8, sigmoid-MLP row 1 157,696 B and 201,728 B. The fp32
 // instantiation is the fp32 mode's code, unchanged.
 //
 // True dimensions throughout: the TPU kernel's 128-lane padding, masks and
@@ -200,6 +215,8 @@ constexpr int kTileM = 32;          // a unit: 32 × 16 outputs, one warp's,
 constexpr int kTileN = 16;          // 4 × 4 a lane;
 constexpr int kTileMNarrow = 8;     // 8 × 16, 1 × 4 a lane, where M or N ≤ 16
 constexpr int kKStep = 4;           // contractions run four k at a time
+constexpr int kTileMNarrowBf16 = 16;  // bf16 dots: a narrow unit is one m16 tile high,
+constexpr int kKStepBf16 = 16;        // and contractions run in mma's k16 steps
 constexpr int kSmemMax = 232448;    // shared memory a CTA can have on sm_90
 constexpr int kHeader = 1024;       // the row and the loss partials, before the stage
 constexpr int kStageBytes = kSmemMax - kHeader;
@@ -250,8 +267,8 @@ __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// A dot's operand in the launch's dot mode: rounded to bfloat16 in the
-// bf16-dot instantiation, unchanged in the fp32 one.
+// A manifold draw's operand in the launch's dot mode: rounded to bfloat16
+// in the bf16-dot instantiation, unchanged in the fp32 one.
 template <bool kBf16>
 __device__ __forceinline__ float dot_op(float x) {
   if constexpr (kBf16) return bf16_rn(x);
@@ -261,16 +278,18 @@ __device__ __forceinline__ float dot_op(float x) {
 // The tile plan of one product out (M × N) = A (M × K) · B (K × N), `np`
 // products of one shape side by side (the dual decoder's pairs), on a
 // cluster of `cs` CTAs, with `ev` vectors (N) and `em` matrices (M × N) of
-// epilogue inputs. The outputs are cut into units of tm × kTileN (tm =
-// kTileM, or kTileMNarrow where M or N is at most kTileN); the
+// epilogue inputs, in the fp32 or the bf16-dot mode (`bf16`). The outputs
+// are cut into units of tm × kTileN (tm = kTileM, or where M or N is at
+// most kTileN kTileMNarrow, in the bf16-dot mode kTileMNarrowBf16); the
 // cluster's CTAs are qm × qn over the m-tiles and n-tiles (qn the largest
 // power of two up to the n-tiles, so that a narrow product spreads its
 // rows), mpc m-tiles and spc n-tiles a CTA. A is staged as [m][k] (a_t: as
 // [k][m], its layout in device memory), B as [k][n] (b_t: [n][k]), rows and
-// columns padded to whole tiles and the contraction to 4; then the CTA's
-// slice of the epilogue inputs. A stage of kc contraction columns takes
-// 4 · (np · (alpha·kc + beta) + e_floats) bytes; kc is the largest
-// multiple of 4 that fits kStageBytes (0: none does).
+// columns padded to whole tiles and the contraction to kKStep (bf16:
+// kKStepBf16) with zeros; then the CTA's slice of the epilogue inputs. A
+// stage of kc contraction columns takes 4 · (np · (alpha·kc + beta) +
+// e_floats) bytes; kc is the largest multiple of the k step that fits
+// kStageBytes (0: none does).
 // kernels/mlp_vae.py:tiles mirrors this function.
 struct Tiles {
   int tm, m_tiles, n_tiles, qn, mpc, spc, k_pad, kc, sa, sb, se, a_floats, b_floats, e_floats,
@@ -282,30 +301,39 @@ struct Tiles {
 __host__ __device__ inline int odd4(int x) { return (x / 4) % 2 == 0 ? x + 4 : x + 8; }
 
 __host__ __device__ inline Tiles tiles(int M, int N, int K, bool a_t, bool b_t, int np, int cs,
-                                       int ev, int em) {
+                                       int ev, int em, bool bf16) {
   Tiles t;
   // a narrow product (the top layers', the first layers' g_W) in units of 8
-  // rows: more of them, each a quarter of a wide unit's latency
-  t.tm = M <= kTileN || N <= kTileN ? kTileMNarrow : kTileM;
+  // rows (bf16 dots: 16, one mma tile): more of them, each a fraction of a
+  // wide unit's latency
+  t.tm = M > kTileN && N > kTileN ? kTileM : bf16 ? kTileMNarrowBf16 : kTileMNarrow;
   t.m_tiles = cdiv(M, t.tm);
   t.n_tiles = cdiv(N, kTileN);
   t.qn = 1;
   while (2 * t.qn <= cs && 2 * t.qn <= t.n_tiles) t.qn *= 2;
   t.mpc = cdiv(t.m_tiles, cs / t.qn);  // m-tiles a CTA
   t.spc = cdiv(t.n_tiles, t.qn);       // n-tiles a CTA
-  t.k_pad = cdiv(K, kKStep) * kKStep;
+  const int ks = bf16 ? kKStepBf16 : kKStep;
+  t.k_pad = cdiv(K, ks) * ks;
   const int mp = t.tm * t.mpc, ncp = kTileN * t.spc;
   t.se = ncp + 4;
   t.e_floats = ev * ncp + em * mp * t.se;
-  const int alpha = (a_t ? mp + 8 : mp) + (b_t ? ncp : ncp + 8);
+  // the [k][m] and [k][n] rows' padding: 8 floats (fp32: 8·odd strides for a
+  // quarter-warp's 16-byte loads along m or n), 4 (bf16: 4·odd strides for
+  // the fragments' 4-byte loads, 8 rows × 4 k pairs a warp)
+  const int pad = bf16 ? 4 : 8;
+  const int alpha = (a_t ? mp + pad : mp) + (b_t ? ncp : ncp + pad);
   const int beta = (a_t ? 0 : 8 * mp) + (b_t ? 8 * ncp : 0);
   const int per = (kStageBytes / 4 - t.e_floats) / np;
-  int kc = per > beta ? (per - beta) / alpha / kKStep * kKStep : 0;
+  int kc = per > beta ? (per - beta) / alpha / ks * ks : 0;
   if (kc > t.k_pad) kc = t.k_pad;
   t.kc = kc;
-  // strides: [m][k] and [n][k] rows 4·odd floats, [k][m] and [k][n] 8·odd
-  t.sa = a_t ? mp + 8 : odd4(t.kc);
-  t.sb = b_t ? odd4(t.kc) : ncp + 8;
+  // strides: [m][k] and [n][k] rows 4·odd floats (bf16: kc + 8, 8·odd, for
+  // a half-warp's 8-byte fragment loads along k), [k][m] and [k][n] mp or
+  // ncp + pad
+  const int sk = bf16 ? t.kc + 8 : odd4(t.kc);
+  t.sa = a_t ? mp + pad : sk;
+  t.sb = b_t ? sk : ncp + pad;
   t.a_floats = a_t ? t.kc * t.sa : mp * t.sa;
   t.b_floats = b_t ? ncp * t.sb : t.kc * t.sb;
   t.bytes = kc > 0 ? 4 * (np * (t.a_floats + t.b_floats) + t.e_floats) : -1;
@@ -325,15 +353,15 @@ bool fill_stack(Stack& st, int n, int in, const int* hidden, int out) {
   return true;
 }
 
-// The shared memory a CTA of a cluster of `cs` needs for one row: the
-// header and the largest stage of the row's products (the order of the
-// phases: encoder forward, decoder forward, decoder backward, encoder
-// backward); −1 if one does not fit.
-int row_smem(const Row& R, const Shape& S, int cs) {
+// The shared memory a CTA of a cluster of `cs` needs for one row in the
+// fp32 or the bf16-dot mode: the header and the largest stage of the row's
+// products (the order of the phases: encoder forward, decoder forward,
+// decoder backward, encoder backward); −1 if one does not fit.
+int row_smem(const Row& R, const Shape& S, int cs, bool bf16) {
   int most = 0;
   bool fits = true;
   auto need = [&](int M, int N, int K, bool a_t, bool b_t, int np, int ev, int em, int ctas) {
-    const Tiles t = tiles(M, N, K, a_t, b_t, np, ctas, ev, em);
+    const Tiles t = tiles(M, N, K, a_t, b_t, np, ctas, ev, em, bf16);
     if (t.bytes < 0) fits = false;
     most = t.bytes > most ? t.bytes : most;
   };
@@ -431,8 +459,9 @@ long long plan(Row& R, const Shape& S) {
   R.s_buf[1] = take(b * hidden);
   R.s_sbuf[0] = S.dual ? take(b * hidden) : 0;
   R.s_sbuf[1] = S.dual ? take(b * hidden) : 0;
-  // a stage on the wide cluster is never larger than on the portable one
-  if (off > INT_MAX || s > INT_MAX || row_smem(R, S, kCluster) < 0) return -1;
+  // a stage on the wide cluster is never larger than on the portable one;
+  // a launch checks its dot mode's too
+  if (off > INT_MAX || s > INT_MAX || row_smem(R, S, kCluster, false) < 0) return -1;
   return s;
 }
 
@@ -587,10 +616,8 @@ __device__ __forceinline__ int lane_col(int c0, int t, int j) {
 // Four contraction columns k … k + 3 of a lane's operands, in registers:
 // x[i][u] = A(r + i, k + u), y[u][j] = B(k + u, col(j)), in 16-byte loads
 // along k or along the rows and columns, whichever the layout holds
-// contiguous (strides and k are multiples of 4). In the bf16-dot mode
-// (kBf16) the sums read both operands rounded, but in row `raw` of a lane
-// (the bias row of [a_in, 1]ᵀ·G), where B is read as it is.
-template <bool AT, bool BT, int RPL, bool kBf16>
+// contiguous (strides and k are multiples of 4).
+template <bool AT, bool BT, int RPL>
 struct LaneBlock {
   float x[RPL][4], y[4][4];
   __device__ __forceinline__ void load(const float* As, const float* Bs, int sa, int sb, int r,
@@ -616,49 +643,100 @@ struct LaneBlock {
       }
     }
   }
-  // acc[i][j] += Σ_u x[i][u]·y[u][j], each output's FMAs in ascending k, on
-  // the dot mode's operands; y as it is in the lane's row `raw` (bf16 dots:
-  // the bias row of [a_in, 1]ᵀ·G; −1: none)
-  __device__ __forceinline__ void fma(float (&acc)[4][4], int raw) const {
-    float xr[RPL][4], yr[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int i = 0; i < RPL; ++i) xr[i][u] = dot_op<kBf16>(x[i][u]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) yr[u][j] = dot_op<kBf16>(y[u][j]);
-    }
+  // acc[i][j] += Σ_u x[i][u]·y[u][j], each output's FMAs in ascending k
+  __device__ __forceinline__ void fma(float (&acc)[4][4]) const {
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
       for (int i = 0; i < RPL; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(xr[i][u], i == raw ? y[u][j] : yr[u][j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i][u], y[u][j], acc[i][j]);
   }
 };
 
 // A lane's sums over a stage's kcp contraction columns: acc[i][j] is
 // (r + i, col(j)), i < RPL. Each output's FMA chain runs in ascending k,
-// the order of an fp32 GEMM's thread. `raw` is the lane's row whose B
-// operand the bf16-dot mode leaves unrounded (the bias row; else outside
-// [0, RPL)).
-template <bool AT, bool BT, int RPL, bool kBf16>
+// the order of an fp32 GEMM's thread.
+template <bool AT, bool BT, int RPL>
 __device__ __forceinline__ void lane_sums(float (&acc)[4][4], const float* As, const float* Bs,
-                                          int sa, int sb, int r, int c0, int t, int kcp,
-                                          int raw) {
-  if (kBf16 && AT && raw >= 0 && raw < RPL) {
-    for (int k = 0; k < kcp; k += 4) {
-      LaneBlock<AT, BT, RPL, kBf16> blk;
-      blk.load(As, Bs, sa, sb, r, c0, t, k);
-      blk.fma(acc, raw);
-    }
-    return;
-  }
+                                          int sa, int sb, int r, int c0, int t, int kcp) {
   for (int k = 0; k < kcp; k += 4) {
-    LaneBlock<AT, BT, RPL, kBf16> blk;
+    LaneBlock<AT, BT, RPL> blk;
     blk.load(As, Bs, sa, sb, r, c0, t, k);
-    blk.fma(acc, -1);
+    blk.fma(acc);
+  }
+}
+
+// bf16 dots: lo and hi (lo at the lower k) rounded to bfloat16, round to
+// nearest even, packed as one b32 operand register of mma.sync.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float2 z) { return bf16x2(z.x, z.y); }
+
+// d += A·B on the tensor cores: one m16n8k16 tile, bf16 operands (a: 16 × 16
+// row-major, b: 16 × 8 column-major, in mma.sync's fragments), f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's bf16-dot sums over a stage's kcp contraction columns (kcp a
+// multiple of 16, the padding zeros): its unit's MT × 2 tiles of 16 × 8,
+// rows r + 16·mi, columns c0 + 8·ni; acc[mi][ni] is the lane's quarter of
+// tile (mi, ni) in mma.sync's accumulator fragment (rows g, g + 8, columns
+// 2t, 2t + 1; g = lane / 4, t = lane % 4). Each k16 step reads the lane's
+// fragment pairs, which lie along k, from the f32 stage: 8-byte loads where
+// the layout holds k contiguous ([m][k], [n][k]; rows 8·odd floats apart, so
+// that a half-warp's loads fall in distinct banks), two 4-byte loads where
+// it does not ([k][m], [k][n]; 4·odd floats apart: a warp's 8 rows × 4 k
+// pairs in distinct banks); rounds each pair to bfloat16 as it packs it;
+// and issues the unit's MT × 2 mma, each from a zero accumulator: the step's
+// partial sums are added to the outputs' running f32 sums by IEEE adds,
+// round to nearest. (The tensor cores' own accumulation truncates: a sum
+// carried through an output's 7-13 mma drifted toward zero enough to hold a
+// K6b row's m at ρ 0.104-0.126 from the bf16 plain version, against
+// 0.027-0.049 this way; PERF.md §6.) An output's sum runs over the k16
+// steps in ascending order, whatever the chunk kc (a multiple of 16).
+template <bool AT, bool BT, int MT>
+__device__ __forceinline__ void tc_sums(float (&acc)[MT][2][4], const float* As, const float* Bs,
+                                        int sa, int sb, int r, int c0, int g, int t, int kcp) {
+#pragma unroll 2
+  for (int k = 0; k < kcp; k += 16) {
+    uint32_t fa[MT][4], fb[2][2];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // k + 2t (h = 0) or k + 8 + 2t (h = 1)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {  // row g (u = 0) or g + 8 (u = 1)
+          const int row = r + 16 * mi + 8 * u + g, kk = k + 8 * h + 2 * t;
+          fa[mi][2 * h + u] =
+              AT ? bf16x2(As[kk * sa + row], As[(kk + 1) * sa + row])
+                 : bf16x2(*reinterpret_cast<const float2*>(As + row * sa + kk));
+        }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + 8 * ni + g, kk = k + 8 * h + 2 * t;
+        fb[ni][h] = BT ? bf16x2(*reinterpret_cast<const float2*>(Bs + col * sb + kk))
+                       : bf16x2(Bs[kk * sb + col], Bs[(kk + 1) * sb + col]);
+      }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(part, fa[mi], fb[ni][0], fb[ni][1]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[mi][ni][x] += part[x];
+      }
   }
 }
 
@@ -674,14 +752,16 @@ struct IntTag {
 // n·ld + k), then the epilogue KIND with `e`. CTA q of the cluster's cs
 // takes m-tiles [(q / qn)·mpc, …) and n-tiles [(q % qn)·spc, …) and stages
 // their operands and epilogue inputs together; its warp w computes units
-// w, w + kWarps, … (a unit: an m-tile × an n-tile), each output one FMA
-// chain over the whole contraction, so that no result depends on the cut.
+// w, w + kWarps, … (a unit: an m-tile × an n-tile), each output's sum over
+// the whole contraction in ascending k (the fp32 mode: one FMA chain; the
+// bf16-dot mode, kBf16: one mma.sync accumulator over the k16 steps), so
+// that no result depends on the cut.
 template <bool AT, bool BT, int NP, EpiKind KIND, bool kBf16>
 __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, const Operand* b,
                                   Team tm, int skip, const Epi& e) {
   constexpr int NV = epi_vecs<KIND, NP>(), NM = epi_mats<KIND>();
   float* const stage = reinterpret_cast<float*>(mlp_smem + kHeader);
-  const Tiles T = tiles(M, N, K, AT, BT, NP, tm.cs, NV, NM);
+  const Tiles T = tiles(M, N, K, AT, BT, NP, tm.cs, NV, NM, kBf16);
   const int q = tm.q;
   const int mt_lo = (q / T.qn) * T.mpc, nt_lo = (q % T.qn) * T.spc;
   const int mt_n = min(T.mpc, T.m_tiles - mt_lo), nt_n = min(T.spc, T.n_tiles - nt_lo);
@@ -716,8 +796,10 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, cons
                       n_lo, M - m_lo, N - n_lo, mp, ncp);
       }
       asm volatile("cp.async.wait_all;\n" ::: "memory");
-      const int ones = a[0].ones - m_lo;  // [a_in, 1]: after the copies' zeros have landed
-      if (AT && a[0].ones >= 0 && ones >= 0 && ones < mp) {
+      // [a_in, 1]: after the copies' zeros have landed (the bf16-dot mode
+      // sums the bias row apart, from G alone)
+      const int ones = a[0].ones - m_lo;
+      if (!kBf16 && AT && a[0].ones >= 0 && ones >= 0 && ones < mp) {
         __syncthreads();
         for (int r = threadIdx.x; r < kcp; r += kThreads) stage[r * T.sa + ones] = 1.0f;
       }
@@ -728,56 +810,127 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const Operand* a, cons
   if (n_chunks == 1) stage_chunk(0, T.k_pad);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  auto run = [&](auto rpl) {
-    constexpr int RPL = decltype(rpl)::value;
-    for (int s0 = 0; s0 < units; s0 += kWarps) {
-      const int s = s0 + warp;
-      const bool mine = s < units;  // uniform over the warp
-      const int r = (s % mt_n) * T.tm + RPL * g;  // the lane's first row, in the CTA's rows
-      const int c0 = (s / mt_n) * kTileN;          // the unit's first column, in the CTA's
-      // the lane's row (from r) that is [a_in, 1]'s bias row, or −1
-      const int raw = AT && a[0].ones >= 0 ? a[0].ones - m_lo - r : -1;
-      float acc[NP][4][4];
+  if constexpr (kBf16) {
+    // a unit is MT × 2 mma tiles of 16 × 8 (MT = 2 in a unit of kTileM rows,
+    // 1 in a narrow one); the lane holds rows g, g + 8 and columns 2t, 2t + 1
+    // of each
+    auto run = [&](auto mt) {
+      constexpr int MT = decltype(mt)::value;
+      for (int s0 = 0; s0 < units; s0 += kWarps) {
+        const int s = s0 + warp;
+        const bool mine = s < units;       // uniform over the warp
+        const int r = (s % mt_n) * T.tm;   // the unit's first row, in the CTA's rows
+        const int c0 = (s / mt_n) * kTileN;  // its first column, in the CTA's
+        // the unit's row that is [a_in, 1]'s bias row, or −1: g_b = Σ_b G(b, n)
+        // is no product of rounded operands but G's f32 sum, in ascending b,
+        // by the lanes that hold that row (4 columns each)
+        const int bias = AT && a[0].ones >= 0 ? a[0].ones - m_lo - r : -1;
+        const bool sums_bias = bias >= 0 && bias < T.tm && (bias & 7) == g;
+        float acc[NP][MT][2][4], gb[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.0f;
-      for (int c = 0; c < n_chunks; ++c) {
-        const int k0 = c * T.kc;
-        const int kcp = min(T.kc, T.k_pad - k0);
-        if (n_chunks > 1) stage_chunk(k0, kcp);  // every warp, unit or not
-        if (!mine || (skip & kSkipMma)) continue;
+            for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const float* As = stage + p * (T.a_floats + T.b_floats);
-          lane_sums<AT, BT, RPL, kBf16>(acc[p], As, As + T.a_floats, T.sa, T.sb, r, c0, t, kcp,
-                                        raw);
+              for (int x = 0; x < 4; ++x) acc[p][mi][ni][x] = 0.0f;
+        for (int c = 0; c < n_chunks; ++c) {
+          const int k0 = c * T.kc;
+          const int kcp = min(T.kc, T.k_pad - k0);
+          if (n_chunks > 1) stage_chunk(k0, kcp);  // every warp, unit or not
+          if (!mine || (skip & kSkipMma)) continue;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const float* As = stage + p * (T.a_floats + T.b_floats);
+            tc_sums<AT, BT, MT>(acc[p], As, As + T.a_floats, T.sa, T.sb, r, c0, g, t, kcp);
+          }
+          if (AT && sums_bias) {
+            const float* Gs = stage + T.a_floats;  // G staged [k][n]
+            for (int k = 0; k < min(kcp, K - k0); ++k)
+#pragma unroll
+              for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                for (int x = 0; x < 2; ++x) gb[ni][x] += Gs[k * T.sb + c0 + 8 * ni + 2 * t + x];
+          }
+        }
+        if (!mine) continue;
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int rl = r + 16 * mi + 8 * u + g, m = m_lo + rl;  // rl: in the CTA's rows
+#pragma unroll
+            for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+              for (int x = 0; x < 2; ++x) {
+                const int cl = c0 + 8 * ni + 2 * t + x, n = n_lo + cl;
+                if (m >= M || n >= N) continue;
+                float v[NP], vec[2] = {0.0f, 0.0f}, mat[2] = {0.0f, 0.0f};
+#pragma unroll
+                for (int p = 0; p < NP; ++p) v[p] = acc[p][mi][ni][2 * u + x];
+                if (AT && rl - r == bias) v[0] = gb[ni][x];
+#pragma unroll
+                for (int y = 0; y < NV; ++y) vec[y] = Es[y * ncp + cl];
+#pragma unroll
+                for (int y = 0; y < NM; ++y) mat[y] = Es[NV * ncp + y * mp * T.se + rl * T.se + cl];
+                epilogue<KIND, NP>(e, m, n, v, vec, mat);
+              }
+          }
+      }
+    };
+    if (T.tm == kTileM) run(IntTag<2>{});
+    else run(IntTag<1>{});
+  } else {
+    auto run = [&](auto rpl) {
+      constexpr int RPL = decltype(rpl)::value;
+      for (int s0 = 0; s0 < units; s0 += kWarps) {
+        const int s = s0 + warp;
+        const bool mine = s < units;  // uniform over the warp
+        const int r = (s % mt_n) * T.tm + RPL * g;  // the lane's first row, in the CTA's rows
+        const int c0 = (s / mt_n) * kTileN;          // the unit's first column, in the CTA's
+        float acc[NP][4][4];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.0f;
+        for (int c = 0; c < n_chunks; ++c) {
+          const int k0 = c * T.kc;
+          const int kcp = min(T.kc, T.k_pad - k0);
+          if (n_chunks > 1) stage_chunk(k0, kcp);  // every warp, unit or not
+          if (!mine || (skip & kSkipMma)) continue;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const float* As = stage + p * (T.a_floats + T.b_floats);
+            lane_sums<AT, BT, RPL>(acc[p], As, As + T.a_floats, T.sa, T.sb, r, c0, t, kcp);
+          }
+        }
+        if (!mine) continue;
+#pragma unroll
+        for (int i = 0; i < RPL; ++i) {
+          const int m = m_lo + r + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int cl = lane_col<BT>(c0, t, j), n = n_lo + cl;
+            if (m >= M || n >= N) continue;
+            float v[NP], vec[2] = {0.0f, 0.0f}, mat[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int p = 0; p < NP; ++p) v[p] = acc[p][i][j];
+#pragma unroll
+            for (int x = 0; x < NV; ++x) vec[x] = Es[x * ncp + cl];
+#pragma unroll
+            for (int x = 0; x < NM; ++x)
+              mat[x] = Es[NV * ncp + x * mp * T.se + (r + i) * T.se + cl];
+            epilogue<KIND, NP>(e, m, n, v, vec, mat);
+          }
         }
       }
-      if (!mine) continue;
-#pragma unroll
-      for (int i = 0; i < RPL; ++i) {
-        const int m = m_lo + r + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int cl = lane_col<BT>(c0, t, j), n = n_lo + cl;
-          if (m >= M || n >= N) continue;
-          float v[NP], vec[2] = {0.0f, 0.0f}, mat[2] = {0.0f, 0.0f};
-#pragma unroll
-          for (int p = 0; p < NP; ++p) v[p] = acc[p][i][j];
-#pragma unroll
-          for (int x = 0; x < NV; ++x) vec[x] = Es[x * ncp + cl];
-#pragma unroll
-          for (int x = 0; x < NM; ++x) mat[x] = Es[NV * ncp + x * mp * T.se + (r + i) * T.se + cl];
-          epilogue<KIND, NP>(e, m, n, v, vec, mat);
-        }
-      }
-    }
-  };
-  if (T.tm == kTileM) run(IntTag<4>{});
-  else run(IntTag<1>{});
+    };
+    if (T.tm == kTileM) run(IntTag<4>{});
+    else run(IntTag<1>{});
+  }
 }
 
 // --- the per-step phases of one row ------------------------------------------
@@ -1026,9 +1179,8 @@ __device__ void loss_block(const Args& A, const Row& R, int it, float* red) {
 }
 
 // One layer's parameter gradients from its output gradient G (B × dout)
-// and input activation a_in (B × din), both on the tensor cores:
-// [a_in, 1]ᵀ·G, whose first din rows are g_W and whose last is
-// g_b = Σ_b G(b, ·).
+// and input activation a_in (B × din) in one product: [a_in, 1]ᵀ·G, whose
+// first din rows are g_W and whose last is g_b = Σ_b G(b, ·).
 template <bool kBf16>
 __device__ void param_grads(const Args& A, const Row& R, const Stack& st, int li,
                             const Operand& G, const float* a_in, Team tm) {
@@ -1379,9 +1531,10 @@ long long mlp_vae_plan_row(Row* row, int B, int kind, int dual, int n_enc,
 }
 
 // The shared memory a CTA of a cluster of `cs` needs for a row of dims
-// (D, L) at this shape, or −1 (kernels/mlp_vae.py:smem_bytes mirrors it).
+// (D, L) at this shape in the dot mode `bf16_dots`, or −1
+// (kernels/mlp_vae.py:smem_bytes mirrors it).
 int mlp_vae_smem_bytes(int B, int D, int L, int dual, int n_enc, const int* enc_hidden,
-                       int n_dec, const int* dec_hidden, int cs) {
+                       int n_dec, const int* dec_hidden, int cs, int bf16_dots) {
   Shape S;
   if (!fill_shape(S, B, kSphere, dual, n_enc, enc_hidden, n_dec, dec_hidden)) return -1;
   Row R{};
@@ -1390,7 +1543,7 @@ int mlp_vae_smem_bytes(int B, int D, int L, int dual, int n_enc, const int* enc_
       !fill_stack(R.dec, S.n_dec, L, S.dec_hidden, D) || B < 1 || D < 1 || L < 1 ||
       (cs != kCluster && cs != kClusterWide))
     return -1;
-  return row_smem(R, S, cs);
+  return row_smem(R, S, cs, bf16_dots != 0);
 }
 
 // The cluster plan of a launch of `n_rows` rows whose CTAs need smem[0]
@@ -1400,11 +1553,11 @@ int mlp_vae_smem_bytes(int B, int D, int L, int dual, int n_enc, const int* enc_
 // size the card holds at once). `request` 0 takes the size that trains the
 // rows in the fewest turns, the wide one on a tie (a row's phases then
 // spread over twice the SMs); kCluster or kClusterWide names one. The plan
-// of the fp32 kernel; a launch plans its own dot mode's (the same at every
-// sweep shape: shared memory bounds both).
-int mlp_vae_grid(int n_rows, const int* smem, int request, int* clusters, int* cluster_size,
-                 int* max_clusters) {
-  return grid_plan(kernel_of(0), n_rows, smem, request, clusters, cluster_size, max_clusters);
+// of the dot mode `bf16_dots`'s kernel, whose smem the caller gives.
+int mlp_vae_grid(int n_rows, const int* smem, int request, int bf16_dots, int* clusters,
+                 int* cluster_size, int* max_clusters) {
+  return grid_plan(kernel_of(bf16_dots), n_rows, smem, request, clusters, cluster_size,
+                   max_clusters);
 }
 
 // The clusters, their size and the shared memory of the last launch.
@@ -1435,8 +1588,9 @@ int mlp_vae_chunk(Row* rows_host, void* rows_dev, int n_rows, int n_steps, int B
     const long long need = plan(rows_host[r], S);
     if (need < 0 || rows_host[r].scratch_floats < need || rows_host[r].scratch == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int s8 = row_smem(rows_host[r], S, kCluster);
-    const int s16 = row_smem(rows_host[r], S, kClusterWide);
+    const int s8 = row_smem(rows_host[r], S, kCluster, bf16_dots != 0);
+    const int s16 = row_smem(rows_host[r], S, kClusterWide, bf16_dots != 0);
+    if (s8 < 0 || s16 < 0) return static_cast<int>(cudaErrorInvalidValue);
     smem[0] = s8 > smem[0] ? s8 : smem[0];
     smem[1] = s16 > smem[1] ? s16 : smem[1];
   }

@@ -18,8 +18,9 @@ sweep's 15 rows, side by side). A launch has min(rows, the clusters the
 card holds at once) clusters, each walking its rows in turn. One warp
 computes a unit of a layer product (32 rows × 16 columns, 4 × 4 a lane)
 over the whole contraction, as fp32 FMA chains in ascending k (the order
-of the fp32 plain version's GEMMs), so no result depends on the cluster
-size, the cut of the products or the number of rows. Each row's
+of the fp32 plain version's GEMMs), or in the bf16-dot mode on the tensor
+cores in ascending k16 steps, so no result depends on the cluster size,
+the cut of the products or the number of rows. Each row's
 state stays in the caller's buffers and its activations in a scratch buffer
 the wrapper allocates. A solo launch is the same kernel with a one-row table.
 
@@ -54,7 +55,10 @@ with ``prec = None``): every layer product, forward and backward, and the
 in-kernel manifold draws take bfloat16 operands, round to nearest even,
 with f32 sums; the biases, g_b (the last row of [a_in, 1]ᵀ·G, summed from
 the unrounded G), the ReLU masks, the ELBO and Adam stay f32. A launch-wide
-flag of K5, K5-dual and K6b, and of the plain versions.
+flag of K5, K5-dual and K6b, and of the plain versions. The kernel computes
+the layer products of this mode with bf16 ``mma.sync`` on the tensor cores
+(narrow units of 16 rows, the contraction padded to 16): ``tiles``,
+``smem_bytes`` and ``unit_owners`` take the mode.
 """
 
 from __future__ import annotations
@@ -87,6 +91,8 @@ CLUSTER_WIDE = 16  # the wide one, for launches of few rows (kClusterWide)
 TILE_M, TILE_N = 32, 16  # a unit: TILE_M × TILE_N outputs, one warp's (kTileM, kTileN)
 TILE_M_NARROW = 8  # a narrow product's units (M or N ≤ TILE_N): 8 rows (kTileMNarrow)
 KSTEP = 4  # contractions run four k at a time (kKStep)
+TILE_M_NARROW_BF16 = 16  # bf16 dots: a narrow unit is one mma tile high (kTileMNarrowBf16)
+KSTEP_BF16 = 16  # bf16 dots: contractions run in mma.sync's k16 steps (kKStepBf16)
 SMEM_MAX = 232448  # shared memory a CTA can have on sm_90 (kSmemMax)
 HEADER = 1024  # the row and the loss partials, before the stage (kHeader)
 MAX_LAYERS = 8  # Dense layers per stack (kMaxLayers)
@@ -130,35 +136,41 @@ def _odd4(x: int) -> int:
 
 
 def tiles(M: int, N: int, K: int, a_t: bool, b_t: bool, pairs: int = 1,
-          cluster: int = CLUSTER, vecs: int = 0, mats: int = 0) -> dict:
+          cluster: int = CLUSTER, vecs: int = 0, mats: int = 0, bf16_dots: bool = False) -> dict:
     """The kernel's tile plan of one product (``tiles()`` in csrc/mlp_vae.cu,
-    the same integer arithmetic): units of ``tm`` × TILE_N outputs (``tm``
-    = TILE_M, or TILE_M_NARROW where M or N is at most TILE_N), the
-    cluster's CTAs as qm × qn over the m-tiles and n-tiles (qn the largest
-    power of two up to the n-tiles, so that a narrow product spreads its
-    rows), ``mpc`` m-tiles and ``spc`` n-tiles a CTA, the contraction padded
-    to 4 and staged in chunks of ``kc`` (the largest multiple of 4 whose
-    stage fits beside the epilogue's inputs), and the stage's bytes (-1:
-    none fits)."""
-    tm = TILE_M_NARROW if M <= TILE_N or N <= TILE_N else TILE_M
+    the same integer arithmetic) in the fp32 or the bf16-dot mode: units of
+    ``tm`` × TILE_N outputs (``tm`` = TILE_M, or where M or N is at most
+    TILE_N TILE_M_NARROW, with bf16 dots TILE_M_NARROW_BF16), the cluster's
+    CTAs as qm × qn over the m-tiles and n-tiles (qn the largest power of
+    two up to the n-tiles, so that a narrow product spreads its rows),
+    ``mpc`` m-tiles and ``spc`` n-tiles a CTA, the contraction padded to the
+    k step (KSTEP; bf16 dots: KSTEP_BF16) and staged in chunks of ``kc``
+    (the largest multiple of the k step whose stage fits beside the
+    epilogue's inputs), the strides ``sa`` and ``sb`` of A's and B's staged
+    rows, and the stage's bytes (-1: none fits)."""
+    narrow = M <= TILE_N or N <= TILE_N
+    tm = (TILE_M_NARROW_BF16 if bf16_dots else TILE_M_NARROW) if narrow else TILE_M
     m_tiles, n_tiles = _cdiv(M, tm), _cdiv(N, TILE_N)
     qn = 1  # the cluster as qm × qn CTAs: qn the largest power of two ≤ the n-tiles
     while 2 * qn <= cluster and 2 * qn <= n_tiles:
         qn *= 2
     mpc, spc = _cdiv(m_tiles, cluster // qn), _cdiv(n_tiles, qn)
-    k_pad = _cdiv(K, KSTEP) * KSTEP
+    ks = KSTEP_BF16 if bf16_dots else KSTEP
+    k_pad = _cdiv(K, ks) * ks
     mp, ncp = tm * mpc, TILE_N * spc
     e_floats = vecs * ncp + mats * mp * (ncp + 4)
-    alpha = (mp + 8 if a_t else mp) + (ncp if b_t else ncp + 8)
+    pad = 4 if bf16_dots else 8  # the [k][m] and [k][n] rows' padding
+    alpha = (mp + pad if a_t else mp) + (ncp if b_t else ncp + pad)
     beta = (0 if a_t else 8 * mp) + (8 * ncp if b_t else 0)
     per = ((SMEM_MAX - HEADER) // 4 - e_floats) // pairs
-    kc = min((per - beta) // alpha // KSTEP * KSTEP if per > beta else 0, k_pad)
-    sa = mp + 8 if a_t else _odd4(kc)
-    sb = _odd4(kc) if b_t else ncp + 8
+    kc = min((per - beta) // alpha // ks * ks if per > beta else 0, k_pad)
+    sk = kc + 8 if bf16_dots else _odd4(kc)  # the [m][k] and [n][k] rows' stride
+    sa = mp + pad if a_t else sk
+    sb = sk if b_t else ncp + pad
     a_floats = kc * sa if a_t else mp * sa
     b_floats = ncp * sb if b_t else kc * sb
     return dict(tm=tm, m_tiles=m_tiles, n_tiles=n_tiles, qn=qn, mpc=mpc, spc=spc, k_pad=k_pad,
-                kc=kc,
+                kc=kc, sa=sa, sb=sb,
                 bytes=4 * (pairs * (a_floats + b_floats) + e_floats) if kc > 0 else -1)
 
 
@@ -197,26 +209,27 @@ def products(batch: int, enc_widths: Sequence[int], dec_widths: Sequence[int],
 
 
 def smem_bytes(batch: int, enc_widths: Sequence[int], dec_widths: Sequence[int],
-               dual: bool = False, cluster: int = CLUSTER) -> int:
-    """Shared memory a CTA of a cluster of ``cluster`` needs for one row
-    (``row_smem()`` in csrc/mlp_vae.cu): the header and the largest stage;
-    -1 if a product's stage fits no chunk."""
+               dual: bool = False, cluster: int = CLUSTER, bf16_dots: bool = False) -> int:
+    """Shared memory a CTA of a cluster of ``cluster`` needs for one row in
+    the dot mode ``bf16_dots`` (``row_smem()`` in csrc/mlp_vae.cu): the
+    header and the largest stage; -1 if a product's stage fits no chunk."""
     sizes = [tiles(p.M, p.N, p.K, p.a_t, p.b_t, p.pairs, p.ctas(cluster), p.vecs,
-                   p.mats)["bytes"]
+                   p.mats, bf16_dots)["bytes"]
              for p in products(batch, enc_widths, dec_widths, dual)]
     return -1 if min(sizes) < 0 else HEADER + max(sizes)
 
 
-def unit_owners(prod: Product, cluster: int = CLUSTER) -> List[Tuple[int, int, int, int, int]]:
+def unit_owners(prod: Product, cluster: int = CLUSTER,
+                bf16_dots: bool = False) -> List[Tuple[int, int, int, int, int]]:
     """Who computes what of one product, as the kernel assigns it on a
-    cluster of ``cluster`` CTAs (of its half, for a ``half`` product): (cta,
-    round, warp, m0, n0), each the owner
+    cluster of ``cluster`` CTAs (of its half, for a ``half`` product) in the
+    dot mode ``bf16_dots``: (cta, round, warp, m0, n0), each the owner
     of the tm × TILE_N unit at (m0, n0) (``tiles``' tm). CTA q = (q // qn, q % qn)
     takes m-tiles [(q // qn)·mpc, …) and n-tiles [(q % qn)·spc, …); its
     units s = nl·mt_n + ml go to warp s mod WARPS in round s // WARPS."""
     cluster = prod.ctas(cluster)
     t = tiles(prod.M, prod.N, prod.K, prod.a_t, prod.b_t, prod.pairs, cluster, prod.vecs,
-              prod.mats)
+              prod.mats, bf16_dots)
     out = []
     for q in range(cluster):
         mt_lo, nt_lo = (q // t["qn"]) * t["mpc"], (q % t["qn"]) * t["spc"]
@@ -323,7 +336,8 @@ def _structure(model, dataset) -> Tuple[bool, str]:
 
 def _fits(model, batch: int) -> Tuple[bool, str]:
     enc, dec = stack_widths(model)
-    if smem_bytes(batch, enc, dec, model.dual_sigmoid_decoder) < 0:
+    if smem_bytes(batch, enc, dec, model.dual_sigmoid_decoder,
+                  bf16_dots=getattr(model, "bf16_dots", False)) < 0:
         return False, (f"batch {batch} with widths {enc} / {dec}: a product's stage does "
                        f"not fit {SMEM_MAX} B of shared memory in chunks of 16")
     return True, ""
@@ -452,11 +466,11 @@ def _lib() -> ctypes.CDLL:
         lib.mlp_vae_chunk.restype = i32
         lib.mlp_vae_plan_row.argtypes = [rp] + [i32] * 4 + [ip, i32, ip]
         lib.mlp_vae_plan_row.restype = ctypes.c_longlong
-        lib.mlp_vae_smem_bytes.argtypes = [i32] * 5 + [ip, i32, ip, i32]
+        lib.mlp_vae_smem_bytes.argtypes = [i32] * 5 + [ip, i32, ip, i32, i32]
         lib.mlp_vae_smem_bytes.restype = i32
         lib.mlp_vae_row_bytes.argtypes = []
         lib.mlp_vae_row_bytes.restype = ctypes.c_size_t
-        lib.mlp_vae_grid.argtypes = [i32, ip, i32, ip, ip, ip]
+        lib.mlp_vae_grid.argtypes = [i32, ip, i32, i32, ip, ip, ip]
         lib.mlp_vae_cluster_sizes.argtypes = [ip]
         lib.mlp_vae_cluster_sizes.restype = None
         lib.mlp_vae_grid.restype = i32
@@ -487,17 +501,19 @@ def _int_array(values: Sequence[int]):
     return (ctypes.c_int * max(len(values), 1))(*values)
 
 
-def grid(n_rows: int, smem: dict, cluster: int = 0) -> dict:
-    """The cluster plan of a launch of ``n_rows`` rows whose CTAs need
-    ``smem[size]`` bytes of shared memory on clusters of each size, on the
-    current device: {"clusters", "cluster_size", "max_clusters"}; the
-    launch has ``clusters`` = min(n_rows, max_clusters) clusters of
-    ``cluster_size`` (``cluster_size`` picks it; ``cluster`` names one
-    instead), and ``cluster_plan`` maps rows to them."""
+def grid(n_rows: int, smem: dict, cluster: int = 0, bf16_dots: bool = False) -> dict:
+    """The cluster plan of a launch of ``n_rows`` rows in the dot mode
+    ``bf16_dots`` whose CTAs need ``smem[size]`` bytes of shared memory on
+    clusters of each size, on the current device: {"clusters",
+    "cluster_size", "max_clusters"}; the launch has ``clusters`` =
+    min(n_rows, max_clusters) clusters of ``cluster_size`` (``cluster_size``
+    picks it; ``cluster`` names one instead), and ``cluster_plan`` maps rows
+    to them."""
     lib = _lib()
     vals = [ctypes.c_int(0) for _ in range(3)]
     _check(lib, lib.mlp_vae_grid(n_rows, _int_array([smem[CLUSTER], smem[CLUSTER_WIDE]]),
-                                 cluster, *map(ctypes.byref, vals)), "mlp_vae_grid")
+                                 cluster, int(bool(bf16_dots)), *map(ctypes.byref, vals)),
+           "mlp_vae_grid")
     return dict(zip(("clusters", "cluster_size", "max_clusters"), (x.value for x in vals)))
 
 
@@ -511,13 +527,14 @@ def last_launch() -> dict:
 
 
 def library_smem_bytes(batch: int, enc_widths: Sequence[int], dec_widths: Sequence[int],
-                       dual: bool = False, cluster: int = CLUSTER) -> int:
+                       dual: bool = False, cluster: int = CLUSTER,
+                       bf16_dots: bool = False) -> int:
     """``smem_bytes`` as the library computes it (for the card's check that
     the two plans agree)."""
     enc, dec = tuple(enc_widths), tuple(dec_widths)
     return _lib().mlp_vae_smem_bytes(batch, enc[0], enc[-1], int(dual), len(enc) - 1,
                                      _int_array(enc[1:-1]), len(dec) - 1,
-                                     _int_array(dec[1:-1]), cluster)
+                                     _int_array(dec[1:-1]), cluster, int(bool(bf16_dots)))
 
 
 def row_widths(row: GridRow, enc_hidden: Sequence[int], dec_hidden: Sequence[int]):
