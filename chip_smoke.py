@@ -31,8 +31,8 @@ last, ``--precision bf16``, the reference's default, which the CLI takes
 on the card when the flag is not given (every CLI phase above runs it):
 each training kernel in its bf16-dot mode against its bf16 plain version,
 the torch path's forms in it, the times of both modes, and the CLI's rows
-1 under ``--precision fp32``. The direct kernel calls of phases 4-32 keep
-the wrappers' default, fp32 dots; phases 33, 39 and 47 pass
+1 under ``--precision fp32``. The direct kernel calls of phases 4-31 keep
+the wrappers' default, fp32 dots (phase 32 times both); phases 33, 39 and 47 pass
 ``--precision fp32`` (their figures and oracle are fp32's). Fifty-seven
 phases:
 
@@ -169,7 +169,9 @@ phases:
      sigmoid sweep's largest row (D 28, L 24) split by timing variants that
      leave parts out: the noise (sampler and manifold draw), the per-row
      pass, the per-parameter pass with Adam, everything but the two
-     barriers; what leaving each part out saves, and each part alone;
+     barriers; what leaving each part out saves, and each part alone; in
+     both dot modes in turn (fp32 FMA chains, bf16 tensor-core products,
+     with the bf16 mode's warp roles);
  33. the bench (``vae_training_tpu_torch._scripts.bench`` ``main``, the
      console script vae-bench-torch's entry, ``--precision fp32``) in this
      process on linear, sigmoid,
@@ -291,12 +293,13 @@ phases:
      CLI's default bf16);
  56. times, fp32 dots against bf16 dots in turn: µs a step of K1, K2, K5,
      K5-dual, of their plain versions, µs a launch-step of K6a (both
-     sweeps) and K6b and of their plain versions, K4 in K5, K5-dual and
-     K6b under bf16 dots (f32 against bf16 moments, in turn), the torch path's graph
+     sweeps) and K6b and of their plain versions, K4 in K5, K5-dual, K6b,
+     K1, K2 and K6a (both sweeps) under bf16 dots (f32 against bf16
+     moments, in turn), the torch path's graph
      step at sphere row 1 and the conv step; the bench's line for linear,
-     sphere, grid_linear, grid_sphere and conv under each --precision (the
-     [kernels] line naming the dot mode); the bf16-dot records of the
-     kernels' JSON line, bound by the dense bf16 peak;
+     sigmoid, sphere, grid_linear, grid_sigmoid, grid_sphere and conv under
+     each --precision (the [kernels] line naming the dot mode); the bf16-dot
+     records of the kernels' JSON line, bound by the dense bf16 peak;
  57. the CLI's linear, sigmoid and sphere rows 1 at 12000 steps under
      --precision fp32 (the [kernels] line without bf16 dots), their eval
      loss and padding norm beside phases 5's and 11's bf16 runs; both
@@ -307,7 +310,7 @@ linear through the bench's trainers, 50 steps each way: the first losses
 of --precision bf16 and fp32 differ).
 
 ``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone,
-``--only-bf16-dots`` phases 1, 2, 31 and 53-57 (with the MLP library's
+``--only-bf16-dots`` phases 1, 2, 31, 32 and 53-57 (with the MLP library's
 ptxas lines; phase 57 then runs the bf16 rows too) and
 check_kernel_divergence: the quick card check of the bf16-dot modes.
 
@@ -441,25 +444,28 @@ def main() -> int:
     _print_ptxas(builds["linear_vae"][1])
     _print_ptxas(builds["probes"][1])
     need = k1.smem_bytes(B, D, L, ID, ID)
-    require(k1.kernel_smem_bytes(B, D, L, ID, ID) == need,
-            "shared-memory layout of the library equals kernels/linear_vae.py's")
-    print(f"shared memory per launch at the slice's shapes: {need} B")
+    need_bf16 = k1.smem_bytes(B, D, L, ID, ID, bf16_dots=True)
+    require(k1.kernel_smem_bytes(B, D, L, ID, ID) == need
+            and k1.kernel_smem_bytes(B, D, L, ID, ID, bf16_dots=True) == need_bf16,
+            "shared-memory layout of the library equals kernels/linear_vae.py's, both dot modes")
+    print(f"shared memory per launch at the slice's shapes: {need} B (bf16 dots: {need_bf16} B)")
     if sys.argv[1:] == ["--only-parallel"]:  # phases 1, 2 and 49-52 alone, to develop them
         with tempfile.TemporaryDirectory() as tmp:
             _parallel(torch, np, smi, tmp, [])
         print(f"phases 1, 2 and 49-52 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
-    if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2, 31 and 53-57 alone
+    if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2, 31, 32 and 53-57 alone
         from vae_training_tpu_torch.tools import check_precision as t2
 
         _print_ptxas(builds["mlp_vae"][1])
         _mlp_split(torch, np, smi)
+        _linear_split(torch, np, smi)
         with tempfile.TemporaryDirectory() as tmp:
             recs = []
             _bf16_dots(torch, np, smi, tmp, recs)
             t2.check_kernel_divergence(dev)
         print(json.dumps({"kernels": recs}))
-        print(f"phases 1, 2, 31 and 53-57 passed in {time.perf_counter() - _T0:.1f} s")
+        print(f"phases 1, 2, 31, 32 and 53-57 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
 
     # --- 3 ---------------------------------------------------------------
@@ -2614,7 +2620,7 @@ LINEAR_SPLIT_SHAPES = (("linear row 1 (K1)", 3, 9, 20, False),
                        ("sigmoid sweep's largest row (K2, D 28, L 24)", 7, 20, 24, True))
 
 
-def _linear_split(torch, np, smi, steps=2000, min_seconds=0.5):
+def _linear_split(torch, np, smi, steps=2000, min_seconds=0.3):
     """Phase 32: one step of the linear kernel (K1, K2) split into its parts
     by timing variants of the same launch that leave parts out
     (``k1.SKIP``): the sampler and manifold draw, the per-row pass, the
@@ -2622,16 +2628,19 @@ def _linear_split(torch, np, smi, steps=2000, min_seconds=0.5):
     loop); the rest is what the whole step takes beyond those. A part that
     overlaps another (the noise drawn beside the row pass) counts only what
     it adds. At linear row 1, sigmoid row 1 and the sigmoid sweep's largest
-    row; the variants in turns, each a window of at least ``min_seconds``
-    of ``steps``-step launches; their results are not used. Returns
-    {shape: {part: µs}}."""
+    row, in both dot modes (fp32 FMA chains; bf16 tensor-core products,
+    with the bf16 mode's warp roles printed); each variant in the two modes
+    in turn, each a window of at least ``min_seconds`` of ``steps``-step
+    launches; their results are not used. Returns {shape: {mode: {part:
+    µs}}}."""
     from vae_training_tpu_torch.data import LinearGaussianDataset, SigmoidDataset
     from vae_training_tpu_torch.kernels import linear_vae as k1
     from vae_training_tpu_torch.models import build_vae
     from vae_training_tpu_torch.ops import rng
     from vae_training_tpu_torch.train import TrainState
 
-    phase(32, "the linear kernel's step (K1, K2) split by variants that leave parts out")
+    phase(32, "the linear kernel's step (K1, K2) split by variants that leave parts out, "
+              "fp32 and bf16 dots in turn")
     dev = torch.device("cuda")
     sk = k1.SKIP
     variants = {"whole step": 0, "no noise": sk["noise"], "no per-row pass": sk["rows"],
@@ -2658,27 +2667,36 @@ def _linear_split(torch, np, smi, steps=2000, min_seconds=0.5):
                   lr=1e-4 if dual else 1e-3, dual=dual)
         us = {}
         for name in order:
-            us.setdefault(name, []).append(1e6 / _steps_per_second(
-                torch, lambda s=variants[name]: k1._grid_launch(*bufs, [row], n_steps=steps,
-                                                                 skip=s, **kw),
-                steps, min_seconds))
-        t = {k: min(v) for k, v in us.items()}
-        split = {"sampler and manifold draw": t["whole step"] - t["no noise"],
-                 "per-row pass": t["whole step"] - t["no per-row pass"],
-                 "per-parameter pass with Adam": t["whole step"] - t["no per-parameter pass"],
-                 "barriers": t["barriers only"]}
-        split["rest"] = t["whole step"] - sum(split.values())
-        alone = {k: t[f"{k} alone"] - t["barriers only"]
-                 for k in ("noise", "per-row pass", "per-parameter pass")}
-        require(all(v > 0 for v in t.values()), f"{label}: every variant ran")
-        print(f"{label}: " + "; ".join(f"{k} " + " / ".join(f"{x:.3f}" for x in v) + " us"
-                                       for k, v in us.items()))
-        print(f"{label}, split of a {t['whole step']:.3f} us step (what leaving each part out "
-              f"saves): " + "; ".join(f"{k} {v:.3f} us ({100 * v / t['whole step']:.1f}%)"
-                                      for k, v in split.items()))
-        print(f"{label}, each part alone beyond the barriers: " + "; ".join(
-            f"{k} {v:.3f} us" for k, v in alone.items()))
-        out[label] = {"step": t["whole step"], **split, "alone": alone}
+            for dots in (False, True):
+                us.setdefault(dots, {}).setdefault(name, []).append(1e6 / _steps_per_second(
+                    torch, lambda s=variants[name], d=dots: k1._grid_launch(
+                        *bufs, [row], n_steps=steps, skip=s, bf16_dots=d, **kw),
+                    steps, min_seconds))
+        roles = k1.warp_roles(B, ds.dimension, ld, ds.intrinsic_dim, dual)
+        print(f"{label}: bf16-dot warp roles: {roles['rw']} row warps (phase A), "
+              f"{roles['tw']} tile warps and {roles['pw']} pool warps (phase B), the rest "
+              f"draw; z2 drawn in phase {'A' if roles['z2a'] else 'B'}")
+        out[label] = {}
+        for dots in (False, True):
+            mode = "bf16 dots" if dots else "fp32 dots"
+            t = {k: min(v) for k, v in us[dots].items()}
+            split = {"sampler and manifold draw": t["whole step"] - t["no noise"],
+                     "per-row pass": t["whole step"] - t["no per-row pass"],
+                     "per-parameter pass with Adam": t["whole step"] - t["no per-parameter pass"],
+                     "barriers": t["barriers only"]}
+            split["rest"] = t["whole step"] - sum(split.values())
+            alone = {k: t[f"{k} alone"] - t["barriers only"]
+                     for k in ("noise", "per-row pass", "per-parameter pass")}
+            require(all(v > 0 for v in t.values()), f"{label}, {mode}: every variant ran")
+            print(f"{label}, {mode}: " + "; ".join(
+                f"{k} " + " / ".join(f"{x:.3f}" for x in v) + " us" for k, v in us[dots].items()))
+            print(f"{label}, {mode}, split of a {t['whole step']:.3f} us step (what leaving each "
+                  f"part out saves): " + "; ".join(
+                      f"{k} {v:.3f} us ({100 * v / t['whole step']:.1f}%)"
+                      for k, v in split.items()))
+            print(f"{label}, {mode}, each part alone beyond the barriers: " + "; ".join(
+                f"{k} {v:.3f} us" for k, v in alone.items()))
+            out[label][mode] = {"step": t["whole step"], **split, "alone": alone}
     return out
 
 
@@ -4281,7 +4299,7 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
               "with the card's name and power limit")
     print(f"card: {smi}")
 
-    def in_turn(label, fn, steps, min_seconds=0.3):
+    def in_turn(label, fn, steps, min_seconds=0.2):
         r = {}
         for dots in (False, True, True, False):
             r.setdefault(dots, []).append(_steps_per_second(torch, lambda: fn(dots), steps,
@@ -4316,7 +4334,7 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
         """K4 in the bf16-dot mode: f32 against bf16 moments, in turn."""
         r = {}
         for adam in ("f32", "bf16", "bf16", "f32"):
-            r.setdefault(adam, []).append(_steps_per_second(torch, lambda: fn(adam), steps, 0.3))
+            r.setdefault(adam, []).append(_steps_per_second(torch, lambda: fn(adam), steps, 0.2))
         us = {a: 1e6 / max(v) for a, v in r.items()}
         print(f"{label}, bf16 dots: f32 moments {us['f32']:.3f} µs, bf16 moments "
               f"{us['bf16']:.3f} µs a step ({us['bf16'] / us['f32']:.4f}x)")
@@ -4329,10 +4347,20 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
     moments_in_turn("K4 in K6b sphere, 15 rows (100-step launches; a launch-step)",
                     lambda a: k5.run_grid_chunk(*pm[a], rows, n_steps=100, bf16_dots=True,
                                                 adam_dtype=a, **kw), 100)
+    for name, c in solo.items():
+        kb = {a: k1_state(c, True, a) for a in ("f32", "bf16")}
+        moments_in_turn(f"K4 in {name} (5000-step launches)", lambda a, c=c, kb=kb: k1_call(
+            k1.run_fused_chunk, c, kb[a], 5000, 0, True, None, True, a), 5000)
+    for which, (lstates, lrows, lkw) in grid_fams.items():
+        pk = {a: k1.pack_rows(lstates, lrows, lkw["dual"]) for a in ("f32", "bf16")}
+        moments_in_turn(f"K4 in K6a {which}, {len(lrows)} rows (2000-step launches; a "
+                        f"launch-step)", lambda a, pk=pk, lrows=lrows, lkw=lkw: k1.run_grid_chunk(
+                            *pk[a], lrows, n_steps=2000, bf16_dots=True, adam_dtype=a, **lkw),
+                        2000)
     plain = {}
     for name, c in solo.items():  # the plain versions: the torch path op by op
-        plain[name] = in_turn(f"{name}'s plain version (100 steps)", lambda d, c=c: k1_call(
-            k1.plain_fused_chunk, c, k1_state(c, True), 100, 0, True, None, d), 100)
+        plain[name] = in_turn(f"{name}'s plain version (20 steps)", lambda d, c=c: k1_call(
+            k1.plain_fused_chunk, c, k1_state(c, True), 20, 0, True, None, d), 20)
     for name in ("K5", "K5-dual"):
         plain[name] = in_turn(f"{name}'s plain version (20 steps)", lambda d, name=name: k5_call(
             k5.plain_mlp_fused_chunk, mlp[name], k5_state(mlp[name], True), 20, 0, True, None,
@@ -4359,7 +4387,8 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
     cstates = {d: fresh(cmodels[d]) for d in (False, True)}
     in_turn("the conv step, one CUDA graph replay an epoch (32 steps)",
             lambda d: cchunks[d](cstates[d], 0), CONV_NB)
-    for config in ("linear", "sphere", "grid_linear", "grid_sphere", "conv"):
+    for config in ("linear", "sigmoid", "sphere", "grid_linear", "grid_sigmoid", "grid_sphere",
+                   "conv"):
         if config in _BENCH_FP32:  # phase 33's or 47's run, --precision fp32
             print(f"bench --config {config} --precision fp32 (phase 33 or 47): "
                   f"{_BENCH_FP32[config]}")

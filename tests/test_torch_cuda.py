@@ -1,8 +1,8 @@
 """K1, K2, K5, K5-dual, K6a and K6b on the card: the CUDA kernels against
 their plain PyTorch versions, and the grid modes' rows against the solo
 kernels, each with f32 Adam moments and with bf16 ones (K4,
-``--adam_dtype bf16``); K5 and K5-dual in the bf16-dot mode (tensor-core
-sums) against the bf16 plain version by ρ; and, with a one-rank process group, the ``--mesh
+``--adam_dtype bf16``); every training kernel in its bf16-dot mode
+(tensor-core sums) against the bf16 plain version by ρ; and, with a one-rank process group, the ``--mesh
 dp=1`` step over NCCL against the no-mesh graph step and
 ``InvertibleBatchNorm`` with a one-rank NCCL group against none.
 
@@ -498,11 +498,12 @@ def test_linear_kernel_matches_plain_at_every_sweep_shape(cuda_device, shape, td
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16_dots", [False, True], ids=["fp32-dots", "bf16-dots"])
 @pytest.mark.parametrize("which", ["linear", "sigmoid"])
-def test_k6a_sweep_rows_equal_solo_launches_bitwise(cuda_device, which):
+def test_k6a_sweep_rows_equal_solo_launches_bitwise(cuda_device, which, bf16_dots):
     """Every row of the whole sweep (21 linear, 18 sigmoid: each shape with
     each of the sweep's seeds) in one K6a launch equals its solo launch
-    bitwise, over 64 steps of the in-kernel sampler."""
+    bitwise, over 64 steps of the in-kernel sampler, in both dot modes."""
     dual = which == "sigmoid"
     grid = SIGMOID_GRID if dual else LINEAR_GRID
     made = [_sweep_row(cuda_device, dd, pd, ld, dual, seed, i)
@@ -511,7 +512,7 @@ def test_k6a_sweep_rows_equal_solo_launches_bitwise(cuda_device, which):
     states, rows = [m[1] for m in made], [m[2] for m in made]
     assert len(rows) == (18 if dual else 21)
     kw = dict(batch=B, eps_const=-3.0 if dual else -1.0, tdv=True, lr=1e-4 if dual else 1e-3,
-              dual=dual)
+              dual=dual, bf16_dots=bf16_dots)
     p, m, v = k1.pack_rows(states, rows, dual)
     losses = k1.run_grid_chunk(p, m, v, rows, n_steps=64, **kw)
     views = k1.row_views(p, m, v, rows, dual)
@@ -521,7 +522,7 @@ def test_k6a_sweep_rows_equal_solo_launches_bitwise(cuda_device, which):
             sp, sm, sv, r.a, n_steps=64, batch=B, data_dim=r.data_dim, latent_dim=r.latent_dim,
             intrinsic_dim=r.intrinsic_dim, manifold_dim=r.manifold_dim, step0=r.step0,
             t0=r.t0, data_seed=r.data_seed, model_seed=r.model_seed, var_added=0.0,
-            eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual)
+            eps_const=kw["eps_const"], tdv=True, lr=kw["lr"], dual=dual, bf16_dots=bf16_dots)
         torch.cuda.synchronize()
         assert torch.equal(losses[i], solo), f"row {i} losses"
         for got, want in zip(views[i], (sp, sm, sv)):
@@ -529,12 +530,77 @@ def test_k6a_sweep_rows_equal_solo_launches_bitwise(cuda_device, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16_dots", [False, True], ids=["fp32-dots", "bf16-dots"])
 @pytest.mark.parametrize("shape", SWEEP_SHAPES, ids=SWEEP_IDS)
-def test_library_smem_equals_planner_at_every_sweep_shape(cuda_device, shape):
+def test_library_smem_equals_planner_at_every_sweep_shape(cuda_device, shape, bf16_dots):
     dd, pd, ld, dual = shape
     D = dd + pd + (1 if dual else 0)
-    assert (k1.kernel_smem_bytes(B, D, ld, dd, dd, dual)
-            == k1.smem_bytes(B, D, ld, dd, dd, dual) <= k1.SMEM_LIMIT)
+    assert (k1.kernel_smem_bytes(B, D, ld, dd, dd, dual, bf16_dots)
+            == k1.smem_bytes(B, D, ld, dd, dd, dual, bf16_dots) <= k1.SMEM_LIMIT)
+
+
+# --- bf16 dots: the linear kernel's tensor-core products ----------------------
+# (dd, pd, ld, dual) of K1 at linear row 1, K2 at sigmoid row 1, the sigmoid
+# sweep's largest row, and a wide K1 row (D 35, L 33: three k16 steps in
+# every product, the last one mostly padding)
+LINEAR_BF16 = {"K1": (3, 9, 20, False), "K2": (3, 3, 6, True), "K2-largest": (7, 20, 24, True),
+               "K1-wide": (3, 32, 33, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("external", [True, False], ids=["external", "sampler"])
+@pytest.mark.parametrize("kernel", sorted(LINEAR_BF16))
+def test_linear_bf16_dots_match_plain_by_rho(cuda_device, kernel, external):
+    """K1 and K2 in the bf16-dot mode, 8 steps one at a time from the bf16
+    plain version's state, in both dot modes: ρ = ‖kernel − plain_bf16‖ /
+    ‖plain_fp32 − plain_bf16‖ over the steps' losses, parameters, m and v
+    at most 0.1 for the bf16-dot kernel and at least 0.5 for the fp32 one,
+    the control (chip_smoke.py phase 53's contract); then 40 = 15 + 25
+    bitwise in the bf16-dot mode."""
+    dd, pd, ld, dual = LINEAR_BF16[kernel]
+    ds, state, row = _sweep_row(cuda_device, dd, pd, ld, dual, 69 if dual else 2)
+    n = 8
+    ext = _sweep_noise(row, n, np.random.RandomState(18), dual, cuda_device) if external else None
+    kw = dict(batch=B, data_dim=ds.dimension, latent_dim=ld, intrinsic_dim=ds.intrinsic_dim,
+              manifold_dim=ds.dim, data_seed=row.data_seed, model_seed=row.model_seed,
+              var_added=0.0, eps_const=-3.0 if dual else -1.0, tdv=True,
+              lr=1e-4 if dual else 1e-3, dual=dual)
+    start = k1.pack_state(state, ds.dimension, ld, dual)
+    sq = {}  # (dots, key) → [Σ‖kernel − plain_bf16‖², Σ‖plain_fp32 − plain_bf16‖²]
+    cur = start
+    for step in range(n):
+        noise = None if ext is None else tuple(t[step:step + 1].contiguous() for t in ext)
+        got, plain = {}, {}
+        for dots in (True, False):
+            kb, pb = tuple(t.clone() for t in cur), tuple(t.clone() for t in cur)
+            kl = k1.run_fused_chunk(*kb, ds.A, n_steps=1, step0=step, t0=step,
+                                    external_noise=noise, bf16_dots=dots, **kw)
+            pl = k1.plain_fused_chunk(*pb, ds.A, n_steps=1, step0=step, t0=step,
+                                      external_noise=noise, bf16_dots=dots, **kw)
+            got[dots], plain[dots] = (kl, *kb), (pl, *pb)
+        torch.cuda.synchronize()
+        for dots in (True, False):
+            for key, x, b, f in zip(("losses", "p", "m", "v"), got[dots], plain[True],
+                                    plain[False]):
+                acc = sq.setdefault((dots, key), [0.0, 0.0])
+                acc[0] += float((x.double() - b.double()).norm() ** 2)
+                acc[1] += float((f.double() - b.double()).norm() ** 2)
+        assert bool(torch.isfinite(got[True][0]).all())
+        cur = plain[True][1:]
+    rho = {k: (num / max(den, 1e-300)) ** 0.5 for k, (num, den) in sq.items()}
+    for key in ("losses", "p", "m", "v"):
+        assert rho[(True, key)] <= 0.1, (key, rho)
+        assert rho[(False, key)] >= 0.5, (key, rho)
+    a = tuple(t.clone() for t in start)
+    b = tuple(t.clone() for t in start)
+    la = k1.run_fused_chunk(*a, ds.A, n_steps=40, step0=0, t0=0, bf16_dots=True, **kw)
+    lb = torch.cat([k1.run_fused_chunk(*b, ds.A, n_steps=15, step0=0, t0=0, bf16_dots=True, **kw),
+                    k1.run_fused_chunk(*b, ds.A, n_steps=25, step0=15, t0=15, bf16_dots=True,
+                                       **kw)])
+    torch.cuda.synchronize()
+    assert torch.equal(la, lb)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 # --- K5-dual: sigmoid row 1 with 200|200|200 stacks (D 7, L 6) ----------------

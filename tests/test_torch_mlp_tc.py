@@ -360,9 +360,12 @@ def test_bf16_products_run_on_the_tensor_cores():
     for name, value in (("kTileMNarrowBf16", k5.TILE_M_NARROW_BF16),
                         ("kKStepBf16", k5.KSTEP_BF16)):
         assert f"constexpr int {name} = {value};" in src
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    # the product itself: the shared tensor-core header the kernel includes
+    assert '#include "mma_bf16.cuh"' in src and "mma_bf16(" in src
+    header = open(SRC.replace("mlp_vae.cu", "mma_bf16.cuh")).read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
     # the fp32 sums round nothing: the operands' rounding lives in tc_sums
     # (fragments) and in the manifold draws alone
-    sums = src[src.index("struct LaneBlock"):src.index("// bf16 dots: lo and hi")]
+    sums = src[src.index("struct LaneBlock"):src.index("// A warp's bf16-dot sums over")]
     assert "dot_op" not in sums and "kBf16" not in sums and "bf16" not in sums
     assert src.count("dot_op<kBf16>(") == 4  # the sigmoid's and the linear draw's operands

@@ -30,6 +30,9 @@ gradient products) takes bfloat16 operands, round to nearest even, and sums
 in f32; the biases, the bias gradients, the ELBO, g_ep's column sums and
 Adam stay f32. It is a launch-wide flag of every kernel (K1, K2, K6a) and a
 flag of the plain versions, which build the model and the dataset with it.
+The kernel's bf16-dot instantiation runs the products on the tensor cores
+(``mma.sync`` m16n8k16) with its own shared-memory plan (``bf16_plan``)
+and warp roles (``warp_roles``), both mirrored here.
 
 ``run_fused_chunk`` launches the kernel for CUDA tensors and raises if it
 cannot; for CPU tensors (and only for them) it runs ``plain_fused_chunk``,
@@ -65,6 +68,10 @@ HEADER = 128  # floats of the launch header (kHeader)
 BC_STEPS = 256  # steps of the bias-correction table (kBcSteps)
 # Dynamic shared memory a block may opt into on sm_90 (227 KB).
 SMEM_LIMIT = 232448
+# bf16 dots: the most warps a phase gives the tensor-core passes (kMaxRowWarps,
+# kMaxTileWarps, kMaxPoolWarps); the rest draw the next step's noise
+MAX_ROW_WARPS, MAX_TILE_WARPS, MAX_POOL_WARPS = 24, 22, 7
+TILE_M, TILE_N, KSTEP = 16, 8, 16  # mma.sync m16n8k16
 # compute capability the kernel is built for (sm_90a)
 CAPABILITY = (9, 0)
 
@@ -101,17 +108,110 @@ def _stride(n: int) -> int:
     return _quad(n) + (0 if _quad(n) & 4 else 4)
 
 
+def _slabs(n: int) -> int:
+    return (n + KSTEP - 1) // KSTEP
+
+
+def _oct(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def _halves(n: int) -> int:
+    """Floats holding n bfloat16 values, a multiple of 4."""
+    return _quad((n + 1) // 2)
+
+
+def bf16_plan(batch: int, data_dim: int, latent_dim: int) -> dict:
+    """The bf16-dot mode's strides (``plan_bf16`` in the .cu file): the
+    batch padded to the tiles' 16 rows (``bp``); the f32 rows of x, g_y and
+    g_u (``ldx``, ``ldg``: the contraction's k16 steps + 4) and of mu→g_mu
+    (``ldm``: L padded to 8, + 4); g_s·z1's (``ldq``, the pool's only, B
+    rows); the weights' bfloat16 copies
+    along j (``ldwd``: WeT, Wd, Ws) and along l (``ldwl``: WdT, WsT), k16
+    steps + 8; s, bfloat16 only (``ldal``: k16 steps + 4). bfloat16
+    strides count bfloat16 values."""
+    kd, kl = _slabs(data_dim), _slabs(latent_dim)
+    return {"bp": KSTEP * ((batch + KSTEP - 1) // KSTEP), "ldx": KSTEP * kd + 4,
+            "ldg": KSTEP * kd + 4, "ldm": _oct(latent_dim) + 4, "ldq": _quad(latent_dim),
+            "ldwd": KSTEP * kd + 8,
+            "ldwl": KSTEP * kl + 8, "ldal": KSTEP * kl + 4}
+
+
+def mat_tiles(data_dim: int, latent_dim: int, dual: bool = False) -> List[Tuple[str, int, int]]:
+    """bf16 dots: the per-parameter pass's (m16, n8) gradient tiles in the
+    kernel's order (``param_pass_tc``): (matrix, m0, n0) of g_We (rows j,
+    columns l), then g_Wd and, dual, g_Ws (rows l, columns j)."""
+    D, L = data_dim, latent_dim
+    tiles = [("We", TILE_M * (i // _cdiv(L, TILE_N)), TILE_N * (i % _cdiv(L, TILE_N)))
+             for i in range(_slabs(D) * _cdiv(L, TILE_N))]
+    for name in ("Wd", "Ws") if dual else ("Wd",):
+        tiles += [(name, TILE_M * (i // _cdiv(D, TILE_N)), TILE_N * (i % _cdiv(D, TILE_N)))
+                  for i in range(_slabs(L) * _cdiv(D, TILE_N))]
+    return tiles
+
+
+def pool_tiles(data_dim: int, latent_dim: int, dual: bool = False) -> List[Tuple[str, int]]:
+    """bf16 dots: the f32 pool's tiles of 4 columns (``pool_pass``): (slot,
+    c0) of the bias rows be, bd, (dual) bs and of ep."""
+    D, L = data_dim, latent_dim
+    names = [("be", L), ("bd", D)] + ([("bs", D)] if dual else []) + [("ep", L)]
+    return [(name, c0) for name, n in names for c0 in range(0, n, 4)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+
+def warp_roles(batch: int, data_dim: int, latent_dim: int, intrinsic_dim: int,
+               dual: bool = False, obs: bool = False) -> dict:
+    """bf16 dots: the CTA's warps in each phase (``roles`` in the .cu
+    file). Phase A: ``rw`` row warps; phase B: ``tw`` tile warps, one a
+    gradient tile, then ``pw`` pool warps (4 teams of 8 lanes each); the
+    warps after them in each phase draw the
+    next step's noise. ``z2a``: z2's draws join phase A's draw when that
+    takes fewer rounds of Philox calls a lane over the two phases. A row
+    warp takes one 16 × 8 output tile of a stage at a time: ``rw`` is the
+    largest stage's count (16-row blocks × 8-column tiles), capped."""
+    B, D, L = batch, data_dim, latent_dim
+    rw = min(_cdiv(B, TILE_M) * _cdiv(max(D, L), TILE_N), MAX_ROW_WARPS)
+    tw = min(len(mat_tiles(D, L, dual)), MAX_TILE_WARPS)
+    pw = min(_cdiv(len(pool_tiles(D, L, dual)), 4), MAX_POOL_WARPS)
+    lanes_a, lanes_b = THREADS - 32 * rw, THREADS - 32 * (tw + pw)
+    calls_a = B * (_cdiv(intrinsic_dim, 4) + (_cdiv(D, 4) if obs else 0) + _cdiv(L, 4))
+    calls_z2 = B * _cdiv(D, 4)
+    z2a = _cdiv(calls_a + calls_z2, lanes_a) < _cdiv(calls_a, lanes_a) + _cdiv(calls_z2, lanes_b)
+    return {"rw": rw, "tw": tw, "pw": pw, "z2a": z2a}
+
+
 def smem_bytes(batch: int, data_dim: int, latent_dim: int, intrinsic_dim: int,
-               manifold_dim: int, dual: bool = False) -> int:
+               manifold_dim: int, dual: bool = False, bf16_dots: bool = False) -> int:
     """Shared memory of one row (mirrors ``plan`` in the .cu file, buffer by
     buffer): the launch header; params, m and v; the manifold matrix (A, or
     the sigmoid's column a); e^{ep/2}; a 4-float slot for the KL constant;
     the bias corrections of 256 steps; the weights' padded copies (WeT, Wd,
     WdT and, dual, Ws, WsT); the double-buffered noise (x with its column
     of ones, z1, z2); the intrinsic normals; s with its column of ones, g_y,
-    (dual) g_u, g_mu, g_s·z1 and the rows' partial sums."""
+    (dual) g_u, g_mu, g_s·z1 and the rows' partial sums. ``bf16_dots``:
+    the bf16-dot mode's plan (``plan_bf16``): the same buffers, the copies
+    and s as bfloat16 without the bias and ones columns, x, s, g_y, g_u and
+    g_mu over the batch padded to 16 rows (``bf16_plan``'s strides), and
+    the row partials a tile."""
     D, L, B = data_dim, latent_dim, batch
     P = n_params(D, L, dual)
+    if bf16_dots:
+        t = bf16_plan(B, D, L)
+        bp = t["bp"]
+        copies = (2 * _halves(_oct(L) * t["ldwd"]) + _halves(_oct(D) * t["ldwl"])
+                  + (_halves(_oct(L) * t["ldwd"]) + _halves(_oct(D) * t["ldwl"]) if dual else 0))
+        floats = (HEADER + 3 * _quad(P)
+                  + _quad(manifold_dim if dual else manifold_dim * intrinsic_dim)
+                  + _quad(L) + 4 + 2 * BC_STEPS + copies
+                  + 2 * (bp * t["ldx"] + _quad(B * L) + _quad(B * D))
+                  + _quad(B * intrinsic_dim) + _halves(bp * t["ldal"])
+                  + bp * t["ldg"] * (2 if dual else 1) + bp * t["ldm"] + B * t["ldq"]
+                  + _quad(B * (_cdiv(L, TILE_N) + 2 * _cdiv(D, TILE_N))))
+        return 4 * floats
     ldx, lds, ldg, ldm = _stride(D + 1), _stride(L + 1), _stride(D), _quad(L)
     copies = L * ldx + (L * ldg + D * lds) * (2 if dual else 1)
     floats = (HEADER + 3 * _quad(P)
@@ -230,7 +330,7 @@ def _structure(model, dataset, batch: int) -> Tuple[bool, str]:
             or model.decoder_features != (dataset.dimension,)):
         return False, "the fused kernel supports 0-hidden-layer (pure linear) nets"
     need = smem_bytes(batch, dataset.dimension, model.latent_dim,
-                      dataset.intrinsic_dim, dataset.dim, dual)
+                      dataset.intrinsic_dim, dataset.dim, dual, getattr(model, "bf16_dots", False))
     if need > SMEM_LIMIT:
         return False, (f"state and activations need {need} B of shared memory, "
                        f"above the {SMEM_LIMIT} B a block may use")
@@ -299,7 +399,8 @@ def grid_supported(models: Sequence, datasets: Sequence, cfg) -> Tuple[bool, str
         if not ok:
             return False, f"row {i}: {why}"
         need.append(smem_bytes(c.batch_size, dataset.dimension, model.latent_dim,
-                               dataset.intrinsic_dim, dataset.dim, model.dual_sigmoid_decoder))
+                               dataset.intrinsic_dim, dataset.dim, model.dual_sigmoid_decoder,
+                               getattr(model, "bf16_dots", False)))
     if torch.device(cfgs[0].device).type != "cpu":
         ok, why = cuda_device_ok(cfgs[0])
         if not ok:
@@ -326,7 +427,7 @@ def _lib() -> ctypes.CDLL:
         lib.linear_vae_chunk.restype = i32
         lib.philox_draw.argtypes = [vp, vp, i32, i32, u32, u32, u32, u32, vp]
         lib.philox_draw.restype = i32
-        lib.linear_vae_smem_bytes.argtypes = [i32] * 6
+        lib.linear_vae_smem_bytes.argtypes = [i32] * 7
         lib.linear_vae_smem_bytes.restype = ctypes.c_size_t
         lib.linear_vae_error_string.argtypes = [i32]
         lib.linear_vae_error_string.restype = ctypes.c_char_p
@@ -400,7 +501,7 @@ def run_fused_chunk(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         _require(a, "a", device, (manifold_dim, 1))
     else:
         _require(a, "a", device, (manifold_dim, intrinsic_dim))
-    need = smem_bytes(B, D, L, intrinsic_dim, manifold_dim, dual)
+    need = smem_bytes(B, D, L, intrinsic_dim, manifold_dim, dual, bf16_dots)
     if need > SMEM_LIMIT:
         raise ValueError(f"shapes need {need} B of shared memory (limit {SMEM_LIMIT})")
     ext = [None, None, None]
@@ -627,7 +728,7 @@ def _grid_launch(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             _require(r.a, f"row {i} a", device, (r.manifold_dim, 1))
         else:
             _require(r.a, f"row {i} a", device, (r.manifold_dim, r.intrinsic_dim))
-        need = smem_bytes(B, D, L, r.intrinsic_dim, r.manifold_dim, dual)
+        need = smem_bytes(B, D, L, r.intrinsic_dim, r.manifold_dim, dual, bf16_dots)
         if need > SMEM_LIMIT:
             raise ValueError(f"row {i} (D {D}, L {L}) needs {need} B of shared memory "
                              f"(limit {SMEM_LIMIT})")
@@ -778,8 +879,8 @@ def blocks_per_sm(smem: int, dual: bool = False) -> int:
     return blocks.value
 
 
-def kernel_smem_bytes(batch: int, data_dim: int, latent_dim: int,
-                      intrinsic_dim: int, manifold_dim: int, dual: bool = False) -> int:
+def kernel_smem_bytes(batch: int, data_dim: int, latent_dim: int, intrinsic_dim: int,
+                      manifold_dim: int, dual: bool = False, bf16_dots: bool = False) -> int:
     """The library's own shared-memory figure (to hold ``smem_bytes`` to it)."""
-    return int(_lib().linear_vae_smem_bytes(batch, data_dim, latent_dim,
-                                            intrinsic_dim, manifold_dim, int(dual)))
+    return int(_lib().linear_vae_smem_bytes(batch, data_dim, latent_dim, intrinsic_dim,
+                                            manifold_dim, int(dual), int(bf16_dots)))
