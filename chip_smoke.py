@@ -33,8 +33,11 @@ each training kernel in its bf16-dot mode against its bf16 plain version,
 the torch path's forms in it, the times of both modes, and the CLI's rows
 1 under ``--precision fp32``. The direct kernel calls of phases 4-31 keep
 the wrappers' default, fp32 dots (phase 32 times both); phases 33, 39 and 47 pass
-``--precision fp32`` (their figures and oracle are fp32's). Fifty-seven
-phases:
+``--precision fp32`` (their figures and oracle are fp32's); last, the
+sweep runner's supervised rows (``--isolate``: each run in a process of
+its own under a deadline, a retry resuming from its checkpoint) and
+``--ckpt_backend orbax`` (a torch.distributed.checkpoint directory).
+Fifty-nine phases:
 
   1. device: CUDA, compute capability 9.0, TF32 off;
   2. build: nvcc builds the three kernel libraries (linear_vae, mlp_vae,
@@ -305,11 +308,34 @@ phases:
      loss and padding norm beside phases 5's and 11's bf16 runs; both
      modes' must fall.
 
+ 58. supervised rows: vae-sweep-torch linear --isolate --shard 0/7 (3 runs,
+     12000 steps, each in a process of its own whose [kernels] line names
+     K1; the supervising process launches nothing) equal to the same runs
+     in process (losses.npz, model.pkl and the checkpoint, bitwise); then
+     sphere row 1 (K5) --isolate --num_batches 60000 --checkpoint_every
+     10000, once uninterrupted (its wall time and the times its
+     checkpoints land), once with --retries 1 and --row_timeout T =
+     (wall + start-up + checkpoint interval) / 2 + 1.5 s, the least a retry
+     can meet with a margin (half the wall time leaves a retry, which pays
+     the start-up again, too little), short of the wall time by more than
+     an interval: attempt 1 must end in "run exceeded", attempt 2 carry
+     --resume <run dir> without -ow and resume from a step > 0 with the
+     run's history (the newest save whose state, aux and meta are all on
+     disk), and the final losses.npz, model.pkl and checkpoint equal the
+     uninterrupted run's bitwise;
+ 59. --ckpt_backend orbax on K1 at linear row 1: 15000 steps, then
+     --resume to 40000, equal to 40000 steps uninterrupted bitwise
+     (losses.npz, model.pkl, the DCP state; the run holds a dcp_ckpt/
+     directory and no ckpt.pt), with f32 and with bf16 moments; a run
+     saved with the default backend at 15000 resumes under orbax to 40000,
+     equal to the same.
+
 Phase 29 also runs the T2 tool's check_kernel_divergence (sphere and
 linear through the bench's trainers, 50 steps each way: the first losses
 of --precision bf16 and fp32 differ).
 
 ``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone,
+``--only-supervision`` phases 1, 2, 58 and 59,
 ``--only-bf16-dots`` phases 1, 2, 31, 32 and 53-57 (with the MLP library's
 ptxas lines; phase 57 then runs the bf16 rows too) and
 check_kernel_divergence: the quick card check of the bf16-dot modes.
@@ -335,6 +361,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -453,6 +480,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             _parallel(torch, np, smi, tmp, [])
         print(f"phases 1, 2 and 49-52 passed in {time.perf_counter() - _T0:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only-supervision"]:  # phases 1, 2, 58 and 59 alone
+        with tempfile.TemporaryDirectory() as tmp:
+            _supervision(torch, np, smi, tmp)
+        print(f"phases 1, 2, 58 and 59 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
     if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2, 31, 32 and 53-57 alone
         from vae_training_tpu_torch.tools import check_precision as t2
@@ -654,6 +686,7 @@ def main() -> int:
     _bf16_dots(torch, np, smi, os.path.join(data_dir, "bf16_dots"), records,
                {"linear": run_dir, "sigmoid": os.path.join(sweeps_dir, "main_K2"),
                 "sphere": os.path.join(sweeps_dir, "main_K5")})
+    _supervision(torch, np, smi, os.path.join(data_dir, "supervision"))
     for r in records:  # the dot mode each training kernel was held in
         if "(K" in r["name"]:
             r.setdefault("dots", "bf16" if r["name"].endswith("bf16 dots") else "fp32")
@@ -4492,6 +4525,228 @@ def _bf16_dots(torch, np, smi, data_dir, records, row1_dirs=None):
                     f"{which} {prec}: the eval loss and the padding norm fall")
 
 
+def _supervision(torch, np, smi, data_dir):
+    """Phases 58 and 59: the sweep runner's supervised rows (--isolate,
+    --row_timeout, --retries) and --ckpt_backend orbax (a DCP directory) on
+    the card."""
+    from vae_training_tpu_torch._scripts import _supervise, sweep
+    from vae_training_tpu_torch._scripts.run import main as run_main
+    from vae_training_tpu_torch.config import parse_arguments
+    from vae_training_tpu_torch.kernels import linear_vae as k1, mlp_vae as k5
+    from vae_training_tpu_torch.runio import checkpoint as ck
+    from vae_training_tpu_torch.train import step as torch_step
+
+    def reset_counts():
+        k1.run_fused_chunk.launches = k5.run_mlp_fused_chunk.launches = 0
+        _torch_chunks(torch_step, reset=True)
+
+    def run_sweep(sub, *argv):
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = sweep.main([*argv, "--data_dir", os.path.join(data_dir, sub)])
+        return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t
+
+    def same_checkpoint(dir_a, dir_b):
+        a, b = ck.restore_checkpoint(dir_a), ck.restore_checkpoint(dir_b)
+        require((a.step, a.count, a.data_seed, a.model_seed)
+                == (b.step, b.count, b.data_seed, b.model_seed), f"{dir_b}: checkpoint counts")
+        for tree in ("params", "m", "v"):
+            ta, tb = getattr(a, tree), getattr(b, tree)
+            require(list(ta) == list(tb) and all(
+                ta[k].dtype == tb[k].dtype and torch.equal(ta[k], tb[k]) for k in ta),
+                f"{dir_b}: checkpoint {tree} bitwise equal")
+
+    # --- 58 --------------------------------------------------------------
+    phase(58, "supervised rows: vae-sweep-torch --isolate, each run in a process of its own, "
+              "and a run its deadline ends, resumed from its checkpoint")
+    print(smi)
+    linear = ["linear", "--num_batches", "12000", "--shard", "0/7"]
+    reset_counts()
+    rc, out, err, secs = run_sweep("linear_iso", *linear, "--isolate")
+    names = [c.name for c in sweep.shard_items(
+        list(sweep.sweep_configs("linear", "", 12000, "auto")), (0, 7))]
+    print("\n".join(ln for ln in out.splitlines() if ln.startswith("[sweep]")))
+    require(rc == 0 and all(f"[sweep] {n} done in" in out for n in names),
+            f"--isolate linear --shard 0/7: rc 0, {len(names)} runs done")
+    require(out.count("[kernels] cuda: fused linear-VAE kernel K1 (") == len(names),
+            "each child's [kernels] line names K1")
+    require(err.count("device: cuda (") == len(names), "each child printed its device line")
+    require(k1.run_fused_chunk.launches == 0 and _torch_chunks(torch_step) == 0,
+            "the supervising process launched nothing")
+    reset_counts()
+    rc, out, _, secs_in = run_sweep("linear_inproc", *linear)
+    launches = k1.run_fused_chunk.launches
+    require(rc == 0 and launches > 0 and _torch_chunks(torch_step) == 0,
+            "the in-process runs ran on K1")
+    for n in names:
+        _require_same_run(np, os.path.join(data_dir, "linear_iso", n),
+                          os.path.join(data_dir, "linear_inproc", n))
+        same_checkpoint(os.path.join(data_dir, "linear_inproc", n),
+                        os.path.join(data_dir, "linear_iso", n))
+    print(f"3 isolated runs in {secs:.2f} s (in process {secs_in:.2f} s, K1 launches "
+          f"{launches}): losses.npz, model.pkl and the checkpoint bitwise the in-process runs'")
+
+    # sphere row 1 (K5), 60000 steps, a checkpoint every 10000: uninterrupted,
+    # then with a row timeout of about half its wall time and one retry
+    sphere = ["sphere", "--isolate", "--shard", "0/15", "--num_batches", "60000",
+              "--checkpoint_every", "10000"]
+    name = next(iter(sweep.sweep_configs("sphere", "", 60000, "auto"))).name
+    attempts = []  # (argv, checkpoint step on disk at the start, stdout offset)
+    real_supervised = _supervise.run_supervised
+    sink = {}
+
+    def watched(argv, **kw):
+        run_dir = argv[argv.index("--data_dir") + 1] + "/" + name
+        meta = ck.read_checkpoint_meta(run_dir) or {}
+        attempts.append((list(argv), meta.get("step"), len(sink["out"].getvalue())))
+        return real_supervised(argv, **kw)
+
+    def supervised_sweep(sub, *extra):
+        out, err = io.StringIO(), io.StringIO()
+        sink["out"] = out
+        timeline = []  # (seconds since start, checkpoint step) as the child saves
+        done = []
+
+        def watch(run_dir=os.path.join(data_dir, sub, name)):
+            last = None
+            while not done:
+                step = (ck.read_checkpoint_meta(run_dir) or {}).get("step")
+                if step != last and step is not None:
+                    timeline.append((time.perf_counter() - t, step))
+                    last = step
+                time.sleep(0.02)
+
+        _supervise.run_supervised = watched
+        attempts.clear()
+        t = time.perf_counter()
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = sweep.main([*sphere, *extra, "--data_dir", os.path.join(data_dir, sub)])
+        finally:
+            _supervise.run_supervised = real_supervised
+            done.append(True)
+            watcher.join()
+        return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t, timeline
+
+    reset_counts()
+    rc, out, err, wall, timeline = supervised_sweep("sphere_whole", "--retries", "0")
+    whole_out = out
+    require(rc == 0 and f"[sweep] {name} done in" in out, "the uninterrupted sphere run")
+    require("[kernels] cuda: fused MLP-VAE kernel K5 (" in out, "its [kernels] line names K5")
+    require(k5.run_mlp_fused_chunk.launches == 0, "the supervising process launched nothing")
+    print(f"uninterrupted: {wall:.2f} s; checkpoints (s, step): "
+          + ", ".join(f"({s:.2f}, {st})" for s, st in timeline))
+    start = next((s for s, st in timeline if st == 0), None)  # the step-0 save: start-up
+    steps = int(sphere[sphere.index("--num_batches") + 1])
+    mid = [s for s, st in timeline if 0 < st < steps - 1]  # 59999: the last step's save
+    require(start is not None and len(mid) >= 3, f"the run wrote mid-run checkpoints ({len(mid)})")
+    # Half the wall time cannot do: a retry pays the start-up again (the
+    # process, the CUDA context, the libraries, the step-0 events), so after
+    # a deadline T it needs start-up + (wall - t), t the time its checkpoint
+    # landed in attempt 1, t >= T - interval: T >= (wall + start-up +
+    # interval) / 2, over half the wall time. Add 1.5 s of margin; T must
+    # still end attempt 1 before its end.
+    interval = (mid[-1] - mid[0]) / (len(mid) - 1)
+    timeout = round((wall + start + interval) / 2 + 1.5, 1)
+    require(timeout < wall - interval,
+            f"the deadline {timeout} s ends attempt 1 before its end ({wall:.2f} s)")
+    print(f"--row_timeout {timeout} s: (wall {wall:.2f} + start-up {start:.2f} + checkpoint "
+          f"interval {interval:.2f}) / 2 + 1.5 s, {timeout / wall:.0%} of the wall time (half, "
+          f"{wall / 2:.2f} s, leaves a retry too little)")
+    rc, out, err, secs, timeline = supervised_sweep("sphere_killed", "--retries", "1",
+                                                    "--row_timeout", str(timeout))
+    print("\n".join(ln for ln in (out + err).splitlines()
+                    if ln.startswith(("[sweep", "[resume]"))))
+    print(f"killed and resumed: {secs:.2f} s; checkpoints (s, step): "
+          + ", ".join(f"({s:.2f}, {st})" for s, st in timeline))
+    require(rc == 0 and f"[sweep] {name} done in" in out, "the killed row succeeded on retry")
+    require(f"run exceeded {timeout:.0f}s (attempt 1/2); terminating" in err,
+            "attempt 1 ended at its deadline ('run exceeded')")
+    require(len(attempts) == 2, f"two attempts ({len(attempts)})")
+    (argv1, _, _), (argv2, step2, offset2) = attempts
+    run_dir = os.path.join(data_dir, "sphere_killed", name)
+    require("-ow" in argv1 and "--resume" not in argv1, "attempt 1 started fresh")
+    require("-ow" not in argv2 and argv2[-2:] == ["--resume", run_dir],
+            "attempt 2 carries --resume <run dir> and no -ow")
+    second = out[offset2:]
+    resumed_at = [int(m) for m in re.findall(r"^Batch \| (\d+) \|", second, re.M)]
+    print(f"attempt 2 began with the meta at step {step2}; its first stat line is at "
+          f"step {resumed_at[0] if resumed_at else None}")
+    # it resumes from the newest complete save (restore_run): the meta's
+    # step or, after a kill in the middle of a save, the one before; its
+    # first stat line is that step, or the next where the save came after
+    # that step's events; its host history comes with it (no banner)
+    require(step2 is not None and step2 > 0 and resumed_at and resumed_at[0] > 0
+            and "Score for real data" not in second,
+            "attempt 2 resumed from a step > 0 with its run's history")
+    whole = os.path.join(data_dir, "sphere_whole", name)
+    stat_lines = {"whole": whole_out, "killed": out}
+    if not _same_npz(np, whole, run_dir):
+        # tell a resume fault from a run that is not reproducible across
+        # processes: a second uninterrupted run, and the stat lines of all
+        rc, stat_lines["whole2"], _, _, _ = supervised_sweep("sphere_whole2", "--retries", "0")
+        print(f"a second uninterrupted run equals the first: "
+              f"{_same_npz(np, whole, os.path.join(data_dir, 'sphere_whole2', name))}")
+        for label, text in stat_lines.items():
+            print(f"{label}:\n" + "\n".join(ln[:120] for ln in text.splitlines()
+                                             if ln.startswith("Batch |")))
+    _require_same_run(np, whole, run_dir)
+    same_checkpoint(whole, run_dir)
+    print("the killed and resumed run's losses.npz, model.pkl and checkpoint equal the "
+          "uninterrupted run's bitwise")
+
+    # --- 59 --------------------------------------------------------------
+    phase(59, "--ckpt_backend orbax (a torch.distributed.checkpoint directory) on the card: "
+              "40000 = 15000 + --resume, linear row 1 on K1")
+    dcp_dir = os.path.join(data_dir, "dcp")
+
+    def cli(name, num_batches, *extra):
+        cfg = parse_arguments([name, *ROW1, "--num_batches", str(num_batches), "--kernels",
+                               "cuda", "--device", "cuda", "--data_dir", dcp_dir, *extra])
+        reset_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_main(cfg)
+        torch.cuda.synchronize()
+        require(rc == 0 and k1.run_fused_chunk.launches > 0 and _torch_chunks(torch_step) == 0,
+                f"{name}: rc 0 on K1 ({k1.run_fused_chunk.launches} launches)")
+        return time.perf_counter() - t
+
+    orbax = ["--ckpt_backend", "orbax"]
+    for adam in ("f32", "bf16"):
+        flags = [*orbax, "--adam_dtype", adam]
+        t_whole = cli(f"whole_{adam}", 40000, *flags)
+        cli(f"part_{adam}", 15000, *flags)
+        part = os.path.join(dcp_dir, f"part_{adam}")
+        require(os.path.isdir(os.path.join(part, ck.DCP_NAME))
+                and not os.path.exists(os.path.join(part, ck.CKPT_NAME)),
+                f"{adam}: the run wrote a DCP directory and no torch.save checkpoint")
+        t_resume = cli(f"part_{adam}", 40000, *flags, "--resume", part)
+        meta = ck.read_checkpoint_meta(part)
+        require(meta["backend"] == "dcp" and meta["step"] == 40000 and meta["adam_dtype"] == adam,
+                f"{adam}: the meta names the DCP backend at step 40000 ({meta})")
+        state = ck.restore_checkpoint(part)
+        want = torch.bfloat16 if adam == "bf16" else torch.float32
+        require(state.m["Encoder.FC0.kernel"].dtype == want, f"{adam}: the moments' dtype")
+        _require_same_run(np, os.path.join(dcp_dir, f"whole_{adam}"), part)
+        same_checkpoint(os.path.join(dcp_dir, f"whole_{adam}"), part)
+        print(f"--adam_dtype {adam}: 40000 steps {t_whole:.2f} s; 15000 + --resume to 40000 "
+              f"({t_resume:.2f} s) equal to it bitwise (losses.npz, model.pkl, DCP state)")
+    cli("default", 15000)
+    default = os.path.join(dcp_dir, "default")
+    require(ck.read_checkpoint_meta(default)["backend"] == "torch", "a default-backend run")
+    cli("default", 40000, *orbax, "--resume", default)
+    require(ck.read_checkpoint_meta(default)["backend"] == "dcp", "resumed under orbax")
+    _require_same_run(np, os.path.join(dcp_dir, "whole_f32"), default)
+    same_checkpoint(os.path.join(dcp_dir, "whole_f32"), default)
+    print("a default-backend run at 15000, resumed under orbax to 40000, equals the "
+          "uninterrupted orbax run bitwise")
+
+
 def _kernel_events(torch, fn):
     """(name, µs) of every CUDA kernel ``fn`` ran, from a torch.profiler
     trace."""
@@ -4816,6 +5071,23 @@ def _require_same_run(np, dir_a, dir_b):
     for name in pa["target"]:
         for x, y in zip(_leaves(pa["target"][name]), _leaves(pb["target"][name])):
             require(np.array_equal(x, y), f"model.pkl {name} bitwise equal")
+
+
+def _same_npz(np, dir_a, dir_b) -> bool:
+    """Whether two runs' losses.npz are equal bitwise; where not, each
+    differing channel's shapes and first differing index are printed."""
+    za = np.load(os.path.join(dir_a, "losses.npz"))
+    zb = np.load(os.path.join(dir_b, "losses.npz"))
+    same = True
+    for k in sorted(set(za.files) | set(zb.files)):
+        a, b = za.get(k), zb.get(k)
+        if a is None or b is None or a.shape != b.shape or not np.array_equal(a, b):
+            same = False
+            where = (np.flatnonzero((a != b).reshape(-1))[:3].tolist()
+                     if a is not None and b is not None and a.shape == b.shape else "-")
+            print(f"losses.npz {k!r}: shapes {getattr(a, 'shape', None)} / "
+                  f"{getattr(b, 'shape', None)}, first differences at {where}")
+    return same
 
 
 def _leaves(tree):

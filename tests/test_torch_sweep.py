@@ -3,29 +3,39 @@ independence from JAX.
 
   - ``sweep_configs`` equals the JAX runner's, row for row, for all three
     sweeps (21, 18 and 15 runs), and ``cfg_to_argv`` round-trips through
-    the port's parser (tests/test_sweep_runner.py:13-36);
+    the port's parser for every run, every field but ``tqdm``
+    (tests/test_sweep_runner.py:13-36);
   - ``--grouped`` trains the linear and sigmoid sweeps as one plain K6a
     chunk per chunk on the CPU, and the sphere sweep as one plain K6b chunk
     per chunk (the one-launch path; counted);
   - ``--adam_dtype bf16`` runs the grouped sweep with bf16 moments;
   - ``--shard K/N`` partitions the row groups disjointly; ``--report``
-    summarises; the unported flags raise naming their ROADMAP items;
+    summarises; the refused flag combinations raise (``--grouped
+    --isolate``, as in the JAX runner; ``--isolate --resume``; ``--mesh``
+    without ``--grouped``);
+  - ``tools/interrogate_sphere.py``'s port: the same rows, variants and
+    run configs as the JAX tool, and its campaign on the CPU at a few
+    steps (the table, the skip of finished runs, a failed run logged);
   - no module of the port and nothing in chip_smoke.py imports ``jax``,
     ``flax``, ``optax`` or ``vae_training_tpu``.
 """
 
 import ast
+import dataclasses
+import importlib.util
 import os
 import re
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import sweep as jax_sweep  # noqa: E402  (the repo-root alias of the JAX runner)
 from vae_training_tpu_torch._scripts import sweep  # noqa: E402
-from vae_training_tpu_torch.config import parse_arguments  # noqa: E402
+from vae_training_tpu_torch.config import RunConfig, parse_arguments  # noqa: E402
 from vae_training_tpu_torch.kernels import linear_vae as k1  # noqa: E402
+from vae_training_tpu_torch.tools import interrogate_sphere  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("name", "dataset", "encoder_layer_sizes", "layer_sizes", "latent_dimension",
@@ -50,11 +60,17 @@ def test_sweep_configs_match_the_jax_runner(which, rows, num_batches):
 
 
 def test_cfg_to_argv_roundtrips_through_parser():
+    """Every run's argv, as ``--isolate`` hands it to its child process,
+    parses back to the run's config, field for field. All but ``tqdm``: the
+    CLI has no flag for it, so a child draws its bar on stderr, as the JAX
+    runner's children do (nothing it writes depends on it)."""
+    fields = [f.name for f in dataclasses.fields(RunConfig) if f.name != "tqdm"]
     for which in ("linear", "sigmoid", "sphere"):
-        cfg = next(sweep.sweep_configs(which, "dd", 123, "torch", device="cpu"))
-        parsed = parse_arguments(sweep.cfg_to_argv(cfg))
-        for field in FIELDS + ("device", "checkpoint_every"):
-            assert getattr(parsed, field) == getattr(cfg, field), (which, field)
+        for cfg in sweep.sweep_configs(which, "dd", 123, "torch", device="cpu"):
+            cfg.checkpoint_every = 10000
+            parsed = parse_arguments(sweep.cfg_to_argv(cfg))
+            diff = [f for f in fields if getattr(parsed, f) != getattr(cfg, f)]
+            assert diff == [], (cfg.name, diff)
 
 
 def _dirs(data_dir):
@@ -144,9 +160,13 @@ def test_sequential_runs_in_process(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--isolate"], NotImplementedError, "ROADMAP Queue 1 item 12"),
-    (["--row_timeout", "60"], NotImplementedError, "ROADMAP Queue 1 item 12"),
-    (["--retries", "1"], NotImplementedError, "ROADMAP Queue 1 item 12"),
+    # --isolate, --row_timeout and --retries are ported: the JAX runner's
+    # refusal of --grouped with --isolate, and the port's of --resume
+    # without --grouped and of --mesh without it, hold with them
+    (["--grouped", "--isolate"], SystemExit, "--grouped and --isolate are mutually exclusive"),
+    (["--isolate", "--resume"], ValueError, "--resume applies to --grouped sweeps"),
+    (["--isolate", "--mesh", "dp=2", "--row_timeout", "60", "--retries", "1"], ValueError,
+     "--mesh shards the rows of --grouped sweeps"),
     # --mesh is ported: in one process dp=2 is the JAX make_mesh error, and
     # it needs --grouped
     (["--grouped", "--mesh", "dp=2"], ValueError,
@@ -189,3 +209,64 @@ def test_the_port_imports_no_jax():
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in banned]
     assert not bad, bad
+
+
+def _jax_interrogate():
+    """tools/interrogate_sphere.py, the JAX tool, loaded by file path."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_interrogate_sphere", os.path.join(REPO, "tools", "interrogate_sphere.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_interrogation_runs_equal_the_jax_tools():
+    ref = _jax_interrogate()
+    assert interrogate_sphere.ROWS == ref.ROWS and interrogate_sphere.VARIANTS == ref.VARIANTS
+    fields = ("name", "dataset", "encoder_layer_sizes", "layer_sizes", "latent_dimension",
+              "padding_dim", "dataset_dimension", "num_batches", "epsilon",
+              "tunable_decoder_var", "dataset_seed", "model_seed", "precision", "overwrite",
+              "tqdm", "data_dir", "batch_size", "learning_rate", "adam_dtype")
+    n = 0
+    for row in ref.ROWS:
+        for variant in ref.VARIANTS:
+            want = ref.make_cfg(*row, *variant, "d")
+            got = interrogate_sphere.make_cfg(*row, *variant, "d", device="cpu")
+            for f in fields:
+                assert getattr(got, f) == getattr(want, f), (want.name, f)
+            n += 1
+    assert n == 24
+
+
+def test_interrogation_campaign_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """One row and two variants at a few steps: the table; a second call
+    skips the finished runs; a run that raises is logged and skipped."""
+    monkeypatch.setattr(interrogate_sphere, "ROWS", [(7, 7, 13, 48)])
+    monkeypatch.setattr(interrogate_sphere, "VARIANTS",
+                        [("ms0", 0, "bf16", 3), ("fp32", 0, "fp32", 3)])
+    argv = ["--device", "cpu", "--data_dir", str(tmp_path)]
+    assert interrogate_sphere.main(argv) == 0
+    out = capsys.readouterr().out
+    assert out.count("[probe] running probe_dd7_pd7_ld13_s48_") == 2
+    assert "| row | variant | final padding | sphere err | smoothed loss |" in out
+    rows = re.findall(r"^\| dd7_pd7_s48 \| (ms0|fp32) \| ([\d.]+) \| ([\d.]+) \| ([-+][\d.]+) \|$",
+                      out, re.M)
+    assert [r[0] for r in rows] == ["ms0", "fp32"]
+    # on the CPU both precisions compute fp32 products: the same numbers
+    assert rows[0][1:] == rows[1][1:]
+    z = np.load(tmp_path / "probe_dd7_pd7_ld13_s48_ms0" / "losses.npz")
+    assert z["VAE Loss"].shape[0] >= 3 and np.isfinite(z["Padding Error"]).all()
+
+    from vae_training_tpu_torch._scripts import run
+
+    def broken(cfg):
+        raise FloatingPointError("boom")
+
+    monkeypatch.setattr(run, "main", broken)
+    monkeypatch.setattr(interrogate_sphere, "VARIANTS", [("ms0", 0, "bf16", 3),
+                                                         ("ms1", 1, "bf16", 3)])
+    assert interrogate_sphere.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "[probe] running probe_dd7_pd7_ld13_s48_ms0" not in out  # finished: skipped
+    assert "[probe] probe_dd7_pd7_ld13_s48_ms1 FAILED (FloatingPointError: boom)" in out
+    assert "| dd7_pd7_s48 | ms0 |" in out and "| dd7_pd7_s48 | ms1 |" not in out

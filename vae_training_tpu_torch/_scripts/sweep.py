@@ -25,9 +25,15 @@ directories (``train/mixed_grid.py``, ``train/grid.py``); ``--shard K/N``
 composes with it, as in the JAX runner. Without ``--grouped`` the runs go
 one after another and ``--mesh`` raises.
 
-Not ported: ``--isolate`` / ``--row_timeout`` / ``--retries``, the TPU
-init-hang supervision (ROADMAP Queue 1 item 12); each raises naming its
-item.
+``--isolate`` runs every run in a process of its own
+(``python -m vae_training_tpu_torch._scripts.run``) under
+``_scripts/_supervise.py``: a run that crashes or outlives
+``--row_timeout`` is ended and tried again up to ``--retries`` times, from
+its checkpoint where one exists (``--checkpoint_every`` sets how far back
+that is). On the card this keeps one run's fault, a sticky CUDA error that
+poisons the process's context or a kernel that hangs, from costing the
+rest of the sweep. ``--shard K/N`` composes with it; ``--grouped`` does
+not.
 """
 
 from __future__ import annotations
@@ -109,6 +115,46 @@ def cfg_to_argv(cfg: RunConfig):
     if cfg.overwrite:
         argv.append("-ow")
     return argv
+
+
+def run_isolated(cfg: RunConfig, timeout: float, retries: int) -> bool:
+    """Run one row as a supervised child process; True when an attempt
+    exits 0. A row that crashes or outlives ``timeout`` seconds is ended
+    (SIGTERM, then SIGKILL 30 s later) and tried again, ``retries`` times at
+    most; a retry resumes from the row's checkpoint when one exists (the
+    current checkpoint, the ``.prev`` trio a kill between the set-aside and
+    the install leaves, or the DCP directory of ``--ckpt_backend orbax`` or
+    its set-aside ``.old``: ``checkpoint_exists``), else it starts over with
+    ``-ow``. A child that shows no sign of life (no stdout, no ``device:``
+    line on stderr) within ``VAE_SWEEP_INIT_TIMEOUT`` seconds (180) is ended
+    then; the kernels' first-use build comes after that line, so a cold
+    ``nvcc`` build never counts as a hang. Never raises on the row's
+    trouble."""
+    from vae_training_tpu_torch._scripts._supervise import run_supervised
+    from vae_training_tpu_torch.runio.checkpoint import checkpoint_exists
+
+    init_timeout = float(os.environ.get("VAE_SWEEP_INIT_TIMEOUT", "180"))
+    run_dir = os.path.join(cfg.data_dir, cfg.name)
+    # the -m child must find the package when this runner was started from
+    # another directory without the package installed
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (pkg_root + os.pathsep + env["PYTHONPATH"]
+                         if env.get("PYTHONPATH") else pkg_root)
+    for attempt in range(retries + 1):
+        argv = cfg_to_argv(cfg)
+        if attempt > 0 and checkpoint_exists(run_dir):
+            argv = [a for a in argv if a != "-ow"] + ["--resume", run_dir]
+        outcome = run_supervised(
+            [sys.executable, "-m", "vae_training_tpu_torch._scripts.run"] + argv,
+            init_timeout=init_timeout, total_timeout=timeout, env=env,
+            label=f"sweep:{cfg.name}", note=f" (attempt {attempt + 1}/{retries + 1})")
+        if not outcome.hung:
+            if outcome.returncode == 0:
+                return True
+            print(f"[sweep] {cfg.name} attempt {attempt + 1} exited {outcome.returncode}",
+                  flush=True)
+    return False
 
 
 def parse_shard(spec: str):
@@ -244,7 +290,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="With --grouped: continue a stopped sweep from every row's "
                         "own checkpoint.")
     p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="Between-chunk checkpoints of each run (without --grouped).")
+                   help="Between-chunk checkpoints of each run (without --grouped; "
+                        "with --isolate a retry resumes from the newest).")
     p.add_argument("--report", action="store_true",
                    help="Summarise a finished sweep from its artifacts.")
     p.add_argument("--shard", default="",
@@ -253,13 +300,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="",
                    help="With --grouped: shard each launch's rows over the run's ranks, "
                         "e.g. 'dp=3' (torchrun, one process a device).")
-    # the JAX runner's flags whose machinery is not ported: each raises
     p.add_argument("--isolate", action="store_true",
-                   help="Not ported (ROADMAP Queue 1 item 12).")
-    p.add_argument("--row_timeout", type=float, default=None,
-                   help="Not ported (ROADMAP Queue 1 item 12).")
-    p.add_argument("--retries", type=int, default=None,
-                   help="Not ported (ROADMAP Queue 1 item 12).")
+                   help="Run each run as a supervised child process with a deadline "
+                        "and retries that resume from its checkpoint (one run's CUDA "
+                        "fault or hang costs only that run).")
+    p.add_argument("--row_timeout", type=float, default=900.0,
+                   help="Per-attempt wall-clock limit in seconds with --isolate.")
+    p.add_argument("--retries", type=int, default=2,
+                   help="Further attempts of a failed run with --isolate.")
     p.add_argument("--adam_dtype", default="f32", choices=["f32", "bf16"],
                    help="Adam moment storage of every run (vae-train-torch's "
                         "--adam_dtype).")
@@ -268,15 +316,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.isolate or args.row_timeout is not None or args.retries is not None:
-        raise NotImplementedError(
-            "--isolate/--row_timeout/--retries supervise TPU init hangs and are left "
-            "out of vae_training_tpu_torch; see ROADMAP Queue 1 item 12")
     if args.mesh and not args.grouped:
         raise ValueError("--mesh shards the rows of --grouped sweeps; add --grouped")
     shard = parse_shard(args.shard)
     if args.report:
         return run_report(args.sweep, args.data_dir)
+    if args.grouped and args.isolate:
+        raise SystemExit("--grouped and --isolate are mutually exclusive")
     import torch.distributed as dist
 
     started = not dist.is_initialized()
@@ -313,7 +359,10 @@ def _run(args, shard) -> int:
     for cfg in cfgs:
         cfg.checkpoint_every = args.checkpoint_every
         t1 = time.perf_counter()
-        ok = run_one(cfg) == 0
+        if args.isolate:
+            ok = run_isolated(cfg, args.row_timeout, args.retries)
+        else:
+            ok = run_one(cfg) == 0
         if not ok:
             failed.append(cfg.name)
         print(f"[sweep] {cfg.name} {'done' if ok else 'FAILED'} in "

@@ -115,6 +115,14 @@ class GridTrainer:
             raise NotImplementedError(
                 "--seed_grid supports the gaussian latent distribution "
                 "(the CLI forces gaussian like the reference, run.py:41)")
+        if cfg.ckpt_backend != "msgpack":
+            raise NotImplementedError(
+                "--seed_grid checkpoints every row through the msgpack (torch.save) "
+                "path: its .prev retention is what lets restore roll skew-killed rows "
+                "back to the grid's common step (rollback has no orbax/DCP "
+                "implementation, and N checkpoint directories per save event would "
+                "serialize the background writer); --ckpt_backend orbax is a "
+                "solo-run option")
         # rows this rank trains, evaluates and writes; a MixedGridSweep sets
         # them for the groups it shards (build_chunk=False)
         self.rows = list(range(len(self.seeds)))

@@ -91,10 +91,9 @@ from ..ops import rng
 from ..runio.background import get_artifact_writer
 from ..runio.checkpoint import (
     checkpoint_exists,
-    read_checkpoint_meta,
-    restore_checkpoint,
-    restore_checkpoint_aux,
+    restore_run,
     save_checkpoint,
+    save_checkpoint_dcp,
 )
 from ..runio.export import load_model_pkl, save_model_pkl
 from ..utils.process import check_shared_fs, is_primary
@@ -264,11 +263,13 @@ class Trainer:
             check_shared_fs(checkpoint_exists(cfg.resume), cfg.resume)
             if not checkpoint_exists(cfg.resume):
                 raise FileNotFoundError(f"--resume {cfg.resume}: no checkpoint there")
-            self.state = restore_checkpoint(cfg.resume, self.device)
+            # the newest save whose state, aux and meta are all on disk: a
+            # kill in the middle of a save (a supervised row's deadline)
+            # leaves pieces of two
+            self.state, aux, meta = restore_run(cfg.resume, self.device)
             check_params(self.model, self.state, f"--resume {cfg.resume}")
             check_moments(self.state, cfg.adam_dtype, f"--resume {cfg.resume}")
             self.batchnum = int(self.state.step)
-            aux = restore_checkpoint_aux(cfg.resume)
             if aux is not None and aux.get("step", self.batchnum) != self.batchnum:
                 print(f"[resume] checkpoint aux is from step {aux['step']}, state "
                       f"is at {self.batchnum}; resuming without host-side history",
@@ -282,7 +283,7 @@ class Trainer:
                 self._resumed_with_aux = True
                 if aux.get("events_fired_at_step", False):
                     self._skip_events_at = self.batchnum
-            meta = read_checkpoint_meta(cfg.resume) or {}
+            meta = meta or {}
             if "current_epsilon" in meta:
                 self.current_epsilon = meta["current_epsilon"]
         elif cfg.state_dict:
@@ -540,14 +541,22 @@ class Trainer:
         (the chunks update the device tensors in place; under tp every
         rank takes part in the gather), the checkpoint's meta and its aux."""
         eps = float(np.asarray(self.current_epsilon).reshape(-1)[0])
-        return (self.full_state().host_copy(), {"current_epsilon": eps},
+        # the flag in the meta too: it tells apart two saves of one step
+        # (restore_run)
+        return (self.full_state().host_copy(),
+                {"current_epsilon": eps, "events_fired_at_step": events_fired_at_step},
                 self._snapshot_aux(events_fired_at_step))
 
     def _save_checkpoint(self, events_fired_at_step: bool) -> None:
         state, meta, aux = self._snapshot(events_fired_at_step)
         if is_primary():  # the primary process writes every artifact
-            get_artifact_writer().submit(partial(save_checkpoint, self.dirname, state,
-                                                 extra_meta=meta, aux=aux))
+            get_artifact_writer().submit(partial(self._checkpoint_writer(), self.dirname,
+                                                 state, extra_meta=meta, aux=aux))
+
+    def _checkpoint_writer(self):
+        """The save of ``--ckpt_backend``: ``orbax`` writes the DCP
+        directory, ``msgpack`` (the default) the torch.save trio."""
+        return save_checkpoint_dcp if self.cfg.ckpt_backend == "orbax" else save_checkpoint
 
     def model_save_data(self, final: bool = False) -> None:
         """At the final save under ``--track_correlation``: the correlation
@@ -577,14 +586,14 @@ class Trainer:
         state, meta, aux = self._snapshot(self.batchnum == int(self.state.step))
         if not is_primary():
             return
-        dirname = self.dirname
+        dirname, write_checkpoint = self.dirname, self._checkpoint_writer()
         corpus = None if self._corpus_saved else self.dataset.host_copy()
         self._corpus_saved = True
 
         def write_run():
             StatsRecorder.from_state(aux["recorder"]).save_npz(dirname, final=final)
             save_model_pkl(os.path.join(dirname, "model.pkl"), state)
-            save_checkpoint(dirname, state, extra_meta=meta, aux=aux)
+            write_checkpoint(dirname, state, extra_meta=meta, aux=aux)
             if corpus is not None:
                 corpus.save(os.path.join(dirname, "dataset.pk"))
 
