@@ -120,31 +120,39 @@ Fifty-nine phases:
      --adam_dtype bf16`, 4 launches and nothing else;
  25. times: every kernel with f32 and bf16 moments in turn (f32, bf16,
      bf16, f32) and its bf16 plain version, with K4's bound;
- 26. T4: the cluster kernel's registers, shared memory and spills (ptxas)
-     and its plan at 1, 2 and 4 chains, the library's equal to
-     kernels/probes.py's; chains of 24 dependent 104x256x256 dots, the
-     phase and the cluster form, against the plain version (3 steps, 1/2/4
-     chains, rtol 1e-6; random inputs, 8 dots, rtol 1e-4 / atol 1e-5), two
-     cluster launches bitwise equal; then the tool's table (1, 2, 1, 2, 4
-     chains, each form) and VERDICT; torch.matmul + clamp a step in device
-     time (20 steps in a CUDA graph); the cluster form's step split by
-     launch variants (staging, + products, + sums, whole) at 1, 2 and 4
-     chains, in device time;
+ 26. T4: the cluster and phase kernels' registers, shared memory and spills
+     (ptxas, both dot modes) and the cluster plan at 1, 2 and 4 chains, the
+     library's equal to kernels/probes.py's; chains of 24 dependent
+     104x256x256 dots, the phase and the cluster form, against the plain
+     version (3 steps, 1/2/4 chains, rtol 1e-6; random inputs, 8 dots, rtol
+     1e-4 / atol 1e-5), two cluster launches bitwise equal; in the TPU
+     tool's bf16 dots (mma.sync, f32 sums) the tool's inputs (3 steps) and
+     two-term inputs (2 steps) bitwise the plain bf16 version, random
+     inputs one dot deep at rho <= 1e-3 (the fp32 instantiation >= 0.5), 8
+     random dots' drift printed beside the plain chain's under float64
+     sums; then the tool's table (1, 2, 1, 2, 4 chains, each form in bf16
+     then fp32 dots) and VERDICTs; torch.matmul + clamp a step in device
+     time (20 steps in a CUDA graph; bf16 operands for bf16); the cluster
+     form's step split by launch variants (staging, + products, + sums,
+     whole) at 1, 2 and 4 chains (bf16 dots: 1), in device time;
  27. T3: 8 distinct weights a chain, renormalised a trip, the phase and
      the stream form (the stream kernel's registers and spills, ptxas),
      against the plain version (2 trips, 1/2/4 chains, rtol 1e-4 / atol
-     1e-5), two stream launches bitwise equal; then the tool: ns a dot for
-     1/2/4 chains and the independence speed-up, each form; torch.matmul a
-     dot in device time (200 dots in a CUDA graph); the stream form's dot
-     split by launch variants (the weights streamed alone, the products
-     alone, the products with the stream, + sums and the row exchange,
-     whole) at 1, 2 and 4 chains, in turns;
+     1e-5), two stream launches bitwise equal (both dot modes); in bf16
+     dots two-term inputs (2 trips) bitwise, one dense dot (phase form) at
+     rho <= 1e-3, 2 dense trips' drift printed; then the tool: ns a dot for
+     1/2/4 chains and the independence speed-up, each form and dot mode;
+     torch.matmul a dot in device time (200 dots in a CUDA graph); the
+     stream form's dot split by launch variants (the weights streamed
+     alone, the products alone, the products with the stream, + sums and
+     the row exchange, whole) at 1, 2 and 4 chains (bf16 dots: 1), in turns;
  28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, each form,
      against the plain versions (3 steps; h at MLP_TOL, what Adam changed
-     within DELTA_RTOL, with its controls), two stream launches bitwise
-     equal; then tail and interleaved in turns and the VERDICT, each form;
-     the stream form's step split by launch variants (as phase 27's, whole
-     with Adam), in turns;
+     within DELTA_RTOL, with its controls; bf16 dots 2 steps, h at rho <=
+     0.1, the fp32 instantiation >= 0.5), two stream launches bitwise
+     equal (both dot modes); then tail and interleaved in turns and the
+     VERDICT, each form and dot mode; the stream form's step split by
+     launch variants (as phase 27's, whole with Adam), in turns;
  29. T2: the dot kernel's registers, shared memory and spills (ptxas) and
      its plan, the library's equal to kernels/probes.py's; every mode
      against its plain version at four odd shapes; then the tool: one dot in
@@ -335,7 +343,8 @@ linear through the bench's trainers, 50 steps each way: the first losses
 of --precision bf16 and fp32 differ).
 
 ``python3 chip_smoke.py --only-parallel`` runs phases 1, 2 and 49-52 alone,
-``--only-supervision`` phases 1, 2, 58 and 59,
+``--only-supervision`` phases 1, 2, 58 and 59, ``--only-probes`` phases 1,
+2 and 26-30,
 ``--only-bf16-dots`` phases 1, 2, 31, 32 and 53-57 (with the MLP library's
 ptxas lines; phase 57 then runs the bf16 rows too) and
 check_kernel_divergence: the quick card check of the bf16-dot modes.
@@ -485,6 +494,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             _supervision(torch, np, smi, tmp)
         print(f"phases 1, 2, 58 and 59 passed in {time.perf_counter() - _T0:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only-probes"]:  # phases 1, 2 and 26-30 alone
+        recs = _probes(torch, np, smi)
+        print(json.dumps({"kernels": recs}))
+        print(f"phases 1, 2 and 26-30 passed in {time.perf_counter() - _T0:.1f} s")
         return 0
     if sys.argv[1:] == ["--only-bf16-dots"]:  # phases 1, 2, 31, 32 and 53-57 alone
         from vae_training_tpu_torch.tools import check_precision as t2
@@ -2087,10 +2101,12 @@ def _probes(torch, np, smi):
     from vae_training_tpu_torch.tools import probe_adam_overlap as t5
     from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
     from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
-    from vae_training_tpu_torch.tools._common import seconds_per_step
+    from vae_training_tpu_torch.ops.precision import bf16_round
+    from vae_training_tpu_torch.tools._common import DOT_MODES, seconds_per_step
 
     dev = torch.device("cuda")
-    window = ["--device", "cuda", "--seconds", "0.5"]  # the tools' default is 1 s
+    # the tools' default window is 1 s; T3-T5 run each form in both dot modes
+    window = ["--device", "cuda", "--seconds", "0.25"]
     R, Wd = probes.ROWS, probes.W
     dot_flops = 2 * R * Wd * Wd
 
@@ -2099,10 +2115,45 @@ def _probes(torch, np, smi):
         return [t.cpu().numpy() for t in ts]
 
     def reset_counts():
-        probes.chain_chunk.launches = probes.chain_chunk.cluster_launches = 0
-        probes.chain_chunk.stream_launches = probes.adam_overlap_chunk.stream_launches = 0
-        probes.adam_overlap_chunk.launches = probes.dot_modes.launches = 0
+        for fn in (probes.chain_chunk, probes.adam_overlap_chunk):
+            for name in [n for n in vars(fn) if n.endswith("launches")]:
+                setattr(fn, name, 0)
+        probes.dot_modes.launches = 0
         k1.sampler_check.launches = k1.sampler_normals.launches = 0
+
+    def rho(got, ref, other):
+        """‖got − ref‖ / ‖other − ref‖ (bf16 dots: ref the plain bf16
+        version, other the plain fp32 one)."""
+        got, ref, other = (t.double() for t in (got, ref, other))
+        return float((got - ref).norm() / (other - ref).norm())
+
+    def wide_chain(xs, ws, n_steps, depth, weights_per_depth, epilogue):
+        """The plain bf16 chain with each dot's f32 sums taken in float64
+        and rounded once: another summation order, for the scale of the
+        drift that rounding flips give any two orders on dense inputs."""
+        h = xs
+        for _ in range(n_steps):
+            for d in range(depth):
+                w = ws[:, d * Wd:(d + 1) * Wd] if weights_per_depth else ws
+                h = (bf16_round(h).double() @ bf16_round(w).double()).float()
+                if epilogue == "clamp":
+                    h = torch.clamp(h, max=probes.CLAMP)
+            if epilogue == "renorm":
+                h = h * (1.0 / torch.clamp(h.abs().amax(dim=(1, 2), keepdim=True), min=1e-6))
+        return h
+
+    def dense_rho(xs, ws, form, ckw, wide=False):
+        """(ρ of the form's bf16 dots, ρ of its fp32 instantiation (or, with
+        ``wide``, of wide_chain), max |Δ| of the bf16 dots) against the
+        plain bf16 version, the plain fp32 version the yardstick."""
+        got = probes.chain_chunk(xs, ws, form=form, bf16_dots=True, **ckw)
+        want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **ckw)
+        f32 = probes.plain_chain_chunk(xs, ws, **ckw)
+        other = wide_chain(xs, ws, **ckw) if wide else probes.chain_chunk(xs, ws, form=form,
+                                                                          **ckw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"{form} bf16 dots finite")
+        return rho(got, want, f32), rho(other, want, f32), float((got - want).abs().max())
 
     def per_step_ms(fn, seconds=0.25):
         """ms a step of ``fn(n)`` (n steps), in a ≥ ``seconds`` window."""
@@ -2122,9 +2173,11 @@ def _probes(torch, np, smi):
     records = []
 
     # --- 26 -------------------------------------------------------------------
-    phase(26, "T4: chains of 24 dependent dots, phase and cluster forms, against the plain "
-              "version; then the tool")
+    phase(26, "T4: chains of 24 dependent dots, phase and cluster forms, in fp32 and in the "
+              "tool's bf16 dots, against the plain versions; then the tool in both modes")
+    t_phase = time.perf_counter()
     _print_ptxas(load_library("probes")[1], only="chain_cluster")
+    _print_ptxas(load_library("probes")[1], only="chain_phase")
     for n_chains in (1, 2, 4):
         plan = probes.chain_plan(n_chains)
         require(probes.library_chain_plan(n_chains) == plan,
@@ -2156,77 +2209,141 @@ def _probes(torch, np, smi):
                   f"{float(np.abs(got - want).max()):.2e} (rtol 1e-4, atol 1e-5)")
     # the cluster form launched twice: fixed sums, no atomics, the same bits
     random_kw = dict(n_steps=1, depth=8, weights_per_depth=False, epilogue="clamp")
-    for n_chains in (1, 2, 4):
-        for inputs_of, ckw in ((t4.inputs, kw), (t4.check_inputs, random_kw)):
-            xs, ws = inputs_of(n_chains, dev)
-            a, b = sync_cpu(*(probes._chain_cluster_launch(xs, ws, ckw["n_steps"], ckw["depth"])
-                              for _ in range(2)))
-            require(np.array_equal(a, b),
-                    f"T4 cluster form, {n_chains} chain(s): two launches give the same bits")
-    print("T4 cluster form: two launches bitwise equal (1, 2, 4 chains; both inputs)")
+    for bf16 in (False, True):
+        for n_chains in (1, 2, 4):
+            for inputs_of, ckw in ((t4.inputs, kw), (t4.check_inputs, random_kw)):
+                xs, ws = inputs_of(n_chains, dev)
+                a, b = sync_cpu(*(probes._chain_cluster_launch(
+                    xs, ws, ckw["n_steps"], ckw["depth"], bf16_dots=bf16) for _ in range(2)))
+                require(np.array_equal(a, b), f"T4 cluster form (bf16 dots {bf16}), {n_chains} "
+                                              "chain(s): two launches give the same bits")
+    print("T4 cluster form: two launches bitwise equal (1, 2, 4 chains; both inputs; both "
+          "dot modes)")
+    # bf16 dots, the TPU tool's own mode (every dot of bf16-rounded operands,
+    # f32 sums, on the tensor cores): the tool's inputs (3 steps) and
+    # two_term_inputs (2 steps) bitwise; dense random inputs one dot deep at
+    # ρ ≤ 1e-3, the fp32 instantiation at ρ ≥ 0.5. Deeper, dense chains part
+    # between any two summation orders (a last-bit difference flips a
+    # rounding to bf16, which moves the next dot's every output): 8 dots'
+    # ρ is printed beside the plain chain's under float64 sums, and held to
+    # nothing
+    t4_bf = {f: {"err": 0.0, "rho": 0.0, "rho_8": 0.0} for f in probes.T4_FORMS}
+    one = dict(n_steps=1, depth=1, weights_per_depth=False, epilogue="clamp")
+    two = dict(n_steps=2, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
+    for form in probes.T4_FORMS:
+        for n_chains in (1, 2, 4):
+            for inputs_of, ckw in ((t4.inputs, kw), (t4.two_term_inputs, two)):
+                xs, ws = inputs_of(n_chains, dev)
+                got = probes.chain_chunk(xs, ws, form=form, bf16_dots=True, **ckw)
+                want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **ckw)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"T4 {form} bf16 dots, {n_chains} chain(s), "
+                                                f"{inputs_of.__name__}: bitwise the plain version")
+            xs, ws = t4.check_inputs(n_chains, dev)
+            r, rc, err = dense_rho(xs, ws, form, one)
+            r8, rw8, _ = dense_rho(xs, ws, form, random_kw, wide=True)
+            require(r <= 1e-3 and rc >= 0.5, f"T4 {form} bf16 dots, {n_chains} chain(s), one "
+                                             f"dot: ρ {r:.2e} <= 1e-3, fp32's {rc:.3f} >= 0.5")
+            st = t4_bf[form]
+            st["err"], st["rho"], st["rho_8"] = max(st["err"], err), max(st["rho"], r), max(
+                st["rho_8"], r8)
+            print(f"T4 {form:7s} bf16 dots, {n_chains} chain(s): the tool's inputs (3 steps) and "
+                  f"two-term inputs (2 steps) bitwise the plain version; random inputs, one dot: "
+                  f"ρ {r:.2e} (the fp32 instantiation {rc:.3f}), max |Δ| {err:.2e}; 8 dots: ρ "
+                  f"{r8:.3f} (the plain chain under float64 sums {rw8:.3f})")
     reset_counts()
     t4_report = t4.main(window)
-    t4_launches = {"phase": probes.chain_chunk.launches,
-                   "cluster": probes.chain_chunk.cluster_launches}
+    t4_launches = {"fp32": {"phase": probes.chain_chunk.launches,
+                            "cluster": probes.chain_chunk.cluster_launches},
+                   "bf16": {"phase": probes.chain_chunk.bf16_launches,
+                            "cluster": probes.chain_chunk.bf16_cluster_launches}}
     print(f"T4 tool launches: {t4_launches}")
     xs, ws = t4.inputs(1, dev)
-    t4_plain = per_step_ms(lambda n: probes.plain_chain_chunk(
-        xs, ws, n_steps=n, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp"))
+    t4_plain = {mode: per_step_ms(lambda n, b=bf16: probes.plain_chain_chunk(
+        xs, ws, n_steps=n, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp",
+        bf16_dots=b)) for mode, bf16 in DOT_MODES.items()}
     t4_lib_call = per_step_ms(chain_library(xs, ws, probes.T4_DEPTH, False, True))
-    # the library's step in device time: 20 steps (480 dots) in one CUDA graph
-    t4_lib = _device_us(torch, lambda: chain_library(xs, ws, probes.T4_DEPTH, False, True)(1),
-                        calls=20) / 1e3
+    # the library's step in device time: 20 steps (480 dots) in one CUDA
+    # graph; in bf16, torch.matmul on bf16 operands (bf16 out)
+    operands = {"fp32": (xs, ws), "bf16": (xs.bfloat16(), ws.bfloat16())}
+    t4_lib = {mode: _device_us(torch, lambda m=mode: chain_library(
+        *operands[m], probes.T4_DEPTH, False, True)(1), calls=20) / 1e3 for mode in DOT_MODES}
     # a step: 24 dots; x and w read and h written once (counted as if a
     # call ran one step: the bound stays the operations')
-    bound = _bound(probes.T4_DEPTH * dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1,
-                   losses_per_step=0)
+    bounds = {mode: _bound(probes.T4_DEPTH * dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1,
+                           losses_per_step=0, peak=BF16_PEAK if bf16 else FP32_PEAK)
+              for mode, bf16 in DOT_MODES.items()}
     print(f"card: {smi}")
-    print(f"T4 one chain: plain {t4_plain * 1e3:.2f} us/step, torch.matmul + clamp "
-          f"{t4_lib * 1e3:.2f} us/step device time ({t4_lib_call * 1e3:.2f} in Python calls, one a "
-          f"dot), bound {bound['bound_ms'] * 1e3:.3f} us/step ({bound['bound_by']})")
+    for mode in DOT_MODES:
+        b = bounds[mode]
+        print(f"T4 one chain, {mode} dots: plain {t4_plain[mode] * 1e3:.2f} us/step, "
+              f"torch.matmul + clamp {t4_lib[mode] * 1e3:.2f} us/step device time, bound "
+              f"{b['bound_ms'] * 1e3:.3f} us/step ({b['bound_by']})"
+              + (f" ({t4_lib_call * 1e3:.2f} in Python calls, one a dot)" if mode == "fp32"
+                 else ""))
     # the cluster form's step split by launch variants that stop each dot
     # after the products, after the sums into the CTA's own h, or run whole
-    # (and one that stages W and x only), in turns, at 1, 2 and 4 chains;
-    # device time, 10 steps a launch
-    t4_split = {}
+    # (and one that stages W and x only), in turns, at 1, 2 and 4 chains
+    # (bf16 dots: at 1); device time, 10 steps a launch
+    t4_split = {"fp32": {}, "bf16": {}}
     uptos = list(probes.CHAIN_UPTO)
-    for n_chains in (1, 2, 4):
+    for mode, n_chains in (("fp32", 1), ("fp32", 2), ("fp32", 4), ("bf16", 1)):
         xs, ws = t4.inputs(n_chains, dev)
         runs = {}
         for upto in uptos + uptos[::-1]:
             runs.setdefault(upto, []).append(_device_us(
-                torch, lambda u=upto: probes._chain_cluster_launch(xs, ws, 10, probes.T4_DEPTH, u),
-                calls=5) / 10)
-        sp = t4_split[n_chains] = {u: min(v) for u, v in runs.items()}
-        print(f"T4 cluster split, {n_chains} chain(s), us a step (device time, min of two): "
-              f"staging {sp['stage']:.2f} (a launch of 10 steps / 10), + products "
+                torch, lambda u=upto: probes._chain_cluster_launch(
+                    xs, ws, 10, probes.T4_DEPTH, u, bf16_dots=mode == "bf16"), calls=5) / 10)
+        sp = t4_split[mode][n_chains] = {u: min(v) for u, v in runs.items()}
+        print(f"T4 cluster split, {mode} dots, {n_chains} chain(s), us a step (device time, min "
+              f"of two): staging {sp['stage']:.2f} (a launch of 10 steps / 10), + products "
               f"{sp['products']:.2f}, + sums {sp['sums']:.2f}, whole {sp['all']:.2f}; so "
               f"products {sp['products'] - sp['stage']:.2f}, sums "
               f"{sp['sums'] - sp['products']:.2f}, push and wait {sp['all'] - sp['sums']:.2f}")
     # the bound on the SMs one chain's cluster uses (the card's is the bound)
     chain_sms = probes.chain_plan(1).cluster
     card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chain_bound_ms = bound["bound_ms"] * card_sms / chain_sms
-    print(f"T4 bound on one chain's {chain_sms} SMs: {chain_bound_ms * 1e3:.3f} us/step")
+    chain_bound_ms = {m: b["bound_ms"] * card_sms / chain_sms for m, b in bounds.items()}
+    print(f"T4 bound on one chain's {chain_sms} SMs: fp32 {chain_bound_ms['fp32'] * 1e3:.3f}, "
+          f"bf16 dots {chain_bound_ms['bf16'] * 1e3:.3f} us/step")
     for form in probes.T4_FORMS:
-        us = t4_report[form]["us_per_step"]
-        require(t4_launches[form] > 0, f"T4's {form} kernel launched in the tool's run")
+        us = {mode: t4_report[mode][form]["us_per_step"] for mode in DOT_MODES}
+        print(f"T4 {form} one chain, us a step, bf16 / fp32 dots (the tool's windows, in turn): "
+              f"{min(us['bf16'][1]):.3f} / {min(us['fp32'][1]):.3f}")
+        for mode in DOT_MODES:
+            require(t4_launches[mode][form] > 0,
+                    f"T4's {form} kernel ({mode} dots) launched in the tool's run")
         records.append({
             "name": f"chain_{form}_kernel (T4, {form} form)", "route": "cuda",
             "source": "vae_training_tpu_torch/csrc/probes.cu",
-            "replaces": "tools/probe_mlp_interleave.py:62", "launches": t4_launches[form],
-            "max_abs_err": t4_err[form], "ms": min(us[1]) / 1e3, "plain_ms": t4_plain,
-            **bound, "library_ms": t4_lib, "library_call_ms": t4_lib_call,
-            "us_per_step_by_chains": {c: min(v) for c, v in us.items()},
-            "verdict": t4_report[form]["verdict"],
-            **({"plan": dataclasses.asdict(probes.chain_plan(1)), "split_us_per_step": t4_split,
-                "bound_chain_sms_ms": chain_bound_ms} if form == "cluster" else {})})
+            "replaces": "tools/probe_mlp_interleave.py:62", "launches": t4_launches["fp32"][form],
+            "max_abs_err": t4_err[form], "ms": min(us["fp32"][1]) / 1e3,
+            "plain_ms": t4_plain["fp32"], **bounds["fp32"], "library_ms": t4_lib["fp32"],
+            "library_call_ms": t4_lib_call,
+            "us_per_step_by_chains": {c: min(v) for c, v in us["fp32"].items()},
+            "verdict": t4_report["fp32"][form]["verdict"],
+            **({"plan": dataclasses.asdict(probes.chain_plan(1)),
+                "split_us_per_step": t4_split["fp32"],
+                "bound_chain_sms_ms": chain_bound_ms["fp32"]} if form == "cluster" else {})})
+        records.append({
+            "name": f"chain_{form}_kernel<bf16> (T4, {form} form), bf16 dots", "route": "cuda",
+            "source": "vae_training_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/probe_mlp_interleave.py:62", "launches": t4_launches["bf16"][form],
+            "max_abs_err": t4_bf[form]["err"], "ms": min(us["bf16"][1]) / 1e3,
+            "plain_ms": t4_plain["bf16"], **bounds["bf16"], "library_ms": t4_lib["bf16"],
+            "us_per_step_by_chains": {c: min(v) for c, v in us["bf16"].items()},
+            "verdict": t4_report["bf16"][form]["verdict"], "rho_one_dot": t4_bf[form]["rho"],
+            "rho_8_dots": t4_bf[form]["rho_8"], "fp32_dots_ms": min(us["fp32"][1]) / 1e3,
+            **({"split_us_per_step": t4_split["bf16"],
+                "bound_chain_sms_ms": chain_bound_ms["bf16"]} if form == "cluster" else {})})
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 27 -------------------------------------------------------------------
     phase(27, "T3: chains of 8 dots with distinct weights, renormalised a trip, phase and "
-              "stream forms, against the plain version; then the tool")
+              "stream forms, in fp32 and in the tool's bf16 dots, against the plain versions; "
+              "then the tool in both modes")
+    t_phase = time.perf_counter()
     _print_ptxas(load_library("probes")[1], only="chain_stream")
-    card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream_sms = probes.CHAIN_CLUSTER  # one chain's cluster
     t3_err = {f: 0.0 for f in probes.T3_FORMS}
     kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
@@ -2241,139 +2358,233 @@ def _probes(torch, np, smi):
             t3_err[form] = max(t3_err[form], float(np.abs(got - want).max()))
             print(f"T3 {form:6s} {n_chains} chain(s), 2 trips: max |Δ| vs plain "
                   f"{float(np.abs(got - want).max()):.2e} (rtol 1e-4, atol 1e-5)")
-    for n_chains in (1, 2, 4):  # fixed sums, no atomics: the same bits twice
-        xs, ws = t3.inputs(n_chains, dev)
-        a, b = sync_cpu(*(probes._stream_launch("t3", xs, ws, None, None, 2) for _ in range(2)))
-        require(np.array_equal(a, b), f"T3 stream, {n_chains} chain(s): two launches, same bits")
-    print("T3 stream form: two launches bitwise equal (1, 2, 4 chains)")
+    for bf16 in (False, True):
+        for n_chains in (1, 2, 4):  # fixed sums, no atomics: the same bits twice
+            xs, ws = t3.inputs(n_chains, dev)
+            a, b = sync_cpu(*(probes._stream_launch("t3", xs, ws, None, None, 2, bf16_dots=bf16)
+                              for _ in range(2)))
+            require(np.array_equal(a, b), f"T3 stream (bf16 dots {bf16}), {n_chains} chain(s): "
+                                          "two launches, same bits")
+    print("T3 stream form: two launches bitwise equal (1, 2, 4 chains; both dot modes)")
+    # bf16 dots: two_term_inputs, 2 trips, bitwise; dense inputs one dot deep
+    # (the phase form; a stream launch runs whole trips of 8) at ρ ≤ 1e-3;
+    # 2 dense trips' drift printed, as phase 26's (a rounding flip in the
+    # element that sets a chain's max|y| rescales the whole chain)
+    t3_bf = {f: {"err": 0.0, "rho": 0.0, "rho_16": 0.0} for f in probes.T3_FORMS}
+    one = dict(n_steps=1, depth=1, weights_per_depth=True, epilogue="renorm")
+    for form in probes.T3_FORMS:
+        for n_chains in (1, 2, 4):
+            xs, ws = t3.two_term_inputs(n_chains, dev)
+            got = probes.chain_chunk(xs, ws, form=form, bf16_dots=True, **kw)
+            want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"T3 {form} bf16 dots, {n_chains} chain(s), two-term "
+                                            "inputs, 2 trips: bitwise the plain version")
+            xs, ws = t3.inputs(n_chains, dev)
+            line = ""
+            st = t3_bf[form]
+            if form == "phase":
+                r, rc, err = dense_rho(xs, ws[:, :Wd].contiguous(), form, one)
+                require(r <= 1e-3 and rc >= 0.5, f"T3 {form} bf16 dots, one dot: ρ {r:.2e} <= "
+                                                 f"1e-3, fp32's {rc:.3f} >= 0.5")
+                st["err"], st["rho"] = max(st["err"], err), max(st["rho"], r)
+                line = (f"; one dot: ρ {r:.2e} (the fp32 instantiation {rc:.3f}), max |Δ| "
+                        f"{err:.2e}")
+            r16, rw16, _ = dense_rho(xs, ws, form, kw, wide=True)
+            st["rho_16"] = max(st["rho_16"], r16)
+            print(f"T3 {form:6s} bf16 dots, {n_chains} chain(s): two-term inputs (2 trips) bitwise "
+                  f"the plain version{line}; random inputs, 2 trips: ρ {r16:.3f} (the plain chain "
+                  f"under float64 sums {rw16:.3f})")
     reset_counts()
     t3_report = t3.main(window)
-    t3_launches = {"phase": probes.chain_chunk.launches,
-                   "stream": probes.chain_chunk.stream_launches}
+    t3_launches = {"fp32": {"phase": probes.chain_chunk.launches,
+                            "stream": probes.chain_chunk.stream_launches},
+                   "bf16": {"phase": probes.chain_chunk.bf16_launches,
+                            "stream": probes.chain_chunk.bf16_stream_launches}}
     print(f"T3 tool launches: {t3_launches}")
     xs, ws = t3.inputs(1, dev)
     per_dot = 1.0 / probes.T3_DEPTH
-    t3_plain = per_dot * per_step_ms(lambda n: probes.plain_chain_chunk(
-        xs, ws, n_steps=n, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm"))
+    t3_plain = {mode: per_dot * per_step_ms(lambda n, b=bf16: probes.plain_chain_chunk(
+        xs, ws, n_steps=n, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm",
+        bf16_dots=b)) for mode, bf16 in DOT_MODES.items()}
     t3_lib_call = per_dot * per_step_ms(chain_library(xs, ws, probes.T3_DEPTH, True, False))
-    # the library's dot in device time: 25 trips (200 dots) in one CUDA graph
-    t3_lib = per_dot * _device_us(
-        torch, lambda: chain_library(xs, ws, probes.T3_DEPTH, True, False)(1), calls=25) / 1e3
+    # the library's dot in device time: 25 trips (200 dots) in one CUDA
+    # graph; in bf16, torch.matmul on bf16 operands (bf16 out)
+    operands = {"fp32": (xs, ws), "bf16": (xs.bfloat16(), ws.bfloat16())}
+    t3_lib = {mode: per_dot * _device_us(torch, lambda m=mode: chain_library(
+        *operands[m], probes.T3_DEPTH, True, False)(1), calls=25) / 1e3 for mode in DOT_MODES}
     # a dot: its weight read, h read and written once
-    bound = _bound(dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1, losses_per_step=0)
-    t3_chain_bound = bound["bound_ms"] * card_sms / stream_sms
+    bounds = {mode: _bound(dot_flops, 4 * (2 * R * Wd + Wd * Wd), 1, losses_per_step=0,
+                           peak=BF16_PEAK if bf16 else FP32_PEAK)
+              for mode, bf16 in DOT_MODES.items()}
+    t3_chain_bound = {m: b["bound_ms"] * card_sms / stream_sms for m, b in bounds.items()}
     print(f"card: {smi}")
-    print(f"T3 one chain: plain {t3_plain * 1e6:.1f} ns/dot, torch.matmul {t3_lib * 1e6:.1f} "
-          f"ns/dot device time ({t3_lib_call * 1e6:.1f} a Python call), bound "
-          f"{bound['bound_ms'] * 1e6:.1f} ns/dot ({bound['bound_by']}), on a chain's "
-          f"{stream_sms} SMs {t3_chain_bound * 1e6:.1f}")
+    for mode in DOT_MODES:
+        b = bounds[mode]
+        print(f"T3 one chain, {mode} dots: plain {t3_plain[mode] * 1e6:.1f} ns/dot, "
+              f"torch.matmul {t3_lib[mode] * 1e6:.1f} ns/dot device time, bound "
+              f"{b['bound_ms'] * 1e6:.1f} ns/dot ({b['bound_by']}), on a chain's {stream_sms} SMs "
+              f"{t3_chain_bound[mode] * 1e6:.1f}"
+              + (f" ({t3_lib_call * 1e6:.1f} a Python call)" if mode == "fp32" else ""))
     # the stream form's dot split by launch variants (the weights streamed
     # alone; the products alone, from a ring filled once; the products with
     # the stream; + sums and the row exchange; whole), in turns, at 1, 2 and
-    # 4 chains; device time, 20 trips a launch
+    # 4 chains (bf16 dots: at 1); device time, 20 trips a launch
     uptos = list(probes.STREAM_UPTO)
-    t3_split = {}
-    for n_chains in (1, 2, 4):
+    t3_split = {"fp32": {}, "bf16": {}}
+    for mode, n_chains in (("fp32", 1), ("fp32", 2), ("fp32", 4), ("bf16", 1)):
         xs, ws = t3.inputs(n_chains, dev)
         runs = {}
         for upto in uptos + uptos[::-1]:
             runs.setdefault(upto, []).append(1e3 * _device_us(
-                torch, lambda u=upto: probes._stream_launch("t3", xs, ws, None, None, 20, upto=u),
+                torch, lambda u=upto: probes._stream_launch(
+                    "t3", xs, ws, None, None, 20, upto=u, bf16_dots=mode == "bf16"),
                 calls=5) / (20 * probes.T3_DEPTH))
-        sp = t3_split[n_chains] = {u: min(v) for u, v in runs.items()}
-        print(f"T3 stream split, {n_chains} chain(s), ns a dot (device time, min of two): "
-              f"weights alone {sp['weights']:.1f}, products alone {sp['compute']:.1f}, "
+        sp = t3_split[mode][n_chains] = {u: min(v) for u, v in runs.items()}
+        print(f"T3 stream split, {mode} dots, {n_chains} chain(s), ns a dot (device time, min of "
+              f"two): weights alone {sp['weights']:.1f}, products alone {sp['compute']:.1f}, "
               f"products with the stream {sp['products']:.1f} (the stream adds "
               f"{sp['products'] - sp['compute']:.1f}), + sums and exchange "
               f"{sp['exchange'] - sp['products']:.1f}, + renorm "
               f"{sp['all'] - sp['exchange']:.1f}: whole {sp['all']:.1f}")
     for form in probes.T3_FORMS:
-        require(t3_launches[form] > 0, f"T3's {form} kernel launched in the tool's run")
-        rep = t3_report[form]
+        rep = {mode: t3_report[mode][form] for mode in DOT_MODES}
+        print(f"T3 {form} one chain, ns a dot, bf16 / fp32 dots (the tool's windows, in turn): "
+              f"{rep['bf16']['ns_per_dot'][1]:.1f} / {rep['fp32']['ns_per_dot'][1]:.1f}")
+        for mode in DOT_MODES:
+            require(t3_launches[mode][form] > 0,
+                    f"T3's {form} kernel ({mode} dots) launched in the tool's run")
         records.append({
             "name": f"chain_{form}_kernel (T3, distinct weights)", "route": "cuda",
             "source": "vae_training_tpu_torch/csrc/probes.cu",
-            "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches[form],
-            "max_abs_err": t3_err[form], "ms": rep["ns_per_dot"][1] / 1e6, "plain_ms": t3_plain,
-            **bound, "library_ms": t3_lib, "library_call_ms": t3_lib_call,
-            "ns_per_dot_by_chains": rep["ns_per_dot"], "speedup_x2": rep["x2"],
-            "speedup_x4": rep["x4"],
-            **({"split_ns_per_dot": t3_split, "bound_chain_sms_ms": t3_chain_bound}
-               if form == "stream" else {})})
+            "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches["fp32"][form],
+            "max_abs_err": t3_err[form], "ms": rep["fp32"]["ns_per_dot"][1] / 1e6,
+            "plain_ms": t3_plain["fp32"], **bounds["fp32"], "library_ms": t3_lib["fp32"],
+            "library_call_ms": t3_lib_call, "ns_per_dot_by_chains": rep["fp32"]["ns_per_dot"],
+            "speedup_x2": rep["fp32"]["x2"], "speedup_x4": rep["fp32"]["x4"],
+            **({"split_ns_per_dot": t3_split["fp32"],
+                "bound_chain_sms_ms": t3_chain_bound["fp32"]} if form == "stream" else {})})
+        records.append({
+            "name": f"chain_{form}_kernel<bf16> (T3, distinct weights), bf16 dots",
+            "route": "cuda", "source": "vae_training_tpu_torch/csrc/probes.cu",
+            "replaces": "tools/probe_mxu_pipelining.py:82", "launches": t3_launches["bf16"][form],
+            "max_abs_err": t3_bf[form]["err"], "ms": rep["bf16"]["ns_per_dot"][1] / 1e6,
+            "plain_ms": t3_plain["bf16"], **bounds["bf16"], "library_ms": t3_lib["bf16"],
+            "ns_per_dot_by_chains": rep["bf16"]["ns_per_dot"], "speedup_x2": rep["bf16"]["x2"],
+            "speedup_x4": rep["bf16"]["x4"], "rho_2_trips": t3_bf[form]["rho_16"],
+            "fp32_dots_ms": rep["fp32"]["ns_per_dot"][1] / 1e6,
+            **({"rho_one_dot": t3_bf[form]["rho"]} if form == "phase" else
+               {"split_ns_per_dot": t3_split["bf16"],
+                "bound_chain_sms_ms": t3_chain_bound["bf16"]})})
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 28 -------------------------------------------------------------------
     phase(28, "T5: 25 dots and Adam on 5 buffers, tail and interleaved, phase and stream "
-              "forms, against the plain version; then the tool (tail, interleaved, "
-              "interleaved, tail; each form)")
+              "forms, in fp32 and in the tool's bf16 dots, against the plain versions; then "
+              "the tool (tail, interleaved, interleaved, tail; each form and dot mode)")
+    t_phase = time.perf_counter()
     print(f"h at {MLP_TOL['params']} (rtol, atol), tests/test_mlp_kernel.py's; what Adam "
           f"changed in w, m and v at rtol {t5.DELTA_RTOL}, atol {t5.DELTA_RTOL} of the plain "
-          f"version's largest change")
-    t5_err = {(f, il): 0.0 for f in probes.T5_FORMS for il in (False, True)}
+          f"version's largest change; bf16 dots (2 steps): h at ρ <= 0.1 of the plain bf16 "
+          f"version, the fp32 instantiation at ρ >= 0.5")
+    t5_err = {(f, il, m): 0.0 for f in probes.T5_FORMS for il in (False, True) for m in DOT_MODES}
+    t5_rho = {(f, il): 0.0 for f in probes.T5_FORMS for il in (False, True)}
     for form in probes.T5_FORMS:
-        for inputs_of, label in ((t5.inputs, "the tool's inputs"),
-                                 (t5.check_inputs, "check inputs")):
-            for interleave in (False, True):
-                kb = inputs_of(dev)
-                pb, start, other = (tuple(t.clone() for t in kb) for _ in range(3))
-                h = probes.adam_overlap_chunk(*kb, n_steps=3, interleave=interleave, form=form)
-                ph = probes.plain_adam_overlap_chunk(*pb, n_steps=3, interleave=interleave)
-                probes.plain_adam_overlap_chunk(*other, n_steps=3, interleave=not interleave)
-                a, b = sync_cpu(h, ph)
-                require(bool(np.all(np.isfinite(a))), "T5 h finite")
-                np.testing.assert_allclose(a, b, *MLP_TOL["params"],
-                                           err_msg=f"T5 {form} h {interleave}")
-                errs, mism = [float(np.abs(a - b).max())], []
-                for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:], other[1:]):
-                    require(bool(torch.isfinite(got).all()), f"T5 {name} finite")
-                    mm = t5.delta_mismatch(got, ref, s0)
-                    require(mm <= t5.DELTA_RTOL, f"T5 {form} {label} interleave={interleave}: "
-                                                 f"Δ{name} mismatch {mm:.3e} <= {t5.DELTA_RTOL}")
-                    # controls: Adam dropped, and the other variant's gradients
-                    require(t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL,
-                            f"T5 Δ{name}: the state left as it was fails the comparison")
-                    if inputs_of is t5.check_inputs:
-                        require(t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL,
-                                f"T5 Δ{name}: the other variant fails the comparison")
-                    errs.append(float((got - ref).abs().max()))
-                    mism.append(mm)
-                t5_err[form, interleave] = max(t5_err[form, interleave], *errs)
-                print(f"T5 {form:6s} {label}, interleave={interleave!s:5}, 3 steps: max |Δ| h "
-                      f"{errs[0]:.2e} w {errs[1]:.2e} m {errs[2]:.2e} v {errs[3]:.2e}; Adam's "
-                      f"change mismatch w {mism[0]:.2e} m {mism[1]:.2e} v {mism[2]:.2e}")
-    for mode in ("tail", "interleaved"):  # fixed sums, no atomics: the same bits twice
-        runs = []
-        for _ in range(2):
-            x, ws, ms, vs = t5.check_inputs(dev)
-            runs.append((probes._stream_launch(mode, x[None], ws, ms, vs, 3), ws, ms, vs))
-        torch.cuda.synchronize()
-        require(all(torch.equal(p, q) for p, q in zip(*runs)),
-                f"T5 stream {mode}: two launches give the same h, w, m and v")
-    print("T5 stream form: two launches bitwise equal (tail, interleaved; h, w, m, v)")
+        for mode, bf16 in (("fp32", False), ("bf16", True)):
+            n_steps = 2 if bf16 else 3
+            for inputs_of, label in ((t5.inputs, "the tool's inputs"),
+                                     (t5.check_inputs, "check inputs")):
+                for interleave in (False, True):
+                    kb = inputs_of(dev)
+                    pb, start, other, fb, cb = (tuple(t.clone() for t in kb) for _ in range(5))
+                    step_kw = dict(n_steps=n_steps, interleave=interleave)
+                    h = probes.adam_overlap_chunk(*kb, form=form, bf16_dots=bf16, **step_kw)
+                    ph = probes.plain_adam_overlap_chunk(*pb, bf16_dots=bf16, **step_kw)
+                    probes.plain_adam_overlap_chunk(*other, n_steps=n_steps,
+                                                    interleave=not interleave, bf16_dots=bf16)
+                    a, b = sync_cpu(h, ph)
+                    require(bool(np.all(np.isfinite(a))), "T5 h finite")
+                    extra = ""
+                    if bf16:
+                        fh = probes.plain_adam_overlap_chunk(*fb, **step_kw)
+                        ctrl = probes.adam_overlap_chunk(*cb, form=form, **step_kw)
+                        r, rc = rho(h, ph, fh), rho(ctrl, ph, fh)
+                        require(r <= 0.1 and rc >= 0.5,
+                                f"T5 {form} bf16 dots {label} interleave={interleave}: h ρ "
+                                f"{r:.2e} <= 0.1, the fp32 instantiation's {rc:.3f} >= 0.5")
+                        t5_rho[form, interleave] = max(t5_rho[form, interleave], r)
+                        extra = f"; h ρ {r:.2e} (the fp32 instantiation {rc:.3f})"
+                    else:
+                        np.testing.assert_allclose(a, b, *MLP_TOL["params"],
+                                                   err_msg=f"T5 {form} h {interleave}")
+                    errs, mism = [float(np.abs(a - b).max())], []
+                    for name, got, ref, s0, o in zip("wmv", kb[1:], pb[1:], start[1:],
+                                                     other[1:]):
+                        require(bool(torch.isfinite(got).all()), f"T5 {name} finite")
+                        mm = t5.delta_mismatch(got, ref, s0)
+                        require(mm <= t5.DELTA_RTOL,
+                                f"T5 {form} {mode} dots {label} interleave={interleave}: "
+                                f"Δ{name} mismatch {mm:.3e} <= {t5.DELTA_RTOL}")
+                        # controls: Adam dropped, and the other variant's gradients
+                        require(t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL,
+                                f"T5 Δ{name}: the state left as it was fails the comparison")
+                        if inputs_of is t5.check_inputs and not bf16:
+                            require(t5.delta_mismatch(o, ref, s0) > 10 * t5.DELTA_RTOL,
+                                    f"T5 Δ{name}: the other variant fails the comparison")
+                        errs.append(float((got - ref).abs().max()))
+                        mism.append(mm)
+                    t5_err[form, interleave, mode] = max(t5_err[form, interleave, mode], *errs)
+                    print(f"T5 {form:6s} {mode} dots, {label}, interleave={interleave!s:5}, "
+                          f"{n_steps} steps: max |Δ| h {errs[0]:.2e} w {errs[1]:.2e} m "
+                          f"{errs[2]:.2e} v {errs[3]:.2e}; Adam's change mismatch w {mism[0]:.2e} "
+                          f"m {mism[1]:.2e} v {mism[2]:.2e}{extra}")
+    for bf16 in (False, True):
+        for mode in ("tail", "interleaved"):  # fixed sums, no atomics: the same bits twice
+            runs = []
+            for _ in range(2):
+                x, ws, ms, vs = t5.check_inputs(dev)
+                runs.append((probes._stream_launch(mode, x[None], ws, ms, vs, 3, bf16_dots=bf16),
+                             ws, ms, vs))
+            torch.cuda.synchronize()
+            require(all(torch.equal(p, q) for p, q in zip(*runs)),
+                    f"T5 stream {mode} (bf16 dots {bf16}): two launches give the same h, w, m, v")
+    print("T5 stream form: two launches bitwise equal (tail, interleaved; h, w, m, v; both dot "
+          "modes)")
     reset_counts()
     t5_report = t5.main(window)
-    t5_launches = {"phase": probes.adam_overlap_chunk.launches,
-                   "stream": probes.adam_overlap_chunk.stream_launches}
+    t5_launches = {"fp32": {"phase": probes.adam_overlap_chunk.launches,
+                            "stream": probes.adam_overlap_chunk.stream_launches},
+                   "bf16": {"phase": probes.adam_overlap_chunk.bf16_launches,
+                            "stream": probes.adam_overlap_chunk.bf16_stream_launches}}
     print(f"T5 tool launches: {t5_launches}")
     n_dots, n_w = probes.N_BUF * probes.DOTS_PER_BUF, probes.N_BUF * Wd * Wd
     # a step: 25 dots, 5 column means of h, Adam's ~12 operations an element;
     # h read and written, w, m and v read and written once (7.9 MB, which
-    # L2 holds: the bound is the operations')
-    flops = n_dots * dot_flops + probes.N_BUF * R * Wd + 12 * n_w
-    bound = _bound(flops, 4 * (2 * R * Wd + 6 * n_w), 1, losses_per_step=0)
-    t5_chain_bound = bound["bound_ms"] * card_sms / stream_sms
+    # L2 holds: the bound is the operations'). In bf16 dots the dots at the
+    # bf16 peak, the column means and Adam at the fp32 one
+    rest_flops = probes.N_BUF * R * Wd + 12 * n_w
+    flops = n_dots * dot_flops + rest_flops
+    t5_bytes = 4 * (2 * R * Wd + 6 * n_w)
+    bounds = {"fp32": _bound(flops, t5_bytes, 1, losses_per_step=0),
+              "bf16": _bound(n_dots * dot_flops, t5_bytes, 1, losses_per_step=0, peak=BF16_PEAK,
+                             fp32_flops_per_step=rest_flops)}
+    t5_chain_bound = {m: b["bound_ms"] * card_sms / stream_sms for m, b in bounds.items()}
     t5_plain = {}
-    for interleave in (False, True):
-        kb = t5.inputs(dev)
-        t5_plain[interleave] = per_step_ms(lambda n, kb=kb, i=interleave:
-                                           probes.plain_adam_overlap_chunk(
-                                               *kb, n_steps=n, interleave=i))
+    for mode, bf16 in DOT_MODES.items():
+        for interleave in (False, True):
+            kb = t5.inputs(dev)
+            t5_plain[mode, interleave] = per_step_ms(
+                lambda n, kb=kb, i=interleave, b=bf16: probes.plain_adam_overlap_chunk(
+                    *kb, n_steps=n, interleave=i, bf16_dots=b))
     print(f"card: {smi}")
-    print(f"T5 plain: tail {t5_plain[False]:.3f} ms/step, interleaved {t5_plain[True]:.3f} "
-          f"ms/step; bound {bound['bound_ms'] * 1e3:.3f} us/step ({bound['bound_by']}, "
-          f"{flops / 1e6:.1f} MFLOP), on the cluster's {stream_sms} SMs "
-          f"{t5_chain_bound * 1e3:.3f}")
+    for mode in DOT_MODES:
+        b = bounds[mode]
+        print(f"T5 {mode} dots: plain tail {t5_plain[mode, False]:.3f} ms/step, interleaved "
+              f"{t5_plain[mode, True]:.3f} ms/step; bound {b['bound_ms'] * 1e3:.3f} us/step "
+              f"({b['bound_by']}, {flops / 1e6:.1f} MFLOP), on the cluster's {stream_sms} SMs "
+              f"{t5_chain_bound[mode] * 1e3:.3f}")
     # the stream form's step split by launch variants (as phase 27's, whole
-    # with Adam), in turns; device time, 4 steps a launch
+    # with Adam), in turns; device time, 4 steps a launch; fp32 dots
     t5_split = {}
     for mode in ("tail", "interleaved"):
         kb = t5.inputs(dev)
@@ -2390,18 +2601,40 @@ def _probes(torch, np, smi):
               f"{sp['exchange'] - sp['products']:.2f}, + Adam "
               f"{sp['all'] - sp['exchange']:.2f}: whole {sp['all']:.2f}")
     for form in probes.T5_FORMS:
-        require(t5_launches[form] > 0, f"T5's {form} kernel launched in the tool's run")
-        rep = t5_report[form]
+        for mode in DOT_MODES:
+            require(t5_launches[mode][form] > 0,
+                    f"T5's {form} kernel ({mode} dots) launched in the tool's run")
+        rep = {mode: t5_report[mode][form] for mode in DOT_MODES}
+        print(f"T5 {form}, us a step, bf16 / fp32 dots (the tool's windows, in turn): tail "
+              f"{min(rep['bf16']['us_per_step']['tail']):.3f} / "
+              f"{min(rep['fp32']['us_per_step']['tail']):.3f}, interleaved "
+              f"{min(rep['bf16']['us_per_step']['interleaved']):.3f} / "
+              f"{min(rep['fp32']['us_per_step']['interleaved']):.3f}")
         for interleave, label in ((False, "tail"), (True, "interleaved")):
             records.append({
                 "name": f"chain_{form}_kernel (T5, Adam {label})", "route": "cuda",
                 "source": "vae_training_tpu_torch/csrc/probes.cu",
-                "replaces": "tools/probe_adam_overlap.py:110", "launches": t5_launches[form],
-                "max_abs_err": t5_err[form, interleave],
-                "ms": min(rep["us_per_step"][label]) / 1e3, "plain_ms": t5_plain[interleave],
-                **bound, "library_ms": None, "interleaved_over_tail": rep["ratio"],
-                **({"split_us_per_step": t5_split[label], "bound_chain_sms_ms": t5_chain_bound}
-                   if form == "stream" else {})})
+                "replaces": "tools/probe_adam_overlap.py:110",
+                "launches": t5_launches["fp32"][form],
+                "max_abs_err": t5_err[form, interleave, "fp32"],
+                "ms": min(rep["fp32"]["us_per_step"][label]) / 1e3,
+                "plain_ms": t5_plain["fp32", interleave], **bounds["fp32"], "library_ms": None,
+                "interleaved_over_tail": rep["fp32"]["ratio"],
+                **({"split_us_per_step": t5_split[label],
+                    "bound_chain_sms_ms": t5_chain_bound["fp32"]} if form == "stream" else {})})
+            records.append({
+                "name": f"chain_{form}_kernel<bf16> (T5, Adam {label}), bf16 dots",
+                "route": "cuda", "source": "vae_training_tpu_torch/csrc/probes.cu",
+                "replaces": "tools/probe_adam_overlap.py:110",
+                "launches": t5_launches["bf16"][form],
+                "max_abs_err": t5_err[form, interleave, "bf16"],
+                "ms": min(rep["bf16"]["us_per_step"][label]) / 1e3,
+                "plain_ms": t5_plain["bf16", interleave], **bounds["bf16"], "library_ms": None,
+                "interleaved_over_tail": rep["bf16"]["ratio"],
+                "rho_h_2_steps": t5_rho[form, interleave],
+                "fp32_dots_ms": min(rep["fp32"]["us_per_step"][label]) / 1e3,
+                **({"bound_chain_sms_ms": t5_chain_bound["bf16"]} if form == "stream" else {})})
+    print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 29 -------------------------------------------------------------------
     phase(29, "T2: one (128x256)·(256x256) dot in fp32, TF32 and bf16 modes against the "
@@ -4995,13 +5228,14 @@ def mlp_pass_ms(batch, enc, dec, dual=False, passes=3):
 
 
 def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_step=1,
-           peak=FP32_PEAK):
+           peak=FP32_PEAK, fp32_flops_per_step=0):
     """The least time one step could take on the card: the larger of the
-    operations over the peak (fp32 unless the operands are TF32 or bf16)
-    and the bytes over the memory rate: the state read and written once per
-    chunk of ``steps_per_chunk`` steps, and each step's losses (one a row)
-    written."""
-    t_ops = flops_per_step / peak
+    operations over the peak (fp32 unless the operands are TF32 or bf16;
+    ``fp32_flops_per_step`` more over the fp32 peak, beside products at
+    another) and the bytes over the memory rate: the state read and written
+    once per chunk of ``steps_per_chunk`` steps, and each step's losses (one
+    a row) written."""
+    t_ops = flops_per_step / peak + fp32_flops_per_step / FP32_PEAK
     t_bytes = (state_bytes_per_chunk / steps_per_chunk + 4 * losses_per_step) / HBM_RATE
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}

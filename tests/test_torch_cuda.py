@@ -1319,6 +1319,190 @@ def test_stream_split_variants_are_uncounted(cuda_device):
             probes.adam_overlap_chunk.stream_launches) == before
 
 
+# T3, T4 and T5 in bf16 dots (every product a tensor-core mma.sync of
+# bf16-rounded operands, f32 sums), against the plain bf16 versions. A chain
+# of dense dots parts between any two f32 summation orders (a last-bit
+# difference flips a rounding to bf16, which moves every output of the
+# next dot: ρ ~0.1 after 8 dots between torch's order and float64 sums,
+# tests/test_torch_probes_bf16.py), so dense inputs are held one dot deep,
+# ρ = ‖kernel − plain_bf16‖ / ‖plain_fp32 − plain_bf16‖ ≤ 1e-3, with the
+# fp32 instantiation's ρ ≥ 0.5; the tools' whole trips and steps run on
+# two_term_inputs (two products an output, in distinct k16 steps: one f32
+# rounding in any order) and must equal the plain version bitwise, as must
+# T4 on the tool's inputs (the identity rounds to 1.0 in bf16). T5 on
+# check_inputs (diagonal weights) 2 steps: h at ρ ≤ 0.1, Adam's change
+# within DELTA_RTOL. Two launches give the same bits.
+def _rho(got, ref, other):
+    got, ref, other = (t.detach().double().cpu() for t in (got, ref, other))
+    return float((got - ref).norm() / (other - ref).norm())
+
+
+_BF16_COUNTER = {"phase": "bf16_launches", "cluster": "bf16_cluster_launches",
+                 "stream": "bf16_stream_launches"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe_form", ["T4-phase", "T4-cluster", "T3-phase"])
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_chain_bf16_forms_one_dot_deep_match_plain_by_rho(cuda_device, probe_form, n_chains):
+    """Dense random inputs (T4's check_inputs, T3's inputs with its first
+    weight), one dot: ρ ≤ 1e-3; the fp32 instantiation ρ ≥ 0.5; each
+    launch counted by its mode's counter."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+    from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
+
+    probe, form = probe_form.split("-")
+    if probe == "T4":
+        xs, ws = t4.check_inputs(n_chains, cuda_device)
+        kw = dict(n_steps=1, depth=1, weights_per_depth=False, epilogue="clamp")
+    else:
+        xs, ws = t3.inputs(n_chains, cuda_device)
+        ws = ws[:, :probes.W].contiguous()
+        kw = dict(n_steps=1, depth=1, weights_per_depth=True, epilogue="renorm")
+    counter = _BF16_COUNTER[form]
+    fp32_counter = counter.replace("bf16_", "")
+    before = (getattr(probes.chain_chunk, counter), getattr(probes.chain_chunk, fp32_counter))
+    got = probes.chain_chunk(xs, ws, form=form, bf16_dots=True, **kw)
+    ctrl = probes.chain_chunk(xs, ws, form=form, **kw)
+    want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **kw)
+    f32 = probes.plain_chain_chunk(xs, ws, **kw)
+    torch.cuda.synchronize()
+    assert (getattr(probes.chain_chunk, counter),
+            getattr(probes.chain_chunk, fp32_counter)) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(got).all())
+    assert _rho(got, want, f32) <= 1e-3
+    assert _rho(ctrl, want, f32) >= 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe_form", ["T4-phase", "T4-cluster", "T3-phase", "T3-stream"])
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_chain_bf16_forms_on_two_term_inputs_are_bitwise(cuda_device, probe_form, n_chains):
+    """The tools' whole steps (T4: 2 of 24 dots) and trips (T3: 2 of 8) on
+    two_term_inputs: the kernel equals the plain bf16 version bitwise, and
+    the fp32 instantiation does not."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+    from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
+
+    probe, form = probe_form.split("-")
+    mod, kw = ((t4, dict(n_steps=2, depth=probes.T4_DEPTH, weights_per_depth=False,
+                         epilogue="clamp")) if probe == "T4"
+               else (t3, dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True,
+                              epilogue="renorm")))
+    xs, ws = mod.two_term_inputs(n_chains, cuda_device)
+    before = getattr(probes.chain_chunk, _BF16_COUNTER[form])
+    _poison_allocator(xs.shape, cuda_device)
+    got = probes.chain_chunk(xs, ws, form=form, bf16_dots=True, **kw)
+    ctrl = probes.chain_chunk(xs, ws, form=form, **kw)
+    want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **kw)
+    torch.cuda.synchronize()
+    assert getattr(probes.chain_chunk, _BF16_COUNTER[form]) == before + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(ctrl, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["phase", "cluster"])
+@pytest.mark.parametrize("n_chains", [1, 2, 4])
+def test_t4_bf16_forms_on_the_tool_inputs_are_bitwise(cuda_device, n_chains, form):
+    """eye·(1 + 1e-4c) rounds to the identity in bf16, so every output is one
+    exact product: the kernel equals the plain version and bf16(0.01(c + 1))
+    bitwise, which the fp32 chain does not."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.ops.precision import bf16_round
+    from vae_training_tpu_torch.tools.probe_mlp_interleave import inputs
+
+    xs, ws = inputs(n_chains, cuda_device)
+    kw = dict(n_steps=3, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
+    got = probes.chain_chunk(xs, ws, form=form, bf16_dots=True, **kw)
+    want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **kw)
+    f32 = probes.plain_chain_chunk(xs, ws, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, bf16_round(xs))
+    assert not torch.equal(f32, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["phase", "stream"])
+@pytest.mark.parametrize("interleave", [False, True], ids=["tail", "interleaved"])
+def test_t5_bf16_forms_match_plain(cuda_device, interleave, form):
+    """T5 in bf16 dots on check_inputs, 2 steps: h by ρ ≤ 0.1 against the
+    plain bf16 version (the fp32 kernel's ρ ≥ 0.5); what Adam changed in
+    w, m and v within DELTA_RTOL; the state left as it was fails that. (A
+    third step's rounding flips move Δv past DELTA_RTOL between the JAX
+    tool and the plain version on the CPU, both right:
+    tests/test_torch_probes_bf16.py.)"""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+
+    kb = t5.check_inputs(cuda_device)
+    pb, fb, cb, start = (tuple(t.clone() for t in kb) for _ in range(4))
+    counter = "bf16_launches" if form == "phase" else "bf16_stream_launches"
+    before = getattr(probes.adam_overlap_chunk, counter)
+    kw = dict(n_steps=2, interleave=interleave)
+    h = probes.adam_overlap_chunk(*kb, form=form, bf16_dots=True, **kw)
+    ctrl = probes.adam_overlap_chunk(*cb, form=form, **kw)
+    ph = probes.plain_adam_overlap_chunk(*pb, bf16_dots=True, **kw)
+    fh = probes.plain_adam_overlap_chunk(*fb, **kw)
+    torch.cuda.synchronize()
+    assert getattr(probes.adam_overlap_chunk, counter) == before + 1
+    assert bool(torch.isfinite(h).all())
+    assert _rho(h, ph, fh) <= 0.1 and _rho(ctrl, ph, fh) >= 0.5
+    for name, got, ref, s0 in zip("wmv", kb[1:], pb[1:], start[1:]):
+        assert t5.delta_mismatch(got, ref, s0) <= t5.DELTA_RTOL, name
+        assert t5.delta_mismatch(s0, ref, s0) > 100 * t5.DELTA_RTOL, name
+
+
+@pytest.mark.cuda
+def test_probe_bf16_launches_repeat_bitwise(cuda_device):
+    """Fixed sums in every bf16 form, no atomics: two launches, one bits;
+    the time split's variants launch in bf16 too and count nothing."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+    from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
+
+    for n_chains in (1, 2, 4):
+        xs, ws = t4.check_inputs(n_chains, cuda_device)
+        kw = dict(n_steps=1, depth=8, weights_per_depth=False, epilogue="clamp", bf16_dots=True)
+        for form in probes.T4_FORMS:
+            a, b = (probes.chain_chunk(xs, ws, form=form, **kw) for _ in range(2))
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (n_chains, form)
+        xs, ws = t3.inputs(n_chains, cuda_device)
+        kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm",
+                  bf16_dots=True)
+        for form in probes.T3_FORMS:
+            a, b = (probes.chain_chunk(xs, ws, form=form, **kw) for _ in range(2))
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (n_chains, form)
+    for form in probes.T5_FORMS:
+        for interleave in (False, True):
+            runs = []
+            for _ in range(2):
+                x, ws, ms, vs = t5.check_inputs(cuda_device)
+                h = probes.adam_overlap_chunk(x, ws, ms, vs, n_steps=3, interleave=interleave,
+                                              form=form, bf16_dots=True)
+                runs.append((h, ws, ms, vs))
+            torch.cuda.synchronize()
+            assert all(torch.equal(p, q) for p, q in zip(*runs)), (form, interleave)
+    counts = [getattr(f, n) for f in (probes.chain_chunk, probes.adam_overlap_chunk)
+              for n in dir(f) if n.endswith("launches")]
+    xs, ws = t4.inputs(2, cuda_device)
+    for upto in ("stage", "products", "sums"):
+        probes._chain_cluster_launch(xs, ws, 2, probes.T4_DEPTH, upto=upto, bf16_dots=True)
+    xs, ws = t3.inputs(2, cuda_device)
+    x, w5, m5, v5 = t5.inputs(cuda_device)
+    for upto in ("weights", "compute", "products", "exchange"):
+        probes._stream_launch("t3", xs, ws, None, None, 2, upto=upto, bf16_dots=True)
+        probes._stream_launch("tail", x[None], w5, m5, v5, 2, upto=upto, bf16_dots=True)
+    torch.cuda.synchronize()
+    assert counts == [getattr(f, n) for f in (probes.chain_chunk, probes.adam_overlap_chunk)
+                      for n in dir(f) if n.endswith("launches")]
+
+
 # T2's shapes: the contract's smallest, zero-padded rows and columns, uneven
 # K slices (272 = 17 units of 16), the tool's, and several rounds a CTA
 DOT_SHAPES = [(16, 16, 8), (48, 32, 24), (112, 272, 40), (128, 256, 256), (256, 512, 512)]

@@ -245,15 +245,24 @@ def test_t1_streams_and_rows_are_keyed_as_the_kernels():
                                       rng.STREAM_Z2, 8))
 
 
-@pytest.mark.parametrize("tool, verdict", [
-    (t4, "VERDICT (cluster): 2-chain cost ratio"),
-    (t3, "VERDICT (stream): independence speedup: x2="),
-    (t5, "VERDICT (stream): interleaved/tail = "), (t2, "RESULT: PASS")],
+@pytest.mark.parametrize("tool, verdicts", [
+    (t4, [f"VERDICT ({f}, {m} dots): 2-chain cost ratio" for f in ("phase", "cluster")
+          for m in ("bf16", "fp32")]),
+    (t3, [f"VERDICT ({f}, {m} dots): independence speedup: x2=" for f in ("phase", "stream")
+          for m in ("bf16", "fp32")]),
+    (t5, [f"VERDICT ({f}, {m} dots): interleaved/tail = " for f in ("phase", "stream")
+          for m in ("bf16", "fp32")]),
+    (t2, ["RESULT: PASS"])],
     ids=["T4", "T3", "T5", "T2"])
-def test_tools_run_on_the_cpu(tool, verdict, capsys):
+def test_tools_run_on_the_cpu(tool, verdicts, capsys):
+    """Each tool runs on the CPU's plain versions and prints its verdicts:
+    T3, T4 and T5 one a form and dot mode, the TPU tools' bf16 dots first."""
     tool.main(["--device", "cpu", "--seconds", "0.005"])
     out = capsys.readouterr().out
-    assert out.startswith("card: cpu (host-clock times") and verdict in out
+    assert out.startswith("card: cpu (host-clock times")
+    assert all(v in out for v in verdicts)
+    at = [out.index(v) for v in verdicts]
+    assert at == sorted(at)
 
 
 @pytest.mark.parametrize("tool", [t1, t2, t3, t4, t5], ids=["T1", "T2", "T3", "T4", "T5"])

@@ -1,6 +1,7 @@
 // The probes of the MLP kernel's design questions, for Hopper (sm_90a):
-// T4, T3 and T5 (chains of dependent 104×256×256 fp32 dots) and T2 (one
-// dot in fp32, TF32 and bf16 tensor-core modes).
+// T4, T3 and T5 (chains of dependent 104×256×256 dots, fp32 or with bf16
+// operands and f32 sums) and T2 (one dot in fp32, TF32 and bf16
+// tensor-core modes).
 //
 // Replaces the TPU probes' Pallas kernels:
 //   T4 tools/probe_mlp_interleave.py:_chain_kernel (run, :62): 1, 2 or 4
@@ -36,13 +37,41 @@
 // dot, one mbarrier wait a dot and no grid or cluster barrier (see the
 // kernel).
 //
-// chain_stream_kernel<mode> is T3 and T5 on that cluster plan: their
+// chain_stream_kernel<mode, bf16> is T3 and T5 on that cluster plan: their
 // weights change from dot to dot, so each warp streams its K slice of the
 // next dot's weights from L2 into a ring in shared memory (cp.async.bulk
 // on mbarriers) while the current dot runs; T3's renorm meets the chain's
 // 16 maxima through distributed shared memory, T5's Adam the column sums
 // of h (see the kernel). chain_phase_kernel stays as T3's and T5's "phase"
 // form, and as T4's.
+//
+// bf16 dots: T4, T3 and T5 each have a second instantiation of their
+// kernels (kBf16, chosen by the entries' bf16_dots), which computes what the
+// TPU tools' dots compute at precision=None, their default: both operands
+// rounded to bfloat16 (round to nearest even) at every dot, the products
+// summed in f32 (T2's check_dot_modes showed the TPU's default f32 dot
+// equal to the explicit bf16 cast, tools/check_precision.py:3-8). The
+// inputs, the outputs, h between dots and T5's master weights stay f32, as
+// do the clamp, T3's renorm and T5's Adam; a dot rounds the current f32
+// weights as it reads them. Every product is a tensor-core mma.sync
+// m16n8k16 (mma::mma_bf16, csrc/mma_bf16.cuh), issued from a zero
+// accumulator a k16 step, its partial sums added to the outputs' f32 sums
+// by IEEE adds in ascending k (a sum carried through the tensor cores'
+// truncating accumulator drifted in the MLP kernel, PERF.md §6). 104 rows
+// are 6.5 m16 tiles: the last tile's rows 104..111 are zeros, never
+// another chain's rows. The phase form takes one warp an (m16, n8) output tile; the
+// cluster and stream forms keep T4's cut, a warp's 13 rows padded to one
+// m16 tile × its CTA's 128 columns as 16 n8 tiles over its 32-long K slice
+// (two k16 steps). The fp32 instantiations are the fp32 code, unchanged.
+// What bounds the bf16 forms is not the tensor cores' rate (a dot is 13.6
+// MFLOP: 13.8 ns at 989 TFLOP/s, 114 ns on one chain's 16 SMs) but the
+// loads that feed the fragments and the dependent steps around them: the
+// phase form's operands from L2 and its grid barrier a dot; the cluster
+// form's A pairs from shared memory and its partial-tile stores (B sits in
+// registers), both 4-way bank-conflicted in a half-warp; the stream
+// form's A and B pairs from shared memory, B's 4 lanes of a column apart by
+// two rows of the stage (a 4-way bank conflict), then the partial tiles,
+// the sums and the exchange as in fp32 (PERF.md §6).
 //
 // dot_kernel<mode> is T2: out = x·w, x (M × K) and w (K × N) fp32 and
 // row-major, in three modes. Hopper has no implicit reduced-precision
@@ -81,6 +110,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -130,6 +161,62 @@ __device__ __forceinline__ float dot_item(const ChainArgs& A, const float* in, i
   return A.epilogue == kEpClamp ? fminf(acc, kClamp) : acc;
 }
 
+// bf16 dots: output tile q (chain c, m16 tile mt, n8 tile nt) of dot d, by
+// one warp: 16 k16 steps, each an mma.sync from a zero accumulator whose
+// partial sums are added to the lane's 4 f32 sums; the lane's A pairs (rows
+// g and g + 8, k 2t.. and 2t + 8..) read as float2 from h, its B pairs (k
+// 2t, 2t + 1 and 2t + 8, 2t + 9 of column g) as two floats each from W,
+// both rounded to bfloat16 as they are packed. Rows past kRows (g + 8 in
+// the last m16 tile) are zeros. The lane writes rows g and g + 8, columns
+// 2t and 2t + 1 (clamped or not as dot_item) and folds their |y| into lmax.
+constexpr int kMTiles = (kRows + 15) / 16;  // 7 m16 tiles a chain, the last half zeros
+constexpr int kNTiles = kW / 8;             // 32 n8 tiles
+
+__device__ __forceinline__ void dot_tile_bf16(const ChainArgs& A, const float* in, float* out,
+                                              int d, int q, float (&lmax)[kMaxChains]) {
+  constexpr int per_chain = kRows * kW;
+  const int c = q / (kMTiles * kNTiles);
+  const int rem = q - c * kMTiles * kNTiles;
+  const int mt = rem / kNTiles, nt = rem - mt * kNTiles;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * mt + g, r1 = r0 + 8;
+  const bool live1 = r1 < kRows;  // false in the last m16 tile (rows 104..111), for every lane
+  const float* h0 = in + c * per_chain + r0 * kW + 2 * t;
+  const float* h1 = in + c * per_chain + (live1 ? r1 : r0) * kW + 2 * t;
+  const int n_w = A.depth / A.dots_per_weight;
+  const float* W = A.w + (static_cast<size_t>(c) * n_w + d / A.dots_per_weight) * kW * kW +
+                   (2 * t) * kW + 8 * nt + g;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int k = 0; k < kW; k += 16) {
+    uint32_t a[4];
+    a[0] = mma::bf16x2(*reinterpret_cast<const float2*>(h0 + k));
+    a[1] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(h1 + k)) : 0u;
+    a[2] = mma::bf16x2(*reinterpret_cast<const float2*>(h0 + k + 8));
+    a[3] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(h1 + k + 8)) : 0u;
+    const float* wk = W + k * kW;
+    const uint32_t b0 = mma::bf16x2(wk[0], wk[kW]);
+    const uint32_t b1 = mma::bf16x2(wk[8 * kW], wk[9 * kW]);
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma::mma_bf16(part, a, b0, b1);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[x] += part[x];
+  }
+  float y[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) y[x] = A.epilogue == kEpClamp ? fminf(acc[x], kClamp) : acc[x];
+  float* o = out + c * per_chain + 8 * nt + 2 * t;
+  *reinterpret_cast<float2*>(o + r0 * kW) = make_float2(y[0], y[1]);
+  float mx = fmaxf(fabsf(y[0]), fabsf(y[1]));
+  if (live1) {
+    *reinterpret_cast<float2*>(o + r1 * kW) = make_float2(y[2], y[3]);
+    mx = fmaxf(mx, fmaxf(fabsf(y[2]), fabsf(y[3])));
+  }
+#pragma unroll
+  for (int p = 0; p < kMaxChains; ++p)
+    if (p == c) lmax[p] = fmaxf(lmax[p], mx);
+}
+
 // Adam on element e of chain 0's weight buffer b. The gradient is the
 // column mean of h broadcast down the rows, ·1e-6(b + 1) (the tool's
 // grad_for); the bias corrections 1 − βᵗ are the caller's, from double.
@@ -177,7 +264,10 @@ __device__ void block_max_to_global(const float lmax[kMaxChains], unsigned int* 
 // phase after the last dot (tail: every gradient from the final h, as in
 // K5) or as extra items of the phase of dot dpw·(b + 1) for buffer b (its
 // gradient reads h after dot dpw·b + dpw − 1, the phase's own input, so it
-// needs no barrier of its own), the last buffer in a phase of its own.
+// needs no barrier of its own), the last buffer in a phase of its own. In
+// bf16 dots (kBf16) a phase's dot is one warp an output tile
+// (dot_tile_bf16), then Adam's items one thread each.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -197,18 +287,26 @@ __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
       float* out = A.h + (cur ^ 1) * n_h;
       const bool adam_here =
           A.adam == kAdamInterleaved && d > 0 && d % A.dots_per_weight == 0;
-      const int n_items = n_h + (adam_here ? kW * kW : 0);
       float lmax[kMaxChains] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int i = gtid; i < n_items; i += gsz) {
-        if (i < n_h) {
-          int c;
-          const float y = dot_item(A, in, d, i, c);
-          out[i] = y;
+      if constexpr (kBf16) {
+        const int n_tiles = A.n_chains * kMTiles * kNTiles;
+        for (int q = gtid >> 5; q < n_tiles; q += gsz >> 5) dot_tile_bf16(A, in, out, d, q, lmax);
+        if (adam_here)
+          for (int i = gtid; i < kW * kW; i += gsz)
+            adam_item(A, in, d / A.dots_per_weight - 1, i, bc1, bc2);
+      } else {
+        const int n_items = n_h + (adam_here ? kW * kW : 0);
+        for (int i = gtid; i < n_items; i += gsz) {
+          if (i < n_h) {
+            int c;
+            const float y = dot_item(A, in, d, i, c);
+            out[i] = y;
 #pragma unroll
-          for (int q = 0; q < kMaxChains; ++q)
-            if (q == c) lmax[q] = fmaxf(lmax[q], fabsf(y));
-        } else {
-          adam_item(A, in, d / A.dots_per_weight - 1, i - n_h, bc1, bc2);
+            for (int q = 0; q < kMaxChains; ++q)
+              if (q == c) lmax[q] = fmaxf(lmax[q], fabsf(y));
+          } else {
+            adam_item(A, in, d / A.dots_per_weight - 1, i - n_h, bc1, bc2);
+          }
         }
       }
       if (A.epilogue == kEpRenorm && d == A.depth - 1)
@@ -735,9 +833,63 @@ __device__ __forceinline__ void fma4(float4& acc, float h, const float4& w) {
   acc.w = fmaf(h, w.w, acc.w);
 }
 
+// bf16 dots in T4's cut (the cluster and stream forms): a warp's 13 rows
+// are one m16 tile, rows 13..15 zeros, and its CTA's 128 columns 16 n8
+// tiles; its K slice two k16 steps. The lane (g, t) = (lane / 4, lane % 4)
+// holds rows g and g + 8 (g + 8 < 13 for g < 5), columns 8nt + 2t and + 1
+// of each n8 tile nt, in mma.sync's accumulator fragment.
+constexpr int kChainNTiles = kChainCols / 8;
+static_assert(kChainRows <= 16 && kChainKSlice % 16 == 0, "one m16 tile, whole k16 steps");
+
+// The warp's A fragment of one k16 step: rows g and g + 8 of h (row stride
+// kW; h at the step's first k), k 2t.. and 2t + 8.., read as float2 and
+// rounded to bfloat16; the zero rows as zeros.
+__device__ __forceinline__ void chain_a_frag(uint32_t (&a)[4], const float* h, int g, int t) {
+  const bool live1 = g + 8 < kChainRows;
+  const float* p0 = h + g * kW + 2 * t;
+  const float* p1 = h + (live1 ? g + 8 : g) * kW + 2 * t;
+  a[0] = mma::bf16x2(*reinterpret_cast<const float2*>(p0));
+  a[1] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(p1)) : 0u;
+  a[2] = mma::bf16x2(*reinterpret_cast<const float2*>(p0 + 8));
+  a[3] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(p1 + 8)) : 0u;
+}
+
+// acc[nt] += one k16 step's products of n8 tile nt, B pairs b[nt]: each
+// mma.sync from a zero accumulator, its partial sums added by IEEE adds.
+__device__ __forceinline__ void chain_mma_step(float (&acc)[kChainNTiles][4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[kChainNTiles][2]) {
+#pragma unroll
+  for (int nt = 0; nt < kChainNTiles; ++nt) {
+    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma::mma_bf16(p, a, b[nt][0], b[nt][1]);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[nt][x] += p[x];
+  }
+}
+
+// The warp's partial tile into its slot of the partial tiles (13 rows of
+// kChainCols floats, the fp32 layout); the zero rows are dropped.
+__device__ __forceinline__ void chain_store_part(float* slot, const float (&acc)[kChainNTiles][4],
+                                                 int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < kChainNTiles; ++nt) {
+    float* at = slot + g * kChainCols + 8 * nt + 2 * t;
+    *reinterpret_cast<float2*>(at) = make_float2(acc[nt][0], acc[nt][1]);
+    if (g + 8 < kChainRows)
+      *reinterpret_cast<float2*>(at + 8 * kChainCols) = make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// kBf16: W's slice held as bf16 B fragments (the lane's 16 n8 tiles × 2 k16
+// steps × 2 registers, 64 in place of 128), a dot's products the warp's two
+// k16 steps (chain_a_frag, chain_mma_step), the partial tile stored from the
+// accumulator fragments; the rest as in fp32.
+template <bool kBf16>
 __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainClusterArgs A) {
   constexpr uint32_t kPushBytes = kChainTile * 4;  // what the peer sends a dot
   constexpr int kQuads = kChainTile / 4;           // float4 of a tile
+  constexpr int kSteps = kChainKSlice / 16;        // bf16: k16 steps a warp
   __shared__ __align__(8) uint64_t bar[2];         // bar[b]: the peer's rows of h[b] arrived
   extern __shared__ __align__(16) float csmem[];
   float* hb = csmem;                        // 2 × kChainRows × kW
@@ -749,12 +901,26 @@ __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainCl
   const int chain = static_cast<int>(blockIdx.x) / kChainCluster;
   const int row0 = group * kChainRows, col0 = slice * kChainCols;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // bf16: the lane's fragment row and pair
   const int kb = warp * kChainKSlice;
   const float* xc = A.x + (static_cast<size_t>(chain) * kRows + row0) * kW;
   const float* wc = A.w + (static_cast<size_t>(chain) * kW + kb) * kW + col0 + 4 * lane;
-  float4 wr[kChainKSlice];  // W[kb + k][col0 + 4 lane ..]: the lane's for the launch
+  float4 wr[kBf16 ? 1 : kChainKSlice];  // W[kb + k][col0 + 4 lane ..]: the lane's for the launch
+  uint32_t wb[kSteps][kChainNTiles][2];   // bf16: W[kb + 16s + 2t.., col0 + 8nt + g] as B pairs
+  if constexpr (kBf16) {
+    const float* wg = A.w + (static_cast<size_t>(chain) * kW + kb + 2 * tq) * kW + col0 + gq;
 #pragma unroll
-  for (int k = 0; k < kChainKSlice; ++k) wr[k] = *reinterpret_cast<const float4*>(wc + k * kW);
+    for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+      for (int nt = 0; nt < kChainNTiles; ++nt) {
+        const float* w = wg + 16 * st * kW + 8 * nt;
+        wb[st][nt][0] = mma::bf16x2(w[0], w[kW]);
+        wb[st][nt][1] = mma::bf16x2(w[8 * kW], w[9 * kW]);
+      }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kChainKSlice; ++k) wr[k] = *reinterpret_cast<const float4*>(wc + k * kW);
+  }
   for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads)
     reinterpret_cast<float4*>(hb)[i] = reinterpret_cast<const float4*>(xc)[i];
   if (threadIdx.x == 0) {
@@ -774,23 +940,34 @@ __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainCl
   for (int dot = 0; dot < total; ++dot) {
     const int cur = dot & 1, nxt = cur ^ 1;
     const float* h = hb + cur * kChainRows * kW + kb;
-    float4 acc[kChainRows];
+    if constexpr (kBf16) {
+      float acc[kChainNTiles][4] = {};
 #pragma unroll
-    for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int k = 0; k < kChainKSlice; k += 4) {
-#pragma unroll
-      for (int r = 0; r < kChainRows; ++r) {
-        const float4 hv = *reinterpret_cast<const float4*>(h + r * kW + k);
-        fma4(acc[r], hv.x, wr[k]);
-        fma4(acc[r], hv.y, wr[k + 1]);
-        fma4(acc[r], hv.z, wr[k + 2]);
-        fma4(acc[r], hv.w, wr[k + 3]);
+      for (int st = 0; st < kSteps; ++st) {
+        uint32_t a[4];
+        chain_a_frag(a, h + 16 * st, gq, tq);
+        chain_mma_step(acc, a, wb[st]);
       }
-    }
+      chain_store_part(part + warp * kChainTile, acc, gq, tq);
+    } else {
+      float4 acc[kChainRows];
 #pragma unroll
-    for (int r = 0; r < kChainRows; ++r)
-      *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+      for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < kChainKSlice; k += 4) {
+#pragma unroll
+        for (int r = 0; r < kChainRows; ++r) {
+          const float4 hv = *reinterpret_cast<const float4*>(h + r * kW + k);
+          fma4(acc[r], hv.x, wr[k]);
+          fma4(acc[r], hv.y, wr[k + 1]);
+          fma4(acc[r], hv.z, wr[k + 2]);
+          fma4(acc[r], hv.w, wr[k + 3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kChainRows; ++r)
+        *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+    }
     __syncthreads();  // the partial tiles stored; this dot's h read by every warp
     if (A.upto == kChainUptoProducts) continue;
     float* hn = hb + nxt * kChainRows * kW + col0;
@@ -833,13 +1010,14 @@ __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainCl
   cluster.sync();  // no CTA leaves while its peer may still address its shared memory
 }
 
+template <bool kBf16>
 cudaError_t launch_chain_cluster(const ChainClusterArgs& A, const ChainPlan& p,
                                  cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(chain_cluster_kernel,
+  cudaError_t e = cudaFuncSetAttribute(chain_cluster_kernel<kBf16>,
                                        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(chain_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             p.smem);
+    e = cudaFuncSetAttribute(chain_cluster_kernel<kBf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(p.grid);
@@ -853,7 +1031,7 @@ cudaError_t launch_chain_cluster(const ChainClusterArgs& A, const ChainPlan& p,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, chain_cluster_kernel, A);
+  return cudaLaunchKernelEx(&cfg, chain_cluster_kernel<kBf16>, A);
 }
 
 // T3's and T5's stream form: T4's cluster plan (16 CTAs a chain, 8 row
@@ -1018,7 +1196,12 @@ __device__ __forceinline__ void adam4(float* w, float* m, float* v, const float 
   *reinterpret_cast<float4*>(w) = make_float4(wp[0], wp[1], wp[2], wp[3]);
 }
 
-template <int kMode>
+// kBf16: a k16 step takes two stages (k 16s.. and 16s + 8.. of the warp's
+// slice): the warp waits for both, packs the lane's B pairs of its 16 n8
+// tiles from them (k 2t and 2t + 1 of each stage, column 8nt + g), runs the
+// step (chain_a_frag, chain_mma_step) and refills both; the ring, its
+// copies and their order are the fp32 mode's.
+template <int kMode, bool kBf16>
 __global__ void __launch_bounds__(kChainThreads, 1)
     chain_stream_kernel(const __grid_constant__ CUtensorMap wmap, StreamArgs A) {
   constexpr bool kT3 = kMode == kStreamT3;
@@ -1042,6 +1225,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
   const int chain = static_cast<int>(blockIdx.x) / kChainCluster;
   const int row0 = group * kChainRows, col0 = slice * kChainCols;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // bf16: the lane's fragment row and pair
   const int kb = warp * kChainKSlice;
   float* my_ring = ring + warp * kStreamStages * kStageFloats;
   // dot g's weight, as its first row in the stack: T3 the chain's weight g
@@ -1092,40 +1276,72 @@ __global__ void __launch_bounds__(kChainThreads, 1)
     const bool refill = stream && g + 1 < total && !(kMode == kStreamTail && adam);
     const int wn = refill ? weight(g + 1) : 0;
     const float* h = hb + cur * kChainRows * kW + kb;
-    float4 acc[kChainRows];
-#pragma unroll
-    for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (kBf16) {
+      static_assert(kStreamChunkK == 8 && kStreamStages % 2 == 0, "two stages a k16 step");
+      float acc[kChainNTiles][4] = {};
 #pragma unroll 1
-    for (int s = 0; s < kStreamStages; ++s) {
-      if (stream || g == 0) mbar_wait(&full[warp][s], g & 1);
-      if (A.upto != kStreamUptoWeights) {
-        const float* st = my_ring + s * kStageFloats + 4 * lane;
+      for (int st = 0; st < kStreamStages / 2; ++st) {
+        const int s0 = 2 * st;
+        if (stream || g == 0) {
+          mbar_wait(&full[warp][s0], g & 1);
+          mbar_wait(&full[warp][s0 + 1], g & 1);
+        }
+        if (A.upto != kStreamUptoWeights) {
+          uint32_t a[4], b[kChainNTiles][2];
+          chain_a_frag(a, h + 16 * st, gq, tq);
+          const float* w0 = my_ring + s0 * kStageFloats + 2 * tq * kChainCols + gq;
+          const float* w1 = w0 + kStageFloats;
 #pragma unroll
-        for (int k = 0; k < kStreamChunkK; k += 4) {
-          const float4 w0 = *reinterpret_cast<const float4*>(st + k * kChainCols);
-          const float4 w1 = *reinterpret_cast<const float4*>(st + (k + 1) * kChainCols);
-          const float4 w2 = *reinterpret_cast<const float4*>(st + (k + 2) * kChainCols);
-          const float4 w3 = *reinterpret_cast<const float4*>(st + (k + 3) * kChainCols);
+          for (int nt = 0; nt < kChainNTiles; ++nt) {
+            b[nt][0] = mma::bf16x2(w0[8 * nt], w0[8 * nt + kChainCols]);
+            b[nt][1] = mma::bf16x2(w1[8 * nt], w1[8 * nt + kChainCols]);
+          }
+          chain_mma_step(acc, a, b);
+        }
+        __syncwarp();  // every lane has read both stages: refill them with the next dot's
+        if (refill)
+          for (int s = s0; s < s0 + 2; ++s)
+            stream_issue(&wmap, wn + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
+                         &full[warp][s], lane);
+      }
+      if (A.upto == kStreamUptoWeights) continue;
+      chain_store_part(part + warp * kChainTile, acc, gq, tq);
+    } else {
+      float4 acc[kChainRows];
 #pragma unroll
-          for (int r = 0; r < kChainRows; ++r) {
-            const float4 hv =
-                *reinterpret_cast<const float4*>(h + r * kW + s * kStreamChunkK + k);
-            fma4(acc[r], hv.x, w0);
-            fma4(acc[r], hv.y, w1);
-            fma4(acc[r], hv.z, w2);
-            fma4(acc[r], hv.w, w3);
+      for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 1
+      for (int s = 0; s < kStreamStages; ++s) {
+        if (stream || g == 0) mbar_wait(&full[warp][s], g & 1);
+        if (A.upto != kStreamUptoWeights) {
+          const float* st = my_ring + s * kStageFloats + 4 * lane;
+#pragma unroll
+          for (int k = 0; k < kStreamChunkK; k += 4) {
+            const float4 w0 = *reinterpret_cast<const float4*>(st + k * kChainCols);
+            const float4 w1 = *reinterpret_cast<const float4*>(st + (k + 1) * kChainCols);
+            const float4 w2 = *reinterpret_cast<const float4*>(st + (k + 2) * kChainCols);
+            const float4 w3 = *reinterpret_cast<const float4*>(st + (k + 3) * kChainCols);
+#pragma unroll
+            for (int r = 0; r < kChainRows; ++r) {
+              const float4 hv =
+                  *reinterpret_cast<const float4*>(h + r * kW + s * kStreamChunkK + k);
+              fma4(acc[r], hv.x, w0);
+              fma4(acc[r], hv.y, w1);
+              fma4(acc[r], hv.z, w2);
+              fma4(acc[r], hv.w, w3);
+            }
           }
         }
+        __syncwarp();  // every lane has read the stage: refill it with the next dot's chunk
+        if (refill)
+          stream_issue(&wmap, wn + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
+                       &full[warp][s], lane);
       }
-      __syncwarp();  // every lane has read the stage: refill it with the next dot's chunk
-      if (refill)
-        stream_issue(&wmap, wn + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
-                     &full[warp][s], lane);
-    }
-    if (A.upto == kStreamUptoWeights) continue;
+      if (A.upto == kStreamUptoWeights) continue;
 #pragma unroll
-    for (int r = 0; r < kChainRows; ++r)
-      *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+      for (int r = 0; r < kChainRows; ++r)
+        *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+    }
     __syncthreads();  // the partial tiles stored; this dot's h read by every warp
     if (A.upto < kStreamUptoExchange) continue;
     float* hn = hb + nxt * kChainRows * kW;
@@ -1268,17 +1484,17 @@ cudaError_t stream_weight_map(const float* w, int rows, CUtensorMap* map) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int kMode>
+template <int kMode, bool kBf16>
 cudaError_t launch_chain_stream(const StreamArgs& A, int n_chains, cudaStream_t stream) {
   CUtensorMap wmap;
   cudaError_t e = stream_weight_map(
       A.w, (kMode == kStreamT3 ? n_chains * kT3Depth : kT5Bufs) * kW, &wmap);
   if (e != cudaSuccess) return e;
   const int smem = stream_smem_bytes(kMode);
-  e = cudaFuncSetAttribute(chain_stream_kernel<kMode>,
+  e = cudaFuncSetAttribute(chain_stream_kernel<kMode, kBf16>,
                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(chain_stream_kernel<kMode>,
+    e = cudaFuncSetAttribute(chain_stream_kernel<kMode, kBf16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg{};
@@ -1293,7 +1509,15 @@ cudaError_t launch_chain_stream(const StreamArgs& A, int n_chains, cudaStream_t 
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, chain_stream_kernel<kMode>, wmap, A);
+  return cudaLaunchKernelEx(&cfg, chain_stream_kernel<kMode, kBf16>, wmap, A);
+}
+
+template <bool kBf16>
+cudaError_t launch_chain_stream_mode(const StreamArgs& A, int n_chains, int mode,
+                                     cudaStream_t stream) {
+  return mode == kStreamT3     ? launch_chain_stream<kStreamT3, kBf16>(A, n_chains, stream)
+         : mode == kStreamTail ? launch_chain_stream<kStreamTail, kBf16>(A, n_chains, stream)
+                               : launch_chain_stream<kStreamInterleaved, kBf16>(A, n_chains, stream);
 }
 
 template <int kMode>
@@ -1314,13 +1538,15 @@ cudaError_t launch_dot(const DotArgs& A, const DotPlan& p, cudaStream_t stream) 
 }
 
 // The cooperative grid of chain_phase_kernel: one block an SM, if one fits.
+template <bool kBf16>
 int phase_grid(int* blocks) {
   int dev = 0, sms = 0, coop = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, chain_phase_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, chain_phase_kernel<kBf16>, kThreads,
+                                                        0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -1336,26 +1562,29 @@ const char* probes_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// T4, T3, T5: see chain_phase_kernel. The result is h[(n_steps·depth) % 2].
+// T4, T3, T5: see chain_phase_kernel; bf16_dots 1 takes its bf16-dot
+// instantiation. The result is h[(n_steps·depth) % 2].
 int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* maxbits,
                        int n_chains, int n_steps, int depth, int dots_per_weight,
-                       int epilogue, int adam, int t0, void* stream) {
+                       int epilogue, int adam, int t0, int bf16_dots, void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || n_steps < 1 || depth < 1 ||
       dots_per_weight < 1 || depth % dots_per_weight != 0 ||
       (epilogue != kEpClamp && epilogue != kEpRenorm) ||
       (epilogue == kEpRenorm && maxbits == nullptr) || adam < kAdamNone ||
       adam > kAdamInterleaved ||
-      (adam != kAdamNone && (n_chains != 1 || m == nullptr || v == nullptr)))
+      (adam != kAdamNone && (n_chains != 1 || m == nullptr || v == nullptr)) ||
+      (bf16_dots != 0 && bf16_dots != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const int err = phase_grid(&blocks);
+  const int err = bf16_dots ? phase_grid<true>(&blocks) : phase_grid<false>(&blocks);
   if (err != 0) return err;
   ChainArgs A{h, w, m, v, maxbits, n_chains, n_steps, depth, dots_per_weight, epilogue,
               adam, t0};
   void* params[] = {&A};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(chain_phase_kernel), dim3(blocks), dim3(kThreads), params, 0,
-      static_cast<cudaStream_t>(stream));
+  void* kernel = bf16_dots ? reinterpret_cast<void*>(chain_phase_kernel<true>)
+                           : reinterpret_cast<void*>(chain_phase_kernel<false>);
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params,
+                                                    0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1374,15 +1603,20 @@ int probes_chain_plan(int n_chains, int* plan) {
 
 // T4's cluster form: x (n_chains, kRows, kW), w (n_chains, kW, kW) → out,
 // on the caller's plan (smem, grid), which must be the library's own;
-// `upto` < 3 stops each dot early (the time split).
+// `upto` < 3 stops each dot early (the time split); bf16_dots 1 takes the
+// bf16-dot instantiation.
 int probes_chain_cluster(const float* x, const float* w, float* out, int n_chains,
-                         int n_steps, int depth, int smem, int grid, int upto, void* stream) {
+                         int n_steps, int depth, int smem, int grid, int upto, int bf16_dots,
+                         void* stream) {
   ChainPlan p;
   if (!chain_plan(n_chains, &p) || p.smem != smem || p.grid != grid || n_steps < 1 ||
-      depth < 1 || upto < kChainUptoStage || upto > kChainUptoAll)
+      depth < 1 || upto < kChainUptoStage || upto > kChainUptoAll ||
+      (bf16_dots != 0 && bf16_dots != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const ChainClusterArgs A{x, w, out, n_steps, depth, upto};
-  const cudaError_t e = launch_chain_cluster(A, p, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16_dots ? launch_chain_cluster<true>(A, p, st) : launch_chain_cluster<false>(A, p, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1391,18 +1625,19 @@ int probes_chain_cluster(const float* x, const float* w, float* out, int n_chain
 // (n_chains, 8·kW, kW), m and v null), 1 and 2 are T5 with Adam in a tail
 // or interleaved (one chain, w, m and v (5, kW, kW), updated in place, t0
 // Adam's step before the launch); the result goes to out (n_chains, kRows,
-// kW). `upto` < 4 stops each dot early (the time split).
+// kW). `upto` < 4 stops each dot early (the time split); bf16_dots 1 takes
+// the bf16-dot instantiation.
 int probes_chain_stream(const float* x, float* w, float* m, float* v, float* out, int n_chains,
-                        int n_steps, int mode, int t0, int upto, void* stream) {
+                        int n_steps, int mode, int t0, int upto, int bf16_dots, void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || n_steps < 1 || mode < kStreamT3 ||
       mode > kStreamInterleaved || upto < kStreamUptoWeights || upto > kStreamUptoAll ||
-      (mode != kStreamT3 && (n_chains != 1 || m == nullptr || v == nullptr)))
+      (mode != kStreamT3 && (n_chains != 1 || m == nullptr || v == nullptr)) ||
+      (bf16_dots != 0 && bf16_dots != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const StreamArgs A{x, w, m, v, out, n_steps, t0, upto};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = mode == kStreamT3     ? launch_chain_stream<kStreamT3>(A, n_chains, st)
-                        : mode == kStreamTail ? launch_chain_stream<kStreamTail>(A, n_chains, st)
-                                              : launch_chain_stream<kStreamInterleaved>(A, n_chains, st);
+  const cudaError_t e = bf16_dots ? launch_chain_stream_mode<true>(A, n_chains, mode, st)
+                                  : launch_chain_stream_mode<false>(A, n_chains, mode, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,12 +24,20 @@ Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
   (``wgmma``) with TF32 or bf16 operands; split-K over a thread-block
   cluster, on the plan of ``dot_plan``.
 
+T3, T4 and T5 take ``bf16_dots``: every dot with both operands rounded to
+bfloat16 (round to nearest even) and f32 sums, what the TPU tools' dots at
+``precision=None`` compute (T2's ``check_dot_modes``), on the tensor cores
+(``mma.sync`` m16n8k16) in every form; h, the weights, the clamp, T3's
+renorm and T5's Adam stay f32. Without it the dots are fp32.
+
 The kernels are ``csrc/probes.cu``. Each wrapper launches its kernel for
 CUDA tensors and raises if it cannot; for CPU tensors (and only for them) it
 runs its plain PyTorch version, which repeats the tool's math step by step
-(``torch.matmul`` for the dots). Each wrapper counts its launches in
-``.launches`` (``.cluster_launches`` and ``.stream_launches`` for those
-forms).
+(``torch.matmul`` for the dots, of operands rounded by
+``ops/precision.bf16_round`` with ``bf16_dots``). Each wrapper counts its
+launches in ``.launches`` (``.cluster_launches`` and ``.stream_launches``
+for those forms), and its bf16-dot launches apart, in ``.bf16_launches``
+(``.bf16_cluster_launches``, ``.bf16_stream_launches``).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.precision import bf16_round
 from .linear_vae import _require
 
 ROWS = 104  # the sphere sweep's batch 100, rounded to 8 (the tools' ROWS / M)
@@ -98,11 +107,11 @@ def _lib() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.probes_error_string.argtypes = [i32]
         lib.probes_error_string.restype = ctypes.c_char_p
-        lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+        lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 8 + [vp]
         lib.probes_chain_phase.restype = i32
-        lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 6 + [vp]
+        lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 7 + [vp]
         lib.probes_chain_cluster.restype = i32
-        lib.probes_chain_stream.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+        lib.probes_chain_stream.argtypes = [vp] * 5 + [i32] * 6 + [vp]
         lib.probes_chain_stream.restype = i32
         lib.probes_chain_plan.argtypes = [i32, ctypes.POINTER(i32)]
         lib.probes_chain_plan.restype = i32
@@ -122,6 +131,13 @@ def _check(lib, err: int, what: str) -> None:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _count(wrapper, name: str, bf16_dots: bool) -> None:
+    """One launch more on ``wrapper``'s counter ``name``, or on its bf16-dot
+    twin ``bf16_<name>``."""
+    name = f"bf16_{name}" if bf16_dots else name
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form) -> int:
@@ -145,7 +161,8 @@ def _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form) -> int:
 
 
 def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
-                weights_per_depth: bool, epilogue: str, form: str = "phase") -> torch.Tensor:
+                weights_per_depth: bool, epilogue: str, form: str = "phase",
+                bf16_dots: bool = False) -> torch.Tensor:
     """``n_steps`` trips of ``depth`` dependent dots h ← h·W on each of the
     chains ``xs`` (chains, ROWS, W); returns the final h. ``ws`` is one
     (W, W) weight a chain, or with ``weights_per_depth`` ``depth`` of them
@@ -153,11 +170,13 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
     "clamp" takes min(·, 8) after every dot (T4); "renorm" scales each
     chain's h by 1/max(max|h|, 1e-6) after each trip (T3). ``form``
     "cluster" is T4's second kernel (one weight a chain, the clamp only),
-    "stream" T3's (8 distinct weights a chain, the renorm only)."""
+    "stream" T3's (8 distinct weights a chain, the renorm only).
+    ``bf16_dots``: every dot of bf16-rounded operands with f32 sums."""
     n = _chain_shapes(xs, ws, depth, weights_per_depth, epilogue, form)
     if xs.device.type == "cpu":
         return plain_chain_chunk(xs, ws, n_steps=n_steps, depth=depth,
-                                 weights_per_depth=weights_per_depth, epilogue=epilogue)
+                                 weights_per_depth=weights_per_depth, epilogue=epilogue,
+                                 bf16_dots=bf16_dots)
     if xs.device.type != "cuda":
         raise ValueError(f"chain_chunk takes CPU or CUDA tensors, got {xs.device}")
     device = xs.device
@@ -166,12 +185,12 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
     if n_steps < 1 or depth < 1:
         raise ValueError(f"n_steps and depth must be ≥ 1, got {n_steps} and {depth}")
     if form == "cluster":
-        out = _chain_cluster_launch(xs, ws, n_steps, depth)
-        chain_chunk.cluster_launches += 1
+        out = _chain_cluster_launch(xs, ws, n_steps, depth, bf16_dots=bf16_dots)
+        _count(chain_chunk, "cluster_launches", bf16_dots)
         return out
     if form == "stream":
-        out = _stream_launch("t3", xs, ws, None, None, n_steps)
-        chain_chunk.stream_launches += 1
+        out = _stream_launch("t3", xs, ws, None, None, n_steps, bf16_dots=bf16_dots)
+        _count(chain_chunk, "stream_launches", bf16_dots)
         return out
     lib = _lib()
     h = torch.empty(2, *xs.shape, dtype=torch.float32, device=device)
@@ -179,15 +198,15 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
     maxbits = torch.zeros(2 * n, dtype=torch.int32, device=device)
     err = lib.probes_chain_phase(h.data_ptr(), ws.data_ptr(), None, None, maxbits.data_ptr(), n,
                                  n_steps, depth, 1 if weights_per_depth else depth,
-                                 EPILOGUES[epilogue], 0, 0, _stream(device))
+                                 EPILOGUES[epilogue], 0, 0, int(bf16_dots), _stream(device))
     _check(lib, err, "probes_chain_phase launch")
-    chain_chunk.launches += 1
+    _count(chain_chunk, "launches", bf16_dots)
     return h[(n_steps * depth) % 2]
 
 
-chain_chunk.launches = 0
-chain_chunk.cluster_launches = 0
-chain_chunk.stream_launches = 0
+chain_chunk.launches = chain_chunk.bf16_launches = 0
+chain_chunk.cluster_launches = chain_chunk.bf16_cluster_launches = 0
+chain_chunk.stream_launches = chain_chunk.bf16_stream_launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class ChainPlan:
@@ -246,10 +265,11 @@ def library_chain_plan(n_chains: int) -> ChainPlan:
 
 
 def _chain_cluster_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, depth: int,
-                          upto: str = "all") -> torch.Tensor:
-    """One launch of T4's cluster form on CUDA tensors; ``upto`` other than
-    "all" stops every dot early (the time split; the result is then not the
-    chain's). Uncounted."""
+                          upto: str = "all", bf16_dots: bool = False) -> torch.Tensor:
+    """One launch of T4's cluster form on CUDA tensors, its bf16-dot
+    instantiation with ``bf16_dots``; ``upto`` other than "all" stops every
+    dot early (the time split; the result is then not the chain's).
+    Uncounted."""
     n = _chain_shapes(xs, ws, depth, False, "clamp", "cluster")
     device = xs.device
     _require(xs, "xs", device)
@@ -261,7 +281,7 @@ def _chain_cluster_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, dept
     lib = _lib()
     err = lib.probes_chain_cluster(xs.data_ptr(), ws.data_ptr(), out.data_ptr(), n, n_steps,
                                    depth, plan.smem, plan.grid, CHAIN_UPTO[upto],
-                                   _stream(device))
+                                   int(bf16_dots), _stream(device))
     _check(lib, err, "probes_chain_cluster launch")
     return out
 
@@ -332,12 +352,13 @@ def stream_schedule(mode: str, n_steps: int) -> list:
 
 def _stream_launch(mode: str, x: torch.Tensor, w: torch.Tensor, m: Optional[torch.Tensor],
                    v: Optional[torch.Tensor], n_steps: int, t0: int = 0,
-                   upto: str = "all") -> torch.Tensor:
+                   upto: str = "all", bf16_dots: bool = False) -> torch.Tensor:
     """One launch of the stream form on CUDA tensors: ``mode`` "t3" (x
     (chains, ROWS, W), w (chains, 8·W, W)) or T5's "tail" or "interleaved"
     (x (1, ROWS, W); w, m and v (N_BUF, W, W), updated in place); returns
-    the final h. ``upto`` other than "all" stops every dot early (the time
-    split; the result is then not the chain's). Uncounted."""
+    the final h. ``bf16_dots`` launches the bf16-dot instantiation. ``upto``
+    other than "all" stops every dot early (the time split; the result is
+    then not the chain's). Uncounted."""
     device = x.device
     for t, name in ((x, "x"), (w, "w"), (m, "m"), (v, "v")):
         if t is None:  # T3 has no moments; the library refuses T5 without them
@@ -353,19 +374,29 @@ def _stream_launch(mode: str, x: torch.Tensor, w: torch.Tensor, m: Optional[torc
                                   None if m is None else m.data_ptr(),
                                   None if v is None else v.data_ptr(), out.data_ptr(),
                                   x.shape[0], n_steps, STREAM_MODES[mode], t0,
-                                  STREAM_UPTO[upto], _stream(device))
+                                  STREAM_UPTO[upto], int(bf16_dots), _stream(device))
     _check(lib, err, f"probes_chain_stream ({mode}) launch")
     return out
 
 
+def _dot(h: torch.Tensor, w: torch.Tensor, bf16_dots: bool) -> torch.Tensor:
+    """h·w in float32; with ``bf16_dots`` of both operands rounded to
+    bfloat16 first (their products are exact in float32)."""
+    if bf16_dots:
+        h, w = bf16_round(h), bf16_round(w)
+    return torch.matmul(h, w)
+
+
 def plain_chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
-                      weights_per_depth: bool, epilogue: str) -> torch.Tensor:
-    """The plain PyTorch version of ``chain_chunk`` (either form): the
-    tools' loops, one batched ``torch.matmul`` a dot over the chains."""
+                      weights_per_depth: bool, epilogue: str,
+                      bf16_dots: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of ``chain_chunk`` (every form): the
+    tools' loops, one batched ``torch.matmul`` a dot over the chains, of
+    bf16-rounded operands with ``bf16_dots``."""
     h = xs.clone()
     for _ in range(n_steps):
         for d in range(depth):
-            h = torch.matmul(h, ws[:, d * W:(d + 1) * W] if weights_per_depth else ws)
+            h = _dot(h, ws[:, d * W:(d + 1) * W] if weights_per_depth else ws, bf16_dots)
             if epilogue == "clamp":
                 h = torch.clamp(h, max=CLAMP)
         if epilogue == "renorm":
@@ -384,7 +415,7 @@ def _adam_shapes(x, ws, ms, vs) -> None:
 
 def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: torch.Tensor,
                        *, n_steps: int, interleave: bool, t0: int = 0,
-                       form: str = "phase") -> torch.Tensor:
+                       form: str = "phase", bf16_dots: bool = False) -> torch.Tensor:
     """T5: ``n_steps`` steps of 25 dependent dots (buffer d of ``ws`` for
     dots 5d..5d+4, min(·, 8) after each) and Adam on every buffer, the
     gradient of buffer d being the column mean of h broadcast down the rows
@@ -392,11 +423,12 @@ def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: 
     25th dot (from the final h); True: buffer d's after dot 5d+4 (from h
     there). ``ws``, ``ms`` and ``vs`` (N_BUF, W, W) are updated in place;
     returns h. Adam's t is t0 + step + 1. ``form`` "phase" or "stream"
-    (``T5_FORMS``)."""
+    (``T5_FORMS``). ``bf16_dots``: every dot of bf16-rounded operands (the
+    buffers' current f32 values rounded) with f32 sums; Adam stays f32."""
     _adam_shapes(x, ws, ms, vs)
     if form not in T5_FORMS:
         raise ValueError(f"form must be one of {T5_FORMS}, got {form!r}")
-    kw = dict(n_steps=n_steps, interleave=interleave, t0=t0)
+    kw = dict(n_steps=n_steps, interleave=interleave, t0=t0, bf16_dots=bf16_dots)
     if x.device.type == "cpu":
         return plain_adam_overlap_chunk(x, ws, ms, vs, **kw)
     if x.device.type != "cuda":
@@ -408,8 +440,8 @@ def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: 
         raise ValueError(f"n_steps must be ≥ 1, got {n_steps}")
     if form == "stream":
         h = _stream_launch("interleaved" if interleave else "tail", x.reshape(1, ROWS, W), ws,
-                           ms, vs, n_steps, t0)
-        adam_overlap_chunk.stream_launches += 1
+                           ms, vs, n_steps, t0, bf16_dots=bf16_dots)
+        _count(adam_overlap_chunk, "stream_launches", bf16_dots)
         return h[0]
     lib = _lib()
     h = torch.empty(2, 1, ROWS, W, dtype=torch.float32, device=device)
@@ -417,23 +449,24 @@ def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: 
     depth = N_BUF * DOTS_PER_BUF
     err = lib.probes_chain_phase(h.data_ptr(), ws.data_ptr(), ms.data_ptr(), vs.data_ptr(),
                                  None, 1, n_steps, depth, DOTS_PER_BUF, EPILOGUES["clamp"],
-                                 2 if interleave else 1, t0, _stream(device))
+                                 2 if interleave else 1, t0, int(bf16_dots), _stream(device))
     _check(lib, err, "probes_chain_phase (Adam) launch")
-    adam_overlap_chunk.launches += 1
+    _count(adam_overlap_chunk, "launches", bf16_dots)
     return h[(n_steps * depth) % 2, 0]
 
 
-adam_overlap_chunk.launches = 0
-adam_overlap_chunk.stream_launches = 0
+adam_overlap_chunk.launches = adam_overlap_chunk.bf16_launches = 0
+adam_overlap_chunk.stream_launches = adam_overlap_chunk.bf16_stream_launches = 0
 
 
 def plain_adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor,
                              vs: torch.Tensor, *, n_steps: int, interleave: bool,
-                             t0: int = 0) -> torch.Tensor:
-    """The plain PyTorch version of ``adam_overlap_chunk``, in place. The
-    bias corrections 1 − βᵗ are taken in double and rounded to float32, as
-    the kernel (and ``csrc/mlp_vae.cu``) does; the tool takes
-    exp(t·log β) in float32."""
+                             t0: int = 0, bf16_dots: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of ``adam_overlap_chunk``, in place; with
+    ``bf16_dots`` each dot rounds h and the buffer's current f32 values to
+    bfloat16. The bias corrections 1 − βᵗ are taken in double and rounded
+    to float32, as the kernel (and ``csrc/mlp_vae.cu``) does; the tool
+    takes exp(t·log β) in float32."""
     f32 = np.float32
 
     def adam_(d, h, bc1, bc2):
@@ -450,7 +483,7 @@ def plain_adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor
         bc1, bc2 = f32(1.0 - 0.9 ** t), f32(1.0 - 0.999 ** t)
         for d in range(N_BUF):
             for _ in range(DOTS_PER_BUF):
-                h = torch.clamp(torch.matmul(h, ws[d]), max=CLAMP)
+                h = torch.clamp(_dot(h, ws[d], bf16_dots), max=CLAMP)
             if interleave:
                 adam_(d, h, bc1, bc2)
         if not interleave:

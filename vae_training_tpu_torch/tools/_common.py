@@ -1,4 +1,5 @@
-"""What the probes share: the device flag, the card's name, and timing.
+"""What the probes share: the device flag, the card's name, the dot modes,
+and timing.
 
 A time is one window of at least ``min_seconds``, after a warm-up window
 of the same size: on a CUDA device with CUDA events around the window and a
@@ -14,7 +15,35 @@ import subprocess
 import time
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
+
+from ..kernels.probes import W
+
+# The dot modes T3, T4 and T5 run, in turn, as ``bf16_dots``: first the TPU
+# tools' own (``jnp.dot`` at precision=None: bf16 operands, f32 sums), then
+# fp32 products
+DOT_MODES = {"bf16": True, "fp32": False}
+
+
+def two_term_weights(rs: np.random.RandomState, n: int) -> np.ndarray:
+    """``n`` (W, W) weights stacked, (n·W, W), float64: each column holds two
+    nonzeros, 0.7·N(0, 1), in rows of distinct 16-row blocks (the bf16 dots'
+    k16 steps). A dot by such a weight sums two products, so in bf16 dots
+    (exact products) and in fp32 alike its f32 sum is one rounding in any
+    order: a chain of them is bitwise the same in every implementation of
+    the mode, where dense weights make two summation orders part within a
+    few dots (a rounding to bf16 flipped by a last-bit difference changes
+    the next dot's every output). The values are not bf16 values, so the
+    two modes differ."""
+    w = np.zeros((n * W, W))
+    cols = np.arange(W)
+    for b in range(n):
+        r1 = rs.permutation(W)
+        r2 = (r1 + 16 * rs.randint(1, W // 16, W)) % W
+        w[b * W + r1, cols] = 0.7 * rs.randn(W)
+        w[b * W + r2, cols] = 0.7 * rs.randn(W)
+    return w
 
 
 def parser(description: str, timed: bool = True) -> argparse.ArgumentParser:

@@ -2,10 +2,13 @@
 than Adam in a tail after them?
 
 Counterpart of ``tools/probe_adam_overlap.py`` (``_kernel``). A step is 25
-dependent (104×256)·(256×256) fp32 dots over 5 weight buffers (5 dots each,
-min(·, 8) after each) and Adam on the 5 buffers, the gradient of buffer d
-being the column mean of h ·1e-6(d + 1), lr 1e-9. Both of the port's forms
-(``csrc/probes.cu``) are timed:
+dependent (104×256)·(256×256) dots over 5 weight buffers (5 dots each,
+min(·, 8) after each) and f32 Adam on the 5 buffers, the gradient of
+buffer d being the column mean of h ·1e-6(d + 1), lr 1e-9. Each dot runs
+in the tool's own mode, bf16 operands (h and the buffer's current f32
+values rounded) with f32 sums (its ``jnp.dot`` at precision=None on the
+TPU), and then in fp32, in turn (``_common.DOT_MODES``). Both of the
+port's forms (``csrc/probes.cu``) are timed in both modes:
 
 - ``phase``: a step is 26 grid-wide phases of the phase kernel either way:
   in the tail, one Adam phase over the 5 buffers after the 25th dot (K5's
@@ -21,8 +24,8 @@ being the column mean of h ·1e-6(d + 1), lr 1e-9. Both of the port's forms
 
     python -m vae_training_tpu_torch.tools.probe_adam_overlap [--device cuda|cpu]
 
-Times tail, interleaved, interleaved, tail (in turns) for each form and
-prints its VERDICT line: interleaved/tail (< 0.93 ⇒ overlap).
+Times tail, interleaved, interleaved, tail (in turns) for each form and dot
+mode and prints its VERDICT line: interleaved/tail (< 0.93 ⇒ overlap).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels import probes
-from ._common import card, device_from, parser, seconds_per_step
+from ._common import DOT_MODES, card, device_from, parser, seconds_per_step
 
 ORDER = ("tail", "interleaved", "interleaved", "tail")
 DELTA_RTOL = 1e-3  # delta_mismatch's bound for a kernel held to its plain version
@@ -79,15 +82,17 @@ def delta_mismatch(got: torch.Tensor, ref: torch.Tensor, start: torch.Tensor) ->
     return float(((dg - dr).abs() / (dr.abs() + top)).max())
 
 
-def run(device: torch.device, form: str, interleave: bool, min_seconds: float):
-    """(µs a step, steps a call, checksum) of one variant of ``form``."""
+def run(device: torch.device, form: str, interleave: bool, min_seconds: float,
+        bf16_dots: bool = False):
+    """(µs a step, steps a call, checksum) of one variant of ``form`` in the
+    dot mode."""
     x, ws, ms, vs = inputs(device)
     out: List[torch.Tensor] = []
     done = [0]
 
     def launch(n):
         out[:] = [probes.adam_overlap_chunk(x, ws, ms, vs, n_steps=n, interleave=interleave,
-                                            t0=done[0], form=form)]
+                                            t0=done[0], form=form, bf16_dots=bf16_dots)]
         done[0] += n
 
     per_step, n = seconds_per_step(launch, device, min_seconds)
@@ -100,20 +105,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"card: {card(device)}")
     print(f"{probes.N_BUF * probes.DOTS_PER_BUF} serial {probes.ROWS}x{probes.W}x{probes.W} "
           f"dots + Adam over {probes.N_BUF}x{probes.W}x{probes.W} params/step")
-    report = {}
+    report = {mode: {} for mode in DOT_MODES}
     for form in probes.T5_FORMS:
-        res: Dict[str, List[float]] = {}
-        for label in ORDER:
-            us, n, checksum = run(device, form, label == "interleaved", args.seconds)
-            res.setdefault(label, []).append(us)
-            print(f"  {form:6s} {label:12s}: {us:.3f} us/step, {n} steps a call "
-                  f"(checksum {checksum:.6g})")
-        tail, inter = min(res["tail"]), min(res["interleaved"])
-        ratio = inter / tail
-        overlap = ratio < 0.93
-        print(f"VERDICT ({form}): interleaved/tail = {ratio:.3f}x "
-              f"({'OVERLAP — restructure the kernel' if overlap else 'no overlap — keep the tail loop'})")
-        report[form] = {"us_per_step": res, "ratio": ratio, "overlap": overlap}
+        for mode, bf16_dots in DOT_MODES.items():
+            res: Dict[str, List[float]] = {}
+            for label in ORDER:
+                us, n, checksum = run(device, form, label == "interleaved", args.seconds,
+                                      bf16_dots)
+                res.setdefault(label, []).append(us)
+                print(f"  {form:6s} {mode} {label:12s}: {us:.3f} us/step, {n} steps a call "
+                      f"(checksum {checksum:.6g})")
+            tail, inter = min(res["tail"]), min(res["interleaved"])
+            ratio = inter / tail
+            overlap = ratio < 0.93
+            print(f"VERDICT ({form}, {mode} dots): interleaved/tail = {ratio:.3f}x "
+                  f"({'OVERLAP — restructure the kernel' if overlap else 'no overlap — keep the tail loop'})")
+            report[mode][form] = {"us_per_step": res, "ratio": ratio, "overlap": overlap}
     return report
 
 

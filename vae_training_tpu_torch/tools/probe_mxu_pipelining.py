@@ -2,11 +2,14 @@
 does every dot pay the full cost of reaching its weights?
 
 Counterpart of ``tools/probe_mxu_pipelining.py`` (``make_kernel``). One,
-two or four chains, each of 8 dependent (104×256)·(256×256) fp32 dots a
-trip with 8 distinct N(0,1)·0.05 weights a chain (stacked (2048, 256)),
-h ~ N(0,1) at the start, each trip renormalised by 1/max(max|h|, 1e-6) a
+two or four chains, each of 8 dependent (104×256)·(256×256) dots a trip
+with 8 distinct N(0,1)·0.05 weights a chain (stacked (2048, 256)), h ~
+N(0,1) at the start, each trip renormalised by 1/max(max|h|, 1e-6) a
 chain. Inputs come from numpy seeds (the tool's came from jax.random).
-Both of the port's forms (``csrc/probes.cu``) are timed:
+Each dot runs in the tool's own mode, bf16 operands with f32 sums (its
+``jnp.dot`` at precision=None on the TPU), and then in fp32, in turn
+(``_common.DOT_MODES``). Both of the port's forms (``csrc/probes.cu``) are
+timed:
 
 - ``phase``: the chains' dot d share one phase of the phase kernel (one
   cooperative launch, a grid-wide phase a dot); each dot reads its own
@@ -18,8 +21,8 @@ Both of the port's forms (``csrc/probes.cu``) are timed:
 
     python -m vae_training_tpu_torch.tools.probe_mxu_pipelining [--device cuda|cpu]
 
-Prints ns a dot for 1, 2 and 4 chains and, per form, the VERDICT line: the
-independence speed-up (> 1.3 ⇒ interleaving rows pays).
+Prints ns a dot for 1, 2 and 4 chains and, per form and dot mode, the
+VERDICT line: the independence speed-up (> 1.3 ⇒ interleaving rows pays).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from ..kernels import probes
-from ._common import card, device_from, parser, seconds_per_step
+from ._common import (DOT_MODES, card, device_from, parser, seconds_per_step,
+                      two_term_weights)
 
 
 def inputs(n_chains: int, device) -> tuple:
@@ -43,14 +47,26 @@ def inputs(n_chains: int, device) -> tuple:
     return as_t(xs), as_t(ws)
 
 
-def run(device: torch.device, form: str, n_chains: int, min_seconds: float):
-    """(ns a dot, trips a call) of ``form`` at ``n_chains``."""
+def two_term_inputs(n_chains: int, device) -> tuple:
+    """Inputs whose chain is bitwise the same in every implementation of a
+    dot mode (numpy-made from seed 1): h ~ N(0, 1), 8 weights a chain of two
+    nonzeros a column each (``_common.two_term_weights``)."""
+    rs = np.random.RandomState(1)
+    xs = rs.randn(n_chains, probes.ROWS, probes.W)
+    ws = np.stack([two_term_weights(rs, probes.T3_DEPTH) for _ in range(n_chains)])
+    return tuple(torch.as_tensor(a.astype(np.float32)).to(device) for a in (xs, ws))
+
+
+def run(device: torch.device, form: str, n_chains: int, min_seconds: float,
+        bf16_dots: bool = False):
+    """(ns a dot, trips a call) of ``form`` at ``n_chains`` in the dot mode."""
     xs, ws = inputs(n_chains, device)
     out: List[torch.Tensor] = []
 
     def launch(n):
         out[:] = [probes.chain_chunk(xs, ws, n_steps=n, depth=probes.T3_DEPTH,
-                                     weights_per_depth=True, epilogue="renorm", form=form)]
+                                     weights_per_depth=True, epilogue="renorm", form=form,
+                                     bf16_dots=bf16_dots)]
 
     per_trip, n = seconds_per_step(launch, device, min_seconds)
     return per_trip / (probes.T3_DEPTH * n_chains) * 1e9, n
@@ -60,18 +76,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parser(__doc__.splitlines()[0]).parse_args(argv)
     device = device_from(args.device)
     print(f"card: {card(device)}")
-    report = {}
+    report = {mode: {} for mode in DOT_MODES}
     for form in probes.T3_FORMS:
-        ns = {}
-        for n_chains in (1, 2, 4):
-            ns[n_chains], n = run(device, form, n_chains, args.seconds)
-            dots = n * probes.T3_DEPTH * n_chains
-            print(f"  {form:6s} chains={n_chains}: {n} trips a call ({dots} dots) -> "
-                  f"{ns[n_chains]:7.1f} ns/dot")
-        x2, x4 = ns[1] / ns[2], ns[1] / ns[4]
-        print(f"VERDICT ({form}): independence speedup: x2={x2:.2f}  x4={x4:.2f} "
-              f"(>1.3 => interleaving the sphere grid kernel pays)")
-        report[form] = {"ns_per_dot": ns, "x2": x2, "x4": x4}
+        for mode, bf16_dots in DOT_MODES.items():
+            ns = {}
+            for n_chains in (1, 2, 4):
+                ns[n_chains], n = run(device, form, n_chains, args.seconds, bf16_dots)
+                dots = n * probes.T3_DEPTH * n_chains
+                print(f"  {form:6s} {mode} chains={n_chains}: {n} trips a call ({dots} dots) "
+                      f"-> {ns[n_chains]:7.1f} ns/dot")
+            x2, x4 = ns[1] / ns[2], ns[1] / ns[4]
+            print(f"VERDICT ({form}, {mode} dots): independence speedup: x2={x2:.2f}  "
+                  f"x4={x4:.2f} (>1.3 => interleaving the sphere grid kernel pays)")
+            report[mode][form] = {"ns_per_dot": ns, "x2": x2, "x4": x4}
     return report
 
 
