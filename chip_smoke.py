@@ -134,25 +134,38 @@ Fifty-nine phases:
      then fp32 dots) and VERDICTs; torch.matmul + clamp a step in device
      time (20 steps in a CUDA graph; bf16 operands for bf16); the cluster
      form's step split by launch variants (staging, + products, + sums,
-     whole) at 1, 2 and 4 chains (bf16 dots: 1), in device time;
+     whole) at 1, 2 and 4 chains (bf16 dots: 1), in device time; the
+     phase form's bf16 cut (units of 16 x 32 outputs, K over 8 warps) and
+     chain 0 of 4 chains bitwise chain 0 alone in bf16 dots (the sums'
+     order does not depend on the chain count); its dot split by launch
+     variants (the grid barriers alone, the phases' work without them,
+     whole) at 1 and 4 chains in both dot modes, in device time; the
+     earlier bf16 body's times beside;
  27. T3: 8 distinct weights a chain, renormalised a trip, the phase and
      the stream form (the stream kernel's registers and spills, ptxas),
      against the plain version (2 trips, 1/2/4 chains, rtol 1e-4 / atol
      1e-5), two stream launches bitwise equal (both dot modes); in bf16
-     dots two-term inputs (2 trips) bitwise, one dense dot (phase form) at
-     rho <= 1e-3, 2 dense trips' drift printed; then the tool: ns a dot for
+     dots two-term inputs (2 trips) bitwise, one dense dot at rho <= 1e-3
+     (the phase form on the first weight, the stream form on a trip of 7
+     identities and it), 2 dense trips' drift printed; then the tool: ns a dot for
      1/2/4 chains and the independence speed-up, each form and dot mode;
      torch.matmul a dot in device time (200 dots in a CUDA graph); the
      stream form's dot split by launch variants (the weights streamed
      alone, the products alone, the products with the stream, + sums and
-     the row exchange, whole) at 1, 2 and 4 chains (bf16 dots: 1), in turns;
+     the row exchange, whole) at 1, 2 and 4 chains (bf16 dots: 1), in
+     turns, beside the bf16 products' shared-memory wavefronts a warp a dot
+     under the 32-bank model (kernels/probes.py stream_product_wavefronts;
+     printed, not measured); the phase form's split at 1 and 4 chains in
+     both dot modes; the earlier bf16 bodies' times beside;
  28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, each form,
      against the plain versions (3 steps; h at MLP_TOL, what Adam changed
      within DELTA_RTOL, with its controls; bf16 dots 2 steps, h at rho <=
      0.1, the fp32 instantiation >= 0.5), two stream launches bitwise
      equal (both dot modes); then tail and interleaved in turns and the
      VERDICT, each form and dot mode; the stream form's step split by
-     launch variants (as phase 27's, whole with Adam), in turns;
+     launch variants (as phase 27's, whole with Adam) and the phase form's
+     (tail), both in both dot modes, in turns; the earlier bf16 bodies'
+     times beside;
  29. T2: the dot kernel's registers, shared memory and spills (ptxas) and
      its plan, the library's equal to kernels/probes.py's; every mode
      against its plain version at four odd shapes; then the tool: one dot in
@@ -316,7 +329,7 @@ Fifty-nine phases:
      loss and padding norm beside phases 5's and 11's bf16 runs; both
      modes' must fall.
 
- 58. supervised rows: vae-sweep-torch linear --isolate --shard 0/7 (3 runs,
+ 58. supervised rows: vae-sweep-torch linear --isolate --shard 0/11 (2 runs,
      12000 steps, each in a process of its own whose [kernels] line names
      K1; the supervising process launches nothing) equal to the same runs
      in process (losses.npz, model.pkl and the checkpoint, bitwise); then
@@ -2086,6 +2099,15 @@ def _bf16_moments(torch, np, smi, data_dir):
     return records
 
 
+# The earlier bf16 bodies of the phase and stream forms (commit 72ab5c7,
+# before their redesign), measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6): printed beside this run's times
+EARLIER_BF16 = {"T4 phase us/step": 201.932, "T3 phase ns/dot": 8628.5,
+             "T3 stream ns/dot": 4854.4, "T3 stream products alone ns/dot": 3574.4,
+             "T5 phase tail us/step": 223.923, "T5 phase interleaved us/step": 228.253,
+             "T5 stream tail us/step": 136.761, "T5 stream interleaved us/step": 143.995}
+
+
 def _probes(torch, np, smi):
     """Phases 26–30: the probes T4, T3, T5 and T2 (csrc/probes.cu), each
     kernel against its plain version on the card, then the tool's own run
@@ -2102,7 +2124,7 @@ def _probes(torch, np, smi):
     from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
     from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
     from vae_training_tpu_torch.ops.precision import bf16_round
-    from vae_training_tpu_torch.tools._common import DOT_MODES, seconds_per_step
+    from vae_training_tpu_torch.tools._common import DOT_MODES, seconds_per_step, split_in_turns
 
     dev = torch.device("cuda")
     # the tools' default window is 1 s; T3-T5 run each form in both dot modes
@@ -2286,15 +2308,13 @@ def _probes(torch, np, smi):
     # (and one that stages W and x only), in turns, at 1, 2 and 4 chains
     # (bf16 dots: at 1); device time, 10 steps a launch
     t4_split = {"fp32": {}, "bf16": {}}
-    uptos = list(probes.CHAIN_UPTO)
-    for mode, n_chains in (("fp32", 1), ("fp32", 2), ("fp32", 4), ("bf16", 1)):
-        xs, ws = t4.inputs(n_chains, dev)
-        runs = {}
-        for upto in uptos + uptos[::-1]:
-            runs.setdefault(upto, []).append(_device_us(
-                torch, lambda u=upto: probes._chain_cluster_launch(
-                    xs, ws, 10, probes.T4_DEPTH, u, bf16_dots=mode == "bf16"), calls=5) / 10)
-        sp = t4_split[mode][n_chains] = {u: min(v) for u, v in runs.items()}
+    configs = (("fp32", 1), ("fp32", 2), ("fp32", 4), ("bf16", 1))
+    t4_in = {n: t4.inputs(n, dev) for n in (1, 2, 4)}
+    got = split_in_turns({f"{m} {n}": lambda u, m=m, n=n: probes._chain_cluster_launch(
+        *t4_in[n], 10, probes.T4_DEPTH, u, bf16_dots=m == "bf16") for m, n in configs},
+        probes.CHAIN_UPTO, 1 / 10)
+    for mode, n_chains in configs:
+        sp = t4_split[mode][n_chains] = got[f"{mode} {n_chains}"]
         print(f"T4 cluster split, {mode} dots, {n_chains} chain(s), us a step (device time, min "
               f"of two): staging {sp['stage']:.2f} (a launch of 10 steps / 10), + products "
               f"{sp['products']:.2f}, + sums {sp['sums']:.2f}, whole {sp['all']:.2f}; so "
@@ -2306,6 +2326,28 @@ def _probes(torch, np, smi):
     chain_bound_ms = {m: b["bound_ms"] * card_sms / chain_sms for m, b in bounds.items()}
     print(f"T4 bound on one chain's {chain_sms} SMs: fp32 {chain_bound_ms['fp32'] * 1e3:.3f}, "
           f"bf16 dots {chain_bound_ms['bf16'] * 1e3:.3f} us/step")
+    # the phase form's bf16 cut, and chain 0's bits alone and beside 3 more
+    # chains (the sums' order must not depend on the chain count)
+    units = {n: probes.phase_units(n, card_sms) for n in (1, 4)}
+    print(f"T4/T3/T5 phase form, bf16 cut: units of 16 rows x {probes.PHASE_COLS} columns, K over "
+          f"{probes.PHASE_K_SPLIT} warps of {Wd // probes.PHASE_K_SPLIT} k, "
+          f"{probes.PHASE_SLOTS} units a CTA a round on {card_sms} CTAs: "
+          + ", ".join(f"{n} chain(s) {len(u)} units in {1 + max(x['round'] for x in u)} round(s)"
+                      for n, u in units.items()))
+    xs, ws = t4.check_inputs(4, dev)
+    for ckw in (one, random_kw):
+        a = probes.chain_chunk(xs, ws, form="phase", bf16_dots=True, **ckw)[0]
+        b = probes.chain_chunk(xs[:1], ws[:1], form="phase", bf16_dots=True, **ckw)[0]
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"T4 phase bf16 dots, {ckw['depth']} dot(s): chain 0 of 4 "
+                                   "chains bitwise chain 0 alone")
+    print("T4 phase form, bf16 dots: chain 0 of 4 chains bitwise chain 0 alone (1 and 8 dots)")
+    # the phase form's dot split by launch variants (the grid barriers alone,
+    # the phases' work without them, whole), in turns, at 1 and 4 chains in
+    # both dot modes; device time, 4 steps a launch
+    phase_split = _phase_split(torch, probes, dev, "T4", lambda n: t4.inputs(n, dev),
+                               dict(n_steps=4, depth=probes.T4_DEPTH, weights_per_depth=False,
+                                    epilogue="clamp"))
     for form in probes.T4_FORMS:
         us = {mode: t4_report[mode][form]["us_per_step"] for mode in DOT_MODES}
         print(f"T4 {form} one chain, us a step, bf16 / fp32 dots (the tool's windows, in turn): "
@@ -2324,7 +2366,8 @@ def _probes(torch, np, smi):
             "verdict": t4_report["fp32"][form]["verdict"],
             **({"plan": dataclasses.asdict(probes.chain_plan(1)),
                 "split_us_per_step": t4_split["fp32"],
-                "bound_chain_sms_ms": chain_bound_ms["fp32"]} if form == "cluster" else {})})
+                "bound_chain_sms_ms": chain_bound_ms["fp32"]} if form == "cluster" else
+               {"split_ns_per_dot": phase_split["fp32"]})})
         records.append({
             "name": f"chain_{form}_kernel<bf16> (T4, {form} form), bf16 dots", "route": "cuda",
             "source": "vae_training_tpu_torch/csrc/probes.cu",
@@ -2335,7 +2378,10 @@ def _probes(torch, np, smi):
             "verdict": t4_report["bf16"][form]["verdict"], "rho_one_dot": t4_bf[form]["rho"],
             "rho_8_dots": t4_bf[form]["rho_8"], "fp32_dots_ms": min(us["fp32"][1]) / 1e3,
             **({"split_us_per_step": t4_split["bf16"],
-                "bound_chain_sms_ms": chain_bound_ms["bf16"]} if form == "cluster" else {})})
+                "bound_chain_sms_ms": chain_bound_ms["bf16"]} if form == "cluster" else
+               {"split_ns_per_dot": phase_split["bf16"]})})
+    print(f"T4 phase one chain, bf16 dots: {min(t4_report['bf16']['phase']['us_per_step'][1]):.3f} "
+          f"us a step (the earlier body: {EARLIER_BF16['T4 phase us/step']})")
     print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 27 -------------------------------------------------------------------
@@ -2381,15 +2427,20 @@ def _probes(torch, np, smi):
             require(torch.equal(got, want), f"T3 {form} bf16 dots, {n_chains} chain(s), two-term "
                                             "inputs, 2 trips: bitwise the plain version")
             xs, ws = t3.inputs(n_chains, dev)
-            line = ""
             st = t3_bf[form]
+            # one dense dot: the phase form on the first weight; a stream
+            # launch runs whole trips, so 7 identities then the first weight
+            # (an identity dot of bf16 operands only rounds h, exactly)
             if form == "phase":
                 r, rc, err = dense_rho(xs, ws[:, :Wd].contiguous(), form, one)
-                require(r <= 1e-3 and rc >= 0.5, f"T3 {form} bf16 dots, one dot: ρ {r:.2e} <= "
-                                                 f"1e-3, fp32's {rc:.3f} >= 0.5")
-                st["err"], st["rho"] = max(st["err"], err), max(st["rho"], r)
-                line = (f"; one dot: ρ {r:.2e} (the fp32 instantiation {rc:.3f}), max |Δ| "
-                        f"{err:.2e}")
+            else:
+                r, rc, err = dense_rho(*t3.dense_trip_inputs(n_chains, dev), form,
+                                       dict(kw, n_steps=1))
+            require(r <= 1e-3 and rc >= 0.5, f"T3 {form} bf16 dots, one dense dot: ρ {r:.2e} <= "
+                                             f"1e-3, fp32's {rc:.3f} >= 0.5")
+            st["err"], st["rho"] = max(st["err"], err), max(st["rho"], r)
+            line = (f"; one dense dot{'' if form == 'phase' else ' (a trip of 7 identities and it)'}"
+                    f": ρ {r:.2e} (the fp32 instantiation {rc:.3f}), max |Δ| {err:.2e}")
             r16, rw16, _ = dense_rho(xs, ws, form, kw, wide=True)
             st["rho_16"] = max(st["rho_16"], r16)
             print(f"T3 {form:6s} bf16 dots, {n_chains} chain(s): two-term inputs (2 trips) bitwise "
@@ -2430,23 +2481,22 @@ def _probes(torch, np, smi):
     # alone; the products alone, from a ring filled once; the products with
     # the stream; + sums and the row exchange; whole), in turns, at 1, 2 and
     # 4 chains (bf16 dots: at 1); device time, 20 trips a launch
-    uptos = list(probes.STREAM_UPTO)
     t3_split = {"fp32": {}, "bf16": {}}
-    for mode, n_chains in (("fp32", 1), ("fp32", 2), ("fp32", 4), ("bf16", 1)):
-        xs, ws = t3.inputs(n_chains, dev)
-        runs = {}
-        for upto in uptos + uptos[::-1]:
-            runs.setdefault(upto, []).append(1e3 * _device_us(
-                torch, lambda u=upto: probes._stream_launch(
-                    "t3", xs, ws, None, None, 20, upto=u, bf16_dots=mode == "bf16"),
-                calls=5) / (20 * probes.T3_DEPTH))
-        sp = t3_split[mode][n_chains] = {u: min(v) for u, v in runs.items()}
+    t3_in = {n: t3.inputs(n, dev) for n in (1, 2, 4)}
+    got = split_in_turns({f"{m} {n}": lambda u, m=m, n=n: probes._stream_launch(
+        "t3", *t3_in[n], None, None, 20, upto=u, bf16_dots=m == "bf16") for m, n in configs},
+        probes.STREAM_UPTO, 1e3 / (20 * probes.T3_DEPTH))
+    for mode, n_chains in configs:
+        sp = t3_split[mode][n_chains] = got[f"{mode} {n_chains}"]
         print(f"T3 stream split, {mode} dots, {n_chains} chain(s), ns a dot (device time, min of "
               f"two): weights alone {sp['weights']:.1f}, products alone {sp['compute']:.1f}, "
               f"products with the stream {sp['products']:.1f} (the stream adds "
               f"{sp['products'] - sp['compute']:.1f}), + sums and exchange "
               f"{sp['exchange'] - sp['products']:.1f}, + renorm "
               f"{sp['all'] - sp['exchange']:.1f}: whole {sp['all']:.1f}")
+    t3_phase_split = _phase_split(torch, probes, dev, "T3", lambda n: t3.inputs(n, dev),
+                                  dict(n_steps=12, depth=probes.T3_DEPTH, weights_per_depth=True,
+                                       epilogue="renorm"))
     for form in probes.T3_FORMS:
         rep = {mode: t3_report[mode][form] for mode in DOT_MODES}
         print(f"T3 {form} one chain, ns a dot, bf16 / fp32 dots (the tool's windows, in turn): "
@@ -2463,7 +2513,8 @@ def _probes(torch, np, smi):
             "library_call_ms": t3_lib_call, "ns_per_dot_by_chains": rep["fp32"]["ns_per_dot"],
             "speedup_x2": rep["fp32"]["x2"], "speedup_x4": rep["fp32"]["x4"],
             **({"split_ns_per_dot": t3_split["fp32"],
-                "bound_chain_sms_ms": t3_chain_bound["fp32"]} if form == "stream" else {})})
+                "bound_chain_sms_ms": t3_chain_bound["fp32"]} if form == "stream" else
+               {"split_ns_per_dot": t3_phase_split["fp32"]})})
         records.append({
             "name": f"chain_{form}_kernel<bf16> (T3, distinct weights), bf16 dots",
             "route": "cuda", "source": "vae_training_tpu_torch/csrc/probes.cu",
@@ -2472,10 +2523,17 @@ def _probes(torch, np, smi):
             "plain_ms": t3_plain["bf16"], **bounds["bf16"], "library_ms": t3_lib["bf16"],
             "ns_per_dot_by_chains": rep["bf16"]["ns_per_dot"], "speedup_x2": rep["bf16"]["x2"],
             "speedup_x4": rep["bf16"]["x4"], "rho_2_trips": t3_bf[form]["rho_16"],
-            "fp32_dots_ms": rep["fp32"]["ns_per_dot"][1] / 1e6,
-            **({"rho_one_dot": t3_bf[form]["rho"]} if form == "phase" else
+            "fp32_dots_ms": rep["fp32"]["ns_per_dot"][1] / 1e6, "rho_one_dot": t3_bf[form]["rho"],
+            **({"split_ns_per_dot": t3_phase_split["bf16"]} if form == "phase" else
                {"split_ns_per_dot": t3_split["bf16"],
                 "bound_chain_sms_ms": t3_chain_bound["bf16"]})})
+        print(f"T3 {form} one chain, bf16 dots: {rep['bf16']['ns_per_dot'][1]:.1f} ns a dot "
+              f"(the earlier body: {EARLIER_BF16[f'T3 {form} ns/dot']})")
+    print(f"T3 stream, bf16 dots: products alone {t3_split['bf16'][1]['compute']:.1f} ns a dot "
+          f"(the earlier body: {EARLIER_BF16['T3 stream products alone ns/dot']}); the "
+          f"32-bank model of kernels/probes.py, not a measurement: "
+          f"{probes.stream_product_wavefronts()['total']} shared-memory wavefronts a warp a dot "
+          f"(the earlier body's layout ~780)")
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 28 -------------------------------------------------------------------
@@ -2584,22 +2642,29 @@ def _probes(torch, np, smi):
               f"({b['bound_by']}, {flops / 1e6:.1f} MFLOP), on the cluster's {stream_sms} SMs "
               f"{t5_chain_bound[mode] * 1e3:.3f}")
     # the stream form's step split by launch variants (as phase 27's, whole
-    # with Adam), in turns; device time, 4 steps a launch; fp32 dots
-    t5_split = {}
-    for mode in ("tail", "interleaved"):
-        kb = t5.inputs(dev)
-        runs = {}
-        for upto in uptos + uptos[::-1]:
-            runs.setdefault(upto, []).append(_device_us(
-                torch, lambda u=upto: probes._stream_launch(mode, kb[0][None], *kb[1:], 4,
-                                                            upto=u), calls=5) / 4)
-        sp = t5_split[mode] = {u: min(v) for u, v in runs.items()}
-        print(f"T5 stream split, {mode}, us a step (device time, min of two): weights alone "
-              f"{sp['weights']:.2f}, products alone {sp['compute']:.2f}, products with the "
-              f"stream {sp['products']:.2f} (the stream adds "
+    # with Adam), in turns; device time, 4 steps a launch; both dot modes.
+    # Then the phase form's (tail): the barriers alone, the work alone, whole
+    t5_split = {"fp32": {}, "bf16": {}}
+    t5_in = {(dots, mode): t5.inputs(dev) for dots in DOT_MODES for mode in ("tail", "interleaved")}
+    got = split_in_turns({f"{dots} {mode}": lambda u, d=dots, m=mode: probes._stream_launch(
+        m, t5_in[d, m][0][None], *t5_in[d, m][1:], 4, upto=u, bf16_dots=DOT_MODES[d])
+        for dots, mode in t5_in}, probes.STREAM_UPTO, 1 / 4)
+    for dots, mode in t5_in:
+        sp = t5_split[dots][mode] = got[f"{dots} {mode}"]
+        print(f"T5 stream split, {mode}, {dots} dots, us a step (device time, min of two): "
+              f"weights alone {sp['weights']:.2f}, products alone {sp['compute']:.2f}, "
+              f"products with the stream {sp['products']:.2f} (the stream adds "
               f"{sp['products'] - sp['compute']:.2f}), + sums and exchange "
               f"{sp['exchange'] - sp['products']:.2f}, + Adam "
               f"{sp['all'] - sp['exchange']:.2f}: whole {sp['all']:.2f}")
+    kb = t5.inputs(dev)
+    t5_phase_split = split_in_turns({dots: lambda u, b=bf16: probes._phase_launch(
+        kb[0][None], kb[1], 2, n_dots, False, "clamp", 1, kb[2], kb[3], upto=u, bf16_dots=b)
+        for dots, bf16 in DOT_MODES.items()}, probes.PHASE_UPTO, 1 / 2)
+    for dots, sp in t5_phase_split.items():
+        print(f"T5 phase split, tail, {dots} dots, us a step (device time, min of two): the grid "
+              f"barriers alone {sp['barriers']:.2f}, the work alone {sp['work']:.2f}, whole "
+              f"{sp['all']:.2f}")
     for form in probes.T5_FORMS:
         for mode in DOT_MODES:
             require(t5_launches[mode][form] > 0,
@@ -2620,8 +2685,9 @@ def _probes(torch, np, smi):
                 "ms": min(rep["fp32"]["us_per_step"][label]) / 1e3,
                 "plain_ms": t5_plain["fp32", interleave], **bounds["fp32"], "library_ms": None,
                 "interleaved_over_tail": rep["fp32"]["ratio"],
-                **({"split_us_per_step": t5_split[label],
-                    "bound_chain_sms_ms": t5_chain_bound["fp32"]} if form == "stream" else {})})
+                **({"split_us_per_step": t5_split["fp32"][label],
+                    "bound_chain_sms_ms": t5_chain_bound["fp32"]} if form == "stream" else
+                   {"split_us_per_step_tail": t5_phase_split["fp32"]})})
             records.append({
                 "name": f"chain_{form}_kernel<bf16> (T5, Adam {label}), bf16 dots",
                 "route": "cuda", "source": "vae_training_tpu_torch/csrc/probes.cu",
@@ -2633,7 +2699,11 @@ def _probes(torch, np, smi):
                 "interleaved_over_tail": rep["bf16"]["ratio"],
                 "rho_h_2_steps": t5_rho[form, interleave],
                 "fp32_dots_ms": min(rep["fp32"]["us_per_step"][label]) / 1e3,
-                **({"bound_chain_sms_ms": t5_chain_bound["bf16"]} if form == "stream" else {})})
+                **({"split_us_per_step": t5_split["bf16"][label],
+                    "bound_chain_sms_ms": t5_chain_bound["bf16"]} if form == "stream" else
+                   {"split_us_per_step_tail": t5_phase_split["bf16"]})})
+            print(f"T5 {form} {label}, bf16 dots: {min(rep['bf16']['us_per_step'][label]):.3f} us "
+                  f"a step (the earlier body: {EARLIER_BF16[f'T5 {form} {label} us/step']})")
     print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 29 -------------------------------------------------------------------
@@ -4794,14 +4864,14 @@ def _supervision(torch, np, smi, data_dir):
     phase(58, "supervised rows: vae-sweep-torch --isolate, each run in a process of its own, "
               "and a run its deadline ends, resumed from its checkpoint")
     print(smi)
-    linear = ["linear", "--num_batches", "12000", "--shard", "0/7"]
+    linear = ["linear", "--num_batches", "12000", "--shard", "0/11"]
     reset_counts()
     rc, out, err, secs = run_sweep("linear_iso", *linear, "--isolate")
     names = [c.name for c in sweep.shard_items(
-        list(sweep.sweep_configs("linear", "", 12000, "auto")), (0, 7))]
+        list(sweep.sweep_configs("linear", "", 12000, "auto")), (0, 11))]
     print("\n".join(ln for ln in out.splitlines() if ln.startswith("[sweep]")))
     require(rc == 0 and all(f"[sweep] {n} done in" in out for n in names),
-            f"--isolate linear --shard 0/7: rc 0, {len(names)} runs done")
+            f"--isolate linear --shard 0/11: rc 0, {len(names)} runs done")
     require(out.count("[kernels] cuda: fused linear-VAE kernel K1 (") == len(names),
             "each child's [kernels] line names K1")
     require(err.count("device: cuda (") == len(names), "each child printed its device line")
@@ -4817,7 +4887,7 @@ def _supervision(torch, np, smi, data_dir):
                           os.path.join(data_dir, "linear_inproc", n))
         same_checkpoint(os.path.join(data_dir, "linear_inproc", n),
                         os.path.join(data_dir, "linear_iso", n))
-    print(f"3 isolated runs in {secs:.2f} s (in process {secs_in:.2f} s, K1 launches "
+    print(f"{len(names)} isolated runs in {secs:.2f} s (in process {secs_in:.2f} s, K1 launches "
           f"{launches}): losses.npz, model.pkl and the checkpoint bitwise the in-process runs'")
 
     # sphere row 1 (K5), 60000 steps, a checkpoint every 10000: uninterrupted,
@@ -5239,6 +5309,29 @@ def _bound(flops_per_step, state_bytes_per_chunk, steps_per_chunk, losses_per_st
     t_bytes = (state_bytes_per_chunk / steps_per_chunk + 4 * losses_per_step) / HBM_RATE
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _phase_split(torch, probes, dev, label, inputs_of, ckw):
+    """The phase form's dot split by launch variants (the grid barriers
+    alone, every phase's work without them, whole), in turns, at 1 and 4
+    chains in both dot modes; ns a dot of one chain in device time (CUDA
+    events around 5 queued launches), the least of two. Returns {mode:
+    {chains: {variant: ns}}}."""
+    from vae_training_tpu_torch.tools._common import DOT_MODES, split_in_turns
+
+    inputs = {n: inputs_of(n) for n in (1, 4)}
+    got = split_in_turns({f"{mode} {n}": lambda u, b=bf16, n=n: probes._phase_launch(
+        *inputs[n], ckw["n_steps"], ckw["depth"], ckw["weights_per_depth"], ckw["epilogue"],
+        upto=u, bf16_dots=b) for mode, bf16 in DOT_MODES.items() for n in inputs},
+        probes.PHASE_UPTO, 1e3 / (ckw["n_steps"] * ckw["depth"]))
+    out = {mode: {} for mode in DOT_MODES}
+    for mode in DOT_MODES:
+        for n_chains in inputs:
+            sp = out[mode][n_chains] = got[f"{mode} {n_chains}"]
+            print(f"{label} phase split, {mode} dots, {n_chains} chain(s), ns a dot (device time, "
+                  f"min of two): the grid barriers alone {sp['barriers']:.1f}, the work alone "
+                  f"{sp['work']:.1f}, whole {sp['all']:.1f}")
+    return out
 
 
 def _print_ptxas(record, only=None):

@@ -1342,12 +1342,14 @@ _BF16_COUNTER = {"phase": "bf16_launches", "cluster": "bf16_cluster_launches",
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe_form", ["T4-phase", "T4-cluster", "T3-phase"])
+@pytest.mark.parametrize("probe_form", ["T4-phase", "T4-cluster", "T3-phase", "T3-stream"])
 @pytest.mark.parametrize("n_chains", [1, 2, 4])
 def test_chain_bf16_forms_one_dot_deep_match_plain_by_rho(cuda_device, probe_form, n_chains):
     """Dense random inputs (T4's check_inputs, T3's inputs with its first
     weight), one dot: ρ ≤ 1e-3; the fp32 instantiation ρ ≥ 0.5; each
-    launch counted by its mode's counter."""
+    launch counted by its mode's counter. A stream launch runs whole trips
+    of 8: its trip is 7 identities and then the dense weight
+    (dense_trip_inputs), one dense dot in bf16 dots."""
     from vae_training_tpu_torch.kernels import probes
     from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
     from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
@@ -1356,6 +1358,9 @@ def test_chain_bf16_forms_one_dot_deep_match_plain_by_rho(cuda_device, probe_for
     if probe == "T4":
         xs, ws = t4.check_inputs(n_chains, cuda_device)
         kw = dict(n_steps=1, depth=1, weights_per_depth=False, epilogue="clamp")
+    elif form == "stream":
+        xs, ws = t3.dense_trip_inputs(n_chains, cuda_device)
+        kw = dict(n_steps=1, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
     else:
         xs, ws = t3.inputs(n_chains, cuda_device)
         ws = ws[:, :probes.W].contiguous()
@@ -1717,3 +1722,58 @@ def test_batch_norm_with_a_one_rank_nccl_group(one_rank_group):
     assert torch.equal(ya, yb) and torch.equal(ga, gb) and torch.equal(sa, sb)
     for k in ba:
         assert torch.equal(ba[k], bb[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["T4", "T3"])
+def test_phase_bf16_sums_do_not_depend_on_the_chain_count(cuda_device, probe):
+    """The phase form's bf16 units sum in an order fixed by the unit, not by
+    the chains sharing the launch: chain 0 of 4 equals chain 0 alone
+    bitwise, one dense dot deep and over whole steps or trips."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+    from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
+
+    if probe == "T4":
+        xs, ws = t4.check_inputs(4, cuda_device)
+        kws = [dict(n_steps=1, depth=d, weights_per_depth=False, epilogue="clamp") for d in (1, 8)]
+    else:
+        xs, ws = t3.inputs(4, cuda_device)
+        kws = [dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")]
+    for kw in kws:
+        four = probes.chain_chunk(xs, ws, form="phase", bf16_dots=True, **kw)
+        one = probes.chain_chunk(xs[:1], ws[:1], form="phase", bf16_dots=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(four[0], one[0]), kw
+
+
+@pytest.mark.cuda
+def test_phase_split_variants_are_uncounted(cuda_device):
+    """The phase form's time-split variants (the barriers alone, the work
+    alone) launch in both dot modes and count nothing; the whole variant
+    equals chain_chunk's launch bitwise."""
+    from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_adam_overlap as t5
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+
+    xs, ws = t4.check_inputs(2, cuda_device)
+    x, w5, m5, v5 = t5.inputs(cuda_device)
+
+    def counts():
+        return [getattr(f, n) for f in (probes.chain_chunk, probes.adam_overlap_chunk)
+                for n in dir(f) if n.endswith("launches")]
+
+    before = counts()
+    for bf16 in (False, True):
+        for upto in ("barriers", "work", "all"):
+            probes._phase_launch(xs, ws, 1, 8, False, "clamp", upto=upto, bf16_dots=bf16)
+            probes._phase_launch(x[None], w5, 1, probes.N_BUF * probes.DOTS_PER_BUF, False,
+                                 "clamp", 1, m5, v5, upto=upto, bf16_dots=bf16)
+    torch.cuda.synchronize()
+    assert counts() == before
+    for bf16 in (False, True):
+        whole = probes._phase_launch(xs, ws, 1, 8, False, "clamp", bf16_dots=bf16)
+        counted = probes.chain_chunk(xs, ws, n_steps=1, depth=8, weights_per_depth=False,
+                                     epilogue="clamp", bf16_dots=bf16)
+        torch.cuda.synchronize()
+        assert torch.equal(whole, counted)

@@ -40,7 +40,8 @@
 // chain_stream_kernel<mode, bf16> is T3 and T5 on that cluster plan: their
 // weights change from dot to dot, so each warp streams its K slice of the
 // next dot's weights from L2 into a ring in shared memory (cp.async.bulk
-// on mbarriers) while the current dot runs; T3's renorm meets the chain's
+// on mbarriers; bf16: each CTA a bf16 copy of its slice of the dot after
+// next, in one copy) while the current dot runs; T3's renorm meets the chain's
 // 16 maxima through distributed shared memory, T5's Adam the column sums
 // of h (see the kernel). chain_phase_kernel stays as T3's and T5's "phase"
 // form, and as T4's.
@@ -59,19 +60,22 @@
 // by IEEE adds in ascending k (a sum carried through the tensor cores'
 // truncating accumulator drifted in the MLP kernel, PERF.md §6). 104 rows
 // are 6.5 m16 tiles: the last tile's rows 104..111 are zeros, never
-// another chain's rows. The phase form takes one warp an (m16, n8) output tile; the
-// cluster and stream forms keep T4's cut, a warp's 13 rows padded to one
-// m16 tile × its CTA's 128 columns as 16 n8 tiles over its 32-long K slice
-// (two k16 steps). The fp32 instantiations are the fp32 code, unchanged.
-// What bounds the bf16 forms is not the tensor cores' rate (a dot is 13.6
-// MFLOP: 13.8 ns at 989 TFLOP/s, 114 ns on one chain's 16 SMs) but the
-// loads that feed the fragments and the dependent steps around them: the
-// phase form's operands from L2 and its grid barrier a dot; the cluster
-// form's A pairs from shared memory and its partial-tile stores (B sits in
-// registers), both 4-way bank-conflicted in a half-warp; the stream
-// form's A and B pairs from shared memory, B's 4 lanes of a column apart by
-// two rows of the stage (a 4-way bank conflict), then the partial tiles,
-// the sums and the exchange as in fp32 (PERF.md §6).
+// another chain's rows. The phase form cuts a dot into units of one m16
+// tile × 32 columns, K split over 8 warps whose operands come from L2 in one
+// round trip (phase_dot_bf16); the cluster and stream forms keep T4's cut,
+// a warp's 13 rows padded to one m16 tile × its CTA's 128 columns as 16 n8
+// tiles over its 32-long K slice (two k16 steps). The fp32 instantiations
+// are the fp32 code, unchanged. What bounds the bf16 forms is not the
+// tensor cores' rate (a dot is 13.6 MFLOP: 13.8 ns at 989 TFLOP/s, 114 ns
+// on one chain's 16 SMs) but the loads that feed the fragments and the
+// dependent steps around them: the phase form's L2 round trip, its partial
+// tiles' sums and its grid barrier a dot; the cluster form's A pairs from
+// shared memory and its partial-tile stores (B sits in registers), both
+// 4-way bank-conflicted in a half-warp; the stream form's A and B pairs
+// from shared memory (B from a bf16 copy of the weights that the launch
+// writes and streams, one copy a CTA a dot), laid out so that no access is
+// bank-conflicted, then the partial tiles, the sums and the exchange as in
+// fp32 (PERF.md §6).
 //
 // dot_kernel<mode> is T2: out = x·w, x (M × K) and w (K × N) fp32 and
 // row-major, in three modes. Hopper has no implicit reduced-precision
@@ -142,8 +146,16 @@ struct ChainArgs {
   float* m;                // T5: Adam m of chain 0's weights, else null
   float* v;                // T5: Adam v
   unsigned int* maxbits;   // T3: (2, n_chains) max|y| as float bits, zeroed by the caller
-  int n_chains, n_steps, depth, dots_per_weight, epilogue, adam, t0;
+  int n_chains, n_steps, depth, dots_per_weight, epilogue, adam, t0, upto;
 };
+
+// the phase form's launch variants for the time split: every phase empty
+// but for its grid barrier; every phase's work (the dots' products and
+// stores, T3's scale, T5's Adam) without the barriers (a race: the result
+// is not the chain's); or whole
+constexpr int kPhaseUptoBarriers = 0;
+constexpr int kPhaseUptoWork = 1;
+constexpr int kPhaseUptoAll = 2;
 
 // Output i (chain c, row r, column j) of dot d: a 256-term fmaf chain.
 __device__ __forceinline__ float dot_item(const ChainArgs& A, const float* in, int d, int i,
@@ -161,60 +173,124 @@ __device__ __forceinline__ float dot_item(const ChainArgs& A, const float* in, i
   return A.epilogue == kEpClamp ? fminf(acc, kClamp) : acc;
 }
 
-// bf16 dots: output tile q (chain c, m16 tile mt, n8 tile nt) of dot d, by
-// one warp: 16 k16 steps, each an mma.sync from a zero accumulator whose
-// partial sums are added to the lane's 4 f32 sums; the lane's A pairs (rows
-// g and g + 8, k 2t.. and 2t + 8..) read as float2 from h, its B pairs (k
-// 2t, 2t + 1 and 2t + 8, 2t + 9 of column g) as two floats each from W,
-// both rounded to bfloat16 as they are packed. Rows past kRows (g + 8 in
-// the last m16 tile) are zeros. The lane writes rows g and g + 8, columns
-// 2t and 2t + 1 (clamped or not as dot_item) and folds their |y| into lmax.
-constexpr int kMTiles = (kRows + 15) / 16;  // 7 m16 tiles a chain, the last half zeros
-constexpr int kNTiles = kW / 8;             // 32 n8 tiles
+// bf16 dots: the phase form's dot is cut into units, each 16 rows (one m16
+// tile) × 32 columns (four n8 tiles) of one chain, whose K is split over the
+// 8 warps of one half of a CTA: warp kq (its rank) takes k [32kq, 32kq + 32),
+// two k16 steps. A warp issues every load of its slice before its first mma:
+// 4 float4 of h (rows g and g + 8 of both steps) and 8 float4 of W, each by
+// ld.global.cg (L2: h and T5's W were written by other CTAs before the last
+// grid barrier, and L1 is not coherent), so a unit waits for one L2 round
+// trip. Both operands are read in a K order permuted within each k16 step:
+// the lane (g, t) holds the step's fragment positions 2t, 2t + 1, 2t + 8 and
+// 2t + 9, which stand for physical k 4t .. 4t + 3 of the step, one float4 of
+// a row of h; W's rows 4t .. 4t + 3 are the B pairs' k. The columns too: n8
+// tile r's column j is the unit's column 4j + r, so the lane's B values of
+// the four tiles at a k are one float4 (columns 4g .. 4g + 3), each of W's
+// rows read by 8 lanes as 128 contiguous bytes. A permutation within a step
+// changes which products one mma sums, never which step a product is in, so
+// each k16 step's partial is still the sum of its 16 products, taken from a
+// zero accumulator and added to the lane's f32 sums by an IEEE add in
+// ascending k; the 8 warps' partial tiles then go to shared memory (rows 36
+// floats apart: a quarter-warp's float4 stores fall in distinct banks) and
+// are summed in rank order by the half-CTA's 256 threads, 2 outputs each,
+// which clamp (T4, T5), store and fold |y| into lmax (T3). The order is
+// fixed and the same at every chain count; units go to CTAs slot-major (unit
+// u to CTA u mod gridDim, half u / gridDim mod 2), as many rounds as the
+// chains need (one up to 4 chains on 132 SMs). Rows past kRows (the last m16
+// tile's 104..111) are zeros, never loaded or stored.
+constexpr int kMTiles = (kRows + 15) / 16;        // 7 m16 tiles a chain, the last half zeros
+constexpr int kPhaseCols = 32;                    // a unit's columns: four n8 tiles
+constexpr int kPhaseKSplit = 8;                   // warps a unit, one K slice each
+constexpr int kPhaseKSlice = kW / kPhaseKSplit;   // 32 k a warp: two k16 steps
+constexpr int kPhaseSlots = kWarps / kPhaseKSplit;  // units a CTA a round
+constexpr int kPhaseUnits = kMTiles * (kW / kPhaseCols);  // 56 a chain
+constexpr int kPhasePartStride = kPhaseCols + 4;  // a partial tile's row stride (floats)
+static_assert(kWarps % kPhaseKSplit == 0 && kPhaseKSlice == 32, "two k16 steps a warp");
 
-__device__ __forceinline__ void dot_tile_bf16(const ChainArgs& A, const float* in, float* out,
-                                              int d, int q, float (&lmax)[kMaxChains]) {
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 ldcg4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ void phase_dot_bf16(const ChainArgs& A, const float* in, float* out, int d,
+                               float (&lmax)[kMaxChains]) {
   constexpr int per_chain = kRows * kW;
-  const int c = q / (kMTiles * kNTiles);
-  const int rem = q - c * kMTiles * kNTiles;
-  const int mt = rem / kNTiles, nt = rem - mt * kNTiles;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * mt + g, r1 = r0 + 8;
-  const bool live1 = r1 < kRows;  // false in the last m16 tile (rows 104..111), for every lane
-  const float* h0 = in + c * per_chain + r0 * kW + 2 * t;
-  const float* h1 = in + c * per_chain + (live1 ? r1 : r0) * kW + 2 * t;
+  __shared__ __align__(16) float part[kPhaseSlots][kPhaseKSplit][16 * kPhasePartStride];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int slot = warp / kPhaseKSplit, kq = warp % kPhaseKSplit;
+  const int n_units = A.n_chains * kPhaseUnits;
+  const int per_round = kPhaseSlots * static_cast<int>(gridDim.x);
   const int n_w = A.depth / A.dots_per_weight;
-  const float* W = A.w + (static_cast<size_t>(c) * n_w + d / A.dots_per_weight) * kW * kW +
-                   (2 * t) * kW + 8 * nt + g;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-  for (int k = 0; k < kW; k += 16) {
-    uint32_t a[4];
-    a[0] = mma::bf16x2(*reinterpret_cast<const float2*>(h0 + k));
-    a[1] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(h1 + k)) : 0u;
-    a[2] = mma::bf16x2(*reinterpret_cast<const float2*>(h0 + k + 8));
-    a[3] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(h1 + k + 8)) : 0u;
-    const float* wk = W + k * kW;
-    const uint32_t b0 = mma::bf16x2(wk[0], wk[kW]);
-    const uint32_t b1 = mma::bf16x2(wk[8 * kW], wk[9 * kW]);
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma::mma_bf16(part, a, b0, b1);
+  for (int u0 = 0; u0 < n_units; u0 += per_round) {
+    const int u = u0 + slot * static_cast<int>(gridDim.x) + static_cast<int>(blockIdx.x);
+    const bool live = u < n_units;
+    const int c = u / kPhaseUnits, rem = u - c * kPhaseUnits;
+    const int mt = rem / (kW / kPhaseCols), nq = rem - mt * (kW / kPhaseCols);
+    if (live) {
+      const int k0 = kq * kPhaseKSlice, r0 = 16 * mt + g;
+      const bool live1 = r0 + 8 < kRows;  // false in the last m16 tile, for every lane
+      const float* h0 = in + c * per_chain + r0 * kW + k0 + 4 * t;
+      const float* W = A.w + (static_cast<size_t>(c) * n_w + d / A.dots_per_weight) * kW * kW +
+                       (k0 + 4 * t) * kW + kPhaseCols * nq + 4 * g;
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 ha[2][2], wb[2][4];  // every load of the slice before the first mma
 #pragma unroll
-    for (int x = 0; x < 4; ++x) acc[x] += part[x];
+      for (int s = 0; s < 2; ++s) {
+        ha[s][0] = ldcg4(h0 + 16 * s);
+        ha[s][1] = live1 ? ldcg4(h0 + 8 * kW + 16 * s) : zero;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wb[s][i] = ldcg4(W + (16 * s + i) * kW);
+      }
+      float acc[4][4] = {};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t a[4] = {mma::bf16x2(ha[s][0].x, ha[s][0].y),
+                               mma::bf16x2(ha[s][1].x, ha[s][1].y),
+                               mma::bf16x2(ha[s][0].z, ha[s][0].w),
+                               mma::bf16x2(ha[s][1].z, ha[s][1].w)};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma::mma_bf16(p, a, mma::bf16x2(lane4(wb[s][0], r), lane4(wb[s][1], r)),
+                        mma::bf16x2(lane4(wb[s][2], r), lane4(wb[s][3], r)));
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[r][x] += p[x];
+        }
+      }
+      // tile r's fragment columns 2t and 2t + 1 are the unit's 8t + r and 8t + 4 + r
+      float* pp = part[slot][kq] + g * kPhasePartStride + 8 * t;
+      *reinterpret_cast<float4*>(pp) = make_float4(acc[0][0], acc[1][0], acc[2][0], acc[3][0]);
+      *reinterpret_cast<float4*>(pp + 4) = make_float4(acc[0][1], acc[1][1], acc[2][1], acc[3][1]);
+      pp += 8 * kPhasePartStride;
+      *reinterpret_cast<float4*>(pp) = make_float4(acc[0][2], acc[1][2], acc[2][2], acc[3][2]);
+      *reinterpret_cast<float4*>(pp + 4) = make_float4(acc[0][3], acc[1][3], acc[2][3], acc[3][3]);
+    }
+    __syncthreads();  // the units' partial tiles stored
+    if (live) {
+      const int i = threadIdx.x % (32 * kPhaseKSplit), row = i >> 4, col = 2 * (i & 15);
+      const int R = 16 * mt + row;
+      if (R < kRows) {
+        const float* ps = part[slot][0] + row * kPhasePartStride + col;
+        float2 y = *reinterpret_cast<const float2*>(ps);
+#pragma unroll
+        for (int w = 1; w < kPhaseKSplit; ++w) {
+          const float2 v = *reinterpret_cast<const float2*>(ps + w * 16 * kPhasePartStride);
+          y.x += v.x;
+          y.y += v.y;
+        }
+        if (A.epilogue == kEpClamp) y = make_float2(fminf(y.x, kClamp), fminf(y.y, kClamp));
+        *reinterpret_cast<float2*>(out + c * per_chain + R * kW + kPhaseCols * nq + col) = y;
+        const float mx = fmaxf(fabsf(y.x), fabsf(y.y));
+#pragma unroll
+        for (int q = 0; q < kMaxChains; ++q)
+          if (q == c) lmax[q] = fmaxf(lmax[q], mx);
+      }
+    }
+    __syncthreads();  // every partial tile read before the next round stores
   }
-  float y[4];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) y[x] = A.epilogue == kEpClamp ? fminf(acc[x], kClamp) : acc[x];
-  float* o = out + c * per_chain + 8 * nt + 2 * t;
-  *reinterpret_cast<float2*>(o + r0 * kW) = make_float2(y[0], y[1]);
-  float mx = fmaxf(fabsf(y[0]), fabsf(y[1]));
-  if (live1) {
-    *reinterpret_cast<float2*>(o + r1 * kW) = make_float2(y[2], y[3]);
-    mx = fmaxf(mx, fmaxf(fabsf(y[2]), fabsf(y[3])));
-  }
-#pragma unroll
-  for (int p = 0; p < kMaxChains; ++p)
-    if (p == c) lmax[p] = fmaxf(lmax[p], mx);
 }
 
 // Adam on element e of chain 0's weight buffer b. The gradient is the
@@ -265,8 +341,8 @@ __device__ void block_max_to_global(const float lmax[kMaxChains], unsigned int* 
 // K5) or as extra items of the phase of dot dpw·(b + 1) for buffer b (its
 // gradient reads h after dot dpw·b + dpw − 1, the phase's own input, so it
 // needs no barrier of its own), the last buffer in a phase of its own. In
-// bf16 dots (kBf16) a phase's dot is one warp an output tile
-// (dot_tile_bf16), then Adam's items one thread each.
+// bf16 dots (kBf16) a phase's dot is K-split units of 16 × 32 outputs
+// (phase_dot_bf16), then Adam's items one thread each.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
   cg::grid_group grid = cg::this_grid();
@@ -274,6 +350,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
   const int gsz = gridDim.x * blockDim.x;
   const int n_h = A.n_chains * kRows * kW;
   const int n_buf = A.depth / A.dots_per_weight;
+  const bool work = A.upto != kPhaseUptoBarriers, sync = A.upto != kPhaseUptoWork;
   int cur = 0;
   for (int it = 0; it < A.n_steps; ++it) {
     float bc1 = 1.0f, bc2 = 1.0f;
@@ -288,49 +365,50 @@ __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
       const bool adam_here =
           A.adam == kAdamInterleaved && d > 0 && d % A.dots_per_weight == 0;
       float lmax[kMaxChains] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if constexpr (kBf16) {
-        const int n_tiles = A.n_chains * kMTiles * kNTiles;
-        for (int q = gtid >> 5; q < n_tiles; q += gsz >> 5) dot_tile_bf16(A, in, out, d, q, lmax);
-        if (adam_here)
-          for (int i = gtid; i < kW * kW; i += gsz)
-            adam_item(A, in, d / A.dots_per_weight - 1, i, bc1, bc2);
-      } else {
-        const int n_items = n_h + (adam_here ? kW * kW : 0);
-        for (int i = gtid; i < n_items; i += gsz) {
-          if (i < n_h) {
-            int c;
-            const float y = dot_item(A, in, d, i, c);
-            out[i] = y;
+      if (work) {
+        if constexpr (kBf16) {
+          phase_dot_bf16(A, in, out, d, lmax);
+          if (adam_here)
+            for (int i = gtid; i < kW * kW; i += gsz)
+              adam_item(A, in, d / A.dots_per_weight - 1, i, bc1, bc2);
+        } else {
+          const int n_items = n_h + (adam_here ? kW * kW : 0);
+          for (int i = gtid; i < n_items; i += gsz) {
+            if (i < n_h) {
+              int c;
+              const float y = dot_item(A, in, d, i, c);
+              out[i] = y;
 #pragma unroll
-            for (int q = 0; q < kMaxChains; ++q)
-              if (q == c) lmax[q] = fmaxf(lmax[q], fabsf(y));
-          } else {
-            adam_item(A, in, d / A.dots_per_weight - 1, i - n_h, bc1, bc2);
+              for (int q = 0; q < kMaxChains; ++q)
+                if (q == c) lmax[q] = fmaxf(lmax[q], fabsf(y));
+            } else {
+              adam_item(A, in, d / A.dots_per_weight - 1, i - n_h, bc1, bc2);
+            }
           }
         }
       }
-      if (A.epilogue == kEpRenorm && d == A.depth - 1)
+      if (work && A.epilogue == kEpRenorm && d == A.depth - 1)
         block_max_to_global(lmax, A.maxbits + (it & 1) * A.n_chains, A.n_chains);
-      grid.sync();
+      if (sync) grid.sync();
       cur ^= 1;
     }
     float* h = A.h + cur * n_h;
     if (A.epilogue == kEpRenorm) {
       const unsigned int* words = A.maxbits + (it & 1) * A.n_chains;
-      for (int i = gtid; i < n_h; i += gsz) {
+      for (int i = gtid; work && i < n_h; i += gsz) {
         const float mx = __uint_as_float(__ldcg(words + i / (kRows * kW)));  // L2: atomics'
         h[i] = h[i] * (1.0f / fmaxf(mx, 1e-6f));
       }
       // the next trip's words; this trip's are read above, after a barrier
       if (gtid < A.n_chains) A.maxbits[((it + 1) & 1) * A.n_chains + gtid] = 0u;
-      grid.sync();
+      if (sync) grid.sync();
     }
     if (A.adam != kAdamNone) {
       const int first = A.adam == kAdamTail ? 0 : n_buf - 1;
-      const int n_items = (n_buf - first) * kW * kW;
+      const int n_items = work ? (n_buf - first) * kW * kW : 0;
       for (int i = gtid; i < n_items; i += gsz)
         adam_item(A, h, first + i / (kW * kW), i % (kW * kW), bc1, bc2);
-      grid.sync();
+      if (sync) grid.sync();
     }
   }
 }
@@ -842,12 +920,13 @@ constexpr int kChainNTiles = kChainCols / 8;
 static_assert(kChainRows <= 16 && kChainKSlice % 16 == 0, "one m16 tile, whole k16 steps");
 
 // The warp's A fragment of one k16 step: rows g and g + 8 of h (row stride
-// kW; h at the step's first k), k 2t.. and 2t + 8.., read as float2 and
-// rounded to bfloat16; the zero rows as zeros.
+// kStride floats; h at the step's first k), k 2t.. and 2t + 8.., read as
+// float2 and rounded to bfloat16; the zero rows as zeros.
+template <int kStride = kW>
 __device__ __forceinline__ void chain_a_frag(uint32_t (&a)[4], const float* h, int g, int t) {
   const bool live1 = g + 8 < kChainRows;
-  const float* p0 = h + g * kW + 2 * t;
-  const float* p1 = h + (live1 ? g + 8 : g) * kW + 2 * t;
+  const float* p0 = h + g * kStride + 2 * t;
+  const float* p1 = h + (live1 ? g + 8 : g) * kStride + 2 * t;
   a[0] = mma::bf16x2(*reinterpret_cast<const float2*>(p0));
   a[1] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(p1)) : 0u;
   a[2] = mma::bf16x2(*reinterpret_cast<const float2*>(p0 + 8));
@@ -1092,7 +1171,6 @@ constexpr int kStreamTail = 1;
 constexpr int kStreamInterleaved = 2;
 constexpr int kStreamStages = 4;                             // ring stages a warp
 constexpr int kStreamChunkK = kChainKSlice / kStreamStages;  // 8 k-rows a stage
-constexpr uint32_t kStreamChunkBytes = kStreamChunkK * kChainCols * 4;
 constexpr int kStreamAdamRows = kW / kChainGroups;           // 32 rows of W a CTA's Adam
 // launch variants for the time split: stream the weights alone (each warp
 // waits for its chunks and refills them); the products and partial tiles
@@ -1105,18 +1183,48 @@ constexpr int kStreamUptoProducts = 2;
 constexpr int kStreamUptoExchange = 3;
 constexpr int kStreamUptoAll = 4;
 static_assert(kChainKSlice % kStreamStages == 0 && kStreamChunkK % 4 == 0, "the ring's chunks");
+// bf16: the stream carries the weights' bf16 copy (StreamArgs::wb, which
+// the kernel writes), half the bytes; a ring slot is two 32 KB blocks of a
+// dot's 256 k-rows × 64 of the CTA's columns, swizzled 128 B (16-byte chunk
+// j of line k at chunk j ^ (k mod 8)), so the ring starts on a 1 KB
+// boundary. h's rows are 8 floats apart in the banks; the partial tiles'
+// rows 4, their chunks swizzled too (part_offset).
+constexpr int kStreamBlockCols = 64;  // bf16 columns a 128-byte line
+constexpr int kStreamAlign = 1024;
+template <bool kBf16>
+struct StreamLayout {
+  // the ring, 128 KB a CTA: fp32, 4 stages a warp of 8 k-rows × 128 columns,
+  // one copy each; bf16, two slots of a whole dot's 256 k-rows, one copy each
+  static constexpr int ring_words = kChainWarps * kStreamStages * kStreamChunkK * kChainCols;
+  static constexpr int slots = kBf16 ? 2 : 1;  // dots the ring holds
+  static constexpr int slot_words = ring_words / slots;
+  static constexpr uint32_t copy_bytes = kBf16 ? 4 * slot_words : 4 * kStreamChunkK * kChainCols;
+  static constexpr int h_stride = kBf16 ? kW + 8 : kW;                // floats a row of h
+  static constexpr int part_stride = kBf16 ? kChainCols + 4 : kChainCols;  // of a partial tile
+  static constexpr int part_tile = kChainRows * part_stride;
+  static constexpr int align = kBf16 ? kStreamAlign : 0;  // bytes kept to align the ring
+  // where a partial tile holds its row r, column c: bf16 flips bit 1 of the
+  // 16-byte chunk index in the upper half of each 64 columns
+  __host__ __device__ static constexpr int part_offset(int r, int c) {
+    return r * part_stride + (kBf16 ? c ^ (((c >> 5) & 1) << 3) : c);
+  }
+};
 
 // Dynamic shared memory: the warps' rings, h twice, the partial tiles, then
 // T3's 2 × 16 maxima or T5's 8 × 128 column sums and 128 gradients.
+template <bool kBf16>
 constexpr int stream_smem_bytes(int mode) {
-  return 4 * (kChainWarps * kStreamStages * kStreamChunkK * kChainCols + 2 * kChainRows * kW +
-              kChainWarps * kChainTile +
+  using L = StreamLayout<kBf16>;
+  return L::align +
+         4 * (L::ring_words + 2 * kChainRows * L::h_stride +
+              kChainWarps * L::part_tile +
               (mode == kStreamT3 ? 2 * kChainCluster : (kChainGroups + 1) * kChainCols));
 }
 
 struct StreamArgs {
   const float* x;  // (n_chains, kRows, kW)
   float* w;        // T3: (n_chains, kT3Depth · kW, kW); T5: (kT5Bufs, kW, kW), updated
+  __nv_bfloat16* wb;  // bf16: w's bf16 copy, w's shape, written by the launch; else null
   float* m;        // T5: Adam's m and v of the buffers, updated
   float* v;
   float* out;      // (n_chains, kRows, kW)
@@ -1154,20 +1262,68 @@ __device__ __forceinline__ void send1(uint32_t dst, uint32_t bar, float v) {
                : "memory");
 }
 
-// The warp's chunk of a dot: rows [row, row + 8) of the weights' stack (a
-// dot's W rows k0.. at row idx · kW + k0), columns [col0, col0 + 128), into
-// `stage` (8 × 128 floats, row-major) by one 2-D bulk tensor copy on the
-// stack's tensor map, completed on `bar`, which lane 0 arms with the
-// chunk's bytes first.
+// One bulk tensor copy of the weights' stack (a dot's W rows k0.. at row
+// idx · kW + k0) into the ring, columns [col0, col0 + 128), completed on
+// `bar`, which lane 0 arms with the copy's bytes first. fp32: a warp's
+// stage, rows [row, row + 8), a 2-D box of the weights, 8 × 128 floats
+// row-major; bf16: a CTA's slot, the dot's 256 rows from `row`, a 3-D box
+// of their bf16 copy, 64 columns × 256 rows × 2 column blocks, swizzled
+// 128 B (stream_b8).
+template <bool kBf16>
 __device__ __forceinline__ void stream_issue(const CUtensorMap* map, int row, int col0,
                                              float* stage, uint64_t* bar, int lane) {
   if (lane != 0) return;
-  mbar_expect(bar, kStreamChunkBytes);
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%2, %3}], [%4];\n" ::"r"(smem_addr(stage)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(row), "r"(smem_addr(bar))
-      : "memory");
+  mbar_expect(bar, StreamLayout<kBf16>::copy_bytes);
+  if constexpr (kBf16)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
+        "[%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(stage)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(col0 / kStreamBlockCols),
+        "r"(smem_addr(bar))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
+        "[%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(stage)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(row), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// bf16: the 16 bytes of a swizzled slot that hold W[k][64p + 8j .. 64p +
+// 8j + 7] of the dot (k < 256 its row) as bf16: block p, line k, chunk
+// j ^ (k mod 8).
+__device__ __forceinline__ uint4 stream_b8(const float* slot, int p, int k, int j) {
+  return *reinterpret_cast<const uint4*>(slot + p * (kW * kStreamBlockCols / 2) +
+                                         k * (kStreamBlockCols / 2) + 4 * (j ^ (k & 7)));
+}
+
+__device__ __forceinline__ uint32_t word4(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// bf16: the warp's partial tile into its slot (13 rows, the CTA's 128
+// columns at part_offset). In the stream form n8 tile 8p + r has column j
+// at the slice's column 64p + 8j + r, so the lane's fragment columns 2t and
+// 2t + 1 of tiles 8p .. 8p + 7 are the 8 floats at 64p + 16t and the 8 at
+// 64p + 16t + 8, two float4 each; the zero rows are dropped.
+__device__ __forceinline__ void stream_store_part(float* slot, const float (&acc)[kChainNTiles][4],
+                                                  int g, int t) {
+  using L = StreamLayout<true>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows g and g + 8: fragment registers 2h, 2h + 1
+    if (h == 1 && g + 8 >= kChainRows) break;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * p + 4 * e, reg = 2 * h + x;
+          *reinterpret_cast<float4*>(
+              slot + L::part_offset(g + 8 * h, kStreamBlockCols * p + 16 * t + 8 * x + 4 * e)) =
+              make_float4(acc[n][reg], acc[n + 1][reg], acc[n + 2][reg], acc[n + 3][reg]);
+        }
+  }
 }
 
 __device__ __forceinline__ void fence_proxy_async_global() {
@@ -1176,9 +1332,9 @@ __device__ __forceinline__ void fence_proxy_async_global() {
 
 // One Adam element group: 4 columns of a row of buffer b (the phase
 // kernel's adam_item arithmetic), the gradient g the column mean times
-// 1e-6(b + 1), the caller's.
-__device__ __forceinline__ void adam4(float* w, float* m, float* v, const float (&g)[4],
-                                      float bc1, float bc2) {
+// 1e-6(b + 1), the caller's. Returns the new weights.
+__device__ __forceinline__ float4 adam4(float* w, float* m, float* v, const float (&g)[4],
+                                        float bc1, float bc2) {
   const float4 wv = *reinterpret_cast<const float4*>(w), mv = *reinterpret_cast<const float4*>(m),
                vv = *reinterpret_cast<const float4*>(v);
   float wp[4] = {wv.x, wv.y, wv.z, wv.w}, mp[4] = {mv.x, mv.y, mv.z, mv.w},
@@ -1193,14 +1349,40 @@ __device__ __forceinline__ void adam4(float* w, float* m, float* v, const float 
   }
   *reinterpret_cast<float4*>(m) = make_float4(mp[0], mp[1], mp[2], mp[3]);
   *reinterpret_cast<float4*>(v) = make_float4(vp[0], vp[1], vp[2], vp[3]);
-  *reinterpret_cast<float4*>(w) = make_float4(wp[0], wp[1], wp[2], wp[3]);
+  const float4 nw = make_float4(wp[0], wp[1], wp[2], wp[3]);
+  *reinterpret_cast<float4*>(w) = nw;
+  return nw;
 }
 
-// kBf16: a k16 step takes two stages (k 16s.. and 16s + 8.. of the warp's
-// slice): the warp waits for both, packs the lane's B pairs of its 16 n8
-// tiles from them (k 2t and 2t + 1 of each stage, column 8nt + g), runs the
-// step (chain_a_frag, chain_mma_step) and refills both; the ring, its
-// copies and their order are the fp32 mode's.
+// 4 weights rounded to bf16 (nearest even) into the bf16 copy at `wb`.
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* wb, const float4& v) {
+  *reinterpret_cast<uint2*>(wb) = make_uint2(mma::bf16x2(v.x, v.y), mma::bf16x2(v.z, v.w));
+}
+
+// kBf16: the stream carries a bf16 copy of the weights, half the bytes:
+// the cluster's 16 CTAs round the chain's weights into it once at launch
+// (round to nearest even, the rounding a dot applies), and T5's Adam
+// rewrites its band of it with the f32 weights; the copies wait for it as
+// they wait for Adam's f32 writes (a proxy fence, a cluster barrier). The
+// fp32 ring's 32 copies an SM a dot (a warp's 4 stages) took ~1 µs however
+// few their bytes: the copies' count set it (the weights-alone variant).
+// So a CTA takes a dot in one copy, its 256 k-rows × 128 columns (64 KB of
+// bf16), into one of two ring slots (the same 128 KB as fp32's ring): the
+// slot dot g read is refilled with dot g + 2's after the block barrier that
+// follows the products, and in the tail the copies of the next step's
+// first two dots wait for Adam's barrier. n8 tile 8p + r's column j is the
+// slice's column 64p + 8j + r, so the lane (g, t) reads the bf16 of its B
+// pairs of tiles 8p .. 8p + 7 as four 16-byte loads (its warp's k rows 2t,
+// 2t + 1, 2t + 8, 2t + 9 of a k16 step, columns 64p + 8g ..) from the
+// swizzled slot (stream_b8), the 8 lanes of a quarter-warp in distinct
+// banks, and pairs them by byte permutes. h's rows are 264 floats apart, so
+// a half-warp's float2 A pairs (chain_a_frag) fall in distinct banks, and
+// the partial tiles' rows 132 apart with swizzled chunks (part_offset), so
+// a quarter-warp's float4 stores do (stream_store_part). Each k16 step is
+// one mma a tile from a zero accumulator added by an IEEE add, the 8
+// partial tiles summed in K order: the fp32 form's order, which the
+// permutation of columns leaves alone. Per warp and dot that is 16
+// wavefronts of A pairs, 64 of B and 56 of stores (the earlier body's layout: ~780).
 template <int kMode, bool kBf16>
 __global__ void __launch_bounds__(kChainThreads, 1)
     chain_stream_kernel(const __grid_constant__ CUtensorMap wmap, StreamArgs A) {
@@ -1208,16 +1390,23 @@ __global__ void __launch_bounds__(kChainThreads, 1)
   constexpr int kDepth = kT3 ? kT3Depth : kT5Bufs * kT5DotsPerBuf;
   constexpr uint32_t kPushBytes = kChainTile * 4;
   constexpr int kQuads = kChainTile / 4;
-  constexpr int kStageFloats = kStreamChunkK * kChainCols;
-  __shared__ __align__(8) uint64_t full[kChainWarps][kStreamStages];  // a stage's chunk landed
+  using L = StreamLayout<kBf16>;
+  constexpr int kStageFloats = kStreamChunkK * kChainCols;  // fp32: a ring stage's floats
+  constexpr int kHS = L::h_stride;
+  constexpr int kPT = L::part_tile;
+  constexpr int kSlots = L::slots;
+  // a copy landed: fp32 [warp][stage]; bf16 [0][slot]
+  __shared__ __align__(8) uint64_t full[kBf16 ? 1 : kChainWarps][kBf16 ? kSlots : kStreamStages];
   __shared__ __align__(8) uint64_t bar[2];   // bar[b]: the peer's rows of h[b] arrived
   __shared__ __align__(8) uint64_t xbar[2];  // T3: trip parity's maxima arrived; T5 [0]: sums
   __shared__ float red[kChainWarps];
   extern __shared__ __align__(128) float ssmem[];
-  float* ring = ssmem;  // [warp][stage][k][column]
-  float* hb = ring + kChainWarps * kStreamStages * kStageFloats;
-  float* part = hb + 2 * kChainRows * kW;
-  float* extra = part + kChainWarps * kChainTile;  // T3 maxima [2][16]; T5 sums [8][128], g [128]
+  float* ring = ssmem;  // fp32 [warp][stage][k][column]; bf16 [slot][block][k][64 columns]
+  if constexpr (kBf16)
+    ring += ((kStreamAlign - (smem_addr(ssmem) & (kStreamAlign - 1))) & (kStreamAlign - 1)) / 4;
+  float* hb = ring + L::ring_words;           // rows kHS floats apart
+  float* part = hb + 2 * kChainRows * kHS;                         // tiles at L::part_offset
+  float* extra = part + kChainWarps * kPT;  // T3 maxima [2][16]; T5 sums [8][128], g [128]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int group = rank / kChainSlices, slice = rank % kChainSlices;
@@ -1227,7 +1416,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;  // bf16: the lane's fragment row and pair
   const int kb = warp * kChainKSlice;
-  float* my_ring = ring + warp * kStreamStages * kStageFloats;
+  float* my_ring = ring + warp * kStreamStages * kStageFloats;  // fp32
   // dot g's weight, as its first row in the stack: T3 the chain's weight g
   // mod 8; T5 buffer (g mod 25) / 5
   auto weight = [&](int g) -> int {
@@ -1237,11 +1426,22 @@ __global__ void __launch_bounds__(kChainThreads, 1)
   const int total = A.n_steps * kDepth;
 
   const float* xc = A.x + (static_cast<size_t>(chain) * kRows + row0) * kW;
-  for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads)
-    reinterpret_cast<float4*>(hb)[i] = reinterpret_cast<const float4*>(xc)[i];
+  for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads) {
+    const int r = i / (kW / 4), c = 4 * (i % (kW / 4));
+    *reinterpret_cast<float4*>(hb + r * kHS + c) =
+        *reinterpret_cast<const float4*>(xc + r * kW + c);
+  }
+  if constexpr (kBf16) {  // the chain's weights into their bf16 copy, a 16th a CTA
+    const int quads = (kT3 ? kT3Depth : kT5Bufs) * kW * kW / 4;
+    const size_t base = kT3 ? static_cast<size_t>(chain) * kT3Depth * kW * kW : 0;
+    for (int i = rank * kChainThreads + threadIdx.x; i < quads; i += kChainCluster * kChainThreads)
+      store_bf16x4(A.wb + base + 4 * static_cast<size_t>(i),
+                   reinterpret_cast<const float4*>(A.w + base)[i]);
+    fence_proxy_async_global();  // for every CTA's bulk copies, after the barrier below
+  }
   if (threadIdx.x == 0) {
-    for (int q = 0; q < kChainWarps; ++q)
-      for (int s = 0; s < kStreamStages; ++s)
+    for (int q = 0; q < (kBf16 ? 1 : kChainWarps); ++q)
+      for (int s = 0; s < (kBf16 ? kSlots : kStreamStages); ++s)
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&full[q][s])));
     for (int b = 0; b < 2; ++b) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar[b])));
@@ -1253,13 +1453,33 @@ __global__ void __launch_bounds__(kChainThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();  // the ring's mbarriers set up before the first copies
-  if (total > 0)
-    for (int s = 0; s < kStreamStages; ++s)
-      stream_issue(&wmap, weight(0) + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
-                   &full[warp][s], lane);
-  cluster.sync();  // every CTA staged, its mbarriers set up, before any push
+  // dot g's weights into the ring: fp32, the warp's stage s (lane 0
+  // issues); bf16, the CTA's whole chunk into slot g mod 2 (thread 0), whose
+  // mbarrier completes once every other dot
+  auto issue = [&](int g, int s) {
+    if constexpr (kBf16)
+      stream_issue<true>(&wmap, weight(g), col0, ring + (g % kSlots) * L::slot_words,
+                         &full[0][g % kSlots], threadIdx.x);
+    else
+      stream_issue<false>(&wmap, weight(g) + kb + s * kStreamChunkK, col0,
+                          my_ring + s * kStageFloats, &full[warp][s], lane);
+  };
+  auto issue_dot = [&](int g) {
+    for (int s = 0; s < (kBf16 ? 1 : kStreamStages); ++s) issue(g, s);
+  };
+  auto first_copies = [&] {
+    for (int g = 0; g < kSlots && g < total; ++g) issue_dot(g);
+  };
+  if constexpr (!kBf16) first_copies();
+  // every CTA staged, its mbarriers set up (bf16: its share of the copy
+  // written; release and acquire at cluster scope), before any push or copy
+  cluster.sync();
+  if constexpr (kBf16) {
+    fence_proxy_async_global();
+    first_copies();
+  }
 
-  float* my_part = part + warp * kChainTile + 4 * lane;
+  float* my_part = part + warp * kPT + 4 * lane;
   int adams = 0;               // T5: Adam passes so far (the sums' mbarrier parity)
   bool cluster_wait = false;   // T5 interleaved: a cluster arrive not yet waited for
   for (int g = 0; g < total; ++g) {
@@ -1270,49 +1490,54 @@ __global__ void __launch_bounds__(kChainThreads, 1)
     const bool adam = !kT3 && whole &&
                       (kMode == kStreamTail ? d == kDepth - 1
                                             : d % kT5DotsPerBuf == kT5DotsPerBuf - 1);
-    // the tail's next dot reads buffer 0 after this step's Adam: its copies
-    // wait for the cluster barrier below
+    // what this dot read is refilled with dot g + kSlots's weights; in the
+    // tail, a dot of the next step reads a buffer this step's Adam rewrites:
+    // its copies wait for the cluster barrier below
     const bool stream = A.upto != kStreamUptoCompute;
-    const bool refill = stream && g + 1 < total && !(kMode == kStreamTail && adam);
-    const int wn = refill ? weight(g + 1) : 0;
-    const float* h = hb + cur * kChainRows * kW + kb;
+    const int next = g + kSlots;
+    const bool refill = stream && next < total &&
+                        !(kMode == kStreamTail && whole && next / kDepth != step);
+    const uint32_t parity = (g / kSlots) & 1;  // a ring mbarrier's uses: every kSlots-th dot
+    const float* h = hb + cur * kChainRows * kHS + kb;
     if constexpr (kBf16) {
-      static_assert(kStreamChunkK == 8 && kStreamStages % 2 == 0, "two stages a k16 step");
-      float acc[kChainNTiles][4] = {};
-#pragma unroll 1
-      for (int st = 0; st < kStreamStages / 2; ++st) {
-        const int s0 = 2 * st;
-        if (stream || g == 0) {
-          mbar_wait(&full[warp][s0], g & 1);
-          mbar_wait(&full[warp][s0 + 1], g & 1);
-        }
-        if (A.upto != kStreamUptoWeights) {
-          uint32_t a[4], b[kChainNTiles][2];
-          chain_a_frag(a, h + 16 * st, gq, tq);
-          const float* w0 = my_ring + s0 * kStageFloats + 2 * tq * kChainCols + gq;
-          const float* w1 = w0 + kStageFloats;
+      static_assert(kChainKSlice == 32 && kChainCols == 2 * kStreamBlockCols &&
+                    kChainNTiles == 16, "two k16 steps a warp, 2 blocks of 8 tiles");
+      if (stream || g < kSlots) mbar_wait(&full[0][g % kSlots], parity);
+      if (A.upto != kStreamUptoWeights) {
+        const float* sl = ring + (g % kSlots) * L::slot_words;
+        float acc[kChainNTiles][4] = {};
 #pragma unroll
-          for (int nt = 0; nt < kChainNTiles; ++nt) {
-            b[nt][0] = mma::bf16x2(w0[8 * nt], w0[8 * nt + kChainCols]);
-            b[nt][1] = mma::bf16x2(w1[8 * nt], w1[8 * nt + kChainCols]);
+        for (int st = 0; st < 2; ++st) {
+          uint32_t a[4];
+          chain_a_frag<kHS>(a, h + 16 * st, gq, tq);
+          const int k = kb + 16 * st + 2 * tq;  // the slot's rows k, k + 1, k + 8, k + 9
+#pragma unroll
+          for (int q = 0; q < kChainNTiles / 8; ++q) {
+            const uint4 x = stream_b8(sl, q, k, gq), y = stream_b8(sl, q, k + 1, gq);
+            const uint4 z = stream_b8(sl, q, k + 8, gq), u = stream_b8(sl, q, k + 9, gq);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {  // k's bf16 in the low half, k + 1's in the high
+              const uint32_t sel = r & 1 ? 0x7632u : 0x5410u;
+              float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              mma::mma_bf16(p, a, __byte_perm(word4(x, r / 2), word4(y, r / 2), sel),
+                            __byte_perm(word4(z, r / 2), word4(u, r / 2), sel));
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[8 * q + r][e] += p[e];
+            }
           }
-          chain_mma_step(acc, a, b);
         }
-        __syncwarp();  // every lane has read both stages: refill them with the next dot's
-        if (refill)
-          for (int s = s0; s < s0 + 2; ++s)
-            stream_issue(&wmap, wn + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
-                         &full[warp][s], lane);
+        stream_store_part(part + warp * kPT, acc, gq, tq);
       }
+      __syncthreads();  // every warp has read the slot; the partial tiles stored
+      if (refill) issue(next, 0);
       if (A.upto == kStreamUptoWeights) continue;
-      chain_store_part(part + warp * kChainTile, acc, gq, tq);
     } else {
       float4 acc[kChainRows];
 #pragma unroll
       for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 1
       for (int s = 0; s < kStreamStages; ++s) {
-        if (stream || g == 0) mbar_wait(&full[warp][s], g & 1);
+        if (stream || g < kSlots) mbar_wait(&full[warp][s], parity);
         if (A.upto != kStreamUptoWeights) {
           const float* st = my_ring + s * kStageFloats + 4 * lane;
 #pragma unroll
@@ -1324,7 +1549,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
 #pragma unroll
             for (int r = 0; r < kChainRows; ++r) {
               const float4 hv =
-                  *reinterpret_cast<const float4*>(h + r * kW + s * kStreamChunkK + k);
+                  *reinterpret_cast<const float4*>(h + r * kHS + s * kStreamChunkK + k);
               fma4(acc[r], hv.x, w0);
               fma4(acc[r], hv.y, w1);
               fma4(acc[r], hv.z, w2);
@@ -1332,29 +1557,27 @@ __global__ void __launch_bounds__(kChainThreads, 1)
             }
           }
         }
-        __syncwarp();  // every lane has read the stage: refill it with the next dot's chunk
-        if (refill)
-          stream_issue(&wmap, wn + kb + s * kStreamChunkK, col0, my_ring + s * kStageFloats,
-                       &full[warp][s], lane);
+        __syncwarp();  // every lane has read the stage: refill it with dot next's chunk
+        if (refill) issue(next, s);
       }
       if (A.upto == kStreamUptoWeights) continue;
 #pragma unroll
       for (int r = 0; r < kChainRows; ++r)
-        *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
+        *reinterpret_cast<float4*>(my_part + L::part_offset(r, 0)) = acc[r];
+      __syncthreads();  // the partial tiles stored; this dot's h read by every warp
     }
-    __syncthreads();  // the partial tiles stored; this dot's h read by every warp
     if (A.upto < kStreamUptoExchange) continue;
-    float* hn = hb + nxt * kChainRows * kW;
+    float* hn = hb + nxt * kChainRows * kHS;
     float lmax = 0.0f;
     for (int i = threadIdx.x; i < kQuads; i += kChainThreads) {
       const int r = i / (kChainCols / 4), c = 4 * (i % (kChainCols / 4));
-      float4 y = *reinterpret_cast<const float4*>(part + r * kChainCols + c);
+      float4 y = *reinterpret_cast<const float4*>(part + L::part_offset(r, c));
 #pragma unroll
       for (int q = 1; q < kChainWarps; ++q)
-        add4(y, *reinterpret_cast<const float4*>(part + q * kChainTile + r * kChainCols + c));
+        add4(y, *reinterpret_cast<const float4*>(part + q * kPT + L::part_offset(r, c)));
       if (!kT3) y = clamp4(y);
       lmax = fmaxf(lmax, fmaxf(fmaxf(fabsf(y.x), fabsf(y.y)), fmaxf(fabsf(y.z), fabsf(y.w))));
-      float* at = hn + r * kW + col0 + c;
+      float* at = hn + r * kHS + col0 + c;
       *reinterpret_cast<float4*>(at) = y;
       send4(peer_addr(smem_addr(at), peer), peer_addr(smem_addr(&bar[nxt]), peer), y);
     }
@@ -1381,7 +1604,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
       for (int q = 1; q < kChainCluster; ++q) mx = fmaxf(mx, maxima[q]);
       const float scale = 1.0f / fmaxf(mx, 1e-6f);
       for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads) {
-        float4* q = reinterpret_cast<float4*>(hn) + i;
+        float4* q = reinterpret_cast<float4*>(hn + (i / (kW / 4)) * kHS) + i % (kW / 4);
         float4 y = *q;
         y.x *= scale; y.y *= scale; y.z *= scale; y.w *= scale;
         *q = y;
@@ -1403,7 +1626,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
         const int q = threadIdx.x >> 5, c = 4 * lane;
         const float* hc = hn + col0 + c;
         float4 s = *reinterpret_cast<const float4*>(hc);
-        for (int r = 1; r < kChainRows; ++r) add4(s, *reinterpret_cast<const float4*>(hc + r * kW));
+        for (int r = 1; r < kChainRows; ++r) add4(s, *reinterpret_cast<const float4*>(hc + r * kHS));
         const int to = q * kChainSlices + slice;
         send4(peer_addr(smem_addr(sums + group * kChainCols + c), to),
               peer_addr(smem_addr(&xbar[0]), to), s);
@@ -1431,37 +1654,42 @@ __global__ void __launch_bounds__(kChainThreads, 1)
         for (int q = 0; q < kStreamAdamRows / kChainWarps; ++q) {
           const int row = group * kStreamAdamRows + warp + kChainWarps * q;
           const size_t at = (static_cast<size_t>(b) * kW + row) * kW + col0 + 4 * lane;
-          adam4(A.w + at, A.m + at, A.v + at, gc, bc1, bc2);
+          const float4 nw = adam4(A.w + at, A.m + at, A.v + at, gc, bc1, bc2);
+          if constexpr (kBf16) store_bf16x4(A.wb + at, nw);
         }
       }
-      fence_proxy_async_global();  // the new W, for the other CTAs' bulk copies
+      fence_proxy_async_global();  // the new W (bf16: its copy), for the CTAs' bulk copies
       asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
       if (kMode == kStreamTail) {
         asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
         fence_proxy_async_global();
-        if (g + 1 < total)
-          for (int s = 0; s < kStreamStages; ++s)
-            stream_issue(&wmap, weight(g + 1) + kb + s * kStreamChunkK, col0,
-                         my_ring + s * kStageFloats, &full[warp][s], lane);
+        for (int q = g + 1; q <= g + kSlots && q < total; ++q) issue_dot(q);  // held back
       } else {
         cluster_wait = true;
       }
     }
   }
   if (cluster_wait) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  const float* hf = hb + (total & 1) * kChainRows * kW + col0;
+  const float* hf = hb + (total & 1) * kChainRows * kHS + col0;
   float* oc = A.out + (static_cast<size_t>(chain) * kRows + row0) * kW + col0;
   for (int i = threadIdx.x; i < kChainTile / 4; i += kChainThreads) {
     const int r = i / (kChainCols / 4), c = 4 * (i % (kChainCols / 4));
-    *reinterpret_cast<float4*>(oc + r * kW + c) = *reinterpret_cast<const float4*>(hf + r * kW + c);
+    *reinterpret_cast<float4*>(oc + r * kW + c) =
+        *reinterpret_cast<const float4*>(hf + r * kHS + c);
   }
   cluster.sync();  // no CTA leaves while another may still address its shared memory
 }
 
-// The weights' stack (rows × kW floats, row-major) as a 2-D tensor map whose
-// box is a ring stage: 8 rows × 128 columns. cuTensorMapEncodeTiled comes
-// from the driver through the runtime (the build links no -lcuda).
-cudaError_t stream_weight_map(const float* w, int rows, CUtensorMap* map) {
+// The weights' stack (rows × kW, row-major) as a tensor map whose box is a
+// ring stage. fp32: the f32 weights, 2-D, 8 rows × 128 columns, as they are.
+// bf16: their bf16 copy, 3-D (64 columns, rows, kW / 64 column blocks; the
+// blocks 128 bytes apart), box 64 × 256 × 2 (a dot), swizzled 128 B: two
+// 32 KB blocks, line k of a block holding row k, its 16-byte chunk j at
+// chunk j ^ (k mod 8).
+// cuTensorMapEncodeTiled comes from the driver through the runtime (the
+// build links no -lcuda).
+template <bool kBf16>
+cudaError_t stream_weight_map(const void* w, int rows, CUtensorMap* map) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -1472,25 +1700,37 @@ cudaError_t stream_weight_map(const float* w, int rows, CUtensorMap* map) {
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kW), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kW) * 4};  // bytes a row
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChainCols),
-                             static_cast<cuuint32_t>(kStreamChunkK)};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(w), dims,
-                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r;
+  if constexpr (kBf16) {
+    const cuuint64_t dims[3] = {kStreamBlockCols, static_cast<cuuint64_t>(rows),
+                                kW / kStreamBlockCols};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kW) * 2, kStreamBlockCols * 2};
+    const cuuint32_t box[3] = {kStreamBlockCols, kW, kChainCols / kStreamBlockCols};
+    const cuuint32_t steps[3] = {1, 1, 1};
+    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims, strides, box,
+               steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kW), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kW) * 4};  // bytes a row
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChainCols),
+                               static_cast<cuuint32_t>(kStreamChunkK)};
+    const cuuint32_t steps[2] = {1, 1};
+    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(w), dims, strides, box,
+               steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int kMode, bool kBf16>
 cudaError_t launch_chain_stream(const StreamArgs& A, int n_chains, cudaStream_t stream) {
   CUtensorMap wmap;
-  cudaError_t e = stream_weight_map(
-      A.w, (kMode == kStreamT3 ? n_chains * kT3Depth : kT5Bufs) * kW, &wmap);
+  cudaError_t e = stream_weight_map<kBf16>(
+      kBf16 ? static_cast<const void*>(A.wb) : A.w,
+      (kMode == kStreamT3 ? n_chains * kT3Depth : kT5Bufs) * kW, &wmap);
   if (e != cudaSuccess) return e;
-  const int smem = stream_smem_bytes(kMode);
+  const int smem = stream_smem_bytes<kBf16>(kMode);
   e = cudaFuncSetAttribute(chain_stream_kernel<kMode, kBf16>,
                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess)
@@ -1563,11 +1803,13 @@ const char* probes_error_string(int err) {
 }
 
 // T4, T3, T5: see chain_phase_kernel; bf16_dots 1 takes its bf16-dot
-// instantiation. The result is h[(n_steps·depth) % 2].
+// instantiation; `upto` < 2 runs a variant of the time split (the result is
+// then not the chain's). The result is h[(n_steps·depth) % 2].
 int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* maxbits,
-                       int n_chains, int n_steps, int depth, int dots_per_weight,
-                       int epilogue, int adam, int t0, int bf16_dots, void* stream) {
+                       int n_chains, int n_steps, int depth, int dots_per_weight, int epilogue,
+                       int adam, int t0, int bf16_dots, int upto, void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || n_steps < 1 || depth < 1 ||
+      upto < kPhaseUptoBarriers || upto > kPhaseUptoAll ||
       dots_per_weight < 1 || depth % dots_per_weight != 0 ||
       (epilogue != kEpClamp && epilogue != kEpRenorm) ||
       (epilogue == kEpRenorm && maxbits == nullptr) || adam < kAdamNone ||
@@ -1579,7 +1821,7 @@ int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* max
   const int err = bf16_dots ? phase_grid<true>(&blocks) : phase_grid<false>(&blocks);
   if (err != 0) return err;
   ChainArgs A{h, w, m, v, maxbits, n_chains, n_steps, depth, dots_per_weight, epilogue,
-              adam, t0};
+              adam, t0, upto};
   void* params[] = {&A};
   void* kernel = bf16_dots ? reinterpret_cast<void*>(chain_phase_kernel<true>)
                            : reinterpret_cast<void*>(chain_phase_kernel<false>);
@@ -1626,15 +1868,17 @@ int probes_chain_cluster(const float* x, const float* w, float* out, int n_chain
 // or interleaved (one chain, w, m and v (5, kW, kW), updated in place, t0
 // Adam's step before the launch); the result goes to out (n_chains, kRows,
 // kW). `upto` < 4 stops each dot early (the time split); bf16_dots 1 takes
-// the bf16-dot instantiation.
-int probes_chain_stream(const float* x, float* w, float* m, float* v, float* out, int n_chains,
-                        int n_steps, int mode, int t0, int upto, int bf16_dots, void* stream) {
+// the bf16-dot instantiation, which writes w's bf16 copy into wb (w's
+// shape, 2 bytes an element; null in fp32).
+int probes_chain_stream(const float* x, float* w, void* wb, float* m, float* v, float* out,
+                        int n_chains, int n_steps, int mode, int t0, int upto, int bf16_dots,
+                        void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || n_steps < 1 || mode < kStreamT3 ||
       mode > kStreamInterleaved || upto < kStreamUptoWeights || upto > kStreamUptoAll ||
       (mode != kStreamT3 && (n_chains != 1 || m == nullptr || v == nullptr)) ||
-      (bf16_dots != 0 && bf16_dots != 1))
+      (bf16_dots != 0 && bf16_dots != 1) || (bf16_dots == 1 && wb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const StreamArgs A{x, w, m, v, out, n_steps, t0, upto};
+  const StreamArgs A{x, w, static_cast<__nv_bfloat16*>(wb), m, v, out, n_steps, t0, upto};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bf16_dots ? launch_chain_stream_mode<true>(A, n_chains, mode, st)
                                   : launch_chain_stream_mode<false>(A, n_chains, mode, st);

@@ -49,13 +49,18 @@ def find_nvcc() -> str:
                        "build the CUDA kernels")
 
 
-def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
-    """Build (if needed) and load ``csrc/<name>.cu``. Returns the library
-    and a record {"path", "seconds", "built", "log"} of what happened."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def load_library(name: str, source=None) -> Tuple[ctypes.CDLL, dict]:
+    """Build (if needed) and load ``csrc/<name>.cu``, or with ``source`` that
+    file in its place (another version of the library, for comparing two
+    builds in one process; ``csrc/`` stays on its include path). Returns the
+    library and a record {"path", "seconds", "built", "log"} of what
+    happened."""
+    src = CSRC / f"{name}.cu" if source is None else Path(source).resolve()
+    key = name if source is None else f"{name}:{src}"
+    if key in _LOADED:
+        return _LOADED[key]
+    flags = NVCC_FLAGS if source is None else [*NVCC_FLAGS, "-I", str(CSRC)]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     lib_path = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -63,7 +68,7 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         record["seconds"] = time.perf_counter() - t0
@@ -74,5 +79,5 @@ def load_library(name: str) -> Tuple[ctypes.CDLL, dict]:
         os.replace(tmp, lib_path)
         record["built"] = True
     lib = ctypes.CDLL(str(lib_path))
-    _LOADED[name] = (lib, record)
+    _LOADED[key] = (lib, record)
     return lib, record

@@ -28,7 +28,14 @@ T3, T4 and T5 take ``bf16_dots``: every dot with both operands rounded to
 bfloat16 (round to nearest even) and f32 sums, what the TPU tools' dots at
 ``precision=None`` compute (T2's ``check_dot_modes``), on the tensor cores
 (``mma.sync`` m16n8k16) in every form; h, the weights, the clamp, T3's
-renorm and T5's Adam stay f32. Without it the dots are fp32.
+renorm and T5's Adam stay f32. Without it the dots are fp32. The bf16
+instantiations' cuts and shared-memory layouts are mirrored here as plain
+index arithmetic (``phase_units``, ``phase_lane_loads``, ``phase_part_offset``,
+``stream_slot_offset``, ``stream_b_offset``, ``stream_a_offset``,
+``stream_part_offset``, ``stream_store_col``; the stream form's bf16
+instantiation streams a bf16 copy of the weights, which its launch writes
+into scratch the wrapper allocates), which ``tests/test_torch_probe_layouts.py``
+checks.
 
 The kernels are ``csrc/probes.cu``. Each wrapper launches its kernel for
 CUDA tensors and raises if it cannot; for CPU tensors (and only for them) it
@@ -69,6 +76,8 @@ T3_FORMS = T5_FORMS = ("phase", "stream")  # T3's (chain_chunk), T5's (adam_over
 # CTAs a chain, 8 row groups × 2 column slices of 128 (a lane 4 columns),
 # 8 warps a CTA splitting K, W in registers
 CHAIN_CLUSTER, CHAIN_SLICES, CHAIN_WARPS = 16, 2, 8
+CHAIN_ROWS = ROWS // (CHAIN_CLUSTER // CHAIN_SLICES)  # 13 rows a CTA: one m16 tile in bf16
+CHAIN_COLS, CHAIN_KSLICE = W // CHAIN_SLICES, W // CHAIN_WARPS  # 128 columns a CTA, 32 k a warp
 # launch variants for the time split (``_chain_cluster_launch``): stop after
 # staging W and x, after the products, after the sums into the CTA's own h,
 # or run whole (the push to the row group's other CTA and the wait)
@@ -83,6 +92,25 @@ STREAM_STAGES, STREAM_CHUNK_K, STREAM_ADAM_ROWS = 4, 8, 32
 # stream); the products with the stream; + the sums and the row exchange;
 # or run whole (+ T3's renorm or T5's Adam)
 STREAM_UPTO = {"weights": 0, "compute": 1, "products": 2, "exchange": 3, "all": 4}
+# the stream form's bf16 layout: the weights' bf16 copy streamed, one copy a
+# CTA a dot into one of two ring slots, a slot two 32 KB blocks of the dot's
+# 256 k-rows × 64 bf16 columns, swizzled 128 B by its copy; h's rows 264
+# floats apart, the partial tiles' 132 with swizzled chunks (fp32: 4 copies
+# a warp a dot, a ring of one dot; h and the tiles as they are)
+STREAM_BLOCK_COLS = 64
+STREAM_SLOTS = {False: 1, True: 2}  # dots the ring holds
+STREAM_H_STRIDE = {False: W, True: W + 8}
+STREAM_PART_STRIDE = {False: W // CHAIN_SLICES, True: W // CHAIN_SLICES + 4}
+# the phase form's launch variants for the time split (``_phase_launch``):
+# every phase empty but for its grid barrier; every phase's work without the
+# barriers; or whole
+PHASE_UPTO = {"barriers": 0, "work": 1, "all": 2}
+# the phase form's bf16 cut (csrc/probes.cu phase_dot_bf16): units of 16 rows
+# × 32 columns of a chain, K split over 8 warps of 32 k (two k16 steps), two
+# units a 512-thread CTA a round; the partial tiles' rows 36 floats apart
+PHASE_COLS, PHASE_K_SPLIT, PHASE_SLOTS, PHASE_PART_STRIDE = 32, 8, 2, 36
+PHASE_M_TILES = -(-ROWS // 16)  # 7 m16 tiles a chain, the last half zeros
+PHASE_UNITS = PHASE_M_TILES * (W // PHASE_COLS)  # 56 a chain
 MODES = {"fp32": 0, "tf32": 1, "bf16": 2}
 # T2's kernel (csrc/probes.cu dot_kernel): one warpgroup a CTA, 64 × 32 output
 # tiles, K staged 32 at a time, slices of whole 16-element units, clusters of
@@ -103,24 +131,29 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         from ._build import load_library
 
-        lib = load_library("probes")[0]
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.probes_error_string.argtypes = [i32]
-        lib.probes_error_string.restype = ctypes.c_char_p
-        lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 8 + [vp]
-        lib.probes_chain_phase.restype = i32
-        lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 7 + [vp]
-        lib.probes_chain_cluster.restype = i32
-        lib.probes_chain_stream.argtypes = [vp] * 5 + [i32] * 6 + [vp]
-        lib.probes_chain_stream.restype = i32
-        lib.probes_chain_plan.argtypes = [i32, ctypes.POINTER(i32)]
-        lib.probes_chain_plan.restype = i32
-        lib.probes_dot.argtypes = [vp] * 3 + [i32] * 9 + [vp]
-        lib.probes_dot.restype = i32
-        lib.probes_dot_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
-        lib.probes_dot_plan.restype = i32
-        _LIB = lib
+        _LIB = bind(load_library("probes")[0])
     return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the probes library's C entries on ``lib`` (a build of
+    csrc/probes.cu); returns it."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.probes_error_string.argtypes = [i32]
+    lib.probes_error_string.restype = ctypes.c_char_p
+    lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 9 + [vp]
+    lib.probes_chain_phase.restype = i32
+    lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 7 + [vp]
+    lib.probes_chain_cluster.restype = i32
+    lib.probes_chain_stream.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+    lib.probes_chain_stream.restype = i32
+    lib.probes_chain_plan.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.probes_chain_plan.restype = i32
+    lib.probes_dot.argtypes = [vp] * 3 + [i32] * 9 + [vp]
+    lib.probes_dot.restype = i32
+    lib.probes_dot_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.probes_dot_plan.restype = i32
+    return lib
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -192,21 +225,169 @@ def chain_chunk(xs: torch.Tensor, ws: torch.Tensor, *, n_steps: int, depth: int,
         out = _stream_launch("t3", xs, ws, None, None, n_steps, bf16_dots=bf16_dots)
         _count(chain_chunk, "stream_launches", bf16_dots)
         return out
-    lib = _lib()
-    h = torch.empty(2, *xs.shape, dtype=torch.float32, device=device)
-    h[0].copy_(xs)
-    maxbits = torch.zeros(2 * n, dtype=torch.int32, device=device)
-    err = lib.probes_chain_phase(h.data_ptr(), ws.data_ptr(), None, None, maxbits.data_ptr(), n,
-                                 n_steps, depth, 1 if weights_per_depth else depth,
-                                 EPILOGUES[epilogue], 0, 0, int(bf16_dots), _stream(device))
-    _check(lib, err, "probes_chain_phase launch")
+    out = _phase_launch(xs, ws, n_steps, depth, weights_per_depth, epilogue, bf16_dots=bf16_dots)
     _count(chain_chunk, "launches", bf16_dots)
-    return h[(n_steps * depth) % 2]
+    return out
 
 
 chain_chunk.launches = chain_chunk.bf16_launches = 0
 chain_chunk.cluster_launches = chain_chunk.bf16_cluster_launches = 0
 chain_chunk.stream_launches = chain_chunk.bf16_stream_launches = 0
+
+
+def _phase_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, depth: int,
+                  weights_per_depth: bool, epilogue: str, adam: int = 0,
+                  ms: Optional[torch.Tensor] = None, vs: Optional[torch.Tensor] = None,
+                  t0: int = 0, upto: str = "all", bf16_dots: bool = False) -> torch.Tensor:
+    """One launch of the phase form on CUDA tensors (T3, T4; T5 with
+    ``adam`` 1 (tail) or 2 (interleaved), ``ms`` and ``vs``): returns the
+    final h. ``upto`` other than "all" runs a variant of the time split (the
+    result is then not the chain's). Uncounted."""
+    n, device = xs.shape[0], xs.device
+    h = torch.empty(2, *xs.shape, dtype=torch.float32, device=device)
+    h[0].copy_(xs)
+    maxbits = torch.zeros(2 * n, dtype=torch.int32, device=device)
+    lib = _lib()
+    err = lib.probes_chain_phase(
+        h.data_ptr(), ws.data_ptr(), None if ms is None else ms.data_ptr(),
+        None if vs is None else vs.data_ptr(), maxbits.data_ptr(), n, n_steps, depth,
+        DOTS_PER_BUF if adam else (1 if weights_per_depth else depth), EPILOGUES[epilogue],
+        adam, t0, int(bf16_dots), PHASE_UPTO[upto], _stream(device))
+    _check(lib, err, "probes_chain_phase launch" if not adam else
+           "probes_chain_phase (Adam) launch")
+    return h[(n_steps * depth) % 2]
+
+
+def phase_units(n_chains: int, blocks: int) -> list:
+    """The phase form's bf16 cut of one dot, by the kernel's index arithmetic
+    (csrc/probes.cu phase_dot_bf16): each unit's chain, m16 tile and 32-column
+    group, the CTA and half-CTA slot that compute it and the round they do it
+    in (unit u in CTA u mod blocks, slot u // blocks mod 2, round u // (2
+    blocks)). Each unit's 8 warps split its K (``phase_lane_loads``)."""
+    units = []
+    per_round = PHASE_SLOTS * blocks
+    for u in range(n_chains * PHASE_UNITS):
+        c, rem = divmod(u, PHASE_UNITS)
+        mt, nq = divmod(rem, W // PHASE_COLS)
+        units.append({"unit": u, "chain": c, "mt": mt, "nq": nq, "block": u % blocks,
+                      "slot": u % per_round // blocks, "round": u // per_round})
+    return units
+
+
+def phase_lane_loads(mt, nq, kq, lane):
+    """The loads of lane ``lane`` of warp ``kq`` of a phase unit (m16 tile
+    ``mt``, column group ``nq``), all float4 of a chain's h and W: A, a list
+    over the warp's two k16 steps of ((row, k), (row + 8, k)) (row + 8 is not
+    loaded past ROWS); B, a list over the steps of 4 (k, col). The lane (g,
+    t) holds fragment positions 2t, 2t + 1, 2t + 8, 2t + 9 of a step, which
+    stand for the step's k 4t .. 4t + 3, and n8 tile r's column j is the
+    group's column 4j + r. Works on numpy arrays of lanes."""
+    g, t = lane // 4, lane % 4
+    k0 = kq * (W // PHASE_K_SPLIT) + 4 * t
+    a = [((16 * mt + g, k0 + 16 * s), (16 * mt + g + 8, k0 + 16 * s)) for s in range(2)]
+    b = [[(k0 + 16 * s + i, PHASE_COLS * nq + 4 * g) for i in range(4)] for s in range(2)]
+    return a, b
+
+
+def phase_part_offset(lane, h: int):
+    """The float offset, in a warp's phase partial tile (16 rows of
+    PHASE_PART_STRIDE), of the lane's float4 stores of fragment registers 2h
+    (offset) and 2h + 1 (offset + 4): row g + 8h, columns 8t.. and 8t + 4..."""
+    g, t = lane // 4, lane % 4
+    return (g + 8 * h) * PHASE_PART_STRIDE + 8 * t
+
+
+def stream_slot_offset(k, col):
+    """Where a bf16 ring slot holds W[k][col] of its dot (k < 256, col < 128
+    of the CTA's columns), in bf16 elements: the 3-D copy's layout, block
+    col // 64, line k, the 16-byte chunk (col % 64) // 8 swizzled to its XOR
+    with k mod 8. Works on numpy arrays."""
+    q, c = col // STREAM_BLOCK_COLS, col % STREAM_BLOCK_COLS
+    return q * W * STREAM_BLOCK_COLS + k * STREAM_BLOCK_COLS + 8 * ((c // 8) ^ (k % 8)) + c % 8
+
+
+def stream_b_offset(p, k, g):
+    """The bf16 element offset, in a bf16 ring slot, of the 16 bytes that
+    the lane of fragment row ``g`` reads for block ``p`` at the dot's row
+    ``k``: W[k][64p + 8g .. 64p + 8g + 7], its B values of n8 tiles 8p .. 8p
+    + 7 (tile 8p + r's column j is the slice's column 64p + 8j + r;
+    csrc/probes.cu stream_b8). A warp's lane (g, t) reads rows kb + 16s +
+    2t, + 1, + 8 and + 9 of its K slice's k16 step s."""
+    return p * W * STREAM_BLOCK_COLS + k * STREAM_BLOCK_COLS + 8 * (g ^ (k % 8))
+
+
+def stream_a_offset(lane, step: int, reg: int, bf16_dots: bool = True):
+    """The float offset, in a CTA's h buffer from the warp's first k, of the
+    float2 the lane reads for A fragment register ``reg`` (0-3) of k16 step
+    ``step``: row g (+ 8 for registers 1 and 3; the zero rows 13..15 read
+    row g), k 16 step + 2t (+ 8 for registers 2 and 3)."""
+    g, t = lane // 4, lane % 4
+    row = np.where(g + 8 * (reg % 2) < CHAIN_ROWS, g + 8 * (reg % 2), g)
+    return row * STREAM_H_STRIDE[bf16_dots] + 16 * step + 2 * t + 8 * (reg // 2)
+
+
+def stream_part_offset(row, col):
+    """Where a bf16 partial tile of the stream form holds its row ``row``,
+    column ``col`` (floats): rows 132 apart, bit 1 of the 16-byte chunk
+    index flipped in the upper half of each 64 columns (csrc/probes.cu
+    StreamLayout::part_offset). Works on numpy arrays."""
+    return row * STREAM_PART_STRIDE[True] + (col ^ (((col >> 5) & 1) << 3))
+
+
+def stream_store_col(lane, p: int, x: int, e: int):
+    """The column of the float4 that the lane stores for fragment register
+    x (of rows g and g + 8) of tiles 8p + 4e .. 8p + 4e + 3: fragment column
+    2t + x of tile 8p + r is the slice's 64p + 16t + 8x + r."""
+    return STREAM_BLOCK_COLS * p + 16 * (lane % 4) + 8 * x + 4 * e
+
+
+def smem_wavefronts(addrs, width: int) -> int:
+    """Shared-memory wavefronts of one warp-wide access under a 32-bank model:
+    ``addrs`` the 32 lanes' byte addresses (None for a lane that does not
+    access), ``width`` the bytes a lane (4, 8 or 16). The warp is served in
+    phases of 128 / width lanes (a half-warp for 8 bytes, a quarter-warp for
+    16); in a phase each bank serves one 4-byte word a wavefront, and lanes
+    reading one word share it. The least is one wavefront a phase that has an
+    active lane."""
+    per_phase, total = 128 // width, 0
+    for p0 in range(0, 32, per_phase):
+        words = {}
+        for a in addrs[p0:p0 + per_phase]:
+            if a is not None:
+                for w in range(a // 4, (a + width) // 4):
+                    words.setdefault(w % 32, set()).add(w)
+        total += max((len(v) for v in words.values()), default=0)
+    return total
+
+
+def stream_product_wavefronts() -> dict:
+    """Shared-memory wavefronts of one warp's products in one dot of the bf16
+    stream form, access by access through the mirrored addresses (A pairs,
+    B 16-byte loads, partial-tile float4 stores): {"a", "b", "stores",
+    "total"}."""
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    count = {"a": 0, "b": 0, "stores": 0}
+    for step in range(CHAIN_KSLICE // 16):
+        for reg in range(4):
+            count["a"] += smem_wavefronts(
+                [4 * int(o) for o in stream_a_offset(lanes, step, reg)], 8)
+    for step in range(CHAIN_KSLICE // 16):  # warp 0's rows; every warp's fall alike
+        for p in range(CHAIN_COLS // STREAM_BLOCK_COLS):
+            for k in (0, 1, 8, 9):
+                count["b"] += smem_wavefronts(
+                    [2 * int(o) for o in stream_b_offset(p, 16 * step + 2 * t + k, g)], 16)
+    for h in range(2):
+        live = g + 8 * h < CHAIN_ROWS
+        for p in range(CHAIN_COLS // STREAM_BLOCK_COLS):
+            for x in range(2):
+                for e in range(2):
+                    off = stream_part_offset(g + 8 * h, stream_store_col(lanes, p, x, e))
+                    count["stores"] += smem_wavefronts(
+                        [4 * int(o) if a else None for o, a in zip(off, live)], 16)
+    count["total"] = sum(count.values())
+    return count
+
 
 @dataclasses.dataclass(frozen=True)
 class ChainPlan:
@@ -317,24 +498,32 @@ def stream_weight(mode: str, chain: int, g: int) -> int:
     return chain * T3_DEPTH + d if mode == "t3" else d // DOTS_PER_BUF
 
 
-def stream_schedule(mode: str, n_steps: int) -> list:
+def stream_schedule(mode: str, n_steps: int, bf16_dots: bool = False) -> list:
     """One CTA's program in the stream form, whole, in the kernel's order
     (every CTA runs the same one): ("issue", g), the warps' copies of dot
     g's chunks; ("dot", g); ("renorm", trip), T3's max exchange and scale;
     ("adam", b, step), T5's column sums and Adam on buffer b; ("arrive",)
-    and ("wait",), the halves of a cluster barrier. Dot g + 1's copies go
-    out as dot g reads its stages, except after the tail's last dot of a
-    step, where they wait for Adam's cluster barrier; when interleaved, the
-    wait after Adam on a buffer comes at the next Adam."""
-    depth, ev, pending = _stream_depth(mode), [("issue", 0)], False
+    and ("wait",), the halves of a cluster barrier. dot g's copies are each
+    warp's 4 stages (fp32) or the CTA's one slot (bf16). The ring holds
+    ``STREAM_SLOTS`` dots (fp32 one, bf16 two): dot g + slots's copies go
+    out as dot g reads its stages (bf16: once every warp has read its slot),
+    except where dot g + slots is in the
+    tail's next step, whose copies wait for Adam's cluster barrier; when
+    interleaved, the wait after Adam on a buffer comes at the next Adam.
+    ``bf16_dots``: the copies stream the weights' bf16 copy, which the CTAs
+    first write (("round",)) and Adam rewrites with the weights, so the
+    first copies wait for a cluster barrier after the rounding."""
+    depth, pending, slots = _stream_depth(mode), False, STREAM_SLOTS[bf16_dots]
     total = n_steps * depth
+    ev = [("round",), ("arrive",), ("wait",)] if bf16_dots else []
+    ev += [("issue", g) for g in range(min(slots, total))]
     for g in range(total):
         d, step = g % depth, g // depth
         adam = mode != "t3" and (d == depth - 1 if mode == "tail"
                                  else d % DOTS_PER_BUF == DOTS_PER_BUF - 1)
         ev.append(("dot", g))
-        if g + 1 < total and not (mode == "tail" and adam):
-            ev.append(("issue", g + 1))
+        if g + slots < total and not (mode == "tail" and (g + slots) // depth != step):
+            ev.append(("issue", g + slots))
         if mode == "t3" and d == depth - 1:
             ev.append(("renorm", step))
         if adam:
@@ -344,8 +533,7 @@ def stream_schedule(mode: str, n_steps: int) -> list:
             ev += [("adam", b, step) for b in bufs] + [("arrive",)]
             if mode == "tail":
                 ev.append(("wait",))
-                if g + 1 < total:
-                    ev.append(("issue", g + 1))
+                ev += [("issue", q) for q in range(g + 1, min(g + slots, total - 1) + 1)]
             pending = mode == "interleaved"
     return ev + ([("wait",)] if pending else [])
 
@@ -369,8 +557,11 @@ def _stream_launch(mode: str, x: torch.Tensor, w: torch.Tensor, m: Optional[torc
     if n_steps < 1:
         raise ValueError(f"n_steps must be ≥ 1, got {n_steps}")
     out = torch.empty_like(x)
+    # bf16: the launch rounds w into this copy and streams it
+    wb = torch.empty(w.shape, dtype=torch.bfloat16, device=device) if bf16_dots else None
     lib = _lib()
     err = lib.probes_chain_stream(x.data_ptr(), w.data_ptr(),
+                                  None if wb is None else wb.data_ptr(),
                                   None if m is None else m.data_ptr(),
                                   None if v is None else v.data_ptr(), out.data_ptr(),
                                   x.shape[0], n_steps, STREAM_MODES[mode], t0,
@@ -443,16 +634,10 @@ def adam_overlap_chunk(x: torch.Tensor, ws: torch.Tensor, ms: torch.Tensor, vs: 
                            ms, vs, n_steps, t0, bf16_dots=bf16_dots)
         _count(adam_overlap_chunk, "stream_launches", bf16_dots)
         return h[0]
-    lib = _lib()
-    h = torch.empty(2, 1, ROWS, W, dtype=torch.float32, device=device)
-    h[0, 0].copy_(x)
-    depth = N_BUF * DOTS_PER_BUF
-    err = lib.probes_chain_phase(h.data_ptr(), ws.data_ptr(), ms.data_ptr(), vs.data_ptr(),
-                                 None, 1, n_steps, depth, DOTS_PER_BUF, EPILOGUES["clamp"],
-                                 2 if interleave else 1, t0, int(bf16_dots), _stream(device))
-    _check(lib, err, "probes_chain_phase (Adam) launch")
+    h = _phase_launch(x.reshape(1, ROWS, W), ws, n_steps, N_BUF * DOTS_PER_BUF, False, "clamp",
+                      2 if interleave else 1, ms, vs, t0, bf16_dots=bf16_dots)
     _count(adam_overlap_chunk, "launches", bf16_dots)
-    return h[(n_steps * depth) % 2, 0]
+    return h[0]
 
 
 adam_overlap_chunk.launches = adam_overlap_chunk.bf16_launches = 0

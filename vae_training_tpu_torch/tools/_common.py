@@ -13,7 +13,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
-from typing import Callable, Tuple
+from typing import Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,3 +122,38 @@ def seconds_per_step(launch: Callable[[int], object], device: torch.device,
     _window(launch, n, min_seconds, device)  # warm-up
     seconds, calls = _window(launch, n, min_seconds, device)
     return seconds / (calls * n), n
+
+
+def event_us(fn: Callable[[], object], calls: int = 5, repeats: int = 3) -> float:
+    """µs a call of ``fn`` in device time: ``calls`` calls queued back to
+    back between two CUDA events, the least of ``repeats`` runs after a
+    warm-up call. For launches long beside their host cost (a cooperative
+    launch, which a CUDA graph may not capture, included)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, 1e3 * start.elapsed_time(end) / calls)
+    return best
+
+
+def split_in_turns(launches: Mapping[str, Callable[[str], object]], variants: Sequence[str],
+                   scale: float = 1.0) -> Dict[str, Dict[str, float]]:
+    """A kernel's time split by launch variants that leave parts out: each
+    variant in order and then in reverse, and at each variant every launch
+    of ``launches`` in turn (one form at two chain counts, say, or two
+    builds), in device time (``event_us``). Returns {launch: {variant: the
+    least of the two times × ``scale``}}, ``scale`` turning µs a launch into
+    the unit wanted (µs or ns a step or dot)."""
+    out: Dict[str, Dict[str, float]] = {key: {} for key in launches}
+    for variant in list(variants) + list(variants)[::-1]:
+        for key, launch in launches.items():
+            t = scale * event_us(lambda: launch(variant))
+            out[key][variant] = min(out[key].get(variant, float("inf")), t)
+    return out

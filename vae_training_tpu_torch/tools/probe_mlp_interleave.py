@@ -13,7 +13,8 @@ for 1, 2, 1, 2 and 4 chains (the tool's order):
 
 - ``phase``: the MLP kernel's former design, one cooperative launch, one
   grid-wide phase a dot (one thread an output, a 256-term FMA chain from
-  L2, ``grid.sync()``);
+  L2, ``grid.sync()``; bf16 dots: 16 × 32 outputs over 8 warps that split
+  K, each warp's operands from L2 in one round trip);
 - ``cluster``: one cluster of 16 CTAs a chain, 8 row groups × 2 column
   slices, W's slice in registers and the row group's rows of h in shared
   memory, each CTA's new rows pushed to its row group's other CTA, no grid

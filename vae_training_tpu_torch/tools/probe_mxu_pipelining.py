@@ -13,7 +13,8 @@ timed:
 
 - ``phase``: the chains' dot d share one phase of the phase kernel (one
   cooperative launch, a grid-wide phase a dot); each dot reads its own
-  256 KB of weights from L2, one thread an output;
+  256 KB of weights from L2, one thread an output (bf16 dots: 16 × 32
+  outputs over 8 warps that split K);
 - ``stream``: one cluster of 16 CTAs a chain (T4's cut), each warp
   streaming its K slice of the next dot's weights from L2 into a ring in
   shared memory while the current dot runs; the trip's max|y| met through
@@ -55,6 +56,20 @@ def two_term_inputs(n_chains: int, device) -> tuple:
     xs = rs.randn(n_chains, probes.ROWS, probes.W)
     ws = np.stack([two_term_weights(rs, probes.T3_DEPTH) for _ in range(n_chains)])
     return tuple(torch.as_tensor(a.astype(np.float32)).to(device) for a in (xs, ws))
+
+
+def dense_trip_inputs(n_chains: int, device) -> tuple:
+    """A trip that is one dense dot: 7 identities, then ``inputs``' first
+    weight, from ``inputs``' h. An identity dot of bf16 operands rounds h to
+    bf16, exactly and in any summation order, and rounding again changes
+    nothing, so a stream launch (whole trips) is held one dense dot deep, as
+    the phase form is on the first weight alone. (With the dense weight
+    first, the next identity would round its f32 outputs to bf16, and a
+    last-bit difference between two right summation orders would flip such
+    a rounding.)"""
+    xs, ws = inputs(n_chains, device)
+    eye = torch.eye(probes.W, device=device).expand(n_chains, probes.W, probes.W)
+    return xs, torch.cat([eye] * (probes.T3_DEPTH - 1) + [ws[:, :probes.W]], dim=1).contiguous()
 
 
 def run(device: torch.device, form: str, n_chains: int, min_seconds: float,
