@@ -121,8 +121,8 @@ Fifty-nine phases:
  25. times: every kernel with f32 and bf16 moments in turn (f32, bf16,
      bf16, f32) and its bf16 plain version, with K4's bound;
  26. T4: the cluster and phase kernels' registers, shared memory and spills
-     (ptxas, both dot modes) and the cluster plan at 1, 2 and 4 chains, the
-     library's equal to kernels/probes.py's; chains of 24 dependent
+     (ptxas, both dot modes) and the cluster plan at 1, 2 and 4 chains
+     (kernels/probes.py's mirror of the library's constants); chains of 24 dependent
      104x256x256 dots, the phase and the cluster form, against the plain
      version (3 steps, 1/2/4 chains, rtol 1e-6; random inputs, 8 dots, rtol
      1e-4 / atol 1e-5), two cluster launches bitwise equal; in the TPU
@@ -133,14 +133,18 @@ Fifty-nine phases:
      sums; then the tool's table (1, 2, 1, 2, 4 chains, each form in bf16
      then fp32 dots) and VERDICTs; torch.matmul + clamp a step in device
      time (20 steps in a CUDA graph; bf16 operands for bf16); the cluster
-     form's step split by launch variants (staging, + products, + sums,
-     whole) at 1, 2 and 4 chains (bf16 dots: 1), in device time; the
-     phase form's bf16 cut (units of 16 x 32 outputs, K over 8 warps) and
-     chain 0 of 4 chains bitwise chain 0 alone in bf16 dots (the sums'
-     order does not depend on the chain count); its dot split by launch
-     variants (the grid barriers alone, the phases' work without them,
-     whole) at 1 and 4 chains in both dot modes, in device time; the
-     earlier bf16 body's times beside;
+     form's step split by launch variants (staging, + products, + the store
+     into the CTA's own h (fp32: with the partial tiles' sums; bf16: the
+     clamp and rounding), whole) at 1, 2 and 4 chains (bf16 dots: 1), in
+     device time, beside the bf16 cut's shared-memory wavefronts a warp a
+     dot under the 32-bank model (kernels/probes.py cluster_wavefronts;
+     printed, not measured); the phase form's cuts (fp32 units of 16 x 16
+     outputs, K over 8 half-warps; bf16 16 x 32, K over 8 warps) and chain 0
+     of 4 chains bitwise chain 0 alone in both dot modes (the sums' order
+     does not depend on the chain count), two fp32 phase launches bitwise
+     equal; its dot split by launch variants (the grid barriers alone, the
+     phases' work without them, whole) at 1 and 4 chains in both dot modes,
+     in device time;
  27. T3: 8 distinct weights a chain, renormalised a trip, the phase and
      the stream form (the stream kernel's registers and spills, ptxas),
      against the plain version (2 trips, 1/2/4 chains, rtol 1e-4 / atol
@@ -156,7 +160,7 @@ Fifty-nine phases:
      turns, beside the bf16 products' shared-memory wavefronts a warp a dot
      under the 32-bank model (kernels/probes.py stream_product_wavefronts;
      printed, not measured); the phase form's split at 1 and 4 chains in
-     both dot modes; the earlier bf16 bodies' times beside;
+     both dot modes; the fp32 phase dot beside torch.matmul's;
  28. T5: 25 dots and Adam on 5 buffers, tail and interleaved, each form,
      against the plain versions (3 steps; h at MLP_TOL, what Adam changed
      within DELTA_RTOL, with its controls; bf16 dots 2 steps, h at rho <=
@@ -164,8 +168,7 @@ Fifty-nine phases:
      equal (both dot modes); then tail and interleaved in turns and the
      VERDICT, each form and dot mode; the stream form's step split by
      launch variants (as phase 27's, whole with Adam) and the phase form's
-     (tail), both in both dot modes, in turns; the earlier bf16 bodies'
-     times beside;
+     (tail), both in both dot modes, in turns;
  29. T2: the dot kernel's registers, shared memory and spills (ptxas) and
      its plan, the library's equal to kernels/probes.py's; every mode
      against its plain version at four odd shapes; then the tool: one dot in
@@ -2099,15 +2102,6 @@ def _bf16_moments(torch, np, smi, data_dir):
     return records
 
 
-# The earlier bf16 bodies of the phase and stream forms (commit 72ab5c7,
-# before their redesign), measured on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md §6): printed beside this run's times
-EARLIER_BF16 = {"T4 phase us/step": 201.932, "T3 phase ns/dot": 8628.5,
-             "T3 stream ns/dot": 4854.4, "T3 stream products alone ns/dot": 3574.4,
-             "T5 phase tail us/step": 223.923, "T5 phase interleaved us/step": 228.253,
-             "T5 stream tail us/step": 136.761, "T5 stream interleaved us/step": 143.995}
-
-
 def _probes(torch, np, smi):
     """Phases 26–30: the probes T4, T3, T5 and T2 (csrc/probes.cu), each
     kernel against its plain version on the card, then the tool's own run
@@ -2201,10 +2195,8 @@ def _probes(torch, np, smi):
     _print_ptxas(load_library("probes")[1], only="chain_cluster")
     _print_ptxas(load_library("probes")[1], only="chain_phase")
     for n_chains in (1, 2, 4):
-        plan = probes.chain_plan(n_chains)
-        require(probes.library_chain_plan(n_chains) == plan,
-                f"T4 cluster plan at {n_chains} chain(s): the library's")
-        print(f"T4 cluster plan, {n_chains} chain(s): {plan}")
+        print(f"T4 cluster plan, {n_chains} chain(s): {probes.chain_plan(n_chains)} (fp32; bf16 "
+              f"dots {probes.CLUSTER_BF16_SMEM} bytes of shared memory, N over the warps)")
     t4_err = {f: 0.0 for f in probes.T4_FORMS}
     kw = dict(n_steps=3, depth=probes.T4_DEPTH, weights_per_depth=False, epilogue="clamp")
     for form in probes.T4_FORMS:
@@ -2317,31 +2309,45 @@ def _probes(torch, np, smi):
         sp = t4_split[mode][n_chains] = got[f"{mode} {n_chains}"]
         print(f"T4 cluster split, {mode} dots, {n_chains} chain(s), us a step (device time, min "
               f"of two): staging {sp['stage']:.2f} (a launch of 10 steps / 10), + products "
-              f"{sp['products']:.2f}, + sums {sp['sums']:.2f}, whole {sp['all']:.2f}; so "
-              f"products {sp['products'] - sp['stage']:.2f}, sums "
-              f"{sp['sums'] - sp['products']:.2f}, push and wait {sp['all'] - sp['sums']:.2f}")
+              f"{sp['products']:.2f}, + store {sp['store']:.2f}, whole {sp['all']:.2f}; so "
+              f"products {sp['products'] - sp['stage']:.2f}, store ("
+              f"{'the sums' if mode == 'fp32' else 'clamp and rounding'}) "
+              f"{sp['store'] - sp['products']:.2f}, push and wait {sp['all'] - sp['store']:.2f}")
+    cluster_wf = probes.cluster_wavefronts()
+    print(f"T4 cluster, bf16 dots: {cluster_wf['total']} shared-memory wavefronts a warp a dot "
+          f"(ldmatrix {cluster_wf['ldmatrix']}, stores {cluster_wf['stores']}; the 32-bank model "
+          f"of kernels/probes.py, not a measurement)")
     # the bound on the SMs one chain's cluster uses (the card's is the bound)
     chain_sms = probes.chain_plan(1).cluster
     card_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chain_bound_ms = {m: b["bound_ms"] * card_sms / chain_sms for m, b in bounds.items()}
     print(f"T4 bound on one chain's {chain_sms} SMs: fp32 {chain_bound_ms['fp32'] * 1e3:.3f}, "
           f"bf16 dots {chain_bound_ms['bf16'] * 1e3:.3f} us/step")
-    # the phase form's bf16 cut, and chain 0's bits alone and beside 3 more
+    # the phase form's cuts, and chain 0's bits alone and beside 3 more
     # chains (the sums' order must not depend on the chain count)
-    units = {n: probes.phase_units(n, card_sms) for n in (1, 4)}
-    print(f"T4/T3/T5 phase form, bf16 cut: units of 16 rows x {probes.PHASE_COLS} columns, K over "
-          f"{probes.PHASE_K_SPLIT} warps of {Wd // probes.PHASE_K_SPLIT} k, "
-          f"{probes.PHASE_SLOTS} units a CTA a round on {card_sms} CTAs: "
-          + ", ".join(f"{n} chain(s) {len(u)} units in {1 + max(x['round'] for x in u)} round(s)"
-                      for n, u in units.items()))
+    for mode, bf16 in DOT_MODES.items():
+        units = {n: probes.phase_units(n, card_sms, bf16_dots=bf16) for n in (1, 4)}
+        cols, slots, over = ((probes.PHASE_COLS, probes.PHASE_SLOTS, "warps") if bf16 else
+                             (probes.PHASE_COLS_FP32, probes.PHASE_SLOTS_FP32, "half-warps"))
+        print(f"T4/T3/T5 phase form, {mode} cut: units of 16 rows x {cols} columns, K over "
+              f"{probes.PHASE_K_SPLIT} {over} of {Wd // probes.PHASE_K_SPLIT} k, {slots} units a "
+              f"CTA a round on {card_sms} CTAs: "
+              + ", ".join(f"{n} chain(s) {len(u)} units in {1 + max(x['round'] for x in u)} "
+                          "round(s)" for n, u in units.items()))
     xs, ws = t4.check_inputs(4, dev)
-    for ckw in (one, random_kw):
-        a = probes.chain_chunk(xs, ws, form="phase", bf16_dots=True, **ckw)[0]
-        b = probes.chain_chunk(xs[:1], ws[:1], form="phase", bf16_dots=True, **ckw)[0]
-        torch.cuda.synchronize()
-        require(torch.equal(a, b), f"T4 phase bf16 dots, {ckw['depth']} dot(s): chain 0 of 4 "
-                                   "chains bitwise chain 0 alone")
-    print("T4 phase form, bf16 dots: chain 0 of 4 chains bitwise chain 0 alone (1 and 8 dots)")
+    for bf16 in (True, False):
+        for ckw in (one, random_kw):
+            a = probes.chain_chunk(xs, ws, form="phase", bf16_dots=bf16, **ckw)
+            a2 = probes.chain_chunk(xs, ws, form="phase", bf16_dots=bf16, **ckw)
+            b = probes.chain_chunk(xs[:1], ws[:1], form="phase", bf16_dots=bf16, **ckw)[0]
+            torch.cuda.synchronize()
+            mode = "bf16" if bf16 else "fp32"
+            require(torch.equal(a[0], b), f"T4 phase {mode} dots, {ckw['depth']} dot(s): chain 0 "
+                                          "of 4 chains bitwise chain 0 alone")
+            require(torch.equal(a, a2), f"T4 phase {mode} dots, {ckw['depth']} dot(s): two "
+                                        "launches give the same bits")
+    print("T4 phase form, both dot modes: chain 0 of 4 chains bitwise chain 0 alone, two launches "
+          "bitwise equal (1 and 8 dots)")
     # the phase form's dot split by launch variants (the grid barriers alone,
     # the phases' work without them, whole), in turns, at 1 and 4 chains in
     # both dot modes; device time, 4 steps a launch
@@ -2364,8 +2370,7 @@ def _probes(torch, np, smi):
             "library_call_ms": t4_lib_call,
             "us_per_step_by_chains": {c: min(v) for c, v in us["fp32"].items()},
             "verdict": t4_report["fp32"][form]["verdict"],
-            **({"plan": dataclasses.asdict(probes.chain_plan(1)),
-                "split_us_per_step": t4_split["fp32"],
+            **({"split_us_per_step": t4_split["fp32"],
                 "bound_chain_sms_ms": chain_bound_ms["fp32"]} if form == "cluster" else
                {"split_ns_per_dot": phase_split["fp32"]})})
         records.append({
@@ -2380,8 +2385,8 @@ def _probes(torch, np, smi):
             **({"split_us_per_step": t4_split["bf16"],
                 "bound_chain_sms_ms": chain_bound_ms["bf16"]} if form == "cluster" else
                {"split_ns_per_dot": phase_split["bf16"]})})
-    print(f"T4 phase one chain, bf16 dots: {min(t4_report['bf16']['phase']['us_per_step'][1]):.3f} "
-          f"us a step (the earlier body: {EARLIER_BF16['T4 phase us/step']})")
+    print(f"T4 one chain: phase, fp32 dots {min(t4_report['fp32']['phase']['us_per_step'][1]):.3f} "
+          f"us a step; cluster, bf16 dots {min(t4_report['bf16']['cluster']['us_per_step'][1]):.3f}")
     print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 27 -------------------------------------------------------------------
@@ -2527,13 +2532,11 @@ def _probes(torch, np, smi):
             **({"split_ns_per_dot": t3_phase_split["bf16"]} if form == "phase" else
                {"split_ns_per_dot": t3_split["bf16"],
                 "bound_chain_sms_ms": t3_chain_bound["bf16"]})})
-        print(f"T3 {form} one chain, bf16 dots: {rep['bf16']['ns_per_dot'][1]:.1f} ns a dot "
-              f"(the earlier body: {EARLIER_BF16[f'T3 {form} ns/dot']})")
-    print(f"T3 stream, bf16 dots: products alone {t3_split['bf16'][1]['compute']:.1f} ns a dot "
-          f"(the earlier body: {EARLIER_BF16['T3 stream products alone ns/dot']}); the "
+    print(f"T3 phase one chain, fp32 dots: {t3_report['fp32']['phase']['ns_per_dot'][1]:.1f} ns a "
+          f"dot, torch.matmul {t3_lib['fp32'] * 1e6:.1f}")
+    print(f"T3 stream, bf16 dots: products alone {t3_split['bf16'][1]['compute']:.1f} ns a dot; the "
           f"32-bank model of kernels/probes.py, not a measurement: "
-          f"{probes.stream_product_wavefronts()['total']} shared-memory wavefronts a warp a dot "
-          f"(the earlier body's layout ~780)")
+          f"{probes.stream_product_wavefronts()['total']} shared-memory wavefronts a warp a dot")
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 28 -------------------------------------------------------------------
@@ -2702,8 +2705,9 @@ def _probes(torch, np, smi):
                 **({"split_us_per_step": t5_split["bf16"][label],
                     "bound_chain_sms_ms": t5_chain_bound["bf16"]} if form == "stream" else
                    {"split_us_per_step_tail": t5_phase_split["bf16"]})})
-            print(f"T5 {form} {label}, bf16 dots: {min(rep['bf16']['us_per_step'][label]):.3f} us "
-                  f"a step (the earlier body: {EARLIER_BF16[f'T5 {form} {label} us/step']})")
+            if form == "phase":
+                print(f"T5 phase {label}, fp32 dots: {min(rep['fp32']['us_per_step'][label]):.3f} "
+                      "us a step")
     print(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
 
     # --- 29 -------------------------------------------------------------------

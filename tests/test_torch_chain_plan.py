@@ -1,8 +1,8 @@
 """T4's cluster form (csrc/probes.cu chain_cluster_kernel) planned on the CPU.
 
-``kernels/probes.py:chain_plan`` is the same integer arithmetic as the
-library's ``chain_plan`` (held equal on the card, tests/test_torch_cuda.py),
-and ``chain_cta`` the kernel's index arithmetic for one CTA. For 1, 2 and 4
+``kernels/probes.py:chain_plan`` mirrors the library's constants (the
+launch takes only the chain count and the dot mode), and ``chain_cta`` is
+the kernel's index arithmetic for one CTA. For 1, 2 and 4
 chains: every (chain, row, column) output is owned by exactly one CTA, each
 CTA's push reaches exactly the other CTAs of its row group (which together
 hold the rest of its rows' columns), a CTA's warps' K slices cover K once,

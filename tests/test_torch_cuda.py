@@ -1139,11 +1139,28 @@ def test_t4_cluster_launches_repeat_bitwise(cuda_device, n_chains):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_chains", [1, 2, 4])
-def test_t4_library_chain_plan_equals_chain_plan(cuda_device, n_chains):
+@pytest.mark.parametrize("probe", ["T4", "T3"])
+def test_phase_fp32_chain_0_of_4_is_chain_0_alone(cuda_device, probe):
+    """The fp32 phase form sums each output's 8 K slices in rank order at
+    any chain count: chain 0 of 4 chains equals chain 0 alone bitwise
+    (random inputs; T4 8 dots, T3 2 trips), and two launches give the same
+    bits."""
     from vae_training_tpu_torch.kernels import probes
+    from vae_training_tpu_torch.tools import probe_mlp_interleave as t4
+    from vae_training_tpu_torch.tools import probe_mxu_pipelining as t3
 
-    assert probes.library_chain_plan(n_chains) == probes.chain_plan(n_chains)
+    if probe == "T4":
+        xs, ws = t4.check_inputs(4, cuda_device)
+        kw = dict(n_steps=1, depth=8, weights_per_depth=False, epilogue="clamp")
+    else:
+        xs, ws = t3.inputs(4, cuda_device)
+        kw = dict(n_steps=2, depth=probes.T3_DEPTH, weights_per_depth=True, epilogue="renorm")
+    four = probes.chain_chunk(xs, ws, form="phase", **kw)
+    again = probes.chain_chunk(xs, ws, form="phase", **kw)
+    one = probes.chain_chunk(xs[:1].contiguous(), ws[:1].contiguous(), form="phase", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(four, again)
+    assert torch.equal(four[0], one[0])
 
 
 @pytest.mark.cuda
@@ -1155,7 +1172,7 @@ def test_t4_cluster_split_variants_are_uncounted(cuda_device):
 
     xs, ws = inputs(2, cuda_device)
     before = probes.chain_chunk.cluster_launches
-    for upto in ("stage", "products", "sums"):
+    for upto in ("stage", "products", "store"):
         probes._chain_cluster_launch(xs, ws, 2, probes.T4_DEPTH, upto=upto)
     torch.cuda.synchronize()
     assert probes.chain_chunk.cluster_launches == before
@@ -1496,7 +1513,7 @@ def test_probe_bf16_launches_repeat_bitwise(cuda_device):
     counts = [getattr(f, n) for f in (probes.chain_chunk, probes.adam_overlap_chunk)
               for n in dir(f) if n.endswith("launches")]
     xs, ws = t4.inputs(2, cuda_device)
-    for upto in ("stage", "products", "sums"):
+    for upto in ("stage", "products", "store"):
         probes._chain_cluster_launch(xs, ws, 2, probes.T4_DEPTH, upto=upto, bf16_dots=True)
     xs, ws = t3.inputs(2, cuda_device)
     x, w5, m5, v5 = t5.inputs(cuda_device)

@@ -34,6 +34,17 @@ operands float4 from L2 in a K order permuted within each k16 step
     and is within ρ ≤ 1e-3 of it on dense ones, with the fp32 plain
     version as the yardstick of ρ.
 
+The cluster form's bf16 cut (``chain_cluster_kernel<bf16>``) splits N over
+its warps (``cluster_lane``: warp w's 16 columns, two n8 tiles, over the
+whole K; W's slice as B pairs in registers) and keeps h as bf16 in 16-row
+buffers whose 16-byte chunks are permuted by the row (``cluster_h_offset``),
+read by ldmatrix; checked: the lanes cover each CTA's 13 × 128 outputs and
+each warp's W slice once, the layout is a bijection, its ldmatrix reads and
+8-byte epilogue stores take the least wavefronts (unswizzled rows of 256
+do not), and one bf16 dot through the mirrored addresses (16 k16 partials
+a lane from zero, added in ascending k) equals the plain version bitwise on
+two-term inputs and within ρ ≤ 1e-3 on dense ones.
+
 Also the splits' timing order (``tools/_common.split_in_turns``) and the
 interface patch that lets ``tools/compare_probe_builds.py`` build an older
 csrc/probes.cu beside this one.
@@ -238,14 +249,9 @@ def _stream_instructions(layout):
     return out
 
 
-def _least(addrs, width):
-    per_phase = 128 // width
-    return sum(any(a is not None for a in addrs[p:p + per_phase]) for p in range(0, 32, per_phase))
-
-
 @pytest.mark.parametrize("kind", ["A pairs", "B", "stores", "sums"])
 def test_stream_bf16_products_take_the_least_wavefronts(kind):
-    got = [(probes.smem_wavefronts(a, w), _least(a, w))
+    got = [(probes.smem_wavefronts(a, w), probes.least_wavefronts(a, w))
            for k, a, w in _stream_instructions("new") if k == kind]
     assert got and all(n == least for n, least in got)
 
@@ -253,7 +259,7 @@ def test_stream_bf16_products_take_the_least_wavefronts(kind):
 @pytest.mark.parametrize("kind", ["A pairs", "B", "stores"])
 def test_pr20_stream_layout_is_bank_conflicted(kind):
     """The model's control: the earlier bodies' layout takes more than the least."""
-    got = [(probes.smem_wavefronts(a, w), _least(a, w))
+    got = [(probes.smem_wavefronts(a, w), probes.least_wavefronts(a, w))
            for k, a, w in _stream_instructions("pr20") if k == kind]
     assert got and sum(n for n, _ in got) >= 2 * sum(least for _, least in got)
 
@@ -279,36 +285,104 @@ def test_phase_smem_accesses_take_the_least_wavefronts(access):
                    + 2 * (i % 16)] for w in range(8) for rank in range(probes.PHASE_K_SPLIT)]
         width = 8
     for addrs in instrs:
-        assert probes.smem_wavefronts(addrs, width) == _least(addrs, width)
+        assert probes.smem_wavefronts(addrs, width) == probes.least_wavefronts(addrs, width)
+
+
+def test_cluster_h_offset_is_a_bijection_onto_a_buffer():
+    r, k = np.meshgrid(np.arange(probes.CLUSTER_H_ROWS), np.arange(W), indexing="ij")
+    off = probes.cluster_h_offset(r, k)
+    assert sorted(off.ravel().tolist()) == list(range(probes.CLUSTER_H_ROWS * W))
+    # 8 bf16 of a row's chunk stay together, in order: ldmatrix's 16-byte rows
+    assert np.all(off[:, 1:][:, k[0, 1:] % 8 != 0] - off[:, :-1][:, k[0, 1:] % 8 != 0] == 1)
+    assert probes.CLUSTER_BF16_SMEM == 2 * off.size * 2 == 16384
+
+
+def test_cluster_lanes_cover_the_ctas_outputs_and_w_slice_once():
+    """Over 8 warps × 32 lanes × 4 accumulators × rows g and g + 8 (the
+    zero rows 13..15 dropped), each of a CTA's 13 × 128 outputs once; over
+    the lanes' B pairs (k 16s + 2t, + 1, + 8, + 9 of each of 16 steps), each
+    of W's 256 × 128 values of the CTA's slice once; a warp's outputs and B
+    columns are its own 16 columns."""
+    out = np.zeros((ROWS_CTA, COLS_CTA), int)
+    wv = np.zeros((W, COLS_CTA), int)
+    for warp in range(probes.CHAIN_WARPS):
+        mine = set(range(16 * warp, 16 * warp + 16))
+        for lane in range(32):
+            ln = probes.cluster_lane(warp, lane)
+            assert set(ln["cols"]) <= mine and set(ln["b_cols"]) <= mine
+            for r in ln["rows"]:
+                if r < ROWS_CTA:
+                    for c in ln["cols"]:
+                        out[r, c] += 1
+            t = lane % 4
+            for s in range(16):
+                for c in ln["b_cols"]:
+                    for kk in (0, 1, 8, 9):
+                        wv[16 * s + 2 * t + kk, c] += 1
+    assert np.all(out == 1) and np.all(wv == 1)
+
+
+@pytest.mark.parametrize("kind", ["ldmatrix", "stores"])
+def test_cluster_bf16_accesses_take_the_least_wavefronts(kind):
+    """Every ldmatrix.x4 (4 phases of 8 row addresses, 16 bytes each) and
+    every 8-byte epilogue store of a warp takes the least wavefronts; rows
+    of 256 bf16 without the chunk permutation put a matrix's 8 rows in one
+    bank group (8 wavefronts a matrix)."""
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for warp in range(probes.CHAIN_WARPS):
+        ln = probes.cluster_lane(warp, lanes)
+        if kind == "ldmatrix":
+            instrs = [([2 * int(o) for o in probes.cluster_h_offset(*ln["a_row"](s))], 16)
+                      for s in range(16)]
+        else:
+            instrs = []
+            for h in range(2):
+                live = g + 8 * h < ROWS_CTA
+                off = probes.cluster_h_offset(g + 8 * h, 16 * warp + 4 * t)
+                instrs.append(([2 * int(o) if a else None for o, a in zip(off, live)], 8))
+        for addrs, width in instrs:
+            assert probes.smem_wavefronts(addrs, width) == probes.least_wavefronts(addrs, width)
+    assert probes.cluster_wavefronts() == {"ldmatrix": 64, "stores": 4, "total": 68}
+    assert probes.cluster_wavefronts(lambda r, k: r * W + k)["ldmatrix"] == 8 * 64
 
 
 # --- the phase form's cut ----------------------------------------------------
 
+# the two dot modes' cuts: (columns a unit, units a CTA a round, units a chain)
+PHASE_CUTS = {True: (probes.PHASE_COLS, probes.PHASE_SLOTS, 56),
+              False: (probes.PHASE_COLS_FP32, probes.PHASE_SLOTS_FP32, 112)}
+
+
 @pytest.mark.parametrize("n_chains", [1, 2, 3, 4])
 @pytest.mark.parametrize("blocks", [132, 20])
-def test_phase_units_own_every_output_once(n_chains, blocks):
-    units = probes.phase_units(n_chains, blocks)
+@pytest.mark.parametrize("bf16_dots", [True, False], ids=["bf16", "fp32"])
+def test_phase_units_own_every_output_once(n_chains, blocks, bf16_dots):
+    cols, slots, per_chain = PHASE_CUTS[bf16_dots]
+    units = probes.phase_units(n_chains, blocks, bf16_dots=bf16_dots)
+    assert len(units) == n_chains * per_chain
     owned = np.zeros((n_chains, 16 * probes.PHASE_M_TILES, W), int)
     places = set()
     for u in units:
-        owned[u["chain"], 16 * u["mt"]:16 * u["mt"] + 16,
-              probes.PHASE_COLS * u["nq"]:probes.PHASE_COLS * (u["nq"] + 1)] += 1
+        owned[u["chain"], 16 * u["mt"]:16 * u["mt"] + 16, cols * u["nq"]:cols * (u["nq"] + 1)] += 1
         places.add((u["block"], u["slot"], u["round"]))
-        assert 0 <= u["block"] < blocks and 0 <= u["slot"] < probes.PHASE_SLOTS
+        assert 0 <= u["block"] < blocks and 0 <= u["slot"] < slots
     assert np.all(owned == 1)
-    assert len(places) == len(units)  # no two units on one half-CTA in one round
+    assert len(places) == len(units)  # no two units on one slot of a CTA in one round
     if blocks == 132:
         assert max(u["round"] for u in units) == 0  # one round up to 4 chains on 132 SMs
 
 
 @pytest.mark.parametrize("n_chains", [2, 3, 4])
-def test_phase_units_arithmetic_does_not_depend_on_the_chain_count(n_chains):
+@pytest.mark.parametrize("bf16_dots", [True, False], ids=["bf16", "fp32"])
+def test_phase_units_arithmetic_does_not_depend_on_the_chain_count(n_chains, bf16_dots):
     """Each chain's units are chain 0's alone (the same m16 tiles and column
-    groups in the same order; their K split, ``phase_lane_loads``, takes no
-    chain count), so a chain's sums are taken in one order at any chain
-    count; only the CTA, half and round that run a unit differ."""
-    one = [(u["mt"], u["nq"]) for u in probes.phase_units(1, 132)]
-    units = probes.phase_units(n_chains, 132)
+    groups in the same order; their K split, ``phase_lane_loads`` in bf16
+    dots and ``phase_fp32_lane`` in fp32, takes no chain count), so a
+    chain's sums are taken in one order at any chain count; only the CTA,
+    slot and round that run a unit differ."""
+    one = [(u["mt"], u["nq"]) for u in probes.phase_units(1, 132, bf16_dots=bf16_dots)]
+    units = probes.phase_units(n_chains, 132, bf16_dots=bf16_dots)
     for c in range(n_chains):
         assert [(u["mt"], u["nq"]) for u in units if u["chain"] == c] == one
 
@@ -445,6 +519,44 @@ def _stream_dot(h, w):
     return out
 
 
+def _cluster_dot(h, w):
+    """One chain's bf16 dot by the cluster form's 16 CTAs (h (R, W), w (W, W),
+    both bf16 values in float32): each CTA's rows of h in its buffer at
+    cluster_h_offset (rows 13..15 zeros), each lane's A fragments as
+    ldmatrix gives them (matrix m's row from lane 8m + g, its elements 2t
+    and 2t + 1), its B pairs from W at its columns, 16 k16 partials from
+    zero added in ascending k."""
+    out = np.zeros((R, W), f32)
+    for block in range(probes.CHAIN_CLUSTER):
+        cta = probes.chain_cta(probes.chain_plan(1), block)
+        (r0, r1), (c0, _) = cta["rows"], cta["cols"]
+        buf = np.zeros(probes.CLUSTER_H_ROWS * W, f32)
+        rr, kk = np.meshgrid(np.arange(ROWS_CTA), np.arange(W), indexing="ij")
+        buf[probes.cluster_h_offset(rr, kk)] = h[r0:r1]
+        for warp in range(probes.CHAIN_WARPS):
+            ln = probes.cluster_lane(warp, LANES)
+            acc = np.zeros((32, 2, 4), f32)
+            for s in range(16):
+                row_at = probes.cluster_h_offset(*ln["a_row"](s))  # lane L: matrix L // 8's row
+                a = np.zeros((32, 4, 2), f32)
+                for m in range(4):
+                    for e in range(2):
+                        a[:, m, e] = buf[row_at[8 * m + G] + 2 * T + e]
+                for r in range(2):
+                    b = np.zeros((32, 2, 2), f32)
+                    for reg in range(2):
+                        for e in range(2):
+                            b[:, reg, e] = w[16 * s + 2 * T + 8 * reg + e, c0 + ln["b_cols"][r]]
+                    acc[:, r] += _mma(a, b)
+            for h_ in range(2):
+                live = G + 8 * h_ < ROWS_CTA
+                vals = [acc[:, 0, 2 * h_], acc[:, 1, 2 * h_], acc[:, 0, 2 * h_ + 1],
+                        acc[:, 1, 2 * h_ + 1]]
+                for j in range(4):
+                    out[r0 + (G + 8 * h_)[live], c0 + ln["cols"][j][live]] = vals[j][live]
+    return out
+
+
 def _inputs(kind):
     """(xs, ws) of one chain, ws one (W, W) weight."""
     if kind == "T4 two-term":
@@ -458,7 +570,7 @@ def _inputs(kind):
     return xs, ws[:, :W].contiguous()
 
 
-@pytest.mark.parametrize("form", ["phase", "stream"])
+@pytest.mark.parametrize("form", ["phase", "stream", "cluster"])
 @pytest.mark.parametrize("kind", ["T4 two-term", "T3 two-term", "T4 dense", "T3 dense"])
 def test_one_bf16_dot_through_the_mirrored_addresses(form, kind):
     xs, ws = _inputs(kind)
@@ -466,7 +578,7 @@ def test_one_bf16_dot_through_the_mirrored_addresses(form, kind):
     want = probes.plain_chain_chunk(xs, ws, bf16_dots=True, **kw)[0].numpy()
     f32_ = probes.plain_chain_chunk(xs, ws, **kw)[0].numpy()
     h, w = (bf16_round(t[0]).numpy() for t in (xs, ws))
-    got = (_phase_dot if form == "phase" else _stream_dot)(h, w)
+    got = {"phase": _phase_dot, "stream": _stream_dot, "cluster": _cluster_dot}[form](h, w)
     got = np.minimum(got, f32(probes.CLAMP))
     if "two-term" in kind:
         assert np.array_equal(got, want)
@@ -519,13 +631,14 @@ def test_split_in_turns_times_variants_in_order_then_reverse_launches_in_turn(mo
 def test_interface_patch_refuses_a_file_it_does_not_fit():
     """The patch applies only where each old text occurs once: this tree's
     csrc/probes.cu, which has the interface already, is refused; the C
-    entries it patches in are declared as this tree declares them."""
+    entry it patches in (the cluster form's, without the plan's shared
+    bytes and grid) is declared as this tree declares it."""
     from vae_training_tpu_torch.tools import compare_probe_builds as cmp
 
     src = (cmp.ROOT / cmp.SOURCE).read_text()
     with pytest.raises(ValueError):
         cmp.with_this_interface(src)
     entries = [new for _, new in cmp.INTERFACE_PATCH if new.startswith("int probes_")]
-    assert len(entries) == 2
+    assert len(entries) == 1
     for new in entries:
         assert src.count(new) == 1, new.splitlines()[0]

@@ -17,17 +17,21 @@
 //      (128×256)·(256×256) dot in three precisions.
 //
 // Each probe asks the tool's question of the design the port has, not of
-// Mosaic's schedule. That design is the MLP kernel's (csrc/mlp_vae.cu): one
+// Mosaic's schedule. That design is the MLP kernel's phase design: one
 // cooperative launch of one 512-thread block an SM; each dependent layer is
-// one phase, a grid-stride loop in which one thread owns one output and runs
-// a 256-term fmaf chain fed from L2; grid.sync() between phases; Adam a
-// grid-wide phase after the backward. chain_phase_kernel is that design on
-// the probes' shapes: "chains interleaved op by op" on the TPU becomes "all
+// one phase over all SMs; grid.sync() between phases; Adam a grid-wide
+// phase after the backward. chain_phase_kernel is that design on the
+// probes' shapes: "chains interleaved op by op" on the TPU becomes "all
 // chains' dot d in one phase", the question K6b's rows ask. What bounds it:
-// latency, not the fp32 rate (a 104×256×256 dot is 13.6 MFLOP, 203 ns at
-// 67 TFLOP/s): each phase waits for its slowest thread's 256 dependent FMAs,
-// each fed by an L2 load, then for a grid barrier. One chain fills 26,624 of
-// the grid's 67,584 threads; four chains need two items a thread.
+// latency, not the rate (a 104×256×256 dot is 13.6 MFLOP, 203 ns at
+// 67 TFLOP/s fp32): each phase waits for its units' operands from L2, their
+// products and the sums of their K slices, then for a grid barrier. A phase
+// cuts its dot into units of 16 rows × 16 (fp32) or 32 (bf16) columns of
+// one chain, K split over 8 half-warps (fp32) or warps (bf16), every
+// operand of a slice fetched in one L2 round trip, the slices' partial
+// tiles summed in rank order (phase_dot_fp32, phase_dot_bf16); T5's Adam
+// takes tiles of 64 rows × 8 columns a CTA, each column's sum of h taken
+// once a tile (adam_phase).
 //
 // chain_cluster_kernel is T4 on the design R1 considers in its place, as
 // K6b runs a row: one thread-block cluster a chain, here of 16 CTAs cut
@@ -62,20 +66,20 @@
 // are 6.5 m16 tiles: the last tile's rows 104..111 are zeros, never
 // another chain's rows. The phase form cuts a dot into units of one m16
 // tile × 32 columns, K split over 8 warps whose operands come from L2 in one
-// round trip (phase_dot_bf16); the cluster and stream forms keep T4's cut,
-// a warp's 13 rows padded to one m16 tile × its CTA's 128 columns as 16 n8
-// tiles over its 32-long K slice (two k16 steps). The fp32 instantiations
-// are the fp32 code, unchanged. What bounds the bf16 forms is not the
-// tensor cores' rate (a dot is 13.6 MFLOP: 13.8 ns at 989 TFLOP/s, 114 ns
-// on one chain's 16 SMs) but the loads that feed the fragments and the
-// dependent steps around them: the phase form's L2 round trip, its partial
-// tiles' sums and its grid barrier a dot; the cluster form's A pairs from
-// shared memory and its partial-tile stores (B sits in registers), both
-// 4-way bank-conflicted in a half-warp; the stream form's A and B pairs
-// from shared memory (B from a bf16 copy of the weights that the launch
-// writes and streams, one copy a CTA a dot), laid out so that no access is
-// bank-conflicted, then the partial tiles, the sums and the exchange as in
-// fp32 (PERF.md §6).
+// round trip (phase_dot_bf16); the cluster form splits N over its warps, a
+// warp's 13 rows padded to one m16 tile × 16 of its CTA's columns over the
+// whole K (16 k16 steps, W's slice in registers, h in shared memory as
+// bf16, read by ldmatrix); the stream form keeps T4's cut, a warp's 13 rows
+// × its CTA's 128 columns as 16 n8 tiles over its 32-long K slice (two k16
+// steps). What bounds the bf16 forms is not the tensor cores' rate (a dot
+// is 13.6 MFLOP: 13.8 ns at 989 TFLOP/s, 114 ns on one chain's 16 SMs) but
+// the loads that feed the fragments and the dependent steps around them:
+// the phase form's L2 round trip, its partial tiles' sums and its grid
+// barrier a dot; the cluster form's ldmatrix reads, its epilogue and the
+// push and wait a dot; the stream form's A and B pairs from shared memory
+// (B from a bf16 copy of the weights that the launch writes and streams,
+// one copy a CTA a dot), laid out so that no access is bank-conflicted,
+// then the partial tiles, the sums and the exchange as in fp32 (PERF.md §6).
 //
 // dot_kernel<mode> is T2: out = x·w, x (M × K) and w (K × N) fp32 and
 // row-major, in three modes. Hopper has no implicit reduced-precision
@@ -157,20 +161,32 @@ constexpr int kPhaseUptoBarriers = 0;
 constexpr int kPhaseUptoWork = 1;
 constexpr int kPhaseUptoAll = 2;
 
-// Output i (chain c, row r, column j) of dot d: a 256-term fmaf chain.
-__device__ __forceinline__ float dot_item(const ChainArgs& A, const float* in, int d, int i,
-                                          int& c) {
-  constexpr int per_chain = kRows * kW;
-  c = i / per_chain;
-  const int rem = i - c * per_chain;
-  const int r = rem / kW;
-  const int j = rem - r * kW;
-  const int n_w = A.depth / A.dots_per_weight;
-  const float* row = in + c * per_chain + r * kW;
-  const float* W = A.w + (static_cast<size_t>(c) * n_w + d / A.dots_per_weight) * kW * kW;
-  float acc = 0.0f;
-  for (int k = 0; k < kW; ++k) acc = fmaf(row[k], W[k * kW + j], acc);
-  return A.epilogue == kEpClamp ? fminf(acc, kClamp) : acc;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float4 clamp4(float4 v) {
+  return make_float4(fminf(v.x, kClamp), fminf(v.y, kClamp), fminf(v.z, kClamp),
+                     fminf(v.w, kClamp));
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float h, const float4& w) {
+  acc.x = fmaf(h, w.x, acc.x);
+  acc.y = fmaf(h, w.y, acc.y);
+  acc.z = fmaf(h, w.z, acc.z);
+  acc.w = fmaf(h, w.w, acc.w);
+}
+
+// 16 bytes global → shared by cp.async through L2 (.cg), the caller waits
+__device__ __forceinline__ void dot_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 // bf16 dots: the phase form's dot is cut into units, each 16 rows (one m16
@@ -293,23 +309,182 @@ __device__ void phase_dot_bf16(const ChainArgs& A, const float* in, float* out, 
   }
 }
 
-// Adam on element e of chain 0's weight buffer b. The gradient is the
-// column mean of h broadcast down the rows, ·1e-6(b + 1) (the tool's
-// grad_for); the bias corrections 1 − βᵗ are the caller's, from double.
-__device__ __forceinline__ void adam_item(const ChainArgs& A, const float* h, int b, int e,
-                                          float bc1, float bc2) {
-  const int j = e % kW;
-  float s = 0.0f;
-  for (int r = 0; r < kRows; ++r) s += h[r * kW + j];
+// fp32 dots: the phase form's dot is cut into units, each 16 rows (one m16
+// tile of the bf16 cut) × 16 columns of one chain, 112 a chain, whose K is
+// split over 8 half-warps, 4 warps a unit: half-warp kq (its rank: half
+// lane / 16 of the unit's warp kq / 2) takes k [32kq, 32kq + 32). It stages
+// its slices of h (16 rows × 32 k, rows 36 floats apart) and W (32 k × 16
+// columns) in shared memory by cp.async, 16 bytes a copy, 16 copies a lane
+// all in flight (L2: h and T5's W were written by other CTAs before the last
+// grid barrier), so a unit waits for one L2 round trip. Its lane (tm, tn) =
+// (l / 4, l % 4), l the lane's index in the half, keeps rows 4tm .. 4tm + 3
+// × columns 4tn .. 4tn + 3 of the unit: 16 fmaf chains over its 32 k in
+// ascending k, fed by 8 float4 shared-memory reads every 4 k (a
+// quarter-warp reads two rows 144 bytes apart and one 64-byte row of W: one
+// wavefront each). The partial tile goes into the half-warp's own stage
+// (rows 20 floats apart), and 64 threads of the unit sum the 8 tiles in rank
+// order, one float4 each (a quarter-warp reads rows r and r + 4: one
+// wavefront), clamp (T4, T5), store and fold |y| into lmax (T3). The order
+// (32-long fmaf chains, then the ranks) is the same at every chain count;
+// units go to CTAs slot-major (unit u to CTA u mod gridDim, slot u /
+// gridDim mod 4), as many rounds as the chains need (one up to 4 chains on
+// 132 SMs). Rows past kRows are never loaded (their outputs, never stored,
+// are garbage) or stored.
+constexpr int kPhaseColsF = 16;                            // a unit's columns
+constexpr int kPhaseWarpsF = kPhaseKSplit / 2;             // 4 warps a unit
+constexpr int kPhaseSlotsF = kWarps / kPhaseWarpsF;        // 4 units a CTA a round
+constexpr int kPhaseUnitsF = kMTiles * (kW / kPhaseColsF);  // 112 a chain
+constexpr int kPhaseHStrideF = kPhaseKSlice + 4;           // the staged h's row stride (floats)
+constexpr int kPhasePartStrideF = kPhaseColsF + 4;         // a partial tile's row stride
+constexpr int kPhaseStageF = 16 * kPhaseHStrideF + kPhaseKSlice * kPhaseColsF;  // a half-warp's
+constexpr int kPhaseSmemF = kPhaseSlotsF * kPhaseKSplit * kPhaseStageF * 4;  // dynamic bytes
+static_assert(16 * kPhasePartStrideF <= kPhaseStageF, "a partial tile fits in its stage");
+
+__device__ void phase_dot_fp32(const ChainArgs& A, const float* in, float* out, int d,
+                               float (&lmax)[kMaxChains], float* stages) {
+  constexpr int per_chain = kRows * kW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, l = lane & 15;
+  const int slot = warp / kPhaseWarpsF, kq = 2 * (warp % kPhaseWarpsF) + (lane >> 4);
+  const int tm = l >> 2, tn = l & 3;
+  float* unit_stages = stages + slot * kPhaseKSplit * kPhaseStageF;
+  float* hs = unit_stages + kq * kPhaseStageF;  // 16 rows of kPhaseHStrideF
+  float* ws = hs + 16 * kPhaseHStrideF;         // 32 k-rows of 16
+  const int n_units = A.n_chains * kPhaseUnitsF;
+  const int per_round = kPhaseSlotsF * static_cast<int>(gridDim.x);
+  const int n_w = A.depth / A.dots_per_weight;
+  for (int u0 = 0; u0 < n_units; u0 += per_round) {
+    const int u = u0 + slot * static_cast<int>(gridDim.x) + static_cast<int>(blockIdx.x);
+    const bool live = u < n_units;
+    const int c = u / kPhaseUnitsF, rem = u - c * kPhaseUnitsF;
+    const int mt = rem / (kW / kPhaseColsF), nq = rem - mt * (kW / kPhaseColsF);
+    if (live) {
+      const int k0 = kq * kPhaseKSlice;
+      const float* hg = in + c * per_chain + 16 * mt * kW + k0;
+      const float* wg = A.w + (static_cast<size_t>(c) * n_w + d / A.dots_per_weight) * kW * kW +
+                        k0 * kW + kPhaseColsF * nq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // h: 16 rows × 8 float4, a row by 8 lanes
+        const int row = 2 * j + (l >> 3), q = l & 7;
+        if (16 * mt + row < kRows)
+          dot_cp_async16(hs + row * kPhaseHStrideF + 4 * q, hg + row * kW + 4 * q);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // W: 32 k-rows × 4 float4, a k-row by 4 lanes
+        const int k = 4 * j + (l >> 2), q = l & 3;
+        dot_cp_async16(ws + k * kPhaseColsF + 4 * q, wg + k * kW + 4 * q);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncwarp();
+      float4 acc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < kPhaseKSlice; k += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(hs + (4 * tm + i) * kPhaseHStrideF + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = *reinterpret_cast<const float4*>(ws + (k + j) * kPhaseColsF + 4 * tn);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fma4(acc[i], lane4(a[i], kk), b[kk]);
+      }
+      __syncwarp();  // both halves' stages read: the partial tiles take their place
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(hs + (4 * tm + i) * kPhasePartStrideF + 4 * tn) = acc[i];
+    }
+    __syncthreads();  // the units' partial tiles stored
+    const int i = threadIdx.x % (32 * kPhaseWarpsF);
+    if (live && i < 64) {
+      const int sn = i & 3, row = 4 * ((i >> 2) & 1) + ((i >> 3) & 3) + 8 * (i >> 5);
+      const int R = 16 * mt + row;
+      if (R < kRows) {
+        const float* ps = unit_stages + row * kPhasePartStrideF + 4 * sn;
+        float4 y = *reinterpret_cast<const float4*>(ps);
+#pragma unroll
+        for (int q = 1; q < kPhaseKSplit; ++q)
+          add4(y, *reinterpret_cast<const float4*>(ps + q * kPhaseStageF));
+        if (A.epilogue == kEpClamp) y = clamp4(y);
+        *reinterpret_cast<float4*>(out + c * per_chain + R * kW + kPhaseColsF * nq + 4 * sn) = y;
+        const float mx = fmaxf(fmaxf(fabsf(y.x), fabsf(y.y)), fmaxf(fabsf(y.z), fabsf(y.w)));
+#pragma unroll
+        for (int q = 0; q < kMaxChains; ++q)
+          if (q == c) lmax[q] = fmaxf(lmax[q], mx);
+      }
+    }
+    __syncthreads();  // every partial tile read before the next round stages
+  }
+}
+
+// T5's Adam: a phase's buffers [b0, b1) of chain 0's weights in tiles of 64
+// rows × 8 columns (a 32-byte sector a row), 128 a buffer, tile q on CTA q
+// mod gridDim, an element a thread. The gradient of element (k, j) is the
+// column mean of h broadcast down the rows, so a CTA stages its tile's 8
+// columns of h (104 × 8 floats, L2) and each thread sums its column in
+// ascending r from 0 (the order a thread of the earlier body took for
+// every element), once for the tile and all its buffers.
+constexpr int kAdamCols = 8;
+constexpr int kAdamRows = kThreads / kAdamCols;  // 64
+constexpr int kAdamTiles = (kW / kAdamCols) * (kW / kAdamRows);
+
+// Adam on element e of buffer b (its m, v and w loaded: m0, v0, w0), s
+// the column sum of h. The gradient is the column mean ·1e-6(b + 1) (the
+// tool's grad_for); the bias corrections 1 − βᵗ are the caller's, from
+// double.
+__device__ __forceinline__ void adam_item(const ChainArgs& A, float s, int b, int e, float bc1,
+                                          float bc2, float m0, float v0, float w0) {
   const float g = (s / static_cast<float>(kRows)) * static_cast<float>(1e-6 * (b + 1));
   const size_t at = static_cast<size_t>(b) * kW * kW + e;
-  const float m = kB1 * A.m[at] + kOneMinusB1 * g;
-  const float v = kB2 * A.v[at] + kOneMinusB2 * g * g;
+  const float m = kB1 * m0 + kOneMinusB1 * g;
+  const float v = kB2 * v0 + kOneMinusB2 * g * g;
   const float bc2_sqrt = sqrtf(bc2);
   const float lr_t = kAdamLr * bc2_sqrt / bc1;
   A.m[at] = m;
   A.v[at] = v;
-  A.w[at] -= lr_t * m / (sqrtf(v) + kAdamEps * bc2_sqrt);
+  A.w[at] = w0 - lr_t * m / (sqrtf(v) + kAdamEps * bc2_sqrt);
+}
+
+// Every thread of the CTA calls it. A thread loads its elements' m, v and w
+// (up to kAdamAhead buffers) before the column sum, so their round trip
+// runs beside it.
+constexpr int kAdamAhead = 5;
+__device__ void adam_phase(const ChainArgs& A, const float* h, int b0, int b1, float bc1,
+                           float bc2) {
+  __shared__ __align__(16) float hc[kRows * kAdamCols];
+  const int j = threadIdx.x % kAdamCols;
+  for (int q = blockIdx.x; q < kAdamTiles; q += gridDim.x) {
+    const int j0 = kAdamCols * (q % (kW / kAdamCols)), r0 = kAdamRows * (q / (kW / kAdamCols));
+    const int e = (r0 + static_cast<int>(threadIdx.x) / kAdamCols) * kW + j0 + j;
+    float m0[kAdamAhead], v0[kAdamAhead], w0[kAdamAhead];
+#pragma unroll
+    for (int i = 0; i < kAdamAhead; ++i)
+      if (b0 + i < b1) {
+        const size_t at = static_cast<size_t>(b0 + i) * kW * kW + e;
+        m0[i] = A.m[at];
+        v0[i] = A.v[at];
+        w0[i] = A.w[at];
+      }
+    if (threadIdx.x < kRows * kAdamCols / 4) {
+      const int r = threadIdx.x / (kAdamCols / 4), c4 = 4 * (threadIdx.x % (kAdamCols / 4));
+      *reinterpret_cast<float4*>(hc + r * kAdamCols + c4) = ldcg4(h + r * kW + j0 + c4);
+    }
+    __syncthreads();
+    float s = 0.0f;
+    for (int r = 0; r < kRows; ++r) s += hc[r * kAdamCols + j];
+#pragma unroll
+    for (int i = 0; i < kAdamAhead; ++i)
+      if (b0 + i < b1) adam_item(A, s, b0 + i, e, bc1, bc2, m0[i], v0[i], w0[i]);
+    for (int b = b0 + kAdamAhead; b < b1; ++b) {
+      const size_t at = static_cast<size_t>(b) * kW * kW + e;
+      adam_item(A, s, b, e, bc1, bc2, A.m[at], A.v[at], A.w[at]);
+    }
+    __syncthreads();  // hc read before the next tile stages
+  }
 }
 
 // Each chain's max of its threads' lmax into maxbits[c]: a warp reduce, a
@@ -340,11 +515,13 @@ __device__ void block_max_to_global(const float lmax[kMaxChains], unsigned int* 
 // phase after the last dot (tail: every gradient from the final h, as in
 // K5) or as extra items of the phase of dot dpw·(b + 1) for buffer b (its
 // gradient reads h after dot dpw·b + dpw − 1, the phase's own input, so it
-// needs no barrier of its own), the last buffer in a phase of its own. In
-// bf16 dots (kBf16) a phase's dot is K-split units of 16 × 32 outputs
-// (phase_dot_bf16), then Adam's items one thread each.
+// needs no barrier of its own), the last buffer in a phase of its own. A
+// phase's dot is K-split units of 16 × 16 (fp32, phase_dot_fp32, in
+// kPhaseSmemF bytes of dynamic shared memory) or 16 × 32 outputs (bf16 dots,
+// kBf16: phase_dot_bf16), then Adam's tiles (adam_phase).
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
+  extern __shared__ __align__(16) float phase_stages[];  // fp32: the half-warps' stages
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int gsz = gridDim.x * blockDim.x;
@@ -366,25 +543,13 @@ __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
           A.adam == kAdamInterleaved && d > 0 && d % A.dots_per_weight == 0;
       float lmax[kMaxChains] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (work) {
-        if constexpr (kBf16) {
+        if constexpr (kBf16)
           phase_dot_bf16(A, in, out, d, lmax);
-          if (adam_here)
-            for (int i = gtid; i < kW * kW; i += gsz)
-              adam_item(A, in, d / A.dots_per_weight - 1, i, bc1, bc2);
-        } else {
-          const int n_items = n_h + (adam_here ? kW * kW : 0);
-          for (int i = gtid; i < n_items; i += gsz) {
-            if (i < n_h) {
-              int c;
-              const float y = dot_item(A, in, d, i, c);
-              out[i] = y;
-#pragma unroll
-              for (int q = 0; q < kMaxChains; ++q)
-                if (q == c) lmax[q] = fmaxf(lmax[q], fabsf(y));
-            } else {
-              adam_item(A, in, d / A.dots_per_weight - 1, i - n_h, bc1, bc2);
-            }
-          }
+        else
+          phase_dot_fp32(A, in, out, d, lmax, phase_stages);
+        if (adam_here) {
+          const int b = d / A.dots_per_weight - 1;
+          adam_phase(A, in, b, b + 1, bc1, bc2);
         }
       }
       if (work && A.epilogue == kEpRenorm && d == A.depth - 1)
@@ -404,10 +569,7 @@ __global__ void __launch_bounds__(kThreads, 1) chain_phase_kernel(ChainArgs A) {
       if (sync) grid.sync();
     }
     if (A.adam != kAdamNone) {
-      const int first = A.adam == kAdamTail ? 0 : n_buf - 1;
-      const int n_items = work ? (n_buf - first) * kW * kW : 0;
-      for (int i = gtid; i < n_items; i += gsz)
-        adam_item(A, h, first + i / (kW * kW), i % (kW * kW), bc1, bc2);
+      if (work) adam_phase(A, h, A.adam == kAdamTail ? 0 : n_buf - 1, n_buf, bc1, bc2);
       if (sync) grid.sync();
     }
   }
@@ -490,10 +652,6 @@ __device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // A wgmma shared-memory descriptor, no swizzle: the start address, the
 // leading byte offset (between core matrices adjacent along K) and the
 // stride byte offset (between 8-row groups), each in 16-byte units.
@@ -527,10 +685,6 @@ __device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(da), "l"(db), "r"(1));  // scale-d 1: d += A · B
   }
-}
-
-__device__ __forceinline__ void dot_cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 // One round's A rows [m0, m0 + 64) and B columns [n0, n0 + 32) over K
@@ -837,21 +991,49 @@ __global__ void __launch_bounds__(kDotThreads) dot_kernel(DotArgs A) {
 // 128. Row r of h after a dot depends on row r before it alone, so a CTA
 // holds only its row group's rows of h, twice (this dot's input and the
 // next's), and after a dot pushes its slice of the new rows to the row
-// group's other CTA and nowhere else. Its 8 warps split K: warp w keeps
-// W[32w .. 32w + 32, its slice] in registers for the whole launch (a lane
-// 32 × 4 values: its 4 columns), so a dot reads only h from shared memory,
-// one float4 (4 k) broadcast to the warp a row for 16 FMAs a lane; a lane
-// sums 13 × 4 outputs over its warp's 32 k as fmaf chains in ascending k.
-// The 8 partial tiles go to shared memory and every thread sums 1 or 2
-// float4 of them in K order (warp 0's first), clamps, writes them into its
-// CTA's next h and pushes them to the peer by st.async, 16 bytes at a time,
-// counted by the peer's mbarrier; every thread waits on its own CTA's
-// mbarrier (one arrive/wait a dot, no cluster barrier), then a block
-// barrier. What bounds it: a 104×256×256 dot is 6.8 M FMAs, on 16 SMs ≥ 1.7
-// µs at 128 FMAs a clock and 1980 MHz; here the products issue 13,312 FMA
-// instructions a CTA a dot against 3,328 shared-memory wavefronts of h, and
-// the partial sums, the push and the wait follow. chain_plan is the plan;
-// kernels/probes.py:chain_plan is the same arithmetic.
+// group's other CTA and nowhere else, by st.async, counted by the peer's
+// mbarrier; every thread waits on its own CTA's mbarrier (one arrive/wait a
+// dot, no cluster barrier), then a block barrier.
+//
+// fp32: its 8 warps split K: warp w keeps W[32w .. 32w + 32, its slice] in
+// registers for the whole launch (a lane 32 × 4 values: its 4 columns), so
+// a dot reads only h from shared memory, one float4 (4 k) broadcast to the
+// warp a row for 16 FMAs a lane; a lane sums 13 × 4 outputs over its warp's
+// 32 k as fmaf chains in ascending k. The 8 partial tiles go to shared
+// memory and every thread sums 1 or 2 float4 of them in K order (warp 0's
+// first), clamps, writes them into its CTA's next h and pushes them to the
+// peer, 16 bytes at a time. What bounds it: a 104×256×256 dot is 6.8 M
+// FMAs, on 16 SMs ≥ 1.7 µs at 128 FMAs a clock and 1980 MHz; here the
+// products issue 13,312 FMA instructions a CTA a dot against 3,328
+// shared-memory wavefronts of h, and the partial sums, the push and the
+// wait follow.
+//
+// bf16 dots: its 8 warps split N: warp w owns columns [16w, 16w + 16) of
+// its CTA's 128, two n8 tiles (tile r's fragment column j is the warp's
+// column 2j + r, so a lane's accumulators hold the 4 adjacent columns 4t ..
+// 4t + 3 of rows g and g + 8), over the whole K: 16 k16 steps, W's 256 × 16
+// slice held as bf16 B fragments for the launch (64 registers a lane). h
+// lives in shared memory as bf16, 16 rows a buffer (rows 13..15 zeros,
+// never written), rows 512 bytes apart with each 128-byte line's 16-byte
+// chunks permuted by the row (cl_h_offset), so a k16 step's A fragments
+// come by one ldmatrix.x4 whose 8 × 8 matrices each read 8 rows in
+// distinct banks, and the epilogue's 8-byte stores fall in distinct banks
+// too (kernels/probes.py cluster_h_offset, cluster_wavefronts). Each k16
+// step's mma.sync starts from a zero accumulator and its partial is added
+// to the lane's f32 sums by IEEE adds in ascending k: no partial tiles, no
+// cross-warp sums. A dot takes the 8 k16 steps of the CTA's own columns
+// first and waits for the peer's rows only before the other 8, so the push
+// and wait run beside half the products (a CTA of slice 1 keeps its own
+// steps' partials until steps 0..7 are added: each slice's body is its own
+// instantiation, chain_cluster_bf16<kSlice>). The epilogue clamps, rounds to
+// bf16 once (the next dot rounds h to bf16 anyway: the same bits) and
+// writes the CTA's own next h and the peer's, 8 bytes a lane (3,328 bytes a
+// dot); the last dot's clamped f32 outputs go from the registers to out.
+// What bounds it: 32 mma.sync a warp a dot (114 ns a dot on 16 SMs at the
+// dense bf16 rate), 16 ldmatrix, the epilogue and its block barrier.
+//
+// The plan is constants (kernels/probes.py:chain_plan mirrors them): a
+// launch takes only the chain count and the dot mode.
 constexpr int kChainCluster = 16;
 constexpr int kChainThreads = 256;
 constexpr int kChainWarps = kChainThreads / 32;
@@ -863,26 +1045,26 @@ constexpr int kChainKSlice = kW / kChainWarps;              // 32 k a warp
 constexpr int kChainTile = kChainRows * kChainCols;         // floats of a CTA's tile
 static_assert(kRows % kChainGroups == 0 && kChainCols == 4 * 32, "the plan's cut");
 // launch variants for the time split: stop after staging W and x, after
-// the products (and the partial tiles' stores), after the sums into the
-// CTA's own next h, or run whole (the push to the peer and the wait)
+// the products, after the store into the CTA's own next h (fp32: the
+// partial tiles' sums; bf16: the clamp and rounding), or run whole (the
+// push to the peer and the wait)
 constexpr int kChainUptoStage = 0;
 constexpr int kChainUptoProducts = 1;
-constexpr int kChainUptoSums = 2;
+constexpr int kChainUptoStore = 2;
 constexpr int kChainUptoAll = 3;
 
-struct ChainPlan {
-  int cluster, row_groups, col_slices, rows, cols, k_split, threads, smem, grid;
-};
+// bf16 dots' cut (see above)
+constexpr int kClWarpCols = kChainCols / kChainWarps;  // 16 columns a warp: two n8 tiles
+constexpr int kClSteps = kW / 16;                      // k16 steps a dot
+constexpr int kClHRows = 16;                           // h's rows a buffer: 13, then 3 zero rows
+constexpr int kClHBuf = kClHRows * kW;                 // bf16 elements a buffer
+constexpr uint32_t kClPushBytes = kChainRows * kChainCols * 2;  // what the peer sends a dot
+static_assert(kClWarpCols == 16 && kChainRows <= kClHRows, "two n8 tiles a warp, one m16 tile");
 
-// The plan of n_chains chains: dynamic shared memory holds h twice and the
-// 8 warps' partial tiles (W lives in registers).
-bool chain_plan(int n_chains, ChainPlan* p) {
-  if (n_chains < 1 || n_chains > kMaxChains) return false;
-  const int floats = 2 * kChainRows * kW + kChainWarps * kChainTile;
-  *p = ChainPlan{kChainCluster, kChainGroups,  kChainSlices, kChainRows,
-                 kChainCols,    kChainWarps,   kChainThreads, floats * 4,
-                 n_chains * kChainCluster};
-  return true;
+// Dynamic shared memory a CTA: fp32, h twice and the 8 warps' partial tiles
+// (W lives in registers); bf16, h twice as bf16.
+constexpr int chain_cluster_smem(bool bf16) {
+  return bf16 ? 2 * kClHBuf * 2 : (2 * kChainRows * kW + kChainWarps * kChainTile) * 4;
 }
 
 struct ChainClusterArgs {
@@ -892,30 +1074,34 @@ struct ChainClusterArgs {
   int n_steps, depth, upto;
 };
 
-__device__ __forceinline__ float4 clamp4(float4 v) {
-  return make_float4(fminf(v.x, kClamp), fminf(v.y, kClamp), fminf(v.z, kClamp),
-                     fminf(v.w, kClamp));
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-__device__ __forceinline__ void add4(float4& s, const float4& v) {
-  s.x += v.x;
-  s.y += v.y;
-  s.z += v.z;
-  s.w += v.w;
+// Wait for the completion of the mbarrier's phase of parity `parity`. A
+// wait of 2^32 clocks (~2 s) means an arrival was lost: the kernel traps,
+// so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 32)) __trap();
+  }
 }
 
-__device__ __forceinline__ void fma4(float4& acc, float h, const float4& w) {
-  acc.x = fmaf(h, w.x, acc.x);
-  acc.y = fmaf(h, w.y, acc.y);
-  acc.z = fmaf(h, w.z, acc.z);
-  acc.w = fmaf(h, w.w, acc.w);
-}
-
-// bf16 dots in T4's cut (the cluster and stream forms): a warp's 13 rows
-// are one m16 tile, rows 13..15 zeros, and its CTA's 128 columns 16 n8
-// tiles; its K slice two k16 steps. The lane (g, t) = (lane / 4, lane % 4)
-// holds rows g and g + 8 (g + 8 < 13 for g < 5), columns 8nt + 2t and + 1
-// of each n8 tile nt, in mma.sync's accumulator fragment.
+// bf16 dots in the stream form's cut: a warp's 13 rows are one m16 tile,
+// rows 13..15 zeros, and its CTA's 128 columns 16 n8 tiles; its K slice two
+// k16 steps. The lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
+// (g + 8 < 13 for g < 5), columns 8nt + 2t and + 1 of each n8 tile nt, in
+// mma.sync's accumulator fragment.
 constexpr int kChainNTiles = kChainCols / 8;
 static_assert(kChainRows <= 16 && kChainKSlice % 16 == 0, "one m16 tile, whole k16 steps");
 
@@ -933,42 +1119,42 @@ __device__ __forceinline__ void chain_a_frag(uint32_t (&a)[4], const float* h, i
   a[3] = live1 ? mma::bf16x2(*reinterpret_cast<const float2*>(p1 + 8)) : 0u;
 }
 
-// acc[nt] += one k16 step's products of n8 tile nt, B pairs b[nt]: each
-// mma.sync from a zero accumulator, its partial sums added by IEEE adds.
-__device__ __forceinline__ void chain_mma_step(float (&acc)[kChainNTiles][4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[kChainNTiles][2]) {
-#pragma unroll
-  for (int nt = 0; nt < kChainNTiles; ++nt) {
-    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma::mma_bf16(p, a, b[nt][0], b[nt][1]);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[nt][x] += p[x];
-  }
+// The cluster form's bf16 h: chunk c (8 bf16, 16 bytes) of row r sits at
+// chunk (c & ~7) | ((c & 7) ^ cl_swizzle(r mod 8)) of the row, 512 bytes a
+// row. Eight rows at one chunk fill a 128-byte line's 8 chunks (ldmatrix);
+// rows 4m .. 4m + 3 at chunks {2p, 2p + 1} do too (the epilogue's 8-byte
+// stores of a half-warp).
+__host__ __device__ constexpr int cl_swizzle(int r) { return ((r & 3) << 1) | ((r >> 2) & 1); }
+
+// bf16 element offset of h[r][k] in a buffer
+__device__ __forceinline__ int cl_h_offset(int r, int k) {
+  const int c = k >> 3;
+  return r * kW + ((c & ~7) | ((c & 7) ^ cl_swizzle(r & 7))) * 8 + (k & 7);
 }
 
-// The warp's partial tile into its slot of the partial tiles (13 rows of
-// kChainCols floats, the fp32 layout); the zero rows are dropped.
-__device__ __forceinline__ void chain_store_part(float* slot, const float (&acc)[kChainNTiles][4],
-                                                 int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < kChainNTiles; ++nt) {
-    float* at = slot + g * kChainCols + 8 * nt + 2 * t;
-    *reinterpret_cast<float2*>(at) = make_float2(acc[nt][0], acc[nt][1]);
-    if (g + 8 < kChainRows)
-      *reinterpret_cast<float2*>(at + 8 * kChainCols) = make_float2(acc[nt][2], acc[nt][3]);
-  }
+// The four 8 × 8 bf16 matrices whose rows the lanes address (lanes 8m ..
+// 8m + 7 matrix m) into a[m]: the A fragment of mma.sync m16n8k16 for
+// matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+// (rows 8-15, k 8-15).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
 }
 
-// kBf16: W's slice held as bf16 B fragments (the lane's 16 n8 tiles × 2 k16
-// steps × 2 registers, 64 in place of 128), a dot's products the warp's two
-// k16 steps (chain_a_frag, chain_mma_step), the partial tile stored from the
-// accumulator fragments; the rest as in fp32.
-template <bool kBf16>
-__global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainClusterArgs A) {
+// 8 bytes into a CTA's shared memory in the cluster, counted by its mbarrier.
+__device__ __forceinline__ void send2(uint32_t dst, uint32_t bar, uint32_t lo, uint32_t hi) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          dst),
+      "r"(lo), "r"(hi), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void chain_cluster_fp32(const ChainClusterArgs& A) {
   constexpr uint32_t kPushBytes = kChainTile * 4;  // what the peer sends a dot
   constexpr int kQuads = kChainTile / 4;           // float4 of a tile
-  constexpr int kSteps = kChainKSlice / 16;        // bf16: k16 steps a warp
   __shared__ __align__(8) uint64_t bar[2];         // bar[b]: the peer's rows of h[b] arrived
   extern __shared__ __align__(16) float csmem[];
   float* hb = csmem;                        // 2 × kChainRows × kW
@@ -980,26 +1166,12 @@ __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainCl
   const int chain = static_cast<int>(blockIdx.x) / kChainCluster;
   const int row0 = group * kChainRows, col0 = slice * kChainCols;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;  // bf16: the lane's fragment row and pair
   const int kb = warp * kChainKSlice;
   const float* xc = A.x + (static_cast<size_t>(chain) * kRows + row0) * kW;
   const float* wc = A.w + (static_cast<size_t>(chain) * kW + kb) * kW + col0 + 4 * lane;
-  float4 wr[kBf16 ? 1 : kChainKSlice];  // W[kb + k][col0 + 4 lane ..]: the lane's for the launch
-  uint32_t wb[kSteps][kChainNTiles][2];   // bf16: W[kb + 16s + 2t.., col0 + 8nt + g] as B pairs
-  if constexpr (kBf16) {
-    const float* wg = A.w + (static_cast<size_t>(chain) * kW + kb + 2 * tq) * kW + col0 + gq;
+  float4 wr[kChainKSlice];  // W[kb + k][col0 + 4 lane ..]: the lane's for the launch
 #pragma unroll
-    for (int st = 0; st < kSteps; ++st)
-#pragma unroll
-      for (int nt = 0; nt < kChainNTiles; ++nt) {
-        const float* w = wg + 16 * st * kW + 8 * nt;
-        wb[st][nt][0] = mma::bf16x2(w[0], w[kW]);
-        wb[st][nt][1] = mma::bf16x2(w[8 * kW], w[9 * kW]);
-      }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kChainKSlice; ++k) wr[k] = *reinterpret_cast<const float4*>(wc + k * kW);
-  }
+  for (int k = 0; k < kChainKSlice; ++k) wr[k] = *reinterpret_cast<const float4*>(wc + k * kW);
   for (int i = threadIdx.x; i < kChainRows * kW / 4; i += kChainThreads)
     reinterpret_cast<float4*>(hb)[i] = reinterpret_cast<const float4*>(xc)[i];
   if (threadIdx.x == 0) {
@@ -1019,34 +1191,23 @@ __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainCl
   for (int dot = 0; dot < total; ++dot) {
     const int cur = dot & 1, nxt = cur ^ 1;
     const float* h = hb + cur * kChainRows * kW + kb;
-    if constexpr (kBf16) {
-      float acc[kChainNTiles][4] = {};
+    float4 acc[kChainRows];
 #pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        uint32_t a[4];
-        chain_a_frag(a, h + 16 * st, gq, tq);
-        chain_mma_step(acc, a, wb[st]);
+    for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < kChainKSlice; k += 4) {
+#pragma unroll
+      for (int r = 0; r < kChainRows; ++r) {
+        const float4 hv = *reinterpret_cast<const float4*>(h + r * kW + k);
+        fma4(acc[r], hv.x, wr[k]);
+        fma4(acc[r], hv.y, wr[k + 1]);
+        fma4(acc[r], hv.z, wr[k + 2]);
+        fma4(acc[r], hv.w, wr[k + 3]);
       }
-      chain_store_part(part + warp * kChainTile, acc, gq, tq);
-    } else {
-      float4 acc[kChainRows];
-#pragma unroll
-      for (int r = 0; r < kChainRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int k = 0; k < kChainKSlice; k += 4) {
-#pragma unroll
-        for (int r = 0; r < kChainRows; ++r) {
-          const float4 hv = *reinterpret_cast<const float4*>(h + r * kW + k);
-          fma4(acc[r], hv.x, wr[k]);
-          fma4(acc[r], hv.y, wr[k + 1]);
-          fma4(acc[r], hv.z, wr[k + 2]);
-          fma4(acc[r], hv.w, wr[k + 3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kChainRows; ++r)
-        *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
     }
+#pragma unroll
+    for (int r = 0; r < kChainRows; ++r)
+      *reinterpret_cast<float4*>(my_part + r * kChainCols) = acc[r];
     __syncthreads();  // the partial tiles stored; this dot's h read by every warp
     if (A.upto == kChainUptoProducts) continue;
     float* hn = hb + nxt * kChainRows * kW + col0;
@@ -1089,23 +1250,167 @@ __global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainCl
   cluster.sync();  // no CTA leaves while its peer may still address its shared memory
 }
 
+// One k16 step's partials of the warp's two n8 tiles, each from a zero
+// accumulator: A by ldmatrix from the buffer at shared address `h` (the
+// lane's row lr, its k offset lk), B the step's pairs.
+__device__ __forceinline__ void cl_step(float (&p)[2][4], uint32_t h, int lr, int lk, int s,
+                                        const uint32_t (&b)[2][2]) {
+  uint32_t a[4];
+  ldsm_x4(a, h + 2 * cl_h_offset(lr, 16 * s + lk));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) p[r][x] = 0.0f;
+    mma::mma_bf16(p[r], a, b[r][0], b[r][1]);
+  }
+}
+
+__device__ __forceinline__ void cl_add(float (&acc)[2][4], const float (&p)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[r][x] += p[r][x];
+}
+
+// The bf16 body of a CTA of column slice kSlice; bar[b]: the peer's rows of
+// h[b] arrived (the kernel's, at one address in every CTA).
+template <int kSlice>
+__device__ __forceinline__ void chain_cluster_bf16(const ChainClusterArgs& A,
+                                                   uint64_t (&bar)[2]) {
+  extern __shared__ __align__(128) unsigned char cl_smem[];
+  uint16_t* hb = reinterpret_cast<uint16_t*>(cl_smem);  // 2 × kClHBuf bf16
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int group = rank / kChainSlices, peer = group * kChainSlices + (kSlice ^ 1);
+  const int chain = static_cast<int>(blockIdx.x) / kChainCluster;
+  const int row0 = group * kChainRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wc0 = kSlice * kChainCols + kClWarpCols * warp;  // the warp's first column of h
+  // W[16s + 2t.., wc0 + 2g + r] as the B pairs of step s, n8 tile r
+  uint32_t wb[kClSteps][2][2];
+  const float* wg = A.w + (static_cast<size_t>(chain) * kW + 2 * t) * kW + wc0 + 2 * g;
+#pragma unroll
+  for (int s = 0; s < kClSteps; ++s)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* w = wg + 16 * s * kW + r;
+      wb[s][r][0] = mma::bf16x2(w[0], w[kW]);
+      wb[s][r][1] = mma::bf16x2(w[8 * kW], w[9 * kW]);
+    }
+  // h[0]: x's rows rounded; rows 13..15 of both buffers zeros
+  const float* xc = A.x + (static_cast<size_t>(chain) * kRows + row0) * kW;
+  for (int i = threadIdx.x; i < kClHRows * kW / 4; i += kChainThreads) {
+    const int r = i / (kW / 4), k = 4 * (i % (kW / 4));
+    const float4 v = r < kChainRows ? *reinterpret_cast<const float4*>(xc + r * kW + k)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const uint2 p = make_uint2(mma::bf16x2(v.x, v.y), mma::bf16x2(v.z, v.w));
+    *reinterpret_cast<uint2*>(hb + cl_h_offset(r, k)) = p;
+    if (r >= kChainRows) *reinterpret_cast<uint2*>(hb + kClHBuf + cl_h_offset(r, k)) = p;
+  }
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar[b])));
+      mbar_expect(&bar[b], kClPushBytes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA staged, its mbarriers set up, before any push
+
+  const uint32_t hs = smem_addr(hb);
+  // the lane's ldmatrix row: row lr of h, k 16s + lk
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lk = 8 * (lane >> 4);
+  constexpr int kHalf = kClSteps / 2;  // k16 steps of a column slice of h
+  const int total = A.upto == kChainUptoStage ? 0 : A.n_steps * A.depth;
+  for (int dot = 0; dot < total; ++dot) {
+    const int cur = dot & 1, nxt = cur ^ 1;
+    const uint32_t hc = hs + 2 * cur * kClHBuf;
+    // The CTA's own columns of h first (its warps wrote them before the last
+    // block barrier), then the peer's, once they arrived: slice 0 adds its
+    // steps 0..7 as it goes, slice 1 keeps its steps 8..15 until steps 0..7
+    // are added. Either way each output adds its 16 partials to 0 in
+    // ascending k.
+    float acc[2][4] = {}, p[2][4];
+    float kept[kSlice ? kHalf : 1][2][4];
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      if constexpr (kSlice == 0) {
+        cl_step(p, hc, lr, lk, i, wb[i]);
+        cl_add(acc, p);
+      } else {
+        cl_step(kept[i], hc, lr, lk, kHalf + i, wb[kHalf + i]);
+      }
+    }
+    if (A.upto == kChainUptoAll && dot > 0) {  // the peer's rows of h[cur], pushed last dot
+      mbar_wait(&bar[cur], ((dot - 1) >> 1) & 1);
+      if (threadIdx.x == 0) mbar_expect(&bar[cur], kClPushBytes);  // its use two dots on
+    }
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const int st = kSlice == 0 ? kHalf + i : i;
+      cl_step(p, hc, lr, lk, st, wb[st]);
+      cl_add(acc, p);
+    }
+    if constexpr (kSlice == 1)
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) cl_add(acc, kept[i]);
+    // row g + 8h, columns wc0 + 4t .. + 3: tile 0's and tile 1's registers 2h, then 2h + 1
+    if (dot == total - 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (g + 8 * h < kChainRows)
+          *reinterpret_cast<float4*>(A.out + (static_cast<size_t>(chain) * kRows + row0 + g +
+                                              8 * h) * kW + wc0 + 4 * t) =
+              clamp4(make_float4(acc[0][2 * h], acc[1][2 * h], acc[0][2 * h + 1],
+                                 acc[1][2 * h + 1]));
+      break;
+    }
+    if (A.upto == kChainUptoProducts) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (g + 8 * h >= kChainRows) break;
+      const float4 y = clamp4(make_float4(acc[0][2 * h], acc[1][2 * h], acc[0][2 * h + 1],
+                                          acc[1][2 * h + 1]));
+      const uint32_t lo = mma::bf16x2(y.x, y.y), hi = mma::bf16x2(y.z, y.w);
+      const int at = nxt * kClHBuf + cl_h_offset(g + 8 * h, wc0 + 4 * t);
+      *reinterpret_cast<uint2*>(hb + at) = make_uint2(lo, hi);
+      if (A.upto == kChainUptoAll)
+        send2(peer_addr(hs + 2 * at, peer), peer_addr(smem_addr(&bar[nxt]), peer), lo, hi);
+    }
+    __syncthreads();  // the CTA's own rows of the next h whole
+  }
+  cluster.sync();  // no CTA leaves while its peer may still address its shared memory
+}
+
 template <bool kBf16>
-cudaError_t launch_chain_cluster(const ChainClusterArgs& A, const ChainPlan& p,
-                                 cudaStream_t stream) {
+__global__ void __launch_bounds__(kChainThreads, 1) chain_cluster_kernel(ChainClusterArgs A) {
+  if constexpr (kBf16) {
+    __shared__ __align__(8) uint64_t bar[2];
+    if (cg::this_cluster().block_rank() % kChainSlices == 0)
+      chain_cluster_bf16<0>(A, bar);
+    else
+      chain_cluster_bf16<1>(A, bar);
+  } else {
+    chain_cluster_fp32(A);
+  }
+}
+
+template <bool kBf16>
+cudaError_t launch_chain_cluster(const ChainClusterArgs& A, int n_chains, cudaStream_t stream) {
+  constexpr int smem = chain_cluster_smem(kBf16);
   cudaError_t e = cudaFuncSetAttribute(chain_cluster_kernel<kBf16>,
                                        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(chain_cluster_kernel<kBf16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(p.grid);
-  cfg.blockDim = dim3(p.threads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg.gridDim = dim3(n_chains * kChainCluster);
+  cfg.blockDim = dim3(kChainThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cudaLaunchAttribute attr{};
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = p.cluster;
+  attr.val.clusterDim.x = kChainCluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
@@ -1230,29 +1535,6 @@ struct StreamArgs {
   float* out;      // (n_chains, kRows, kW)
   int n_steps, t0, upto;
 };
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the mbarrier's phase of parity `parity`. A
-// wait of 2^32 clocks (~2 s) means an arrival was lost: the kernel traps,
-// so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1ll << 32)) __trap();
-  }
-}
 
 // 4 bytes into a CTA's shared memory in the cluster, counted by its mbarrier.
 __device__ __forceinline__ void send1(uint32_t dst, uint32_t bar, float v) {
@@ -1777,6 +2059,9 @@ cudaError_t launch_dot(const DotArgs& A, const DotPlan& p, cudaStream_t stream) 
   return cudaLaunchKernelEx(&cfg, dot_kernel<kMode>, A);
 }
 
+// chain_phase_kernel's dynamic shared memory: the fp32 units' stages
+constexpr int phase_smem(bool bf16) { return bf16 ? 0 : kPhaseSmemF; }
+
 // The cooperative grid of chain_phase_kernel: one block an SM, if one fits.
 template <bool kBf16>
 int phase_grid(int* blocks) {
@@ -1784,9 +2069,12 @@ int phase_grid(int* blocks) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && phase_smem(kBf16) > 0)
+    err = cudaFuncSetAttribute(chain_phase_kernel<kBf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, phase_smem(kBf16));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, chain_phase_kernel<kBf16>, kThreads,
-                                                        0);
+                                                        phase_smem(kBf16));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (occ < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -1826,39 +2114,24 @@ int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* max
   void* kernel = bf16_dots ? reinterpret_cast<void*>(chain_phase_kernel<true>)
                            : reinterpret_cast<void*>(chain_phase_kernel<false>);
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params,
-                                                    0, static_cast<cudaStream_t>(stream));
+                                                    phase_smem(bf16_dots != 0),
+                                                    static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// T4's cluster form's plan for n_chains into plan[9]: cluster, row_groups,
-// col_slices, rows, cols, k_split, threads, smem, grid
-// (kernels/probes.py:chain_plan).
-int probes_chain_plan(int n_chains, int* plan) {
-  ChainPlan p;
-  if (!chain_plan(n_chains, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  const int v[9] = {p.cluster, p.row_groups, p.col_slices, p.rows, p.cols,
-                    p.k_split, p.threads,    p.smem,       p.grid};
-  for (int i = 0; i < 9; ++i) plan[i] = v[i];
-  return 0;
-}
-
-// T4's cluster form: x (n_chains, kRows, kW), w (n_chains, kW, kW) → out,
-// on the caller's plan (smem, grid), which must be the library's own;
+// T4's cluster form: x (n_chains, kRows, kW), w (n_chains, kW, kW) → out;
 // `upto` < 3 stops each dot early (the time split); bf16_dots 1 takes the
-// bf16-dot instantiation.
+// bf16-dot instantiation. The plan is the library's constants.
 int probes_chain_cluster(const float* x, const float* w, float* out, int n_chains,
-                         int n_steps, int depth, int smem, int grid, int upto, int bf16_dots,
-                         void* stream) {
-  ChainPlan p;
-  if (!chain_plan(n_chains, &p) || p.smem != smem || p.grid != grid || n_steps < 1 ||
-      depth < 1 || upto < kChainUptoStage || upto > kChainUptoAll ||
-      (bf16_dots != 0 && bf16_dots != 1))
+                         int n_steps, int depth, int upto, int bf16_dots, void* stream) {
+  if (n_chains < 1 || n_chains > kMaxChains || n_steps < 1 || depth < 1 ||
+      upto < kChainUptoStage || upto > kChainUptoAll || (bf16_dots != 0 && bf16_dots != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const ChainClusterArgs A{x, w, out, n_steps, depth, upto};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      bf16_dots ? launch_chain_cluster<true>(A, p, st) : launch_chain_cluster<false>(A, p, st);
+  const cudaError_t e = bf16_dots ? launch_chain_cluster<true>(A, n_chains, st)
+                                  : launch_chain_cluster<false>(A, n_chains, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,10 @@ Ports of the TPU probes' Pallas kernels (each a ``pl.pallas_call``):
 - T4, ``tools/probe_mlp_interleave.py:62`` (``run`` → ``_chain_kernel``):
   ``chain_chunk`` with identity-like weights, ``min(·, 8)`` after each dot,
   in two forms: ``"phase"`` (the MLP kernel's former design:
-  one cooperative launch, a grid-wide phase a dot) and ``"cluster"`` (a
-  cluster of 16 CTAs a chain, 8 row groups × 2 column slices, each CTA's
-  rows pushed to its row group's other CTA after a dot; the plan of
-  ``chain_plan``);
+  one cooperative launch, a grid-wide phase a dot, cut into the units of
+  ``phase_units``) and ``"cluster"`` (a cluster of 16 CTAs a chain, 8 row
+  groups × 2 column slices, each CTA's rows pushed to its row group's other
+  CTA after a dot; the plan of ``chain_plan``);
 - T3, ``tools/probe_mxu_pipelining.py:82`` (``run`` → ``make_kernel``):
   ``chain_chunk`` with ``weights_per_depth`` (8 distinct weights a chain)
   and ``epilogue="renorm"``, in two forms: ``"phase"`` and ``"stream"``
@@ -32,10 +32,13 @@ renorm and T5's Adam stay f32. Without it the dots are fp32. The bf16
 instantiations' cuts and shared-memory layouts are mirrored here as plain
 index arithmetic (``phase_units``, ``phase_lane_loads``, ``phase_part_offset``,
 ``stream_slot_offset``, ``stream_b_offset``, ``stream_a_offset``,
-``stream_part_offset``, ``stream_store_col``; the stream form's bf16
-instantiation streams a bf16 copy of the weights, which its launch writes
-into scratch the wrapper allocates), which ``tests/test_torch_probe_layouts.py``
-checks.
+``stream_part_offset``, ``stream_store_col``, ``cluster_h_offset``,
+``cluster_lane``; the stream form's bf16 instantiation streams a bf16 copy
+of the weights, which its launch writes into scratch the wrapper
+allocates), which ``tests/test_torch_probe_layouts.py`` checks; so is the
+phase form's fp32 cut (``phase_units(..., bf16_dots=False)``,
+``phase_fp32_lane``, ``phase_fp32_copies``, ``phase_fp32_sum_row``),
+which ``tests/test_torch_phase_plan.py`` checks.
 
 The kernels are ``csrc/probes.cu``. Each wrapper launches its kernel for
 CUDA tensors and raises if it cannot; for CPU tensors (and only for them) it
@@ -74,14 +77,22 @@ T4_FORMS = ("phase", "cluster")  # T4's forms (one weight a chain, the clamp)
 T3_FORMS = T5_FORMS = ("phase", "stream")  # T3's (chain_chunk), T5's (adam_overlap_chunk)
 # T4's cluster form (csrc/probes.cu chain_cluster_kernel): a cluster of 16
 # CTAs a chain, 8 row groups × 2 column slices of 128 (a lane 4 columns),
-# 8 warps a CTA splitting K, W in registers
+# 8 warps a CTA splitting K (fp32) or N (bf16 dots), W in registers
 CHAIN_CLUSTER, CHAIN_SLICES, CHAIN_WARPS = 16, 2, 8
 CHAIN_ROWS = ROWS // (CHAIN_CLUSTER // CHAIN_SLICES)  # 13 rows a CTA: one m16 tile in bf16
 CHAIN_COLS, CHAIN_KSLICE = W // CHAIN_SLICES, W // CHAIN_WARPS  # 128 columns a CTA, 32 k a warp
 # launch variants for the time split (``_chain_cluster_launch``): stop after
-# staging W and x, after the products, after the sums into the CTA's own h,
-# or run whole (the push to the row group's other CTA and the wait)
-CHAIN_UPTO = {"stage": 0, "products": 1, "sums": 2, "all": 3}
+# staging W and x, after the products, after the store into the CTA's own
+# next h (fp32: with the partial tiles' sums; bf16: the clamp and the
+# rounding), or run whole (the push to the row group's other CTA and the wait)
+CHAIN_UPTO = {"stage": 0, "products": 1, "store": 2, "all": 3}
+# the cluster form's bf16 cut: warp w owns 16 of its CTA's columns (two n8
+# tiles) over the whole K (16 k16 steps); h in shared memory as bf16, 16
+# rows a buffer (13, then zeros), rows of 256 with each 128-byte line's
+# 16-byte chunks permuted by the row (``cluster_h_offset``); 2 × 16 × 256 × 2
+# bytes of shared memory a CTA
+CLUSTER_WARP_COLS, CLUSTER_H_ROWS = CHAIN_COLS // CHAIN_WARPS, 16
+CLUSTER_BF16_SMEM = 2 * CLUSTER_H_ROWS * W * 2
 # T3's and T5's stream form (csrc/probes.cu chain_stream_kernel): T4's cut;
 # each warp's ring holds 4 stages of 8 k-rows of its K slice (one dot's);
 # a CTA's Adam takes 32 rows of W (8 bands) × its 128 columns
@@ -111,6 +122,15 @@ PHASE_UPTO = {"barriers": 0, "work": 1, "all": 2}
 PHASE_COLS, PHASE_K_SPLIT, PHASE_SLOTS, PHASE_PART_STRIDE = 32, 8, 2, 36
 PHASE_M_TILES = -(-ROWS // 16)  # 7 m16 tiles a chain, the last half zeros
 PHASE_UNITS = PHASE_M_TILES * (W // PHASE_COLS)  # 56 a chain
+# its fp32 cut (phase_dot_fp32): units of 16 rows × 16 columns, K split over
+# 8 half-warps of 32 k (4 warps a unit), four units a CTA a round; a
+# half-warp's stage holds its h slice (16 rows of 36 floats) then its W
+# slice (32 k-rows of 16), and then its partial tile (rows of 20)
+PHASE_COLS_FP32, PHASE_SLOTS_FP32 = 16, 4
+PHASE_UNITS_FP32 = PHASE_M_TILES * (W // PHASE_COLS_FP32)  # 112 a chain
+PHASE_H_STRIDE_FP32, PHASE_PART_STRIDE_FP32 = W // PHASE_K_SPLIT + 4, PHASE_COLS_FP32 + 4
+PHASE_STAGE_FP32 = 16 * PHASE_H_STRIDE_FP32 + (W // PHASE_K_SPLIT) * PHASE_COLS_FP32
+PHASE_SMEM_FP32 = 4 * PHASE_SLOTS_FP32 * PHASE_K_SPLIT * PHASE_STAGE_FP32  # dynamic, a CTA
 MODES = {"fp32": 0, "tf32": 1, "bf16": 2}
 # T2's kernel (csrc/probes.cu dot_kernel): one warpgroup a CTA, 64 × 32 output
 # tiles, K staged 32 at a time, slices of whole 16-element units, clusters of
@@ -143,12 +163,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.probes_error_string.restype = ctypes.c_char_p
     lib.probes_chain_phase.argtypes = [vp] * 5 + [i32] * 9 + [vp]
     lib.probes_chain_phase.restype = i32
-    lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 7 + [vp]
+    lib.probes_chain_cluster.argtypes = [vp] * 3 + [i32] * 5 + [vp]
     lib.probes_chain_cluster.restype = i32
     lib.probes_chain_stream.argtypes = [vp] * 6 + [i32] * 6 + [vp]
     lib.probes_chain_stream.restype = i32
-    lib.probes_chain_plan.argtypes = [i32, ctypes.POINTER(i32)]
-    lib.probes_chain_plan.restype = i32
     lib.probes_dot.argtypes = [vp] * 3 + [i32] * 9 + [vp]
     lib.probes_dot.restype = i32
     lib.probes_dot_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
@@ -258,17 +276,22 @@ def _phase_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, depth: int,
     return h[(n_steps * depth) % 2]
 
 
-def phase_units(n_chains: int, blocks: int) -> list:
-    """The phase form's bf16 cut of one dot, by the kernel's index arithmetic
-    (csrc/probes.cu phase_dot_bf16): each unit's chain, m16 tile and 32-column
-    group, the CTA and half-CTA slot that compute it and the round they do it
-    in (unit u in CTA u mod blocks, slot u // blocks mod 2, round u // (2
-    blocks)). Each unit's 8 warps split its K (``phase_lane_loads``)."""
+def phase_units(n_chains: int, blocks: int, bf16_dots: bool = True) -> list:
+    """The phase form's cut of one dot, by the kernel's index arithmetic
+    (csrc/probes.cu phase_dot_bf16, or phase_dot_fp32 without ``bf16_dots``):
+    each unit's chain, m16 tile and column group (32 columns in bf16 dots,
+    16 in fp32), the CTA and slot that compute it and the round they do it
+    in (unit u in CTA u mod blocks, slot u // blocks mod slots, round u //
+    (slots · blocks); slots 2 (bf16, half a CTA each) or 4 (fp32, 4 warps
+    each)). Each unit's 8 warps (bf16, ``phase_lane_loads``) or half-warps
+    (fp32, ``phase_fp32_lane``) split its K."""
+    cols = PHASE_COLS if bf16_dots else PHASE_COLS_FP32
+    per_chain = PHASE_UNITS if bf16_dots else PHASE_UNITS_FP32
     units = []
-    per_round = PHASE_SLOTS * blocks
-    for u in range(n_chains * PHASE_UNITS):
-        c, rem = divmod(u, PHASE_UNITS)
-        mt, nq = divmod(rem, W // PHASE_COLS)
+    per_round = (PHASE_SLOTS if bf16_dots else PHASE_SLOTS_FP32) * blocks
+    for u in range(n_chains * per_chain):
+        c, rem = divmod(u, per_chain)
+        mt, nq = divmod(rem, W // cols)
         units.append({"unit": u, "chain": c, "mt": mt, "nq": nq, "block": u % blocks,
                       "slot": u % per_round // blocks, "round": u // per_round})
     return units
@@ -295,6 +318,108 @@ def phase_part_offset(lane, h: int):
     (offset) and 2h + 1 (offset + 4): row g + 8h, columns 8t.. and 8t + 4..."""
     g, t = lane // 4, lane % 4
     return (g + 8 * h) * PHASE_PART_STRIDE + 8 * t
+
+
+def phase_fp32_lane(warp, lane) -> dict:
+    """Lane ``lane`` of warp ``warp`` (0-15) of a CTA in the phase form's fp32
+    cut (csrc/probes.cu phase_dot_fp32): its unit slot (warp // 4), its K
+    slice's rank kq (half-warp lane // 16 of the unit's warp warp % 4), the
+    unit's rows 4tm .. 4tm + 3 and columns 4tn .. 4tn + 3 it sums over k
+    [32kq, 32kq + 32), l = lane % 16, (tm, tn) = (l // 4, l % 4); and the
+    float offsets, in the half-warp's stage, of its float4 reads at the k
+    ``k`` of each 4 (``a``: rows 4tm + i of h, 36 floats apart; ``b``:
+    k-rows k + j of W at columns 4tn..) and of its partial tile's float4
+    stores (``part``: rows 4tm + i, 20 floats apart). Works on numpy arrays."""
+    slot, l = warp // 4, lane % 16
+    kq = 2 * (warp % 4) + lane // 16
+    tm, tn = l // 4, l % 4
+    hs = 16 * PHASE_H_STRIDE_FP32  # W's slice follows h's in the stage
+    return {"slot": slot, "kq": kq, "rows": [4 * tm + i for i in range(4)],
+            "cols": [4 * tn + j for j in range(4)], "k": (32 * kq, 32 * kq + 32),
+            "a": lambda k: [(4 * tm + i) * PHASE_H_STRIDE_FP32 + k for i in range(4)],
+            "b": lambda k: [hs + (k + j) * PHASE_COLS_FP32 + 4 * tn for j in range(4)],
+            "part": [(4 * tm + i) * PHASE_PART_STRIDE_FP32 + 4 * tn for i in range(4)]}
+
+
+def phase_fp32_copies(l) -> list:
+    """The 16 cp.async copies (16 bytes each) of lane ``l`` (0-15) of a
+    half-warp in the phase form's fp32 cut, in issue order: ("h", row, k4)
+    for h's rows of the unit and k 4·k4 .. of the half-warp's slice (8), then
+    ("w", k, c4) for W's k-rows of the slice and the unit's columns 4·c4..
+    (8); with the float offset in the stage each writes. Works on numpy
+    arrays."""
+    out = []
+    for j in range(8):
+        row, q = 2 * j + l // 8, l % 8
+        out.append(("h", row, q, row * PHASE_H_STRIDE_FP32 + 4 * q))
+    for j in range(8):
+        k, q = 4 * j + l // 4, l % 4
+        out.append(("w", k, q, 16 * PHASE_H_STRIDE_FP32 + k * PHASE_COLS_FP32 + 4 * q))
+    return out
+
+
+def phase_fp32_sum_row(i):
+    """(row, column) of the unit that sum thread ``i`` (0-63 of the unit's
+    128 threads) adds up, a float4 from column 4·(i % 4): rows r and r + 4
+    in each quarter-warp. Works on numpy arrays."""
+    return 4 * ((i >> 2) & 1) + ((i >> 3) & 3) + 8 * (i >> 5), 4 * (i & 3)
+
+
+def cluster_swizzle(r):
+    """The 16-byte chunk permutation of row r of the cluster form's bf16 h
+    (csrc/probes.cu cl_swizzle): rows 0-3 of 8 even chunks, rows 4-7 odd."""
+    return ((r & 3) << 1) | ((r >> 2) & 1)
+
+
+def cluster_h_offset(r, k):
+    """Where the cluster form's bf16 h buffer holds row r, k (bf16 elements;
+    csrc/probes.cu cl_h_offset): rows of 256, chunk c = k // 8 at chunk
+    (c & ~7) | ((c & 7) ^ cluster_swizzle(r mod 8)). Works on numpy arrays."""
+    c = k >> 3
+    return r * W + ((c & ~7) | ((c & 7) ^ cluster_swizzle(r & 7))) * 8 + (k & 7)
+
+
+def cluster_lane(warp, lane) -> dict:
+    """Lane ``lane`` of warp ``warp`` in the cluster form's bf16 cut: the
+    CTA's columns whose W values it holds as B pairs for n8 tiles 0 and 1
+    (``b_cols``: 16w + 2g + r, at k 16s + 2t, + 1, + 8, + 9 of each step s);
+    the rows (g and g + 8; past 12 a zero row) and columns (16w + 4t .. + 3:
+    tile 0's and tile 1's accumulator registers 2h, then 2h + 1, of row
+    g + 8h) its accumulators hold (``rows``, ``cols``); and the (row, k) of
+    h whose 16 bytes it addresses for ldmatrix at step s (``a_row``:
+    matrix lane // 8's row lane % 8, k 16s + 8 (lane // 16)). Works on numpy
+    arrays."""
+    g, t = lane // 4, lane % 4
+    c0 = CLUSTER_WARP_COLS * warp
+    return {"b_cols": [c0 + 2 * g + r for r in range(2)], "rows": [g, g + 8],
+            "cols": [c0 + 4 * t + j for j in range(4)],
+            "a_row": lambda s: ((lane & 7) + 8 * ((lane >> 3) & 1), 16 * s + 8 * (lane >> 4))}
+
+
+def cluster_wavefronts(offset=None) -> dict:
+    """Shared-memory wavefronts of one warp a dot in the cluster form's bf16
+    cut under the 32-bank model, through ``offset`` (bf16 element offset of
+    h[r][k]; ``cluster_h_offset`` by default): the 16 ldmatrix.x4 (each 8 ×
+    8 matrix one phase of 8 row addresses, 16 bytes each) and the
+    epilogue's 8-byte stores of rows g and g + 8 (the peer's stores fall
+    alike): {"ldmatrix", "stores", "total"}."""
+    offset = cluster_h_offset if offset is None else offset
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    count = {"ldmatrix": 0, "stores": 0}
+    for warp in range(CHAIN_WARPS):
+        lane = cluster_lane(warp, lanes)
+        for s in range(W // 16):
+            r, k = lane["a_row"](s)
+            count["ldmatrix"] += smem_wavefronts([2 * int(o) for o in offset(r, k)], 16)
+        for h in range(2):
+            live = g + 8 * h < CHAIN_ROWS
+            off = offset(g + 8 * h, CLUSTER_WARP_COLS * warp + 4 * t)
+            count["stores"] += smem_wavefronts(
+                [2 * int(o) if a else None for o, a in zip(off, live)], 8)
+    count = {key: v // CHAIN_WARPS for key, v in count.items()}  # a warp's
+    count["total"] = sum(count.values())
+    return count
 
 
 def stream_slot_offset(k, col):
@@ -360,6 +485,13 @@ def smem_wavefronts(addrs, width: int) -> int:
     return total
 
 
+def least_wavefronts(addrs, width: int) -> int:
+    """The least wavefronts an access of ``smem_wavefronts``'s kind can take:
+    one a phase that has an active lane."""
+    per_phase = 128 // width
+    return sum(any(a is not None for a in addrs[p:p + per_phase]) for p in range(0, 32, per_phase))
+
+
 def stream_product_wavefronts() -> dict:
     """Shared-memory wavefronts of one warp's products in one dot of the bf16
     stream form, access by access through the mirrored addresses (A pairs,
@@ -409,9 +541,11 @@ class ChainPlan:
 
 
 def chain_plan(n_chains: int) -> ChainPlan:
-    """The plan of T4's cluster form for ``n_chains`` chains: the same
-    integer arithmetic as ``chain_plan`` in csrc/probes.cu, which checks
-    the plan it is given against its own."""
+    """The plan of T4's cluster form for ``n_chains`` chains, whose fields
+    are csrc/probes.cu's constants (kChain*; ``smem`` the fp32
+    instantiation's, ``CLUSTER_BF16_SMEM`` the bf16 one's) but the grid, 16
+    CTAs a chain. ``k_split`` and ``chain_cta``'s K slices are the fp32 cut
+    and the stream form's; the bf16 cluster cut splits N (``cluster_lane``)."""
     if not 1 <= n_chains <= MAX_CHAINS:
         raise ValueError(f"n_chains must be 1..{MAX_CHAINS}, got {n_chains}")
     groups = CHAIN_CLUSTER // CHAIN_SLICES
@@ -436,15 +570,6 @@ def chain_cta(plan: ChainPlan, block: int) -> dict:
             "k_slices": [(q * k_slice, (q + 1) * k_slice) for q in range(plan.k_split)]}
 
 
-def library_chain_plan(n_chains: int) -> ChainPlan:
-    """The library's own plan (``probes_chain_plan``), to hold ``chain_plan`` to it."""
-    chain_plan(n_chains)
-    lib = _lib()
-    out = (ctypes.c_int * 9)()
-    _check(lib, lib.probes_chain_plan(n_chains, out), "probes_chain_plan")
-    return ChainPlan(*out)
-
-
 def _chain_cluster_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, depth: int,
                           upto: str = "all", bf16_dots: bool = False) -> torch.Tensor:
     """One launch of T4's cluster form on CUDA tensors, its bf16-dot
@@ -457,12 +582,10 @@ def _chain_cluster_launch(xs: torch.Tensor, ws: torch.Tensor, n_steps: int, dept
     _require(ws, "ws", device)
     if n_steps < 1 or depth < 1:
         raise ValueError(f"n_steps and depth must be ≥ 1, got {n_steps} and {depth}")
-    plan = chain_plan(n)
     out = torch.empty_like(xs)
     lib = _lib()
     err = lib.probes_chain_cluster(xs.data_ptr(), ws.data_ptr(), out.data_ptr(), n, n_steps,
-                                   depth, plan.smem, plan.grid, CHAIN_UPTO[upto],
-                                   int(bf16_dots), _stream(device))
+                                   depth, CHAIN_UPTO[upto], int(bf16_dots), _stream(device))
     _check(lib, err, "probes_chain_cluster launch")
     return out
 

@@ -13,22 +13,23 @@ interface, built beside the repository's library (``_build.load_library(...,
 source=PATH)``; ``csrc/`` stays on its include path). ``--write-other PATH``
 writes one: ``OTHER_COMMIT``'s ``csrc/probes.cu`` (``git show``) with this
 tree's interface patched in by ``with_this_interface``, its kernel bodies
-left alone, and prints the file's sha256. That commit holds the bf16 phase
-and stream bodies before their redesign; its interface lacks the
-phase form's launch variants (``probes_chain_phase``'s ``upto``) and the
-stream entry's ``wb`` argument, which its bodies ignore. The tool
+left alone, and prints the file's sha256. That commit holds the fp32 phase
+body and the bf16 cluster body before their redesign; its interface lacks
+the cluster entry without the plan's shared bytes and grid (the library's
+constants since), which its bodies do not read. The tool
 
-- holds the builds to each other on the same inputs: every fp32
-  instantiation and T4's cluster form in bf16 dots bitwise; the other bf16
-  bodies' bits are printed (equal where their summation order is the same),
-  with each build's ρ one dense dot deep against the plain bf16 version
-  (ρ = ‖kernel − plain_bf16‖ / ‖plain_fp32 − plain_bf16‖);
+- holds the builds to each other on the same inputs: the bodies this tree
+  did not redesign (``SAME_BITS``: the fp32 cluster and stream forms, the
+  bf16 phase and stream forms) bitwise; the redesigned ones' bits are
+  printed too (they sum in another order), with each build's ρ one dense
+  dot deep against the plain bf16 version (ρ = ‖kernel − plain_bf16‖ /
+  ‖plain_fp32 − plain_bf16‖);
 - times every form of T3, T4 and T5 in both dot modes with each build in
   turn (this, other, other, this), in the tools' windows (``seconds_per_step``,
-  CUDA events, a sync a call): ns a dot (T3), µs a step (T4, T5);
-- splits the stream form's dot (``_stream_launch(upto=...)``) and the
-  phase form's (``_phase_launch(upto=...)``), both builds in turns, in
-  device time.
+  CUDA events, a sync a call): ns a dot (T3), µs a step (T4, T5).
+
+The splits of a dot or step by launch variants are ``chip_smoke.py``'s
+(phases 26-28), run on each tree.
 
 The card's name and power limit come first; one JSON line of every number
 comes last.
@@ -51,64 +52,28 @@ from ..kernels._build import load_library
 from . import probe_adam_overlap as t5
 from . import probe_mlp_interleave as t4
 from . import probe_mxu_pipelining as t3
-from ._common import DOT_MODES, card, device_from, seconds_per_step, split_in_turns
+from ._common import DOT_MODES, card, device_from, seconds_per_step
 
 ORDER = ("this", "other", "other", "this")
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = "vae_training_tpu_torch/csrc/probes.cu"
-OTHER_COMMIT = "72ab5c7"  # the bf16 phase and stream bodies before their redesign
+OTHER_COMMIT = "bd9a8ea"  # the fp32 phase and bf16 cluster bodies before their redesign
+# the forms whose bodies this tree keeps: (probe, form, dot mode) bitwise OTHER_COMMIT's
+SAME_BITS = {("T4", "cluster", "fp32"), ("T3", "stream", "fp32"), ("T5", "stream", "fp32"),
+             ("T4", "phase", "bf16"), ("T3", "phase", "bf16"), ("T3", "stream", "bf16"),
+             ("T5", "phase", "bf16"), ("T5", "stream", "bf16")}
 
-# (old, new) pairs that give OTHER_COMMIT's csrc/probes.cu this
-# tree's C interface: the phase form's launch variants (the grid barriers
-# alone, the work alone, whole) around its unchanged dot bodies, and the
-# stream entry's bf16-copy argument, which the older bodies ignore
+# (old, new) pairs that give OTHER_COMMIT's csrc/probes.cu this tree's C
+# interface: the cluster entry takes the chain count and the dot mode, not
+# the plan's shared bytes and grid
 INTERFACE_PATCH = (
-    ("""  int n_chains, n_steps, depth, dots_per_weight, epilogue, adam, t0;
-};""", """  int n_chains, n_steps, depth, dots_per_weight, epilogue, adam, t0, upto;
-};
-constexpr int kPhaseUptoBarriers = 0;
-constexpr int kPhaseUptoWork = 1;
-constexpr int kPhaseUptoAll = 2;"""),
-    ("""  int cur = 0;
-  for (int it = 0; it < A.n_steps; ++it) {""", """  const bool work = A.upto != kPhaseUptoBarriers, sync = A.upto != kPhaseUptoWork;
-  int cur = 0;
-  for (int it = 0; it < A.n_steps; ++it) {"""),
-    ("""      float lmax[kMaxChains] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if constexpr (kBf16) {""", """      float lmax[kMaxChains] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (!work) {
-      } else if constexpr (kBf16) {"""),
-    ("""      if (A.epilogue == kEpRenorm && d == A.depth - 1)
-        block_max_to_global(lmax, A.maxbits + (it & 1) * A.n_chains, A.n_chains);
-      grid.sync();""", """      if (work && A.epilogue == kEpRenorm && d == A.depth - 1)
-        block_max_to_global(lmax, A.maxbits + (it & 1) * A.n_chains, A.n_chains);
-      if (sync) grid.sync();"""),
-    ("""      for (int i = gtid; i < n_h; i += gsz) {
-        const float mx""", """      for (int i = gtid; work && i < n_h; i += gsz) {
-        const float mx"""),
-    ("""      if (gtid < A.n_chains) A.maxbits[((it + 1) & 1) * A.n_chains + gtid] = 0u;
-      grid.sync();""", """      if (gtid < A.n_chains) A.maxbits[((it + 1) & 1) * A.n_chains + gtid] = 0u;
-      if (sync) grid.sync();"""),
-    ("""      const int n_items = (n_buf - first) * kW * kW;
-      for (int i = gtid; i < n_items; i += gsz)
-        adam_item(A, h, first + i / (kW * kW), i % (kW * kW), bc1, bc2);
-      grid.sync();""", """      const int n_items = work ? (n_buf - first) * kW * kW : 0;
-      for (int i = gtid; i < n_items; i += gsz)
-        adam_item(A, h, first + i / (kW * kW), i % (kW * kW), bc1, bc2);
-      if (sync) grid.sync();"""),
-    ("""int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* maxbits,
-                       int n_chains, int n_steps, int depth, int dots_per_weight,
-                       int epilogue, int adam, int t0, int bf16_dots, void* stream) {""",
-     """int probes_chain_phase(float* h, float* w, float* m, float* v, unsigned int* maxbits,
-                       int n_chains, int n_steps, int depth, int dots_per_weight, int epilogue,
-                       int adam, int t0, int bf16_dots, int upto, void* stream) {"""),
-    ("""  ChainArgs A{h, w, m, v, maxbits, n_chains, n_steps, depth, dots_per_weight, epilogue,
-              adam, t0};""", """  ChainArgs A{h, w, m, v, maxbits, n_chains, n_steps, depth, dots_per_weight, epilogue,
-              adam, t0, upto};"""),
-    ("""int probes_chain_stream(const float* x, float* w, float* m, float* v, float* out, int n_chains,
-                        int n_steps, int mode, int t0, int upto, int bf16_dots, void* stream) {""",
-     """int probes_chain_stream(const float* x, float* w, void* wb, float* m, float* v, float* out,
-                        int n_chains, int n_steps, int mode, int t0, int upto, int bf16_dots,
-                        void* stream) {"""),
+    ("""int probes_chain_cluster(const float* x, const float* w, float* out, int n_chains,
+                         int n_steps, int depth, int smem, int grid, int upto, int bf16_dots,
+                         void* stream) {""",
+     """int probes_chain_cluster(const float* x, const float* w, float* out, int n_chains,
+                         int n_steps, int depth, int upto, int bf16_dots, void* stream) {"""),
+    ("""  if (!chain_plan(n_chains, &p) || p.smem != smem || p.grid != grid || n_steps < 1 ||""",
+     """  if (!chain_plan(n_chains, &p) || n_steps < 1 ||"""),
 )
 
 
@@ -201,9 +166,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 a, b = both(t5_run)
                 bits[f"T5 {form} {'interleaved' if interleave else 'tail'} {mode}"] = \
                     torch.equal(a, b)
+    def kept_body(key):
+        probe, form, *rest = key.split()
+        return (probe, form, next(w for w in rest if w in DOT_MODES)) in SAME_BITS
+
     for key, same in bits.items():
-        print(f"bits, this = other: {key}: {same}")
+        print(f"bits, this = other: {key}: {same} "
+              f"({'kept body' if kept_body(key) else 'redesigned'})")
+    kept = [same for key, same in bits.items() if kept_body(key)]
+    print(f"bits: every kept body equals the other build's: {all(kept)} ({len(kept)} cases)")
     report["bits_equal"] = bits
+    report["kept_bodies_bitwise"] = all(kept)
     # one dense dot deep, each build's bf16 bodies against the plain version
     rhos = {}
     for n in (1, 4):
@@ -267,39 +240,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "us a step", t5_launch, 1e6)
     report["times"] = times
 
-    # --- splits, device time ---------------------------------------------------
-    def builds(launch):
-        """``launch(upto)`` under each build, for split_in_turns."""
-        def under(name):
-            def run(upto):
-                use(name)
-                return launch(upto)
-            return run
-        return {name: under(name) for name in ("this", "other")}
-
-    splits = {}
-    for mode, bf16 in DOT_MODES.items():
-        xs, ws = t3.inputs(1, dev)
-        got = split_in_turns(builds(lambda u: probes._stream_launch(
-            "t3", xs, ws, None, None, 20, upto=u, bf16_dots=bf16)),
-            probes.STREAM_UPTO, 1e3 / (20 * probes.T3_DEPTH))
-        for name, d in got.items():
-            splits[f"T3 stream {mode} 1 chain {name}"] = d
-        for n in (1, 4):
-            for label, (xs, ws), kw, dots in (
-                    ("T4 phase", t4.inputs(n, dev), (4, probes.T4_DEPTH, False, "clamp"),
-                     4 * probes.T4_DEPTH),
-                    ("T3 phase", t3.inputs(n, dev), (12, probes.T3_DEPTH, True, "renorm"),
-                     12 * probes.T3_DEPTH)):
-                got = split_in_turns(builds(lambda u, xs=xs, ws=ws, kw=kw: probes._phase_launch(
-                    xs, ws, *kw, upto=u, bf16_dots=bf16)), probes.PHASE_UPTO, 1e3 / dots)
-                for name, d in got.items():
-                    splits[f"{label} {mode} {n} chain(s) {name}"] = d
-    use("this")
-    for key, d in splits.items():
-        print(f"split, ns a dot (device time), {key}: "
-              + ", ".join(f"{u} {v:.1f}" for u, v in d.items()))
-    report["split_ns_per_dot"] = splits
     print(json.dumps(report))
     return report
 
