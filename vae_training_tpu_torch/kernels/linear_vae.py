@@ -59,6 +59,7 @@ import torch
 from ..ops import rng
 from ..train.state import TrainState, moment_dtype
 from ..train.step import Noise, train_chunk as torch_train_chunk
+from ..utils.spans import span
 
 THREADS = 1024  # the kernel's CTA size (kThreads in csrc/linear_vae.cu)
 SAMPLER_MAX_CALLS = 2**31 - 1  # Philox calls a draw (the kernel's 32-bit index)
@@ -790,15 +791,19 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
 
     def chunk(states: Sequence[TrainState], n_steps: int,
               noises: Optional[Sequence[Noise]] = None):
-        rows = [GridRow(d.dimension, mdl.latent_dim, d.intrinsic_dim, d.dim, a, s.step,
-                        s.count, s.data_seed, s.model_seed, d.var_added)
-                for mdl, d, a, s in zip(models, datasets, arrays, states)]
-        p, m, v = pack_rows(states, rows, dual)
-        losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
-                                eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
-                                lr=lr, dual=dual, external_noise=noises,
-                                adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
-        return unpack_rows(states, p, m, v, rows, n_steps, dual), losses
+        with span("chunk.pack"):
+            rows = [GridRow(d.dimension, mdl.latent_dim, d.intrinsic_dim, d.dim, a, s.step,
+                            s.count, s.data_seed, s.model_seed, d.var_added)
+                    for mdl, d, a, s in zip(models, datasets, arrays, states)]
+            p, m, v = pack_rows(states, rows, dual)
+        with span("chunk.launch"):
+            losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
+                                    eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
+                                    lr=lr, dual=dual, external_noise=noises,
+                                    adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
+        with span("chunk.unpack"):
+            states = unpack_rows(states, p, m, v, rows, n_steps, dual)
+        return states, losses
 
     return chunk
 

@@ -73,6 +73,7 @@ import torch
 from ..ops import rng
 from ..train.state import TrainState
 from ..train.step import Noise
+from ..utils.spans import span
 from .linear_vae import (
     GridRow,
     Layout,
@@ -847,15 +848,19 @@ def make_grid_chunk(models: Sequence, datasets: Sequence, cfg):
 
     def chunk(states: Sequence[TrainState], n_steps: int,
               noises: Optional[Sequence[Noise]] = None):
-        rows = [GridRow(d.dimension, mdl.latent_dim, d.intrinsic_dim, d.dim, a, s.step,
-                        s.count, s.data_seed, s.model_seed, d.var_added)
-                for mdl, d, a, s in zip(models, datasets, arrays, states)]
-        p, m, v = pack_rows(states, rows, enc_hidden, dec_hidden, dual)
-        losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
-                                enc_hidden=enc_hidden, dec_hidden=dec_hidden, kind=kind,
-                                eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
-                                lr=lr, dual=dual, external_noise=noises,
-                                adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
-        return unpack_rows(states, p, m, v, rows, n_steps, enc_hidden, dec_hidden, dual), losses
+        with span("chunk.pack"):
+            rows = [GridRow(d.dimension, mdl.latent_dim, d.intrinsic_dim, d.dim, a, s.step,
+                            s.count, s.data_seed, s.model_seed, d.var_added)
+                    for mdl, d, a, s in zip(models, datasets, arrays, states)]
+            p, m, v = pack_rows(states, rows, enc_hidden, dec_hidden, dual)
+        with span("chunk.launch"):
+            losses = run_grid_chunk(p, m, v, rows, n_steps=n_steps, batch=cfg.batch_size,
+                                    enc_hidden=enc_hidden, dec_hidden=dec_hidden, kind=kind,
+                                    eps_const=model.epsilon_const, tdv=model.tunable_decoder_var,
+                                    lr=lr, dual=dual, external_noise=noises,
+                                    adam_dtype=cfg.adam_dtype, bf16_dots=model.bf16_dots)
+        with span("chunk.unpack"):
+            states = unpack_rows(states, p, m, v, rows, n_steps, enc_hidden, dec_hidden, dual)
+        return states, losses
 
     return chunk

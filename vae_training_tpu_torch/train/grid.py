@@ -75,6 +75,7 @@ from ..runio.checkpoint import (
 from ..runio.export import save_model_pkl
 from ..runio.outdir import make_output_dir
 from ..utils.process import barrier, check_shared_fs, process_count, process_index
+from ..utils.spans import span
 from .loop import (
     EVAL_BATCH_SIZE,
     N_PLOT,
@@ -210,14 +211,16 @@ class GridTrainer:
         self._eval_counter += 1
         for i in self.rows:
             seed, dataset, state = self.seeds[i], self.datasets[i], self.states[i]
-            out, logvar_e, epsilon = eval_to_host(dataset, eval_step(
-                self.model, dataset, state.params, self.eval_data_seeds[i], self.eval_z_seed,
-                self._eval_counter, self._epsilon_tensor(i), n=self.eval_batch_size))
-            rec = self.recorders[i]
-            rec.append_eval(out["VAE Loss"], logvar_e, epsilon)
-            self.current_epsilon[i] = epsilon
-            print(f"{self.prefix}[seed {seed}] {rec.write_stats(self.batchnum, out)}",
-                  flush=True)
+            dev_out = eval_step(self.model, dataset, state.params, self.eval_data_seeds[i],
+                                self.eval_z_seed, self._eval_counter, self._epsilon_tensor(i),
+                                n=self.eval_batch_size)
+            with span("eval.to_host"):
+                out, logvar_e, epsilon = eval_to_host(dataset, dev_out)
+                rec = self.recorders[i]
+                rec.append_eval(out["VAE Loss"], logvar_e, epsilon)
+                self.current_epsilon[i] = epsilon
+                print(f"{self.prefix}[seed {seed}] {rec.write_stats(self.batchnum, out)}",
+                      flush=True)
 
     def plot_all(self, outdirs: Sequence[str]) -> None:
         """Each row's generated batch at this step (the shared plot draw)."""
@@ -244,18 +247,21 @@ class GridTrainer:
         events_fired = self.batchnum == int(self.states[self.rows[0]].step)
         writer = get_artifact_writer()
         for i in self.rows:
-            state, out = self.states[i].host_copy(), outdirs[i]
-            meta = {"current_epsilon": float(np.asarray(self.current_epsilon[i]).reshape(-1)[0])}
-            aux = {"recorder": self.recorders[i].to_state(),
-                   "eval_counter": self._eval_counter, "epoch_num": 0,
-                   "params_and_gradients": [], "events_fired_at_step": events_fired}
+            with span("save.copy"):
+                state, out = self.states[i].host_copy(), outdirs[i]
+                meta = {"current_epsilon":
+                        float(np.asarray(self.current_epsilon[i]).reshape(-1)[0])}
+                aux = {"recorder": self.recorders[i].to_state(),
+                       "eval_counter": self._eval_counter, "epoch_num": 0,
+                       "params_and_gradients": [], "events_fired_at_step": events_fired}
 
             def write_row(out=out, state=state, meta=meta, aux=aux):
                 StatsRecorder.from_state(aux["recorder"]).save_npz(out, final=final)
                 save_model_pkl(os.path.join(out, "model.pkl"), state)
                 save_checkpoint(out, state, extra_meta=meta, aux=aux)
 
-            writer.submit(write_row)
+            with span("save.submit"):  # blocks while the writer's queue is full
+                writer.submit(write_row)
         if final:
             writer.drain()
 

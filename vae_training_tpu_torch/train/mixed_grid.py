@@ -31,7 +31,6 @@ required, as for ``--seed_grid``.
 
 from __future__ import annotations
 
-import time
 from dataclasses import replace
 from typing import Dict, List, Sequence, Tuple
 
@@ -39,7 +38,9 @@ from ..config import RunConfig
 from ..kernels import linear_vae, mlp_vae
 from ..kernels.dispatch import make_grid_chunk
 from ..runio.background import get_artifact_writer
+from ..utils import spans
 from ..utils.process import barrier, process_index
+from ..utils.spans import span
 from .grid import GridTrainer, require_spanning_mesh, row_dirs
 from .loop import next_event
 
@@ -122,15 +123,17 @@ class MixedGridSweep:
                                       [g.cfg for g, _ in mine], prefix=groups[0].prefix)
 
     def run_chunk(self, n_steps: int) -> None:
-        states = ([g.states[i] for g, i in self._real]
-                  + [_clone(g.states[i]) for g, i in self._pads])
-        states, losses = self._chunk(states, n_steps)
-        losses = losses.cpu().numpy()[:len(self._real)]  # the pads' work is discarded
-        for (g, i), state in zip(self._real, states):
-            g.states[i] = state
-        for g in self.groups:
-            at = [j for j, (h, _) in enumerate(self._real) if h is g]
-            g.record_losses(losses[at])
+        with span("sweep.chunk"):
+            states = ([g.states[i] for g, i in self._real]
+                      + [_clone(g.states[i]) for g, i in self._pads])
+            states, losses = self._chunk(states, n_steps)
+            with span("chunk.losses"):
+                losses = losses.cpu().numpy()[:len(self._real)]  # the pads' work is discarded
+                for (g, i), state in zip(self._real, states):
+                    g.states[i] = state
+                for g in self.groups:
+                    at = [j for j, (h, _) in enumerate(self._real) if h is g]
+                    g.record_losses(losses[at])
 
     def restore(self, outdirs_per_group: Sequence[Sequence[str]]) -> None:
         """Resume the whole sweep from every row's own checkpoint."""
@@ -142,47 +145,42 @@ class MixedGridSweep:
 
     def train(self, outdirs_per_group: Sequence[Sequence[str]]) -> None:
         groups, g0 = self.groups, self.groups[0]
-        t0 = time.perf_counter()
-        for g in groups:
-            g.maybe_print_banner()
-        t_banner = time.perf_counter() - t0
+        since = spans.totals()  # where a one-launch sweep spends its wall time
+        with span("sweep.banner"):
+            for g in groups:
+                g.maybe_print_banner()
         total = self.cfg.num_batches
         b, skip_at = g0.batchnum, g0._skip_events_at
-        # where a one-launch sweep spends its wall time, printed at the end
-        acct = {"chunk": 0.0, "stats": 0.0, "plot_save": 0.0}
         writer = get_artifact_writer()
         try:
             while b < total:
                 for g in groups:
                     g.batchnum = b
                 if b % g0.n_print == 0 and b != skip_at:
-                    t0 = time.perf_counter()
-                    for g in groups:
-                        g.compute_and_write_stats()
-                    acct["stats"] += time.perf_counter() - t0
+                    with span("sweep.eval", tag=b):
+                        for g in groups:
+                            g.compute_and_write_stats()
                 if (b % g0.n_plot == 0 or b == total - 1) and b != skip_at:
-                    t0 = time.perf_counter()
-                    for g, outs in zip(groups, outdirs_per_group):
-                        g.plot_all(outs)
-                        g.save_all(outs)
-                    acct["plot_save"] += time.perf_counter() - t0
+                    with span("sweep.save", tag=b):
+                        for g, outs in zip(groups, outdirs_per_group):
+                            g.plot_all(outs)
+                            g.save_all(outs)
                 n = next_event(b, total, g0.n_print, g0.n_plot) - b
-                t0 = time.perf_counter()
                 self.run_chunk(n)  # ends in the losses' copy to the host
-                acct["chunk"] += time.perf_counter() - t0
                 b += n
         except BaseException:
             writer.drain_quietly()
             raise
         for g in groups:
             g.batchnum = max(total - 1, 0)
-        t0 = time.perf_counter()
-        writer.drain()  # "train returned" means every in-loop write is on disk
-        acct["plot_save"] += time.perf_counter() - t0
-        print(f"{g0.prefix}[sweep] wall accounting: banners {t_banner:.3f}s, train chunks "
-              f"{acct['chunk']:.3f}s, stat evals {acct['stats']:.3f}s, plot+save "
-              f"{acct['plot_save']:.3f}s over {self.n_rows} rows (writes in the background: "
-              f"plot+save counts the snapshots, the figures and the wait at the end)",
+        with span("sweep.drain"):
+            writer.drain()  # "train returned" means every in-loop write is on disk
+        sec = {k: spans.seconds(f"sweep.{k}", since)
+               for k in ("banner", "chunk", "eval", "save", "drain")}
+        print(f"{g0.prefix}[sweep] wall accounting: banners {sec['banner']:.3f}s, train chunks "
+              f"{sec['chunk']:.3f}s, stat evals {sec['eval']:.3f}s, plot+save "
+              f"{sec['save'] + sec['drain']:.3f}s over {self.n_rows} rows (writes in the "
+              f"background: plot+save counts the snapshots, the figures and the wait at the end)",
               flush=True)
 
 
@@ -194,19 +192,20 @@ def run_mixed_sweep(rows: Sequence[Tuple[RunConfig, Sequence[int], Dict[int, str
     ``resume`` continues every row from its own checkpoint. Raises
     ``MixedSweepUnavailable`` before any IO when the rows cannot share a
     launch; any other error propagates."""
-    t0 = time.perf_counter()
-    groups = [GridTrainer(cfg, seeds, build_chunk=False) for cfg, seeds, _ in rows]
-    sweep = MixedGridSweep(groups, mesh_spec=mesh_spec)  # raises if ineligible, before any IO
-    t_build = time.perf_counter() - t0
+    since = spans.totals()
+    with span("sweep.setup"):
+        groups = [GridTrainer(cfg, seeds, build_chunk=False) for cfg, seeds, _ in rows]
+        sweep = MixedGridSweep(groups, mesh_spec=mesh_spec)  # raises if ineligible, before IO
     outdirs_per_group = [row_dirs(cfg, seeds, [names[s] for s in seeds], resume)
                          for cfg, seeds, names in rows]
     barrier()  # the primary made every row's directory; the others may write now
     if resume:
         sweep.restore(outdirs_per_group)
     sweep.train(outdirs_per_group)
-    t0 = time.perf_counter()
-    for g, outs in zip(groups, outdirs_per_group):
-        g.save_all(outs, final=True)
-    print(f"{groups[0].prefix}[sweep] wall accounting: setup {t_build:.3f}s, final saves "
-          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    with span("sweep.final_save"):
+        for g, outs in zip(groups, outdirs_per_group):
+            g.save_all(outs, final=True)
+    print(f"{groups[0].prefix}[sweep] wall accounting: setup "
+          f"{spans.seconds('sweep.setup', since):.3f}s, final saves "
+          f"{spans.seconds('sweep.final_save', since):.3f}s", flush=True)
     return 0

@@ -44,6 +44,7 @@ from torch.func import functional_call
 from ..data.base import DistributionDataset
 from ..models.networks import VAE
 from ..ops import elbo_terms, rng
+from ..utils.spans import span
 from .state import TrainState, adam_update_
 
 # external noise for a chunk: (x, z1, z2), each (n_steps, batch, dim)
@@ -385,17 +386,19 @@ def eval_step(model: VAE, dataset: DistributionDataset, params,
     score of a generated batch (decoded with the caller's ``epsilon``). A
     dataset that scores on the host (``score_on_host``) gets the generated
     batch back as ``_fake`` instead, for ``eval_to_host``."""
-    real = dataset.sample(data_seed, counter, n)
-    z1, z2 = sample_z(z_seed, counter, n, model.latent_dim, dataset.dimension,
-                      real.device)
-    fake = generate(model, params, z1, z2, epsilon)
-    loss, dkl, mse, logvar_e, eps_out = loss_terms(model, params, real, z1, z2)
-    out = {"VAE Loss": loss, "KL divergence": dkl, "mse": mse,
-           "_logvar_e": logvar_e, "_epsilon": eps_out}
-    if getattr(dataset, "score_on_host", False):
-        out["_fake"] = fake
-    else:
-        out.update(sorted_scores(dataset.score(fake)))
+    with span("eval.draw"):
+        real = dataset.sample(data_seed, counter, n)
+        z1, z2 = sample_z(z_seed, counter, n, model.latent_dim, dataset.dimension,
+                          real.device)
+    with span("eval.forward"):
+        fake = generate(model, params, z1, z2, epsilon)
+        loss, dkl, mse, logvar_e, eps_out = loss_terms(model, params, real, z1, z2)
+        out = {"VAE Loss": loss, "KL divergence": dkl, "mse": mse,
+               "_logvar_e": logvar_e, "_epsilon": eps_out}
+        if getattr(dataset, "score_on_host", False):
+            out["_fake"] = fake
+        else:
+            out.update(sorted_scores(dataset.score(fake)))
     return out
 
 
